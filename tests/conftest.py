@@ -94,6 +94,9 @@ def pytest_configure(config):
         "runs, big example smokes) excluded from the budgeted tier-1 "
         "sweep (-m 'not slow'); the full matrix (plain `pytest "
         "tests/`) still runs them")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's "
+        "kernels); skips with a reason where there is none")
 
 
 def pytest_collection_modifyitems(config, items):
