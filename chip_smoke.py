@@ -10,20 +10,25 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 1. Card and build: prints the card's name and power limit, builds the
    flash-attention kernels from horovod_tpu_torch/csrc with nvcc and
    prints the build time.
-2. Kernels against their plain PyTorch versions, on the card: forward
-   (o, m, l), dq and dk/dv at the main path's shape (B=4, S=2048, H=16,
-   D=128, bf16, causal) and at a non-causal, two offset, a D=64 and an
-   fp32 case, and in fp32 at the main path's shape too. Each element is
-   held to its own bound, |mine - plain| <= atol + rtol * max|plain row|
-   + step * |plain|, where a row is the last axis (D for o and the
-   gradients; m and l are held element by element, row = the element).
-   Both versions compute in fp32 from the same inputs, in another
-   summation order, which moves a result by a small fraction of its
-   row's scale: rtol 2e-5 (o, m, l) or 1e-4 (gradients). bf16 outputs
-   are then rounded to bf16 by both, which may part them by one bf16
-   step of the element itself, step = 2^-7; fp32 outputs have step 0.
-   One step at a value that is a power of two fills the bound, so a
-   bf16 case's worst err/tol reads near 0.99; two steps fail it.
+2. Kernels against their plain PyTorch versions, on the card. bf16 at
+   head dims 64 and 128 runs the tensor-core (sm90) forward and dk/dv
+   kernels; fp32, and a bf16 case at the main shape through the private
+   launchers, run the fp32-FMA (simt) ones; dq has one kernel. Cases:
+   the main path's shape (B=4, S=2048, H=16, D=128, bf16, causal), a
+   non-causal, two offset, a D=64 and a short ragged case, fp32 at two
+   shapes. Each element is held to the bound of
+   horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
+   max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
+   plain| for the sm90 kernels), a row being the last axis (D for o and
+   the gradients; m and l are held element by element). Both versions
+   compute in fp32 from the same inputs, in another summation order:
+   rtol 2e-5 (o, m, l) or 1e-4 (gradients). bf16 outputs are rounded to
+   bf16 by both, step = 2^-7; fp32 outputs have step 0. The sm90 kernels
+   also feed p (and ds) to the tensor cores in bf16; plain_b is the plain
+   version that rounds there too, and twice its effect in the row is
+   allowed. The bound must show its power: at the main shape a plain
+   result with one kv tile (keys 1024-1151) or one q tile (queries
+   1536-1599) left out must fail it.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -32,12 +37,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    compute) with random weights from --seed, DistributedOptimizer(SGD
    lr 0.01, momentum 0.9), broadcast_parameters, and training steps on
    one fixed batch of 4 x 2048 random tokens. The loss must be finite and
-   fall, and each kernel must launch once per layer per step. One more
-   step runs under torch.profiler and prints its device time by kernel.
-5. Kernel times at the main path's shape beside the plain version, the
-   PyTorch library call computing the same function
-   (scaled_dot_product_attention, timed here only as a yardstick) and the
-   bound: the larger of the operations the function needs (2 x D per
+   fall, and the path must launch the sm90 forward, dq and sm90 dk/dv
+   kernels once per layer per step and the simt forward and dk/dv never.
+   One more step runs under torch.profiler and prints its device time by
+   kernel.
+5. The five kernels' times at the main path's shape (the simt forward
+   and dk/dv through their private launchers, in turns with the sm90
+   ones) beside the plain version, the PyTorch library call computing
+   the same function (scaled_dot_product_attention, timed here only as
+   a yardstick) and the bound: the larger of the operations the function needs (2 x D per
    visible (q, k) pair and matrix product: two products forward, three
    for dq, four for dk/dv) over the card's bf16 dense peak
    (989 TFLOP/s) and the bytes in and out over its memory rate
@@ -60,6 +68,9 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 MAIN = dict(b=4, s=2048, h=16, d=128)
+# The kernels the main path (bf16, D=128) runs; the simt forward and dk/dv
+# serve fp32 and the small head dims and must not launch there.
+MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90")
 
 
 def card_line() -> str:
@@ -84,58 +95,102 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_close(label, mine, plain, rtol, step=0.0, atol=1e-6,
-                rows=True) -> float:
-    """Holds every element of ``mine`` to atol + rtol * max|plain row| +
-    step * |plain| (``rows=False``: the row is the element itself);
-    returns the largest absolute error."""
-    mine, plain = mine.float(), plain.float()
-    err = (mine - plain).abs()
-    size = plain.abs()
-    scale = size.amax(-1, keepdim=True) if rows else size
-    tol = atol + rtol * scale + step * size
-    ratio = (err / tol).max().item()
-    max_err = err.max().item()
+def check_close(label, mine, plain, rtol, step=0.0, atol=1e-6, rows=True,
+                plain_b=None, must_fail=False) -> float:
+    """Holds every element of ``mine`` to the bound of utils/tolerance.py;
+    returns the largest absolute error. With ``must_fail``, ``mine`` is a
+    deliberately wrong result and the bound must reject it."""
+    from horovod_tpu_torch.utils import tolerance
+    max_err, ratio = tolerance.worst(mine, plain, rtol, atol=atol,
+                                     step=step, rows=rows, plain_b=plain_b)
     ok = math.isfinite(max_err) and ratio <= 1.0
+    if must_fail:
+        verdict = "PASSED (too loose)" if ok else "rejected, as it must be"
+    else:
+        verdict = "ok" if ok else "FAIL"
     print(f"  {label:<34} max_abs_err={max_err:.3e} "
           f"worst err/tol={ratio:.3f} (rtol={rtol:g} of the "
-          f"{'row' if rows else 'element'}, step={step:g}) "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
+          f"{'row' if rows else 'element'}, step={step:g}"
+          f"{', 2x bf16-operand gap' if plain_b is not None else ''}) "
+          f"{verdict}")
+    if must_fail and ok:
+        raise AssertionError(f"{label}: the bound cannot see a lost tile "
+                             f"(err/tol {ratio:.3f})")
+    if not must_fail and not ok:
         raise AssertionError(f"{label}: an element is {ratio:.3f} times "
                              f"its tolerance")
     return max_err
 
 
+def fwd_without_keys(fa, q, k, v, lo, hi):
+    """The plain causal forward with keys lo..hi-1 left out: two plain
+    calls over the kept keys, merged through their (m, l) stats."""
+    q, k, v = q.float(), k.float(), v.float()
+    o1, m1, l1 = fa._flash_fwd_plain(q, k[:, :lo], v[:, :lo], True, 0, 0)
+    o2, m2, l2 = fa._flash_fwd_plain(q, k[:, hi:], v[:, hi:], True, 0, hi)
+    m = m1.maximum(m2)
+    w1, w2 = l1 * (m1 - m).exp(), l2 * (m2 - m).exp()
+    w1, w2, l = (x.transpose(1, 2)[..., None] for x in (w1, w2, w1 + w2))
+    return (o1 * w1 + o2 * w2) / l
+
+
 def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
-                seed=0):
-    """Runs the three kernels and their plain versions on one input set;
-    returns {kernel: max_abs_err}."""
+                seed=0, design=None, lost_tiles=False):
+    """Runs the forward, dq and dk/dv kernels and their plain versions on
+    one input set; returns {kernel: max_abs_err}. ``design`` forces the
+    sm90 or simt forward and dk/dv launchers (default: ``fa._design``)."""
+    from horovod_tpu_torch.utils.tolerance import BF16_STEP
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
-    bf16 = dtype == torch.bfloat16
+    design = design or fa._design(dtype, d)
+    sm90 = design == "sm90"
+    fwd = fa._flash_fwd_sm90 if sm90 else fa._flash_fwd_simt
+    dkv = fa._flash_dkv_sm90 if sm90 else fa._flash_dkv_simt
+    suffix = "_sm90" if sm90 else ""
     print(f"case {name}: B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
-          f"causal={causal} q_offset={qo} k_offset={ko}")
-    o, m, l = fa._flash_fwd(q, k, v, causal, qo, ko)
+          f"causal={causal} q_offset={qo} k_offset={ko} design={design}")
+    o, m, l = fwd(q, k, v, causal, qo, ko)
     o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, causal, qo, ko)
     lse = fa._lse_from_stats(m_p, l_p)
     delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fa._flash_dq(q, k, v, do, lse, delta, causal, qo, ko)
-    dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, qo, ko)
+    dk, dv = dkv(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
-    step = 2.0 ** -7 if bf16 else 0.0
-    errs = {"flash_fwd": max(
-        check_close("forward o", o, o_p, 2e-5, step),
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    o_b = (fa._flash_fwd_plain(q, k, v, causal, qo, ko,
+                               bf16_operands=True)[0] if sm90 else None)
+    errs = {"flash_fwd" + suffix: max(
+        check_close("forward o", o, o_p, 2e-5, step, plain_b=o_b),
         check_close("forward m", m, m_p, 2e-5, atol=1e-5, rows=False),
         check_close("forward l", l, l_p, 2e-5, rows=False))}
-    del o_p, m_p, l_p
+    if lost_tiles:
+        check_close("forward o, keys 1024-1151 left out",
+                    fwd_without_keys(fa, q, k, v, 1024, 1152), o_p, 2e-5,
+                    step, plain_b=o_b, must_fail=True)
+    del o_p, m_p, l_p, o_b
     errs["flash_dq"] = check_close(
         "dq", dq, fa._flash_dq_plain(q, k, v, do, lse, delta, causal, qo,
                                      ko), 1e-4, step)
-    dk_p, dv_p = fa._flash_dkv_plain(q, k, v, do, lse, delta, causal, qo, ko)
-    errs["flash_dkv"] = max(check_close("dk", dk, dk_p, 1e-4, step),
-                            check_close("dv", dv, dv_p, 1e-4, step))
+    plain_args = (q, k, v, do, lse, delta, causal, qo, ko)
+    dk_p, dv_p = fa._flash_dkv_plain(*plain_args)
+    dk_b, dv_b = (fa._flash_dkv_plain(*plain_args, bf16_operands=True)
+                  if sm90 else (None, None))
+    errs["flash_dkv" + suffix] = max(
+        check_close("dk", dk, dk_p, 1e-4, step, plain_b=dk_b),
+        check_close("dv", dv, dv_p, 1e-4, step, plain_b=dv_b))
+    if lost_tiles:
+        # Zero do and delta on queries 1536-1599: p * do and ds vanish
+        # there, which leaves that q tile out of dk and dv exactly.
+        do_x, delta_x = do.clone(), delta.clone()
+        do_x[:, 1536:1600] = 0
+        delta_x[:, :, 1536:1600] = 0
+        dk_x, dv_x = fa._flash_dkv_plain(q, k, v, do_x, lse, delta_x, causal,
+                                         qo, ko)
+        check_close("dk, queries 1536-1599 left out", dk_x, dk_p, 1e-4,
+                    step, plain_b=dk_b, must_fail=True)
+        check_close("dv, queries 1536-1599 left out", dv_x, dv_p, 1e-4,
+                    step, plain_b=dv_b, must_fail=True)
     torch.cuda.empty_cache()
     return errs
 
@@ -267,9 +322,12 @@ def main_path(torch, hvd, args, card):
     if not values[-1] < values[0]:
         raise AssertionError("the loss did not fall on the repeated batch")
     want = cfg.num_layers * len(values)
-    if any(n != want for n in counts.values()):
-        raise AssertionError(f"expected {want} launches of each kernel "
-                             f"({cfg.num_layers} per step), got {counts}")
+    expected = {name: (want if name in MAIN_PATH_KERNELS else 0)
+                for name in counts}
+    if counts != expected:
+        raise AssertionError(f"expected {want} launches ({cfg.num_layers} "
+                             f"per step) of each of {MAIN_PATH_KERNELS} "
+                             f"and none of the others, got {counts}")
     hvd.shutdown()
     del model, opt
     torch.cuda.empty_cache()
@@ -278,7 +336,8 @@ def main_path(torch, hvd, args, card):
 
 def kernel_times(torch, fa):
     """ms, plain_ms, library_ms and bound_ms of each kernel at the main
-    path's shape (bf16, causal)."""
+    path's shape (bf16, causal); the simt forward and dk/dv are timed
+    through their private launchers on the same inputs."""
     import torch.nn.functional as F
     b, s, h, d = MAIN["b"], MAIN["s"], MAIN["h"], MAIN["d"]
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -288,15 +347,22 @@ def kernel_times(torch, fa):
     lse = fa._lse_from_stats(m, l)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, True, 0, 0)
-    t = {
-        "flash_fwd": (time_ms(lambda: fa._flash_fwd(q, k, v, True, 0, 0), 20),
-                      time_ms(lambda: fa._flash_fwd_plain(q, k, v, True, 0, 0),
-                              5)),
-        "flash_dq": (time_ms(lambda: fa._flash_dq(*args), 20),
-                     time_ms(lambda: fa._flash_dq_plain(*args), 5)),
-        "flash_dkv": (time_ms(lambda: fa._flash_dkv(*args), 20),
-                      time_ms(lambda: fa._flash_dkv_plain(*args), 5)),
-    }
+    fwd_args = (q, k, v, True, 0, 0)
+    plain = {"fwd": time_ms(lambda: fa._flash_fwd_plain(*fwd_args), 5),
+             "dq": time_ms(lambda: fa._flash_dq_plain(*args), 5),
+             "dkv": time_ms(lambda: fa._flash_dkv_plain(*args), 5)}
+    # Each function's two designs are timed in turns: simt, sm90, sm90,
+    # simt, each a mean of 20 launches; the kept time is the mean of two.
+    t = {}
+    for fn, pair in (("fwd", (lambda: fa._flash_fwd_simt(*fwd_args),
+                              lambda: fa._flash_fwd_sm90(*fwd_args))),
+                     ("dkv", (lambda: fa._flash_dkv_simt(*args),
+                              lambda: fa._flash_dkv_sm90(*args)))):
+        order = (0, 1, 1, 0)
+        ms = [time_ms(pair[i], 20) for i in order]
+        t[f"flash_{fn}"] = ((ms[0] + ms[3]) / 2, plain[fn])
+        t[f"flash_{fn}_sm90"] = ((ms[1] + ms[2]) / 2, plain[fn])
+    t["flash_dq"] = (time_ms(lambda: fa._flash_dq(*args), 20), plain["dq"])
     # The library yardstick on [B, H, S, D] copies made outside the timing.
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
@@ -317,22 +383,23 @@ def kernel_times(torch, fa):
     # 2 x D operations per visible (q, k) pair (half of them, causal) for
     # each matrix product the function needs: s and p.v forward; s, dp
     # and ds.k for dq; s, dp, p^T.do and ds^T.q for dk/dv.
-    flops = {"flash_fwd": 4 * bh * s * s * d // 2,
-             "flash_dq": 6 * bh * s * s * d // 2,
-             "flash_dkv": 8 * bh * s * s * d // 2}
-    moved = {"flash_fwd": 4 * tensor + 2 * stats,      # q k v in, o m l out
-             "flash_dq": 5 * tensor + 2 * stats,       # q k v do lse delta, dq
-             "flash_dkv": 6 * tensor + 2 * stats}      # ... dk dv out
+    flops = {"fwd": 4 * bh * s * s * d // 2,
+             "dq": 6 * bh * s * s * d // 2,
+             "dkv": 8 * bh * s * s * d // 2}
+    moved = {"fwd": 4 * tensor + 2 * stats,      # q k v in, o m l out
+             "dq": 5 * tensor + 2 * stats,       # q k v do lse delta, dq
+             "dkv": 6 * tensor + 2 * stats}      # ... dk dv out
     rows = {}
     for name in t:
-        op_ms = flops[name] / PEAK_BF16_FLOPS * 1e3
-        byte_ms = moved[name] / PEAK_BYTES_PER_S * 1e3
+        fn = name.split("_")[1]
+        op_ms = flops[fn] / PEAK_BF16_FLOPS * 1e3
+        byte_ms = moved[fn] / PEAK_BYTES_PER_S * 1e3
         rows[name] = dict(
             ms=t[name][0], plain_ms=t[name][1],
-            library_ms=lib_fwd if name == "flash_fwd" else lib_fwd_bwd,
+            library_ms=lib_fwd if fn == "fwd" else lib_fwd_bwd,
             bound_ms=max(op_ms, byte_ms),
             bound_by="operations" if op_ms >= byte_ms else "bytes")
-        if name != "flash_fwd":
+        if fn != "fwd":
             rows[name]["library_bwd_only_ms"] = lib_bwd
     return rows
 
@@ -368,13 +435,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, fp32 = torch.bfloat16, torch.float32
-    errs = kernel_case(fa, torch, "main", **MAIN, dtype=bf16, causal=True)
+    errs = kernel_case(fa, torch, "main_simt", **MAIN, dtype=bf16,
+                       causal=True, seed=7, design="simt")
+    errs.update(kernel_case(fa, torch, "main", **MAIN, dtype=bf16,
+                            causal=True, lost_tiles=True))
     kernel_case(fa, torch, "noncausal", 2, 256, 4, 128, bf16, False, seed=1)
     kernel_case(fa, torch, "q_offset", 1, 512, 4, 128, bf16, True, qo=128,
                 seed=2)
     kernel_case(fa, torch, "dead_rows", 1, 256, 4, 128, bf16, True, ko=192,
                 seed=3)
     kernel_case(fa, torch, "d64", 2, 512, 8, 64, bf16, True, seed=4)
+    kernel_case(fa, torch, "short_ragged", 2, 40, 3, 64, bf16, True, seed=8)
     kernel_case(fa, torch, "fp32", 2, 512, 4, 128, fp32, True, qo=64,
                 seed=5)
     kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32, causal=True,
@@ -388,19 +459,20 @@ def main(argv=None) -> int:
 
     # Phase 5: times.
     rows = kernel_times(torch, fa)
-    sources = {"flash_fwd": ("horovod_tpu_torch/csrc/flash_fwd.cu",
-                             "horovod_tpu/parallel/flash_attention.py:58"),
-               "flash_dq": ("horovod_tpu_torch/csrc/flash_bwd.cu",
-                            "horovod_tpu/parallel/flash_attention.py:204"),
-               "flash_dkv": ("horovod_tpu_torch/csrc/flash_bwd.cu",
-                             "horovod_tpu/parallel/flash_attention.py:236")}
+    csrc, ref = "horovod_tpu_torch/csrc/", \
+        "horovod_tpu/parallel/flash_attention.py:"
+    sources = {"flash_fwd": ("flash_fwd.cu", "58"),
+               "flash_fwd_sm90": ("flash_fwd_sm90.cu", "58"),
+               "flash_dq": ("flash_bwd.cu", "204"),
+               "flash_dkv": ("flash_bwd.cu", "236"),
+               "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=counts[name],
+        kernels.append(dict(name=name, route="cuda", source=csrc + src,
+                            replaces=ref + replaces, launches=counts[name],
                             max_abs_err=errs[name], **rows[name]))
         r = rows[name]
-        print(f"{name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']})")
     print(f"card: {card}")

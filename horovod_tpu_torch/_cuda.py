@@ -45,6 +45,11 @@ _SIGNATURES = {
     # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
     # k_off, causal, stream
     "hvdt_flash_dkv": [_I] + [_P] * 8 + [_I] * 8 + [_P],
+    # q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal, stream
+    "hvdt_flash_fwd_sm90": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off,
+    # causal, stream
+    "hvdt_flash_dkv_sm90": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

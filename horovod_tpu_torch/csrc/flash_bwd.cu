@@ -25,8 +25,10 @@
 // arithmetic at the main path's shape (per tile, dq does 3 and dk/dv 4
 // products where the forward does 2). This first version runs them as fp32
 // FMAs from fp32 shared-memory tiles (149 KB for dq and 166 KB for dk/dv
-// at D=128, one block per SM), so the fp32 rate is its ceiling; wgmma on
-// bf16 tiles is the redesign that removes it.
+// at D=128, one block per SM), so the fp32 rate is its ceiling. For bf16
+// at head dims 64 and 128, flash_dkv_sm90.cu (wgmma on bf16 tiles fed by
+// TMA) replaces the dk/dv kernel; the dq kernel here still serves every
+// input.
 #include "flash_common.cuh"
 
 namespace hvdt {

@@ -1,4 +1,6 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the fp32-FMA flash-attention kernels (flash_fwd.cu,
+// flash_bwd.cu); the tensor-core kernels (*_sm90.cu) take only kNegInf from
+// here and their own pieces from sm90_common.cuh.
 //
 // Layout: q, k, v, o, do and the gradients are contiguous [B, S, H, D]
 // tensors (the module layout of models/transformer.py), read in place, so

@@ -23,8 +23,9 @@
 // ceiling is the card's fp32 rate (about 67 TFLOP/s), not the bf16
 // tensor-core rate (989 TFLOP/s) that the bound is stated against; its
 // 113 KB of shared memory at D=128 also allows one block (8 warps) per SM.
-// Moving the two products to wgmma on bf16 tiles fed by TMA is the
-// redesign that closes that gap.
+// flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
+// tiles fed by TMA) for bf16 at head dims 64 and 128; this kernel serves
+// fp32 inputs and the head dims 16 and 32.
 #include "flash_common.cuh"
 
 namespace hvdt {

@@ -1,0 +1,270 @@
+// Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 at head
+// dims 64 and 128.
+//
+// Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
+// (launched by `_flash_bhsd`), as flash_fwd.cu does for fp32 and the small
+// head dims. Same function and contract: an online softmax whose running max
+// m, normalizer l and output accumulator stay in fp32; runtime offsets give
+// the global positions of q[0] and k[0]; kv tiles wholly in the future of a
+// q tile are skipped; rows that see no key give o = 0, m = -1e30, l = 0;
+// [B, S, H, D] is read in place and the stats are written as [B, H, S].
+//
+// What bounds it on this card. At the main path's shape (B=4, S=2048, H=16,
+// D=128, causal) the function does about 500 operations per byte it must
+// move, above the card's balance point of about 295 (989 TFLOP/s of bf16
+// over 3.35 TB/s): the tensor cores, not the memory, are the limit.
+//
+// Design. One CTA per (128-row q tile, batch*head), heaviest causal tiles
+// first (the q tile index runs backwards along grid.y, so the short rows
+// form the tail wave). Three warpgroups:
+// - a producer, which gives its registers away (setmaxnreg) and whose one
+//   elected thread issues every copy as a TMA load through 4-D tensor maps
+//   over [B, S, H, D]: the Q tile once, then K and V through a two-stage
+//   ring of 128-row tiles guarded by full/empty mbarriers;
+// - two consumers, each owning 64 q rows (wgmma's M), which take the
+//   registers. Per kv tile: S = Q K^T as m64n128k16 wgmmas from shared
+//   memory; the online softmax on the accumulator fragments in registers
+//   (row max by two quad shuffles; l summed from the unrounded fp32 p); P
+//   converted to bf16 in registers and fed to O += P V as wgmma's register
+//   A operand, with V read from shared memory as an MN-major B operand, so
+//   V is never transposed.
+// bf16 p is what the reference's own dots take on the TPU by default (bf16
+// multiplies, f32 accumulation); the checks allow for exactly that rounding.
+// At D=128 shared memory holds Q 32 KB + K 2x32 KB + V 2x32 KB = 160 KB.
+#include "flash_common.cuh"
+#include "sm90_common.cuh"
+
+namespace hvdt {
+namespace {
+
+using namespace sm90;
+
+constexpr int kRows = 128;   // q rows of a CTA; kv rows of a stage
+constexpr int kStages = 2;
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kRegion = kRows * 128;         // [128][64] bf16
+  static constexpr int kTile = (D / 64) * kRegion;    // [128][D]
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  // q_full, k_full[2], v_full[2], kv_empty[2]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                   float* __restrict__ l_out, int H, int Sq, int Sk,
+                   int q_off, int k_off, int causal, float scale) {
+  using L = FwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* kv_empty = v_full + kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  int nk = (Sk + kRows - 1) / kRows;
+  if (causal) {
+    // kv tile j is visible while k_off + 128 j <= q_off + q0 + 127.
+    const long long reach = (long long)q_off + q0 + kRows - 1 - k_off;
+    nk = min(nk, reach < 0 ? 0 : (int)(reach / kRows) + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&k_full[s], 1);
+      bar_init(&v_full[s], 1);
+      bar_init(&kv_empty[s], 8);  // lane 0 of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer.
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      bar_arrive_tx(q_full, L::kTile);
+      for (int r = 0; r < D / 64; ++r)
+        tma_load_4d(smem + L::kQ + r * L::kRegion, &tq, q_full, 64 * r, h, q0,
+                    b);
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kStages;
+        // Stage st is free once the consumers released load j - 2.
+        if (j >= kStages) bar_wait(&kv_empty[st], ((j / kStages) & 1) ^ 1);
+        uint8_t* kt = smem + L::kK + st * L::kTile;
+        uint8_t* vt = smem + L::kV + st * L::kTile;
+        bar_arrive_tx(&k_full[st], L::kTile);
+        for (int r = 0; r < D / 64; ++r)
+          tma_load_4d(kt + r * L::kRegion, &tk, &k_full[st], 64 * r, h,
+                      j * kRows, b);
+        bar_arrive_tx(&v_full[st], L::kTile);
+        for (int r = 0; r < D / 64; ++r)
+          tma_load_4d(vt + r * L::kRegion, &tv, &v_full[st], 64 * r, h,
+                      j * kRows, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns rows 64c .. 64c + 63 of the q tile.
+    regs_inc<240>();
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row0 = 64 * c + 16 * (t / 32) + lane / 4;  // +8 for i = 1
+    const int col = 2 * (lane % 4);
+    const uint32_t q_base = smem_u32(smem + L::kQ) + c * 64 * 128;
+    const int first_qpos = q_off + q0 + 64 * c;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+
+    bar_wait(q_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % kStages, ph = (j / kStages) & 1;
+      const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTile);
+      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTile);
+      const int k0 = j * kRows;
+
+      float s[64];
+      bar_wait(&k_full[st], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * L::kRegion + (kk % 4) * 32;
+        wgmma_ss<128>(s, desc_sw128(q_base + off, 16),
+                      desc_sw128(k_base + off, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // Scale, mask (only tiles that cross the diagonal or the ragged
+      // end), row max.
+      const bool masked =
+          k0 + kRows > Sk || (causal && k_off + k0 + kRows - 1 > first_qpos);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < 64; ++n) {
+        const int i = (n / 2) % 2;
+        float x = s[n] * scale;
+        if (masked) {
+          const int kc = k0 + 8 * (n / 4) + col + n % 2;
+          const bool ok =
+              kc < Sk && (!causal || q_off + q0 + row0 + 8 * i >= k_off + kc);
+          x = ok ? x : __int_as_float(0xff800000);  // -inf
+        }
+        s[n] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+      float corr[2], mb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_i[i], mx[i]);
+        corr[i] = exp2f((m_i[i] - m_new) * kLog2e);
+        m_i[i] = m_new;
+        mb[i] = m_new * kLog2e;
+      }
+      // p = exp(x - m): masked entries (-inf) give exactly 0. l keeps this
+      // thread's share of the row; the quad's shares are added at the end.
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 64; ++n) {
+        const int i = (n / 2) % 2;
+        const float p = exp2f(fmaf(s[n], kLog2e, -mb[i]));
+        s[n] = p;
+        rs[i] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
+#pragma unroll
+      for (int n = 0; n < D / 2; ++n) acc[n] *= corr[(n / 2) % 2];
+      uint32_t pa[32];
+#pragma unroll
+      for (int n = 0; n < 32; ++n) pa[n] = pack_bf16(s[2 * n], s[2 * n + 1]);
+
+      bar_wait(&v_full[st], ph);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                               pa[4 * kk + 3]};
+        wgmma_rs<D>(acc, a, desc_sw128(v_base + kk * 16 * 128, L::kRegion), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) bar_arrive(&kv_empty[st]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
+      l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+      const int row = q0 + row0 + 8 * i;
+      if (row >= Sq) continue;
+      const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
+      __nv_bfloat16* orow = o + ((size_t)(b * Sq + row) * H + h) * D + col;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * i] * inv,
+                                  acc[4 * jj + 2 * i + 1] * inv);
+      if (lane % 4 == 0) {
+        m_out[(size_t)bh * Sq + row] = m_i[i];
+        l_out[(size_t)bh * Sq + row] = l_i[i];
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
+                void* l, int B, int H, int Sq, int Sk, int q_off, int k_off,
+                int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, Sk, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, Sk, H, D, kRows);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  return launch_ws(flash_fwd_sm90<D>, grid, FwdSmem<D>::kBytes + 1024,
+                   stream, tq, tk, tv, (__nv_bfloat16*)o, (float*)m,
+                   (float*)l, H, Sq, Sk, q_off, k_off, causal,
+                   (float)(1.0 / sqrt((double)D)));
+}
+
+}  // namespace
+}  // namespace hvdt
+
+// q, k, v: contiguous bf16 [B, S, H, D] with 16-byte-aligned bases; D is 64
+// or 128. o: bf16 [B, Sq, H, D]; m, l: fp32 [B, H, Sq].
+extern "C" int hvdt_flash_fwd_sm90(const void* q, const void* k,
+                                   const void* v, void* o, void* m, void* l,
+                                   int B, int H, int Sq, int Sk, int D,
+                                   int q_off, int k_off, int causal,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 64: return hvdt::run<64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
+    case 128: return hvdt::run<128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

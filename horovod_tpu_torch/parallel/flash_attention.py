@@ -2,27 +2,41 @@
 
 Counterpart of ``horovod_tpu/parallel/flash_attention.py`` (public
 contract :436-566). The three Pallas kernels there have hand-written
-CUDA counterparts in ``horovod_tpu_torch/csrc``:
+CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
 
-- ``_kernel`` (:58)          -> ``flash_fwd.cu``  via :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_bwd.cu``  via :func:`_flash_dq`
-- ``_bwd_dkv_kernel`` (:236) -> ``flash_bwd.cu``  via :func:`_flash_dkv`
+- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu`` (bf16, D 64/128)
+                                or ``flash_fwd.cu``    via :func:`_flash_fwd`
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_bwd.cu``       via :func:`_flash_dq`
+- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu`` (bf16, D 64/128)
+                                or ``flash_bwd.cu``    via :func:`_flash_dkv`
 
-Each wrapper launches its kernel for CUDA tensors and counts the launch
-(``flash_fwd_launches``, ``flash_dq_launches``, ``flash_dkv_launches``);
-for CPU tensors it computes the same function with its plain PyTorch
-version (``_flash_fwd_plain``, ``_flash_dq_plain``, ``_flash_dkv_plain``),
-which is what the CPU tests run. A CUDA tensor never reaches a plain
-version: the kernel launches or the wrapper raises.
+:func:`_design` picks the design from the dtype and head dim alone,
+before any launch: the ``sm90`` kernels (wgmma on bf16 tiles fed by TMA,
+warp-specialised) take bf16 at head dims 64 and 128; the ``simt``
+kernels (fp32 FMAs from fp32 shared-memory tiles) take fp32 and the
+head dims 16 and 32. The sm90 kernels read their inputs through TMA and
+need 16-byte-aligned bases; a misaligned CUDA tensor raises, it never
+falls back to the other design.
+
+Each launcher counts its launches (``launch_counts()``: ``flash_fwd``,
+``flash_fwd_sm90``, ``flash_dq``, ``flash_dkv``, ``flash_dkv_sm90``).
+For CPU tensors the dispatchers compute the same function with the
+plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
+``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
+never reaches a plain version: a kernel launches or the wrapper raises.
+The sm90 kernels feed the tensor cores bf16 p (and ds), as the
+reference's own dots do on the TPU by default; ``bf16_operands=True``
+makes the plain versions round at exactly those places, which is what
+the card's checks compare the rounding with.
 
 Tensors are ``[B, S, H, D]`` (the module layout of models/transformer.py)
 and the kernels read that layout in place; the softmax statistics
 ``(m, l)`` are ``[B, H, Sq]`` fp32. Offsets are the global positions of
 q[0] and k[0] and shift the causal mask; they are plain kernel arguments,
-so no value needs a new build. The kernels tile by 64 rows: a sequence
-that is a multiple of 64, or shorter than 64, runs the kernels; a longer
-one that is not falls back to the dense formulation when causal and
-raises ``ValueError`` when not, as the reference does for its blocks.
+so no value needs a new build. Sequences that are a multiple of 64, or
+shorter than 64, run the kernels; a longer one that is not falls back to
+the dense formulation when causal and raises ``ValueError`` when not, as
+the reference does for its blocks.
 """
 
 from __future__ import annotations
@@ -35,25 +49,33 @@ import torch
 from horovod_tpu_torch import _cuda
 
 _NEG_INF = -1e30
-BLOCK = 64   # rows of the kernels' q and kv tiles (csrc/flash_common.cuh)
+BLOCK = 64   # the sequence granularity of the kernels' tiles
 HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernels are built for
+SM90_HEAD_DIMS = (64, 128)      # head dims of the wgmma/TMA kernels
 
 # Launches of each kernel since the last reset_launch_counts().
 flash_fwd_launches = 0
+flash_fwd_sm90_launches = 0
 flash_dq_launches = 0
 flash_dkv_launches = 0
+flash_dkv_sm90_launches = 0
 
 Offset = Union[int, torch.Tensor]
 
 
 def reset_launch_counts() -> None:
-    global flash_fwd_launches, flash_dq_launches, flash_dkv_launches
-    flash_fwd_launches = flash_dq_launches = flash_dkv_launches = 0
+    global flash_fwd_launches, flash_fwd_sm90_launches, flash_dq_launches
+    global flash_dkv_launches, flash_dkv_sm90_launches
+    flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
+    flash_dkv_launches = flash_dkv_sm90_launches = 0
 
 
 def launch_counts() -> dict:
-    return {"flash_fwd": flash_fwd_launches, "flash_dq": flash_dq_launches,
-            "flash_dkv": flash_dkv_launches}
+    return {"flash_fwd": flash_fwd_launches,
+            "flash_fwd_sm90": flash_fwd_sm90_launches,
+            "flash_dq": flash_dq_launches,
+            "flash_dkv": flash_dkv_launches,
+            "flash_dkv_sm90": flash_dkv_sm90_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -74,17 +96,25 @@ def _scores(q, k, causal, q_offset, k_offset):
     return s.masked_fill(~allowed, _NEG_INF), allowed
 
 
-def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset):
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset,
+                     bf16_operands=False):
     """What ``_kernel`` computes, densely: (o [B,Sq,H,D] in q.dtype,
     m [B,H,Sq], l [B,H,Sq] fp32); rows that see no key give o = 0,
-    m = -1e30, l = 0."""
+    m = -1e30, l = 0. ``bf16_operands`` rounds p = exp(s - m) to bf16
+    before p @ v, where the sm90 kernel feeds it to the tensor cores; l
+    is still summed from the fp32 p."""
     s, allowed = _scores(q, k, causal, q_offset, k_offset)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     if allowed is not None:
         p = p * allowed
     l = p.sum(dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", _bf16(p) if bf16_operands else p,
+                     v.float())
     denom = torch.where(l == 0.0, torch.ones_like(l), l)
     o = o / denom.transpose(1, 2)[..., None]
     return o.to(q.dtype), m, l
@@ -109,10 +139,15 @@ def _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset):
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
-def _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset):
-    """What ``_bwd_dkv_kernel`` computes: dk = ds^T @ q, dv = p^T @ do."""
+def _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
+                     bf16_operands=False):
+    """What ``_bwd_dkv_kernel`` computes: dk = ds^T @ q, dv = p^T @ do.
+    ``bf16_operands`` rounds p and ds to bf16 before the two products, as
+    the sm90 kernel does."""
     p, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
                         k_offset)
+    if bf16_operands:
+        p, ds = _bf16(p), _bf16(ds)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -172,17 +207,60 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _design(dtype: torch.dtype, d: int) -> str:
+    """The kernel design for CUDA inputs of this type and head dim:
+    ``"sm90"`` (wgmma on bf16 tiles fed by TMA) for bf16 at D 64 or 128,
+    ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise."""
+    return ("sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
+            else "simt")
+
+
+def _cuda_only(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
+
+
+def _check_sm90(name, tensors):
+    """The sm90 kernels' own limits: bf16, D 64 or 128, and 16-byte
+    aligned bases for TMA (contiguity, checked already, makes every
+    outer stride a multiple of 16 bytes at these head dims)."""
+    q = tensors[0]
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in SM90_HEAD_DIMS:
+        raise ValueError(f"{name}: the sm90 kernel takes bf16 at head dims "
+                         f"{SM90_HEAD_DIMS}, got {q.dtype} and "
+                         f"{q.shape[-1]}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the sm90 kernel loads through TMA, "
+                             f"which needs 16-byte-aligned tensors; a base "
+                             f"is {t.data_ptr() % 16} bytes past a boundary")
+
+
 def _flash_fwd(q, k, v, causal: bool, q_offset: int, k_offset: int):
     """Forward kernel: (o, m, l) as ``_flash_fwd_plain`` returns them."""
+    sq, sk = q.shape[1], k.shape[1]
+    _check("flash forward", (q, k, v), (sq, sk, sk))
+    if q.device.type == "cpu":
+        return _flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    launch = (_flash_fwd_sm90 if _design(q.dtype, q.shape[-1]) == "sm90"
+              else _flash_fwd_simt)
+    return launch(q, k, v, causal, q_offset, k_offset)
+
+
+def _fwd_outputs(q):
+    b, sq, h, _ = q.shape
+    m = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    return torch.empty_like(q), m, torch.empty_like(m)
+
+
+def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int):
+    """The fp32-FMA forward kernel (flash_fwd.cu), any supported input."""
     global flash_fwd_launches
     sq, sk = q.shape[1], k.shape[1]
     b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
-    if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    _cuda_only("flash forward", q)
     lib = _cuda.load()
-    o = torch.empty_like(q)
-    m = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    l = torch.empty_like(m)
+    o, m, l = _fwd_outputs(q)
     with torch.cuda.device(q.device):
         err = lib.hvdt_flash_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -190,6 +268,25 @@ def _flash_fwd(q, k, v, causal: bool, q_offset: int, k_offset: int):
             q_offset, k_offset, int(causal), _stream(q))
     _cuda.check(err, "flash forward kernel")
     flash_fwd_launches += 1
+    return o, m, l
+
+
+def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int):
+    """The wgmma/TMA forward kernel (flash_fwd_sm90.cu): bf16, D 64/128."""
+    global flash_fwd_sm90_launches
+    sq, sk = q.shape[1], k.shape[1]
+    b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
+    _cuda_only("flash forward", q)
+    _check_sm90("flash forward", (q, k, v))
+    lib = _cuda.load()
+    o, m, l = _fwd_outputs(q)
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_fwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, h, sq, sk, d, q_offset, k_offset,
+            int(causal), _stream(q))
+    _cuda.check(err, "flash forward sm90 kernel")
+    flash_fwd_sm90_launches += 1
     return o, m, l
 
 
@@ -224,11 +321,21 @@ def _flash_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 def _flash_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                k_offset: int):
     """dk/dv kernel; lse and delta are [B,H,Sq] fp32."""
-    global flash_dkv_launches
-    b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
+    _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset,
                                 k_offset)
+    launch = (_flash_dkv_sm90 if _design(q.dtype, q.shape[-1]) == "sm90"
+              else _flash_dkv_simt)
+    return launch(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+
+
+def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                    k_offset: int):
+    """The fp32-FMA dk/dv kernel (flash_bwd.cu), any supported input."""
+    global flash_dkv_launches
+    b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
+    _cuda_only("flash dk/dv", q)
     lib = _cuda.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -240,6 +347,26 @@ def _flash_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int,
             _stream(q))
     _cuda.check(err, "flash dk/dv kernel")
     flash_dkv_launches += 1
+    return dk, dv
+
+
+def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                    k_offset: int):
+    """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16, D 64/128."""
+    global flash_dkv_sm90_launches
+    b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
+    _cuda_only("flash dk/dv", q)
+    _check_sm90("flash dk/dv", (q, k, v, do))
+    lib = _cuda.load()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_dkv_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, sq, sk, d, q_offset, k_offset, int(causal), _stream(q))
+    _cuda.check(err, "flash dk/dv sm90 kernel")
+    flash_dkv_sm90_launches += 1
     return dk, dv
 
 

@@ -1,0 +1,58 @@
+"""The bound that holds a kernel's output to its plain PyTorch version.
+
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` both call it. Every
+element of ``mine`` is held to
+
+    |mine - plain| <= atol + rtol * max|plain row| + step * |plain|
+                      + 2 * max over the row of |plain_b - plain|
+
+where a row is the last axis (D for o and the gradients), or the element
+itself with ``rows=False`` (the stats m and l).
+
+- ``rtol``: kernel and plain version do the same fp32 arithmetic in
+  another summation order, which moves a result by a small fraction of
+  its row's scale: 2e-5 forward, 1e-4 gradients.
+- ``step``: both round a bf16 output to bf16, which may part them by one
+  bf16 step of the element itself, 2^-7 of it (``BF16_STEP``); fp32
+  outputs have step 0.
+- ``plain_b``: for the tensor-core (sm90) kernels only, the plain version
+  with ``bf16_operands=True``, which rounds p (and ds) to bf16 where the
+  kernel feeds them to the tensor cores. The kernel's rounding is of the
+  same kind and size but not of the same values (the forward rounds p
+  against the running row max, not the final one), so it is allowed twice
+  the largest effect that this rounding alone has in the element's row:
+  FlashAttention's own test criterion, taken per row so that the large
+  early rows of a causal softmax do not set the bound for the small late
+  ones.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+BF16_STEP = 2.0 ** -7
+
+
+def bound(plain: torch.Tensor, rtol: float, atol: float = 1e-6,
+          step: float = 0.0, rows: bool = True,
+          plain_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-element bound on |mine - plain|, as the module states it."""
+    plain = plain.float()
+    size = plain.abs()
+    tol = atol + rtol * (size.amax(-1, keepdim=True) if rows else size)
+    tol = tol + step * size
+    if plain_b is not None:
+        gap = (plain_b.float() - plain).abs()
+        tol = tol + 2.0 * (gap.amax(-1, keepdim=True) if rows else gap)
+    return tol
+
+
+def worst(mine: torch.Tensor, plain: torch.Tensor, rtol: float,
+          **kwargs) -> Tuple[float, float]:
+    """(largest absolute error, largest err / bound) of ``mine`` against
+    ``plain``; a ratio above 1 (or NaN) fails the bound."""
+    err = (mine.float() - plain.float()).abs()
+    ratio = (err / bound(plain, rtol, **kwargs)).max().item()
+    return err.max().item(), ratio

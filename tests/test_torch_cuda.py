@@ -6,19 +6,25 @@ machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances, for every element: with fp32 inputs (TF32 off) kernel and
-plain version do the same fp32 arithmetic in another order, so they
+Tolerances, for every element, are those of
+horovod_tpu_torch/utils/tolerance.py: with fp32 inputs (TF32 off) kernel
+and plain version do the same fp32 arithmetic in another order, so they
 agree to 2e-5 of the largest value in the element's row (its last axis)
 for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
-of the element itself (2^-7 of it).
+of the element itself (2^-7 of it). The tensor-core (sm90) kernels also
+round p (and ds) to bf16 for the tensor cores: their o, dk and dv may
+differ by twice the largest effect that this rounding alone has in the
+row (the plain version with ``bf16_operands=True``); their m and l keep
+the fp32 bounds.
 """
 
 import pytest
 import torch
 
 from horovod_tpu_torch.parallel import flash_attention as fa
+from horovod_tpu_torch.utils import tolerance
 
 
 @pytest.fixture
@@ -29,12 +35,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(mine, plain, rtol, atol, step=0.0, rows=True):
-    size = plain.float().abs()
-    scale = size.amax(-1, keepdim=True) if rows else size
-    err = (mine.float() - plain.float()).abs()
-    ratio = (err / (atol + rtol * scale + step * size)).max().item()
-    assert ratio <= 1.0, (err.max().item(), ratio)
+def _close(mine, plain, rtol, atol, step=0.0, rows=True, plain_b=None):
+    err, ratio = tolerance.worst(mine, plain, rtol, atol=atol, step=step,
+                                 rows=rows, plain_b=plain_b)
+    assert ratio <= 1.0, (err, ratio)
+
+
+def _inputs(cuda, dt, b, s, h, d, seed, sk=None):
+    """q, k, v, do; k and v have sk rows (default s)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rows = (s, sk or s, sk or s, s)
+    return [torch.randn(b, n, h, d, generator=g, device=cuda).to(dt)
+            for n in rows]
+
+
+def _stats(q, k, v, do, causal, qo, ko):
+    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, causal, qo, ko)
+    lse = fa._lse_from_stats(m_p, l_p)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    return (o_p, m_p, l_p), lse, delta
 
 
 CASES = [
@@ -52,30 +71,97 @@ CASES = [
 @pytest.mark.parametrize("b,s,h,d,causal,qo,ko", CASES)
 def test_kernels_match_plain_versions(cuda, dtype, b, s, h, d, causal, qo,
                                       ko):
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device=cuda).manual_seed(s + d)
-    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dt)
-                   for _ in range(4))
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko)
+
+
+def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
+    """Runs the kernels _design picks and holds them to their plain
+    versions; the launch counters must show that design ran."""
+    q, k, v, do = _inputs(cuda, dt, b, s, h, d, s + d, sk)
     fa.reset_launch_counts()
     o, m, l = fa._flash_fwd(q, k, v, causal, qo, ko)
-    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, causal, qo, ko)
-    lse = fa._lse_from_stats(m_p, l_p)
-    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    (o_p, m_p, l_p), lse, delta = _stats(q, k, v, do, causal, qo, ko)
     dq = fa._flash_dq(q, k, v, do, lse, delta, causal, qo, ko)
     dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
-    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dq": 1,
-                                  "flash_dkv": 1}
-    dq_p = fa._flash_dq_plain(q, k, v, do, lse, delta, causal, qo, ko)
-    dk_p, dv_p = fa._flash_dkv_plain(q, k, v, do, lse, delta, causal, qo,
-                                     ko)
-    bf16 = dt == torch.bfloat16
-    step = 2.0 ** -7 if bf16 else 0.0
+    sm90 = fa._design(dt, d) == "sm90"
+    suffix = "_sm90" if sm90 else ""
+    want = dict.fromkeys(fa.launch_counts(), 0)
+    want.update({"flash_fwd" + suffix: 1, "flash_dq": 1,
+                 "flash_dkv" + suffix: 1})
+    assert fa.launch_counts() == want
+    args = (q, k, v, do, lse, delta, causal, qo, ko)
+    dq_p = fa._flash_dq_plain(*args)
+    dk_p, dv_p = fa._flash_dkv_plain(*args)
+    o_b = dk_b = dv_b = None
+    if sm90:
+        o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko,
+                                  bf16_operands=True)[0]
+        dk_b, dv_b = fa._flash_dkv_plain(*args, bf16_operands=True)
+    step = tolerance.BF16_STEP if dt == torch.bfloat16 else 0.0
     _close(m, m_p, 2e-5, 1e-5, rows=False)
     _close(l, l_p, 2e-5, 1e-5, rows=False)
+    _close(o, o_p, 2e-5, 1e-6, step, plain_b=o_b)
+    _close(dq, dq_p, 1e-4, 1e-6, step)
+    _close(dk, dk_p, 1e-4, 1e-6, step, plain_b=dk_b)
+    _close(dv, dv_p, 1e-4, 1e-6, step, plain_b=dv_b)
+
+
+SM90_CASES = [
+    # b, s, h, d, causal, q_offset, k_offset
+    pytest.param(1, 128, 2, 64, True, 0, 0, id="s128_d64"),
+    pytest.param(2, 192, 3, 128, True, 0, 0, id="s192_ragged_tile"),
+    pytest.param(2, 40, 3, 64, True, 0, 0, id="s40_short"),
+    pytest.param(1, 512, 2, 128, False, 0, 0, id="s512_noncausal"),
+    pytest.param(1, 512, 2, 64, True, 128, 0, id="q_offset"),
+    pytest.param(1, 256, 2, 128, True, 0, 192, id="dead_rows"),
+    pytest.param(2, 40, 2, 128, False, 0, 0, id="s40_noncausal_d128"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,causal,qo,ko", SM90_CASES)
+def test_sm90_kernels_match_plain_versions(cuda, b, s, h, d, causal, qo,
+                                           ko):
+    _check_kernels(cuda, torch.bfloat16, b, s, h, d, causal, qo, ko)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal,qo", [
+    pytest.param(128, 384, True, 256, id="kv_longer_ring_shard"),
+    pytest.param(256, 64, False, 0, id="kv_shorter_noncausal")])
+def test_sm90_kernels_with_unequal_lengths(cuda, sq, sk, causal, qo):
+    _check_kernels(cuda, torch.bfloat16, 2, sq, 2, 128, causal, qo, 0, sk)
+
+
+@pytest.mark.cuda
+def test_simt_launchers_still_hold_bf16(cuda):
+    q, k, v, do = _inputs(cuda, torch.bfloat16, 1, 256, 2, 128, 5)
+    _, lse, delta = _stats(q, k, v, do, True, 0, 0)
+    o, m, l = fa._flash_fwd_simt(q, k, v, True, 0, 0)
+    dk, dv = fa._flash_dkv_simt(q, k, v, do, lse, delta, True, 0, 0)
+    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, True, 0, 0)
+    dk_p, dv_p = fa._flash_dkv_plain(q, k, v, do, lse, delta, True, 0, 0)
+    step = tolerance.BF16_STEP
     _close(o, o_p, 2e-5, 1e-6, step)
-    for mine, plain in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
-        _close(mine, plain, 1e-4, 1e-6, step)
+    _close(m, m_p, 2e-5, 1e-5, rows=False)
+    _close(l, l_p, 2e-5, 1e-5, rows=False)
+    _close(dk, dk_p, 1e-4, 1e-6, step)
+    _close(dv, dv_p, 1e-4, 1e-6, step)
+
+
+@pytest.mark.cuda
+def test_sm90_refuses_a_misaligned_tensor_without_falling_back(cuda):
+    flat = torch.zeros(1 + 64 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    bad = flat[1:].view(1, 64, 2, 64)       # contiguous, 2 bytes off
+    good = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._flash_fwd(bad, good, good, True, 0, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._flash_dkv(good, good, good, bad, st, st, True, 0, 0)
+    assert not any(fa.launch_counts().values())
 
 
 @pytest.mark.cuda
