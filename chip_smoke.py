@@ -11,24 +11,27 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    flash-attention kernels from horovod_tpu_torch/csrc with nvcc and
    prints the build time.
 2. Kernels against their plain PyTorch versions, on the card. bf16 at
-   head dims 64 and 128 runs the tensor-core (sm90) forward and dk/dv
+   head dims 64 and 128 runs the tensor-core (sm90) forward, dq and dk/dv
    kernels; fp32, and a bf16 case at the main shape through the private
-   launchers, run the fp32-FMA (simt) ones; dq has one kernel. Cases:
+   launchers, run the fp32-FMA (simt) ones. Cases:
    the main path's shape (B=4, S=2048, H=16, D=128, bf16, causal), a
    non-causal, two offset, a D=64 and a short ragged case, fp32 at two
    shapes. Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
    plain| for the sm90 kernels), a row being the last axis (D for o and
-   the gradients; m and l are held element by element). Both versions
+   the gradients; m and l are held element by element). atol is 1e-6,
+   and 1e-5 for the sm90 dq, whose row of a query that sees one key is
+   pure rounding noise (utils/tolerance.py says why). Both versions
    compute in fp32 from the same inputs, in another summation order:
    rtol 2e-5 (o, m, l) or 1e-4 (gradients). bf16 outputs are rounded to
    bf16 by both, step = 2^-7; fp32 outputs have step 0. The sm90 kernels
    also feed p (and ds) to the tensor cores in bf16; plain_b is the plain
    version that rounds there too, and twice its effect in the row is
    allowed. The bound must show its power: at the main shape a plain
-   result with one kv tile (keys 1024-1151) or one q tile (queries
-   1536-1599) left out must fail it.
+   result with one kv tile (keys 1024-1151 of the forward, keys 1024-1087
+   of dq) or one q tile (queries 1536-1599 of dk and dv) left out must
+   fail it.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -37,18 +40,18 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    compute) with random weights from --seed, DistributedOptimizer(SGD
    lr 0.01, momentum 0.9), broadcast_parameters, and training steps on
    one fixed batch of 4 x 2048 random tokens. The loss must be finite and
-   fall, and the path must launch the sm90 forward, dq and sm90 dk/dv
-   kernels once per layer per step and the simt forward and dk/dv never.
+   fall, and the path must launch the sm90 forward, dq and dk/dv kernels
+   once per layer per step and the simt ones never.
    One more step runs under torch.profiler and prints its device time by
    kernel.
-5. The five kernels' times at the main path's shape (the simt forward
-   and dk/dv through their private launchers, in turns with the sm90
-   ones) beside the plain version, the PyTorch library call computing
-   the same function (scaled_dot_product_attention, timed here only as
-   a yardstick) and the bound: the larger of the operations the function needs (2 x D per
-   visible (q, k) pair and matrix product: two products forward, three
-   for dq, four for dk/dv) over the card's bf16 dense peak
-   (989 TFLOP/s) and the bytes in and out over its memory rate
+5. The six kernels' times at the main path's shape (the simt kernels
+   through their private launchers, in turns with the sm90 ones) beside
+   the plain version, the PyTorch library call computing the same
+   function (scaled_dot_product_attention, timed here only as a
+   yardstick) and the bound: the larger of the operations the function
+   needs (2 x D per visible (q, k) pair and matrix product: two products
+   forward, three for dq, four for dk/dv) over the card's bf16 dense
+   peak (989 TFLOP/s) and the bytes in and out over its memory rate
    (3.35 TB/s).
 
 The last two lines are the JSON ``kernels`` line and the result line
@@ -68,9 +71,9 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 MAIN = dict(b=4, s=2048, h=16, d=128)
-# The kernels the main path (bf16, D=128) runs; the simt forward and dk/dv
-# serve fp32 and the small head dims and must not launch there.
-MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90")
+# The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
+# and the small head dims and must not launch there.
+MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
 
 
 def card_line() -> str:
@@ -134,18 +137,30 @@ def fwd_without_keys(fa, q, k, v, lo, hi):
     return (o1 * w1 + o2 * w2) / l
 
 
+def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi):
+    """The plain causal dq with keys lo..hi-1 left out: dq is a sum over
+    keys, so it is the plain dq over keys [:lo] plus that over keys [hi:]
+    at k_offset hi, with the whole attention's lse and delta."""
+    q, k, v, do = q.float(), k.float(), v.float(), do.float()
+    return (fa._flash_dq_plain(q, k[:, :lo], v[:, :lo], do, lse, delta,
+                               True, 0, 0)
+            + fa._flash_dq_plain(q, k[:, hi:], v[:, hi:], do, lse, delta,
+                                 True, 0, hi))
+
+
 def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
                 seed=0, design=None, lost_tiles=False):
     """Runs the forward, dq and dk/dv kernels and their plain versions on
     one input set; returns {kernel: max_abs_err}. ``design`` forces the
-    sm90 or simt forward and dk/dv launchers (default: ``fa._design``)."""
-    from horovod_tpu_torch.utils.tolerance import BF16_STEP
+    sm90 or simt launchers (default: ``fa._design``)."""
+    from horovod_tpu_torch.utils.tolerance import BF16_STEP, DQ_ATOL
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
     design = design or fa._design(dtype, d)
     sm90 = design == "sm90"
     fwd = fa._flash_fwd_sm90 if sm90 else fa._flash_fwd_simt
+    dqk = fa._flash_dq_sm90 if sm90 else fa._flash_dq_simt
     dkv = fa._flash_dkv_sm90 if sm90 else fa._flash_dkv_simt
     suffix = "_sm90" if sm90 else ""
     print(f"case {name}: B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
@@ -154,7 +169,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, causal, qo, ko)
     lse = fa._lse_from_stats(m_p, l_p)
     delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa._flash_dq(q, k, v, do, lse, delta, causal, qo, ko)
+    dq = dqk(q, k, v, do, lse, delta, causal, qo, ko)
     dk, dv = dkv(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
     step = BF16_STEP if dtype == torch.bfloat16 else 0.0
@@ -169,10 +184,19 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
                     fwd_without_keys(fa, q, k, v, 1024, 1152), o_p, 2e-5,
                     step, plain_b=o_b, must_fail=True)
     del o_p, m_p, l_p, o_b
-    errs["flash_dq"] = check_close(
-        "dq", dq, fa._flash_dq_plain(q, k, v, do, lse, delta, causal, qo,
-                                     ko), 1e-4, step)
     plain_args = (q, k, v, do, lse, delta, causal, qo, ko)
+    dq_p = fa._flash_dq_plain(*plain_args)
+    dq_b = (fa._flash_dq_plain(*plain_args, bf16_operands=True) if sm90
+            else None)
+    dq_atol = DQ_ATOL if sm90 else 1e-6
+    errs["flash_dq" + suffix] = check_close("dq", dq, dq_p, 1e-4, step,
+                                            atol=dq_atol, plain_b=dq_b)
+    if lost_tiles:
+        check_close("dq, keys 1024-1087 left out",
+                    dq_without_keys(fa, q, k, v, do, lse, delta, 1024, 1088),
+                    dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b,
+                    must_fail=True)
+    del dq_p, dq_b
     dk_p, dv_p = fa._flash_dkv_plain(*plain_args)
     dk_b, dv_b = (fa._flash_dkv_plain(*plain_args, bf16_operands=True)
                   if sm90 else (None, None))
@@ -336,8 +360,8 @@ def main_path(torch, hvd, args, card):
 
 def kernel_times(torch, fa):
     """ms, plain_ms, library_ms and bound_ms of each kernel at the main
-    path's shape (bf16, causal); the simt forward and dk/dv are timed
-    through their private launchers on the same inputs."""
+    path's shape (bf16, causal); the simt kernels are timed through their
+    private launchers on the same inputs."""
     import torch.nn.functional as F
     b, s, h, d = MAIN["b"], MAIN["s"], MAIN["h"], MAIN["d"]
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -356,13 +380,14 @@ def kernel_times(torch, fa):
     t = {}
     for fn, pair in (("fwd", (lambda: fa._flash_fwd_simt(*fwd_args),
                               lambda: fa._flash_fwd_sm90(*fwd_args))),
+                     ("dq", (lambda: fa._flash_dq_simt(*args),
+                             lambda: fa._flash_dq_sm90(*args))),
                      ("dkv", (lambda: fa._flash_dkv_simt(*args),
                               lambda: fa._flash_dkv_sm90(*args)))):
         order = (0, 1, 1, 0)
         ms = [time_ms(pair[i], 20) for i in order]
         t[f"flash_{fn}"] = ((ms[0] + ms[3]) / 2, plain[fn])
         t[f"flash_{fn}_sm90"] = ((ms[1] + ms[2]) / 2, plain[fn])
-    t["flash_dq"] = (time_ms(lambda: fa._flash_dq(*args), 20), plain["dq"])
     # The library yardstick on [B, H, S, D] copies made outside the timing.
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
@@ -464,6 +489,7 @@ def main(argv=None) -> int:
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),
                "flash_fwd_sm90": ("flash_fwd_sm90.cu", "58"),
                "flash_dq": ("flash_bwd.cu", "204"),
+               "flash_dq_sm90": ("flash_dq_sm90.cu", "204"),
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236")}
     kernels = []

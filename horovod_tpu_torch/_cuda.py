@@ -47,6 +47,9 @@ _SIGNATURES = {
     "hvdt_flash_dkv": [_I] + [_P] * 8 + [_I] * 8 + [_P],
     # q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal, stream
     "hvdt_flash_fwd_sm90": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, do, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # stream
+    "hvdt_flash_dq_sm90": [_P] * 7 + [_I] * 8 + [_P],
     # q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off,
     # causal, stream
     "hvdt_flash_dkv_sm90": [_P] * 8 + [_I] * 8 + [_P],

@@ -1,0 +1,283 @@
+// Flash-attention dq backward for Hopper's tensor cores (sm_90a), bf16 at head
+// dims 64 and 128.
+//
+// Replaces the TPU kernel `_bwd_dq_kernel` (with the shared recompute
+// `_recompute_p_ds`) in horovod_tpu/parallel/flash_attention.py, launched by
+// `_flash_bwd_bhsd`, as flash_dq_kernel in flash_bwd.cu does for fp32 and the
+// small head dims. Same function: for every visible (q, k) pair recompute
+// p = exp(s - lse) and ds = p (dp - delta) scale from q, k, v, do and the
+// forward's per-row lse (+inf on rows that saw no key, so p is exactly 0
+// there) and delta = rowsum(do * o); then dq = sum over k of ds k,
+// accumulated in fp32 and written in bf16.
+//
+// What bounds it on this card. Three matrix products per visible pair (s, dp,
+// ds k) against five [B, S, H, D] tensors moved: at the main path's shape
+// (B=4, S=2048, H=16, D=128, causal) 1.03e11 operations over 168 MB, about
+// 600 operations per byte, twice the card's balance point of about 295
+// (989 TFLOP/s of bf16 over 3.35 TB/s): the tensor cores are the limit.
+//
+// Design. One CTA per (128-row q tile, batch*head), heaviest causal tiles
+// first (the q tile index runs backwards along grid.y, so the short rows form
+// the tail wave). Three warpgroups:
+// - a producer, which gives its registers away (setmaxnreg) and whose one
+//   elected thread issues every copy as a TMA load through 4-D tensor maps
+//   over [B, S, H, D]: the Q and dO tiles once, on one barrier, then K and V
+//   through a three-stage ring of 64-row kv tiles guarded by full/empty
+//   mbarriers, from kv tile 0 up to the causal reach of the q tile (on an
+//   H100 a third stage took 4.4% off the two-stage time and a fourth
+//   added nothing: horovod_tpu_torch/tools/dq_stages.py);
+// - two consumers, each owning 64 q rows (wgmma's M), which take the
+//   registers and keep their rows' lse (pre-scaled by log2 e) and delta in
+//   them. Per kv tile, so that at most dQ, S, dP and the bf16 operand are
+//   live (64 + 32 + 32 floats and 16 bf16 pairs a thread at D=128):
+//     S = Q K^T and dP = dO V^T  (m64n64k16, both operands K-major in smem,
+//                                 in one commit group so that they overlap)
+//     P = exp(S scale - lse)     (masked only on tiles that cross the
+//                                 diagonal or the ragged end of Sk: TMA
+//                                 zero-fills keys past Sk, and the p of a
+//                                 zero score is not zero)
+//     dS = P (dP - delta) scale  (to bf16 in registers as wgmma's A)
+//     dQ += dS K                 (K from smem as an MN-major B, so K is
+//                                 never transposed)
+//   A kv tile wholly in the future of a consumer's 64 rows is waited for and
+//   released without a product.
+// Each CTA owns its dq rows: no atomics, no second pass. A CTA that sees no
+// kv tile loads nothing, waits on no barrier and writes dq = 0. bf16 ds is
+// what the reference's dots take on the TPU by default; the checks allow for
+// exactly that rounding. At D=128 shared memory holds Q 32 KB + dO 32 KB +
+// 3 x (K 16 KB + V 16 KB) = 160 KB.
+#include "flash_common.cuh"
+#include "sm90_common.cuh"
+
+namespace hvdt {
+namespace {
+
+using namespace sm90;
+
+constexpr int kRows = 128;  // q rows of a CTA
+constexpr int kKeys = 64;   // keys of a stage
+constexpr int kStages = 3;
+
+template <int D>
+struct DqSmem {
+  static constexpr int kRegionQ = kRows * 128;  // [128][64] bf16
+  static constexpr int kRegionK = kKeys * 128;  // [64][64] bf16
+  static constexpr int kTileQ = (D / 64) * kRegionQ;
+  static constexpr int kTileK = (D / 64) * kRegionK;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kTileQ;
+  static constexpr int kK = kDo + kTileQ;
+  static constexpr int kV = kK + kStages * kTileK;
+  static constexpr int kBar = kV + kStages * kTileK;
+  // q_full, full[kStages], empty[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk,
+                  int q_off, int k_off, int causal, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  int nk = (Sk + kKeys - 1) / kKeys;
+  if (causal) {
+    // kv tile j is visible while k_off + 64 j <= q_off + q0 + 127.
+    const long long reach = (long long)q_off + q0 + kRows - 1 - k_off;
+    nk = min(nk, reach < 0 ? 0 : (int)(reach / kKeys) + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer.
+    regs_dec<24>();
+    if (threadIdx.x == 0 && nk > 0) {
+      bar_arrive_tx(q_full, 2 * L::kTileQ);
+      for (int r = 0; r < D / 64; ++r) {
+        tma_load_4d(smem + L::kQ + r * L::kRegionQ, &tq, q_full, 64 * r, h, q0,
+                    b);
+        tma_load_4d(smem + L::kDo + r * L::kRegionQ, &tdo, q_full, 64 * r, h,
+                    q0, b);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kStages;
+        // Stage st is free once the consumers released load j - kStages.
+        if (j >= kStages) bar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        uint8_t* kt = smem + L::kK + st * L::kTileK;
+        uint8_t* vt = smem + L::kV + st * L::kTileK;
+        bar_arrive_tx(&full[st], 2 * L::kTileK);
+        for (int r = 0; r < D / 64; ++r) {
+          tma_load_4d(kt + r * L::kRegionK, &tk, &full[st], 64 * r, h,
+                      j * kKeys, b);
+          tma_load_4d(vt + r * L::kRegionK, &tv, &full[st], 64 * r, h,
+                      j * kKeys, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns rows 64c .. 64c + 63 of the q tile.
+    regs_inc<240>();
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row0 = 64 * c + 16 * (t / 32) + lane / 4;  // +8 for i = 1
+    const int col = 2 * (lane % 4);
+    const int first_qpos = q_off + q0 + 64 * c;
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t q_base = smem_u32(smem + L::kQ) + c * 64 * 128;
+    const uint32_t do_base = smem_u32(smem + L::kDo) + c * 64 * 128;
+
+    // Rows past Sq get lse = +inf, so their p is exactly 0.
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row0 + 8 * i;
+      lse_r[i] = row < Sq ? lse[(size_t)bh * Sq + row] * kLog2e
+                          : __int_as_float(0x7f800000);
+      delta_r[i] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    if (nk > 0) bar_wait(q_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % kStages, ph = (j / kStages) & 1;
+      const int k0 = j * kKeys;
+      const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTileK);
+      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileK);
+      bar_wait(&full[st], ph);
+      if (!causal || k_off + k0 <= first_qpos + 63) {
+        // S = Q K^T and dP = dO V^T, in one commit group.
+        float s[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a_off = (kk / 4) * L::kRegionQ + (kk % 4) * 32;
+          const uint32_t b_off = (kk / 4) * L::kRegionK + (kk % 4) * 32;
+          wgmma_ss<64>(s, desc_sw128(q_base + a_off, 16),
+                       desc_sw128(k_base + b_off, 16), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a_off = (kk / 4) * L::kRegionQ + (kk % 4) * 32;
+          const uint32_t b_off = (kk / 4) * L::kRegionK + (kk % 4) * 32;
+          wgmma_ss<64>(dp, desc_sw128(do_base + a_off, 16),
+                       desc_sw128(v_base + b_off, 16), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // P, masked only on tiles that cross the diagonal or the ragged end
+        // of Sk; then dS = P (dP - delta) scale in place of S.
+        const bool masked = k0 + kKeys > Sk ||
+                            (causal && k_off + k0 + kKeys - 1 > first_qpos);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e / 2) % 2;
+          float p = exp2f(fmaf(s[e], scale_log2, -lse_r[i]));
+          if (masked) {
+            const int kc = k0 + 8 * (e / 4) + col + e % 2;
+            const bool ok = kc < Sk && (!causal || q_off + q0 + row0 + 8 * i >=
+                                                       k_off + kc);
+            p = ok ? p : 0.f;
+          }
+          s[e] = p * (dp[e] - delta_r[i]) * scale;
+        }
+        uint32_t op[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) op[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
+
+        // dQ += dS K.
+        fence_regs(acc);
+        fence_regs(op);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          const uint32_t a[4] = {op[4 * kk], op[4 * kk + 1], op[4 * kk + 2],
+                                 op[4 * kk + 3]};
+          wgmma_rs<D>(acc, a, desc_sw128(k_base + kk * 16 * 128, L::kRegionK),
+                      1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(op);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row0 + 8 * i;
+      if (row >= Sq) continue;
+      __nv_bfloat16* out = dq + ((size_t)(b * Sq + row) * H + h) * D + col;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, int B, int H,
+                int Sq, int Sk, int q_off, int k_off, int causal,
+                cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, Sq, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, Sk, H, D, kKeys);
+  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, Sk, H, D, kKeys);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  return launch_ws(flash_dq_sm90<D>, grid, DqSmem<D>::kBytes + 1024, stream,
+                   tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+                   (__nv_bfloat16*)dq, H, Sq, Sk, q_off, k_off, causal,
+                   (float)(1.0 / sqrt((double)D)));
+}
+
+}  // namespace
+}  // namespace hvdt
+
+// q, k, v, do: contiguous bf16 [B, S, H, D] with 16-byte-aligned bases; D is
+// 64 or 128. lse, delta: fp32 [B, H, Sq]. dq: bf16 [B, Sq, H, D].
+extern "C" int hvdt_flash_dq_sm90(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dq, int B, int H,
+                                  int Sq, int Sk, int D, int q_off, int k_off,
+                                  int causal, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 64: return hvdt::run<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, st);
+    case 128: return hvdt::run<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

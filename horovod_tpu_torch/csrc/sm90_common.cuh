@@ -1,7 +1,7 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
-// (flash_fwd_sm90.cu, flash_dkv_sm90.cu): TMA loads through a tensor map,
-// mbarrier init / arrive / expect-tx / wait, wgmma descriptors, fence,
-// commit and wait, setmaxnreg, and the host-side tensor-map encoder.
+// (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu): TMA loads through
+// a tensor map, mbarrier init / arrive / expect-tx / wait, wgmma descriptors,
+// fence, commit and wait, setmaxnreg, and the host-side tensor-map encoder.
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // rows of 64 bf16 (128 bytes) in 8-row atoms of 1024 bytes, the 16-byte

@@ -6,7 +6,8 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
 
 - ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu`` (bf16, D 64/128)
                                 or ``flash_fwd.cu``    via :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_bwd.cu``       via :func:`_flash_dq`
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``  (bf16, D 64/128)
+                                or ``flash_bwd.cu``    via :func:`_flash_dq`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu`` (bf16, D 64/128)
                                 or ``flash_bwd.cu``    via :func:`_flash_dkv`
 
@@ -19,7 +20,8 @@ need 16-byte-aligned bases; a misaligned CUDA tensor raises, it never
 falls back to the other design.
 
 Each launcher counts its launches (``launch_counts()``: ``flash_fwd``,
-``flash_fwd_sm90``, ``flash_dq``, ``flash_dkv``, ``flash_dkv_sm90``).
+``flash_fwd_sm90``, ``flash_dq``, ``flash_dq_sm90``, ``flash_dkv``,
+``flash_dkv_sm90``).
 For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
 ``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
@@ -57,6 +59,7 @@ SM90_HEAD_DIMS = (64, 128)      # head dims of the wgmma/TMA kernels
 flash_fwd_launches = 0
 flash_fwd_sm90_launches = 0
 flash_dq_launches = 0
+flash_dq_sm90_launches = 0
 flash_dkv_launches = 0
 flash_dkv_sm90_launches = 0
 
@@ -65,15 +68,16 @@ Offset = Union[int, torch.Tensor]
 
 def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_fwd_sm90_launches, flash_dq_launches
-    global flash_dkv_launches, flash_dkv_sm90_launches
+    global flash_dq_sm90_launches, flash_dkv_launches, flash_dkv_sm90_launches
     flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
-    flash_dkv_launches = flash_dkv_sm90_launches = 0
+    flash_dq_sm90_launches = flash_dkv_launches = flash_dkv_sm90_launches = 0
 
 
 def launch_counts() -> dict:
     return {"flash_fwd": flash_fwd_launches,
             "flash_fwd_sm90": flash_fwd_sm90_launches,
             "flash_dq": flash_dq_launches,
+            "flash_dq_sm90": flash_dq_sm90_launches,
             "flash_dkv": flash_dkv_launches,
             "flash_dkv_sm90": flash_dkv_sm90_launches}
 
@@ -132,10 +136,15 @@ def _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset):
     return p, ds
 
 
-def _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset):
-    """What ``_bwd_dq_kernel`` computes: dq = ds @ k, in q.dtype."""
+def _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
+                    bf16_operands=False):
+    """What ``_bwd_dq_kernel`` computes: dq = ds @ k, in q.dtype.
+    ``bf16_operands`` rounds ds to bf16 before the product, as the sm90
+    kernel does."""
     _, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
                         k_offset)
+    if bf16_operands:
+        ds = _bf16(ds)
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
@@ -301,11 +310,21 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
 def _flash_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
               k_offset: int):
     """dq kernel; lse and delta are [B,H,Sq] fp32."""
-    global flash_dq_launches
-    b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
+    _bwd_inputs("flash dq", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset,
                                k_offset)
+    launch = (_flash_dq_sm90 if _design(q.dtype, q.shape[-1]) == "sm90"
+              else _flash_dq_simt)
+    return launch(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+
+
+def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                   k_offset: int):
+    """The fp32-FMA dq kernel (flash_bwd.cu), any supported input."""
+    global flash_dq_launches
+    b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
+    _cuda_only("flash dq", q)
     lib = _cuda.load()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -315,6 +334,25 @@ def _flash_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
             b, h, sq, sk, d, q_offset, k_offset, int(causal), _stream(q))
     _cuda.check(err, "flash dq kernel")
     flash_dq_launches += 1
+    return dq
+
+
+def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                   k_offset: int):
+    """The wgmma/TMA dq kernel (flash_dq_sm90.cu): bf16, D 64/128."""
+    global flash_dq_sm90_launches
+    b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
+    _cuda_only("flash dq", q)
+    _check_sm90("flash dq", (q, k, v, do))
+    lib = _cuda.load()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_dq_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
+            q_offset, k_offset, int(causal), _stream(q))
+    _cuda.check(err, "flash dq sm90 kernel")
+    flash_dq_sm90_launches += 1
     return dq
 
 

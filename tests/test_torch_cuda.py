@@ -14,10 +14,12 @@ for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
 of the element itself (2^-7 of it). The tensor-core (sm90) kernels also
-round p (and ds) to bf16 for the tensor cores: their o, dk and dv may
+round p (and ds) to bf16 for the tensor cores: their o, dq, dk and dv may
 differ by twice the largest effect that this rounding alone has in the
 row (the plain version with ``bf16_operands=True``); their m and l keep
-the fp32 bounds.
+the fp32 bounds. The sm90 dq has an absolute floor of 1e-5 instead of
+1e-6 (``tolerance.DQ_ATOL``: the dq of a query that sees one key is pure
+rounding noise).
 """
 
 import pytest
@@ -87,22 +89,24 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     sm90 = fa._design(dt, d) == "sm90"
     suffix = "_sm90" if sm90 else ""
     want = dict.fromkeys(fa.launch_counts(), 0)
-    want.update({"flash_fwd" + suffix: 1, "flash_dq": 1,
+    want.update({"flash_fwd" + suffix: 1, "flash_dq" + suffix: 1,
                  "flash_dkv" + suffix: 1})
     assert fa.launch_counts() == want
     args = (q, k, v, do, lse, delta, causal, qo, ko)
     dq_p = fa._flash_dq_plain(*args)
     dk_p, dv_p = fa._flash_dkv_plain(*args)
-    o_b = dk_b = dv_b = None
+    o_b = dq_b = dk_b = dv_b = None
     if sm90:
         o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko,
                                   bf16_operands=True)[0]
+        dq_b = fa._flash_dq_plain(*args, bf16_operands=True)
         dk_b, dv_b = fa._flash_dkv_plain(*args, bf16_operands=True)
     step = tolerance.BF16_STEP if dt == torch.bfloat16 else 0.0
     _close(m, m_p, 2e-5, 1e-5, rows=False)
     _close(l, l_p, 2e-5, 1e-5, rows=False)
     _close(o, o_p, 2e-5, 1e-6, step, plain_b=o_b)
-    _close(dq, dq_p, 1e-4, 1e-6, step)
+    _close(dq, dq_p, 1e-4, tolerance.DQ_ATOL if sm90 else 1e-6, step,
+           plain_b=dq_b)
     _close(dk, dk_p, 1e-4, 1e-6, step, plain_b=dk_b)
     _close(dv, dv_p, 1e-4, 1e-6, step, plain_b=dv_b)
 
@@ -138,14 +142,18 @@ def test_sm90_kernels_with_unequal_lengths(cuda, sq, sk, causal, qo):
 def test_simt_launchers_still_hold_bf16(cuda):
     q, k, v, do = _inputs(cuda, torch.bfloat16, 1, 256, 2, 128, 5)
     _, lse, delta = _stats(q, k, v, do, True, 0, 0)
+    args = (q, k, v, do, lse, delta, True, 0, 0)
     o, m, l = fa._flash_fwd_simt(q, k, v, True, 0, 0)
-    dk, dv = fa._flash_dkv_simt(q, k, v, do, lse, delta, True, 0, 0)
+    dq = fa._flash_dq_simt(*args)
+    dk, dv = fa._flash_dkv_simt(*args)
     o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, True, 0, 0)
-    dk_p, dv_p = fa._flash_dkv_plain(q, k, v, do, lse, delta, True, 0, 0)
+    dq_p = fa._flash_dq_plain(*args)
+    dk_p, dv_p = fa._flash_dkv_plain(*args)
     step = tolerance.BF16_STEP
     _close(o, o_p, 2e-5, 1e-6, step)
     _close(m, m_p, 2e-5, 1e-5, rows=False)
     _close(l, l_p, 2e-5, 1e-5, rows=False)
+    _close(dq, dq_p, 1e-4, 1e-6, step)
     _close(dk, dk_p, 1e-4, 1e-6, step)
     _close(dv, dv_p, 1e-4, 1e-6, step)
 
@@ -159,6 +167,8 @@ def test_sm90_refuses_a_misaligned_tensor_without_falling_back(cuda):
     fa.reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         fa._flash_fwd(bad, good, good, True, 0, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._flash_dq(good, bad, good, good, st, st, True, 0, 0)
     with pytest.raises(ValueError, match="16-byte"):
         fa._flash_dkv(good, good, good, bad, st, st, True, 0, 0)
     assert not any(fa.launch_counts().values())
