@@ -53,6 +53,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    forward, three for dq, four for dk/dv) over the card's bf16 dense
    peak (989 TFLOP/s) and the bytes in and out over its memory rate
    (3.35 TB/s).
+6. Small vision models, the card against the CPU: a narrow fp32 ResNet
+   (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
+   weights on both (TF32 off) give the same logits, loss, parameter
+   gradients and BatchNorm running statistics within 1e-4 + 1e-4 x |cpu|.
+7. The bench's ResNet-50 leg at full width, through the bench's own
+   step (horovod_tpu_torch.bench.classifier_step): batch 256 of 224x224
+   bf16 images from --seed, labels 0, cross-replica BatchNorm over the
+   data axis, SGD lr 0.01 momentum 0.9; --warmup and --steps steps, then
+   one profiled step whose device time is grouped as convolutions,
+   matrix products, nccl and other. Prints images/s, MFU (3 x 2 x
+   4.089e9 model FLOPs per image over 989 TFLOP/s) and peak memory; the
+   loss must be finite and fall, and no flash kernel may launch.
+8. ViT-B/16 at 224x224, batch 64, bf16, through the same step and with
+   the same checks.
 
 The last two lines are the JSON ``kernels`` line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -246,9 +260,39 @@ def small_model_check(torch, seed):
     check_close("parameter gradients", grads[0], grads[1], 1e-4)
 
 
-def print_breakdown(prof, wall):
-    """Device time of one profiled step by kernel, grouped, beside that
-    step's host time ``wall`` (its complement is the device's idle
+# Kernel-name fragments of each group of the profiled step's breakdown;
+# a kernel goes to the first group one of whose fragments its name holds.
+LM_GROUPS = {"flash attention kernels": ("flash_",),
+             "matrix products": ("gemm", "cutlass", "xmma", "nvjet"),
+             "nccl": ("nccl",)}
+CONV_GROUPS = {"convolutions": ("conv", "fprop", "dgrad", "wgrad",
+                                "implicit"),
+               "matrix products": ("gemm", "cutlass", "xmma", "nvjet"),
+               "nccl": ("nccl",)}
+
+
+def check_falling(values):
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"the loss is not finite: {values}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"the loss did not fall on the repeated "
+                             f"batch: {values}")
+
+
+def profiled_step(torch, step):
+    """Runs ``step()`` once under torch.profiler; returns the profile and
+    the step's host time."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step().item()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def print_breakdown(prof, wall, groups):
+    """Device time of one profiled step by kernel, in ``groups``, beside
+    that step's host time ``wall`` (its complement is the device's idle
     share)."""
     from torch.autograd import DeviceType
     # Kernels only: a CPU op's self device time repeats its kernels'.
@@ -260,30 +304,31 @@ def print_breakdown(prof, wall):
         print("  profiled step: the profiler recorded no device time "
               "(breakdown not measured)")
         return
-    groups = {"flash attention kernels": ("flash_",),
-              "matrix products": ("gemm", "cutlass", "xmma", "nvjet"),
-              "nccl": ("nccl",)}
-    by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
-    for e in kernels:
+    by_group = {g: [] for g in list(groups) + ["other"]}
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
         name = e.key.lower()
         group = next((g for g, keys in groups.items()
                       if any(k in name for k in keys)), "other")
-        by_group[group] += e.self_device_time_total
+        by_group[group].append(e)
     # The device's and the host's clocks differ: a busy time above the
     # host time reads as no idle share.
     idle = max(0.0, 1 - total_us / 1e6 / wall)
     print(f"  profiled step: device busy {total_us / 1e3:.1f} ms of "
           f"{wall * 1e3:.1f} ms host time (idle {idle:.1%})")
-    for group, us in by_group.items():
-        print(f"    {group:<26} {us / 1e3:9.2f} ms  {us / total_us:6.1%}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<4} "
-              f"{e.key[:70]}")
+    for group, members in by_group.items():
+        us = sum(e.self_device_time_total for e in members)
+        launches = sum(e.count for e in members)
+        print(f"    {group:<26} {us / 1e3:9.2f} ms  {us / total_us:6.1%}  "
+              f"{launches} launches")
+        # The largest kernels of the group, so that its contents show.
+        for e in members[:3]:
+            print(f"      {e.self_device_time_total / 1e3:9.2f} ms  "
+                  f"x{e.count:<4} {e.key[:90]}")
 
 
 def main_path(torch, hvd, args, card):
-    from horovod_tpu_torch.models import (
-        TransformerConfig, TransformerLM, lm_loss_from_hidden)
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import TransformerConfig
     from horovod_tpu_torch.parallel import flash_attention as fa
     from horovod_tpu_torch.utils.timing import steady_state_sec_per_step
 
@@ -292,25 +337,12 @@ def main_path(torch, hvd, args, card):
     cfg = TransformerConfig(vocab_size=32000, num_layers=args.layers,
                             num_heads=16, head_dim=128, max_seq_len=s,
                             dtype=torch.bfloat16)
-    g = torch.Generator(device="cuda").manual_seed(args.seed)
-    model = TransformerLM(cfg, generator=g)
+    train, model = bench.transformer_step(cfg, b, seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
-    opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
-        axis="data")
-    hvd.broadcast_parameters(model, root_rank=0)
-    tokens = torch.randint(0, cfg.vocab_size, (b * hvd.size(), s),
-                           generator=g, device="cuda")
-    tokens = tokens[hvd.rank() * b:(hvd.rank() + 1) * b]
     losses = []
 
     def step():
-        opt.zero_grad(set_to_none=True)
-        hidden = model(tokens, return_hidden=True)
-        loss = lm_loss_from_hidden(hidden, model.lm_head.weight.t(), tokens)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
+        losses.append(train())
         return losses[-1]
 
     torch.cuda.synchronize()
@@ -319,11 +351,7 @@ def main_path(torch, hvd, args, card):
     sec = steady_state_sec_per_step(step, lambda loss: loss.item(),
                                     warmup_steps=args.warmup,
                                     chunks=args.steps, chunk_steps=1)
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step().item()
-        wall = time.perf_counter() - t0
+    prof, wall = profiled_step(torch, step)
     counts = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     values = [x.item() for x in losses]
@@ -340,11 +368,8 @@ def main_path(torch, hvd, args, card):
           f"model TFLOP/s {model_flops / sec / 1e12:.1f} "
           f"(MFU {model_flops / sec / PEAK_BF16_FLOPS:.1%} of 989 bf16), "
           f"max_memory_allocated {peak / 2**30:.2f} GiB  [{card}]")
-    print_breakdown(prof, wall)
-    if not all(math.isfinite(x) for x in values):
-        raise AssertionError("the loss is not finite")
-    if not values[-1] < values[0]:
-        raise AssertionError("the loss did not fall on the repeated batch")
+    print_breakdown(prof, wall, LM_GROUPS)
+    check_falling(values)
     want = cfg.num_layers * len(values)
     expected = {name: (want if name in MAIN_PATH_KERNELS else 0)
                 for name in counts}
@@ -353,9 +378,108 @@ def main_path(torch, hvd, args, card):
                              f"per step) of each of {MAIN_PATH_KERNELS} "
                              f"and none of the others, got {counts}")
     hvd.shutdown()
-    del model, opt
+    del model, train
     torch.cuda.empty_cache()
     return counts
+
+
+def vision_small_check(torch, seed):
+    """A narrow fp32 ResNet and ViT with the same weights on the card
+    (TF32 off) and on the CPU: logits, loss, every parameter gradient
+    and the BatchNorm running statistics of one training pass agree
+    within 1e-4 + 1e-4 |cpu| element by element."""
+    import copy
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import vit
+    from horovod_tpu_torch.models import resnet
+
+    def train_pass(model, images, labels):
+        logits = model(images)
+        loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        out = {"logits": logits.detach(), "loss": loss.detach()}
+        out.update({n: p.grad for n, p in model.named_parameters()})
+        out.update(dict(model.named_buffers()))
+        return {k: v.cpu() for k, v in out.items()}
+
+    builds = {
+        "resnet (bottleneck, 8 filters)": lambda: resnet.ResNet(
+            stage_sizes=[1, 1], block_cls=resnet.BottleneckBlock,
+            num_filters=8, num_classes=10, dtype=torch.float32,
+            device="cpu", generator=torch.Generator().manual_seed(seed)),
+        "vit (2 layers, d 64)": lambda: vit.ViT(vit.ViTConfig(
+            image_size=32, patch_size=4, num_classes=10, embed_dim=64,
+            num_layers=2, num_heads=4, dtype=torch.float32), device="cpu",
+            generator=torch.Generator().manual_seed(seed)),
+    }
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randn(4, 32, 32, 3, generator=g)
+    labels = torch.randint(0, 10, (4,), generator=g)
+    print("small vision models: the card against the CPU, fp32")
+    for label, build in builds.items():
+        cpu_model = build()
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        want = train_pass(cpu_model, images, labels)
+        got = train_pass(card_model, images.cuda(), labels.cuda())
+        ratio = max(((got[k] - want[k]).abs()
+                     / (1e-4 + 1e-4 * want[k].abs())).max().item()
+                    for k in want)
+        print(f"  {label:<34} {len(want)} tensors, worst err/tol "
+              f"{ratio:.3f} {'ok' if ratio <= 1 else 'FAIL'}")
+        if not ratio <= 1:
+            raise AssertionError(f"{label}: the card and the CPU differ "
+                                 f"({ratio:.3f} of the tolerance)")
+
+
+def classifier_leg(torch, hvd, args, card, label, build, batch,
+                   macs_per_image=None):
+    """``steps`` timed training steps (after ``warmup``) of the image
+    classifier ``build()`` through the bench's ``classifier_step`` at 224x224,
+    then one profiled step. The loss must be finite and fall, and no
+    flash kernel may launch. Prints images/s, MFU where the model's
+    multiply-adds per image are known, peak memory and the profiled
+    step's device time by group."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.parallel import flash_attention as fa
+    from horovod_tpu_torch.utils.timing import steady_state_sec_per_step
+
+    hvd.init()
+    model = build()
+    train = bench.classifier_step(model, batch, seed=args.seed)
+    losses = []
+
+    def step():
+        losses.append(train())
+        return losses[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    sec = steady_state_sec_per_step(step, lambda loss: loss.item(),
+                                    warmup_steps=args.warmup,
+                                    chunks=args.steps, chunk_steps=1)
+    prof, wall = profiled_step(torch, step)
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    values = [x.item() for x in losses]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{label}: batch {batch} of 224x224, {n_params / 1e6:.2f}M "
+          f"parameters, {len(values)} steps ({args.warmup} warm-up)")
+    print(f"  losses: {' '.join(f'{x:.4f}' for x in values)}")
+    mfu = ""
+    if macs_per_image is not None:
+        flops = 3 * 2 * macs_per_image * batch
+        mfu = (f", model TFLOP/s {flops / sec / 1e12:.1f} (MFU "
+               f"{flops / sec / PEAK_BF16_FLOPS:.1%} of 989 bf16)")
+    print(f"  sec/step {sec:.4f}, images/s {batch / sec:.1f}{mfu}, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB  [{card}]")
+    print_breakdown(prof, wall, CONV_GROUPS)
+    check_falling(values)
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched flash kernels: {counts}")
+    hvd.shutdown()
+    del model, train, step
+    torch.cuda.empty_cache()
 
 
 def kernel_times(torch, fa):
@@ -484,6 +608,24 @@ def main(argv=None) -> int:
 
     # Phase 5: times.
     rows = kernel_times(torch, fa)
+
+    # Phase 6: small vision models, the card against the CPU.
+    vision_small_check(torch, args.seed)
+
+    # Phase 7: the bench's ResNet-50 leg at full width.
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import ResNet50, ViT_B16
+    g = torch.Generator(device="cuda")
+    classifier_leg(torch, hvd, args, card, "resnet50 (bf16, cross-replica "
+                   "BatchNorm over data)", lambda: ResNet50(
+                       num_classes=1000, dtype=torch.bfloat16,
+                       axis_name="data", generator=g.manual_seed(args.seed)),
+                   batch=256, macs_per_image=bench.RESNET50_MACS_PER_IMAGE)
+
+    # Phase 8: ViT-B/16.
+    classifier_leg(torch, hvd, args, card, "vit_b16 (bf16)",
+                   lambda: ViT_B16(generator=g.manual_seed(args.seed)),
+                   batch=64)
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),

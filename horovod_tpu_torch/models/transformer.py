@@ -12,7 +12,7 @@ ported yet.
 The numerics follow flax's defaults where torch's differ: LayerNorm has
 eps 1e-6, no bias, an fp32 scale and fp32 statistics; GELU is the tanh
 approximation; RoPE rotates the two halves of the head dim with fp32
-angles. :func:`params_from_flax` maps a flax parameter tree onto this
+angles. ``models.params_from_flax`` maps a flax parameter tree onto this
 module's state dict, so one set of weights drives both models.
 """
 
@@ -20,15 +20,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from functools import partial
+from typing import Callable, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.models.layers import Dense
 from horovod_tpu_torch.parallel.flash_attention import flash_attention
 
 
@@ -88,14 +89,16 @@ def best_attention(q, k, v, causal: bool = True):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(use_bias=False, param_dtype=float32)``: fp32
-    statistics (E[x^2] - E[x]^2, clamped at 0), eps 1e-6, output in
-    ``dtype``."""
+    """flax ``nn.LayerNorm(use_bias=bias, param_dtype=float32)``: fp32
+    statistics (E[x^2] - E[x]^2, clamped at 0), eps 1e-6, an fp32 scale
+    and, with ``bias``, an fp32 bias; output in ``dtype``."""
 
     def __init__(self, dim: int, dtype: torch.dtype, device=None,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, bias: bool = False):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = (nn.Parameter(torch.zeros(dim, device=device))
+                     if bias else None)
         self.dtype = dtype
         self.eps = eps
 
@@ -104,12 +107,9 @@ class LayerNorm(nn.Module):
         mean = xf.mean(-1, keepdim=True)
         var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale)
+        if self.bias is not None:
+            y = y + self.bias
         return y.to(self.dtype)
-
-
-def _linear(x, weight, dtype):
-    """flax Dense with ``dtype``: input and fp32 kernel both cast."""
-    return F.linear(x.to(dtype), weight.to(dtype))
 
 
 class Attention(nn.Module):
@@ -117,38 +117,32 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, hd = cfg.embed_dim, cfg.num_heads * cfg.head_dim
-        self.q = nn.Linear(d, hd, bias=False, device=device)
-        self.k = nn.Linear(d, hd, bias=False, device=device)
-        self.v = nn.Linear(d, hd, bias=False, device=device)
-        self.o = nn.Linear(hd, d, bias=False, device=device)
+        dense = partial(Dense, dtype=cfg.dtype, bias=False, device=device)
+        self.q, self.k, self.v = dense(d, hd), dense(d, hd), dense(d, hd)
+        self.o = dense(hd, d)
 
     def forward(self, x, positions):
         cfg = self.cfg
         b, s, _ = x.shape
         heads = (b, s, cfg.num_heads, cfg.head_dim)
-        q = _linear(x, self.q.weight, cfg.dtype).view(heads)
-        k = _linear(x, self.k.weight, cfg.dtype).view(heads)
-        v = _linear(x, self.v.weight, cfg.dtype).view(heads)
+        q, k, v = (f(x).view(heads) for f in (self.q, self.k, self.v))
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         attn = cfg.attention_fn or best_attention
         out = attn(q, k, v, True)
-        return _linear(out.reshape(b, s, -1), self.o.weight, cfg.dtype)
+        return self.o(out.reshape(b, s, -1))
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        self.cfg = cfg
         hidden = cfg.mlp_ratio * cfg.embed_dim
-        self.up = nn.Linear(cfg.embed_dim, hidden, bias=False, device=device)
-        self.down = nn.Linear(hidden, cfg.embed_dim, bias=False,
-                              device=device)
+        dense = partial(Dense, dtype=cfg.dtype, bias=False, device=device)
+        self.up = dense(cfg.embed_dim, hidden)
+        self.down = dense(hidden, cfg.embed_dim)
 
     def forward(self, x):
-        dt = self.cfg.dtype
-        h = F.gelu(_linear(x, self.up.weight, dt), approximate="tanh")
-        return _linear(h, self.down.weight, dt)
+        return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
 class Block(nn.Module):
@@ -198,7 +192,7 @@ class TransformerLM(nn.Module):
             if name.endswith("scale"):
                 p.fill_(1.0)
                 continue
-            fan_in = p.shape[1]   # Linear [out, in]; Embedding [V, D]
+            fan_in = p.shape[1]   # Dense, Linear [out, in]; Embedding [V, D]
             std = 1.0 / math.sqrt(fan_in)
             noise = torch.randn(p.shape, generator=generator,
                                 device=p.device)
@@ -251,46 +245,3 @@ def lm_loss_from_hidden(hidden, head_kernel, tokens, chunk: int = 1024):
             _chunk_ll, hid[:, start:start + chunk], head_kernel,
             targets[:, start:start + chunk], use_reentrant=False)
     return -total / (b * s)
-
-
-def params_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """A flax ``TransformerLM`` parameter tree (``variables["params"]``
-    as nested dicts of numpy arrays) -> this module's state dict, fp32.
-
-    Mappings (L = block index, D = embed dim, H x hd = heads):
-
-    - ``embed/embedding`` [V, D]            -> ``embed.weight``
-    - ``block_L/ln1/scale``, ``ln2/scale`` [D] -> ``blocks.L.ln1.scale``,
-      ``blocks.L.ln2.scale``
-    - ``block_L/attn/{q,k,v}/kernel`` [D, H, hd] -> reshaped to
-      [D, H*hd] and transposed -> ``blocks.L.attn.{q,k,v}.weight``
-    - ``block_L/attn/o/kernel`` [H, hd, D] -> reshaped to [H*hd, D] and
-      transposed -> ``blocks.L.attn.o.weight``
-    - ``block_L/mlp/{up,down}/kernel`` [in, out] -> transposed ->
-      ``blocks.L.mlp.{up,down}.weight``
-    - ``ln_f/scale`` [D]                    -> ``ln_f.scale``
-    - ``lm_head/kernel`` [D, V]             -> transposed -> ``lm_head.weight``
-    """
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
-    out = {"embed.weight": t(tree["embed"]["embedding"]),
-           "ln_f.scale": t(tree["ln_f"]["scale"]),
-           "lm_head.weight": t(tree["lm_head"]["kernel"]).T.contiguous()}
-    layers = sorted(int(name.split("_")[1]) for name in tree
-                    if name.startswith("block_"))
-    for i in layers:
-        blk, pre = tree[f"block_{i}"], f"blocks.{i}."
-        attn = blk["attn"]
-        d = attn["q"]["kernel"].shape[0]
-        for name in ("q", "k", "v"):
-            w = t(attn[name]["kernel"]).reshape(d, -1)
-            out[pre + f"attn.{name}.weight"] = w.T.contiguous()
-        out[pre + "attn.o.weight"] = \
-            t(attn["o"]["kernel"]).reshape(-1, d).T.contiguous()
-        for name in ("up", "down"):
-            out[pre + f"mlp.{name}.weight"] = \
-                t(blk["mlp"][name]["kernel"]).T.contiguous()
-        out[pre + "ln1.scale"] = t(blk["ln1"]["scale"])
-        out[pre + "ln2.scale"] = t(blk["ln2"]["scale"])
-    return out

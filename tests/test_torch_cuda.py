@@ -202,3 +202,60 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 64, 64, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         fa._flash_fwd(q, q, q, True, 0, 0)            # not contiguous
+
+
+def _train_pass(model, images, labels):
+    """Logits, loss, parameter gradients and buffers after one training
+    forward and backward, on the CPU."""
+    import torch.nn.functional as F
+    logits = model(images)
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    out = {"logits": logits.detach(), "loss": loss.detach()}
+    out.update({f"grad {n}": p.grad for n, p in model.named_parameters()})
+    out.update({f"buffer {n}": b for n, b in model.named_buffers()})
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _card_matches_cpu(cuda, build, image_size):
+    """The same fp32 weights on the card (TF32 off for convolutions and
+    products) and on the CPU give the same training pass within 1e-4."""
+    import copy
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = build()
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(4, image_size, image_size, 3, generator=g)
+    labels = torch.randint(0, 10, (4,), generator=g)
+    want = _train_pass(cpu_model, images, labels)
+    got = _train_pass(card_model, images.to(cuda), labels.to(cuda))
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4,
+                                   atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_resnet_on_the_card_matches_the_cpu(cuda):
+    from horovod_tpu_torch.models import resnet
+    _card_matches_cpu(cuda, lambda: resnet.ResNet(
+        stage_sizes=[1, 1], block_cls=resnet.BottleneckBlock, num_filters=8,
+        num_classes=10, dtype=torch.float32, device="cpu"), 32)
+
+
+@pytest.mark.cuda
+def test_vit_on_the_card_matches_the_cpu(cuda):
+    from horovod_tpu_torch.models import vit
+    _card_matches_cpu(cuda, lambda: vit.ViT(vit.ViTConfig(
+        image_size=32, patch_size=4, num_classes=10, embed_dim=64,
+        num_layers=2, num_heads=4, dtype=torch.float32), device="cpu"), 32)
+
+
+@pytest.mark.cuda
+def test_entry_runs_on_the_card(cuda):
+    from horovod_tpu_torch.entry import entry
+    fa.reset_launch_counts()
+    fn, args = entry()
+    out = fn(*args)
+    assert out.shape == (2, 32, 256) and out.dtype == torch.float32
+    assert out.is_cuda and torch.isfinite(out).all()
+    assert fa.launch_counts()["flash_fwd"] == 2     # head dim 16: simt

@@ -65,6 +65,34 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
                                         num_heads=1, head_dim=16))
 
 
+@pytest.mark.parametrize("build", ["ResNet50", "MnistConvNet", "ViT",
+                                   "entry"])
+def test_vision_models_and_entry_raise_without_cuda(build):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from horovod_tpu_torch import entry, models
+    make = {"ResNet50": models.ResNet50, "MnistConvNet": models.MnistConvNet,
+            "ViT": lambda **kw: models.ViT(models.ViTConfig(num_layers=1),
+                                           **kw),
+            "entry": entry.entry}[build]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    if build != "ResNet50":   # ResNet50 is built on the CPU elsewhere
+        make(device="cpu")
+
+
+def test_bench_refuses_to_run_without_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.bench"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert "device='cpu'" in res.stderr
+    assert "metric" not in res.stdout
+
+
 def test_cuda_tests_skip_cleanly_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the tests run instead")

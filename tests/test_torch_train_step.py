@@ -30,6 +30,7 @@ from horovod_tpu import spmd as ref_spmd
 from horovod_tpu.compat import jaxshim
 from horovod_tpu.models import transformer as ref
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import transformer as port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,7 +83,7 @@ def test_world_size_one_steps_match_optax_reference(cpu_world):
 
     model = port.TransformerLM(port.TransformerConfig(dtype=torch.float32,
                                                       **SHAPE), device="cpu")
-    start = port.params_from_flax(jax.device_get(params))
+    start = params_from_flax(jax.device_get(params))
     model.load_state_dict(start)
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9))
@@ -97,7 +98,7 @@ def test_world_size_one_steps_match_optax_reference(cpu_world):
         loss.backward()
         opt.step()
         np.testing.assert_allclose(loss.item(), float(loss_ref), atol=2e-5)
-    theirs = port.params_from_flax(jax.device_get(params))
+    theirs = params_from_flax(jax.device_get(params))
     for name, p in model.named_parameters():
         moved = (theirs[name] - start[name]).abs().max().item()
         assert moved > 0, name
@@ -167,7 +168,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _spawn_world(out_dir, mode):
+def _spawn_world(out_dir, mode, worker=_WORKER):
+    """Two ranks of a gloo world, each running ``worker`` with the
+    arguments ``out_dir`` and ``mode``."""
     port_no = _free_port()
     procs = []
     for r in range(2):
@@ -178,7 +181,7 @@ def _spawn_world(out_dir, mode):
                    PYTHONPATH=REPO + os.pathsep +
                    os.environ.get("PYTHONPATH", ""))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _WORKER, str(out_dir), mode], env=env,
+            [sys.executable, "-c", worker, str(out_dir), mode], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 

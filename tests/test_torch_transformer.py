@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from horovod_tpu.models import transformer as ref
+from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import transformer as port
 
 FWD_TOL = 2e-5
@@ -38,13 +39,13 @@ def _pair(jdtype=jnp.float32, tdtype=torch.float32, seed=0):
     params = fmodel.init(jax.random.key(seed),
                          jnp.asarray(tokens, jnp.int32))["params"]
     tmodel = port.TransformerLM(tcfg, device="cpu")
-    tmodel.load_state_dict(port.params_from_flax(jax.device_get(params)))
+    tmodel.load_state_dict(params_from_flax(jax.device_get(params)))
     return fmodel, params, tmodel, tokens
 
 
 def test_params_from_flax_covers_every_parameter():
     _, params, tmodel, _ = _pair()
-    state = port.params_from_flax(jax.device_get(params))
+    state = params_from_flax(jax.device_get(params))
     assert set(state) == set(tmodel.state_dict())
     n_flax = sum(x.size for x in jax.tree_util.tree_leaves(params))
     assert n_flax == sum(p.numel() for p in tmodel.parameters())
@@ -84,7 +85,7 @@ def test_chunked_loss_and_gradients_match_reference(chunk):
     np.testing.assert_allclose(loss.item(), float(loss_ref), atol=FWD_TOL)
     np.testing.assert_allclose(
         loss.item(), port.lm_loss(tmodel(tt), tt).item(), atol=FWD_TOL)
-    grads = port.params_from_flax(jax.device_get(grads_ref))
+    grads = params_from_flax(jax.device_get(grads_ref))
     for name, p in tmodel.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), grads[name].numpy(),
                                    atol=GRAD_TOL, err_msg=name)
