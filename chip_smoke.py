@@ -67,6 +67,38 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    loss must be finite and fall, and no flash kernel may launch.
 8. ViT-B/16 at 224x224, batch 64, bf16, through the same step and with
    the same checks.
+9. The negotiated runtime at full width on one card: hvd.init() builds
+   it with a LocalController. The main path's Transformer-LM (phase 4's
+   configuration and seed) takes 5 steps with the in-step
+   DistributedOptimizer, then 5 with the hook-driven
+   ``torch.eager.DistributedOptimizer``: each step's loss and every
+   parameter after the last step must be equal (at size 1 both averages
+   are identities). Prints the seconds per step of each, a profiled step
+   of each (device busy and idle), the cycles per step, the responses
+   per step and tensors per response, the negotiation time per cycle and
+   the runtime thread's busy time per step. Rank 0's timeline (HOROVOD_TIMELINE) must hold
+   NEGOTIATE_ALLREDUCE, ALLREDUCE, QUEUE, COLLECTIVE and CYCLE_START; at
+   size 1 no fusion buffer exists (the local plane, like the reference's,
+   hands the tensors back), so MEMCPY_IN_FUSION_BUFFER is held in phase
+   10's timeline. Then the depth-2 model takes 3 eager steps on the whole
+   batch of 4: phase 10's reference.
+10. A two-rank world on one card: the script starts a second process of
+   itself as rank 1 (both ranks on cuda:0; NCCL refuses two ranks on one
+   device, so only the runtime's socket star is used). CUDA tensors go
+   through every collective against their closed-form values exactly;
+   mismatched dtypes across the ranks raise on both and the world works
+   afterwards; a tensor that a chain of 16 fp32 matmuls of 8192^2 x 256
+   writes right before ``allreduce_async`` (the stream still busy,
+   which is checked) arrives holding the chain's result (the ready
+   event); the depth-2 LM at full width
+   takes 3 eager steps on 2 rows per rank, which must agree with phase
+   9's whole-batch steps: the mean of the ranks' losses within 1e-4 of
+   the loss (relative), every parameter within 2^-6 of its largest
+   update (the ranks' weight gradients are rounded to bf16 on 2 rows
+   each, the whole batch's once on 4: 2^-8 of a gradient apart), the
+   two ranks' parameters equal. Rank 0's timeline must hold
+   MEMCPY_IN_FUSION_BUFFER. Prints the seconds per step and the bytes
+   moved between the card and the host.
 
 The last two lines are the JSON ``kernels`` line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -75,11 +107,15 @@ The last two lines are the JSON ``kernels`` line and the result line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
+import socket
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12
@@ -553,12 +589,288 @@ def kernel_times(torch, fa):
     return rows
 
 
+# The full-width LM of phase 4 (bench.py's), at a depth given per phase.
+LM_FULL = dict(vocab_size=32000, num_heads=16, head_dim=128,
+               max_seq_len=MAIN["s"])
+
+
+def check_timeline(path, required):
+    """The timeline file at ``path`` must hold every event name in
+    ``required``."""
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)}
+    missing = [n for n in required if n not in names]
+    print(f"  timeline: {len(names)} event names; holds "
+          f"{', '.join(required)}: "
+          f"{'ok' if not missing else 'FAIL, missing ' + str(missing)}")
+    if missing:
+        raise AssertionError(f"timeline {path} lacks {missing}")
+
+
+def timed_steps(step, n):
+    """Runs ``n`` steps, each ended by its loss's ``.item()``; returns
+    the losses and each step's host seconds."""
+    losses, secs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def runtime_counts():
+    from horovod_tpu_torch.common import basics
+    return dict(basics.runtime().stats)
+
+
+def print_negotiation(before, after, steps):
+    d = {k: after[k] - before[k] for k in after}
+    per_cycle_ms = d["negotiate_s"] / max(1, d["cycles"]) * 1e3
+    negotiate_ms, execute_ms = (d["negotiate_s"] / steps * 1e3,
+                                d["execute_s"] / steps * 1e3)
+    print(f"  runtime: {d['cycles'] / steps:.1f} cycles per step, "
+          f"{d['responses'] / steps:.1f} responses per step, "
+          f"{d['tensors'] / max(1, d['responses']):.2f} tensors per "
+          f"response, negotiation {per_cycle_ms:.3f} ms per cycle; the "
+          f"loop's thread busy {negotiate_ms + execute_ms:.1f} ms per step "
+          f"(negotiation {negotiate_ms:.1f}, execution {execute_ms:.1f})")
+
+
+def eager_runtime_phase(torch, hvd, args, card, workdir):
+    """Phase 9: the eager (hook-driven, negotiated) optimizer against the
+    in-step one at full width on one card; returns phase 10's whole-batch
+    reference (losses, initial and final parameters on the host)."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import TransformerConfig
+    timeline = os.path.join(workdir, "timeline_size1.json")
+    os.environ.update(HOROVOD_TIMELINE=timeline,
+                      HOROVOD_TIMELINE_MARK_CYCLES="1")
+    cfg = TransformerConfig(num_layers=args.layers, dtype=torch.bfloat16,
+                            **LM_FULL)
+    b = MAIN["b"]
+    hvd.init()
+    try:
+        runs = {}
+        for eager in (False, True):
+            step, model = bench.transformer_step(cfg, b, seed=args.seed,
+                                                 eager=eager)
+            torch.cuda.synchronize()
+            before = runtime_counts()
+            losses, secs = timed_steps(step, 5)
+            after = runtime_counts()
+            params = [p.detach().clone() for p in model.parameters()]
+            prof, wall = profiled_step(torch, step)
+            runs[eager] = (losses, secs, params, before, after, prof, wall)
+            del step, model
+            torch.cuda.empty_cache()
+        print(f"eager runtime, size 1: L{cfg.num_layers} d{cfg.embed_dim} "
+              f"S{cfg.max_seq_len} B{b} V{cfg.vocab_size}, 5 steps each "
+              f"from seed {args.seed}  [{card}]")
+        for eager, label in ((False, "in-step"), (True, "eager")):
+            losses, secs, _, before, after, prof, wall = runs[eager]
+            print(f"  {label:<8} losses {' '.join(f'{x:.6f}' for x in losses)}"
+                  f"; sec/step {statistics.median(secs[1:]):.4f} (median "
+                  f"of steps 2-5; step 1 {secs[0]:.3f})")
+            if eager:
+                print_negotiation(before, after, 5)
+            print_breakdown(prof, wall, LM_GROUPS)
+        (l0, _, p0, *_), (l1, _, p1, *_) = runs[False], runs[True]
+        same = l0 == l1 and all(torch.equal(a, c) for a, c in zip(p0, p1))
+        print(f"  eager == in-step (5 losses, {len(p0)} parameters): "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            worst = max((a - c).abs().max().item() for a, c in zip(p0, p1))
+            raise AssertionError(f"the eager steps differ from the in-step "
+                                 f"ones: losses {l0} vs {l1}, largest "
+                                 f"parameter difference {worst:.3e}")
+        del runs, p0, p1
+        torch.cuda.empty_cache()
+        # Phase 10's reference: one rank, the whole batch of 4.
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        step, model = bench.transformer_step(cfg2, 4, seed=args.seed,
+                                             eager=True)
+        init = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+        losses, _ = timed_steps(step, 3)
+        ref = (losses, init, [p.detach().to("cpu", copy=True)
+                             for p in model.parameters()])
+        del step, model
+    finally:
+        hvd.shutdown()
+        for k in ("HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES"):
+            os.environ.pop(k, None)
+    check_timeline(timeline, ("NEGOTIATE_ALLREDUCE", "ALLREDUCE", "QUEUE",
+                              "COLLECTIVE", "CYCLE_START"))
+    torch.cuda.empty_cache()
+    return ref
+
+
+def world_check(torch, label, got, want):
+    ok = (got.dtype == want.dtype and got.device == want.device
+          and got.shape == want.shape and torch.equal(got, want))
+    print(f"    {label:<40} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: got {got} want {want}")
+
+
+def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
+    """Phase 10, run by both ranks of a world of two on one card. Only
+    the runtime's ops run (NCCL refuses two ranks on one device)."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import TransformerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE="2",
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                      HOROVOD_CONTROLLER_PORT=str(port))
+    timeline = os.path.join(workdir, "timeline_size2.json")
+    if rank == 0:
+        os.environ.update(HOROVOD_TIMELINE=timeline,
+                          HOROVOD_TIMELINE_MARK_CYCLES="1")
+    hvd.init()
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        print(f"two-rank world: rank {hvd.rank()} of {hvd.size()} on {dev}")
+        print("  collectives on CUDA tensors, against closed forms:")
+        c = lambda *a: world_check(torch, *a)  # noqa: E731
+        x = torch.full((4, 3), float(rank + 1), device=dev)
+        c("allreduce sum fp32", hvd.allreduce(x, op=hvd.Sum, name="w.ar"),
+          torch.full((4, 3), 3.0, device=dev))
+        c("allreduce average fp32", hvd.allreduce(x, name="w.avg"),
+          torch.full((4, 3), 1.5, device=dev))
+        xb = (torch.arange(64, device=dev) + rank).bfloat16()
+        c("allreduce sum bf16", hvd.allreduce(xb, op=hvd.Sum, name="w.bf"),
+          (2 * torch.arange(64, device=dev) + 1).bfloat16())
+        c("allgather, dim 0 of 1 and 2 rows",
+          hvd.allgather(torch.full((rank + 1, 2), float(rank), device=dev),
+                        name="w.ag"),
+          torch.tensor([[0.0, 0], [1, 1], [1, 1]], device=dev))
+        c("broadcast from rank 1, fp64",
+          hvd.broadcast(torch.full((3, 3), rank * 10.0, device=dev,
+                                   dtype=torch.float64), 1, name="w.bc"),
+          torch.full((3, 3), 10.0, device=dev, dtype=torch.float64))
+        c("alltoall", hvd.alltoall(torch.arange(4.0, device=dev)
+                                   + 100 * rank, name="w.a2a"),
+          torch.tensor([0.0, 1, 100, 101], device=dev) + 2 * rank)
+        c("reducescatter", hvd.reducescatter(
+            torch.arange(6.0, device=dev) * (rank + 1), name="w.rs"),
+          torch.arange(6.0, device=dev)[3 * rank:3 * rank + 3] * 3)
+        outs = hvd.grouped_allreduce(
+            [torch.full((16 + i,), (rank + 1.0) * (i + 1), device=dev)
+             for i in range(6)], op=hvd.Sum, name="w.grp")
+        for i, o in enumerate(outs):
+            c(f"grouped member {i} (one fused response)", o,
+              torch.full((16 + i,), 3.0 * (i + 1), device=dev))
+
+        print("  negative probe: float32 on rank 0, float64 on rank 1")
+        try:
+            hvd.allreduce(torch.ones(3, device=dev,
+                                     dtype=(torch.float32, torch.float64)
+                                     [rank]), name="w.mm")
+        except hvd.HorovodInternalError as e:
+            print(f"    raised on rank {rank}: {str(e)[:70]}")
+        else:
+            raise AssertionError("mismatched dtypes did not raise")
+        c("the world works afterwards", hvd.allreduce(
+            torch.ones(3, device=dev), op=hvd.Sum, name="w.after"),
+          torch.full((3,), 2.0, device=dev))
+
+        print("  ready event: 16 chained 8192^2 x 256 fp32 matmuls write x "
+              "right before allreduce_async")
+        g = torch.Generator(device=dev).manual_seed(args.seed + 7)
+        a = torch.randn(8192, 8192, generator=g, device=dev) / 90.5
+        y = torch.randn(8192, 256, generator=g, device=dev)
+        torch.cuda.synchronize()
+        for _ in range(16):
+            y = torch.tanh(a @ y)
+        x = y[:, 0] * (rank + 1)
+        busy = not torch.cuda.current_stream().query()
+        h = hvd.allreduce_async(x, op=hvd.Sum, name="w.ready")
+        got = hvd.synchronize(h).clone()
+        torch.cuda.synchronize()
+        xs = hvd.allgather(x.cpu()[None], name="w.ready.x")
+        print(f"    the stream was still busy at the enqueue: {busy}")
+        c("arrived holding the matmuls' result", got,
+          (xs[0] + xs[1]).to(dev))
+        if not busy:
+            raise AssertionError("the matmuls ended before the enqueue: "
+                                 "the check would show nothing")
+
+        print("  the LM at full width, depth 2, 2 rows per rank, 3 eager "
+              "steps:")
+        plane = basics.runtime().op_manager.backends[0]
+        cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
+                                **LM_FULL)
+        step, model = bench.transformer_step(cfg, 2, seed=args.seed,
+                                             eager=True)
+        torch.cuda.synchronize()
+        before = runtime_counts()
+        to_host, from_host = plane.bytes_to_host, plane.bytes_from_host
+        losses, secs = timed_steps(step, 3)
+        print(f"    losses {' '.join(f'{v:.6f}' for v in losses)}; sec/step "
+              f"{' '.join(f'{v:.3f}' for v in secs)}")
+        print(f"    bytes card->host {(plane.bytes_to_host - to_host) / 3:.4g}"
+              f" and host->card {(plane.bytes_from_host - from_host) / 3:.4g}"
+              f" per step")
+        print_negotiation(before, runtime_counts(), 3)
+        params = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+        sums = torch.stack([p.double().sum() for p in params])
+        every = hvd.allgather(sums[None], name="w.sums")
+        all_losses = hvd.allgather(torch.tensor([losses]), name="w.losses")
+        del step, model
+    finally:
+        hvd.shutdown()
+        for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+                  "HOROVOD_CONTROLLER_ADDR", "HOROVOD_CONTROLLER_PORT",
+                  "HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES"):
+            os.environ.pop(k, None)
+    if rank != 0:
+        return
+    check_timeline(timeline, ("NEGOTIATE_ALLREDUCE", "ALLREDUCE",
+                              "MEMCPY_IN_FUSION_BUFFER",
+                              "MEMCPY_OUT_FUSION_BUFFER", "CYCLE_START"))
+    ref_losses, ref_init, ref_after = ref
+    mean = all_losses.mean(0).tolist()
+    loss_err = max(abs(m - r) / abs(r) for m, r in zip(mean, ref_losses))
+    ratio = max(((p - q).abs().max() / (q - i).abs().max()).item()
+                for p, q, i in zip(params, ref_after, ref_init))
+    same = torch.equal(every[0], every[1])
+    print(f"  against one rank on the whole batch: losses "
+          f"{' '.join(f'{v:.6f}' for v in ref_losses)}, the ranks' mean "
+          f"within {loss_err:.2e} of them (bound 1e-4); every parameter "
+          f"within {ratio:.2e} of its largest update (bound 2^-6 = "
+          f"{2 ** -6:.2e}); the two ranks' parameters equal: {same}")
+    if not (loss_err <= 1e-4 and ratio <= 2 ** -6 and same):
+        raise AssertionError("the two-rank steps do not agree with the "
+                             "whole-batch steps")
+
+
+def start_rank1(args, port, workdir):
+    """Phase 10's rank 1: this script again, with its output in a log."""
+    log = open(os.path.join(workdir, "rank1.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed",
+         str(args.seed), "--world-rank1", str(port), workdir],
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
+    # Internal: run as rank 1 of phase 10's world (port, work directory).
+    ap.add_argument("--world-rank1", nargs=2, metavar=("PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -570,6 +882,10 @@ def main(argv=None) -> int:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import _cuda
     from horovod_tpu_torch.parallel import flash_attention as fa
+    if args.world_rank1:
+        port, workdir = args.world_rank1
+        two_rank_world(torch, hvd, args, 1, int(port), workdir)
+        return 0
 
     # Phase 1: card and build.
     card = card_line()
@@ -626,6 +942,24 @@ def main(argv=None) -> int:
     classifier_leg(torch, hvd, args, card, "vit_b16 (bf16)",
                    lambda: ViT_B16(generator=g.manual_seed(args.seed)),
                    batch=64)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.") as workdir:
+        # Phase 9: the negotiated runtime at size 1.
+        ref = eager_runtime_phase(torch, hvd, args, card, workdir)
+        # Phase 10: a two-rank world on this card.
+        port = free_port()
+        rank1 = start_rank1(args, port, workdir)
+        try:
+            two_rank_world(torch, hvd, args, 0, port, workdir, ref)
+            rank1.wait(timeout=300)
+        finally:
+            if rank1.poll() is None:
+                rank1.kill()
+                rank1.wait()
+        if rank1.returncode != 0:
+            with open(os.path.join(workdir, "rank1.log")) as f:
+                print(f.read()[-4000:])
+            raise AssertionError(f"rank 1 exited with {rank1.returncode}")
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),

@@ -108,20 +108,28 @@ def classifier_step(model: torch.nn.Module, batch: int,
 
 
 def transformer_step(cfg: TransformerConfig, batch: int, seed: int = 0,
-                     device=None):
+                     device=None, eager: bool = False):
     """(step, model): one training step of a ``TransformerLM(cfg)`` with
     weights from ``seed`` per call, on a fixed batch of ``batch`` rows of
     random tokens per rank (this rank's slice of one draw for the whole
     world), the chunked loss, SGD lr 0.01 momentum 0.9 behind
     ``DistributedOptimizer``, parameters broadcast from rank 0. Needs
-    ``hvd.init()``. The step returns the loss, detached."""
+    ``hvd.init()``. With ``eager`` the optimizer and the broadcast are
+    those of ``horovod_tpu_torch.torch.eager`` (hook-driven allreduces
+    through the negotiated runtime) instead of the in-step ones. The
+    step returns the loss, detached."""
+    from horovod_tpu_torch.torch import eager as hvd_eager
     device = resolve_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     model = TransformerLM(cfg, device=device, generator=g)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
-        axis="data")
-    hvd.broadcast_parameters(model, root_rank=0)
+    sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    if eager:
+        opt = hvd_eager.DistributedOptimizer(
+            sgd, named_parameters=model.named_parameters())
+        hvd_eager.broadcast_parameters(model.state_dict(), root_rank=0)
+    else:
+        opt = hvd.DistributedOptimizer(sgd, axis="data")
+        hvd.broadcast_parameters(model, root_rank=0)
     tokens = torch.randint(0, cfg.vocab_size,
                            (batch * hvd.size(), cfg.max_seq_len),
                            generator=g, device=device)

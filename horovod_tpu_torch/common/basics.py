@@ -1,26 +1,41 @@
-"""Process identity: init / shutdown / rank / size / local_rank / ...
+"""Process lifecycle and identity: init / shutdown / rank / size / ...
 
-Counterpart of the identity half of ``horovod_tpu/common/basics.py``
-(:1-20, :81-107, and ``rank``/``size``/``local_rank``/``local_size``).
-Identity comes from the launcher's environment: ``HOROVOD_RANK``,
-``HOROVOD_SIZE``, ``HOROVOD_LOCAL_RANK``, ``HOROVOD_LOCAL_SIZE`` and the
-rendezvous address ``HOROVOD_CONTROLLER_ADDR``/``HOROVOD_CONTROLLER_PORT``.
-With none set, ``init()`` brings up a size-1 world. Either way it creates
-a ``torch.distributed`` process group (NCCL on CUDA, gloo on the CPU; a
-size-1 world rendezvous through an in-process ``HashStore``), so the same
-collective path runs at every size. The negotiated runtime and controller
-of the reference are not ported yet.
+Counterpart of ``horovod_tpu/common/basics.py``. ``init`` builds the
+negotiated runtime as the reference's ``_build_runtime`` does (:81-175):
+a ``LocalController`` at size 1, otherwise a ``TcpCoordinator`` on rank
+0 and a ``TcpWorker`` elsewhere, the coordinator listening on the
+launcher's ``HOROVOD_CONTROLLER_ADDR``/``HOROVOD_CONTROLLER_PORT``, with
+the backends ``[SocketBackend, LocalBackend]``. Identity (rank, size,
+local and cross ranks) comes from the controller's handshake, as in the
+reference; ``HOROVOD_RANK`` and ``HOROVOD_SIZE`` say who this process
+is, and ``HOROVOD_LOCAL_RANK`` picks its card.
+
+``init`` also creates the ``torch.distributed`` process group that the
+in-step path (``horovod_tpu_torch.spmd``) runs on: NCCL on CUDA, gloo on
+the CPU. At size 1 it meets through an in-process store. Above size 1
+the runtime already holds the launcher's port, so rank 0 opens the
+group's ``TCPStore`` on a free port and hands that port to the others
+with a first negotiated broadcast.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import os
+import atexit
 import threading
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from horovod_tpu_torch.common import logging as hlog
+from horovod_tpu_torch.common.config import Config, env_int
+from horovod_tpu_torch.common.controller import (
+    Controller, LocalController, TcpCoordinator, TcpWorker,
+)
+from horovod_tpu_torch.common.runtime import Runtime
+from horovod_tpu_torch.ops.local_ops import LocalBackend
+from horovod_tpu_torch.ops.operation_manager import OperationManager
+from horovod_tpu_torch.ops.socket_ops import SocketBackend
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,95 +49,154 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-@dataclasses.dataclass
-class _World:
-    rank: int
-    size: int
-    local_rank: int
-    local_size: int
-
-
 _lock = threading.Lock()
-_world: Optional[_World] = None
+_runtime: Optional[Runtime] = None
 
 
-def _env_int(name: str, default: int) -> int:
-    value = os.environ.get(name, "")
-    return int(value) if value else default
+def _build_runtime(cfg: Config, device: Optional[torch.device]) -> Runtime:
+    secret = cfg.secret_key.encode() if cfg.secret_key else b""
+    size = cfg.size if cfg.size > 0 else 1
+    rank = cfg.rank if cfg.rank >= 0 else 0
+    if not 0 <= rank < size:
+        raise ValueError(f"HOROVOD_RANK={rank} outside a world of "
+                         f"HOROVOD_SIZE={size}")
+    if size == 1:
+        controller: Controller = LocalController()
+    elif not cfg.controller_addr or not cfg.controller_port:
+        raise ValueError("a world of size > 1 needs HOROVOD_CONTROLLER_ADDR "
+                         "and HOROVOD_CONTROLLER_PORT")
+    elif rank == 0:
+        controller = TcpCoordinator(size, port=cfg.controller_port,
+                                    secret=secret,
+                                    start_timeout=cfg.start_timeout)
+        controller.accept_workers()
+    else:
+        controller = TcpWorker(rank, size, cfg.controller_addr,
+                               cfg.controller_port, secret=secret,
+                               start_timeout=cfg.start_timeout)
+    backends = [SocketBackend(controller),
+                LocalBackend(lambda: controller.size)]
+    rt = Runtime(cfg, controller, OperationManager(backends), device=device)
+    rt.start()
+    return rt
+
+
+def _init_process_group(rt: Runtime, cfg: Config, backend: str) -> None:
+    from horovod_tpu_torch import ops
+    size, rank = rt.controller.size, rt.controller.rank
+    if size == 1:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+        return
+    # The master's store listens on every interface; the address is
+    # where each rank's own client reaches it.
+    store = None
+    if rank == 0:
+        store = dist.TCPStore(cfg.controller_addr, 0, size, is_master=True,
+                              wait_for_workers=False)
+    port = torch.tensor([store.port if store is not None else 0])
+    port = int(ops.broadcast(port, 0, name="hvd.init.store_port")[0])
+    if store is None:
+        store = dist.TCPStore(cfg.controller_addr, port, size,
+                              is_master=False)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=size)
 
 
 def init(device=None) -> None:
-    """Join the world described by the environment (a size-1 world when
-    it describes none). ``device`` defaults to CUDA: the local rank's
-    card becomes the current device and the group uses NCCL. With
-    ``device="cpu"`` the group uses gloo. A second call is a no-op."""
-    global _world
+    """Join the world the environment describes (a size-1 world when it
+    describes none): start the negotiated runtime and create the
+    process group. ``device`` defaults to CUDA: the local rank's card
+    (modulo the cards there are) becomes the current device and the
+    group uses NCCL. With ``device="cpu"`` the group uses gloo. A second
+    call is a no-op."""
+    global _runtime
     with _lock:
-        if _world is not None:
+        if _runtime is not None:
             return
         dev = resolve_device(device)
-        size = _env_int("HOROVOD_SIZE", 1)
-        rank = _env_int("HOROVOD_RANK", 0)
-        local_rank = _env_int("HOROVOD_LOCAL_RANK", rank)
-        local_size = _env_int("HOROVOD_LOCAL_SIZE", size)
-        if not 0 <= rank < size:
-            raise ValueError(f"HOROVOD_RANK={rank} outside a world of "
-                             f"HOROVOD_SIZE={size}")
+        cfg = Config.from_env()
+        hlog.set_level(cfg.log_level)
         if dev.type == "cuda":
-            dev = torch.device("cuda", local_rank)
+            local_rank = env_int("HOROVOD_LOCAL_RANK", max(cfg.rank, 0))
+            dev = torch.device("cuda",
+                               local_rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        if size == 1:
-            dist.init_process_group(backend, store=dist.HashStore(),
-                                    rank=0, world_size=1)
-        else:
-            addr = os.environ.get("HOROVOD_CONTROLLER_ADDR", "")
-            port = _env_int("HOROVOD_CONTROLLER_PORT", 0)
-            if not addr or not port:
-                raise ValueError(
-                    "a world of size > 1 needs HOROVOD_CONTROLLER_ADDR "
-                    "and HOROVOD_CONTROLLER_PORT")
-            dist.init_process_group(backend,
-                                    init_method=f"tcp://{addr}:{port}",
-                                    rank=rank, world_size=size)
-        _world = _World(rank, size, local_rank, local_size)
+        rt = _build_runtime(cfg, dev if dev.type == "cuda" else None)
+        _runtime = rt
+        from horovod_tpu_torch import ops
+        ops.reset_name_counters()
+        try:
+            _init_process_group(rt, cfg,
+                                "nccl" if dev.type == "cuda" else "gloo")
+        except BaseException:
+            _stop_runtime()
+            raise
+        ops.reset_name_counters()
+
+
+def _stop_runtime() -> None:
+    global _runtime
+    rt, _runtime = _runtime, None
+    if rt is not None:
+        rt.request_shutdown()
+        rt.join(timeout=30.0)
 
 
 def shutdown() -> None:
-    """Leave the world and destroy its process group."""
-    global _world
+    """Leave the world: stop the runtime (pending handles fail with the
+    shutdown error) and destroy the process group."""
     with _lock:
-        if _world is None:
+        if _runtime is None:
             return
         from horovod_tpu_torch import spmd
         spmd._forget_meshes()
-        dist.destroy_process_group()
-        _world = None
+        _stop_runtime()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
-def _require() -> _World:
-    if _world is None:
+atexit.register(shutdown)
+
+
+def runtime() -> Runtime:
+    """The live runtime (the ops and adapters use it)."""
+    if _runtime is None:
         raise ValueError(
             "horovod_tpu_torch has not been initialized; run hvd.init() "
             "first.")
-    return _world
+    return _runtime
 
 
 def initialized() -> bool:
-    return _world is not None
+    return _runtime is not None
 
 
 def rank() -> int:
-    return _require().rank
+    return runtime().controller.topology.rank
 
 
 def size() -> int:
-    return _require().size
+    return runtime().controller.topology.size
 
 
 def local_rank() -> int:
-    return _require().local_rank
+    return runtime().controller.topology.local_rank
 
 
 def local_size() -> int:
-    return _require().local_size
+    return runtime().controller.topology.local_size
+
+
+def cross_rank() -> int:
+    """Rank among hosts."""
+    return runtime().controller.topology.cross_rank
+
+
+def cross_size() -> int:
+    return runtime().controller.topology.cross_size
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of ranks."""
+    return runtime().controller.topology.is_homogeneous

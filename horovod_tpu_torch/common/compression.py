@@ -5,7 +5,8 @@ passes tensors through, ``.fp16`` and ``.bf16`` cast floating tensors to
 the wire type before the reduction and back to their own type after.
 bf16 keeps float32's exponent range, so it needs no loss scaling.
 (The reference's pass-through under a negotiated wire compression has no
-counterpart yet: the port has no negotiated data plane.)
+counterpart yet: the negotiated runtime has no wire dtypes, ROADMAP.md
+A6.5.)
 """
 
 from __future__ import annotations

@@ -1,0 +1,158 @@
+"""The runtime's knobs, read once from the environment at ``init``.
+
+Counterpart of ``horovod_tpu/common/config.py`` for what this port
+runs: the same ``HOROVOD_*`` names with the same defaults (fusion
+threshold 64 MiB, cycle time 5 ms, stall check at 60 s, timeline off).
+The planes of the reference that are not ported yet are off here. A
+variable that would switch one of them on raises ``NotImplementedError``
+naming its item in ``ROADMAP.md``, so that nothing quietly runs another
+configuration than the one asked for. The reference's defaults for
+those planes differ (response cache, native core, shm and ring on):
+this port's runtime is the reference run with ``HOROVOD_CACHE_CAPACITY=0
+HOROVOD_TPU_NATIVE=0 HOROVOD_TPU_SHM=0 HOROVOD_TPU_RING_THRESHOLD=-1``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Dict, Tuple
+
+
+def env_str(name: str, default: str = "") -> str:
+    v = os.environ.get(name)
+    return default if v is None or v == "" else v
+
+
+def env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        return default
+
+
+def env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.strip() in ("1", "true", "True", "TRUE", "yes", "on")
+
+
+def _on(name: str) -> bool:
+    return env_bool(name, False)
+
+
+def _positive(name: str) -> bool:
+    return env_float(name, 0.0) > 0
+
+
+# Variable -> (does its value switch a plane on?, what is not ported and
+# its item in ROADMAP.md). The debug sanitizers (HOROVOD_TPU_LOCKCHECK,
+# HOROVOD_TPU_THREADCHECK, A6.9) change no result and are not listed.
+_NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
+    "HOROVOD_CACHE_CAPACITY": (
+        lambda n: env_int(n, 0) > 0 and env_bool(
+            "HOROVOD_CACHE_ENABLED", True),
+        "the response cache and its bitmask/speculative cycles (A6.1)"),
+    "HOROVOD_HEARTBEAT_TIMEOUT": (
+        _positive, "the heartbeat and world abort (A6.2)"),
+    "HOROVOD_TPU_HIER_CONTROLLER": (
+        _on, "the hierarchical control plane (A6.3)"),
+    "HOROVOD_TPU_RING_THRESHOLD": (
+        lambda n: env_int(n, -1) >= 0, "the ring data plane (A6.4)"),
+    "HOROVOD_TPU_SHM": (_on, "the shm data plane (A6.4)"),
+    "HOROVOD_TWO_LEVEL": (_on, "two-level allreduce (A6.4)"),
+    "HOROVOD_COMPRESSION": (
+        lambda n: env_str(n, "none").lower() != "none",
+        "wire dtypes and compression negotiation (A6.5)"),
+    "HOROVOD_TPU_ZERO_COPY": (_on, "the arena zero-copy path (A6.6)"),
+    "HOROVOD_TPU_METRICS": (_on, "the metrics plane (A6.7)"),
+    "HOROVOD_TPU_TRACE": (lambda n: bool(env_str(n)),
+                          "the trace plane (A6.7)"),
+    "HOROVOD_AUTOTUNE": (_on, "autotune (A6.8)"),
+    "HOROVOD_TPU_NATIVE": (_on, "the native core (A6.10)"),
+    "HOROVOD_OVERLAP_BUCKETS": (_positive, "the overlap tier (A9)"),
+    "HOROVOD_OVERLAP_BYTES": (_positive, "the overlap tier (A9)"),
+    "HOROVOD_TPU_ICI": (_on, "the NVLink plane (A7)"),
+    "HOROVOD_HIERARCHICAL_ALLREDUCE": (
+        _on, "hierarchical allreduce (A7)"),
+    "HOROVOD_HIERARCHICAL_ALLGATHER": (
+        _on, "hierarchical allgather (A7)"),
+    "HOROVOD_ELASTIC": (_on, "elastic worlds (A9)"),
+}
+
+
+def check_not_ported() -> None:
+    """Raise for the first variable that asks for a plane this port
+    does not have yet."""
+    for name, (switched_on, what) in _NOT_PORTED.items():
+        if switched_on(name):
+            raise NotImplementedError(
+                f"{name}={os.environ[name]} asks for {what}, which "
+                f"horovod_tpu_torch does not have yet (that item of "
+                f"ROADMAP.md). Unset it to run the negotiated runtime "
+                f"without it.")
+
+
+@dataclasses.dataclass
+class Config:
+    """Snapshot of the runtime's knobs."""
+
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
+    cycle_time_ms: float = 5.0
+    # Idle backoff: after 16 empty cycles the loop's sleep ramps toward
+    # this many ms; new work or a shutdown wakes it at once.
+    idle_backoff_ms: float = 25.0
+    timeline_path: str = ""
+    timeline_mark_cycles: bool = False
+    stall_check_disable: bool = False
+    stall_check_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    log_level: str = "warning"
+    controller_addr: str = ""
+    controller_port: int = 0
+    secret_key: str = ""
+    start_timeout: float = 30.0
+    rank: int = -1
+    size: int = -1
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        check_not_ported()
+        c = cls()
+        c.fusion_threshold_bytes = env_int(
+            "HOROVOD_FUSION_THRESHOLD", c.fusion_threshold_bytes)
+        c.cycle_time_ms = env_float("HOROVOD_CYCLE_TIME", c.cycle_time_ms)
+        c.idle_backoff_ms = env_float("HOROVOD_TPU_IDLE_BACKOFF",
+                                      c.idle_backoff_ms)
+        c.timeline_path = env_str("HOROVOD_TIMELINE")
+        c.timeline_mark_cycles = env_bool("HOROVOD_TIMELINE_MARK_CYCLES",
+                                          c.timeline_mark_cycles)
+        c.stall_check_disable = env_bool("HOROVOD_STALL_CHECK_DISABLE",
+                                         c.stall_check_disable)
+        c.stall_check_time_seconds = env_float(
+            "HOROVOD_STALL_CHECK_TIME_SECONDS", c.stall_check_time_seconds)
+        c.stall_shutdown_time_seconds = env_float(
+            "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+            c.stall_shutdown_time_seconds)
+        c.log_level = env_str("HOROVOD_LOG_LEVEL", c.log_level)
+        c.controller_addr = env_str("HOROVOD_CONTROLLER_ADDR")
+        c.controller_port = env_int("HOROVOD_CONTROLLER_PORT", 0)
+        c.secret_key = env_str("HOROVOD_SECRET_KEY")
+        c.start_timeout = env_float("HOROVOD_START_TIMEOUT", c.start_timeout)
+        c.rank = env_int("HOROVOD_RANK", c.rank)
+        c.size = env_int("HOROVOD_SIZE", c.size)
+        return c

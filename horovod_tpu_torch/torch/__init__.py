@@ -7,6 +7,9 @@ first averages the gradients over a mesh axis. Here it wraps a
 parameter's ``.grad`` over the axis, in place, and then steps. The
 broadcasts copy the root rank's tensors into every rank's own tensors,
 in place, where the reference returns new pytrees.
+
+The counterpart of ``horovod_tpu/torch/__init__.py`` (the hook-driven
+optimizer on the negotiated runtime) is ``horovod_tpu_torch.torch.eager``.
 """
 
 from __future__ import annotations

@@ -259,3 +259,59 @@ def test_entry_runs_on_the_card(cuda):
     assert out.shape == (2, 32, 256) and out.dtype == torch.float32
     assert out.is_cuda and torch.isfinite(out).all()
     assert fa.launch_counts()["flash_fwd"] == 2     # head dim 16: simt
+
+
+@pytest.fixture
+def cuda_world(cuda):
+    """The negotiated runtime at size 1 on the card (LocalController)."""
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    yield hvd
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_runtime_waits_for_the_ready_event_and_hands_over_on_the_stream(
+        cuda_world):
+    """A tensor that a chain of matmuls on the caller's stream is still
+    writing when it is enqueued: the plane's stream (which scales it by
+    the prescale) must wait for that work, and the output must be safe to
+    read on the caller's stream right after ``synchronize``."""
+    hvd = cuda_world
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(8192, 8192, generator=g, device="cuda") / 90.5
+    y = torch.randn(8192, 256, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    caller = torch.cuda.Stream()
+    with torch.cuda.stream(caller):
+        for _ in range(16):  # 0.55 TFLOP of fp32: milliseconds of work
+            y = torch.tanh(a @ y)
+        x = y[:, 0].contiguous()
+        busy = not caller.query()
+        out = hvd.synchronize(hvd.allreduce_async(x, op=hvd.Sum,
+                                                  prescale_factor=2.0))
+        got = out + 0
+    torch.cuda.synchronize()
+    assert busy, "the matmuls ended before the enqueue"
+    assert out.device == x.device
+    assert torch.equal(got, x * 2)
+
+
+@pytest.mark.cuda
+def test_eager_optimizer_equals_the_in_step_one_on_the_card(cuda_world):
+    """bf16 compute through the sm90 flash kernels: three steps of the
+    hook-driven eager optimizer equal three of the in-step one at size 1,
+    losses and parameters bit for bit."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=2,
+                            head_dim=64, max_seq_len=256,
+                            dtype=torch.bfloat16)
+    runs = []
+    for eager in (False, True):
+        step, model = bench.transformer_step(cfg, 2, seed=1, eager=eager)
+        losses = [step().item() for _ in range(3)]
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -107,19 +107,20 @@ def test_world_size_one_steps_match_optax_reference(cpu_world):
 
 
 def test_allreduce_ops_and_scales_at_world_size_one(cpu_world):
+    spmd = hvd.spmd
     x = torch.arange(4.0)
-    assert torch.equal(hvd.allreduce(x), x)
-    assert torch.equal(hvd.allreduce(x, op=hvd.Max), x)
-    assert torch.equal(hvd.allreduce(x, op=hvd.Sum, prescale_factor=2.0,
-                                     postscale_factor=0.5), x)
-    assert torch.equal(hvd.allgather(x), x)
-    assert torch.equal(hvd.broadcast(x, root_rank=0), x)
-    assert (hvd.rank(), hvd.size(), hvd.mesh_rank(), hvd.mesh_size()) == \
+    assert torch.equal(spmd.allreduce(x), x)
+    assert torch.equal(spmd.allreduce(x, op=spmd.Max), x)
+    assert torch.equal(spmd.allreduce(x, op=spmd.Sum, prescale_factor=2.0,
+                                      postscale_factor=0.5), x)
+    assert torch.equal(spmd.allgather(x), x)
+    assert torch.equal(spmd.broadcast(x, root_rank=0), x)
+    assert (hvd.rank(), hvd.size(), spmd.mesh_rank(), spmd.mesh_size()) == \
         (0, 1, 0, 1)
     with pytest.raises(ValueError):
-        hvd.allreduce(x, op=7)
+        spmd.allreduce(x, op=7)
     with pytest.raises(ValueError):
-        hvd.create_mesh({"data": 2})
+        spmd.create_mesh({"data": 2})
 
 
 def test_predivide_factor_keeps_the_mean(cpu_world):
