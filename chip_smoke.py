@@ -12,11 +12,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    prints the build time.
 2. Kernels against their plain PyTorch versions, on the card. bf16 at
    head dims 64 and 128 runs the tensor-core (sm90) forward, dq and dk/dv
-   kernels; fp32, and a bf16 case at the main shape through the private
-   launchers, run the fp32-FMA (simt) ones. Cases:
-   the main path's shape (B=4, S=2048, H=16, D=128, bf16, causal), a
-   non-causal, two offset, a D=64 and a short ragged case, fp32 at two
-   shapes. Each element is held to the bound of
+   kernels; fp32, fp16, the other head dims, and a bf16 case at the main
+   shape through the private launchers, run the fp32-FMA (simt) ones.
+   Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
+   causal), a non-causal, two offset, a D=64 and a short ragged case,
+   fp32 at two shapes, and at B=2, S=1024, H=8, causal, through the
+   dispatchers: fp16 at D 128, bf16 at D 96, D 80 (the D 96 kernels on
+   zero-padded inputs) and D 256, fp32 at D 256 (the backward kernels
+   own 32-row tiles there). Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
    plain| for the sm90 kernels), a row being the last axis (D for o and
@@ -25,7 +28,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    pure rounding noise (utils/tolerance.py says why). Both versions
    compute in fp32 from the same inputs, in another summation order:
    rtol 2e-5 (o, m, l) or 1e-4 (gradients). bf16 outputs are rounded to
-   bf16 by both, step = 2^-7; fp32 outputs have step 0. The sm90 kernels
+   bf16 by both, step = 2^-7; fp16 outputs step = 2^-10; fp32 outputs
+   have step 0. The sm90 kernels
    also feed p (and ds) to the tensor cores in bf16; plain_b is the plain
    version that rounds there too, and twice its effect in the row is
    allowed. The bound must show its power: at the main shape a plain
@@ -44,15 +48,18 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    once per layer per step and the simt ones never.
    One more step runs under torch.profiler and prints its device time by
    kernel.
-5. The six kernels' times at the main path's shape (the simt kernels
-   through their private launchers, in turns with the sm90 ones) beside
-   the plain version, the PyTorch library call computing the same
-   function (scaled_dot_product_attention, timed here only as a
-   yardstick) and the bound: the larger of the operations the function
-   needs (2 x D per visible (q, k) pair and matrix product: two products
-   forward, three for dq, four for dk/dv) over the card's bf16 dense
-   peak (989 TFLOP/s) and the bytes in and out over its memory rate
-   (3.35 TB/s).
+5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
+   the main path's shape in bf16, the simt kernels there in fp32 (their
+   input type on the LM's shapes, through the private launchers), each
+   C4 instantiation at its phase-2 shape through the dispatchers (D 80
+   includes the padding copies), beside the plain version, the PyTorch
+   library call computing the same function in the same dtype
+   (scaled_dot_product_attention, timed here only as a yardstick) and
+   the bound: the larger of the operations the function needs (2 x D
+   per visible (q, k) pair and matrix product: two products forward,
+   three for dq, four for dk/dv) over the card's dense peak for the
+   input type (989 TFLOP/s bf16 and fp16, 67 TFLOP/s fp32) and the
+   bytes in and out over its memory rate (3.35 TB/s).
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
    weights on both (TF32 off) give the same logits, loss, parameter
@@ -84,13 +91,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    batch of 4: phase 10's reference.
 10. A two-rank world on one card: the script starts a second process of
    itself as rank 1 (both ranks on cuda:0; NCCL refuses two ranks on one
-   device, so only the runtime's socket star is used). CUDA tensors go
-   through every collective against their closed-form values exactly;
-   mismatched dtypes across the ranks raise on both and the world works
-   afterwards; a tensor that a chain of 16 fp32 matmuls of 8192^2 x 256
-   writes right before ``allreduce_async`` (the stream still busy,
-   which is checked) arrives holding the chain's result (the ready
-   event); the depth-2 LM at full width
+   device). Both ranks take the process-group plane out of their backend
+   lists, so the runtime's socket star carries the CUDA tensors. CUDA
+   tensors go through every collective against their closed-form values
+   exactly; mismatched dtypes across the ranks raise on both and the
+   world works afterwards; a tensor that a chain of 16 fp32 matmuls of
+   8192^2 x 256 writes right before ``allreduce_async`` (the stream
+   still busy, which is checked) arrives holding the chain's result (the
+   ready event); the depth-2 LM at full width
    takes 3 eager steps on 2 rows per rank, which must agree with phase
    9's whole-batch steps: the mean of the ranks' losses within 1e-4 of
    the loss (relative), every parameter within 2^-6 of its largest
@@ -99,9 +107,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    two ranks' parameters equal. Rank 0's timeline must hold
    MEMCPY_IN_FUSION_BUFFER. Prints the seconds per step and the bytes
    moved between the card and the host.
+11. The same world through the process-group plane
+   (horovod_tpu_torch/ops/process_group_ops.py): the ranks must agree on
+   its gloo rendering (one card, two ranks), every check of phase 10
+   must hold, no CUDA tensor may reach the star (its card<->host bytes
+   stay 0 from init on) and the plane must have served responses; the
+   losses and parameters must equal phase 10's bit for bit (a sum of two
+   fp32 terms has one order), or else phase 10's bounds against the
+   whole batch, and the script says which held. Prints the seconds per
+   step, the loop's busy ms and the responses per step (per backend)
+   beside phase 10's. The nccl rendering needs a card per rank and is
+   not run here.
 
-The last two lines are the JSON ``kernels`` line and the result line
-``{"ok": true, "device": {...}}``.
+The last two lines are the JSON ``kernels`` line (the six kernels at
+their main shapes, then each C4 instantiation as ``<kernel>.<tag>``)
+and the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -120,7 +140,18 @@ import time
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# Dense peaks by input type (fp32 without the tensor cores).
+PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
+              "float32": 67e12}
 MAIN = dict(b=4, s=2048, h=16, d=128)
+# The head dims and dtypes past the kernels' first set (ROADMAP.md C4):
+# (tag, dtype name, head dim), each checked in phase 2 and timed in phase
+# 5 at this shape, causal, through the dispatchers (D 80 runs the D 96
+# kernels on zero-padded inputs).
+C4_SHAPE = dict(b=2, s=1024, h=8)
+C4_CASES = (("fp16_d128", "float16", 128), ("bf16_d96", "bfloat16", 96),
+            ("bf16_d80", "bfloat16", 80), ("bf16_d256", "bfloat16", 256),
+            ("fp32_d256", "float32", 256))
 # The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
 # and the small head dims and must not launch there.
 MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
@@ -199,11 +230,13 @@ def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi):
 
 
 def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
-                seed=0, design=None, lost_tiles=False):
+                seed=0, design=None, lost_tiles=False, dispatch=False):
     """Runs the forward, dq and dk/dv kernels and their plain versions on
     one input set; returns {kernel: max_abs_err}. ``design`` forces the
-    sm90 or simt launchers (default: ``fa._design``)."""
-    from horovod_tpu_torch.utils.tolerance import BF16_STEP, DQ_ATOL
+    sm90 or simt launchers (default: ``fa._design``); ``dispatch`` goes
+    through the dispatchers instead, which pad a head dim no kernel is
+    built for."""
+    from horovod_tpu_torch.utils.tolerance import DQ_ATOL, step_of
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
@@ -212,6 +245,8 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     fwd = fa._flash_fwd_sm90 if sm90 else fa._flash_fwd_simt
     dqk = fa._flash_dq_sm90 if sm90 else fa._flash_dq_simt
     dkv = fa._flash_dkv_sm90 if sm90 else fa._flash_dkv_simt
+    if dispatch:
+        fwd, dqk, dkv = fa._flash_fwd, fa._flash_dq, fa._flash_dkv
     suffix = "_sm90" if sm90 else ""
     print(f"case {name}: B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
           f"causal={causal} q_offset={qo} k_offset={ko} design={design}")
@@ -222,7 +257,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     dq = dqk(q, k, v, do, lse, delta, causal, qo, ko)
     dk, dv = dkv(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
-    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    step = step_of(dtype)
     o_b = (fa._flash_fwd_plain(q, k, v, causal, qo, ko,
                                bf16_operands=True)[0] if sm90 else None)
     errs = {"flash_fwd" + suffix: max(
@@ -518,37 +553,28 @@ def classifier_leg(torch, hvd, args, card, label, build, batch,
     torch.cuda.empty_cache()
 
 
-def kernel_times(torch, fa):
-    """ms, plain_ms, library_ms and bound_ms of each kernel at the main
-    path's shape (bf16, causal); the simt kernels are timed through their
-    private launchers on the same inputs."""
+def kernel_rows(torch, fa, b, s, h, d, dtype, launchers, seed=1):
+    """ms, plain_ms, library_ms and bound_ms of the forward, dq and dk/dv
+    kernels that ``launchers`` (three functions) run on one causal input
+    set of this shape and dtype, each a mean of 20 launches; the library
+    call is scaled_dot_product_attention on [B, H, S, D] copies of the
+    same inputs, in the same dtype."""
     import torch.nn.functional as F
-    b, s, h, d = MAIN["b"], MAIN["s"], MAIN["h"], MAIN["d"]
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
     lse = fa._lse_from_stats(m, l)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, True, 0, 0)
     fwd_args = (q, k, v, True, 0, 0)
+    fwd, dq, dkv = launchers
+    ms = {"fwd": time_ms(lambda: fwd(*fwd_args), 20),
+          "dq": time_ms(lambda: dq(*args), 20),
+          "dkv": time_ms(lambda: dkv(*args), 20)}
     plain = {"fwd": time_ms(lambda: fa._flash_fwd_plain(*fwd_args), 5),
              "dq": time_ms(lambda: fa._flash_dq_plain(*args), 5),
              "dkv": time_ms(lambda: fa._flash_dkv_plain(*args), 5)}
-    # Each function's two designs are timed in turns: simt, sm90, sm90,
-    # simt, each a mean of 20 launches; the kept time is the mean of two.
-    t = {}
-    for fn, pair in (("fwd", (lambda: fa._flash_fwd_simt(*fwd_args),
-                              lambda: fa._flash_fwd_sm90(*fwd_args))),
-                     ("dq", (lambda: fa._flash_dq_simt(*args),
-                             lambda: fa._flash_dq_sm90(*args))),
-                     ("dkv", (lambda: fa._flash_dkv_simt(*args),
-                              lambda: fa._flash_dkv_sm90(*args)))):
-        order = (0, 1, 1, 0)
-        ms = [time_ms(pair[i], 20) for i in order]
-        t[f"flash_{fn}"] = ((ms[0] + ms[3]) / 2, plain[fn])
-        t[f"flash_{fn}_sm90"] = ((ms[1] + ms[2]) / 2, plain[fn])
-    # The library yardstick on [B, H, S, D] copies made outside the timing.
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
@@ -562,7 +588,7 @@ def kernel_times(torch, fa):
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), dot, retain_graph=True), 20)
 
-    bh, elt = b * h, 2
+    bh, elt = b * h, q.element_size()
     tensor = b * s * h * d * elt
     stats = b * h * s * 4
     # 2 x D operations per visible (q, k) pair (half of them, causal) for
@@ -574,18 +600,41 @@ def kernel_times(torch, fa):
     moved = {"fwd": 4 * tensor + 2 * stats,      # q k v in, o m l out
              "dq": 5 * tensor + 2 * stats,       # q k v do lse delta, dq
              "dkv": 6 * tensor + 2 * stats}      # ... dk dv out
+    peak = PEAK_FLOPS[str(dtype)[6:]]
     rows = {}
-    for name in t:
-        fn = name.split("_")[1]
-        op_ms = flops[fn] / PEAK_BF16_FLOPS * 1e3
+    for fn in ms:
+        op_ms = flops[fn] / peak * 1e3
         byte_ms = moved[fn] / PEAK_BYTES_PER_S * 1e3
-        rows[name] = dict(
-            ms=t[name][0], plain_ms=t[name][1],
+        rows[fn] = dict(
+            ms=ms[fn], plain_ms=plain[fn],
             library_ms=lib_fwd if fn == "fwd" else lib_fwd_bwd,
             bound_ms=max(op_ms, byte_ms),
             bound_by="operations" if op_ms >= byte_ms else "bytes")
         if fn != "fwd":
-            rows[name]["library_bwd_only_ms"] = lib_bwd
+            rows[fn]["library_bwd_only_ms"] = lib_bwd
+    del q, k, v, do, o, qt, kt, vt, dot, qg, kg, vg, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_times(torch, fa):
+    """Every kernel's row: the sm90 kernels at the main path's shape in
+    bf16, the simt kernels there in fp32 (the input type they serve on
+    the LM's shapes), and each C4 instantiation at its shape."""
+    rows = {}
+    sm90 = kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16, launchers=(
+        fa._flash_fwd_sm90, fa._flash_dq_sm90, fa._flash_dkv_sm90))
+    simt = kernel_rows(torch, fa, **MAIN, dtype=torch.float32, launchers=(
+        fa._flash_fwd_simt, fa._flash_dq_simt, fa._flash_dkv_simt))
+    for fn in ("fwd", "dq", "dkv"):
+        rows[f"flash_{fn}_sm90"] = sm90[fn]
+        rows[f"flash_{fn}"] = simt[fn]
+    for tag, dtype, d in C4_CASES:
+        case = kernel_rows(torch, fa, **C4_SHAPE, d=d,
+                           dtype=getattr(torch, dtype), launchers=(
+                               fa._flash_fwd, fa._flash_dq, fa._flash_dkv))
+        for fn in case:
+            rows[f"flash_{fn}.{tag}"] = case[fn]
     return rows
 
 
@@ -624,16 +673,22 @@ def runtime_counts():
 
 
 def print_negotiation(before, after, steps):
-    d = {k: after[k] - before[k] for k in after}
+    """Prints the runtime's counts per step; returns (responses per
+    step, the loop's busy ms per step, responses per backend per step)."""
+    d = {k: after[k] - before.get(k, 0) for k in after}
     per_cycle_ms = d["negotiate_s"] / max(1, d["cycles"]) * 1e3
     negotiate_ms, execute_ms = (d["negotiate_s"] / steps * 1e3,
                                 d["execute_s"] / steps * 1e3)
+    by_backend = {k.split(".", 1)[1]: v / steps for k, v in d.items()
+                  if k.startswith("responses.") and v}
     print(f"  runtime: {d['cycles'] / steps:.1f} cycles per step, "
-          f"{d['responses'] / steps:.1f} responses per step, "
+          f"{d['responses'] / steps:.1f} responses per step "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in by_backend.items())}), "
           f"{d['tensors'] / max(1, d['responses']):.2f} tensors per "
           f"response, negotiation {per_cycle_ms:.3f} ms per cycle; the "
           f"loop's thread busy {negotiate_ms + execute_ms:.1f} ms per step "
           f"(negotiation {negotiate_ms:.1f}, execution {execute_ms:.1f})")
+    return (d["responses"] / steps, negotiate_ms + execute_ms, by_backend)
 
 
 def eager_runtime_phase(torch, hvd, args, card, workdir):
@@ -712,9 +767,16 @@ def world_check(torch, label, got, want):
         raise AssertionError(f"{label}: got {got} want {want}")
 
 
-def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
-    """Phase 10, run by both ranks of a world of two on one card. Only
-    the runtime's ops run (NCCL refuses two ranks on one device)."""
+def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None,
+                   mode="star", star_run=None):
+    """Phases 10 (``mode="star"``) and 11 (``"plane"``), run by both
+    ranks of a world of two on one card. Only the runtime's ops run (NCCL
+    refuses two ranks on one device). Phase 10 takes the process-group
+    plane out of the backend list on both ranks before any CUDA op, so
+    that the socket star carries the CUDA tensors; phase 11 leaves it in,
+    and the ranks agree on its gloo rendering at the first CUDA op.
+    Rank 0 returns (the ranks' losses, its parameters, the step
+    numbers); phase 11 holds them to phase 10's (``star_run``)."""
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.models import TransformerConfig
@@ -723,14 +785,25 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
                       HOROVOD_LOCAL_RANK=str(rank),
                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
                       HOROVOD_CONTROLLER_PORT=str(port))
-    timeline = os.path.join(workdir, "timeline_size2.json")
+    timeline = os.path.join(workdir, f"timeline_size2_{mode}.json")
     if rank == 0:
         os.environ.update(HOROVOD_TIMELINE=timeline,
                           HOROVOD_TIMELINE_MARK_CYCLES="1")
     hvd.init()
     try:
+        rt = basics.runtime()
+        if mode == "star":
+            rt.op_manager.backends = [b for b in rt.op_manager.backends
+                                      if b.name != "process_group"]
+        star = next(b for b in rt.op_manager.backends if b.name == "socket")
+        plane = next((b for b in rt.op_manager.backends
+                      if b.name == "process_group"), None)
+        star_bytes = (star.bytes_to_host, star.bytes_from_host)
         dev = torch.device("cuda", torch.cuda.current_device())
-        print(f"two-rank world: rank {hvd.rank()} of {hvd.size()} on {dev}")
+        via = "the socket star" if mode == "star" else \
+            "the process-group plane"
+        print(f"two-rank world through {via}: rank {hvd.rank()} of "
+              f"{hvd.size()} on {dev}")
         print("  collectives on CUDA tensors, against closed forms:")
         c = lambda *a: world_check(torch, *a)  # noqa: E731
         x = torch.full((4, 3), float(rank + 1), device=dev)
@@ -774,6 +847,11 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
         c("the world works afterwards", hvd.allreduce(
             torch.ones(3, device=dev), op=hvd.Sum, name="w.after"),
           torch.full((3,), 2.0, device=dev))
+        if plane is not None:
+            print(f"    the plane's agreed rendering: {plane.rendering}")
+            if plane.rendering != "gloo":
+                raise AssertionError(f"two ranks on one card must render "
+                                     f"with gloo, not {plane.rendering}")
 
         print("  ready event: 16 chained 8192^2 x 256 fp32 matmuls write x "
               "right before allreduce_async")
@@ -798,21 +876,29 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
 
         print("  the LM at full width, depth 2, 2 rows per rank, 3 eager "
               "steps:")
-        plane = basics.runtime().op_manager.backends[0]
         cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
                                 **LM_FULL)
         step, model = bench.transformer_step(cfg, 2, seed=args.seed,
                                              eager=True)
         torch.cuda.synchronize()
         before = runtime_counts()
-        to_host, from_host = plane.bytes_to_host, plane.bytes_from_host
+        to_host, from_host = star.bytes_to_host, star.bytes_from_host
         losses, secs = timed_steps(step, 3)
         print(f"    losses {' '.join(f'{v:.6f}' for v in losses)}; sec/step "
               f"{' '.join(f'{v:.3f}' for v in secs)}")
-        print(f"    bytes card->host {(plane.bytes_to_host - to_host) / 3:.4g}"
-              f" and host->card {(plane.bytes_from_host - from_host) / 3:.4g}"
-              f" per step")
-        print_negotiation(before, runtime_counts(), 3)
+        print(f"    star bytes card->host "
+              f"{(star.bytes_to_host - to_host) / 3:.4g} and host->card "
+              f"{(star.bytes_from_host - from_host) / 3:.4g} per step")
+        per_step = print_negotiation(before, runtime_counts(), 3)
+        if plane is not None:
+            moved = (star.bytes_to_host - star_bytes[0],
+                     star.bytes_from_host - star_bytes[1])
+            served = rt.stats.get("responses.process_group", 0)
+            print(f"    CUDA bytes through the star since init: {moved} "
+                  f"(must be 0); responses the plane served: {served}")
+            if moved != (0, 0) or not served:
+                raise AssertionError("a CUDA response went through the "
+                                     "star, or none through the plane")
         params = [p.detach().to("cpu", copy=True) for p in model.parameters()]
         sums = torch.stack([p.double().sum() for p in params])
         every = hvd.allgather(sums[None], name="w.sums")
@@ -825,10 +911,29 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
                   "HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES"):
             os.environ.pop(k, None)
     if rank != 0:
-        return
+        return None
+    # Under gloo the plane unpacks on a finalizer thread, which leaves
+    # the loop's timeline be: no MEMCPY_OUT_FUSION_BUFFER there.
     check_timeline(timeline, ("NEGOTIATE_ALLREDUCE", "ALLREDUCE",
-                              "MEMCPY_IN_FUSION_BUFFER",
-                              "MEMCPY_OUT_FUSION_BUFFER", "CYCLE_START"))
+                              "MEMCPY_IN_FUSION_BUFFER", "CYCLE_START")
+                   + (("MEMCPY_OUT_FUSION_BUFFER",) if mode == "star"
+                      else ()))
+    run = (all_losses, params, (secs, per_step))
+    if star_run is not None:
+        s_losses, s_params, (s_secs, s_per) = star_run
+        print(f"  plane against star: sec/step "
+              f"{' '.join(f'{v:.3f}' for v in secs)} against "
+              f"{' '.join(f'{v:.3f}' for v in s_secs)}; the loop busy "
+              f"{per_step[1]:.1f} against {s_per[1]:.1f} ms per step; "
+              f"{per_step[0]:.1f} against {s_per[0]:.1f} responses per step")
+        same = torch.equal(all_losses, s_losses) and all(
+            torch.equal(a, b) for a, b in zip(params, s_params))
+        print(f"  losses and parameters equal to phase 10's star run bit "
+              f"for bit: {same}" + ("" if same else "; the phase-10 bounds "
+                                     "against the whole batch hold "
+                                     "instead (below)"))
+        if same:
+            return run
     ref_losses, ref_init, ref_after = ref
     mean = all_losses.mean(0).tolist()
     loss_err = max(abs(m - r) / abs(r) for m, r in zip(mean, ref_losses))
@@ -843,17 +948,39 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None):
     if not (loss_err <= 1e-4 and ratio <= 2 ** -6 and same):
         raise AssertionError("the two-rank steps do not agree with the "
                              "whole-batch steps")
+    return run
 
 
-def start_rank1(args, port, workdir):
-    """Phase 10's rank 1: this script again, with its output in a log."""
-    log = open(os.path.join(workdir, "rank1.log"), "w")
+def start_rank1(args, port, workdir, mode):
+    """Phase 10's or 11's rank 1: this script again, with its output in
+    a log."""
+    log = open(os.path.join(workdir, f"rank1_{mode}.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--seed",
-         str(args.seed), "--world-rank1", str(port), workdir],
+         str(args.seed), "--world-rank1", str(port), workdir, mode],
         stdout=log, stderr=subprocess.STDOUT)
     log.close()
     return proc
+
+
+def world_of_two(torch, hvd, args, workdir, ref, mode, star_run=None):
+    """Rank 0 here, rank 1 in a process of its own; returns rank 0's
+    run."""
+    port = free_port()
+    rank1 = start_rank1(args, port, workdir, mode)
+    try:
+        run = two_rank_world(torch, hvd, args, 0, port, workdir, ref, mode,
+                             star_run)
+        rank1.wait(timeout=300)
+    finally:
+        if rank1.poll() is None:
+            rank1.kill()
+            rank1.wait()
+    if rank1.returncode != 0:
+        with open(os.path.join(workdir, f"rank1_{mode}.log")) as f:
+            print(f.read()[-4000:])
+        raise AssertionError(f"rank 1 exited with {rank1.returncode}")
+    return run
 
 
 def free_port() -> int:
@@ -868,9 +995,10 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
-    # Internal: run as rank 1 of phase 10's world (port, work directory).
-    ap.add_argument("--world-rank1", nargs=2, metavar=("PORT", "DIR"),
-                    help=argparse.SUPPRESS)
+    # Internal: run as rank 1 of phase 10's or 11's world (port, work
+    # directory, "star" or "plane").
+    ap.add_argument("--world-rank1", nargs=3,
+                    metavar=("PORT", "DIR", "MODE"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -883,8 +1011,8 @@ def main(argv=None) -> int:
     from horovod_tpu_torch import _cuda
     from horovod_tpu_torch.parallel import flash_attention as fa
     if args.world_rank1:
-        port, workdir = args.world_rank1
-        two_rank_world(torch, hvd, args, 1, int(port), workdir)
+        port, workdir, mode = args.world_rank1
+        two_rank_world(torch, hvd, args, 1, int(port), workdir, mode=mode)
         return 0
 
     # Phase 1: card and build.
@@ -900,10 +1028,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, fp32 = torch.bfloat16, torch.float32
-    errs = kernel_case(fa, torch, "main_simt", **MAIN, dtype=bf16,
-                       causal=True, seed=7, design="simt")
-    errs.update(kernel_case(fa, torch, "main", **MAIN, dtype=bf16,
-                            causal=True, lost_tiles=True))
+    kernel_case(fa, torch, "main_simt", **MAIN, dtype=bf16, causal=True,
+                seed=7, design="simt")
+    errs = kernel_case(fa, torch, "main", **MAIN, dtype=bf16, causal=True,
+                       lost_tiles=True)
     kernel_case(fa, torch, "noncausal", 2, 256, 4, 128, bf16, False, seed=1)
     kernel_case(fa, torch, "q_offset", 1, 512, 4, 128, bf16, True, qo=128,
                 seed=2)
@@ -913,8 +1041,15 @@ def main(argv=None) -> int:
     kernel_case(fa, torch, "short_ragged", 2, 40, 3, 64, bf16, True, seed=8)
     kernel_case(fa, torch, "fp32", 2, 512, 4, 128, fp32, True, qo=64,
                 seed=5)
-    kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32, causal=True,
-                seed=6)
+    # The simt rows of the kernels line carry the fp32 errors at the
+    # main shape, the inputs phase 5 times them on.
+    errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
+                            causal=True, seed=6))
+    for i, (tag, dtype, d) in enumerate(C4_CASES):
+        case = kernel_case(fa, torch, tag, **C4_SHAPE, d=d,
+                           dtype=getattr(torch, dtype), causal=True,
+                           seed=20 + i, dispatch=True)
+        errs.update({f"{name}.{tag}": e for name, e in case.items()})
 
     # Phase 3: a small model against the dense reference.
     small_model_check(torch, args.seed)
@@ -946,20 +1081,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke.") as workdir:
         # Phase 9: the negotiated runtime at size 1.
         ref = eager_runtime_phase(torch, hvd, args, card, workdir)
-        # Phase 10: a two-rank world on this card.
-        port = free_port()
-        rank1 = start_rank1(args, port, workdir)
-        try:
-            two_rank_world(torch, hvd, args, 0, port, workdir, ref)
-            rank1.wait(timeout=300)
-        finally:
-            if rank1.poll() is None:
-                rank1.kill()
-                rank1.wait()
-        if rank1.returncode != 0:
-            with open(os.path.join(workdir, "rank1.log")) as f:
-                print(f.read()[-4000:])
-            raise AssertionError(f"rank 1 exited with {rank1.returncode}")
+        # Phase 10: a two-rank world on this card, through the star.
+        star_run = world_of_two(torch, hvd, args, workdir, ref, "star")
+        # Phase 11: the same world through the process-group plane.
+        world_of_two(torch, hvd, args, workdir, ref, "plane", star_run)
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),
@@ -969,11 +1094,15 @@ def main(argv=None) -> int:
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, r in rows.items():
+        # A C4 instantiation's row is named kernel.tag; the main path
+        # launches none of them (its launches are its kernel's simt
+        # count, which must be 0 there).
+        base = name.split(".")[0]
+        src, replaces = sources[base]
         kernels.append(dict(name=name, route="cuda", source=csrc + src,
-                            replaces=ref + replaces, launches=counts[name],
-                            max_abs_err=errs[name], **rows[name]))
-        r = rows[name]
+                            replaces=ref + replaces, launches=counts[base],
+                            max_abs_err=errs[name], **r))
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']})")

@@ -33,8 +33,9 @@ neither JAX nor ``horovod_tpu``.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
-    cross_rank, cross_size, init, initialized, is_homogeneous, local_rank,
-    local_size, rank, shutdown, size,
+    coordinator_threads_supported, cross_rank, cross_size, init,
+    initialized, is_homogeneous, local_rank, local_size,
+    mpi_threads_supported, rank, shutdown, size,
 )
 from horovod_tpu_torch.common.compression import Compression  # noqa: F401
 from horovod_tpu_torch.common.status import (  # noqa: F401

@@ -5,7 +5,10 @@ negotiated runtime as the reference's ``_build_runtime`` does (:81-175):
 a ``LocalController`` at size 1, otherwise a ``TcpCoordinator`` on rank
 0 and a ``TcpWorker`` elsewhere, the coordinator listening on the
 launcher's ``HOROVOD_CONTROLLER_ADDR``/``HOROVOD_CONTROLLER_PORT``, with
-the backends ``[SocketBackend, LocalBackend]``. Identity (rank, size,
+the backends ``[ProcessGroupBackend, SocketBackend, LocalBackend]`` on
+CUDA (the process-group plane for CUDA tensors, agreed by the world at
+first use, with the socket star as the fallback and for CPU tensors) and
+``[SocketBackend, LocalBackend]`` on the CPU. Identity (rank, size,
 local and cross ranks) comes from the controller's handshake, as in the
 reference; ``HOROVOD_RANK`` and ``HOROVOD_SIZE`` say who this process
 is, and ``HOROVOD_LOCAL_RANK`` picks its card.
@@ -15,7 +18,8 @@ in-step path (``horovod_tpu_torch.spmd``) runs on: NCCL on CUDA, gloo on
 the CPU. At size 1 it meets through an in-process store. Above size 1
 the runtime already holds the launcher's port, so rank 0 opens the
 group's ``TCPStore`` on a free port and hands that port to the others
-with a first negotiated broadcast.
+with a first negotiated broadcast. The process-group plane's own groups
+follow, made by every rank in the same order.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from horovod_tpu_torch.common.controller import (
 from horovod_tpu_torch.common.runtime import Runtime
 from horovod_tpu_torch.ops.local_ops import LocalBackend
 from horovod_tpu_torch.ops.operation_manager import OperationManager
+from horovod_tpu_torch.ops.process_group_ops import ProcessGroupBackend
 from horovod_tpu_torch.ops.socket_ops import SocketBackend
 
 
@@ -76,6 +81,8 @@ def _build_runtime(cfg: Config, device: Optional[torch.device]) -> Runtime:
                                start_timeout=cfg.start_timeout)
     backends = [SocketBackend(controller),
                 LocalBackend(lambda: controller.size)]
+    if device is not None:
+        backends.insert(0, ProcessGroupBackend(controller, cfg, "cuda"))
     rt = Runtime(cfg, controller, OperationManager(backends), device=device)
     rt.start()
     return rt
@@ -129,18 +136,30 @@ def init(device=None) -> None:
         try:
             _init_process_group(rt, cfg,
                                 "nccl" if dev.type == "cuda" else "gloo")
+            for plane in _planes(rt):
+                plane.create_groups()
         except BaseException:
             _stop_runtime()
             raise
         ops.reset_name_counters()
 
 
+def _planes(rt: Runtime):
+    return [b for b in rt.op_manager.backends
+            if isinstance(b, ProcessGroupBackend)]
+
+
 def _stop_runtime() -> None:
+    """Stop the loop, then drop the plane's groups: no collective of
+    theirs is in flight once the loop has ended."""
     global _runtime
     rt, _runtime = _runtime, None
     if rt is not None:
         rt.request_shutdown()
         rt.join(timeout=30.0)
+        if dist.is_initialized():
+            for plane in _planes(rt):
+                plane.destroy_groups()
 
 
 def shutdown() -> None:
@@ -200,3 +219,15 @@ def cross_size() -> int:
 def is_homogeneous() -> bool:
     """True when every host runs the same number of ranks."""
     return runtime().controller.topology.is_homogeneous
+
+
+def coordinator_threads_supported() -> bool:
+    """Ops may be enqueued from any thread (the tensor table takes a
+    lock), so multi-threaded use is always supported, as in the
+    reference (``horovod_tpu/common/basics.py:367-373``)."""
+    return True
+
+
+def mpi_threads_supported() -> bool:
+    """The reference's alias of :func:`coordinator_threads_supported`."""
+    return coordinator_threads_supported()

@@ -86,11 +86,9 @@ _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "HOROVOD_TPU_NATIVE": (_on, "the native core (A6.10)"),
     "HOROVOD_OVERLAP_BUCKETS": (_positive, "the overlap tier (A9)"),
     "HOROVOD_OVERLAP_BYTES": (_positive, "the overlap tier (A9)"),
-    "HOROVOD_TPU_ICI": (_on, "the NVLink plane (A7)"),
-    "HOROVOD_HIERARCHICAL_ALLREDUCE": (
-        _on, "hierarchical allreduce (A7)"),
-    "HOROVOD_HIERARCHICAL_ALLGATHER": (
-        _on, "hierarchical allgather (A7)"),
+    "HOROVOD_TPU_ICI": (
+        _on, "the fused steady-cycle plane, IciPlane, which rides the "
+             "response cache (A6.1)"),
     "HOROVOD_ELASTIC": (_on, "elastic worlds (A9)"),
 }
 
@@ -128,6 +126,13 @@ class Config:
     start_timeout: float = 30.0
     rank: int = -1
     size: int = -1
+    # The process-group plane (ops/process_group_ops.py): allreduce and
+    # allgather in two stages, within each host and then across hosts.
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # The reference's two renderings of a broadcast on its mesh; both
+    # are one torch.distributed broadcast here.
+    xla_broadcast: str = "psum"
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -155,4 +160,14 @@ class Config:
         c.start_timeout = env_float("HOROVOD_START_TIMEOUT", c.start_timeout)
         c.rank = env_int("HOROVOD_RANK", c.rank)
         c.size = env_int("HOROVOD_SIZE", c.size)
+        c.hierarchical_allreduce = env_bool(
+            "HOROVOD_HIERARCHICAL_ALLREDUCE", c.hierarchical_allreduce)
+        c.hierarchical_allgather = env_bool(
+            "HOROVOD_HIERARCHICAL_ALLGATHER", c.hierarchical_allgather)
+        c.xla_broadcast = env_str("HOROVOD_XLA_BCAST",
+                                  c.xla_broadcast).lower()
+        if c.xla_broadcast not in ("psum", "tree"):
+            # A typo must not pick a rendering silently.
+            raise ValueError(f"HOROVOD_XLA_BCAST={c.xla_broadcast!r}: "
+                             f"must be 'psum' or 'tree'")
         return c

@@ -198,6 +198,20 @@ class Controller:
         local); workers receive theirs into ``out``."""
         raise NotImplementedError
 
+    def agree(self, local_flag: bool) -> bool:
+        """World-wide AND of a per-rank flag over the data channel
+        (reference ``horovod_tpu/common/controller.py:987-1000``). A
+        backend's enablement must be the same on every rank, or some
+        ranks enter its collective while others wait in the star; the
+        callers reach this at the same point of the response stream on
+        every rank, which is when ``CollectiveBackend.enabled`` runs."""
+        gathered = self.gather_data(b"\x01" if local_flag else b"\x00")
+        if gathered is not None:  # coordinator
+            ok = all(g == b"\x01" for g in gathered)
+            return self.broadcast_data(
+                b"\x01" if ok else b"\x00") == b"\x01"
+        return self.broadcast_data(None) == b"\x01"
+
     def close(self) -> None:
         pass
 
@@ -212,6 +226,12 @@ class LocalController(Controller):
         return [payload]
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
+        return payload
+
+    def gather_data(self, payload) -> Optional[List[bytes]]:
+        return [payload]
+
+    def broadcast_data(self, payload, root_rank: int = 0) -> bytes:
         return payload
 
 

@@ -11,15 +11,20 @@ under the fusion threshold and broadcasts the agreed ResponseList, and
 runs that list through the backends. Enqueues return at once;
 completion comes back through each entry's callback.
 
-Left out until their slices (``ROADMAP.md`` A6 and A9): the speculative,
-cached, overlapped and native steady cycles, elastic worlds,
-self-operation, fault injection, tenancy, the trace and metrics planes,
-autotune and the async finalizer.
+A backend may complete a batch on a finalizer thread
+(``common/finalizer.py``) and return ``Status.InProgress()``; the loop
+then fires no callbacks for it and goes on cycling, and its shutdown
+drains the finalizer before it fails what is left. Left out until their
+slices (``ROADMAP.md`` A6 and A9): the speculative, cached, overlapped
+and native steady cycles, elastic worlds, self-operation, fault
+injection, tenancy, the trace and metrics planes and autotune.
 
 The loop keeps counts that say what it costs (``stats``): cycles,
-responses and the tensors in them, the seconds of negotiation (building,
-gathering, coordinating and broadcasting the lists) and of execution
-(running the responses through the backends).
+responses and the tensors in them, the responses each backend ran
+(``responses.<backend name>``, which stands in for the reference's
+metrics plane until ``ROADMAP.md`` A6.7), the seconds of negotiation
+(building, gathering, coordinating and broadcasting the lists) and of
+execution (running the responses through the backends).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from horovod_tpu_torch.common.controller import Controller
 from horovod_tpu_torch.common.coordinator import (
     MessageTable, StallInspector, construct_response, fuse_responses,
 )
+from horovod_tpu_torch.common.finalizer import Finalizer
 from horovod_tpu_torch.common.message import (
     DataType, Request, RequestList, RequestType, ResponseList, ResponseType,
 )
@@ -72,6 +78,8 @@ class Runtime:
             self.timeline = create_timeline(config.timeline_path,
                                             config.timeline_mark_cycles)
         op_manager.attach_timeline(self.timeline)
+        self.finalizer = Finalizer()
+        op_manager.attach_finalizer(self.finalizer)
         self._dtypes: Dict[str, DataType] = {}
         # name -> elements per dim-0 row (allgather fusion accounting).
         self._slice_numels: Dict[str, int] = {}
@@ -206,6 +214,10 @@ class Runtime:
             return
         self._teardown_started = True
         self._done.set()
+        try:
+            self.finalizer.drain()
+        except Exception:
+            pass  # the teardown goes on
         terminal = self._terminal_status()
         for entry in self.tensor_table.pop_all():
             if entry.callback:
@@ -349,7 +361,9 @@ class Runtime:
             timeline.activity_end_all(names)
             timeline.activity_start_all(names, ACT_COLLECTIVE)
             try:
-                status = self.op_manager.execute(entries, response)
+                backend, status = self.op_manager.execute(entries, response)
+                key = f"responses.{backend}"
+                self.stats[key] = self.stats.get(key, 0) + 1
             except WorldAbortedError as e:
                 # The channel died mid-collective: fail this batch with
                 # the structured status, then let the loop abort.
@@ -370,9 +384,13 @@ class Runtime:
             except Exception as e:
                 status = Status.UnknownError(
                     f"collective execution failed: {e!r}")
+            # An InProgress batch ends its spans at the issue; its
+            # finalizer fires the callbacks when it completes.
             timeline.activity_end_all(names)
             for name in names:
                 timeline.end(name)
+            if status.in_progress():
+                continue
             for e in entries:
                 if e.callback:
                     e.callback(status)

@@ -27,8 +27,20 @@
 // FMAs from fp32 shared-memory tiles (149 KB for dq and 166 KB for dk/dv
 // at D=128, one block per SM), so the fp32 rate is its ceiling. For bf16
 // at head dims 64 and 128, flash_dkv_sm90.cu (wgmma on bf16 tiles fed by
-// TMA) replaces the dk/dv kernel; the dq kernel here still serves every
-// input.
+// TMA) replaces the dk/dv kernel and flash_dq_sm90.cu the dq kernel;
+// these serve fp32 and fp16 inputs and the other head dims (16, 32, 96,
+// 256; the wrapper zero-pads any other D up to 256 to the next of these
+// and passes the scale of the true D).
+//
+// Past D = 128 the tile a block owns (q rows for dq, key rows for dk/dv)
+// shrinks from 64 to 32 rows (owned_rows in flash_common.cuh), the analog
+// of the reference's _ladders_for: at D = 256 four 64-row fp32 tiles and
+// the score tile(s) would need 280 KB (dq) and 297 KB (dk/dv) of shared
+// memory, above the 227 KB a block may opt into; with the owned tiles at
+// 32 rows they need 206 KB and 214 KB. The tiles the loop walks stay at 64
+// rows, so a score tile is 32 x 64 there and each thread owns two of its
+// rows. Keeping 16-bit tiles in their own type would not have sufficed:
+// fp32 inputs at D = 256 still need the smaller tile.
 #include "flash_common.cuh"
 
 namespace hvdt {
@@ -44,14 +56,16 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int P = D + 1;
   constexpr int PS = kBlock + 1;
   constexpr int C = D / 16;
+  constexpr int R = owned_rows<D>();
+  constexpr int RI = R / 16;
   extern __shared__ float smem[];
-  float* qs = smem;               // [64][P]
-  float* dos = qs + kBlock * P;   // [64][P]
-  float* ks = dos + kBlock * P;   // [64][P]
+  float* qs = smem;               // [R][P]
+  float* dos = qs + R * P;        // [R][P]
+  float* ks = dos + R * P;        // [64][P]
   float* vs = ks + kBlock * P;    // [64][P]
-  float* dss = vs + kBlock * P;   // [64][PS]
+  float* dss = vs + kBlock * P;   // [R][PS]
 
-  const int q0 = blockIdx.x * kBlock;
+  const int q0 = blockIdx.x * R;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int rs = H * D;
@@ -60,12 +74,12 @@ __global__ void __launch_bounds__(kThreads)
   const T* vh = v + ((size_t)b * Sk * H + h) * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(qs, q + qhead, q0, Sq, rs);
-  load_tile<T, D>(dos, dout + qhead, q0, Sq, rs);
+  load_tile<T, D, R>(qs, q + qhead, q0, Sq, rs);
+  load_tile<T, D, R>(dos, dout + qhead, q0, Sq, rs);
 
-  float lse_i[4], delta_i[4], acc[4][C];
+  float lse_i[RI], delta_i[RI], acc[RI][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     lse_i[i] = row < Sq ? lse[(size_t)bh * Sq + row] : __int_as_float(0x7f800000);
     delta_i[i] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
@@ -75,7 +89,7 @@ __global__ void __launch_bounds__(kThreads)
 
   int nk = (Sk + kBlock - 1) / kBlock;
   if (causal) {
-    const long long reach = (long long)q_off + q0 + kBlock - 1 - k_off;
+    const long long reach = (long long)q_off + q0 + R - 1 - k_off;
     const int last = reach < 0 ? -1 : (int)(reach / kBlock);
     nk = min(nk, last + 1);
   }
@@ -87,16 +101,16 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, D>(vs, vh, k0, Sk, rs);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][4], dp[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], kb[4], vb[4];
+      float a[RI], g[RI], kb[4], vb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         a[i] = qs[(ty + 16 * i) * P + d];
         g[i] = dos[(ty + 16 * i) * P + d];
       }
@@ -106,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
         vb[jj] = vs[(tx + 16 * jj) * P + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           s[i][jj] = fmaf(a[i], kb[jj], s[i][jj]);
@@ -115,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -130,20 +144,20 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll 4
     for (int kk = 0; kk < kBlock; ++kk) {
-      float ds[4], kv[C];
+      float ds[RI], kv[C];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty + 16 * i) * PS + kk];
+      for (int i = 0; i < RI; ++i) ds[i] = dss[(ty + 16 * i) * PS + kk];
 #pragma unroll
       for (int c = 0; c < C; ++c) kv[c] = ks[kk * P + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     T* out = dq + ((size_t)(b * Sq + row) * H + h) * D;
@@ -163,17 +177,19 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int P = D + 1;
   constexpr int PS = kBlock + 1;
   constexpr int C = D / 16;
+  constexpr int R = owned_rows<D>();
+  constexpr int RI = R / 16;
   extern __shared__ float smem[];
-  float* ks = smem;               // [64][P]
-  float* vs = ks + kBlock * P;    // [64][P]
-  float* qs = vs + kBlock * P;    // [64][P]
+  float* ks = smem;               // [R][P]
+  float* vs = ks + R * P;         // [R][P]
+  float* qs = vs + R * P;         // [64][P]
   float* dos = qs + kBlock * P;   // [64][P]
-  float* pts = dos + kBlock * P;  // [64 keys][PS]  p^T
-  float* dsts = pts + kBlock * PS;  // [64 keys][PS]  ds^T
-  float* lse_s = dsts + kBlock * PS;  // [64]
+  float* pts = dos + kBlock * P;  // [R keys][PS]  p^T
+  float* dsts = pts + R * PS;     // [R keys][PS]  ds^T
+  float* lse_s = dsts + R * PS;   // [64]
   float* delta_s = lse_s + kBlock;    // [64]
 
-  const int k0 = blockIdx.x * kBlock;
+  const int k0 = blockIdx.x * R;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int rs = H * D;
@@ -181,12 +197,12 @@ __global__ void __launch_bounds__(kThreads)
   const size_t khead = ((size_t)b * Sk * H + h) * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(ks, k + khead, k0, Sk, rs);
-  load_tile<T, D>(vs, v + khead, k0, Sk, rs);
+  load_tile<T, D, R>(ks, k + khead, k0, Sk, rs);
+  load_tile<T, D, R>(vs, v + khead, k0, Sk, rs);
 
-  float dk_acc[4][C], dv_acc[4][C];
+  float dk_acc[RI][C], dv_acc[RI][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
@@ -212,16 +228,16 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // Transposed tiles: rows are keys (ty + 16*i), columns queries.
-    float s[4][4], dp[4][4];
+    float s[RI][4], dp[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float ka[4], va[4], qb[4], gb[4];
+      float ka[RI], va[RI], qb[4], gb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         ka[i] = ks[(ty + 16 * i) * P + d];
         va[i] = vs[(ty + 16 * i) * P + d];
       }
@@ -231,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
         gb[jj] = dos[(tx + 16 * jj) * P + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           s[i][jj] = fmaf(ka[i], qb[jj], s[i][jj]);
@@ -240,7 +256,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int kpos = k_off + k0 + ty + 16 * i;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -255,9 +271,9 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll 4
     for (int qq = 0; qq < kBlock; ++qq) {
-      float pt[4], dst[4], gv[C], qv[C];
+      float pt[RI], dst[RI], gv[C], qv[C];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         pt[i] = pts[(ty + 16 * i) * PS + qq];
         dst[i] = dsts[(ty + 16 * i) * PS + qq];
       }
@@ -267,7 +283,7 @@ __global__ void __launch_bounds__(kThreads)
         qv[c] = qs[qq * P + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           dv_acc[i][c] = fmaf(pt[i], gv[c], dv_acc[i][c]);
@@ -277,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= Sk) continue;
     const size_t off = ((size_t)(b * Sk + row) * H + h) * D;
@@ -293,37 +309,42 @@ template <typename T, int D>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int H, int Sq, int Sk, int q_off,
-                   int k_off, int causal, cudaStream_t stream) {
-  const dim3 grid((Sq + kBlock - 1) / kBlock, B * H);
-  return launch(flash_dq_kernel<T, D>, grid, smem_bytes(D, 4, 1, 0), stream,
-                (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-                (const float*)lse, (const float*)delta, (T*)dq, H, Sq, Sk,
-                q_off, k_off, causal, (float)(1.0 / sqrt((double)D)));
+                   int k_off, int causal, float scale, cudaStream_t stream) {
+  constexpr int R = owned_rows<D>();
+  const dim3 grid((Sq + R - 1) / R, B * H);
+  return launch(flash_dq_kernel<T, D>, grid, smem_bytes(D, 2, 2, 1, 0, R),
+                stream, (const T*)q, (const T*)k, (const T*)v,
+                (const T*)dout, (const float*)lse, (const float*)delta,
+                (T*)dq, H, Sq, Sk, q_off, k_off, causal, scale);
 }
 
 template <typename T, int D>
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int H, int Sq, int Sk,
-                    int q_off, int k_off, int causal, cudaStream_t stream) {
-  const dim3 grid((Sk + kBlock - 1) / kBlock, B * H);
+                    int q_off, int k_off, int causal, float scale,
+                    cudaStream_t stream) {
+  constexpr int R = owned_rows<D>();
+  const dim3 grid((Sk + R - 1) / R, B * H);
   return launch(flash_dkv_kernel<T, D>, grid,
-                smem_bytes(D, 4, 2, 2 * kBlock), stream, (const T*)q,
+                smem_bytes(D, 2, 2, 2, 2 * kBlock, R), stream, (const T*)q,
                 (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
                 (const float*)delta, (T*)dk, (T*)dv, H, Sq, Sk, q_off, k_off,
-                causal, (float)(1.0 / sqrt((double)D)));
+                causal, scale);
 }
 
 template <typename T>
 cudaError_t dq_for_dim(int D, const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
                        void* dq, int B, int H, int Sq, int Sk, int qo, int ko,
-                       int causal, cudaStream_t st) {
+                       int causal, float sc, cudaStream_t st) {
   switch (D) {
-    case 16: return run_dq<T, 16>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, st);
-    case 32: return run_dq<T, 32>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, st);
-    case 64: return run_dq<T, 64>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, st);
-    case 128: return run_dq<T, 128>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, st);
+    case 16: return run_dq<T, 16>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 32: return run_dq<T, 32>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 64: return run_dq<T, 64>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 96: return run_dq<T, 96>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 128: return run_dq<T, 128>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 256: return run_dq<T, 256>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -332,12 +353,15 @@ template <typename T>
 cudaError_t dkv_for_dim(int D, const void* q, const void* k, const void* v,
                         const void* g, const void* lse, const void* delta,
                         void* dk, void* dv, int B, int H, int Sq, int Sk,
-                        int qo, int ko, int causal, cudaStream_t st) {
+                        int qo, int ko, int causal, float sc,
+                        cudaStream_t st) {
   switch (D) {
-    case 16: return run_dkv<T, 16>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, st);
-    case 32: return run_dkv<T, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, st);
-    case 64: return run_dkv<T, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, st);
-    case 128: return run_dkv<T, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, st);
+    case 16: return run_dkv<T, 16>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 32: return run_dkv<T, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 64: return run_dkv<T, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 96: return run_dkv<T, 96>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 128: return run_dkv<T, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 256: return run_dkv<T, 256>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -348,14 +372,18 @@ extern "C" int hvdt_flash_dq(int dtype, const void* q, const void* k,
                              const void* v, const void* dout, const void* lse,
                              const void* delta, void* dq, int B, int H, int Sq,
                              int Sk, int D, int q_off, int k_off, int causal,
-                             void* stream) {
+                             float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == hvdt::kFloat32)
     return hvdt::dq_for_dim<float>(D, q, k, v, dout, lse, delta, dq, B, H, Sq,
-                                   Sk, q_off, k_off, causal, st);
+                                   Sk, q_off, k_off, causal, scale, st);
   if (dtype == hvdt::kBFloat16)
     return hvdt::dq_for_dim<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq, B,
-                                           H, Sq, Sk, q_off, k_off, causal, st);
+                                           H, Sq, Sk, q_off, k_off, causal,
+                                           scale, st);
+  if (dtype == hvdt::kFloat16)
+    return hvdt::dq_for_dim<__half>(D, q, k, v, dout, lse, delta, dq, B, H, Sq,
+                                    Sk, q_off, k_off, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -363,14 +391,20 @@ extern "C" int hvdt_flash_dkv(int dtype, const void* q, const void* k,
                               const void* v, const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv, int B,
                               int H, int Sq, int Sk, int D, int q_off,
-                              int k_off, int causal, void* stream) {
+                              int k_off, int causal, float scale,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == hvdt::kFloat32)
     return hvdt::dkv_for_dim<float>(D, q, k, v, dout, lse, delta, dk, dv, B,
-                                    H, Sq, Sk, q_off, k_off, causal, st);
+                                    H, Sq, Sk, q_off, k_off, causal, scale,
+                                    st);
   if (dtype == hvdt::kBFloat16)
     return hvdt::dkv_for_dim<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk,
                                             dv, B, H, Sq, Sk, q_off, k_off,
-                                            causal, st);
+                                            causal, scale, st);
+  if (dtype == hvdt::kFloat16)
+    return hvdt::dkv_for_dim<__half>(D, q, k, v, dout, lse, delta, dk, dv, B,
+                                     H, Sq, Sk, q_off, k_off, causal, scale,
+                                     st);
   return cudaErrorInvalidValue;
 }

@@ -7,17 +7,25 @@
 // no [B*H, S, D] transpose is ever materialized. Softmax statistics
 // (m, l, lse, delta) are contiguous [B, H, S] fp32.
 //
-// Tiling: every kernel works on 64x64 score tiles with 256 threads. The
-// thread at (ty = tid / 16, tx = tid % 16) owns rows ty + 16*i and columns
-// tx + 16*j (i, j < 4) of a score tile, and columns tx + 16*c (c < D/16)
-// of a [64, D] output tile. The 16 threads sharing a row are the two
-// halves of one warp, so row reductions are four xor-shuffles.
+// Tiling: every kernel works on score tiles of R x 64 with 256 threads,
+// R = 64 rows (the tile a block owns: q rows in the forward and dq, key
+// rows in dk/dv) up to D = 128. The thread at (ty = tid / 16,
+// tx = tid % 16) owns rows ty + 16*i (i < R/16) and columns tx + 16*j
+// (j < 4) of a score tile, and columns tx + 16*c (c < D/16) of an [R, D]
+// output tile. The 16 threads sharing a row are the two halves of one
+// warp, so row reductions are four xor-shuffles. Past D = 128 the
+// backward kernels own R = 32 rows (owned_rows): the 64-row tiles of
+// [64][D + 1] fp32 would need 280 KB (dq) and 297 KB (dk/dv) of shared
+// memory at D = 256, above the 227 KB a block may have; with 32 owned
+// rows they need 206 KB and 214 KB. The forward's three 64-row tiles and
+// score tile need 209 KB at D = 256 and keep R = 64.
 // Tiles live in shared memory as fp32 with a row pitch of D + 1 floats,
 // which puts the 16 rows a half-warp reads at one column in 16 distinct
 // banks.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace hvdt {
@@ -30,6 +38,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -39,15 +48,25 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
-// Copies rows [row0, row0 + 64) of one head into a [64][D + 1] fp32 tile.
+// Rows of the tile a backward block owns at head dim D (see Tiling).
+template <int D>
+__host__ __device__ constexpr int owned_rows() {
+  return D <= 128 ? kBlock : kBlock / 2;
+}
+
+// Copies rows [row0, row0 + R) of one head into an [R][D + 1] fp32 tile.
 // `head` points at (b, s = 0, h, d = 0); consecutive rows are `row_stride`
 // elements apart. Rows at or past `seq` read as zero.
-template <typename T, int D>
+template <typename T, int D, int R = kBlock>
 __device__ __forceinline__ void load_tile(float* tile, const T* head,
                                           int row0, int seq,
                                           int row_stride) {
-  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx % D;
     const int s = row0 + r;
@@ -71,12 +90,13 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Shared memory of a kernel holding `tiles` [64][D + 1] tiles and `squares`
-// [64][65] score tiles, plus `extra` floats.
-constexpr size_t smem_bytes(int d, int tiles, int squares, int extra) {
+// Shared memory of a kernel holding `tiles` [64][D + 1] tiles, `owned`
+// [R][D + 1] tiles and `squares` [R][65] score tiles, plus `extra` floats.
+constexpr size_t smem_bytes(int d, int tiles, int owned, int squares,
+                            int extra, int r = kBlock) {
   return sizeof(float) *
-         ((size_t)tiles * kBlock * (d + 1) +
-          (size_t)squares * kBlock * (kBlock + 1) + extra);
+         ((size_t)tiles * kBlock * (d + 1) + (size_t)owned * r * (d + 1) +
+          (size_t)squares * r * (kBlock + 1) + extra);
 }
 
 // Launches `kernel` with `bytes` of dynamic shared memory (above the 48 KB
@@ -92,7 +112,7 @@ inline cudaError_t launch(K kernel, dim3 grid, size_t bytes,
   return cudaGetLastError();
 }
 
-// The element type of a tensor: 0 is float32, 1 is bfloat16.
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+// The element type of a tensor: 0 is float32, 1 is bfloat16, 2 is float16.
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 }  // namespace hvdt

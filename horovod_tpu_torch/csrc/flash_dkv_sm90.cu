@@ -277,7 +277,7 @@ template <int D>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B,
                 int H, int Sq, int Sk, int q_off, int k_off, int causal,
-                cudaStream_t stream) {
+                float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kQRows);
   if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, Sq, H, D, kQRows);
@@ -289,7 +289,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                    stream, tq, tk, tv, tdo, (const float*)lse,
                    (const float*)delta, (__nv_bfloat16*)dk,
                    (__nv_bfloat16*)dv, H, Sq, Sk, q_off, k_off, causal,
-                   (float)(1.0 / sqrt((double)D)));
+                   scale);
 }
 
 }  // namespace
@@ -302,11 +302,11 @@ extern "C" int hvdt_flash_dkv_sm90(const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int H, int Sq,
                                    int Sk, int D, int q_off, int k_off,
-                                   int causal, void* stream) {
+                                   int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 64: return hvdt::run<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, q_off, k_off, causal, st);
-    case 128: return hvdt::run<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, q_off, k_off, causal, st);
+    case 64: return hvdt::run<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
+    case 128: return hvdt::run<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -250,7 +250,7 @@ template <int D>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, int B, int H,
                 int Sq, int Sk, int q_off, int k_off, int causal,
-                cudaStream_t stream) {
+                float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kRows);
   if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, Sq, H, D, kRows);
@@ -261,7 +261,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
   return launch_ws(flash_dq_sm90<D>, grid, DqSmem<D>::kBytes + 1024, stream,
                    tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
                    (__nv_bfloat16*)dq, H, Sq, Sk, q_off, k_off, causal,
-                   (float)(1.0 / sqrt((double)D)));
+                   scale);
 }
 
 }  // namespace
@@ -273,11 +273,11 @@ extern "C" int hvdt_flash_dq_sm90(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int B, int H,
                                   int Sq, int Sk, int D, int q_off, int k_off,
-                                  int causal, void* stream) {
+                                  int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 64: return hvdt::run<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, st);
-    case 128: return hvdt::run<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, st);
+    case 64: return hvdt::run<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
+    case 128: return hvdt::run<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

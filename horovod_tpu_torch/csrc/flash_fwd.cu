@@ -25,7 +25,11 @@
 // 113 KB of shared memory at D=128 also allows one block (8 warps) per SM.
 // flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
 // tiles fed by TMA) for bf16 at head dims 64 and 128; this kernel serves
-// fp32 inputs and the head dims 16 and 32.
+// fp32 and fp16 inputs and the other head dims (16, 32, 96, 256; the
+// wrapper zero-pads any other D up to 256 to the next of these and
+// passes the scale of the true D). At D = 256 its three [64][257] tiles
+// and the score tile take 209 KB of shared memory, within the 227 KB a
+// block may have, so the forward keeps its 64-row tiles there.
 #include "flash_common.cuh"
 
 namespace hvdt {
@@ -160,24 +164,26 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
                     void* m, void* l, int B, int H, int Sq, int Sk,
-                    int q_off, int k_off, int causal, cudaStream_t stream) {
+                    int q_off, int k_off, int causal, float scale,
+                    cudaStream_t stream) {
   const dim3 grid((Sq + kBlock - 1) / kBlock, B * H);
-  return launch(flash_fwd_kernel<T, D>, grid, smem_bytes(D, 3, 1, 0), stream,
-                (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)m,
-                (float*)l, H, Sq, Sk, q_off, k_off, causal,
-                (float)(1.0 / sqrt((double)D)));
+  return launch(flash_fwd_kernel<T, D>, grid, smem_bytes(D, 3, 0, 1, 0),
+                stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                (float*)m, (float*)l, H, Sq, Sk, q_off, k_off, causal, scale);
 }
 
 template <typename T>
 cudaError_t fwd_for_dim(int D, const void* q, const void* k, const void* v,
                         void* o, void* m, void* l, int B, int H, int Sq,
-                        int Sk, int q_off, int k_off, int causal,
+                        int Sk, int q_off, int k_off, int causal, float sc,
                         cudaStream_t st) {
   switch (D) {
-    case 16: return run_fwd<T, 16>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
-    case 32: return run_fwd<T, 32>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
-    case 64: return run_fwd<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
-    case 128: return run_fwd<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
+    case 16: return run_fwd<T, 16>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 32: return run_fwd<T, 32>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 64: return run_fwd<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 96: return run_fwd<T, 96>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 128: return run_fwd<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 256: return run_fwd<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -187,14 +193,18 @@ cudaError_t fwd_for_dim(int D, const void* q, const void* k, const void* v,
 extern "C" int hvdt_flash_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* o, void* m, void* l, int B,
                               int H, int Sq, int Sk, int D, int q_off,
-                              int k_off, int causal, void* stream) {
+                              int k_off, int causal, float scale,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == hvdt::kFloat32)
     return hvdt::fwd_for_dim<float>(D, q, k, v, o, m, l, B, H, Sq, Sk, q_off,
-                                    k_off, causal, st);
+                                    k_off, causal, scale, st);
   if (dtype == hvdt::kBFloat16)
     return hvdt::fwd_for_dim<__nv_bfloat16>(D, q, k, v, o, m, l, B, H, Sq, Sk,
-                                            q_off, k_off, causal, st);
+                                            q_off, k_off, causal, scale, st);
+  if (dtype == hvdt::kFloat16)
+    return hvdt::fwd_for_dim<__half>(D, q, k, v, o, m, l, B, H, Sq, Sk, q_off,
+                                     k_off, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 

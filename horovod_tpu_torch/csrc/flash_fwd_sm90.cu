@@ -238,7 +238,7 @@ __global__ void __launch_bounds__(384, 1)
 template <int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
                 void* l, int B, int H, int Sq, int Sk, int q_off, int k_off,
-                int causal, cudaStream_t stream) {
+                int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kRows);
   if (err == cudaSuccess) err = encode_bshd(&tk, k, B, Sk, H, D, kRows);
@@ -247,24 +247,24 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   return launch_ws(flash_fwd_sm90<D>, grid, FwdSmem<D>::kBytes + 1024,
                    stream, tq, tk, tv, (__nv_bfloat16*)o, (float*)m,
-                   (float*)l, H, Sq, Sk, q_off, k_off, causal,
-                   (float)(1.0 / sqrt((double)D)));
+                   (float*)l, H, Sq, Sk, q_off, k_off, causal, scale);
 }
 
 }  // namespace
 }  // namespace hvdt
 
 // q, k, v: contiguous bf16 [B, S, H, D] with 16-byte-aligned bases; D is 64
-// or 128. o: bf16 [B, Sq, H, D]; m, l: fp32 [B, H, Sq].
+// or 128. o: bf16 [B, Sq, H, D]; m, l: fp32 [B, H, Sq]. scale multiplies the
+// logits (1/sqrt of the head dim before any zero padding of D).
 extern "C" int hvdt_flash_fwd_sm90(const void* q, const void* k,
                                    const void* v, void* o, void* m, void* l,
                                    int B, int H, int Sq, int Sk, int D,
                                    int q_off, int k_off, int causal,
-                                   void* stream) {
+                                   float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 64: return hvdt::run<64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
-    case 128: return hvdt::run<128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, st);
+    case 64: return hvdt::run<64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
+    case 128: return hvdt::run<128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

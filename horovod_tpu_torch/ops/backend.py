@@ -32,12 +32,56 @@ def scale(t: torch.Tensor, factor: float) -> torch.Tensor:
     return t * torch.tensor(factor, dtype=t.dtype)
 
 
+def scale_(t: torch.Tensor, factor: float) -> None:
+    """:func:`scale` in place, for a buffer the plane owns."""
+    if factor != 1.0:
+        t.mul_(torch.tensor(factor, dtype=t.dtype))
+
+
+def pack(tensors: List[torch.Tensor], prescale: float,
+         fresh: bool = False) -> torch.Tensor:
+    """The fusion buffer: the tensors flattened and concatenated on
+    their device, each copy scaled by ``prescale`` in the tensors' dtype.
+    One tensor without a prescale stays a (flat) view, unless ``fresh``
+    asks for a buffer that may be reduced in place."""
+    flats = [t.reshape(-1) for t in tensors]
+    if len(flats) == 1:
+        out = scale(flats[0], prescale)
+        return out.clone() if fresh and out is flats[0] else out
+    buf = torch.empty(sum(f.numel() for f in flats), dtype=flats[0].dtype,
+                      device=flats[0].device)
+    factor = (None if prescale == 1.0
+              else torch.tensor(prescale, dtype=buf.dtype))
+    offset = 0
+    for f in flats:
+        dst = buf[offset:offset + f.numel()]
+        if factor is None:
+            dst.copy_(f)
+        else:
+            torch.mul(f, factor, out=dst)
+        offset += f.numel()
+    return buf
+
+
+def unpack(entries: List[TensorTableEntry], flat: torch.Tensor) -> None:
+    """Each entry's output: its window of the fused result, viewed in
+    the entry's shape."""
+    offset = 0
+    for e in entries:
+        n = e.tensor.numel()
+        e.output = flat[offset:offset + n].view(e.tensor.shape)
+        offset += n
+
+
 class CollectiveBackend:
     name = "abstract"
 
     # Set by OperationManager.attach_timeline (rank 0 with
     # HOROVOD_TIMELINE): the fusion pack and unpack show as activities.
     timeline = NOOP_TIMELINE
+    # Set by OperationManager.attach_finalizer: where a backend that
+    # returns Status.InProgress() completes its batch.
+    finalizer = None
 
     def __init__(self):
         # CUDA device index -> this plane's stream there.

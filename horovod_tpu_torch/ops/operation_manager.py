@@ -2,12 +2,14 @@
 
 Counterpart of ``horovod_tpu/ops/operation_manager.py`` (:1-160): the
 first backend whose ``enabled`` says yes runs the batch. Here the order
-is the socket star (size > 1), then the local plane (size 1).
+is the process-group plane (CUDA tensors, size > 1, once the world
+agreed to it), the socket star (size > 1), then the local plane
+(size 1).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 from horovod_tpu_torch.common.message import Response, ResponseType
 from horovod_tpu_torch.common.status import Status
@@ -32,11 +34,17 @@ class OperationManager:
         for b in self.backends:
             b.timeline = timeline
 
+    def attach_finalizer(self, finalizer) -> None:
+        for b in self.backends:
+            b.finalizer = finalizer
+
     def execute(self, entries: List[TensorTableEntry],
-                response: Response) -> Status:
+                response: Response) -> Tuple[str, Status]:
+        """Runs the batch on the first enabled backend; returns that
+        backend's name and the status."""
         for b in self.backends:
             if b.enabled(entries, response):
-                return getattr(b, _EXECUTE[response.response_type])(
+                return b.name, getattr(b, _EXECUTE[response.response_type])(
                     entries, response)
         raise RuntimeError(
             f"No collective backend enabled for response "

@@ -34,29 +34,9 @@ from horovod_tpu_torch.common.status import Status
 from horovod_tpu_torch.common.timeline import (
     ACT_MEMCPY_IN_FUSION_BUFFER, ACT_MEMCPY_OUT_FUSION_BUFFER,
 )
-from horovod_tpu_torch.ops.backend import CollectiveBackend, scale
-
-
-def _pack(tensors: List[torch.Tensor], prescale: float) -> torch.Tensor:
-    """The fusion buffer: the tensors flattened and concatenated on
-    their device, each copy scaled by ``prescale`` in the tensors' dtype.
-    One tensor without a prescale stays a (flat) view."""
-    flats = [t.reshape(-1) for t in tensors]
-    if len(flats) == 1:
-        return scale(flats[0], prescale)
-    buf = torch.empty(sum(f.numel() for f in flats), dtype=flats[0].dtype,
-                      device=flats[0].device)
-    factor = (None if prescale == 1.0
-              else torch.tensor(prescale, dtype=buf.dtype))
-    offset = 0
-    for f in flats:
-        dst = buf[offset:offset + f.numel()]
-        if factor is None:
-            dst.copy_(f)
-        else:
-            torch.mul(f, factor, out=dst)
-        offset += f.numel()
-    return buf
+from horovod_tpu_torch.ops.backend import (
+    CollectiveBackend, pack, scale, scale_, unpack,
+)
 
 
 def _accumulate(acc: torch.Tensor, peer: torch.Tensor) -> None:
@@ -120,12 +100,6 @@ class SocketBackend(CollectiveBackend):
         self.bytes_from_host += host.numel() * host.element_size()
         return host.to(device, non_blocking=True)
 
-    @staticmethod
-    def _postscale_(result: torch.Tensor, factor: float) -> None:
-        """In place: ``result`` is always a fresh buffer here."""
-        if factor != 1.0:
-            result.mul_(torch.tensor(factor, dtype=result.dtype))
-
     def _star_reduce(self, host: torch.Tensor, fresh: bool) -> torch.Tensor:
         """Coordinator: the sum over ranks of ``host``, in rank order.
         ``fresh`` says ``host`` may be accumulated into."""
@@ -146,8 +120,8 @@ class SocketBackend(CollectiveBackend):
         device = entries[0].tensor.device
         with self.plane_stream(entries) as stream:
             with self.activity(names, ACT_MEMCPY_IN_FUSION_BUFFER, multi):
-                fused = _pack([e.tensor for e in entries],
-                              response.prescale_factor)
+                fused = pack([e.tensor for e in entries],
+                             response.prescale_factor)
                 host = self._to_host(fused, stream)
             if ctl.is_coordinator:
                 fresh = (stream is not None or multi
@@ -159,13 +133,10 @@ class SocketBackend(CollectiveBackend):
                 result = self._host_empty(host.numel(), host.dtype, stream)
                 ctl.broadcast_data_into(None, result)
             with self.activity(names, ACT_MEMCPY_OUT_FUSION_BUFFER, multi):
+                # ``result`` is a fresh buffer: postscaled in place.
                 result = self._to_device(result, device, stream)
-                self._postscale_(result, response.postscale_factor)
-                offset = 0
-                for e in entries:
-                    n = e.tensor.numel()
-                    e.output = result[offset:offset + n].view(e.tensor.shape)
-                    offset += n
+                scale_(result, response.postscale_factor)
+                unpack(entries, result)
         return Status.OK()
 
     # -- allgather (fused responses; dim 0 may differ per rank) ----------
@@ -182,7 +153,7 @@ class SocketBackend(CollectiveBackend):
             offs[r] = offs[r - 1] + rank_counts[r - 1]
         with self.plane_stream(entries) as stream:
             with self.activity(names, ACT_MEMCPY_IN_FUSION_BUFFER, multi):
-                host = self._to_host(_pack(tensors, 1.0), stream)
+                host = self._to_host(pack(tensors, 1.0), stream)
             result = self._host_empty(sum(rank_counts), host.dtype, stream)
             if ctl.is_coordinator:
                 # Peer r's block lands straight in its window of the
@@ -278,7 +249,7 @@ class SocketBackend(CollectiveBackend):
                 result = self._host_empty(per_elems, host.dtype, stream)
                 ctl.scatter_data_into(None, result)
             result = self._to_device(result, t.device, stream)
-            self._postscale_(result, response.postscale_factor)
+            scale_(result, response.postscale_factor)
             entry.output = result.view((per_rank,) + t.shape[1:])
         return Status.OK()
 

@@ -14,10 +14,18 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
 :func:`_design` picks the design from the dtype and head dim alone,
 before any launch: the ``sm90`` kernels (wgmma on bf16 tiles fed by TMA,
 warp-specialised) take bf16 at head dims 64 and 128; the ``simt``
-kernels (fp32 FMAs from fp32 shared-memory tiles) take fp32 and the
-head dims 16 and 32. The sm90 kernels read their inputs through TMA and
-need 16-byte-aligned bases; a misaligned CUDA tensor raises, it never
-falls back to the other design.
+kernels (fp32 FMAs from fp32 shared-memory tiles) take fp32, fp16 and
+the head dims 16, 32, 96 and 256 (past D = 128 the backward kernels own
+32-row tiles, the counterpart of the reference's ``_ladders_for``). The
+reference takes any head dim: a CUDA call at a head dim up to 256 that
+no kernel is built for runs at the next one that is
+(:func:`padded_head_dim`), with q, k, v (and do) zero-padded along D,
+the scale of the true D, and the outputs sliced back
+(:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and
+the padded columns of v give output columns that are cut away. Past 256
+a CUDA call raises (``ROADMAP.md`` C4). The sm90 kernels read their
+inputs through TMA and need 16-byte-aligned bases; a misaligned CUDA
+tensor raises, it never falls back to the other design.
 
 Each launcher counts its launches (``launch_counts()``: ``flash_fwd``,
 ``flash_fwd_sm90``, ``flash_dq``, ``flash_dq_sm90``, ``flash_dkv``,
@@ -47,12 +55,13 @@ import math
 from typing import Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from horovod_tpu_torch import _cuda
 
 _NEG_INF = -1e30
 BLOCK = 64   # the sequence granularity of the kernels' tiles
-HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head dims the kernels are built for
 SM90_HEAD_DIMS = (64, 128)      # head dims of the wgmma/TMA kernels
 
 # Launches of each kernel since the last reset_launch_counts().
@@ -86,12 +95,48 @@ def launch_counts() -> dict:
 # Plain versions (dense, fp32): the CPU path and the kernels' yardstick
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, causal, q_offset, k_offset):
+def _softmax_scale(d: int) -> float:
+    """What the logits of head dim ``d`` are multiplied by."""
+    return 1.0 / math.sqrt(d)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim a CUDA call at head dim ``d`` runs the kernels at:
+    ``d`` itself when a kernel is built for it, else the next one that
+    is. Past the largest it raises."""
+    for built in HEAD_DIMS:
+        if d <= built:
+            return built
+    raise ValueError(
+        f"head dim {d}: the flash kernels take head dims up to "
+        f"{HEAD_DIMS[-1]} on CUDA (ROADMAP.md C4 is open for larger ones)")
+
+
+def _on_padded_head_dim(fn, tensors, *args):
+    """``fn(*tensors, *args)`` at the head dim :func:`padded_head_dim`
+    gives: each ``[B, S, H, D]`` tensor zero-padded along D, the scale
+    that of the true D, and every ``[B, S, H, D']`` output sliced back
+    to D (the ``[B, H, S]`` stats pass through). A layout step in front
+    of the same kernel, which takes the plain versions as well."""
+    d = tensors[0].shape[-1]
+    built = padded_head_dim(d)
+    if built == d:
+        return fn(*tensors, *args)
+    out = fn(*(F.pad(t, (0, built - d)) for t in tensors), *args,
+             scale=_softmax_scale(d))
+
+    def cut(x):
+        return x[..., :d].contiguous() if x.dim() == 4 else x
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+
+def _scores(q, k, causal, q_offset, k_offset, scale=None):
     """Scaled fp32 logits [B,H,Sq,Sk] with masked entries at -1e30, and
-    the mask (None when not causal)."""
-    d = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s = s * (1.0 / math.sqrt(d))
+    the mask (None when not causal). ``scale`` defaults to that of q's
+    head dim."""
+    if scale is None:
+        scale = _softmax_scale(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if not causal:
         return s, None
     q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
@@ -105,13 +150,13 @@ def _bf16(x):
 
 
 def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset,
-                     bf16_operands=False):
+                     bf16_operands=False, scale=None):
     """What ``_kernel`` computes, densely: (o [B,Sq,H,D] in q.dtype,
     m [B,H,Sq], l [B,H,Sq] fp32); rows that see no key give o = 0,
     m = -1e30, l = 0. ``bf16_operands`` rounds p = exp(s - m) to bf16
     before p @ v, where the sm90 kernel feeds it to the tensor cores; l
     is still summed from the fp32 p."""
-    s, allowed = _scores(q, k, causal, q_offset, k_offset)
+    s, allowed = _scores(q, k, causal, q_offset, k_offset, scale)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     if allowed is not None:
@@ -124,37 +169,40 @@ def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset,
     return o.to(q.dtype), m, l
 
 
-def _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset):
+def _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
+                scale=None):
     """What ``_recompute_p_ds`` computes for every tile at once:
     p = exp(s - lse) and ds = p * (dp - delta) * scale, [B,H,Sq,Sk]."""
-    s, allowed = _scores(q, k, causal, q_offset, k_offset)
+    if scale is None:
+        scale = _softmax_scale(q.shape[-1])
+    s, allowed = _scores(q, k, causal, q_offset, k_offset, scale)
     p = torch.exp(s - lse[..., None])
     if allowed is not None:
         p = p * allowed
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    ds = p * (dp - delta[..., None]) * scale
     return p, ds
 
 
 def _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
-                    bf16_operands=False):
+                    bf16_operands=False, scale=None):
     """What ``_bwd_dq_kernel`` computes: dq = ds @ k, in q.dtype.
     ``bf16_operands`` rounds ds to bf16 before the product, as the sm90
     kernel does."""
     _, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
-                        k_offset)
+                        k_offset, scale)
     if bf16_operands:
         ds = _bf16(ds)
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
 def _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
-                     bf16_operands=False):
+                     bf16_operands=False, scale=None):
     """What ``_bwd_dkv_kernel`` computes: dk = ds^T @ q, dv = p^T @ do.
     ``bf16_operands`` rounds p and ds to bf16 before the two products, as
     the sm90 kernel does."""
     p, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
-                        k_offset)
+                        k_offset, scale)
     if bf16_operands:
         p, ds = _bf16(p), _bf16(ds)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
@@ -177,7 +225,7 @@ def _dense_reference(q, k, v, causal: bool, q_offset=0, k_offset=0):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check(name, tensors, seqs):
@@ -190,11 +238,9 @@ def _check(name, tensors, seqs):
         raise ValueError(f"{name}: tensors on {dev}; CPU or CUDA only")
     if dev.type == "cuda":
         if dt not in _DTYPES:
-            raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
-                            f"got {dt}")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"{name}: the kernel takes head dims "
-                             f"{HEAD_DIMS}, got {d}")
+            raise TypeError(f"{name}: the kernel takes float32, bfloat16 "
+                            f"or float16, got {dt}")
+        padded_head_dim(d)
     for t, seq in zip(tensors, seqs):
         _same(name, t, dev, (b, seq, h, d), dt)
     return b, h, d
@@ -218,15 +264,27 @@ def _stream(t) -> int:
 
 def _design(dtype: torch.dtype, d: int) -> str:
     """The kernel design for CUDA inputs of this type and head dim:
-    ``"sm90"`` (wgmma on bf16 tiles fed by TMA) for bf16 at D 64 or 128,
-    ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise."""
-    return ("sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
-            else "simt")
+    ``"sm90"`` (wgmma on bf16 tiles fed by TMA) for bf16 whose padded
+    head dim is 64 or 128, ``"simt"`` (fp32 FMAs, flash_fwd.cu /
+    flash_bwd.cu) otherwise."""
+    return ("sm90" if dtype == torch.bfloat16
+            and padded_head_dim(d) in SM90_HEAD_DIMS else "simt")
+
+
+def _launcher(q, sm90, simt):
+    return sm90 if _design(q.dtype, q.shape[-1]) == "sm90" else simt
 
 
 def _cuda_only(name, q):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels are built for head dims "
+                         f"{HEAD_DIMS}, got {q.shape[-1]}")
+
+
+def _scale_arg(q, scale):
+    return _softmax_scale(q.shape[-1]) if scale is None else scale
 
 
 def _check_sm90(name, tensors):
@@ -251,9 +309,8 @@ def _flash_fwd(q, k, v, causal: bool, q_offset: int, k_offset: int):
     _check("flash forward", (q, k, v), (sq, sk, sk))
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
-    launch = (_flash_fwd_sm90 if _design(q.dtype, q.shape[-1]) == "sm90"
-              else _flash_fwd_simt)
-    return launch(q, k, v, causal, q_offset, k_offset)
+    return _on_padded_head_dim(_launcher(q, _flash_fwd_sm90, _flash_fwd_simt),
+                               (q, k, v), causal, q_offset, k_offset)
 
 
 def _fwd_outputs(q):
@@ -262,7 +319,8 @@ def _fwd_outputs(q):
     return torch.empty_like(q), m, torch.empty_like(m)
 
 
-def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int):
+def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int,
+                    scale=None):
     """The fp32-FMA forward kernel (flash_fwd.cu), any supported input."""
     global flash_fwd_launches
     sq, sk = q.shape[1], k.shape[1]
@@ -274,13 +332,15 @@ def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int):
         err = lib.hvdt_flash_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, sq, sk, d,
-            q_offset, k_offset, int(causal), _stream(q))
+            q_offset, k_offset, int(causal), _scale_arg(q, scale),
+            _stream(q))
     _cuda.check(err, "flash forward kernel")
     flash_fwd_launches += 1
     return o, m, l
 
 
-def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int):
+def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
+                    scale=None):
     """The wgmma/TMA forward kernel (flash_fwd_sm90.cu): bf16, D 64/128."""
     global flash_fwd_sm90_launches
     sq, sk = q.shape[1], k.shape[1]
@@ -293,7 +353,7 @@ def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int):
         err = lib.hvdt_flash_fwd_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             m.data_ptr(), l.data_ptr(), b, h, sq, sk, d, q_offset, k_offset,
-            int(causal), _stream(q))
+            int(causal), _scale_arg(q, scale), _stream(q))
     _cuda.check(err, "flash forward sm90 kernel")
     flash_fwd_sm90_launches += 1
     return o, m, l
@@ -314,13 +374,13 @@ def _flash_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     if q.device.type == "cpu":
         return _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset,
                                k_offset)
-    launch = (_flash_dq_sm90 if _design(q.dtype, q.shape[-1]) == "sm90"
-              else _flash_dq_simt)
-    return launch(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+    return _on_padded_head_dim(_launcher(q, _flash_dq_sm90, _flash_dq_simt),
+                               (q, k, v, do), lse, delta, causal, q_offset,
+                               k_offset)
 
 
 def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-                   k_offset: int):
+                   k_offset: int, scale=None):
     """The fp32-FMA dq kernel (flash_bwd.cu), any supported input."""
     global flash_dq_launches
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
@@ -331,14 +391,15 @@ def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
         err = lib.hvdt_flash_dq(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, sq, sk, d, q_offset, k_offset, int(causal), _stream(q))
+            b, h, sq, sk, d, q_offset, k_offset, int(causal),
+            _scale_arg(q, scale), _stream(q))
     _cuda.check(err, "flash dq kernel")
     flash_dq_launches += 1
     return dq
 
 
 def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-                   k_offset: int):
+                   k_offset: int, scale=None):
     """The wgmma/TMA dq kernel (flash_dq_sm90.cu): bf16, D 64/128."""
     global flash_dq_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
@@ -350,7 +411,8 @@ def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
         err = lib.hvdt_flash_dq_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
-            q_offset, k_offset, int(causal), _stream(q))
+            q_offset, k_offset, int(causal), _scale_arg(q, scale),
+            _stream(q))
     _cuda.check(err, "flash dq sm90 kernel")
     flash_dq_sm90_launches += 1
     return dq
@@ -363,13 +425,13 @@ def _flash_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     if q.device.type == "cpu":
         return _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset,
                                 k_offset)
-    launch = (_flash_dkv_sm90 if _design(q.dtype, q.shape[-1]) == "sm90"
-              else _flash_dkv_simt)
-    return launch(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+    return _on_padded_head_dim(
+        _launcher(q, _flash_dkv_sm90, _flash_dkv_simt), (q, k, v, do), lse,
+        delta, causal, q_offset, k_offset)
 
 
 def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-                    k_offset: int):
+                    k_offset: int, scale=None):
     """The fp32-FMA dk/dv kernel (flash_bwd.cu), any supported input."""
     global flash_dkv_launches
     b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
@@ -382,14 +444,14 @@ def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, h, sq, sk, d, q_offset, k_offset, int(causal),
-            _stream(q))
+            _scale_arg(q, scale), _stream(q))
     _cuda.check(err, "flash dk/dv kernel")
     flash_dkv_launches += 1
     return dk, dv
 
 
 def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-                    k_offset: int):
+                    k_offset: int, scale=None):
     """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16, D 64/128."""
     global flash_dkv_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
@@ -402,7 +464,8 @@ def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
         err = lib.hvdt_flash_dkv_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, sq, sk, d, q_offset, k_offset, int(causal), _stream(q))
+            b, h, sq, sk, d, q_offset, k_offset, int(causal),
+            _scale_arg(q, scale), _stream(q))
     _cuda.check(err, "flash dk/dv sm90 kernel")
     flash_dkv_sm90_launches += 1
     return dk, dv

@@ -81,20 +81,36 @@ def mesh_size(axis: str = "data") -> int:
     return _mesh_for(axis).sizes[axis]
 
 
+def _scale_(x: torch.Tensor, factor: float) -> None:
+    """``x *= factor`` in place, the factor first rounded to ``x``'s
+    dtype, as the reference's ``x * jnp.asarray(factor, x.dtype)``."""
+    if factor != 1.0:
+        x.mul_(torch.tensor(factor, dtype=x.dtype))
+
+
+def _is_float(x: torch.Tensor) -> bool:
+    return x.is_floating_point() or x.is_complex()
+
+
 def allreduce_(x: torch.Tensor, op: int = Average, axis: str = "data",
                prescale_factor: float = 1.0,
                postscale_factor: float = 1.0) -> torch.Tensor:
-    """In-place :func:`allreduce`: reduces ``x`` itself and returns it."""
+    """In-place :func:`allreduce`: reduces ``x`` itself and returns it.
+    The ``Average`` of an integer tensor is a float, which ``x`` cannot
+    hold: that raises before any collective, leaving ``x`` as it was."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduction op {op}")
+    if op == Average and not _is_float(x):
+        raise ValueError(
+            f"allreduce_: the average of a {x.dtype} tensor is a float "
+            f"and cannot be written into it; use allreduce, which returns "
+            f"the float mean")
     mesh = _mesh_for(axis)
-    if prescale_factor != 1.0:
-        x.mul_(prescale_factor)
+    _scale_(x, prescale_factor)
     dist.all_reduce(x, op=_REDUCE_OPS[op], group=mesh.groups[axis])
-    if op == Average:
+    if op == Average and mesh.sizes[axis] > 1:
         x.div_(mesh.sizes[axis])
-    if postscale_factor != 1.0:
-        x.mul_(postscale_factor)
+    _scale_(x, postscale_factor)
     return x
 
 
@@ -102,7 +118,13 @@ def allreduce(x: torch.Tensor, op: int = Average, axis: str = "data",
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
     """Cross-replica reduction into a new tensor. ``Average`` divides
-    the sum by the axis size."""
+    the sum by the axis size; for an integer tensor it returns the float
+    mean, as ``jax.lax.pmean`` does."""
+    if op == Average and not _is_float(x):
+        y = allreduce_(x.clone(), Sum, axis, prescale_factor)
+        y = y / mesh_size(axis)
+        _scale_(y, postscale_factor)
+        return y
     return allreduce_(x.clone(), op, axis, prescale_factor,
                       postscale_factor)
 

@@ -84,7 +84,8 @@ def main() -> int:
         _cuda.check(fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            outs[n].data_ptr(), b, h, s, s, d, 0, 0, 1,
-                           stream), f"dq with {n} stages")
+                           fa._softmax_scale(d), stream),
+                    f"dq with {n} stages")
 
     for n in fns:
         call(n)

@@ -23,12 +23,17 @@ from typing import Optional
 import torch
 
 from horovod_tpu_torch import ops as _ops
-from horovod_tpu_torch.common.basics import rank
+from horovod_tpu_torch.common.basics import (  # noqa: F401
+    cross_rank, cross_size, init, initialized, is_homogeneous, local_rank,
+    local_size, rank, shutdown, size,
+)
 from horovod_tpu_torch.common.compression import Compression
-from horovod_tpu_torch.ops import Average, Sum, poll, synchronize
+from horovod_tpu_torch.ops import Average, Sum, barrier, poll, synchronize
 
 __all__ = [
-    "Average", "Sum", "poll", "synchronize",
+    "init", "shutdown", "initialized", "rank", "size", "local_rank",
+    "local_size", "cross_rank", "cross_size", "is_homogeneous",
+    "Average", "Sum", "Compression", "poll", "synchronize", "barrier",
     "allreduce", "allreduce_", "allreduce_async",
     "allgather", "allgather_async",
     "broadcast", "broadcast_", "broadcast_async", "alltoall",

@@ -13,8 +13,9 @@ itself with ``rows=False`` (the stats m and l).
   another summation order, which moves a result by a small fraction of
   its row's scale: 2e-5 forward, 1e-4 gradients.
 - ``step``: both round a bf16 output to bf16, which may part them by one
-  bf16 step of the element itself, 2^-7 of it (``BF16_STEP``); fp32
-  outputs have step 0.
+  bf16 step of the element itself, 2^-7 of it (``BF16_STEP``); an fp16
+  output by one fp16 step, 2^-10 (``FP16_STEP``); fp32 outputs have
+  step 0.
 - ``plain_b``: for the tensor-core (sm90) kernels only, the plain version
   with ``bf16_operands=True``, which rounds p (and ds) to bf16 where the
   kernel feeds them to the tensor cores. The kernel's rounding is of the
@@ -43,6 +44,13 @@ from typing import Optional, Tuple
 import torch
 
 BF16_STEP = 2.0 ** -7
+FP16_STEP = 2.0 ** -10
+
+
+def step_of(dtype) -> float:
+    """The rounding step of an output of this dtype (see ``step``)."""
+    return {torch.bfloat16: BF16_STEP, torch.float16: FP16_STEP}.get(
+        dtype, 0.0)
 DQ_ATOL = 1e-5
 
 

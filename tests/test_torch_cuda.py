@@ -13,11 +13,12 @@ agree to 2e-5 of the largest value in the element's row (its last axis)
 for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
-of the element itself (2^-7 of it). The tensor-core (sm90) kernels also
-round p (and ds) to bf16 for the tensor cores: their o, dq, dk and dv may
-differ by twice the largest effect that this rounding alone has in the
-row (the plain version with ``bf16_operands=True``); their m and l keep
-the fp32 bounds. The sm90 dq has an absolute floor of 1e-5 instead of
+of the element itself (2^-7 of it); fp16 outputs by one fp16 step
+(2^-10). The tensor-core (sm90) kernels also round p (and ds) to bf16
+for the tensor cores: their o, dq, dk and dv may differ by twice the
+largest effect that this rounding alone has in the row (the plain
+version with ``bf16_operands=True``); their m and l keep the fp32
+bounds. The sm90 dq has an absolute floor of 1e-5 instead of
 1e-6 (``tolerance.DQ_ATOL``: the dq of a query that sees one key is pure
 rounding noise).
 """
@@ -101,7 +102,7 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
                                   bf16_operands=True)[0]
         dq_b = fa._flash_dq_plain(*args, bf16_operands=True)
         dk_b, dv_b = fa._flash_dkv_plain(*args, bf16_operands=True)
-    step = tolerance.BF16_STEP if dt == torch.bfloat16 else 0.0
+    step = tolerance.step_of(dt)
     _close(m, m_p, 2e-5, 1e-5, rows=False)
     _close(l, l_p, 2e-5, 1e-5, rows=False)
     _close(o, o_p, 2e-5, 1e-6, step, plain_b=o_b)
@@ -193,12 +194,12 @@ def test_flash_attention_autograd_matches_dense_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 48, device=cuda)
+    q = torch.zeros(1, 64, 2, 264, device=cuda)
     with pytest.raises(ValueError):
-        fa._flash_fwd(q, q, q, True, 0, 0)            # head dim 48
-    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+        fa._flash_fwd(q, q, q, True, 0, 0)            # head dim past 256
+    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
-        fa._flash_fwd(q, q, q, True, 0, 0)            # fp16
+        fa._flash_fwd(q, q, q, True, 0, 0)            # fp64
     q = torch.zeros(1, 2, 64, 64, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         fa._flash_fwd(q, q, q, True, 0, 0)            # not contiguous
@@ -315,3 +316,39 @@ def test_eager_optimizer_equals_the_in_step_one_on_the_card(cuda_world):
                               for p in model.parameters()]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+C4_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset
+    pytest.param("float16", 2, 256, 4, 128, True, 0, 0, id="fp16_d128"),
+    pytest.param("float16", 1, 128, 2, 64, True, 0, 64, id="fp16_d64_dead"),
+    pytest.param("float32", 1, 192, 2, 96, True, 0, 0, id="fp32_d96"),
+    pytest.param("bfloat16", 2, 128, 2, 96, False, 0, 0, id="bf16_d96"),
+    pytest.param("float16", 1, 128, 2, 96, True, 64, 0, id="fp16_d96"),
+    pytest.param("float32", 1, 128, 2, 80, True, 0, 0, id="fp32_d80_padded"),
+    pytest.param("bfloat16", 1, 128, 3, 80, True, 32, 0,
+                 id="bf16_d80_padded"),
+    pytest.param("bfloat16", 1, 128, 2, 48, True, 0, 0,
+                 id="bf16_d48_padded_sm90"),
+    pytest.param("float32", 1, 192, 2, 256, True, 0, 0, id="fp32_d256"),
+    pytest.param("bfloat16", 2, 128, 2, 256, True, 0, 64, id="bf16_d256"),
+    pytest.param("float16", 1, 40, 2, 256, True, 0, 0, id="fp16_d256_short"),
+    pytest.param("float32", 1, 128, 2, 200, False, 0, 0,
+                 id="fp32_d200_padded_noncausal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko", C4_CASES)
+def test_head_dims_and_fp16_match_plain_versions(cuda, dtype, b, s, h, d,
+                                                causal, qo, ko):
+    """fp16, D 96 and 256, and head dims no kernel is built for (run
+    zero-padded at the next one that is): forward, dq and dk/dv."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko)
+
+
+@pytest.mark.cuda
+def test_head_dim_past_256_raises_naming_the_roadmap_item(cuda):
+    q = torch.zeros(1, 64, 1, 264, device=cuda)
+    with pytest.raises(ValueError, match="C4"):
+        fa._flash_fwd(q, q, q, True, 0, 0)

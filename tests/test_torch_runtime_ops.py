@@ -520,8 +520,8 @@ def test_star_arithmetic_is_the_references_bit_for_bit(dtype):
     in the tensor's dtype, the postscale; each rounds to nearest-even in
     both, so the results are equal bit for bit, bfloat16 included."""
     import ml_dtypes
-    from horovod_tpu_torch.ops.socket_ops import SocketBackend, _accumulate
-    from horovod_tpu_torch.ops.socket_ops import _pack
+    from horovod_tpu_torch.ops.backend import pack, scale_
+    from horovod_tpu_torch.ops.socket_ops import _accumulate
     np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.dtype(dtype)
     bits = {2: np.uint16, 4: np.uint32, 8: np.uint64}[np.dtype(np_dt).itemsize]
     rng = np.random.RandomState(0)
@@ -543,11 +543,11 @@ def test_star_arithmetic_is_the_references_bit_for_bit(dtype):
     for peer in packed[1:]:
         want += peer
     want = want * np.asarray(post, np_dt)
-    got = [_pack([to_torch(x) for x in r], pre) for r in ranks]
+    got = [pack([to_torch(x) for x in r], pre) for r in ranks]
     acc = got[0]
     for peer in got[1:]:
         _accumulate(acc, peer)
-    SocketBackend._postscale_(acc, post)
+    scale_(acc, post)
     assert torch.equal(acc, to_torch(want))
 
 
