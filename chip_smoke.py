@@ -19,7 +19,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    fp32 at two shapes, and at B=2, S=1024, H=8, causal, through the
    dispatchers: fp16 at D 128, bf16 at D 96, D 80 (the D 96 kernels on
    zero-padded inputs) and D 256, fp32 at D 256 (the backward kernels
-   own 32-row tiles there). Each element is held to the bound of
+   own 32-row tiles there), and bf16 and fp32 at D 384, D 320 (the D 384
+   kernels on zero-padded inputs) and D 512 (32-key loop tiles; the
+   forward owns 32 rows, the backward 16). Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
    plain| for the sm90 kernels), a row being the last axis (D for o and
@@ -52,7 +54,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the main path's shape in bf16, the simt kernels there in fp32 (their
    input type on the LM's shapes, through the private launchers), each
    C4 instantiation at its phase-2 shape through the dispatchers (D 80
-   includes the padding copies), beside the plain version, the PyTorch
+   and D 320 include the padding copies), beside the plain version, the PyTorch
    library call computing the same function in the same dtype
    (scaled_dot_product_attention, timed here only as a yardstick) and
    the bound: the larger of the operations the function needs (2 x D
@@ -78,40 +80,55 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    it with a LocalController. The main path's Transformer-LM (phase 4's
    configuration and seed) takes 5 steps with the in-step
    DistributedOptimizer, then 5 with the hook-driven
-   ``torch.eager.DistributedOptimizer``: each step's loss and every
-   parameter after the last step must be equal (at size 1 both averages
-   are identities). Prints the seconds per step of each, a profiled step
-   of each (device busy and idle), the cycles per step, the responses
-   per step and tensors per response, the negotiation time per cycle and
-   the runtime thread's busy time per step. Rank 0's timeline (HOROVOD_TIMELINE) must hold
-   NEGOTIATE_ALLREDUCE, ALLREDUCE, QUEUE, COLLECTIVE and CYCLE_START; at
-   size 1 no fusion buffer exists (the local plane, like the reference's,
-   hands the tensors back), so MEMCPY_IN_FUSION_BUFFER is held in phase
-   10's timeline. Then the depth-2 model takes 3 eager steps on the whole
-   batch of 4: phase 10's reference.
+   ``torch.eager.DistributedOptimizer`` four times: with the response
+   cache off (HOROVOD_CACHE_CAPACITY=0) and on (the default: 1024 slots,
+   speculation on), each on a quiet host and under a controlled load (2
+   Python processes spinning, pinned with os.sched_setaffinity to this
+   process's CPUs, started and stopped here; one that dies is a
+   failure). Each run's losses and every parameter after the last step
+   must equal the in-step run's (at size 1 both averages are
+   identities). Prints the seconds per step of each, a profiled step of
+   the in-step and the quiet cache-on runs (device busy and idle), and
+   per step the cycles (cached and speculative among them), the
+   responses and tensors per response, the negotiation time per cycle,
+   the runtime thread's busy time and its burst holds, then a table of
+   the four runs. The quiet cache-on run must run cached cycles, and
+   its rank 0 timeline (HOROVOD_TIMELINE) must hold NEGOTIATE_ALLREDUCE,
+   NEGOTIATE_CACHED, ALLREDUCE, QUEUE, COLLECTIVE and CYCLE_START; at
+   size 1 no fusion buffer exists (the local plane, like the
+   reference's, hands the tensors back), so MEMCPY_IN_FUSION_BUFFER is
+   held in phase 10's timeline. Then the depth-2 model takes 5 eager
+   steps on the whole batch of 4: phase 10's reference.
 10. A two-rank world on one card: the script starts a second process of
    itself as rank 1 (both ranks on cuda:0; NCCL refuses two ranks on one
    device). Both ranks take the process-group plane out of their backend
    lists, so the runtime's socket star carries the CUDA tensors. CUDA
    tensors go through every collective against their closed-form values
    exactly; mismatched dtypes across the ranks raise on both and the
-   world works afterwards; a tensor that a chain of 16 fp32 matmuls of
-   8192^2 x 256 writes right before ``allreduce_async`` (the stream
-   still busy, which is checked) arrives holding the chain's result (the
-   ready event); the depth-2 LM at full width
-   takes 3 eager steps on 2 rows per rank, which must agree with phase
-   9's whole-batch steps: the mean of the ranks' losses within 1e-4 of
-   the loss (relative), every parameter within 2^-6 of its largest
-   update (the ranks' weight gradients are rounded to bf16 on 2 rows
-   each, the whole batch's once on 4: 2^-8 of a gradient apart), the
-   two ranks' parameters equal. Rank 0's timeline must hold
-   MEMCPY_IN_FUSION_BUFFER. Prints the seconds per step and the bytes
-   moved between the card and the host.
+   world works afterwards; 5 times under one name, a tensor that a chain
+   of 16 fp32 matmuls of 8192^2 x 256 writes right before
+   ``allreduce_async`` (the stream still busy, which is checked) arrives
+   holding the chain's result (the ready event), and at least one of
+   those rounds must be a speculative cycle of the response cache,
+   whose pack waits on the same event; the depth-2 LM at full width
+   takes 5 eager steps on 2 rows per rank, of which steps 3-5 must run
+   speculative cycles (a mask speculates only after a pure-hit cycle of
+   it was granted in full), and which must agree with phase 9's
+   whole-batch steps: the mean of the ranks' losses within 1e-4 of the
+   loss (relative), every parameter within 2^-6 of its largest update
+   (the ranks' weight gradients are rounded to bf16 on 2 rows each, the
+   whole batch's once on 4: 2^-8 of a gradient apart), the two ranks'
+   parameters equal. Rank 0's timeline must hold
+   MEMCPY_IN_FUSION_BUFFER, NEGOTIATE_CACHED and NEGOTIATE_CACHED_FUSED.
+   Prints the seconds per step, the cycle counts and the bytes moved
+   between the card and the host.
 11. The same world through the process-group plane
    (horovod_tpu_torch/ops/process_group_ops.py): the ranks must agree on
    its gloo rendering (one card, two ranks), every check of phase 10
    must hold, no CUDA tensor may reach the star (its card<->host bytes
    stay 0 from init on) and the plane must have served responses; the
+   plane is not fused-cycle-reducible, so steps 3-5 must run cached
+   cycles and no speculative one (the two-round bitmask path); the
    losses and parameters must equal phase 10's bit for bit (a sum of two
    fp32 terms has one order), or else phase 10's bounds against the
    whole batch, and the script says which held. Prints the seconds per
@@ -151,7 +168,10 @@ MAIN = dict(b=4, s=2048, h=16, d=128)
 C4_SHAPE = dict(b=2, s=1024, h=8)
 C4_CASES = (("fp16_d128", "float16", 128), ("bf16_d96", "bfloat16", 96),
             ("bf16_d80", "bfloat16", 80), ("bf16_d256", "bfloat16", 256),
-            ("fp32_d256", "float32", 256))
+            ("fp32_d256", "float32", 256), ("bf16_d384", "bfloat16", 384),
+            ("fp32_d384", "float32", 384), ("bf16_d320", "bfloat16", 320),
+            ("fp32_d320", "float32", 320), ("bf16_d512", "bfloat16", 512),
+            ("fp32_d512", "float32", 512))
 # The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
 # and the small head dims and must not launch there.
 MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
@@ -641,6 +661,13 @@ def kernel_times(torch, fa):
 # The full-width LM of phase 4 (bench.py's), at a depth given per phase.
 LM_FULL = dict(vocab_size=32000, num_heads=16, head_dim=128,
                max_seq_len=MAIN["s"])
+# Eager steps of phases 10 and 11 (and of phase 9's whole-batch
+# reference): a mask may speculate only after a pure-hit cycle of that
+# mask was granted in full, so steps 1-2 learn the steady sets and steps
+# 3-5 may run speculative cycles.
+WORLD_STEPS = 5
+# Rounds of phase 10's and 11's ready-event check under one name.
+READY_ROUNDS = 5
 
 
 def check_timeline(path, required):
@@ -673,88 +700,183 @@ def runtime_counts():
 
 
 def print_negotiation(before, after, steps):
-    """Prints the runtime's counts per step; returns (responses per
-    step, the loop's busy ms per step, responses per backend per step)."""
+    """Prints the runtime's counts per step; returns them per step:
+    cycles, cached_cycles, spec_cycles, responses, busy_ms (the loop's
+    negotiation and execution, burst holds left out) and by_backend."""
     d = {k: after[k] - before.get(k, 0) for k in after}
     per_cycle_ms = d["negotiate_s"] / max(1, d["cycles"]) * 1e3
     negotiate_ms, execute_ms = (d["negotiate_s"] / steps * 1e3,
                                 d["execute_s"] / steps * 1e3)
     by_backend = {k.split(".", 1)[1]: v / steps for k, v in d.items()
                   if k.startswith("responses.") and v}
-    print(f"  runtime: {d['cycles'] / steps:.1f} cycles per step, "
+    print(f"  runtime: {d['cycles'] / steps:.1f} cycles per step "
+          f"({d['cached_cycles'] / steps:.1f} cached, "
+          f"{d['spec_cycles'] / steps:.1f} speculative; "
+          f"{d['spec_bids'] / steps:.1f} bids, {d['spec_denials']} denied), "
           f"{d['responses'] / steps:.1f} responses per step "
           f"({', '.join(f'{k} {v:.1f}' for k, v in by_backend.items())}), "
           f"{d['tensors'] / max(1, d['responses']):.2f} tensors per "
           f"response, negotiation {per_cycle_ms:.3f} ms per cycle; the "
           f"loop's thread busy {negotiate_ms + execute_ms:.1f} ms per step "
-          f"(negotiation {negotiate_ms:.1f}, execution {execute_ms:.1f})")
-    return (d["responses"] / steps, negotiate_ms + execute_ms, by_backend)
+          f"(negotiation {negotiate_ms:.1f}, execution {execute_ms:.1f}), "
+          f"burst holds {d['hold_s'] / steps * 1e3:.1f} ms per step; cache "
+          f"hits {d['cache_hits']}, misses {d['cache_misses']}, evictions "
+          f"{d['cache_evictions']}")
+    return {"cycles": d["cycles"] / steps,
+            "cached_cycles": d["cached_cycles"] / steps,
+            "spec_cycles": d["spec_cycles"] / steps,
+            "responses": d["responses"] / steps,
+            "busy_ms": negotiate_ms + execute_ms, "by_backend": by_backend}
+
+
+class HostLoad:
+    """``k`` Python processes spinning on this process's CPUs
+    (``os.sched_setaffinity``), started and stopped by the caller: the
+    controlled host load of phase 9. A spinner that is not running when
+    it is stopped is a failure."""
+
+    def __init__(self, k: int):
+        self.cpus = sorted(os.sched_getaffinity(0))
+        code = (f"import os; os.sched_setaffinity(0, {self.cpus!r})\n"
+                f"while True: pass")
+        self.procs = [subprocess.Popen([sys.executable, "-c", code])
+                      for _ in range(k)]
+
+    def stop(self):
+        dead = [p.poll() for p in self.procs if p.poll() is not None]
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if dead:
+            raise AssertionError(f"a load process ended early: exit "
+                                 f"codes {dead}")
+
+
+def eager_run(torch, hvd, bench, cfg, args, cache: bool, profile=False):
+    """One ``hvd.init()`` with the response cache on (the default) or
+    off (HOROVOD_CACHE_CAPACITY=0), 5 eager steps of the full-width LM;
+    returns (losses, seconds per step, parameters, runtime counts before
+    and after, profile or None)."""
+    if not cache:
+        os.environ["HOROVOD_CACHE_CAPACITY"] = "0"
+    hvd.init()
+    try:
+        step, model = bench.transformer_step(cfg, MAIN["b"], seed=args.seed,
+                                             eager=True)
+        torch.cuda.synchronize()
+        before = runtime_counts()
+        losses, secs = timed_steps(step, 5)
+        after = runtime_counts()
+        params = [p.detach().clone() for p in model.parameters()]
+        prof = profiled_step(torch, step) if profile else None
+        del step, model
+    finally:
+        hvd.shutdown()
+        os.environ.pop("HOROVOD_CACHE_CAPACITY", None)
+    torch.cuda.empty_cache()
+    return losses, secs, params, before, after, prof
 
 
 def eager_runtime_phase(torch, hvd, args, card, workdir):
     """Phase 9: the eager (hook-driven, negotiated) optimizer against the
-    in-step one at full width on one card; returns phase 10's whole-batch
-    reference (losses, initial and final parameters on the host)."""
+    in-step one at full width on one card, with the response cache off
+    and on, on a quiet host and under a controlled load; returns phase
+    10's whole-batch reference (losses, initial and final parameters on
+    the host)."""
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.models import TransformerConfig
     timeline = os.path.join(workdir, "timeline_size1.json")
-    os.environ.update(HOROVOD_TIMELINE=timeline,
-                      HOROVOD_TIMELINE_MARK_CYCLES="1")
     cfg = TransformerConfig(num_layers=args.layers, dtype=torch.bfloat16,
                             **LM_FULL)
     b = MAIN["b"]
     hvd.init()
     try:
-        runs = {}
-        for eager in (False, True):
-            step, model = bench.transformer_step(cfg, b, seed=args.seed,
-                                                 eager=eager)
-            torch.cuda.synchronize()
-            before = runtime_counts()
-            losses, secs = timed_steps(step, 5)
-            after = runtime_counts()
-            params = [p.detach().clone() for p in model.parameters()]
-            prof, wall = profiled_step(torch, step)
-            runs[eager] = (losses, secs, params, before, after, prof, wall)
-            del step, model
+        step, model = bench.transformer_step(cfg, b, seed=args.seed)
+        torch.cuda.synchronize()
+        losses0, secs0 = timed_steps(step, 5)
+        params0 = [p.detach().clone() for p in model.parameters()]
+        prof0 = profiled_step(torch, step)
+        del step, model
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    print(f"eager runtime, size 1: L{cfg.num_layers} d{cfg.embed_dim} "
+          f"S{cfg.max_seq_len} B{b} V{cfg.vocab_size}, 5 steps each from "
+          f"seed {args.seed}  [{card}]")
+    print(f"  in-step  losses {' '.join(f'{x:.6f}' for x in losses0)}; "
+          f"sec/step {statistics.median(secs0[1:]):.4f} (median of steps "
+          f"2-5; step 1 {secs0[0]:.3f})")
+    print_breakdown(*prof0, LM_GROUPS)
+    del prof0
+    rows = []
+    for load in (0, 2):
+        for cache in (False, True):
+            label = (f"eager, cache {'on' if cache else 'off'}, "
+                     f"{f'{load} spinners' if load else 'quiet'}")
+            quiet_on = cache and not load
+            if quiet_on:
+                os.environ.update(HOROVOD_TIMELINE=timeline,
+                                  HOROVOD_TIMELINE_MARK_CYCLES="1")
+            spin = HostLoad(load) if load else None
+            try:
+                losses, secs, params, before, after, prof = eager_run(
+                    torch, hvd, bench, cfg, args, cache, profile=quiet_on)
+            finally:
+                if spin is not None:
+                    spin.stop()
+                for k in ("HOROVOD_TIMELINE",
+                          "HOROVOD_TIMELINE_MARK_CYCLES"):
+                    os.environ.pop(k, None)
+            sec = statistics.median(secs[1:])
+            print(f"  {label}: losses "
+                  f"{' '.join(f'{x:.6f}' for x in losses)}; sec/step "
+                  f"{sec:.4f} (median of steps 2-5; step 1 {secs[0]:.3f})"
+                  + (f"; load on CPUs {spin.cpus}" if spin else ""))
+            per = print_negotiation(before, after, 5)
+            if prof is not None:
+                print_breakdown(*prof, LM_GROUPS)
+            same = losses == losses0 and all(
+                torch.equal(a, c) for a, c in zip(params0, params))
+            print(f"    eager == in-step (5 losses, {len(params0)} "
+                  f"parameters): {'ok' if same else 'FAIL'}")
+            if not same:
+                worst = max((a - c).abs().max().item()
+                            for a, c in zip(params0, params))
+                raise AssertionError(
+                    f"{label}: the eager steps differ from the in-step "
+                    f"ones: losses {losses0} vs {losses}, largest "
+                    f"parameter difference {worst:.3e}")
+            rows.append((label, sec, per))
+            if quiet_on:
+                on = per
+            del params
             torch.cuda.empty_cache()
-        print(f"eager runtime, size 1: L{cfg.num_layers} d{cfg.embed_dim} "
-              f"S{cfg.max_seq_len} B{b} V{cfg.vocab_size}, 5 steps each "
-              f"from seed {args.seed}  [{card}]")
-        for eager, label in ((False, "in-step"), (True, "eager")):
-            losses, secs, _, before, after, prof, wall = runs[eager]
-            print(f"  {label:<8} losses {' '.join(f'{x:.6f}' for x in losses)}"
-                  f"; sec/step {statistics.median(secs[1:]):.4f} (median "
-                  f"of steps 2-5; step 1 {secs[0]:.3f})")
-            if eager:
-                print_negotiation(before, after, 5)
-            print_breakdown(prof, wall, LM_GROUPS)
-        (l0, _, p0, *_), (l1, _, p1, *_) = runs[False], runs[True]
-        same = l0 == l1 and all(torch.equal(a, c) for a, c in zip(p0, p1))
-        print(f"  eager == in-step (5 losses, {len(p0)} parameters): "
-              f"{'ok' if same else 'FAIL'}")
-        if not same:
-            worst = max((a - c).abs().max().item() for a, c in zip(p0, p1))
-            raise AssertionError(f"the eager steps differ from the in-step "
-                                 f"ones: losses {l0} vs {l1}, largest "
-                                 f"parameter difference {worst:.3e}")
-        del runs, p0, p1
-        torch.cuda.empty_cache()
-        # Phase 10's reference: one rank, the whole batch of 4.
+    print("  phase 9 summary (per step): cycles, cached cycles, "
+          "responses, the loop's busy ms, seconds")
+    for label, sec, per in rows:
+        print(f"    {label:<30} {per['cycles']:7.1f} "
+              f"{per['cached_cycles']:7.1f} {per['responses']:7.1f} "
+              f"{per['busy_ms']:8.1f} {sec:.4f}")
+    if not on["cached_cycles"] > 0:
+        raise AssertionError("the cache-on eager steps ran no cached cycle")
+    check_timeline(timeline, ("NEGOTIATE_ALLREDUCE", "NEGOTIATE_CACHED",
+                              "ALLREDUCE", "QUEUE", "COLLECTIVE",
+                              "CYCLE_START"))
+    del params0
+    # Phase 10's reference: one rank, the whole batch of 4, 5 steps.
+    hvd.init()
+    try:
         cfg2 = dataclasses.replace(cfg, num_layers=2)
         step, model = bench.transformer_step(cfg2, 4, seed=args.seed,
                                              eager=True)
         init = [p.detach().to("cpu", copy=True) for p in model.parameters()]
-        losses, _ = timed_steps(step, 3)
+        losses, _ = timed_steps(step, WORLD_STEPS)
         ref = (losses, init, [p.detach().to("cpu", copy=True)
                              for p in model.parameters()])
         del step, model
     finally:
         hvd.shutdown()
-        for k in ("HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES"):
-            os.environ.pop(k, None)
-    check_timeline(timeline, ("NEGOTIATE_ALLREDUCE", "ALLREDUCE", "QUEUE",
-                              "COLLECTIVE", "CYCLE_START"))
     torch.cuda.empty_cache()
     return ref
 
@@ -853,29 +975,38 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None,
                 raise AssertionError(f"two ranks on one card must render "
                                      f"with gloo, not {plane.rendering}")
 
-        print("  ready event: 16 chained 8192^2 x 256 fp32 matmuls write x "
-              "right before allreduce_async")
+        print(f"  ready event: 16 chained 8192^2 x 256 fp32 matmuls write x "
+              f"right before allreduce_async, {READY_ROUNDS} times under "
+              f"one name (the later rounds replay from the response cache"
+              f"{', speculatively' if mode == 'star' else ''})")
         g = torch.Generator(device=dev).manual_seed(args.seed + 7)
         a = torch.randn(8192, 8192, generator=g, device=dev) / 90.5
-        y = torch.randn(8192, 256, generator=g, device=dev)
-        torch.cuda.synchronize()
-        for _ in range(16):
-            y = torch.tanh(a @ y)
-        x = y[:, 0] * (rank + 1)
-        busy = not torch.cuda.current_stream().query()
-        h = hvd.allreduce_async(x, op=hvd.Sum, name="w.ready")
-        got = hvd.synchronize(h).clone()
-        torch.cuda.synchronize()
-        xs = hvd.allgather(x.cpu()[None], name="w.ready.x")
-        print(f"    the stream was still busy at the enqueue: {busy}")
-        c("arrived holding the matmuls' result", got,
-          (xs[0] + xs[1]).to(dev))
-        if not busy:
-            raise AssertionError("the matmuls ended before the enqueue: "
-                                 "the check would show nothing")
+        y0 = torch.randn(8192, 256, generator=g, device=dev)
+        spec0 = runtime_counts()["spec_cycles"]
+        for i in range(READY_ROUNDS):
+            torch.cuda.synchronize()
+            y = y0 * (i + 1)
+            for _ in range(16):
+                y = torch.tanh(a @ y)
+            x = y[:, 0] * (rank + 1)
+            busy = not torch.cuda.current_stream().query()
+            h = hvd.allreduce_async(x, op=hvd.Sum, name="w.ready")
+            got = hvd.synchronize(h).clone()
+            torch.cuda.synchronize()
+            xs = hvd.allgather(x.cpu()[None], name="w.ready.x")
+            c(f"round {i + 1}: the stream busy at the enqueue ({busy}), the "
+              f"result the matmuls'", got, (xs[0] + xs[1]).to(dev))
+            if not busy:
+                raise AssertionError("the matmuls ended before the "
+                                     "enqueue: the check would show nothing")
+        spec = runtime_counts()["spec_cycles"] - spec0
+        print(f"    speculative cycles in these rounds: {spec}")
+        if mode == "star" and not spec > 0:
+            raise AssertionError("no round ran a speculative cycle: the "
+                                 "ready event of its pack went unchecked")
 
-        print("  the LM at full width, depth 2, 2 rows per rank, 3 eager "
-              "steps:")
+        print(f"  the LM at full width, depth 2, 2 rows per rank, "
+              f"{WORLD_STEPS} eager steps:")
         cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
                                 **LM_FULL)
         step, model = bench.transformer_step(cfg, 2, seed=args.seed,
@@ -883,13 +1014,29 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None,
         torch.cuda.synchronize()
         before = runtime_counts()
         to_host, from_host = star.bytes_to_host, star.bytes_from_host
-        losses, secs = timed_steps(step, 3)
+        losses, secs = timed_steps(step, 2)
+        middle = runtime_counts()
+        more, more_secs = timed_steps(step, WORLD_STEPS - 2)
+        losses, secs = losses + more, secs + more_secs
         print(f"    losses {' '.join(f'{v:.6f}' for v in losses)}; sec/step "
               f"{' '.join(f'{v:.3f}' for v in secs)}")
         print(f"    star bytes card->host "
-              f"{(star.bytes_to_host - to_host) / 3:.4g} and host->card "
-              f"{(star.bytes_from_host - from_host) / 3:.4g} per step")
-        per_step = print_negotiation(before, runtime_counts(), 3)
+              f"{(star.bytes_to_host - to_host) / WORLD_STEPS:.4g} and "
+              f"host->card "
+              f"{(star.bytes_from_host - from_host) / WORLD_STEPS:.4g} per "
+              f"step")
+        per_step = print_negotiation(before, runtime_counts(), WORLD_STEPS)
+        late = {k: runtime_counts()[k] - middle[k]
+                for k in ("cached_cycles", "spec_cycles")}
+        print(f"    steps 3-{WORLD_STEPS}: {late['cached_cycles']} cached "
+              f"cycles, {late['spec_cycles']} speculative")
+        if mode == "star" and not late["spec_cycles"] > 0:
+            raise AssertionError("no speculative cycle in steps 3-5 "
+                                 "through the star")
+        if mode == "plane" and (late["spec_cycles"] != 0
+                                or not late["cached_cycles"] > 0):
+            raise AssertionError("through the plane the steps must run "
+                                 "cached cycles and no speculative one")
         if plane is not None:
             moved = (star.bytes_to_host - star_bytes[0],
                      star.bytes_from_host - star_bytes[1])
@@ -915,17 +1062,19 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None,
     # Under gloo the plane unpacks on a finalizer thread, which leaves
     # the loop's timeline be: no MEMCPY_OUT_FUSION_BUFFER there.
     check_timeline(timeline, ("NEGOTIATE_ALLREDUCE", "ALLREDUCE",
-                              "MEMCPY_IN_FUSION_BUFFER", "CYCLE_START")
-                   + (("MEMCPY_OUT_FUSION_BUFFER",) if mode == "star"
-                      else ()))
+                              "MEMCPY_IN_FUSION_BUFFER", "CYCLE_START",
+                              "NEGOTIATE_CACHED")
+                   + (("MEMCPY_OUT_FUSION_BUFFER", "NEGOTIATE_CACHED_FUSED")
+                      if mode == "star" else ()))
     run = (all_losses, params, (secs, per_step))
     if star_run is not None:
         s_losses, s_params, (s_secs, s_per) = star_run
         print(f"  plane against star: sec/step "
               f"{' '.join(f'{v:.3f}' for v in secs)} against "
               f"{' '.join(f'{v:.3f}' for v in s_secs)}; the loop busy "
-              f"{per_step[1]:.1f} against {s_per[1]:.1f} ms per step; "
-              f"{per_step[0]:.1f} against {s_per[0]:.1f} responses per step")
+              f"{per_step['busy_ms']:.1f} against {s_per['busy_ms']:.1f} ms "
+              f"per step; {per_step['responses']:.1f} against "
+              f"{s_per['responses']:.1f} responses per step")
         same = torch.equal(all_losses, s_losses) and all(
             torch.equal(a, b) for a, b in zip(params, s_params))
         print(f"  losses and parameters equal to phase 10's star run bit "

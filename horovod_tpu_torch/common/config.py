@@ -2,14 +2,16 @@
 
 Counterpart of ``horovod_tpu/common/config.py`` for what this port
 runs: the same ``HOROVOD_*`` names with the same defaults (fusion
-threshold 64 MiB, cycle time 5 ms, stall check at 60 s, timeline off).
-The planes of the reference that are not ported yet are off here. A
-variable that would switch one of them on raises ``NotImplementedError``
-naming its item in ``ROADMAP.md``, so that nothing quietly runs another
-configuration than the one asked for. The reference's defaults for
-those planes differ (response cache, native core, shm and ring on):
-this port's runtime is the reference run with ``HOROVOD_CACHE_CAPACITY=0
-HOROVOD_TPU_NATIVE=0 HOROVOD_TPU_SHM=0 HOROVOD_TPU_RING_THRESHOLD=-1``.
+threshold 64 MiB, cycle time 5 ms, stall check at 60 s, timeline off,
+the response cache on at 1024 slots with speculative cycles, :77-96,
+:409-414; capacity 0 or ``HOROVOD_CACHE_ENABLED=0`` turns the cache
+off). The planes of the reference that are not ported yet are off here.
+A variable that would switch one of them on raises
+``NotImplementedError`` naming its item in ``ROADMAP.md``, so that
+nothing quietly runs another configuration than the one asked for. The
+reference's defaults for those planes differ (native core, shm and ring
+on): this port's runtime is the reference run with
+``HOROVOD_TPU_NATIVE=0 HOROVOD_TPU_SHM=0 HOROVOD_TPU_RING_THRESHOLD=-1``.
 """
 
 from __future__ import annotations
@@ -63,10 +65,6 @@ def _positive(name: str) -> bool:
 # its item in ROADMAP.md). The debug sanitizers (HOROVOD_TPU_LOCKCHECK,
 # HOROVOD_TPU_THREADCHECK, A6.9) change no result and are not listed.
 _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
-    "HOROVOD_CACHE_CAPACITY": (
-        lambda n: env_int(n, 0) > 0 and env_bool(
-            "HOROVOD_CACHE_ENABLED", True),
-        "the response cache and its bitmask/speculative cycles (A6.1)"),
     "HOROVOD_HEARTBEAT_TIMEOUT": (
         _positive, "the heartbeat and world abort (A6.2)"),
     "HOROVOD_TPU_HIER_CONTROLLER": (
@@ -87,8 +85,8 @@ _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "HOROVOD_OVERLAP_BUCKETS": (_positive, "the overlap tier (A9)"),
     "HOROVOD_OVERLAP_BYTES": (_positive, "the overlap tier (A9)"),
     "HOROVOD_TPU_ICI": (
-        _on, "the fused steady-cycle plane, IciPlane, which rides the "
-             "response cache (A6.1)"),
+        _on, "the fused steady-cycle plane, IciPlane, which packs in the "
+             "negotiated wire dtypes and comes after them (A6.5)"),
     "HOROVOD_ELASTIC": (_on, "elastic worlds (A9)"),
 }
 
@@ -111,6 +109,18 @@ class Config:
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     cycle_time_ms: float = 5.0
+    # The response cache (common/coordinator.py ResponseCache): negotiated
+    # verdicts kept world-coherently, so that steady-state cycles move one
+    # bit per slot instead of serialized Requests. Capacity 0 or
+    # HOROVOD_CACHE_ENABLED=0 turns it off; both must match on every rank.
+    cache_enabled: bool = True
+    cache_capacity: int = 1024
+    # The fused speculative cycle: in steady state a rank attaches its
+    # pre-packed fused allreduce buffers to the bitmask frame and the
+    # coordinator reduces them inline, one world round per step, where
+    # the socket star would carry the batch anyway. Ranks may disagree
+    # on it: a cycle some rank does not bid runs the classic way.
+    cache_speculative: bool = True
     # Idle backoff: after 16 empty cycles the loop's sleep ramps toward
     # this many ms; new work or a shutdown wakes it at once.
     idle_backoff_ms: float = 25.0
@@ -141,6 +151,11 @@ class Config:
         c.fusion_threshold_bytes = env_int(
             "HOROVOD_FUSION_THRESHOLD", c.fusion_threshold_bytes)
         c.cycle_time_ms = env_float("HOROVOD_CYCLE_TIME", c.cycle_time_ms)
+        c.cache_enabled = env_bool("HOROVOD_CACHE_ENABLED", c.cache_enabled)
+        c.cache_capacity = env_int("HOROVOD_CACHE_CAPACITY",
+                                   c.cache_capacity)
+        c.cache_speculative = env_bool("HOROVOD_CACHE_SPECULATIVE",
+                                       c.cache_speculative)
         c.idle_backoff_ms = env_float("HOROVOD_TPU_IDLE_BACKOFF",
                                       c.idle_backoff_ms)
         c.timeline_path = env_str("HOROVOD_TIMELINE")

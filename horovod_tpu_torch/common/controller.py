@@ -163,7 +163,8 @@ class Controller:
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
         """Coordinator: every rank's cycle-request frame (index = rank),
-        its own included. Workers: send ``payload``; return None."""
+        its own included. Workers: send ``payload``; return None. A
+        payload may be a list of buffers, the frame's bytes in order."""
         raise NotImplementedError
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
@@ -216,6 +217,14 @@ class Controller:
         pass
 
 
+def _frame(payload):
+    """A frame given as a list of buffers (``network.Channel.send``),
+    joined: the coordinator parses its own frame with the others."""
+    if isinstance(payload, list):
+        return bytearray().join(network.as_byte_view(p) for p in payload)
+    return payload
+
+
 class LocalController(Controller):
     """Size-1 world: negotiation is immediate."""
 
@@ -223,7 +232,7 @@ class LocalController(Controller):
         self.topology = Topology(rank=0, size=1)
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
-        return [payload]
+        return [_frame(payload)]
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
         return payload
@@ -317,7 +326,7 @@ class TcpCoordinator(Controller):
                                        f"failed: {e}") from e
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
-        out = [payload] + [b""] * (self._size - 1)
+        out = [_frame(payload)] + [b""] * (self._size - 1)
         for r in self._channels:
             out[r] = self._recv(r, TAG_REQUESTS)
         return out

@@ -4,11 +4,13 @@ and stall detection.
 Counterpart of ``horovod_tpu/common/coordinator.py``: ``MessageTable``
 (:42), ``construct_response`` (:99) with all of its cross-rank checks,
 ``_response_bytes`` and ``fuse_responses`` (:282-390), and
-``StallInspector`` (:613). It turns requests that ranks submit in their
-own orders into one validated, fused, globally agreed order. It is host
-code on Request and Response objects and runs unchanged on any tensor
-type. The response cache (:429) waits for its slice (``ROADMAP.md``
-A6.1).
+``StallInspector`` (:613), and the response cache: ``CACHEABLE_*``
+(:383), ``iter_set_bits``, ``_CacheEntry`` and ``ResponseCache``
+(:390-611). It turns requests that ranks submit in their own orders
+into one validated, fused, globally agreed order, and keeps the
+negotiated verdicts that a steady-state loop replays. It is host code
+on Request and Response objects and runs unchanged on any tensor
+type.
 
 One departure: a REDUCESCATTER response carries the request's scale
 factors, as an ALLREDUCE response does. The reference's leaves them at
@@ -18,10 +20,11 @@ socket plane.
 
 from __future__ import annotations
 
+import heapq
 import threading
 import time
-from collections import deque
-from typing import Dict, List, Tuple
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Tuple
 
 from horovod_tpu_torch.common import logging as hlog
 from horovod_tpu_torch.common.message import (
@@ -341,6 +344,217 @@ def fuse_responses(responses: List[Response],
     return fused
 
 
+# Response types whose negotiated verdicts are worth replaying: the
+# signature (op, dtype, shape, root, device, scales) fully determines the
+# Response. BARRIER is pure negotiation and JOIN/ERROR are one-shot.
+CACHEABLE_REQUESTS = frozenset((
+    RequestType.ALLREDUCE, RequestType.ALLGATHER, RequestType.BROADCAST,
+    RequestType.ALLTOALL, RequestType.REDUCESCATTER,
+))
+CACHEABLE_RESPONSES = frozenset((
+    ResponseType.ALLREDUCE, ResponseType.ALLGATHER,
+    ResponseType.BROADCAST, ResponseType.ALLTOALL,
+    ResponseType.REDUCESCATTER,
+))
+
+
+def iter_set_bits(mask: int):
+    """Set bit positions of ``mask``, ascending: the one order every
+    mask-driven cache change and replay uses, so that eviction, LRU
+    touch and replay iterate alike on every rank."""
+    while mask:
+        low = mask & -mask
+        mask ^= low
+        yield low.bit_length() - 1
+
+
+class _CacheEntry:
+    __slots__ = ("name", "signature", "response", "dtype", "slice_numel",
+                 "slot")
+
+    def __init__(self, name: str, signature: tuple, response: Response,
+                 dtype: DataType, slice_numel: int, slot: int):
+        self.name = name
+        self.signature = signature
+        self.response = response
+        self.dtype = dtype
+        self.slice_numel = slice_numel
+        self.slot = slot
+
+    def clone_response(self) -> Response:
+        """A fresh Response for fusion: ``fuse_responses`` extends the
+        batch head's name and size lists, which must never reach the
+        cached copy."""
+        r = self.response
+        return Response(response_type=r.response_type,
+                        tensor_names=list(r.tensor_names),
+                        error_message=r.error_message,
+                        devices=list(r.devices),
+                        tensor_sizes=list(r.tensor_sizes),
+                        prescale_factor=r.prescale_factor,
+                        postscale_factor=r.postscale_factor,
+                        wire_dtype=r.wire_dtype,
+                        algorithm=r.algorithm)
+
+
+class ResponseCache:
+    """World-coherent LRU cache of negotiated per-tensor Responses: the
+    steady-state negotiation path (Horovod's ``HOROVOD_CACHE_CAPACITY``
+    bit-vector cache).
+
+    Coherence: every structural change (put, eviction, LRU touch) is
+    driven only by world-identical inputs, the broadcast response stream
+    for puts and the coordinator's broadcast grant and invalidate masks
+    for touches and evictions, applied in one order (ascending slot
+    order for masks, stream order for puts). Signatures are rank-local
+    (an allgather's dim 0 and the device differ per rank); everything
+    else (slot assignment, LRU order, eviction choice, epoch) is the
+    same on every rank, which is what lets a rank's slot bit stand for
+    its serialized Request. ``epoch`` counts structural events and rides
+    every bitmask frame, so that a divergence fails fast instead of
+    running mismatched collectives."""
+
+    MISS, HIT, INVALID = range(3)
+
+    def __init__(self, capacity: int, epoch0: int = 0):
+        if capacity <= 0:
+            raise ValueError("ResponseCache capacity must be positive")
+        self.capacity = capacity
+        self.epoch = epoch0
+        # name -> entry, in LRU order (first = oldest)
+        self._lru: "OrderedDict[str, _CacheEntry]" = OrderedDict()
+        self._slots: List[Optional[_CacheEntry]] = []
+        self._free: List[int] = []  # min-heap of freed slots
+        # Local counts (not part of the coherent state).
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    @property
+    def nslots(self) -> int:
+        return len(self._slots)
+
+    @staticmethod
+    def signature(req: Request) -> tuple:
+        """Everything that determines a Request's negotiated verdict
+        (rank-local: shape and device may differ per rank)."""
+        return (int(req.request_type), int(req.tensor_type),
+                req.tensor_shape, req.root_rank, req.device,
+                req.prescale_factor, req.postscale_factor,
+                req.wire_dtype)
+
+    def lookup(self, req: Request) -> Tuple[int, int]:
+        """(state, slot): HIT when the request matches the cached
+        signature; INVALID when the name is cached under another
+        signature (the slot must be evicted world-wide); MISS when the
+        name is not cached. Never moves the LRU order (a local lookup is
+        not a world-identical event)."""
+        e = self._lru.get(req.tensor_name)
+        if e is None:
+            self.misses += 1
+            return self.MISS, -1
+        # Field by field against the stored signature (indices as in
+        # signature()): this runs once per queued request per cycle.
+        s = e.signature
+        if (s[0] == req.request_type and s[1] == req.tensor_type
+                and s[2] == req.tensor_shape and s[3] == req.root_rank
+                and s[4] == req.device
+                and s[5] == req.prescale_factor
+                and s[6] == req.postscale_factor
+                and s[7] == req.wire_dtype):
+            self.hits += 1
+            return self.HIT, e.slot
+        self.misses += 1
+        return self.INVALID, e.slot
+
+    def put(self, name: str, signature: tuple, response: Response,
+            dtype: DataType, slice_numel: int) -> None:
+        """Insert or refresh from the negotiated response stream, in
+        stream order on every rank: the LRU order and the capacity
+        evictions follow the call order."""
+        e = self._lru.get(name)
+        if e is not None:
+            e.signature = signature
+            e.response = response
+            e.dtype = dtype
+            e.slice_numel = slice_numel
+            self._lru.move_to_end(name)
+            self.epoch += 1
+            return
+        if len(self._lru) >= self.capacity:
+            _, victim = self._lru.popitem(last=False)
+            self._slots[victim.slot] = None
+            heapq.heappush(self._free, victim.slot)
+            self.epoch += 1
+            self.evictions += 1
+        if self._free:
+            slot = heapq.heappop(self._free)
+        else:
+            slot = len(self._slots)
+            self._slots.append(None)
+        entry = _CacheEntry(name, signature, response, dtype, slice_numel,
+                            slot)
+        self._slots[slot] = entry
+        self._lru[name] = entry
+        self.epoch += 1
+
+    def evict_slots(self, mask: int) -> None:
+        """Evict every slot set in ``mask``, ascending."""
+        for slot in iter_set_bits(mask):
+            self._evict(slot)
+
+    def evict_name(self, name: str) -> None:
+        e = self._lru.get(name)
+        if e is not None:
+            self._evict(e.slot)
+
+    def _evict(self, slot: int) -> None:
+        e = self._slots[slot]
+        if e is None:
+            return
+        self._slots[slot] = None
+        del self._lru[e.name]
+        heapq.heappush(self._free, slot)
+        self.epoch += 1
+        self.evictions += 1
+
+    def touch_mask(self, mask: int) -> None:
+        """Mark granted slots most recently used, ascending. The epoch
+        does not move: no slot's name changes, and the replay plans stay
+        valid across hit cycles."""
+        for slot in iter_set_bits(mask):
+            e = self._slots[slot]
+            if e is not None:
+                self._lru.move_to_end(e.name)
+
+    def slot_mask(self, response_type: ResponseType) -> int:
+        """Mask of the occupied slots holding a verdict of
+        ``response_type`` (read only)."""
+        mask = 0
+        for e in self._slots:
+            if e is not None \
+                    and e.response.response_type == response_type:
+                mask |= 1 << e.slot
+        return mask
+
+    def entry(self, slot: int) -> _CacheEntry:
+        e = self._slots[slot]
+        if e is None:
+            raise KeyError(f"response cache slot {slot} is empty")
+        return e
+
+    def state_fingerprint(self) -> tuple:
+        """(epoch, ((slot, name) ascending), LRU name order): the part
+        of the state every rank holds alike."""
+        return (self.epoch,
+                tuple((e.slot, e.name) for e in self._slots
+                      if e is not None),
+                tuple(self._lru))
+
+
 class StallInspector:
     """Coordinator-side stall detection
     (reference: operations.cc:543-624 CheckForStalledTensors; env knobs
@@ -371,10 +585,15 @@ class StallInspector:
         with self._warned_lock:
             self._warned.discard(name)
 
-    def check(self, table: MessageTable) -> bool:
+    def check(self, table: MessageTable, cache_stats: str = "") -> bool:
         """Log a report of stalled tensors; returns True if the shutdown
-        threshold was exceeded (the caller must then shut down)."""
+        threshold was exceeded (the caller must then shut down).
+        ``cache_stats``: a one-line summary of the response cache (hits,
+        misses, cached cycles) logged with the report, which says
+        whether negotiation went the full way or through the bitmask."""
         self._last_check = time.monotonic()
+        if cache_stats:
+            hlog.info(f"negotiation {cache_stats}")
         must_shutdown = False
         for name, age, ranks_reported in table.pending():
             if age < self.warning_time:

@@ -54,6 +54,10 @@ def log(level: int, msg: str, rank: int | None = None) -> None:
         sys.stderr.flush()
 
 
+def info(msg, rank=None):
+    log(INFO, msg, rank)
+
+
 def warning(msg, rank=None):
     log(WARNING, msg, rank)
 

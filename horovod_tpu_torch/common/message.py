@@ -3,11 +3,11 @@ ResponseList.
 
 Counterpart of ``horovod_tpu/common/message.py`` (:1-367): the same
 enums with the same codes and the same fields, so that ``wire.py``
-writes frames byte for byte as the reference does. The cache-cycle
-messages (``CacheCycleRequest``/``CacheCycleResponse``) wait for the
-response-cache slice. ``Request.wire_dtype`` and ``Response.wire_dtype``
-/ ``algorithm`` stay on the wire but are always 0 here: wire
-compression and the algorithm stamp are not ported yet.
+writes frames byte for byte as the reference does, the response
+cache's cycle messages (``CacheCycleRequest``/``CacheCycleResponse``,
+:243-330) included. ``Request.wire_dtype`` and ``Response.wire_dtype`` /
+``algorithm`` stay on the wire but are always 0 here: wire compression
+and the algorithm stamp are not ported yet (``ROADMAP.md`` A6.5).
 
 Tensors are torch tensors: ``torch_dtype_to_datatype`` maps their dtypes
 (bfloat16 included) beside the reference's numpy mapping.
@@ -90,6 +90,13 @@ def torch_dtype_to_datatype(dtype: torch.dtype) -> DataType:
     except KeyError:
         raise ValueError(
             f"Unsupported dtype for horovod_tpu_torch: {dtype}") from None
+
+
+_DT_TO_TORCH = {dt: t for t, dt in _TORCH_TO_DT.items()}
+
+
+def datatype_to_torch_dtype(dt: DataType) -> torch.dtype:
+    return _DT_TO_TORCH[DataType(dt)]
 
 
 def datatype_size(dt: DataType) -> int:
@@ -220,6 +227,97 @@ class Response:
         return (f"Response({self.response_type.name},"
                 f" names={self.tensor_names},"
                 f" err={self.error_message!r})")
+
+
+class CacheCycleRequest:
+    """One rank's cycle frame on the response cache's path. ``hit_mask``
+    has one bit per cache slot this rank queued this cycle with an
+    unchanged signature; ``invalid_mask`` marks slots whose name came
+    back with another signature and must be evicted world-wide;
+    ``requests`` carries the uncached rest as plain Requests. ``epoch``
+    is the sender's cache event count: the coordinator fails fast on any
+    mismatch rather than let diverged caches grant mismatched
+    collectives. ``spec_payload`` (the fused speculative cycle) is
+    ``[(DataType, buffer), ...]``, one pre-packed fused allreduce buffer
+    per replay-plan batch in plan order, or None on a plain bitmask
+    frame."""
+
+    __slots__ = ("epoch", "nslots", "hit_mask", "invalid_mask",
+                 "requests", "shutdown", "spec_payload")
+
+    def __init__(self, epoch: int = 0, nslots: int = 0,
+                 hit_mask: int = 0, invalid_mask: int = 0,
+                 requests: List[Request] | None = None,
+                 shutdown: bool = False,
+                 spec_payload=None):
+        self.epoch = epoch
+        self.nslots = nslots
+        self.hit_mask = hit_mask
+        self.invalid_mask = invalid_mask
+        self.requests = requests if requests is not None else []
+        self.shutdown = shutdown
+        self.spec_payload = spec_payload
+
+    def __eq__(self, other):
+        return (isinstance(other, CacheCycleRequest) and
+                all(getattr(self, s) == getattr(other, s)
+                    for s in ("epoch", "nslots", "hit_mask",
+                              "invalid_mask", "requests", "shutdown"))
+                and _payloads_equal(self.spec_payload,
+                                    other.spec_payload))
+
+
+class CacheCycleResponse:
+    """The coordinator's cycle verdict on the response cache's path:
+    ``grant_mask`` is the AND of every rank's hit bits (less the
+    invalidated slots), the tensors the whole world queued this cycle,
+    replayed from the cache in ascending slot order; ``invalid_mask`` is
+    the OR of every rank's invalidate bits, evicted on every rank this
+    cycle; ``response_list`` carries whatever negotiated the full way
+    (empty on a pure hit cycle). ``spec_payload``: the world-reduced
+    fused buffers of a speculative cycle, in replay-plan order, or
+    None."""
+
+    __slots__ = ("epoch", "nslots", "grant_mask", "invalid_mask",
+                 "response_list", "spec_payload")
+
+    def __init__(self, epoch: int = 0, nslots: int = 0,
+                 grant_mask: int = 0, invalid_mask: int = 0,
+                 response_list: "ResponseList | None" = None,
+                 spec_payload=None):
+        self.epoch = epoch
+        self.nslots = nslots
+        self.grant_mask = grant_mask
+        self.invalid_mask = invalid_mask
+        self.response_list = response_list if response_list is not None \
+            else ResponseList()
+        self.spec_payload = spec_payload
+
+    def __eq__(self, other):
+        return (isinstance(other, CacheCycleResponse) and
+                all(getattr(self, s) == getattr(other, s)
+                    for s in ("epoch", "nslots", "grant_mask",
+                              "invalid_mask", "response_list"))
+                and _payloads_equal(self.spec_payload,
+                                    other.spec_payload))
+
+
+def _raw(buf) -> bytes:
+    """The bytes of a payload buffer (a CPU tensor, an array or any
+    bytes-like object)."""
+    if isinstance(buf, torch.Tensor):
+        return buf.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return bytes(buf)
+
+
+def _payloads_equal(a, b) -> bool:
+    if (a is None) != (b is None):
+        return False
+    if a is None:
+        return True
+    return (len(a) == len(b)
+            and all(da == db and _raw(ba) == _raw(bb)
+                    for (da, ba), (db, bb) in zip(a, b)))
 
 
 class ResponseList:

@@ -7,7 +7,10 @@ wire are the reference's: ``u32 payload_len | u8 tag | payload``, and
 with a secret key a 32-byte HMAC-SHA256 of (tag | payload) before the
 payload. Payloads are sent from and received into the memory of
 contiguous host buffers (bytes, numpy arrays, CPU torch tensors,
-pinned ones included) without a copy. The native core's vectored and
+pinned ones included) without a copy; a frame may be sent from a list
+of such buffers (the response cache's speculative frames: a header per
+segment between the fused payloads), and a received frame is a fresh
+``bytearray`` the receiver owns. The native core's vectored and
 zero-copy sends and the heartbeat deadlines wait for their slices
 (``ROADMAP.md`` A6.2, A6.6, A6.10).
 """
@@ -64,10 +67,11 @@ def _recv_exact_into(sock: socket.socket, view: memoryview,
         got += r
 
 
-def _recv_exact(sock: socket.socket, n: int, who: str = "peer") -> bytes:
+def _recv_exact(sock: socket.socket, n: int,
+                who: str = "peer") -> bytearray:
     buf = bytearray(n)
     _recv_exact_into(sock, memoryview(buf), who)
-    return bytes(buf)
+    return buf
 
 
 class Channel:
@@ -96,21 +100,31 @@ class Channel:
             pass  # not a TCP socket (a socketpair in a test)
 
     def send(self, payload, tag: int = 0) -> None:
-        """Send one frame from any contiguous host buffer."""
-        view = as_byte_view(payload)
-        n = len(view)
+        """Send one frame from any contiguous host buffer, or from a list
+        of them whose bytes follow one another in the frame (no join:
+        runs of small parts go out together, each large one from its own
+        memory)."""
+        views = [as_byte_view(p) for p in payload] \
+            if isinstance(payload, list) else [as_byte_view(payload)]
+        n = sum(len(v) for v in views)
         head = _HDR.pack(n, tag)
         if self.secret:
             h = hmac.new(self.secret, bytes((tag,)), hashlib.sha256)
-            h.update(view)
+            for v in views:
+                h.update(v)
             head += h.digest()
-        if n <= _INLINE_SEND:
-            self.sock.sendall(b"".join([head, view]))
-            return
-        self.sock.sendall(head)
-        self.sock.sendall(view)
+        small = [head]
+        for v in views:
+            if len(v) <= _INLINE_SEND:
+                small.append(v)
+                continue
+            self.sock.sendall(b"".join(small))
+            small = []
+            self.sock.sendall(v)
+        if small:
+            self.sock.sendall(b"".join(small))
 
-    def recv(self) -> Tuple[int, bytes]:
+    def recv(self) -> Tuple[int, bytearray]:
         who = self.peer
         n, tag = _HDR.unpack(_recv_exact(self.sock, _HDR.size, who))
         digest = (_recv_exact(self.sock, _DIGEST_LEN, who) if self.secret

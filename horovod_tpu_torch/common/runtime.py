@@ -1,48 +1,80 @@
 """The background coordination loop: the heart of the runtime.
 
-Counterpart of ``horovod_tpu/common/runtime.py`` run with the response
-cache off: ``enqueue`` (:698), ``enqueue_group`` (:735), the background
-loop (:863, :1767) with full-path cycles only, ``_coordinate`` (:2808),
-``_check_stall`` (:2736) and ``_perform_operations`` (:2909-3034). One
-daemon thread per process runs a negotiation cycle every
-``HOROVOD_CYCLE_TIME`` ms: it drains this rank's request queue, gathers
-every rank's requests at the coordinator, which fuses the ready tensors
-under the fusion threshold and broadcasts the agreed ResponseList, and
-runs that list through the backends. Enqueues return at once;
-completion comes back through each entry's callback.
+Counterpart of ``horovod_tpu/common/runtime.py``: ``enqueue`` (:698),
+``enqueue_group`` (:735), the background loop (:863, :1767),
+``_coordinate`` (:2808), ``_check_stall`` (:2736),
+``_perform_operations`` (:2909-3034), and the response cache's share of
+the loop (:1035-1360, :1758, :2095-2530, :2700). One daemon thread per
+process runs a negotiation cycle every ``HOROVOD_CYCLE_TIME`` ms: it
+drains this rank's request queue, gathers every rank's requests at the
+coordinator, which fuses the ready tensors under the fusion threshold
+and broadcasts the agreed ResponseList, and runs that list through the
+backends. Enqueues return at once; completion comes back through each
+entry's callback.
+
+The response cache (on by default, ``HOROVOD_CACHE_*``). Negotiated
+verdicts are kept in a world-coherent ``ResponseCache``; a request whose
+signature is cached rides the cycle frame as one bit of a mask, the
+coordinator ANDs the ranks' masks into a grant, and every rank replays
+the granted slots from its own cache in ascending slot order, fused with
+the threshold the coordinator broadcast. Misses, changed signatures and
+uncacheable ops ride the same frame as Requests and repopulate the cache
+in broadcast order. A cycle that caught only the front of a step's
+gradient burst is held, woken by each enqueue, until the rest arrives
+(``_absorb_burst``). Once a pure-hit mask was granted in full, the next
+cycle with that mask speculates: each rank attaches its packed fused
+allreduce buffers to the bitmask frame, and when every rank bid the same
+mask the coordinator sums them in rank order and broadcasts the grant
+and the result in one frame, one world round per step where the socket
+star would carry the batch anyway. Anything else (a peer that did not
+bid, a new tensor, a plane with a transport of its own) runs the classic
+two-round path, and a denied bid leaves its entries in the table for it.
+Ranks whose caches disagree fail with ``ConnectionError`` on every rank.
 
 A backend may complete a batch on a finalizer thread
 (``common/finalizer.py``) and return ``Status.InProgress()``; the loop
 then fires no callbacks for it and goes on cycling, and its shutdown
 drains the finalizer before it fails what is left. Left out until their
-slices (``ROADMAP.md`` A6 and A9): the speculative, cached, overlapped
-and native steady cycles, elastic worlds, self-operation, fault
-injection, tenancy, the trace and metrics planes and autotune.
+slices (``ROADMAP.md`` A6 and A9): the ICI plane and the native steady
+plan (which ride the cache), overlapped cycles, elastic worlds,
+self-operation, fault injection, tenancy, the trace and metrics planes,
+the heartbeat and autotune.
 
 The loop keeps counts that say what it costs (``stats``): cycles,
 responses and the tensors in them, the responses each backend ran
 (``responses.<backend name>``, which stands in for the reference's
 metrics plane until ``ROADMAP.md`` A6.7), the seconds of negotiation
-(building, gathering, coordinating and broadcasting the lists) and of
-execution (running the responses through the backends).
+(building, gathering, coordinating and broadcasting the lists), of
+execution (replaying and running the responses) and of burst holds, and
+the cache's: cached cycles (negotiated through the bitmask alone), spec
+cycles (completed by the fused round), spec bids and denials, and the
+cache's hits, misses and evictions.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import warnings
+from collections import OrderedDict
 from typing import Dict, List, Optional
+
+import torch
 
 from horovod_tpu_torch.common import logging as hlog
 from horovod_tpu_torch.common import wire
 from horovod_tpu_torch.common.config import Config
 from horovod_tpu_torch.common.controller import Controller
 from horovod_tpu_torch.common.coordinator import (
-    MessageTable, StallInspector, construct_response, fuse_responses,
+    CACHEABLE_REQUESTS, CACHEABLE_RESPONSES, MessageTable, ResponseCache,
+    StallInspector, construct_response, fuse_responses, iter_set_bits,
 )
 from horovod_tpu_torch.common.finalizer import Finalizer
+from horovod_tpu_torch.common.invariants import world_coherent
 from horovod_tpu_torch.common.message import (
-    DataType, Request, RequestList, RequestType, ResponseList, ResponseType,
+    CacheCycleRequest, CacheCycleResponse, DataType, Request, RequestList,
+    RequestType, Response, ResponseList, ResponseType,
+    datatype_to_torch_dtype, torch_dtype_to_datatype,
 )
 from horovod_tpu_torch.common.status import (
     DUPLICATE_NAME_ERROR_FMT, SHUT_DOWN_ERROR, Status, WorldAbortedError,
@@ -55,6 +87,22 @@ from horovod_tpu_torch.common.timeline import (
     ACT_COLLECTIVE, ACT_QUEUE, NOOP_TIMELINE, create_timeline,
 )
 from horovod_tpu_torch.ops.operation_manager import OperationManager
+from horovod_tpu_torch.ops.socket_ops import _accumulate
+
+
+def _buffer_tensor(buf, dt: DataType, copy: bool) -> torch.Tensor:
+    """A segment buffer (a memoryview over a frame, or any bytes-like
+    object) as a flat CPU tensor of ``dt``; with ``copy`` a fresh one,
+    else a view of the buffer (torch warns about a read-only one, which
+    the callers only read)."""
+    tdt = datatype_to_torch_dtype(dt)
+    if not len(memoryview(buf).cast("B")):
+        return torch.empty(0, dtype=tdt)
+    if copy:
+        return torch.frombuffer(bytearray(buf), dtype=tdt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.frombuffer(buf, dtype=tdt)
 
 
 class Runtime:
@@ -62,6 +110,35 @@ class Runtime:
 
     # Empty cycles before the idle backoff ramp starts.
     _IDLE_GRACE = 16
+
+    # How long a cache hit may stay ungranted (some rank has not queued
+    # that tensor yet) before it goes the full way, where the
+    # coordinator's stall warnings and shutdown see it: bit-queued
+    # requests never enter the MessageTable. Healthy hits are granted
+    # within a cycle or two.
+    _BIT_DEMOTE_S = 5.0
+
+    # Speculative bids of one mask that the world answers with a classic
+    # full grant (a peer that never speculates) before that mask stops
+    # bidding.
+    _SPEC_DENY_LIMIT = 3
+
+    # In steady state, how long an idle rank waits for its producer
+    # before it starts an empty round: no round can grant anything until
+    # every rank submits again.
+    _STEADY_IDLE_S = 0.25
+
+    # Steady-state predictions kept (several sets stay steady in real
+    # loops: alternating gradient buckets, an every-N-steps metric).
+    _STEADY_CAP = 8
+
+    # Floor of the burst hold's budget (_absorb_burst): a cycle that
+    # caught the front of a step's burst waits at most
+    # max(2 x cycle time, this) for the rest, woken by each enqueue.
+    # While a rank holds, the world waits in the gather for its frame
+    # anyway; a fragment negotiated instead costs a mispredicted cycle
+    # and another round for the rest.
+    _BURST_HOLD_S = 0.02
 
     def __init__(self, config: Config, controller: Controller,
                  op_manager: OperationManager, device=None):
@@ -101,7 +178,45 @@ class Runtime:
         # Set by enqueue and request_shutdown: wakes a sleeping loop.
         self._wake = threading.Event()
         self.stats = {"cycles": 0, "responses": 0, "tensors": 0,
-                      "negotiate_s": 0.0, "execute_s": 0.0}
+                      "negotiate_s": 0.0, "execute_s": 0.0, "hold_s": 0.0,
+                      "cached_cycles": 0, "spec_cycles": 0, "spec_bids": 0,
+                      "spec_denials": 0, "cache_hits": 0,
+                      "cache_misses": 0, "cache_evictions": 0}
+        # -- the response cache --------------------------------------
+        self._cache: Optional[ResponseCache] = None
+        if config.cache_enabled and config.cache_capacity > 0:
+            self._cache = ResponseCache(config.cache_capacity)
+        # name -> (signature, dtype, slice numel) of a cacheable request
+        # sent the full way, taken when its response populates the cache.
+        self._pending_sigs: Dict[str, tuple] = {}
+        # (grant mask, threshold) -> fused replay plan, for one epoch.
+        self._replay_plans: Dict[tuple, List[Response]] = {}
+        self._replay_epoch = -1
+        # (epoch, hit mask) -> serialized pure-hit frame.
+        self._frame_memo: Dict[tuple, bytes] = {}
+        # name -> when its cache hit first went ungranted.
+        self._bit_pending_since: Dict[str, float] = {}
+        self._spec_ok = (self._cache is not None
+                         and config.cache_speculative)
+        # Recently fully granted pure-hit masks -> their name sets
+        # (insertion-ordered, at most _STEADY_CAP): the steady-state
+        # predictions, which are also the burst hold's reference sets.
+        # Only the broadcast verdict moves them (with this rank's bid).
+        self._steady: "OrderedDict[int, frozenset]" = OrderedDict()
+        self._steady_epoch = -1
+        # The coordinator's fusion threshold, broadcast on cached
+        # cycles: replay and speculation fuse with the world's value.
+        self._world_fusion_threshold = config.fusion_threshold_bytes
+        # mask -> consecutive speculative bids answered with a classic
+        # full grant.
+        self._spec_denied: Dict[int, int] = {}
+        # [(fused Response, entries, backend)] of the speculative frame
+        # in flight this cycle, None when the cycle is not speculative.
+        self._spec_inflight = None
+        # Hits the last cycle bid but the world did not grant, requeued:
+        # their peers were granted and will not come again, so they
+        # never start a burst hold.
+        self._requeued_names: frozenset = frozenset()
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> None:
@@ -237,27 +352,48 @@ class Runtime:
             pass
 
     def _run_loop_once(self) -> bool:
-        """One negotiation cycle; False to exit."""
-        t0 = time.monotonic()
+        """One negotiation cycle; False to exit. With the response cache
+        on, a steady-state cycle moves one bit per cache slot: the
+        coordinator broadcasts the granted mask and every rank replays
+        the cached responses in ascending slot order. Any miss, changed
+        signature, eviction or uncacheable op rides the full path in the
+        same frame and repopulates the cache alike everywhere."""
         self.stats["cycles"] += 1
         self.timeline.mark_cycle_start()
         requests = self.tensor_table.pop_messages()
+        if requests and self._cache is not None:
+            th = time.monotonic()
+            requests = self._absorb_burst(requests)
+            self.stats["hold_s"] += time.monotonic() - th
+        t0 = time.monotonic()
         shutting_down = self._shutdown_requested.is_set()
-        payload = wire.serialize_cycle_request(
-            RequestList(requests, shutdown=shutting_down))
+        payload, bit_requests = self._build_request_frame(
+            requests, shutting_down)
         gathered = self.controller.gather_requests(payload)
         if self.controller.is_coordinator:
-            resp_list = self._coordinate(
-                [wire.parse_cycle_request(f) for f in gathered])
-            self.controller.broadcast_responses(
-                wire.serialize_cycle_response(resp_list))
+            reply, meta = self._coordinate_cycle(gathered)
+            self.controller.broadcast_responses(reply)
         else:
-            resp_list = wire.parse_cycle_response(
+            meta = wire.parse_cycle_response(
                 self.controller.broadcast_responses(None))
         t1 = time.monotonic()
         self.stats["negotiate_s"] += t1 - t0
+        if isinstance(meta, CacheCycleResponse):
+            resp_list = self._apply_cached_cycle(meta, bit_requests)
+        else:
+            if self._cache is not None:
+                raise ConnectionError(
+                    "the coordinator negotiated without the response "
+                    "cache while this rank has it on: HOROVOD_CACHE_"
+                    "ENABLED and HOROVOD_CACHE_CAPACITY must be the same "
+                    "on every rank")
+            resp_list = meta
         self._perform_operations(resp_list)
         self.stats["execute_s"] += time.monotonic() - t1
+        if self._cache is not None:
+            c = self._cache
+            self.stats.update(cache_hits=c.hits, cache_misses=c.misses,
+                              cache_evictions=c.evictions)
         if resp_list.shutdown:
             return False
 
@@ -268,12 +404,19 @@ class Runtime:
         else:
             self._idle_cycles += 1
         sleep_s = cycle_s - (time.monotonic() - t0)
-        if sleep_s <= 0 and not self.tensor_table.queue_pending():
-            # The cycle overran its budget and drained everything local:
-            # a round started now would race the callbacks' re-enqueue
-            # and carry empty frames, so wait one period (new work
-            # wakes the loop at once).
-            sleep_s = cycle_s
+        if not self.tensor_table.queue_pending():
+            if sleep_s <= 0:
+                # The cycle overran its budget and drained everything
+                # local: a round started now would race the callbacks'
+                # re-enqueue and carry empty frames, so wait one period
+                # (new work wakes the loop at once).
+                sleep_s = cycle_s
+            if self._steady:
+                # In steady state no round can grant anything until this
+                # rank's producer submits again: hold for that (an
+                # enqueue or a shutdown wakes the loop at once).
+                sleep_s = max(sleep_s, self._bounded_hold_s(
+                    8, self._STEADY_IDLE_S))
         backoff_s = self.config.idle_backoff_ms / 1000.0
         if backoff_s > 0 and self._idle_cycles > self._IDLE_GRACE:
             ramp = cycle_s * (self._idle_cycles - self._IDLE_GRACE)
@@ -283,11 +426,517 @@ class Runtime:
         self._wake.clear()
         return True
 
+    def _bounded_hold_s(self, multiple: float, floor_s: float) -> float:
+        """A hold budget from the cycle time: ``multiple`` cycles, at
+        least ``floor_s``. (The reference caps it under a quarter of the
+        heartbeat timeout; the heartbeat is not ported, ROADMAP.md
+        A6.2.)"""
+        return max(multiple * self.config.cycle_time_ms / 1000.0, floor_s)
+
+    # -- the response cache's cycle ----------------------------------------
+    def _record_signature(self, req: Request) -> None:
+        if req.request_type not in CACHEABLE_REQUESTS:
+            return
+        numel = 1
+        for d in req.tensor_shape[1:]:
+            numel *= d
+        self._pending_sigs[req.tensor_name] = (
+            ResponseCache.signature(req), req.tensor_type, numel)
+
+    def _build_request_frame(self, requests: List[Request],
+                             shutting_down: bool):
+        """This cycle's frame: (payload, bit_requests), ``bit_requests``
+        being [(slot, request)] for the hits the grant mask decides."""
+        cache = self._cache
+        self._spec_inflight = None
+        if cache is None:
+            return wire.serialize_cycle_request(
+                RequestList(requests, shutdown=shutting_down)), []
+        now = time.monotonic()
+        hit_mask = 0
+        invalid_mask = 0
+        uncached: List[Request] = []
+        bit_requests: List[tuple] = []
+        for req in requests:
+            state, slot = cache.lookup(req)
+            if state == ResponseCache.HIT:
+                pending = self._bit_pending_since.get(req.tensor_name)
+                if pending is None or now - pending < self._BIT_DEMOTE_S:
+                    hit_mask |= 1 << slot
+                    bit_requests.append((slot, req))
+                    continue
+                # Ungranted too long: the full path, where the stall
+                # machinery sees it.
+                self._bit_pending_since.pop(req.tensor_name, None)
+                hlog.warning(
+                    f"tensor {req.tensor_name} waited {now - pending:.1f}s "
+                    f"as a cached hit without world agreement; falling "
+                    f"back to full negotiation", rank=self.controller.rank)
+            elif state == ResponseCache.INVALID:
+                invalid_mask |= 1 << slot
+            self._record_signature(req)
+            uncached.append(req)
+        if not uncached and not invalid_mask and not shutting_down:
+            if hit_mask and self._spec_ok \
+                    and self._steady_epoch == cache.epoch \
+                    and hit_mask in self._steady \
+                    and self._spec_denied.get(hit_mask, 0) \
+                    < self._SPEC_DENY_LIMIT:
+                payload = self._build_spec_frame(hit_mask)
+                if payload is not None:
+                    return payload, bit_requests
+            # A pure-hit (or empty) frame is the same every steady-state
+            # cycle: serialize it once per (epoch, mask).
+            key = (cache.epoch, hit_mask)
+            payload = self._frame_memo.get(key)
+            if payload is None:
+                payload = wire.serialize_cycle_request(CacheCycleRequest(
+                    epoch=cache.epoch, nslots=cache.nslots,
+                    hit_mask=hit_mask))
+                if len(self._frame_memo) >= 64:
+                    self._frame_memo.clear()
+                self._frame_memo[key] = payload
+            return payload, bit_requests
+        return wire.serialize_cycle_request(CacheCycleRequest(
+            epoch=cache.epoch, nslots=cache.nslots, hit_mask=hit_mask,
+            invalid_mask=invalid_mask, requests=uncached,
+            shutdown=shutting_down)), bit_requests
+
+    def _absorb_burst(self, requests: List[Request]) -> List[Request]:
+        """Hold a cycle that caught the front of an enqueue burst. A
+        training step submits its steady set back to back; a loop that
+        negotiates the first part gets a fragment grant, and each
+        fragment pays a round trip. While the popped names are cache
+        hits forming a strict subset of a steady set, wait (bounded) for
+        the rest of the burst; any other name or the deadline ends the
+        hold."""
+        steady_sets = self._steady.values()
+        if not steady_sets:
+            return requests
+        seen = {r.tensor_name for r in requests}
+
+        def fragment() -> bool:
+            # A strict subset of some steady set, and not exactly one of
+            # them (a complete set negotiates now, even inside a larger
+            # one).
+            return (not any(seen == st for st in steady_sets)
+                    and any(seen < st for st in steady_sets))
+
+        if not fragment() or seen <= self._requeued_names:
+            return requests
+        deadline = time.monotonic() + self._bounded_hold_s(
+            2, self._BURST_HOLD_S)
+        while True:
+            # Woken by the enqueues, never polled: clear before draining,
+            # so that an enqueue between the drain and the wait still
+            # wakes it.
+            self._wake.clear()
+            more = self.tensor_table.pop_messages()
+            if more:
+                requests.extend(more)
+                seen.update(r.tensor_name for r in more)
+                if not fragment():
+                    return requests
+                continue
+            remaining = deadline - time.monotonic()
+            if remaining <= 0 or self._shutdown_requested.is_set():
+                return requests
+            self._wake.wait(remaining)
+
+    def _build_spec_frame(self, hit_mask: int) -> Optional[list]:
+        """A fused speculative cycle frame: the pure-hit mask and this
+        rank's fused allreduce buffers in replay-plan order, packed as
+        the star packs them, or None when the batch cannot speculate
+        (another op than allreduce in the set, a plane with its own
+        transport would run it, or an entry is gone). The entries are
+        only peeked: if the world denies the grant the classic path pops
+        them. The frame is the list of its parts, which the channel
+        sends without joining them (the buffers are the step's whole
+        gradients)."""
+        cache = self._cache
+        plan = self._replay_plan(hit_mask, self._world_fusion_threshold)
+        inflight = []
+        for resp in plan:
+            if resp.response_type != ResponseType.ALLREDUCE:
+                return None
+            entries = self.tensor_table.peek_entries(resp.tensor_names)
+            if entries is None:
+                return None
+            try:
+                backend = self.op_manager.pick(entries, resp)
+            except RuntimeError:
+                return None
+            nbytes = sum(e.tensor.numel() * e.tensor.element_size()
+                         for e in entries)
+            if not backend.fused_cycle_reducible(nbytes):
+                return None
+            inflight.append((resp, entries, backend))
+        segments = []
+        for resp, entries, backend in inflight:
+            host = backend.pack_to_host(entries, resp.prescale_factor)
+            segments.append((torch_dtype_to_datatype(host.dtype), host))
+        self._spec_inflight = inflight
+        self.stats["spec_bids"] += 1
+        return wire.spec_frame_chunks(cache.epoch, cache.nslots, hit_mask,
+                                      segments)
+
+    def _coordinate_cycle(self, gathered: List[bytes]):
+        """Parse every rank's cycle frame and produce this cycle's
+        broadcast: (payload, meta), ``meta`` being the ResponseList (no
+        cache) or the CacheCycleResponse every rank, this one included,
+        applies alike."""
+        cache = self._cache
+        if cache is None:
+            req_lists = [wire.parse_cycle_request(f) for f in gathered]
+            for rl in req_lists:
+                if not isinstance(rl, RequestList):
+                    raise ConnectionError(
+                        "a rank negotiated with the response cache while "
+                        "the coordinator has it off: HOROVOD_CACHE_"
+                        "ENABLED and HOROVOD_CACHE_CAPACITY must be the "
+                        "same on every rank")
+            resp_list = self._coordinate(req_lists)
+            return wire.serialize_cycle_response(resp_list), resp_list
+        epoch = cache.epoch
+        and_hits = -1  # all ones; every rank ANDs its mask in
+        or_invalid = 0
+        shutdown = False
+        req_lists: List[RequestList] = []
+        spec_frames: List[CacheCycleRequest] = []
+        for f in gathered:
+            cf = wire.parse_cycle_request(f)
+            if not isinstance(cf, CacheCycleRequest):
+                raise ConnectionError(
+                    "a rank negotiated without the response cache while "
+                    "the coordinator has it on: HOROVOD_CACHE_ENABLED and "
+                    "HOROVOD_CACHE_CAPACITY must be the same on every rank")
+            if cf.epoch != epoch or cf.nslots != cache.nslots:
+                raise ConnectionError(
+                    f"response-cache state diverged: a rank reported epoch "
+                    f"{cf.epoch}/{cf.nslots} slots against the "
+                    f"coordinator's {epoch}/{cache.nslots}; negotiation "
+                    f"cannot continue safely")
+            and_hits &= cf.hit_mask
+            or_invalid |= cf.invalid_mask
+            shutdown = shutdown or cf.shutdown
+            if cf.spec_payload is not None:
+                spec_frames.append(cf)
+            if cf.requests:
+                req_lists.append(RequestList(cf.requests, cf.shutdown))
+        if (spec_frames and len(spec_frames) == len(gathered)
+                and not shutdown and not or_invalid
+                and all(cf.hit_mask == and_hits for cf in spec_frames)):
+            # Every rank bid the same pure-hit mask with its buffers:
+            # reduce here and broadcast grant and result in one frame.
+            reduced = self._reduce_spec(spec_frames)
+            self.timeline.negotiate_cached(fused=True)
+            # A full-path tensor some rank submitted earlier may still
+            # age in the table while the world runs fused cycles.
+            self._check_stall(self._message_table, self.controller.size)
+            meta = CacheCycleResponse(epoch=epoch, nslots=cache.nslots,
+                                      grant_mask=and_hits,
+                                      spec_payload=reduced)
+            return wire.spec_frame_chunks(epoch, cache.nslots, and_hits,
+                                          reduced), meta
+        grant = and_hits & ~or_invalid
+        resp_list = self._coordinate(req_lists, extra_shutdown=shutdown)
+        if grant and not resp_list.responses:
+            self.timeline.negotiate_cached()
+        meta = CacheCycleResponse(epoch=epoch, nslots=cache.nslots,
+                                  grant_mask=grant, invalid_mask=or_invalid,
+                                  response_list=resp_list)
+        return wire.serialize_cycle_response(meta), meta
+
+    @world_coherent
+    def _apply_cached_cycle(self, meta: CacheCycleResponse,
+                            bit_requests: List[tuple]) -> ResponseList:
+        """Apply the coordinator's verdict to the local cache, alike on
+        every rank: evict the ORed invalid slots (ascending), replay the
+        granted slots (ascending, fused with the world's threshold),
+        repopulate from the freshly negotiated responses (stream order),
+        and requeue the hits the world did not grant."""
+        cache = self._cache
+        if cache is None or meta.epoch != cache.epoch \
+                or meta.nslots != cache.nslots:
+            local = ("off" if cache is None
+                     else f"epoch {cache.epoch}/{cache.nslots} slots")
+            raise ConnectionError(
+                f"response-cache state diverged from the coordinator "
+                f"(local {local}, coordinator epoch "
+                f"{meta.epoch}/{meta.nslots} slots); negotiation cannot "
+                f"continue safely")
+        if meta.spec_payload is not None:
+            return self._complete_spec_cycle(meta, bit_requests)
+        inner = meta.response_list
+        if meta.invalid_mask:
+            cache.evict_slots(meta.invalid_mask)
+        if inner.tuned_fusion_threshold_bytes:
+            self._world_fusion_threshold = \
+                inner.tuned_fusion_threshold_bytes
+        replayed: List[Response] = []
+        if meta.grant_mask:
+            replayed = self._replay_grants(meta.grant_mask,
+                                           self._world_fusion_threshold)
+            if not inner.responses:
+                self.stats["cached_cycles"] += 1
+        if inner.responses:
+            self._populate_cache(inner)
+        if bit_requests and not inner.shutdown:
+            now = time.monotonic()
+            missed = []
+            for slot, req in bit_requests:
+                if (meta.grant_mask >> slot) & 1:
+                    self._bit_pending_since.pop(req.tensor_name, None)
+                else:
+                    self._bit_pending_since.setdefault(req.tensor_name, now)
+                    missed.append(req)
+            self._requeued_names = frozenset(r.tensor_name for r in missed)
+            if missed:
+                self.tensor_table.requeue(missed)
+            if self._steady_epoch != cache.epoch:
+                # Slots changed names: every prediction is stale.
+                self._steady.clear()
+                self._spec_denied.clear()
+                self._steady_epoch = cache.epoch
+            bid = 0
+            for slot, _ in bit_requests:
+                bid |= 1 << slot
+            if self._spec_inflight is not None and not missed:
+                # A speculative bid the world granted in full but
+                # answered classically: some peer will not speculate.
+                self._spec_denied[bid] = self._spec_denied.get(bid, 0) + 1
+                self.stats["spec_denials"] += 1
+                self._spec_inflight = None
+            if not missed and not inner.responses \
+                    and not meta.invalid_mask:
+                # A pure-hit cycle granted in full: its mask becomes a
+                # steady-state prediction.
+                self._steady[meta.grant_mask] = frozenset(
+                    cache.entry(slot).name
+                    for slot in iter_set_bits(meta.grant_mask))
+                self._steady.move_to_end(meta.grant_mask)
+                if len(self._steady) > self._STEADY_CAP:
+                    self._steady.popitem(last=False)
+            elif meta.grant_mask or inner.responses or meta.invalid_mask:
+                # A partial verdict: the bid mask is not steady. A fully
+                # denied bid (some rank had nothing queued yet) keeps its
+                # prediction.
+                self._steady.pop(bid, None)
+        if not replayed:
+            return inner
+        return ResponseList(
+            replayed + inner.responses, shutdown=inner.shutdown,
+            tuned_cycle_time_ms=inner.tuned_cycle_time_ms,
+            tuned_fusion_threshold_bytes=inner.tuned_fusion_threshold_bytes)
+
+    def _replay_plan(self, grant_mask: int,
+                     threshold: int) -> List[Response]:
+        """The fused execution list of a granted mask: the granted
+        entries cloned in ascending slot order and fused as the
+        coordinator would. Memoized per (grant, threshold) for the
+        current epoch; never touches the LRU (the speculative frame asks
+        for it before any grant)."""
+        cache = self._cache
+        if self._replay_epoch != cache.epoch:
+            self._replay_plans.clear()
+            self._replay_epoch = cache.epoch
+        key = (grant_mask, threshold)
+        plan = self._replay_plans.get(key)
+        if plan is None:
+            responses: List[Response] = []
+            dtypes: Dict[str, DataType] = {}
+            slices: Dict[str, int] = {}
+            for slot in iter_set_bits(grant_mask):
+                e = cache.entry(slot)
+                responses.append(e.clone_response())
+                dtypes[e.name] = e.dtype
+                slices[e.name] = e.slice_numel
+            plan = fuse_responses(responses, dtypes, threshold, slices)
+            if len(self._replay_plans) >= 64:
+                self._replay_plans.clear()
+            self._replay_plans[key] = plan
+        return plan
+
+    def _replay_grants(self, grant_mask: int,
+                       threshold: int) -> List[Response]:
+        plan = self._replay_plan(grant_mask, threshold)
+        self._cache.touch_mask(grant_mask)
+        return plan
+
+    @staticmethod
+    def _reduce_spec(spec_frames: List[CacheCycleRequest]):
+        """The coordinator's half of the speculative cycle: every rank's
+        fused buffers summed segment by segment in ascending rank order
+        (``acc += peer`` in the dtype, as the star sums), as flat CPU
+        tensors. The sum accumulates into the first frame's buffer when
+        that is writable (a received or joined frame, which the cycle
+        owns), else into a copy. The frames passed the epoch and mask
+        check, so a layout mismatch here means the caches diverged."""
+        first = spec_frames[0].spec_payload
+        if any(len(sf.spec_payload) != len(first)
+               for sf in spec_frames[1:]):
+            raise ConnectionError(
+                "speculative fused payloads disagree on layout across "
+                "ranks: response-cache state diverged")
+        out = []
+        for i, (dt, buf0) in enumerate(first):
+            acc = _buffer_tensor(buf0, dt,
+                                 copy=memoryview(buf0).readonly)
+            for sf in spec_frames[1:]:
+                d2, b2 = sf.spec_payload[i]
+                if d2 != dt or memoryview(b2).nbytes \
+                        != memoryview(buf0).nbytes:
+                    raise ConnectionError(
+                        "speculative fused payloads disagree on layout "
+                        "across ranks: response-cache state diverged")
+                _accumulate(acc, _buffer_tensor(b2, dt, copy=False))
+            out.append((dt, acc))
+        return out
+
+    @world_coherent
+    def _complete_spec_cycle(self, meta: CacheCycleResponse,
+                             bit_requests: List[tuple]) -> ResponseList:
+        """A rank's half of the speculative cycle: the grant is what this
+        rank bid, and the payload the world's sum of the buffers it
+        packed. Write it into the (still tabled) entries' outputs, fire
+        their callbacks, and keep every cache effect that of a classic
+        hit cycle."""
+        inflight = self._spec_inflight
+        self._spec_inflight = None
+        if inflight is None or meta.spec_payload is None \
+                or len(meta.spec_payload) != len(inflight):
+            raise ConnectionError(
+                "fused speculative response does not match the frame this "
+                "rank sent: control plane corrupted")
+        timeline = self.timeline
+        for (resp, entries, backend), (dt, buf) in zip(inflight,
+                                                       meta.spec_payload):
+            popped = self.tensor_table.pop_entries(resp.tensor_names)
+            # The coordinator's own sum is fresh, and so is a received
+            # frame (the channel's own buffer): the outputs may alias
+            # either. A read-only buffer is copied once.
+            result = buf if isinstance(buf, torch.Tensor) \
+                else _buffer_tensor(buf, dt,
+                                    copy=memoryview(buf).readonly)
+            op_name = resp.response_type.name
+            for name in resp.tensor_names:
+                timeline.start(name, op_name)
+            try:
+                backend.unpack_from_host(entries, result,
+                                         resp.postscale_factor)
+                status = Status.OK()
+            except Exception as e:
+                status = Status.UnknownError(
+                    f"collective execution failed: {e!r}")
+            for name in resp.tensor_names:
+                timeline.end(name)
+            self.stats["responses"] += 1
+            self.stats["tensors"] += len(popped)
+            key = f"responses.{backend.name}"
+            self.stats[key] = self.stats.get(key, 0) + 1
+            for e in popped:
+                if e.callback:
+                    e.callback(status)
+        self.stats["cached_cycles"] += 1
+        self.stats["spec_cycles"] += 1
+        self._spec_denied.pop(meta.grant_mask, None)
+        self._cache.touch_mask(meta.grant_mask)
+        for _, req in bit_requests:
+            self._bit_pending_since.pop(req.tensor_name, None)
+        self._requeued_names = frozenset()
+        return ResponseList([])
+
+    @staticmethod
+    def _unfuse(resp: Response, i: int, world_size: int) -> Response:
+        """Entry ``i`` of a (possibly fused) response as a single-tensor
+        Response, the unit the cache stores (a hit cycle re-fuses under
+        the threshold then in effect). ALLGATHER sizes are entry-major
+        (sizes[ec * world_size + rc]); ALLREDUCE sizes are per-entry
+        numels; the other cacheable types never fuse."""
+        if resp.response_type == ResponseType.ALLGATHER:
+            sizes = list(resp.tensor_sizes[i * world_size:
+                                           (i + 1) * world_size])
+        elif resp.tensor_sizes:
+            sizes = [resp.tensor_sizes[i]]
+        else:
+            sizes = []
+        return Response(response_type=resp.response_type,
+                        tensor_names=[resp.tensor_names[i]],
+                        devices=list(resp.devices), tensor_sizes=sizes,
+                        prescale_factor=resp.prescale_factor,
+                        postscale_factor=resp.postscale_factor,
+                        wire_dtype=resp.wire_dtype,
+                        algorithm=resp.algorithm)
+
+    @world_coherent
+    def _populate_cache(self, resp_list: ResponseList) -> None:
+        """Refresh the cache from freshly negotiated responses in
+        broadcast order, the order every rank sees, which keeps slot
+        assignment and LRU eviction the same everywhere. ERROR verdicts
+        evict any entry under their names."""
+        cache = self._cache
+        world_size = self.controller.size
+        for resp in resp_list.responses:
+            rt = resp.response_type
+            if rt == ResponseType.ERROR:
+                for name in resp.tensor_names:
+                    cache.evict_name(name)
+                    self._pending_sigs.pop(name, None)
+                continue
+            if rt not in CACHEABLE_RESPONSES:
+                for name in resp.tensor_names:
+                    self._pending_sigs.pop(name, None)
+                continue
+            for i, name in enumerate(resp.tensor_names):
+                info = self._pending_sigs.pop(name, None)
+                if info is None:
+                    # The negotiation streams diverged; going on would
+                    # diverge the caches next.
+                    raise ConnectionError(
+                        f"negotiated response for tensor {name!r} without "
+                        f"a matching local request: control plane "
+                        f"corrupted")
+                sig, dtype, slice_numel = info
+                cache.put(name, sig, self._unfuse(resp, i, world_size),
+                          dtype, slice_numel)
+
+    def negotiation_cache_stats(self) -> Dict:
+        """The cache's counts: hits and misses, cached and speculative
+        cycles, entries and epoch. The ICI, native and overlap counts of
+        the reference stay 0 until those planes are ported."""
+        c = self._cache
+        if c is None:
+            return {"enabled": False}
+        total = c.hits + c.misses
+        st = self.stats
+        return {"enabled": True, "capacity": c.capacity, "entries": len(c),
+                "hits": c.hits, "misses": c.misses,
+                "hit_rate": (c.hits / total) if total else 0.0,
+                "cached_cycles": st["cached_cycles"],
+                "spec_cycles": st["spec_cycles"],
+                "spec_bids": st["spec_bids"],
+                "native_steady_cycles": 0, "ici_cycles": 0,
+                "ici_compiles": 0, "overlap_cycles": 0,
+                "overlap_inflight": 0, "epoch": c.epoch}
+
+    def _cache_stats_line(self) -> str:
+        s = self.negotiation_cache_stats()
+        if not s.get("enabled"):
+            return ""
+        return (f"cache: {s['hits']} hits / {s['misses']} misses "
+                f"({s['hit_rate']:.1%} hit rate), "
+                f"{s['cached_cycles']} fully cached cycles "
+                f"({s['spec_cycles']} fused single-round, "
+                f"{s['native_steady_cycles']} native zero-copy, "
+                f"{s['overlap_cycles']} overlapped), "
+                f"{s['entries']}/{s['capacity']} slots")
+
     def _check_stall(self, table: MessageTable, size: int) -> None:
         """Periodic coordinator-side stall scan; past the shutdown
         threshold it aborts the world, blaming the lowest rank missing
         from the oldest stalled tensor."""
-        if not self._stall.should_check() or not self._stall.check(table):
+        if not self._stall.should_check() or not self._stall.check(
+                table, cache_stats=self._cache_stats_line()):
             return
         origin, note = -1, ""
         pending = sorted(table.pending(), key=lambda p: -p[1])
@@ -306,11 +955,12 @@ class Runtime:
         raise WorldAbortedError(world_abort_message(origin, cause),
                                 origin_rank=origin, cause=cause)
 
-    def _coordinate(self, req_lists: List[RequestList]) -> ResponseList:
+    def _coordinate(self, req_lists: List[RequestList],
+                    extra_shutdown: bool = False) -> ResponseList:
         """Coordinator half of the cycle."""
         table = self._message_table
         size = self.controller.size
-        shutdown = False
+        shutdown = extra_shutdown
         for rl in req_lists:
             shutdown = shutdown or rl.shutdown
             for req in rl.requests:
@@ -332,7 +982,15 @@ class Runtime:
                 self._dtypes.pop(n, None)
                 self._slice_numels.pop(n, None)
         self._check_stall(table, size)
-        return ResponseList(fused, shutdown=shutdown)
+        resp_list = ResponseList(fused, shutdown=shutdown)
+        if self._cache is not None:
+            # Replay re-fuses granted slots on every rank with this
+            # threshold: broadcast the coordinator's, so that a rank
+            # started with another HOROVOD_FUSION_THRESHOLD builds the
+            # same batches from the same grant.
+            resp_list.tuned_fusion_threshold_bytes = \
+                self.config.fusion_threshold_bytes
+        return resp_list
 
     def _perform_operations(self, resp_list: ResponseList) -> None:
         """Run each agreed response and fire the callbacks."""

@@ -84,9 +84,33 @@ class TensorTable:
             self._message_queue = []
             return msgs
 
+    def requeue(self, requests: List[Request]) -> None:
+        """Return popped requests to the front of the message queue, in
+        order: a cache hit the world did not grant this cycle rides the
+        next cycle's bitmask. Requests whose entry is gone (the shutdown
+        fan-out took it) are dropped, or a handle would complete
+        twice."""
+        with self._lock:
+            live = [r for r in requests if r.tensor_name in self._table]
+            if live:
+                self._message_queue[:0] = live
+
     def queue_pending(self) -> bool:
         with self._lock:
             return bool(self._message_queue)
+
+    def peek_entries(self, names) -> Optional[List[TensorTableEntry]]:
+        """The entries for ``names`` without removing them, or None if
+        any is absent: a speculative cycle packs its payload from live
+        entries, which stay in the table until the world grants the bid
+        (a denied bid leaves them to the classic path, which pops
+        them)."""
+        with self._lock:
+            table = self._table
+            try:
+                return [table[n] for n in names]
+            except KeyError:
+                return None
 
     def pop_entries(self, names) -> List[TensorTableEntry]:
         """Remove and return the present entries among ``names``."""

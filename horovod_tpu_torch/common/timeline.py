@@ -5,7 +5,9 @@ reference's vocabulary: one trace "process" per tensor name,
 ``NEGOTIATE_<OP>`` spans with a tick per rank as it reports, a
 top-level ``<OP>`` span with the activities ``QUEUE``,
 ``MEMCPY_IN_FUSION_BUFFER``, ``COLLECTIVE`` and
-``MEMCPY_OUT_FUSION_BUFFER`` nested in it, and ``CYCLE_START`` instants.
+``MEMCPY_OUT_FUSION_BUFFER`` nested in it, ``CYCLE_START`` instants, and
+``NEGOTIATE_CACHED`` / ``NEGOTIATE_CACHED_FUSED`` instants for cycles
+negotiated through the response cache's bitmask (:186).
 Rank 0 writes it, on a thread of its own fed by a bounded queue, when
 ``HOROVOD_TIMELINE`` names a file (``HOROVOD_TIMELINE_MARK_CYCLES=1``
 adds the cycle marks). The spans here are plain begin/end pairs: the
@@ -42,6 +44,7 @@ class _NoOpTimeline:
     def activity_start_all(self, names, activity): pass
     def activity_end_all(self, names): pass
     def end(self, name): pass
+    def negotiate_cached(self, fused=False): pass
     def mark_cycle_start(self): pass
     def shutdown(self): pass
 
@@ -119,6 +122,15 @@ class Timeline(_NoOpTimeline):
 
     def negotiate_end(self, name: str) -> None:
         self._emit("E", name, "")
+
+    def negotiate_cached(self, fused: bool = False) -> None:
+        """Instant mark of a cycle negotiated wholly through the response
+        cache's bitmask, where no tensor has a NEGOTIATE span. ``fused``
+        marks the speculative single-round cycle, whose broadcast also
+        carried the world-reduced data."""
+        self._emit("i", "cycle",
+                   "NEGOTIATE_CACHED_FUSED" if fused
+                   else "NEGOTIATE_CACHED", s="g")
 
     def start(self, name: str, op_name: str) -> None:
         self._emit("B", name, op_name)

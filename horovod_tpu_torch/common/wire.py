@@ -1,12 +1,14 @@
 """Binary wire format of the control plane.
 
 Counterpart of ``horovod_tpu/common/wire.py``: the request-list and
-response-list frames (:69-350), the FULL cycle frames that carry them
-(kind byte 0, :462-560) and the world-id envelope (``stamp_world``,
-``unstamp_world``). For equal lists the frames are byte-identical to the
-reference's, and each side parses the other's. The cache-cycle kinds
-and the metrics, trace, elastic and tenant frames wait for their slices
-(``ROADMAP.md`` A6); a frame of another kind is refused.
+response-list frames (:69-350), the cycle frames that carry them (FULL
+and the response cache's CACHED, CACHED_AGG and CACHED_SPEC kinds,
+:329-600), ``combine_cycle_requests`` (:705) and the world-id envelope
+(``stamp_world``, ``unstamp_world``). For equal contents the frames are
+byte-identical to the reference's, and each side parses the other's. A
+truncated frame raises ``ConnectionError``, never ``struct.error``; a
+frame of an unknown kind is refused by its number. The metrics, trace,
+elastic and tenant frames wait for their slices (``ROADMAP.md`` A6).
 
 Layout (all little-endian; strings are u32 length + UTF-8 bytes,
 vectors u32 count + elements):
@@ -25,7 +27,29 @@ vectors u32 count + elements):
   ResponseList := u8 shutdown | f64 tuned_cycle_time_ms
                 | i64 tuned_fusion_threshold_bytes
                 | i64 tuned_overlap_buckets | u32 n | Response[n]
-  CycleRequest := u8 0 | RequestList;  CycleResponse := u8 0 | ResponseList
+
+  CycleRequest  := u8 kind
+    kind 0 FULL        : RequestList
+    kind 1 CACHED      : u8 shutdown | i64 epoch | u32 nslots
+                       | hit_mask[ceil(nslots/8)] | invalid_mask[...]
+                       | u32 n | Request[n] (the uncached rest)
+    kind 2 CACHED_AGG  : as CACHED, several ranks' frames folded into one
+                         (hit masks ANDed, invalid masks and shutdown
+                         ORed, requests concatenated)
+    kind 3 CACHED_SPEC : i64 epoch | u32 nslots | hit_mask[...]
+                       | segments (the fused speculative cycle: a pure-hit
+                         mask with this rank's pre-packed fused allreduce
+                         buffers attached)
+  CycleResponse := u8 kind
+    kind 0 FULL        : ResponseList
+    kind 1 CACHED      : i64 epoch | u32 nslots | grant_mask[...]
+                       | invalid_mask[...] | ResponseList
+    kind 3 CACHED_SPEC : i64 epoch | u32 nslots | grant_mask[...]
+                       | segments (the world-reduced fused buffers)
+  segments      := u32 nseg | nseg x (u8 dtype | i64 nbytes | raw bytes)
+
+Masks are little-endian fixed-width bit vectors, one bit per response
+cache slot.
 """
 
 from __future__ import annotations
@@ -33,8 +57,8 @@ from __future__ import annotations
 import struct
 
 from horovod_tpu_torch.common.message import (
-    DataType, Request, RequestList, RequestType, Response, ResponseList,
-    ResponseType,
+    CacheCycleRequest, CacheCycleResponse, DataType, Request, RequestList,
+    RequestType, Response, ResponseList, ResponseType,
 )
 
 _U8 = struct.Struct("<B")
@@ -280,34 +304,220 @@ def parse_response_list(data: bytes,
 
 
 FRAME_FULL = 0
+FRAME_CACHED = 1
+FRAME_CACHED_AGG = 2
+FRAME_CACHED_SPEC = 3
 
 
-def serialize_cycle_request(rl: RequestList) -> bytes:
-    return bytes((FRAME_FULL,)) + serialize_request_list(rl)
+def _mask_nbytes(nslots: int) -> int:
+    return (nslots + 7) // 8
 
 
-def parse_cycle_request(data: bytes) -> RequestList:
-    _check_full(data, "request")
-    return parse_request_list(data, offset=1)
+def _write_mask(w: _Writer, mask: int, nslots: int) -> None:
+    w.parts.append(mask.to_bytes(_mask_nbytes(nslots), "little"))
 
 
-def serialize_cycle_response(rl: ResponseList) -> bytes:
-    return bytes((FRAME_FULL,)) + serialize_response_list(rl)
+def _read_mask(r: _Reader, nslots: int) -> int:
+    n = _mask_nbytes(nslots)
+    # Guard before the slice: int.from_bytes over a short slice would
+    # decode a wrong mask.
+    r._need(n)
+    mask = int.from_bytes(r.data[r.off:r.off + n], "little")
+    r.off += n
+    return mask
 
 
-def parse_cycle_response(data: bytes) -> ResponseList:
-    _check_full(data, "response")
-    return parse_response_list(data, offset=1)
+def _seg_hdr(dt, nbytes: int) -> bytes:
+    """The 9-byte header in front of one raw segment."""
+    return _U8.pack(int(dt)) + _I64.pack(nbytes)
 
 
-def _check_full(data: bytes, what: str) -> None:
-    kind = data[0] if data else None
-    if kind != FRAME_FULL:
-        raise ConnectionError(
-            f"cycle-{what} frame of kind {kind}: only FULL frames (kind "
-            f"{FRAME_FULL}) are supported; the response cache's frames "
-            f"are not ported (ROADMAP.md A6.1), so every rank must run "
-            f"with HOROVOD_CACHE_CAPACITY=0")
+def spec_frame_parts(epoch: int, nslots: int, mask: int, seg_meta,
+                     world_id: int = 0):
+    """(prefix, [seg_hdr, ...]): the constant byte regions of a
+    CACHED_SPEC cycle frame, everything but the raw segment data, for
+    ``seg_meta`` = [(DataType, nbytes), ...]. The one source of the
+    speculative layout: the request and the response share it (a granted
+    speculative cycle's grant mask is the bid's hit mask), and a
+    sub-world's prefix leads with the world-id envelope."""
+    w = _Writer()
+    if world_id:
+        w.parts.append(TENANT_PREFIX)
+        w.u32(world_id)
+    w.u8(FRAME_CACHED_SPEC)
+    w.i64(epoch)
+    w.u32(nslots)
+    _write_mask(w, mask, nslots)
+    w.u32(len(seg_meta))
+    return w.bytes(), [_seg_hdr(dt, nbytes) for dt, nbytes in seg_meta]
+
+
+def spec_frame_chunks(epoch: int, nslots: int, mask: int,
+                      segments) -> list:
+    """A CACHED_SPEC frame (request or response) as the list of its
+    parts in order, the segments' buffers uncopied (``segments`` =
+    [(DataType, buffer), ...], each buffer a contiguous CPU tensor, an
+    array or bytes): a channel sends the list without joining it."""
+    from horovod_tpu_torch.common.network import as_byte_view
+    views = [as_byte_view(buf) for _, buf in segments]
+    prefix, hdrs = spec_frame_parts(
+        epoch, nslots, mask,
+        [(dt, len(v)) for (dt, _), v in zip(segments, views)])
+    parts = [prefix]
+    for hdr, view in zip(hdrs, views):
+        parts.append(hdr)
+        parts.append(view)
+    return parts
+
+
+def _read_segments(r: _Reader):
+    """The segments as memoryviews over the frame (no copy)."""
+    view = memoryview(r.data)
+    segs = []
+    for _ in range(r.u32()):
+        code = r.u8()
+        dt = _DTYPE_OF.get(code)
+        if dt is None:
+            raise ConnectionError(
+                f"unknown dtype {code} in a control frame's segment")
+        n = r.i64()
+        if n < 0:
+            raise ConnectionError(
+                f"corrupt segment length {n} in control frame")
+        r._need(n)
+        segs.append((dt, view[r.off:r.off + n]))
+        r.off += n
+    return segs
+
+
+def serialize_cycle_request(obj, aggregate: bool = False) -> bytes:
+    """A RequestList as a FULL frame, a CacheCycleRequest as a CACHED
+    (CACHED_AGG with ``aggregate``) or, with a payload, CACHED_SPEC
+    frame."""
+    if isinstance(obj, RequestList):
+        return bytes((FRAME_FULL,)) + serialize_request_list(obj)
+    if not isinstance(obj, CacheCycleRequest):
+        raise TypeError(f"not a cycle request: {type(obj).__name__}")
+    if obj.spec_payload is not None:
+        return b"".join(spec_frame_chunks(obj.epoch, obj.nslots,
+                                          obj.hit_mask, obj.spec_payload))
+    w = _Writer()
+    w.u8(FRAME_CACHED_AGG if aggregate else FRAME_CACHED)
+    w.u8(1 if obj.shutdown else 0)
+    w.i64(obj.epoch)
+    w.u32(obj.nslots)
+    _write_mask(w, obj.hit_mask, obj.nslots)
+    _write_mask(w, obj.invalid_mask, obj.nslots)
+    w.u32(len(obj.requests))
+    for req in obj.requests:
+        _write_request(w, req)
+    return w.bytes()
+
+
+def parse_cycle_request(data: bytes):
+    """-> RequestList (FULL) or CacheCycleRequest (the cached kinds)."""
+    r = _Reader(data)
+    kind = r.u8()
+    if kind == FRAME_FULL:
+        return parse_request_list(data, offset=1)
+    if kind == FRAME_CACHED_SPEC:
+        epoch = r.i64()
+        nslots = r.u32()
+        hit = _read_mask(r, nslots)
+        return CacheCycleRequest(epoch=epoch, nslots=nslots, hit_mask=hit,
+                                 spec_payload=_read_segments(r))
+    if kind not in (FRAME_CACHED, FRAME_CACHED_AGG):
+        raise ConnectionError(f"unknown cycle-request kind {kind}")
+    shutdown = bool(r.u8())
+    epoch = r.i64()
+    nslots = r.u32()
+    hit = _read_mask(r, nslots)
+    invalid = _read_mask(r, nslots)
+    n = r.u32()
+    reqs = [_read_request(r) for _ in range(n)]
+    return CacheCycleRequest(epoch=epoch, nslots=nslots, hit_mask=hit,
+                             invalid_mask=invalid, requests=reqs,
+                             shutdown=shutdown)
+
+
+def serialize_cycle_response(obj) -> bytes:
+    """A ResponseList as a FULL frame, a CacheCycleResponse as a CACHED
+    or, with a payload, CACHED_SPEC frame."""
+    if isinstance(obj, ResponseList):
+        return bytes((FRAME_FULL,)) + serialize_response_list(obj)
+    if not isinstance(obj, CacheCycleResponse):
+        raise TypeError(f"not a cycle response: {type(obj).__name__}")
+    if obj.spec_payload is not None:
+        return b"".join(spec_frame_chunks(obj.epoch, obj.nslots,
+                                          obj.grant_mask, obj.spec_payload))
+    w = _Writer()
+    w.u8(FRAME_CACHED)
+    w.i64(obj.epoch)
+    w.u32(obj.nslots)
+    _write_mask(w, obj.grant_mask, obj.nslots)
+    _write_mask(w, obj.invalid_mask, obj.nslots)
+    return w.bytes() + serialize_response_list(obj.response_list)
+
+
+def parse_cycle_response(data: bytes):
+    """-> ResponseList (FULL) or CacheCycleResponse (CACHED,
+    CACHED_SPEC)."""
+    r = _Reader(data)
+    kind = r.u8()
+    if kind == FRAME_FULL:
+        return parse_response_list(data, offset=1)
+    if kind not in (FRAME_CACHED, FRAME_CACHED_SPEC):
+        raise ConnectionError(f"unknown cycle-response kind {kind}")
+    epoch = r.i64()
+    nslots = r.u32()
+    grant = _read_mask(r, nslots)
+    if kind == FRAME_CACHED_SPEC:
+        return CacheCycleResponse(epoch=epoch, nslots=nslots,
+                                  grant_mask=grant,
+                                  spec_payload=_read_segments(r))
+    invalid = _read_mask(r, nslots)
+    return CacheCycleResponse(epoch=epoch, nslots=nslots,
+                              grant_mask=grant, invalid_mask=invalid,
+                              response_list=parse_response_list(data,
+                                                                r.off))
+
+
+def combine_cycle_requests(frames) -> "bytes | None":
+    """Fold several ranks' cycle-request frames into one CACHED_AGG
+    frame: hit masks AND, invalid masks and the shutdown flag OR,
+    uncached Requests concatenated (each carries its rank). None when a
+    frame is not a CACHED or CACHED_AGG frame (a FULL frame, or a
+    speculative one whose payloads only the coordinator may sum), when
+    the epochs or slot counts disagree, or when the frames carry
+    different world ids: the coordinator then sees them unfolded and
+    names the fault."""
+    world_id = None
+    parsed = []
+    for f in frames:
+        if not f:
+            return None
+        wid, off = read_world(f)
+        if world_id is None:
+            world_id = wid
+        elif wid != world_id:
+            return None
+        if len(f) <= off or f[off] not in (FRAME_CACHED, FRAME_CACHED_AGG):
+            return None
+        parsed.append(parse_cycle_request(f[off:] if off else f))
+    first = parsed[0]
+    combined = CacheCycleRequest(
+        epoch=first.epoch, nslots=first.nslots, hit_mask=first.hit_mask,
+        invalid_mask=first.invalid_mask, requests=list(first.requests),
+        shutdown=first.shutdown)
+    for cf in parsed[1:]:
+        if cf.epoch != first.epoch or cf.nslots != first.nslots:
+            return None
+        combined.hit_mask &= cf.hit_mask
+        combined.invalid_mask |= cf.invalid_mask
+        combined.shutdown = combined.shutdown or cf.shutdown
+        combined.requests.extend(cf.requests)
+    return stamp_world(serialize_cycle_request(combined, aggregate=True),
+                       world_id)
 
 
 # World-id envelope: a frame of a sub-world rides as

@@ -29,8 +29,8 @@
 // at head dims 64 and 128, flash_dkv_sm90.cu (wgmma on bf16 tiles fed by
 // TMA) replaces the dk/dv kernel and flash_dq_sm90.cu the dq kernel;
 // these serve fp32 and fp16 inputs and the other head dims (16, 32, 96,
-// 256; the wrapper zero-pads any other D up to 256 to the next of these
-// and passes the scale of the true D).
+// 256, 384, 512; the wrapper zero-pads any other D up to 512 to the next
+// of these and passes the scale of the true D).
 //
 // Past D = 128 the tile a block owns (q rows for dq, key rows for dk/dv)
 // shrinks from 64 to 32 rows (owned_rows in flash_common.cuh), the analog
@@ -40,7 +40,10 @@
 // 32 rows they need 206 KB and 214 KB. The tiles the loop walks stay at 64
 // rows, so a score tile is 32 x 64 there and each thread owns two of its
 // rows. Keeping 16-bit tiles in their own type would not have sufficed:
-// fp32 inputs at D = 256 still need the smaller tile.
+// fp32 inputs at D = 256 still need the smaller tile. At D 384 and 512
+// the owned tile is 16 rows and the loop's tiles 32 (199 KB for dq and
+// 201 KB for dk/dv at D 512): each thread owns one row and two columns
+// of a 16 x 32 score tile (flash_common.cuh works the bytes out).
 #include "flash_common.cuh"
 
 namespace hvdt {
@@ -54,16 +57,18 @@ __global__ void __launch_bounds__(kThreads)
                     int H, int Sq, int Sk, int q_off, int k_off, int causal,
                     float scale) {
   constexpr int P = D + 1;
-  constexpr int PS = kBlock + 1;
   constexpr int C = D / 16;
   constexpr int R = owned_rows<D>();
   constexpr int RI = R / 16;
+  constexpr int KB = loop_rows<D>();
+  constexpr int KJ = KB / 16;
+  constexpr int PS = KB + 1;
   extern __shared__ float smem[];
   float* qs = smem;               // [R][P]
   float* dos = qs + R * P;        // [R][P]
-  float* ks = dos + R * P;        // [64][P]
-  float* vs = ks + kBlock * P;    // [64][P]
-  float* dss = vs + kBlock * P;   // [R][PS]
+  float* ks = dos + R * P;        // [KB][P]
+  float* vs = ks + KB * P;        // [KB][P]
+  float* dss = vs + KB * P;       // [R][PS]
 
   const int q0 = blockIdx.x * R;
   const int bh = blockIdx.y;
@@ -87,42 +92,42 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
-  int nk = (Sk + kBlock - 1) / kBlock;
+  int nk = (Sk + KB - 1) / KB;
   if (causal) {
     const long long reach = (long long)q_off + q0 + R - 1 - k_off;
-    const int last = reach < 0 ? -1 : (int)(reach / kBlock);
+    const int last = reach < 0 ? -1 : (int)(reach / KB);
     nk = min(nk, last + 1);
   }
 
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBlock;
+    const int k0 = j * KB;
     __syncthreads();
-    load_tile<T, D>(ks, kh, k0, Sk, rs);
-    load_tile<T, D>(vs, vh, k0, Sk, rs);
+    load_tile<T, D, KB>(ks, kh, k0, Sk, rs);
+    load_tile<T, D, KB>(vs, vh, k0, Sk, rs);
     __syncthreads();
 
-    float s[RI][4], dp[RI][4];
+    float s[RI][KJ], dp[RI][KJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      for (int jj = 0; jj < KJ; ++jj) s[i][jj] = dp[i][jj] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[RI], g[RI], kb[4], vb[4];
+      float a[RI], g[RI], kb[KJ], vb[KJ];
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
         a[i] = qs[(ty + 16 * i) * P + d];
         g[i] = dos[(ty + 16 * i) * P + d];
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KJ; ++jj) {
         kb[jj] = ks[(tx + 16 * jj) * P + d];
         vb[jj] = vs[(tx + 16 * jj) * P + d];
       }
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < KJ; ++jj) {
           s[i][jj] = fmaf(a[i], kb[jj], s[i][jj]);
           dp[i][jj] = fmaf(g[i], vb[jj], dp[i][jj]);
         }
@@ -132,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KJ; ++jj) {
         const int kc = k0 + tx + 16 * jj;
         const bool ok = kc < Sk && (!causal || qpos >= k_off + kc);
         const float p = ok ? expf(s[i][jj] * scale - lse_i[i]) : 0.f;
@@ -143,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kBlock; ++kk) {
+    for (int kk = 0; kk < KB; ++kk) {
       float ds[RI], kv[C];
 #pragma unroll
       for (int i = 0; i < RI; ++i) ds[i] = dss[(ty + 16 * i) * PS + kk];
@@ -175,19 +180,21 @@ __global__ void __launch_bounds__(kThreads)
                      T* __restrict__ dv, int H, int Sq, int Sk, int q_off,
                      int k_off, int causal, float scale) {
   constexpr int P = D + 1;
-  constexpr int PS = kBlock + 1;
   constexpr int C = D / 16;
   constexpr int R = owned_rows<D>();
   constexpr int RI = R / 16;
+  constexpr int KB = loop_rows<D>();
+  constexpr int KJ = KB / 16;
+  constexpr int PS = KB + 1;
   extern __shared__ float smem[];
   float* ks = smem;               // [R][P]
   float* vs = ks + R * P;         // [R][P]
-  float* qs = vs + R * P;         // [64][P]
-  float* dos = qs + kBlock * P;   // [64][P]
-  float* pts = dos + kBlock * P;  // [R keys][PS]  p^T
+  float* qs = vs + R * P;         // [KB][P]
+  float* dos = qs + KB * P;       // [KB][P]
+  float* pts = dos + KB * P;      // [R keys][PS]  p^T
   float* dsts = pts + R * PS;     // [R keys][PS]  ds^T
-  float* lse_s = dsts + R * PS;   // [64]
-  float* delta_s = lse_s + kBlock;    // [64]
+  float* lse_s = dsts + R * PS;   // [KB]
+  float* delta_s = lse_s + KB;    // [KB]
 
   const int k0 = blockIdx.x * R;
   const int bh = blockIdx.y;
@@ -206,20 +213,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < C; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  const int nq = (Sq + kBlock - 1) / kBlock;
+  const int nq = (Sq + KB - 1) / KB;
   int first = 0;
   if (causal) {
-    // q tile t sees this kv tile once q_off + 64*t + 63 >= k_off + k0.
-    const long long need = (long long)k_off + k0 - q_off - (kBlock - 1);
-    first = need <= 0 ? 0 : (int)((need + kBlock - 1) / kBlock);
+    // q tile t sees this kv tile once q_off + KB*t + KB - 1 >= k_off + k0.
+    const long long need = (long long)k_off + k0 - q_off - (KB - 1);
+    first = need <= 0 ? 0 : (int)((need + KB - 1) / KB);
   }
 
   for (int t = first; t < nq; ++t) {
-    const int q0 = t * kBlock;
+    const int q0 = t * KB;
     __syncthreads();
-    load_tile<T, D>(qs, q + qhead, q0, Sq, rs);
-    load_tile<T, D>(dos, dout + qhead, q0, Sq, rs);
-    if (threadIdx.x < kBlock) {
+    load_tile<T, D, KB>(qs, q + qhead, q0, Sq, rs);
+    load_tile<T, D, KB>(dos, dout + qhead, q0, Sq, rs);
+    if (threadIdx.x < KB) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] =
           row < Sq ? lse[(size_t)bh * Sq + row] : __int_as_float(0x7f800000);
@@ -228,28 +235,28 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // Transposed tiles: rows are keys (ty + 16*i), columns queries.
-    float s[RI][4], dp[RI][4];
+    float s[RI][KJ], dp[RI][KJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      for (int jj = 0; jj < KJ; ++jj) s[i][jj] = dp[i][jj] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float ka[RI], va[RI], qb[4], gb[4];
+      float ka[RI], va[RI], qb[KJ], gb[KJ];
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
         ka[i] = ks[(ty + 16 * i) * P + d];
         va[i] = vs[(ty + 16 * i) * P + d];
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KJ; ++jj) {
         qb[jj] = qs[(tx + 16 * jj) * P + d];
         gb[jj] = dos[(tx + 16 * jj) * P + d];
       }
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < KJ; ++jj) {
           s[i][jj] = fmaf(ka[i], qb[jj], s[i][jj]);
           dp[i][jj] = fmaf(va[i], gb[jj], dp[i][jj]);
         }
@@ -259,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < RI; ++i) {
       const int kpos = k_off + k0 + ty + 16 * i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KJ; ++jj) {
         const int qc = tx + 16 * jj;
         const bool ok = q0 + qc < Sq && (!causal || q_off + q0 + qc >= kpos);
         const float p = ok ? expf(s[i][jj] * scale - lse_s[qc]) : 0.f;
@@ -270,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
 #pragma unroll 4
-    for (int qq = 0; qq < kBlock; ++qq) {
+    for (int qq = 0; qq < KB; ++qq) {
       float pt[RI], dst[RI], gv[C], qv[C];
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
@@ -311,11 +318,13 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
                    void* dq, int B, int H, int Sq, int Sk, int q_off,
                    int k_off, int causal, float scale, cudaStream_t stream) {
   constexpr int R = owned_rows<D>();
+  constexpr size_t bytes = smem_bytes(D, 2, 2, 1, 0, R, loop_rows<D>());
+  static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
   const dim3 grid((Sq + R - 1) / R, B * H);
-  return launch(flash_dq_kernel<T, D>, grid, smem_bytes(D, 2, 2, 1, 0, R),
-                stream, (const T*)q, (const T*)k, (const T*)v,
-                (const T*)dout, (const float*)lse, (const float*)delta,
-                (T*)dq, H, Sq, Sk, q_off, k_off, causal, scale);
+  return launch(flash_dq_kernel<T, D>, grid, bytes, stream, (const T*)q,
+                (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                (const float*)delta, (T*)dq, H, Sq, Sk, q_off, k_off, causal,
+                scale);
 }
 
 template <typename T, int D>
@@ -325,9 +334,11 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     int q_off, int k_off, int causal, float scale,
                     cudaStream_t stream) {
   constexpr int R = owned_rows<D>();
+  constexpr int KB = loop_rows<D>();
+  constexpr size_t bytes = smem_bytes(D, 2, 2, 2, 2 * KB, R, KB);
+  static_assert(bytes <= kMaxSmem, "dk/dv tiles exceed shared memory");
   const dim3 grid((Sk + R - 1) / R, B * H);
-  return launch(flash_dkv_kernel<T, D>, grid,
-                smem_bytes(D, 2, 2, 2, 2 * kBlock, R), stream, (const T*)q,
+  return launch(flash_dkv_kernel<T, D>, grid, bytes, stream, (const T*)q,
                 (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
                 (const float*)delta, (T*)dk, (T*)dv, H, Sq, Sk, q_off, k_off,
                 causal, scale);
@@ -345,6 +356,8 @@ cudaError_t dq_for_dim(int D, const void* q, const void* k, const void* v,
     case 96: return run_dq<T, 96>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 128: return run_dq<T, 128>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 256: return run_dq<T, 256>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 384: return run_dq<T, 384>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 512: return run_dq<T, 512>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -362,6 +375,8 @@ cudaError_t dkv_for_dim(int D, const void* q, const void* k, const void* v,
     case 96: return run_dkv<T, 96>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 128: return run_dkv<T, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 256: return run_dkv<T, 256>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 384: return run_dkv<T, 384>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 512: return run_dkv<T, 512>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }

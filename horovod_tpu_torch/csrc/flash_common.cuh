@@ -7,18 +7,30 @@
 // no [B*H, S, D] transpose is ever materialized. Softmax statistics
 // (m, l, lse, delta) are contiguous [B, H, S] fp32.
 //
-// Tiling: every kernel works on score tiles of R x 64 with 256 threads,
-// R = 64 rows (the tile a block owns: q rows in the forward and dq, key
-// rows in dk/dv) up to D = 128. The thread at (ty = tid / 16,
-// tx = tid % 16) owns rows ty + 16*i (i < R/16) and columns tx + 16*j
-// (j < 4) of a score tile, and columns tx + 16*c (c < D/16) of an [R, D]
-// output tile. The 16 threads sharing a row are the two halves of one
-// warp, so row reductions are four xor-shuffles. Past D = 128 the
-// backward kernels own R = 32 rows (owned_rows): the 64-row tiles of
-// [64][D + 1] fp32 would need 280 KB (dq) and 297 KB (dk/dv) of shared
-// memory at D = 256, above the 227 KB a block may have; with 32 owned
-// rows they need 206 KB and 214 KB. The forward's three 64-row tiles and
-// score tile need 209 KB at D = 256 and keep R = 64.
+// Tiling: every kernel works on score tiles of R x KB with 256 threads:
+// R rows owned by the block (q rows in the forward and dq, key rows in
+// dk/dv) against KB rows of the tile its loop walks. The thread at
+// (ty = tid / 16, tx = tid % 16) owns rows ty + 16*i (i < R/16) and
+// columns tx + 16*j (j < KB/16) of a score tile, and columns tx + 16*c
+// (c < D/16) of an [R, D] output tile. The 16 threads sharing a row are
+// the two halves of one warp, so row reductions are four xor-shuffles.
+// Up to D = 128 R = KB = 64. The tiles are [rows][D + 1] fp32, so a
+// block's shared memory grows with D and must stay within the 227 KB
+// (232448 bytes) a block may opt into; the tiles shrink past two head
+// dims, the counterpart of the reference's _ladders_for:
+//   D 256: the backward kernels own R = 32 rows (64-row tiles would need
+//     280 KB for dq and 297 KB for dk/dv; 32 rows need 206 and 214 KB);
+//     the forward's three 64-row tiles and score tile need 209 KB.
+//   D 384 and 512: the loop's tiles shrink to KB = 32 rows, the forward
+//     owns R = 32 and the backward R = 16 rows. At D 512 the forward
+//     needs 3 x 32 x 513 x 4 + 32 x 33 x 4 = 201216 bytes, dq
+//     2 x 16 x 513 x 4 + 2 x 32 x 513 x 4 + 16 x 33 x 4 = 199104 and
+//     dk/dv 196992 + 2 x 16 x 33 x 4 + 2 x 32 x 4 = 201472; a 32-row
+//     backward would need 262656 bytes for its four tiles alone. Past
+//     D 512 even these tiles do not fit: 16 x 641 x 4 x 2 + 32 x 641 x 4
+//     x 2 = 246144 bytes for the backward's four tiles at D 640, and
+//     shrinking the loop's tiles below 32 rows would leave each thread
+//     one column; the dispatcher refuses D > 512 (ROADMAP.md C4).
 // Tiles live in shared memory as fp32 with a row pitch of D + 1 floats,
 // which puts the 16 rows a half-warp reads at one column in 16 distinct
 // banks.
@@ -53,10 +65,22 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// Rows of the tile a backward block owns at head dim D (see Tiling).
+// Rows of the tile the loop walks at head dim D (see Tiling).
+template <int D>
+__host__ __device__ constexpr int loop_rows() {
+  return D <= 256 ? kBlock : kBlock / 2;
+}
+
+// Rows of the q tile a forward block owns at head dim D.
+template <int D>
+__host__ __device__ constexpr int fwd_rows() {
+  return D <= 256 ? kBlock : kBlock / 2;
+}
+
+// Rows of the tile a backward block owns at head dim D.
 template <int D>
 __host__ __device__ constexpr int owned_rows() {
-  return D <= 128 ? kBlock : kBlock / 2;
+  return D <= 128 ? kBlock : D <= 256 ? kBlock / 2 : kBlock / 4;
 }
 
 // Copies rows [row0, row0 + R) of one head into an [R][D + 1] fp32 tile.
@@ -90,14 +114,18 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Shared memory of a kernel holding `tiles` [64][D + 1] tiles, `owned`
-// [R][D + 1] tiles and `squares` [R][65] score tiles, plus `extra` floats.
+// Shared memory of a kernel holding `tiles` [KB][D + 1] loop tiles,
+// `owned` [R][D + 1] tiles and `squares` [R][KB + 1] score tiles, plus
+// `extra` floats.
 constexpr size_t smem_bytes(int d, int tiles, int owned, int squares,
-                            int extra, int r = kBlock) {
+                            int extra, int r = kBlock, int kb = kBlock) {
   return sizeof(float) *
-         ((size_t)tiles * kBlock * (d + 1) + (size_t)owned * r * (d + 1) +
-          (size_t)squares * r * (kBlock + 1) + extra);
+         ((size_t)tiles * kb * (d + 1) + (size_t)owned * r * (d + 1) +
+          (size_t)squares * r * (kb + 1) + extra);
 }
+
+// The most dynamic shared memory a block may opt into on sm_90.
+constexpr size_t kMaxSmem = 232448;
 
 // Launches `kernel` with `bytes` of dynamic shared memory (above the 48 KB
 // default, hence the attribute, set on every call so that any current

@@ -25,11 +25,13 @@
 // 113 KB of shared memory at D=128 also allows one block (8 warps) per SM.
 // flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
 // tiles fed by TMA) for bf16 at head dims 64 and 128; this kernel serves
-// fp32 and fp16 inputs and the other head dims (16, 32, 96, 256; the
-// wrapper zero-pads any other D up to 256 to the next of these and
-// passes the scale of the true D). At D = 256 its three [64][257] tiles
-// and the score tile take 209 KB of shared memory, within the 227 KB a
-// block may have, so the forward keeps its 64-row tiles there.
+// fp32 and fp16 inputs and the other head dims (16, 32, 96, 256, 384,
+// 512; the wrapper zero-pads any other D up to 512 to the next of these
+// and passes the scale of the true D). At D = 256 its three [64][257]
+// tiles and the score tile take 209 KB of shared memory, within the
+// 227 KB a block may have, so the forward keeps its 64-row tiles there;
+// at D 384 and 512 it owns 32 q rows and walks 32-key tiles (201 KB at
+// D 512; flash_common.cuh works the bytes out).
 #include "flash_common.cuh"
 
 namespace hvdt {
@@ -42,15 +44,19 @@ __global__ void __launch_bounds__(kThreads)
                      int H, int Sq, int Sk, int q_off, int k_off, int causal,
                      float scale) {
   constexpr int P = D + 1;
-  constexpr int PS = kBlock + 1;
+  constexpr int R = fwd_rows<D>();
+  constexpr int KB = loop_rows<D>();
+  constexpr int RI = R / 16;
+  constexpr int KJ = KB / 16;
+  constexpr int PS = KB + 1;
   constexpr int C = D / 16;
   extern __shared__ float smem[];
-  float* qs = smem;               // [64][P]
-  float* ks = qs + kBlock * P;    // [64][P]
-  float* vs = ks + kBlock * P;    // [64][P]
-  float* ps = vs + kBlock * P;    // [64][PS]
+  float* qs = smem;               // [R][P]
+  float* ks = qs + R * P;         // [KB][P]
+  float* vs = ks + KB * P;        // [KB][P]
+  float* ps = vs + KB * P;        // [R][PS]
 
-  const int q0 = blockIdx.x * kBlock;
+  const int q0 = blockIdx.x * R;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int rs = H * D;
@@ -59,58 +65,58 @@ __global__ void __launch_bounds__(kThreads)
   const T* vh = v + ((size_t)b * Sk * H + h) * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(qs, qh, q0, Sq, rs);
+  load_tile<T, D, R>(qs, qh, q0, Sq, rs);
 
-  float acc[4][C];
-  float m_i[4], l_i[4];
+  float acc[RI][C];
+  float m_i[RI], l_i[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m_i[i] = kNegInf;
     l_i[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
-  int nk = (Sk + kBlock - 1) / kBlock;
+  int nk = (Sk + KB - 1) / KB;
   if (causal) {
-    // Tile j is visible while k_off + 64*j <= q_off + q0 + 63.
-    const long long reach = (long long)q_off + q0 + kBlock - 1 - k_off;
-    const int last = reach < 0 ? -1 : (int)(reach / kBlock);
+    // Tile j is visible while k_off + KB*j <= q_off + q0 + R - 1.
+    const long long reach = (long long)q_off + q0 + R - 1 - k_off;
+    const int last = reach < 0 ? -1 : (int)(reach / KB);
     nk = min(nk, last + 1);
   }
 
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBlock;
+    const int k0 = j * KB;
     __syncthreads();  // the previous tile's products are done
-    load_tile<T, D>(ks, kh, k0, Sk, rs);
-    load_tile<T, D>(vs, vh, k0, Sk, rs);
+    load_tile<T, D, KB>(ks, kh, k0, Sk, rs);
+    load_tile<T, D, KB>(vs, vh, k0, Sk, rs);
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+      for (int jj = 0; jj < KJ; ++jj) s[i][jj] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
+      float a[RI], bb[KJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * P + d];
+      for (int i = 0; i < RI; ++i) a[i] = qs[(ty + 16 * i) * P + d];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) bb[jj] = ks[(tx + 16 * jj) * P + d];
+      for (int jj = 0; jj < KJ; ++jj) bb[jj] = ks[(tx + 16 * jj) * P + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(a[i], bb[jj], s[i][jj]);
+        for (int jj = 0; jj < KJ; ++jj) s[i][jj] = fmaf(a[i], bb[jj], s[i][jj]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qpos = q_off + q0 + ty + 16 * i;
-      bool ok[4];
+      bool ok[KJ];
       float mx = kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KJ; ++jj) {
         const int kc = k0 + tx + 16 * jj;
         ok[jj] = kc < Sk && (!causal || qpos >= k_off + kc);
         s[i][jj] = ok[jj] ? s[i][jj] * scale : kNegInf;
@@ -120,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
       const float corr = expf(m_i[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KJ; ++jj) {
         const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
         ps[(ty + 16 * i) * PS + tx + 16 * jj] = p;
         sum += p;
@@ -133,21 +139,21 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kBlock; ++kk) {
-      float p[4], vv[C];
+    for (int kk = 0; kk < KB; ++kk) {
+      float p[RI], vv[C];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + kk];
+      for (int i = 0; i < RI; ++i) p[i] = ps[(ty + 16 * i) * PS + kk];
 #pragma unroll
       for (int c = 0; c < C; ++c) vv[c] = vs[kk * P + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
@@ -166,10 +172,14 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
                     void* m, void* l, int B, int H, int Sq, int Sk,
                     int q_off, int k_off, int causal, float scale,
                     cudaStream_t stream) {
-  const dim3 grid((Sq + kBlock - 1) / kBlock, B * H);
-  return launch(flash_fwd_kernel<T, D>, grid, smem_bytes(D, 3, 0, 1, 0),
-                stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                (float*)m, (float*)l, H, Sq, Sk, q_off, k_off, causal, scale);
+  constexpr int R = fwd_rows<D>();
+  constexpr int KB = loop_rows<D>();
+  constexpr size_t bytes = smem_bytes(D, 2, 1, 1, 0, R, KB);
+  static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
+  const dim3 grid((Sq + R - 1) / R, B * H);
+  return launch(flash_fwd_kernel<T, D>, grid, bytes, stream, (const T*)q,
+                (const T*)k, (const T*)v, (T*)o, (float*)m, (float*)l, H, Sq,
+                Sk, q_off, k_off, causal, scale);
 }
 
 template <typename T>
@@ -184,6 +194,8 @@ cudaError_t fwd_for_dim(int D, const void* q, const void* k, const void* v,
     case 96: return run_fwd<T, 96>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 128: return run_fwd<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 256: return run_fwd<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 384: return run_fwd<T, 384>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 512: return run_fwd<T, 512>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,9 @@
 
 Counterpart of ``horovod_tpu/ops/backend.py`` (:1-102): a backend says
 whether it can run a batch of entries, and runs a whole (possibly fused)
-Response at once, fusion-buffer pack and unpack included.
+Response at once, fusion-buffer pack and unpack included. It also says
+whether the response cache's speculative cycle may carry a fused
+allreduce in its place (``fused_cycle_reducible``, :77).
 
 CUDA tensors: a backend runs a batch inside :func:`plane_stream`, which
 puts the work on a stream of the data plane's own, after each entry's
@@ -107,10 +109,23 @@ class CollectiveBackend:
         only equal placements), after every entry's ready event; record
         the done event there afterwards. Yields the stream, or None for
         CPU tensors, where the body just runs."""
-        device = entries[0].tensor.device
-        if device.type != "cuda":
+        stream = self.ready_stream(entries)
+        if stream is None:
             yield None
             return
+        with torch.cuda.stream(stream):
+            yield stream
+        done = torch.cuda.Event()
+        done.record(stream)
+        for e in entries:
+            e.done_event = done
+
+    def ready_stream(self, entries: List[TensorTableEntry]):
+        """This plane's stream on the entries' CUDA device, made to wait
+        for every entry's ready event; None for CPU tensors."""
+        device = entries[0].tensor.device
+        if device.type != "cuda":
+            return None
         stream = self._streams.get(device.index)
         if stream is None:
             stream = self._streams[device.index] = torch.cuda.Stream(device)
@@ -121,15 +136,18 @@ class CollectiveBackend:
             # keeps the allocator from handing its memory to the
             # caller's stream before this stream has read it.
             e.tensor.record_stream(stream)
-        with torch.cuda.stream(stream):
-            yield stream
-        done = torch.cuda.Event()
-        done.record(stream)
-        for e in entries:
-            e.done_event = done
+        return stream
 
     def enabled(self, entries, response: Response) -> bool:
         raise NotImplementedError
+
+    def fused_cycle_reducible(self, nbytes: int) -> bool:
+        """True when a fused allreduce of ``nbytes`` would go through
+        the coordinator's channels anyway: then the response cache's
+        speculative cycle may carry it on the negotiation round
+        (``common/runtime.py``). A plane with a transport of its own
+        says False, so that speculation never takes a batch from it."""
+        return False
 
     def execute_allreduce(self, entries, response) -> Status:
         raise NotImplementedError

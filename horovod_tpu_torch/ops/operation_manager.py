@@ -38,14 +38,22 @@ class OperationManager:
         for b in self.backends:
             b.finalizer = finalizer
 
+    def pick(self, entries: List[TensorTableEntry],
+             response: Response) -> CollectiveBackend:
+        """The first enabled backend: the one that runs the batch. The
+        runtime's speculative cycle asks it whether the batch may ride
+        the negotiation round instead (``fused_cycle_reducible``)."""
+        for b in self.backends:
+            if b.enabled(entries, response):
+                return b
+        raise RuntimeError(
+            f"No collective backend enabled for response "
+            f"{response.response_type.name} ({response.tensor_names})")
+
     def execute(self, entries: List[TensorTableEntry],
                 response: Response) -> Tuple[str, Status]:
         """Runs the batch on the first enabled backend; returns that
         backend's name and the status."""
-        for b in self.backends:
-            if b.enabled(entries, response):
-                return b.name, getattr(b, _EXECUTE[response.response_type])(
-                    entries, response)
-        raise RuntimeError(
-            f"No collective backend enabled for response "
-            f"{response.response_type.name} ({response.tensor_names})")
+        b = self.pick(entries, response)
+        return b.name, getattr(b, _EXECUTE[response.response_type])(
+            entries, response)

@@ -8,7 +8,10 @@ call on process groups of the plane's own, issued by the runtime's
 thread on the plane's CUDA stream (``ops/backend.py`` ``plane_stream``)
 after each entry's ready event. torch compiles nothing per signature,
 so the reference's executable cache (``_compiled`` :238, the epoch
-eviction :249) has no counterpart.
+eviction :249) has no counterpart. Like ``XlaMeshBackend``, the plane
+has a transport of its own and is not ``fused_cycle_reducible``: the
+response cache's cycles reach it through the two-round bitmask path,
+never the speculative one.
 
 Which tensors it takes. It serves one device type, given to the
 constructor: ``common/basics.py`` builds it for ``"cuda"`` (a CPU

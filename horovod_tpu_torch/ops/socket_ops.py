@@ -11,7 +11,11 @@ the device (each entry flattened into it, the prescale fused into that
 copy), on the data plane's stream after each entry's ready event, and
 copied to pinned host memory once. The result comes back in one copy and
 is postscaled on the device; the outputs are views of that buffer. CPU
-tensors take the same path without the copies.
+tensors take the same path without the copies. The response cache's
+speculative cycle (``common/runtime.py``) carries a fused allreduce on
+the negotiation round instead: ``pack_to_host`` and ``unpack_from_host``
+are the two halves of ``execute_allreduce`` it runs, so that both paths
+give the same bits.
 
 The coordinator accumulates in the tensor's dtype, in rank order
 (``acc += peer`` for ranks 1..N-1), as the reference does at :396-418,
@@ -23,6 +27,7 @@ fusion arena are not ported yet (``ROADMAP.md`` A6.4-A6.6).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List
 
@@ -77,6 +82,38 @@ class SocketBackend(CollectiveBackend):
     def enabled(self, entries, response) -> bool:
         return self._ctl.size > 1
 
+    def fused_cycle_reducible(self, nbytes: int) -> bool:
+        """Every batch above size 1 goes through the coordinator's
+        channels here (the ring, which takes the large ones in the
+        reference, :300, is not ported), so the speculative cycle may
+        carry any of them."""
+        return self._ctl.size > 1
+
+    def pack_to_host(self, entries, prescale: float) -> torch.Tensor:
+        """The fused allreduce buffer of ``entries`` in host memory
+        (pinned for CUDA tensors), the prescale applied: what
+        ``execute_allreduce`` sends, and a speculative cycle frame's
+        segment. On CUDA the pack waits for every entry's ready event.
+        The entries' outputs and done events are left alone: the world
+        may deny a speculative bid."""
+        stream = self.ready_stream(entries)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            return self._to_host(pack([e.tensor for e in entries],
+                                      prescale), stream)
+
+    def unpack_from_host(self, entries, result: torch.Tensor,
+                         postscale: float) -> None:
+        """The world's fused result (a fresh host buffer, postscaled in
+        place on the CPU) into the entries' outputs: to the device,
+        postscaled, unpacked, and on CUDA the done event recorded after
+        all of it."""
+        with self.plane_stream(entries) as stream:
+            result = self._to_device(result, entries[0].tensor.device,
+                                     stream)
+            scale_(result, postscale)
+            unpack(entries, result)
+
     # -- staging between the device and the host -------------------------
     def _to_host(self, flat: torch.Tensor, stream) -> torch.Tensor:
         """``flat`` in host memory: one copy into pinned memory when it
@@ -117,26 +154,21 @@ class SocketBackend(CollectiveBackend):
         ctl = self._ctl
         names = [e.tensor_name for e in entries]
         multi = len(entries) > 1
-        device = entries[0].tensor.device
-        with self.plane_stream(entries) as stream:
-            with self.activity(names, ACT_MEMCPY_IN_FUSION_BUFFER, multi):
-                fused = pack([e.tensor for e in entries],
-                             response.prescale_factor)
-                host = self._to_host(fused, stream)
-            if ctl.is_coordinator:
-                fresh = (stream is not None or multi
-                         or response.prescale_factor != 1.0)
-                result = self._star_reduce(host, fresh)
-                ctl.broadcast_data(result)
-            else:
-                ctl.gather_data_into(host, None)
-                result = self._host_empty(host.numel(), host.dtype, stream)
-                ctl.broadcast_data_into(None, result)
-            with self.activity(names, ACT_MEMCPY_OUT_FUSION_BUFFER, multi):
-                # ``result`` is a fresh buffer: postscaled in place.
-                result = self._to_device(result, device, stream)
-                scale_(result, response.postscale_factor)
-                unpack(entries, result)
+        with self.activity(names, ACT_MEMCPY_IN_FUSION_BUFFER, multi):
+            host = self.pack_to_host(entries, response.prescale_factor)
+        # A pinned ``host`` is a copy of CUDA tensors.
+        pinned = host.is_pinned()
+        if ctl.is_coordinator:
+            fresh = pinned or multi or response.prescale_factor != 1.0
+            result = self._star_reduce(host, fresh)
+            ctl.broadcast_data(result)
+        else:
+            ctl.gather_data_into(host, None)
+            result = torch.empty(host.numel(), dtype=host.dtype,
+                                 pin_memory=pinned)
+            ctl.broadcast_data_into(None, result)
+        with self.activity(names, ACT_MEMCPY_OUT_FUSION_BUFFER, multi):
+            self.unpack_from_host(entries, result, response.postscale_factor)
         return Status.OK()
 
     # -- allgather (fused responses; dim 0 may differ per rank) ----------

@@ -15,14 +15,15 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
 before any launch: the ``sm90`` kernels (wgmma on bf16 tiles fed by TMA,
 warp-specialised) take bf16 at head dims 64 and 128; the ``simt``
 kernels (fp32 FMAs from fp32 shared-memory tiles) take fp32, fp16 and
-the head dims 16, 32, 96 and 256 (past D = 128 the backward kernels own
-32-row tiles, the counterpart of the reference's ``_ladders_for``). The
-reference takes any head dim: a CUDA call at a head dim up to 256 that
-no kernel is built for runs at the next one that is
+the head dims 16, 32, 96, 256, 384 and 512 (their tiles shrink as D
+grows so that a block's shared memory holds them, the counterpart of
+the reference's ``_ladders_for``; ``csrc/flash_common.cuh`` works the
+bytes out). The reference takes any head dim: a CUDA call at a head dim
+up to 512 that no kernel is built for runs at the next one that is
 (:func:`padded_head_dim`), with q, k, v (and do) zero-padded along D,
 the scale of the true D, and the outputs sliced back
 (:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and
-the padded columns of v give output columns that are cut away. Past 256
+the padded columns of v give output columns that are cut away. Past 512
 a CUDA call raises (``ROADMAP.md`` C4). The sm90 kernels read their
 inputs through TMA and need 16-byte-aligned bases; a misaligned CUDA
 tensor raises, it never falls back to the other design.
@@ -61,7 +62,8 @@ from horovod_tpu_torch import _cuda
 
 _NEG_INF = -1e30
 BLOCK = 64   # the sequence granularity of the kernels' tiles
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head dims the kernels are built for
+# head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 96, 128, 256, 384, 512)
 SM90_HEAD_DIMS = (64, 128)      # head dims of the wgmma/TMA kernels
 
 # Launches of each kernel since the last reset_launch_counts().
@@ -109,7 +111,10 @@ def padded_head_dim(d: int) -> int:
             return built
     raise ValueError(
         f"head dim {d}: the flash kernels take head dims up to "
-        f"{HEAD_DIMS[-1]} on CUDA (ROADMAP.md C4 is open for larger ones)")
+        f"{HEAD_DIMS[-1]} on CUDA (ROADMAP.md C4 is open for larger ones: "
+        f"at D 640 the backward's fp32 tiles, 16 owned rows and 32 loop "
+        f"rows of D + 1 floats, need 246144 bytes of shared memory, above "
+        f"the 232448 a block may have)")
 
 
 def _on_padded_head_dim(fn, tensors, *args):

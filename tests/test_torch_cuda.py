@@ -194,9 +194,9 @@ def test_flash_attention_autograd_matches_dense_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 264, device=cuda)
+    q = torch.zeros(1, 64, 2, 520, device=cuda)
     with pytest.raises(ValueError):
-        fa._flash_fwd(q, q, q, True, 0, 0)            # head dim past 256
+        fa._flash_fwd(q, q, q, True, 0, 0)            # head dim past 512
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa._flash_fwd(q, q, q, True, 0, 0)            # fp64
@@ -335,6 +335,11 @@ C4_CASES = [
     pytest.param("float16", 1, 40, 2, 256, True, 0, 0, id="fp16_d256_short"),
     pytest.param("float32", 1, 128, 2, 200, False, 0, 0,
                  id="fp32_d200_padded_noncausal"),
+    pytest.param("float32", 1, 192, 2, 384, True, 0, 0, id="fp32_d384"),
+    pytest.param("bfloat16", 2, 128, 2, 384, True, 0, 64, id="bf16_d384"),
+    pytest.param("float16", 1, 40, 2, 512, True, 0, 0, id="fp16_d512_short"),
+    pytest.param("bfloat16", 1, 128, 2, 448, False, 0, 0,
+                 id="bf16_d448_padded_noncausal"),
 ]
 
 
@@ -348,7 +353,11 @@ def test_head_dims_and_fp16_match_plain_versions(cuda, dtype, b, s, h, d,
 
 
 @pytest.mark.cuda
-def test_head_dim_past_256_raises_naming_the_roadmap_item(cuda):
-    q = torch.zeros(1, 64, 1, 264, device=cuda)
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("float32", 512)])
+def test_head_dim_past_256_raises_naming_the_roadmap_item(cuda, dtype, d):
+    """Past D 256 the kernels of D 384 and 512 serve (D 320 runs
+    zero-padded at 384); past 512 a CUDA call raises, naming C4."""
+    _check_kernels(cuda, getattr(torch, dtype), 1, 128, 2, d, True, 0, 0)
+    q = torch.zeros(1, 64, 1, 640, device=cuda)
     with pytest.raises(ValueError, match="C4"):
         fa._flash_fwd(q, q, q, True, 0, 0)

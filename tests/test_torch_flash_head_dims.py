@@ -121,10 +121,11 @@ def test_fp16_matches_reference(d):
 
 def test_cuda_head_dims_pad_to_the_next_built_one_and_stop_at_256():
     assert [port.padded_head_dim(d) for d in (8, 16, 48, 80, 96, 100, 200,
-                                              256)] == \
-        [16, 16, 64, 96, 96, 128, 256, 256]
+                                              256, 257, 320, 384, 400,
+                                              512)] == \
+        [16, 16, 64, 96, 96, 128, 256, 256, 384, 384, 384, 512, 512]
     with pytest.raises(ValueError, match="C4"):
-        port.padded_head_dim(257)
+        port.padded_head_dim(513)
     assert port._design(torch.bfloat16, 48) == "sm90"
     assert port._design(torch.bfloat16, 80) == "simt"
     assert port._design(torch.float16, 128) == "simt"

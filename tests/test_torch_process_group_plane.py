@@ -352,7 +352,7 @@ def test_hierarchical_variables_are_config_fields(monkeypatch):
     cfg = Config.from_env()
     assert cfg.hierarchical_allreduce and cfg.hierarchical_allgather
     monkeypatch.setenv("HOROVOD_TPU_ICI", "1")
-    with pytest.raises(NotImplementedError, match="A6.1"):
+    with pytest.raises(NotImplementedError, match="A6.5"):
         Config.from_env()
 
 

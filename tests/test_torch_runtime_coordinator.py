@@ -239,8 +239,12 @@ def test_truncated_and_foreign_frames_are_refused():
     for cut in (1, 10, len(frame) - 1):
         with pytest.raises(ConnectionError):
             port_wire.parse_cycle_response(frame[:cut])
-    with pytest.raises(ConnectionError, match="HOROVOD_CACHE_CAPACITY=0"):
-        port_wire.parse_cycle_response(b"\x01" + frame[1:])
+    with pytest.raises(ConnectionError, match="kind 9"):
+        port_wire.parse_cycle_response(b"\x09" + frame[1:])
+    with pytest.raises(ConnectionError, match="kind 2"):
+        port_wire.parse_cycle_response(b"\x02" + frame[1:])
+    with pytest.raises(ConnectionError, match="kind 9"):
+        port_wire.parse_cycle_request(b"\x09" + frame[1:])
 
 
 def test_torch_and_numpy_dtype_maps_agree():

@@ -9,14 +9,20 @@ package's.
   and batches: exactly equal losses and parameters.
 - Worlds of 2 and 3 ranks, each started once for the module (this file
   run as a script is a rank), run in one spawn the scenarios of
-  ``tests/mp_scenarios.py`` this slice covers and hold every output to
-  the scenario's closed-form value exactly; a stall warning at
-  ``HOROVOD_STALL_CHECK_TIME_SECONDS=1``; the timeline's vocabulary; an
-  eager-optimizer step that equals the single-process whole-batch step
-  (1e-6: the ranks' gradients are summed in another order than one
-  batch's). Two more 2-rank worlds lose rank 0 or rank 1 after a
-  barrier: the survivor's pending allreduce raises WorldAbortedError
-  naming the dead rank.
+  ``tests/mp_scenarios.py`` this slice covers, at the response cache's
+  defaults, and hold every output to the scenario's closed-form value
+  exactly; a stall warning at ``HOROVOD_STALL_CHECK_TIME_SECONDS=1``;
+  the timeline's vocabulary; an eager-optimizer step that equals the
+  single-process whole-batch step (1e-6: the ranks' gradients are summed
+  in another order than one batch's); a steady state of identical steps
+  that runs through the cache's bitmask and its speculative fused
+  cycles, with every rank's cache in lockstep. A 2-rank world with the
+  cache off (``nocache``) runs the same scenarios, and its training
+  steps equal the cached world's bit for bit. A 2-rank world with 4
+  cache slots and speculation off on rank 1 (``evict``) keeps its caches
+  coherent under constant eviction and runs the classic path. Two more
+  2-rank worlds lose rank 0 or rank 1 after a barrier: the survivor's
+  pending allreduce raises WorldAbortedError naming the dead rank.
 - The socket star's host arithmetic against the reference's numpy, bit
   for bit.
 """
@@ -39,7 +45,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SCENARIOS = ["allreduce", "allreduce_fused", "allreduce_multi_dtype",
              "allgather", "broadcast", "alltoall", "reducescatter",
              "grouped_allreduce", "out_of_order", "mismatch", "stall",
-             "eager_step"]
+             "eager_step", "steady"]
+# The 2-rank world with 4 cache slots runs these only.
+EVICT_SCENARIOS = ["steady", "evict"]
 LM = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=8,
           mlp_ratio=2, max_seq_len=16)
 LR = 0.1
@@ -183,9 +191,65 @@ def _lm_loss(T, model, tokens):
                                  chunk=8)
 
 
+def _cache_fingerprint(hvd, tag):
+    """Every rank's (epoch, CRC of the cache's coherent state), gathered:
+    the ranks' rows must be equal."""
+    import zlib
+    from horovod_tpu_torch.common import basics
+    cache = basics.runtime()._cache
+    fp = [cache.epoch, zlib.crc32(repr(cache.state_fingerprint()).encode())]
+    return hvd.allgather(torch.tensor([fp]), name=tag)
+
+
+def scenario_steady(hvd, rank, size, results):
+    """Six identical steps of two named sums, an average (the
+    postscale) and a prescaled sum, exact every step: the steady state
+    the response cache serves (four tensors: the ``evict`` world's
+    slots). Records the cache's counts after them, and every rank's
+    fingerprint."""
+    from horovod_tpu_torch.common import basics
+    ssum = sum(range(1, size + 1))
+    xs = [torch.full((64 + i,), float(rank + 1) * (i + 1),
+                     dtype=torch.float64) for i in range(2)]
+    y = torch.full((5,), float(rank + 1))
+    for _ in range(6):
+        hs = [hvd.allreduce_async(x, average=False, name=f"st.{i}")
+              for i, x in enumerate(xs)]
+        h_avg = hvd.allreduce_async(y, op=hvd.Average, name="st.avg")
+        h_pre = hvd.allreduce_async(y, op=hvd.Sum, prescale_factor=2.0,
+                                    name="st.pre")
+        for i, h in enumerate(hs):
+            _eq(hvd.synchronize(h), torch.full((64 + i,), ssum * (i + 1.0),
+                                               dtype=torch.float64))
+        _eq(hvd.synchronize(h_avg),
+            torch.full((5,), float(ssum)) * torch.tensor(1.0 / size))
+        _eq(hvd.synchronize(h_pre), torch.full((5,), 2.0 * ssum))
+    stats = basics.runtime().negotiation_cache_stats()
+    if stats["enabled"]:
+        stats["fingerprints"] = _cache_fingerprint(hvd, "st.fp").tolist()
+    results["steady_stats"] = stats
+
+
+def scenario_evict(hvd, rank, size, results):
+    """Ten tensors per step through 4 cache slots for four steps: every
+    put evicts, names come back after their eviction, the results stay
+    exact and the caches in lockstep."""
+    ssum = sum(range(1, size + 1))
+    fps = []
+    for step in range(4):
+        hs = [hvd.allreduce_async(torch.full((8,), float(rank + 1) * (i + 1)),
+                                  average=False, name=f"ev.{i}")
+              for i in range(10)]
+        for i, h in enumerate(hs):
+            _eq(hvd.synchronize(h), torch.full((8,), ssum * (i + 1.0)))
+        fps.append(_cache_fingerprint(hvd, f"ev.fp{step}").tolist())
+    results["evict_fingerprints"] = fps
+
+
 def scenario_eager_step(hvd, rank, size, out_dir):
     """Weights from rank 1 (broadcast through the runtime), rows
-    2r..2r+1 of the batch, one eager-optimizer step."""
+    2r..2r+1 of the batch, one eager-optimizer step, then two more on
+    the same rows (the last two replay from the response cache)."""
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.torch import eager
     model = T.TransformerLM(T.TransformerConfig(dtype=torch.float32, **LM),
@@ -201,22 +265,29 @@ def scenario_eager_step(hvd, rank, size, out_dir):
     _lm_loss(T, model, tokens[2 * rank:2 * rank + 2]).backward()
     opt.step()
     eager.broadcast_optimizer_state(opt, root_rank=0)
-    torch.save({"init": init, "after": model.state_dict()},
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    for _ in range(2):
+        opt.zero_grad()
+        _lm_loss(T, model, tokens[2 * rank:2 * rank + 2]).backward()
+        opt.step()
+    torch.save({"init": init, "after": after, "final": model.state_dict()},
                os.path.join(out_dir, f"{rank}.pt"))
 
 
-def _world_main(out_dir: str) -> int:
-    """One rank of a spawned world: every scenario in turn, each one's
+def _world_main(out_dir: str, scenarios) -> int:
+    """One rank of a spawned world: the scenarios in turn, each one's
     outcome in ``<out_dir>/result<rank>.json``."""
     import horovod_tpu_torch as hvd
     hvd.init(device="cpu")
     rank, size = hvd.rank(), hvd.size()
     results = {}
-    for name in SCENARIOS:
+    for name in scenarios:
         fn = globals()[f"scenario_{name}"]
         try:
             if name == "eager_step":
                 fn(hvd, rank, size, out_dir)
+            elif name in ("steady", "evict"):
+                fn(hvd, rank, size, results)
             else:
                 fn(hvd, rank, size)
             results[name] = "ok"
@@ -224,6 +295,7 @@ def _world_main(out_dir: str) -> int:
             results[name] = traceback.format_exc()
     from horovod_tpu_torch.common import basics
     results["stats"] = basics.runtime().stats
+    results["cache"] = basics.runtime().negotiation_cache_stats()
     hvd.shutdown()
     with open(os.path.join(out_dir, f"result{rank}.json"), "w") as f:
         json.dump(results, f)
@@ -268,22 +340,33 @@ def _free_ports(n):
             s.close()
 
 
+# World kind -> (ranks, environment of every rank, of rank 1 only).
+WORLD_ENV = {2: (2, {}, {}), 3: (3, {}, {}),
+             "nocache": (2, {"HOROVOD_CACHE_CAPACITY": "0"}, {}),
+             "evict": (2, {"HOROVOD_CACHE_CAPACITY": "4"},
+                       {"HOROVOD_CACHE_SPECULATIVE": "0"}),
+             "dead0": (2, {}, {}), "dead1": (2, {}, {})}
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """Start a 2-rank and a 3-rank world, and two 2-rank worlds that lose
-    rank 0 or rank 1, at once; the tests below wait for them (the
-    in-process tests run meanwhile)."""
+    """Start the worlds of ``WORLD_ENV`` at once (a 2-rank and a 3-rank
+    world, the 2-rank world without the cache and with 4 slots, and two
+    2-rank worlds that lose rank 0 or rank 1); the tests below wait for
+    them (the in-process tests run meanwhile)."""
     started = {}
-    kinds = (2, 3, "dead0", "dead1")
-    for size, port in zip(kinds, _free_ports(len(kinds))):
+    for size, port in zip(WORLD_ENV, _free_ports(len(WORLD_ENV))):
         out = tmp_path_factory.mktemp(f"world{size}")
         args = [str(out)]
-        if isinstance(size, str):
+        if str(size).startswith("dead"):
             args = ["--death", size[-1], str(out)]
+        elif size == "evict":
+            args.append(",".join(EVICT_SCENARIOS))
         procs = []
-        n = size if isinstance(size, int) else 2
+        n, every, rank1 = WORLD_ENV[size]
         for r in range(n):
-            env = dict(os.environ, HOROVOD_RANK=str(r),
+            env = dict(os.environ, **every, **(rank1 if r == 1 else {}),
+                       HOROVOD_RANK=str(r),
                        HOROVOD_SIZE=str(n),
                        HOROVOD_CONTROLLER_ADDR="127.0.0.1",
                        HOROVOD_CONTROLLER_PORT=str(port),
@@ -453,7 +536,7 @@ def test_autograd_through_the_eager_ops(port_world):
 
 def test_not_ported_planes_raise(monkeypatch):
     import horovod_tpu_torch as hvd
-    for name, value in (("HOROVOD_CACHE_CAPACITY", "1024"),
+    for name, value in (("HOROVOD_HEARTBEAT_TIMEOUT", "5"),
                         ("HOROVOD_TPU_RING_THRESHOLD", "0"),
                         ("HOROVOD_TPU_SHM", "1"),
                         ("HOROVOD_COMPRESSION", "bf16")):
@@ -472,10 +555,13 @@ def test_not_ported_planes_raise(monkeypatch):
 def test_eager_optimizer_equals_the_reference_at_size_one(port_world,
                                                           backward_passes):
     """``horovod_tpu.torch.DistributedOptimizer`` and the port's eager
-    one, SGD with momentum on the same tiny TransformerLM and batches:
-    the same losses and parameters, bit for bit."""
+    one, SGD with momentum on the same tiny TransformerLM and batches,
+    both runtimes at their response cache's defaults: the same losses
+    and parameters, bit for bit, and both caches served the steps."""
     import horovod_tpu as ref_hvd
     import horovod_tpu.torch as ref_torch
+    from horovod_tpu.common import basics as ref_basics
+    from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.torch import eager
     ref_hvd.init()
@@ -506,6 +592,10 @@ def test_eager_optimizer_equals_the_reference_at_size_one(port_world,
         for (name, a), (_, b) in zip(mine.named_parameters(),
                                      theirs.named_parameters()):
             assert torch.equal(a, b), name
+        for rt in (basics.runtime(), ref_basics.runtime()):
+            st = rt.negotiation_cache_stats()
+            assert st["capacity"] == 1024 and st["hits"] > 0, st
+            assert rt.config.cache_speculative
         eager.broadcast_optimizer_state(opts[0], root_rank=0)
     finally:
         ref_hvd.shutdown()
@@ -570,7 +660,7 @@ def test_bench_eager_step_equals_the_in_step_one(port_world):
 
 # -- the worlds ----------------------------------------------------------
 @pytest.mark.parametrize("scenario", SCENARIOS)
-@pytest.mark.parametrize("size", [2, 3])
+@pytest.mark.parametrize("size", [2, 3, "nocache"])
 def test_world_scenario(worlds, size, scenario):
     _, results, _ = worlds(size)
     for rank, res in enumerate(results):
@@ -622,6 +712,66 @@ def test_world_eager_step_equals_the_whole_batch_step(worlds, size):
         assert not torch.equal(want[name], start[name]), name
 
 
+@pytest.mark.parametrize("size", [2, 3])
+def test_world_steady_state_runs_through_the_cache(worlds, size):
+    """At the cache's defaults the steady steps negotiate through the
+    bitmask (cached cycles) and complete in speculative fused cycles on
+    the star, with every rank's cache in the same state."""
+    out, results, _ = worlds(size)
+    for rank, res in enumerate(results):
+        st = res["steady_stats"]
+        assert st["enabled"] and st["capacity"] == 1024, st
+        assert st["cached_cycles"] > 0, (rank, st)
+        assert st["spec_cycles"] > 0, (rank, st)
+        rows = st["fingerprints"]
+        assert len(rows) == size and all(r == rows[0] for r in rows), rows
+    names = {e.get("name") for e in json.loads(
+        (out / "timeline.json").read_text())}
+    assert "NEGOTIATE_CACHED_FUSED" in names
+
+
+def test_cache_off_world_equals_the_cached_one_bit_for_bit(worlds):
+    """HOROVOD_CACHE_CAPACITY=0 runs the full path on every rank, and
+    three eager-optimizer steps (two of them replayed from the cache in
+    the cached world) give the same parameters bit for bit."""
+    off, off_results, _ = worlds("nocache")
+    on, _, _ = worlds(2)
+    for res in off_results:
+        assert res["cache"] == {"enabled": False}
+        assert res["stats"]["cached_cycles"] == 0
+    for r in range(2):
+        a, b = torch.load(on / f"{r}.pt"), torch.load(off / f"{r}.pt")
+        for stage in ("init", "after", "final"):
+            for name in a[stage]:
+                assert torch.equal(a[stage][name], b[stage][name]), \
+                    (r, stage, name)
+
+
+def test_eviction_world_stays_coherent_with_speculation_off_on_one_rank(
+        worlds):
+    """4 slots against ten tensors a step: constant eviction, the two
+    ranks' epochs and cache states equal after every step, the results
+    exact (in the scenarios); with speculation off on rank 1 every cycle
+    runs the classic path, and rank 0 stops bidding after its bids are
+    denied."""
+    _, results, _ = worlds("evict")
+    for rank, res in enumerate(results):
+        for scenario in EVICT_SCENARIOS:
+            assert res[scenario] == "ok", f"rank {rank}:\n{res[scenario]}"
+        assert res["cache"]["capacity"] == 4
+        assert res["cache"]["entries"] <= 4
+        assert res["stats"]["cache_evictions"] > 0
+        assert res["cache"]["cached_cycles"] > 0
+        assert res["cache"]["spec_cycles"] == 0
+        for rows in res["evict_fingerprints"]:
+            assert rows[0] == rows[1], rows
+    assert results[0]["evict_fingerprints"] == \
+        results[1]["evict_fingerprints"]
+    assert results[1]["cache"]["spec_bids"] == 0
+    assert 0 < results[0]["cache"]["spec_bids"] <= 8
+    assert results[0]["stats"]["spec_denials"] > 0
+
+
 @pytest.mark.parametrize("dead", [0, 1])
 def test_a_rank_that_dies_fails_the_survivors_handles(worlds, dead):
     """A peer whose socket closes surfaces as a WorldAbortedError (a
@@ -638,4 +788,5 @@ def test_a_rank_that_dies_fails_the_survivors_handles(worlds, dead):
 if __name__ == "__main__":
     if sys.argv[1] == "--death":
         sys.exit(_death_main(sys.argv[3], int(sys.argv[2])))
-    sys.exit(_world_main(sys.argv[1]))
+    sys.exit(_world_main(sys.argv[1], sys.argv[2].split(",")
+                         if len(sys.argv) > 2 else SCENARIOS))
