@@ -10,18 +10,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 1. Card and build: prints the card's name and power limit, builds the
    flash-attention kernels from horovod_tpu_torch/csrc with nvcc and
    prints the build time.
-2. Kernels against their plain PyTorch versions, on the card. bf16 at
-   head dims 64 and 128 runs the tensor-core (sm90) forward, dq and dk/dv
-   kernels; fp32, fp16, the other head dims, and a bf16 case at the main
-   shape through the private launchers, run the fp32-FMA (simt) ones.
-   Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
+2. Kernels against their plain PyTorch versions, on the card. Each
+   kernel takes the design ``flash_attention._design`` gives it: the
+   tensor-core (sm90) forward and dk/dv for bf16 and fp16 at head dims
+   33-256, the sm90 dq for bf16 at D 64/128, the fp32-FMA (simt) kernels
+   for the rest (fp32, fp16 dq, D <= 32, D > 256, past D 512 in 64-column
+   chunks of the head dim); a bf16 case at the main shape forces the simt
+   ones. Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
    causal), a non-causal, two offset, a D=64 and a short ragged case,
-   fp32 at two shapes, and at B=2, S=1024, H=8, causal, through the
-   dispatchers: fp16 at D 128, bf16 at D 96, D 80 (the D 96 kernels on
-   zero-padded inputs) and D 256, fp32 at D 256 (the backward kernels
-   own 32-row tiles there), and bf16 and fp32 at D 384, D 320 (the D 384
-   kernels on zero-padded inputs) and D 512 (32-key loop tiles; the
-   forward owns 32 rows, the backward 16). Each element is held to the bound of
+   fp32 at two shapes, each case of C4_CASES at B=2, S=1024, H=8, causal,
+   through the dispatchers (fp16 at D 64/128/256; bf16 at D 80, 96 and 200,
+   run zero-padded at the next built head dim, and 256; fp32 at D 256;
+   bf16 and fp32 at D 320, 384, 512 and 640), and the Gemma-7B geometry
+   (B=2, S=2048, H=16, D=256, bf16, causal); wherever the sm90 forward and
+   dk/dv serve, their simt kernels are checked on the same inputs too.
+   Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
    plain| for the sm90 kernels), a row being the last axis (D for o and
@@ -31,13 +34,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    compute in fp32 from the same inputs, in another summation order:
    rtol 2e-5 (o, m, l) or 1e-4 (gradients). bf16 outputs are rounded to
    bf16 by both, step = 2^-7; fp16 outputs step = 2^-10; fp32 outputs
-   have step 0. The sm90 kernels
-   also feed p (and ds) to the tensor cores in bf16; plain_b is the plain
-   version that rounds there too, and twice its effect in the row is
-   allowed. The bound must show its power: at the main shape a plain
-   result with one kv tile (keys 1024-1151 of the forward, keys 1024-1087
-   of dq) or one q tile (queries 1536-1599 of dk and dv) left out must
-   fail it.
+   have step 0. The sm90 kernels also feed p (and ds) to the tensor cores
+   in the input's 16-bit type; plain_b is the plain version that rounds
+   there too (``operands``), and twice its effect in the row is allowed.
+   The bound must show its power: at the main shape a plain result with
+   one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
+   one q tile (queries 1536-1599 of dk and dv) left out must fail it, and
+   at the Gemma-7B geometry the same with the D 256 forward's 64-key
+   tile (keys 1024-1087).
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -50,18 +54,26 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    once per layer per step and the simt ones never.
    One more step runs under torch.profiler and prints its device time by
    kernel.
+4b. The same step at Gemma-7B's attention widths (16 heads of 256, d
+   4096, MLP x4; google/gemma-7b config.json), vocab 32000, S=2048, batch
+   2, bf16 compute with fp32 weights, its 28 layers cut to 2 to fit the
+   run: the loss must be finite and fall, and each layer and step must
+   launch the sm90 forward and dk/dv and the simt dq once and no other
+   flash kernel.
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
-   the main path's shape in bf16, the simt kernels there in fp32 (their
-   input type on the LM's shapes, through the private launchers), each
-   C4 instantiation at its phase-2 shape through the dispatchers (D 80
-   and D 320 include the padding copies), beside the plain version, the PyTorch
-   library call computing the same function in the same dtype
-   (scaled_dot_product_attention, timed here only as a yardstick) and
-   the bound: the larger of the operations the function needs (2 x D
-   per visible (q, k) pair and matrix product: two products forward,
-   three for dq, four for dk/dv) over the card's dense peak for the
-   input type (989 TFLOP/s bf16 and fp16, 67 TFLOP/s fp32) and the
-   bytes in and out over its memory rate (3.35 TB/s).
+   the main path's shape in bf16 (printed beside the times PERF.md
+   recorded before they took fp16 and D 256), the simt kernels there in
+   fp32 (their input type on the LM's shapes), each C4 case at its
+   phase-2 shape and the Gemma-7B geometry through the dispatchers
+   (padding copies included), and beside every sm90 forward and dk/dv
+   the simt kernel it replaces on the same inputs, which it must beat;
+   each beside the plain version, the PyTorch library call computing the
+   same function in the same dtype (scaled_dot_product_attention, timed
+   here only as a yardstick) and the bound: the larger of the operations
+   the function needs (2 x D per visible (q, k) pair and matrix product:
+   two products forward, three for dq, four for dk/dv) over the card's
+   dense peak for the input type (989 TFLOP/s bf16 and fp16, 67 TFLOP/s
+   fp32) and the bytes in and out over its memory rate (3.35 TB/s).
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
    weights on both (TF32 off) give the same logits, loss, parameter
@@ -137,7 +149,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    not run here.
 
 The last two lines are the JSON ``kernels`` line (the six kernels at
-their main shapes, then each C4 instantiation as ``<kernel>.<tag>``)
+their main shapes, then each C4 case and the Gemma-7B geometry as
+``<kernel>.<tag>``, a row per kernel and design; launches are those of
+phase 4 for the bf16 D 128 builds, of phase 4b for bf16 D 256, else 0)
 and the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -161,20 +175,42 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
               "float32": 67e12}
 MAIN = dict(b=4, s=2048, h=16, d=128)
-# The head dims and dtypes past the kernels' first set (ROADMAP.md C4):
-# (tag, dtype name, head dim), each checked in phase 2 and timed in phase
-# 5 at this shape, causal, through the dispatchers (D 80 runs the D 96
-# kernels on zero-padded inputs).
+# The head dims and dtypes past the kernels' first set (ROADMAP.md C4 and
+# the sm90 kernels' fp16 and D 33-256): (tag, dtype name, head dim), each
+# checked in phase 2 and timed in phase 5 at this shape, causal, through
+# the dispatchers (a head dim no kernel of a design is built for runs
+# zero-padded at the next one that is: D 80 and 96 at 128 on the sm90
+# kernels and at 96 on the simt ones, D 200 at 256, D 320 at 384). Where
+# the forward and dk/dv take the sm90 kernels, their simt kernels are
+# checked and timed beside them.
 C4_SHAPE = dict(b=2, s=1024, h=8)
-C4_CASES = (("fp16_d128", "float16", 128), ("bf16_d96", "bfloat16", 96),
-            ("bf16_d80", "bfloat16", 80), ("bf16_d256", "bfloat16", 256),
-            ("fp32_d256", "float32", 256), ("bf16_d384", "bfloat16", 384),
-            ("fp32_d384", "float32", 384), ("bf16_d320", "bfloat16", 320),
-            ("fp32_d320", "float32", 320), ("bf16_d512", "bfloat16", 512),
-            ("fp32_d512", "float32", 512))
+C4_CASES = (("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
+            ("fp16_d256", "float16", 256), ("bf16_d96", "bfloat16", 96),
+            ("bf16_d80", "bfloat16", 80), ("bf16_d200", "bfloat16", 200),
+            ("bf16_d256", "bfloat16", 256), ("fp32_d256", "float32", 256),
+            ("bf16_d384", "bfloat16", 384), ("fp32_d384", "float32", 384),
+            ("bf16_d320", "bfloat16", 320), ("fp32_d320", "float32", 320),
+            ("bf16_d512", "bfloat16", 512), ("fp32_d512", "float32", 512),
+            ("bf16_d640", "bfloat16", 640), ("fp32_d640", "float32", 640))
 # The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
 # and the small head dims and must not launch there.
 MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+# Phase 4b's model: the attention widths of Gemma-7B (16 heads of 256, d
+# 4096, MLP x4; google/gemma-7b config.json), vocab 32000, S 2048, batch
+# 2, its 28 layers cut to 2. bf16 at D 256 runs the sm90 forward and
+# dk/dv and the simt dq.
+GEMMA = dict(b=2, s=2048, h=16, d=256)
+GEMMA_LAYERS = (28, 2)
+GEMMA_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90")
+# The main shape's sm90 forward and dk/dv as PERF.md records them before
+# the kernels took fp16 and D 256 (H100 80GB HBM3, 700 W): phase 5 prints
+# this run's beside them.
+RECORDED_MAIN_MS = {"flash_fwd_sm90": 0.1947, "flash_dkv_sm90": 0.3444}
+# Keys and queries left out of a plain result by the lost-tile checks:
+# one kv tile of the forward (128 rows at D 128, 64 at D 256), one of dq
+# (64 keys), one q tile of dk/dv (64 queries).
+LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
+LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
 
 
 def card_line() -> str:
@@ -215,7 +251,7 @@ def check_close(label, mine, plain, rtol, step=0.0, atol=1e-6, rows=True,
     print(f"  {label:<34} max_abs_err={max_err:.3e} "
           f"worst err/tol={ratio:.3f} (rtol={rtol:g} of the "
           f"{'row' if rows else 'element'}, step={step:g}"
-          f"{', 2x bf16-operand gap' if plain_b is not None else ''}) "
+          f"{', 2x 16-bit-operand gap' if plain_b is not None else ''}) "
           f"{verdict}")
     if must_fail and ok:
         raise AssertionError(f"{label}: the bound cannot see a lost tile "
@@ -249,78 +285,147 @@ def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi):
                                  True, 0, hi))
 
 
+def kernel_name(kern, design, tag=None):
+    """A kernel's row name: flash_fwd, flash_fwd_sm90, ... with .tag for
+    a case off the main shape."""
+    name = f"flash_{kern}" + ("_sm90" if design == "sm90" else "")
+    return name if tag is None else f"{name}.{tag}"
+
+
 def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
-                seed=0, design=None, lost_tiles=False, dispatch=False):
-    """Runs the forward, dq and dk/dv kernels and their plain versions on
-    one input set; returns {kernel: max_abs_err}. ``design`` forces the
-    sm90 or simt launchers (default: ``fa._design``); ``dispatch`` goes
-    through the dispatchers instead, which pad a head dim no kernel is
-    built for."""
+                seed=0, design=None, lost=None, kernels=None, tag=None):
+    """Runs ``kernels`` (of fwd, dq, dkv) and their plain versions on one
+    input set; returns {row name: max_abs_err}. ``design`` forces the sm90
+    or simt kernels (default: ``fa._design`` per kernel); every launch goes
+    through ``fa._launch``, which pads a head dim no kernel of the design
+    is built for. ``lost`` (LOST_MAIN, LOST_D256) adds the checks that a
+    plain result with one tile left out fails the bound."""
     from horovod_tpu_torch.utils.tolerance import DQ_ATOL, step_of
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
-    design = design or fa._design(dtype, d)
-    sm90 = design == "sm90"
-    fwd = fa._flash_fwd_sm90 if sm90 else fa._flash_fwd_simt
-    dqk = fa._flash_dq_sm90 if sm90 else fa._flash_dq_simt
-    dkv = fa._flash_dkv_sm90 if sm90 else fa._flash_dkv_simt
-    if dispatch:
-        fwd, dqk, dkv = fa._flash_fwd, fa._flash_dq, fa._flash_dkv
-    suffix = "_sm90" if sm90 else ""
+    kernels = kernels or fa.KERNELS
+    designs = {kern: design or fa._design(dtype, d, kern)
+               for kern in fa.KERNELS}
     print(f"case {name}: B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
-          f"causal={causal} q_offset={qo} k_offset={ko} design={design}")
-    o, m, l = fwd(q, k, v, causal, qo, ko)
-    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, causal, qo, ko)
+          f"causal={causal} q_offset={qo} k_offset={ko} designs "
+          + ", ".join(f"{kern} {designs[kern]}" for kern in kernels))
+    # The operand rounding of each sm90 kernel: the input's 16-bit type.
+    rounded = {kern: dtype if designs[kern] == "sm90" else None
+               for kern in fa.KERNELS}
+    fwd_args = (q, k, v, causal, qo, ko)
+    o_p, m_p, l_p = fa._flash_fwd_plain(*fwd_args)
     lse = fa._lse_from_stats(m_p, l_p)
     delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = dqk(q, k, v, do, lse, delta, causal, qo, ko)
-    dk, dv = dkv(q, k, v, do, lse, delta, causal, qo, ko)
+    plain_args = (q, k, v, do, lse, delta, causal, qo, ko)
+    out = {}
+    if "fwd" in kernels:
+        out["fwd"] = fa._launch("fwd", designs["fwd"], (q, k, v), causal, qo,
+                                ko)
+    if "dq" in kernels:
+        out["dq"] = fa._launch("dq", designs["dq"], (q, k, v, do), lse, delta,
+                               causal, qo, ko)
+    if "dkv" in kernels:
+        out["dkv"] = fa._launch("dkv", designs["dkv"], (q, k, v, do), lse,
+                                delta, causal, qo, ko)
     torch.cuda.synchronize()
     step = step_of(dtype)
-    o_b = (fa._flash_fwd_plain(q, k, v, causal, qo, ko,
-                               bf16_operands=True)[0] if sm90 else None)
-    errs = {"flash_fwd" + suffix: max(
-        check_close("forward o", o, o_p, 2e-5, step, plain_b=o_b),
-        check_close("forward m", m, m_p, 2e-5, atol=1e-5, rows=False),
-        check_close("forward l", l, l_p, 2e-5, rows=False))}
-    if lost_tiles:
-        check_close("forward o, keys 1024-1151 left out",
-                    fwd_without_keys(fa, q, k, v, 1024, 1152), o_p, 2e-5,
-                    step, plain_b=o_b, must_fail=True)
-    del o_p, m_p, l_p, o_b
-    plain_args = (q, k, v, do, lse, delta, causal, qo, ko)
-    dq_p = fa._flash_dq_plain(*plain_args)
-    dq_b = (fa._flash_dq_plain(*plain_args, bf16_operands=True) if sm90
-            else None)
-    dq_atol = DQ_ATOL if sm90 else 1e-6
-    errs["flash_dq" + suffix] = check_close("dq", dq, dq_p, 1e-4, step,
-                                            atol=dq_atol, plain_b=dq_b)
-    if lost_tiles:
-        check_close("dq, keys 1024-1087 left out",
-                    dq_without_keys(fa, q, k, v, do, lse, delta, 1024, 1088),
-                    dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b,
-                    must_fail=True)
-    del dq_p, dq_b
-    dk_p, dv_p = fa._flash_dkv_plain(*plain_args)
-    dk_b, dv_b = (fa._flash_dkv_plain(*plain_args, bf16_operands=True)
-                  if sm90 else (None, None))
-    errs["flash_dkv" + suffix] = max(
-        check_close("dk", dk, dk_p, 1e-4, step, plain_b=dk_b),
-        check_close("dv", dv, dv_p, 1e-4, step, plain_b=dv_b))
-    if lost_tiles:
-        # Zero do and delta on queries 1536-1599: p * do and ds vanish
-        # there, which leaves that q tile out of dk and dv exactly.
-        do_x, delta_x = do.clone(), delta.clone()
-        do_x[:, 1536:1600] = 0
-        delta_x[:, :, 1536:1600] = 0
-        dk_x, dv_x = fa._flash_dkv_plain(q, k, v, do_x, lse, delta_x, causal,
-                                         qo, ko)
-        check_close("dk, queries 1536-1599 left out", dk_x, dk_p, 1e-4,
-                    step, plain_b=dk_b, must_fail=True)
-        check_close("dv, queries 1536-1599 left out", dv_x, dv_p, 1e-4,
-                    step, plain_b=dv_b, must_fail=True)
+    errs = {}
+    if "fwd" in kernels:
+        o, m, l = out.pop("fwd")
+        o_b = (fa._flash_fwd_plain(*fwd_args, operands=rounded["fwd"])[0]
+               if rounded["fwd"] else None)
+        errs[kernel_name("fwd", designs["fwd"], tag)] = max(
+            check_close("forward o", o, o_p, 2e-5, step, plain_b=o_b),
+            check_close("forward m", m, m_p, 2e-5, atol=1e-5, rows=False),
+            check_close("forward l", l, l_p, 2e-5, rows=False))
+        if lost:
+            lo, hi = lost["fwd"]
+            check_close(f"forward o, keys {lo}-{hi - 1} left out",
+                        fwd_without_keys(fa, q, k, v, lo, hi), o_p, 2e-5,
+                        step, plain_b=o_b, must_fail=True)
+        del o, m, l, o_b
+    del o_p, m_p, l_p
+    if "dq" in kernels:
+        dq = out.pop("dq")
+        dq_p = fa._flash_dq_plain(*plain_args)
+        dq_b = (fa._flash_dq_plain(*plain_args, operands=rounded["dq"])
+                if rounded["dq"] else None)
+        dq_atol = DQ_ATOL if designs["dq"] == "sm90" else 1e-6
+        errs[kernel_name("dq", designs["dq"], tag)] = check_close(
+            "dq", dq, dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b)
+        if lost:
+            lo, hi = lost["dq"]
+            check_close(f"dq, keys {lo}-{hi - 1} left out",
+                        dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi),
+                        dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b,
+                        must_fail=True)
+        del dq, dq_p, dq_b
+    if "dkv" in kernels:
+        dk, dv = out.pop("dkv")
+        dk_p, dv_p = fa._flash_dkv_plain(*plain_args)
+        dk_b, dv_b = (fa._flash_dkv_plain(*plain_args,
+                                          operands=rounded["dkv"])
+                      if rounded["dkv"] else (None, None))
+        errs[kernel_name("dkv", designs["dkv"], tag)] = max(
+            check_close("dk", dk, dk_p, 1e-4, step, plain_b=dk_b),
+            check_close("dv", dv, dv_p, 1e-4, step, plain_b=dv_b))
+        if lost:
+            # Zero do and delta on one q tile: p * do and ds vanish
+            # there, which leaves that tile out of dk and dv exactly.
+            lo, hi = lost["dkv"]
+            do_x, delta_x = do.clone(), delta.clone()
+            do_x[:, lo:hi] = 0
+            delta_x[:, :, lo:hi] = 0
+            dk_x, dv_x = fa._flash_dkv_plain(q, k, v, do_x, lse, delta_x,
+                                             causal, qo, ko)
+            check_close(f"dk, queries {lo}-{hi - 1} left out", dk_x, dk_p,
+                        1e-4, step, plain_b=dk_b, must_fail=True)
+            check_close(f"dv, queries {lo}-{hi - 1} left out", dv_x, dv_p,
+                        1e-4, step, plain_b=dv_b, must_fail=True)
     torch.cuda.empty_cache()
+    return errs
+
+
+def sm90_kernels_of(fa, dtype, d):
+    """The kernels (of fwd, dq, dkv) that take the sm90 design here."""
+    return tuple(kern for kern in fa.KERNELS
+                 if fa._design(dtype, d, kern) == "sm90")
+
+
+def kernel_checks(torch, fa):
+    """Phase 2: every case against its plain version; returns the
+    {row name: max_abs_err} of the rows phase 5 times."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    kernel_case(fa, torch, "main_simt", **MAIN, dtype=bf16, causal=True,
+                seed=7, design="simt")
+    errs = kernel_case(fa, torch, "main", **MAIN, dtype=bf16, causal=True,
+                       lost=LOST_MAIN)
+    kernel_case(fa, torch, "noncausal", 2, 256, 4, 128, bf16, False, seed=1)
+    kernel_case(fa, torch, "q_offset", 1, 512, 4, 128, bf16, True, qo=128,
+                seed=2)
+    kernel_case(fa, torch, "dead_rows", 1, 256, 4, 128, bf16, True, ko=192,
+                seed=3)
+    kernel_case(fa, torch, "d64", 2, 512, 8, 64, bf16, True, seed=4)
+    kernel_case(fa, torch, "short_ragged", 2, 40, 3, 64, bf16, True, seed=8)
+    kernel_case(fa, torch, "fp32", 2, 512, 4, 128, fp32, True, qo=64,
+                seed=5)
+    # The simt rows of the kernels line carry the fp32 errors at the
+    # main shape, the inputs phase 5 times them on.
+    errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
+                            causal=True, seed=6))
+    cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d), None)
+             for tag, dt, d in C4_CASES]
+    # The Gemma-7B geometry, with the lost-tile checks at D 256's tiles.
+    cases.append(("gemma", bf16, GEMMA, LOST_D256))
+    for i, (tag, dtype, shape, lost) in enumerate(cases):
+        errs.update(kernel_case(fa, torch, tag, **shape, dtype=dtype,
+                                causal=True, seed=20 + i, lost=lost, tag=tag))
+        sm90 = sm90_kernels_of(fa, dtype, shape["d"])
+        if sm90:
+            errs.update(kernel_case(fa, torch, f"{tag} on simt", **shape,
+                                    dtype=dtype, causal=True, seed=20 + i,
+                                    design="simt", kernels=sm90, tag=tag))
     return errs
 
 
@@ -417,17 +522,19 @@ def print_breakdown(prof, wall, groups):
                   f"x{e.count:<4} {e.key[:90]}")
 
 
-def main_path(torch, hvd, args, card):
+def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels):
+    """hvd.init(), the bench's training step of ``cfg`` on ``b`` rows
+    (bench.transformer_step: random weights from --seed,
+    DistributedOptimizer, SGD), --warmup and --steps timed steps and one
+    profiled step. The loss must be finite and fall, and each kernel of
+    ``path_kernels`` must launch once per layer per step and no other
+    flash kernel at all. Returns the launch counts."""
     from horovod_tpu_torch import bench
-    from horovod_tpu_torch.models import TransformerConfig
     from horovod_tpu_torch.parallel import flash_attention as fa
     from horovod_tpu_torch.utils.timing import steady_state_sec_per_step
 
     hvd.init()
-    b, s = MAIN["b"], MAIN["s"]
-    cfg = TransformerConfig(vocab_size=32000, num_layers=args.layers,
-                            num_heads=16, head_dim=128, max_seq_len=s,
-                            dtype=torch.bfloat16)
+    s = cfg.max_seq_len
     train, model = bench.transformer_step(cfg, b, seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
     losses = []
@@ -446,9 +553,10 @@ def main_path(torch, hvd, args, card):
     counts = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     values = [x.item() for x in losses]
-    print(f"main path: L{cfg.num_layers} d{cfg.embed_dim} S{s} B{b} "
-          f"V{cfg.vocab_size}, {n_params / 1e6:.1f}M parameters, "
-          f"{len(values)} steps ({args.warmup} warm-up)")
+    print(f"{label}: L{cfg.num_layers} d{cfg.embed_dim} ({cfg.num_heads} "
+          f"heads of {cfg.head_dim}) S{s} B{b} V{cfg.vocab_size}, "
+          f"{n_params / 1e6:.1f}M parameters, {len(values)} steps "
+          f"({args.warmup} warm-up)")
     print(f"  losses: {' '.join(f'{x:.4f}' for x in values)}")
     print(f"  launches: {counts}")
     # Model FLOPs as bench.py counts them: 6 x matmul parameters (all but
@@ -462,16 +570,37 @@ def main_path(torch, hvd, args, card):
     print_breakdown(prof, wall, LM_GROUPS)
     check_falling(values)
     want = cfg.num_layers * len(values)
-    expected = {name: (want if name in MAIN_PATH_KERNELS else 0)
+    expected = {name: (want if name in path_kernels else 0)
                 for name in counts}
     if counts != expected:
         raise AssertionError(f"expected {want} launches ({cfg.num_layers} "
-                             f"per step) of each of {MAIN_PATH_KERNELS} "
-                             f"and none of the others, got {counts}")
+                             f"per step) of each of {path_kernels} and "
+                             f"none of the others, got {counts}")
     hvd.shutdown()
     del model, train
     torch.cuda.empty_cache()
     return counts
+
+
+def main_path(torch, hvd, args, card):
+    """Phase 4: the bench's LM at full width."""
+    from horovod_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(num_layers=args.layers, dtype=torch.bfloat16,
+                            **LM_FULL)
+    return lm_path(torch, hvd, args, card, "main path", cfg, MAIN["b"],
+                   MAIN_PATH_KERNELS)
+
+
+def gemma_path(torch, hvd, args, card):
+    """Phase 4b: the LM at Gemma-7B's attention widths, depth cut."""
+    from horovod_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(vocab_size=32000, num_layers=GEMMA_LAYERS[1],
+                            num_heads=GEMMA["h"], head_dim=GEMMA["d"],
+                            max_seq_len=GEMMA["s"], dtype=torch.bfloat16)
+    label = (f"Gemma-7B attention widths (google/gemma-7b config.json), "
+             f"depth cut from {GEMMA_LAYERS[0]} to {GEMMA_LAYERS[1]} layers")
+    return lm_path(torch, hvd, args, card, label, cfg, GEMMA["b"],
+                   GEMMA_PATH_KERNELS)
 
 
 def vision_small_check(torch, seed):
@@ -573,12 +702,14 @@ def classifier_leg(torch, hvd, args, card, label, build, batch,
     torch.cuda.empty_cache()
 
 
-def kernel_rows(torch, fa, b, s, h, d, dtype, launchers, seed=1):
-    """ms, plain_ms, library_ms and bound_ms of the forward, dq and dk/dv
-    kernels that ``launchers`` (three functions) run on one causal input
-    set of this shape and dtype, each a mean of 20 launches; the library
-    call is scaled_dot_product_attention on [B, H, S, D] copies of the
-    same inputs, in the same dtype."""
+def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
+                tag=None, seed=1):
+    """{row name: ms, plain_ms, library_ms, bound_ms, bound_by} of
+    ``kernels`` on one causal input set of this shape and dtype, each a
+    mean of 20 launches through ``fa._launch`` (padding included) with
+    ``design`` (default: ``fa._design`` per kernel); the library call is
+    scaled_dot_product_attention on [B, H, S, D] copies of the same
+    inputs, in the same dtype."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -586,15 +717,23 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, launchers, seed=1):
     o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
     lse = fa._lse_from_stats(m, l)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, do, lse, delta, True, 0, 0)
-    fwd_args = (q, k, v, True, 0, 0)
-    fwd, dq, dkv = launchers
-    ms = {"fwd": time_ms(lambda: fwd(*fwd_args), 20),
-          "dq": time_ms(lambda: dq(*args), 20),
-          "dkv": time_ms(lambda: dkv(*args), 20)}
-    plain = {"fwd": time_ms(lambda: fa._flash_fwd_plain(*fwd_args), 5),
-             "dq": time_ms(lambda: fa._flash_dq_plain(*args), 5),
-             "dkv": time_ms(lambda: fa._flash_dkv_plain(*args), 5)}
+    kernels = kernels or fa.KERNELS
+    designs = {kern: design or fa._design(dtype, d, kern)
+               for kern in fa.KERNELS}
+    calls = {
+        "fwd": (lambda: fa._launch("fwd", designs["fwd"], (q, k, v), True,
+                                   0, 0),
+                lambda: fa._flash_fwd_plain(q, k, v, True, 0, 0)),
+        "dq": (lambda: fa._launch("dq", designs["dq"], (q, k, v, do), lse,
+                                  delta, True, 0, 0),
+               lambda: fa._flash_dq_plain(q, k, v, do, lse, delta, True, 0,
+                                          0)),
+        "dkv": (lambda: fa._launch("dkv", designs["dkv"], (q, k, v, do), lse,
+                                   delta, True, 0, 0),
+                lambda: fa._flash_dkv_plain(q, k, v, do, lse, delta, True,
+                                            0, 0))}
+    ms = {fn: time_ms(calls[fn][0], 20) for fn in kernels}
+    plain = {fn: time_ms(calls[fn][1], 5) for fn in kernels}
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
@@ -622,16 +761,20 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, launchers, seed=1):
              "dkv": 6 * tensor + 2 * stats}      # ... dk dv out
     peak = PEAK_FLOPS[str(dtype)[6:]]
     rows = {}
-    for fn in ms:
+    for fn in kernels:
         op_ms = flops[fn] / peak * 1e3
         byte_ms = moved[fn] / PEAK_BYTES_PER_S * 1e3
-        rows[fn] = dict(
+        row = dict(
             ms=ms[fn], plain_ms=plain[fn],
             library_ms=lib_fwd if fn == "fwd" else lib_fwd_bwd,
             bound_ms=max(op_ms, byte_ms),
             bound_by="operations" if op_ms >= byte_ms else "bytes")
         if fn != "fwd":
-            rows[fn]["library_bwd_only_ms"] = lib_bwd
+            row["library_bwd_only_ms"] = lib_bwd
+        # Which build ran: the dtype and the head dim after padding.
+        row["built"] = (str(dtype)[6:],
+                        fa.padded_head_dim(d, designs[fn]))
+        rows[kernel_name(fn, designs[fn], tag)] = row
     del q, k, v, do, o, qt, kt, vt, dot, qg, kg, vg, out
     torch.cuda.empty_cache()
     return rows
@@ -640,21 +783,39 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, launchers, seed=1):
 def kernel_times(torch, fa):
     """Every kernel's row: the sm90 kernels at the main path's shape in
     bf16, the simt kernels there in fp32 (the input type they serve on
-    the LM's shapes), and each C4 instantiation at its shape."""
+    the LM's shapes), each C4 case at its shape and the Gemma-7B
+    geometry, with the simt forward and dk/dv beside every case that the
+    sm90 ones serve. Prints the sm90 rows against their simt ones."""
     rows = {}
-    sm90 = kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16, launchers=(
-        fa._flash_fwd_sm90, fa._flash_dq_sm90, fa._flash_dkv_sm90))
-    simt = kernel_rows(torch, fa, **MAIN, dtype=torch.float32, launchers=(
-        fa._flash_fwd_simt, fa._flash_dq_simt, fa._flash_dkv_simt))
-    for fn in ("fwd", "dq", "dkv"):
-        rows[f"flash_{fn}_sm90"] = sm90[fn]
-        rows[f"flash_{fn}"] = simt[fn]
-    for tag, dtype, d in C4_CASES:
-        case = kernel_rows(torch, fa, **C4_SHAPE, d=d,
-                           dtype=getattr(torch, dtype), launchers=(
-                               fa._flash_fwd, fa._flash_dq, fa._flash_dkv))
-        for fn in case:
-            rows[f"flash_{fn}.{tag}"] = case[fn]
+    rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
+    rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32))
+    cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d))
+             for tag, dt, d in C4_CASES]
+    cases.append(("gemma", torch.bfloat16, GEMMA))
+    pairs = []
+    for tag, dtype, shape in cases:
+        rows.update(kernel_rows(torch, fa, **shape, dtype=dtype, tag=tag))
+        sm90 = sm90_kernels_of(fa, dtype, shape["d"])
+        if sm90:
+            rows.update(kernel_rows(torch, fa, **shape, dtype=dtype,
+                                    design="simt", kernels=sm90, tag=tag))
+            pairs += [(tag, kern) for kern in sm90]
+    print("sm90 kernels against the simt kernels they replace, same inputs "
+          "(ms, CUDA-event means of 20 launches):")
+    slower = []
+    for tag, kern in pairs:
+        new = rows[kernel_name(kern, "sm90", tag)]["ms"]
+        old = rows[kernel_name(kern, "simt", tag)]["ms"]
+        print(f"  {tag:<10} {kern:<4} sm90 {new:8.4f}  simt {old:8.4f}  "
+              f"{old / new:6.1f}x")
+        if not new < old:
+            slower.append((tag, kern))
+    for name, was in RECORDED_MAIN_MS.items():
+        print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
+              f"before: {was} ms)")
+    if slower:
+        raise AssertionError(f"sm90 kernels slower than the simt ones they "
+                             f"replace: {slower}")
     return rows
 
 
@@ -1176,35 +1337,16 @@ def main(argv=None) -> int:
     # Phase 2: kernels against their plain versions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bf16, fp32 = torch.bfloat16, torch.float32
-    kernel_case(fa, torch, "main_simt", **MAIN, dtype=bf16, causal=True,
-                seed=7, design="simt")
-    errs = kernel_case(fa, torch, "main", **MAIN, dtype=bf16, causal=True,
-                       lost_tiles=True)
-    kernel_case(fa, torch, "noncausal", 2, 256, 4, 128, bf16, False, seed=1)
-    kernel_case(fa, torch, "q_offset", 1, 512, 4, 128, bf16, True, qo=128,
-                seed=2)
-    kernel_case(fa, torch, "dead_rows", 1, 256, 4, 128, bf16, True, ko=192,
-                seed=3)
-    kernel_case(fa, torch, "d64", 2, 512, 8, 64, bf16, True, seed=4)
-    kernel_case(fa, torch, "short_ragged", 2, 40, 3, 64, bf16, True, seed=8)
-    kernel_case(fa, torch, "fp32", 2, 512, 4, 128, fp32, True, qo=64,
-                seed=5)
-    # The simt rows of the kernels line carry the fp32 errors at the
-    # main shape, the inputs phase 5 times them on.
-    errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
-                            causal=True, seed=6))
-    for i, (tag, dtype, d) in enumerate(C4_CASES):
-        case = kernel_case(fa, torch, tag, **C4_SHAPE, d=d,
-                           dtype=getattr(torch, dtype), causal=True,
-                           seed=20 + i, dispatch=True)
-        errs.update({f"{name}.{tag}": e for name, e in case.items()})
+    errs = kernel_checks(torch, fa)
 
     # Phase 3: a small model against the dense reference.
     small_model_check(torch, args.seed)
 
     # Phase 4: the main path.
     counts = main_path(torch, hvd, args, card)
+
+    # Phase 4b: the LM at Gemma-7B's attention widths (D 256).
+    gemma_counts = gemma_path(torch, hvd, args, card)
 
     # Phase 5: times.
     rows = kernel_times(torch, fa)
@@ -1242,19 +1384,22 @@ def main(argv=None) -> int:
                "flash_dq_sm90": ("flash_dq_sm90.cu", "204"),
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236")}
+    # A row's launches are those of its kernel on the path that runs its
+    # build (dtype, head dim): bf16 D 128 on phase 4, bf16 D 256 on phase
+    # 4b; the other builds run on no main path.
+    paths = {("bfloat16", MAIN["d"]): counts,
+             ("bfloat16", GEMMA["d"]): gemma_counts}
     kernels = []
     for name, r in rows.items():
-        # A C4 instantiation's row is named kernel.tag; the main path
-        # launches none of them (its launches are its kernel's simt
-        # count, which must be 0 there).
         base = name.split(".")[0]
         src, replaces = sources[base]
+        launches = paths.get(r.pop("built"), {}).get(base, 0)
         kernels.append(dict(name=name, route="cuda", source=csrc + src,
-                            replaces=ref + replaces, launches=counts[base],
+                            replaces=ref + replaces, launches=launches,
                             max_abs_err=errs[name], **r))
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} "
-              f"by {r['bound_by']})")
+              f"by {r['bound_by']}), {launches} launches")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

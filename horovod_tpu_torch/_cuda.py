@@ -36,8 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# name -> argtypes of the exported C functions. ``scale`` multiplies the
-# logits: 1/sqrt of the head dim before the wrapper zero-padded D.
+# name -> argtypes of the exported C functions. ``dtype`` is 0 fp32, 1
+# bf16, 2 fp16; ``scale`` multiplies the logits: 1/sqrt of the head dim
+# before the wrapper zero-padded D.
 _SIGNATURES = {
     # dtype, q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
@@ -48,15 +49,15 @@ _SIGNATURES = {
     # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
     # k_off, causal, scale, stream
     "hvdt_flash_dkv": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
-    # q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal, scale,
-    # stream
-    "hvdt_flash_fwd_sm90": [_P] * 6 + [_I] * 8 + [_F, _P],
+    # dtype, q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream
+    "hvdt_flash_fwd_sm90": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
     # q, k, v, do, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
     "hvdt_flash_dq_sm90": [_P] * 7 + [_I] * 8 + [_F, _P],
-    # q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off,
-    # causal, scale, stream
-    "hvdt_flash_dkv_sm90": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
+    # k_off, causal, scale, stream
+    "hvdt_flash_dkv_sm90": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -26,11 +26,12 @@
 // products where the forward does 2). This first version runs them as fp32
 // FMAs from fp32 shared-memory tiles (149 KB for dq and 166 KB for dk/dv
 // at D=128, one block per SM), so the fp32 rate is its ceiling. For bf16
-// at head dims 64 and 128, flash_dkv_sm90.cu (wgmma on bf16 tiles fed by
-// TMA) replaces the dk/dv kernel and flash_dq_sm90.cu the dq kernel;
-// these serve fp32 and fp16 inputs and the other head dims (16, 32, 96,
-// 256, 384, 512; the wrapper zero-pads any other D up to 512 to the next
-// of these and passes the scale of the true D).
+// and fp16 at head dims 33 to 256, flash_dkv_sm90.cu (wgmma on 16-bit
+// tiles fed by TMA) replaces the dk/dv kernel, and for bf16 at head dims
+// 64 and 128 flash_dq_sm90.cu the dq kernel; these serve the rest: fp32,
+// fp16 dq, the head dims 16, 32, 96, 256, 384, 512 and any multiple of 64
+// past 512 (the wrapper zero-pads any other D to the next of these and
+// passes the scale of the true D).
 //
 // Past D = 128 the tile a block owns (q rows for dq, key rows for dk/dv)
 // shrinks from 64 to 32 rows (owned_rows in flash_common.cuh), the analog
@@ -43,7 +44,8 @@
 // fp32 inputs at D = 256 still need the smaller tile. At D 384 and 512
 // the owned tile is 16 rows and the loop's tiles 32 (199 KB for dq and
 // 201 KB for dk/dv at D 512): each thread owns one row and two columns
-// of a 16 x 32 score tile (flash_common.cuh works the bytes out).
+// of a 16 x 32 score tile. Past D 512 the *_chunked kernels split the
+// head dim into 64-column chunks (flash_common.cuh works the bytes out).
 #include "flash_common.cuh"
 
 namespace hvdt {
@@ -312,6 +314,314 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Past D 512: one block per (64-row tile it owns, batch*head, 64-column
+// chunk of the head dim). s and dp stream over D through chunk tiles; the
+// block accumulates only its chunk of dq, or of dk and dv
+// (flash_common.cuh, Tiling).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int H, int Sq, int Sk, int D,
+                            int q_off, int k_off, int causal, float scale) {
+  constexpr int P = kChunk + 1;
+  constexpr int C = kChunk / 16;
+  constexpr int R = kBlock;
+  constexpr int RI = R / 16;
+  constexpr int KB = kBlock;
+  constexpr int KJ = KB / 16;
+  constexpr int PS = KB + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;               // [R][P]  chunks of the q tile
+  float* dos = qs + R * P;        // [R][P]
+  float* ks = dos + R * P;        // [KB][P] chunks of the kv tile
+  float* vs = ks + KB * P;        // [KB][P]
+  float* dss = vs + KB * P;       // [R][PS]
+
+  const int q0 = blockIdx.x * R;
+  const int bh = blockIdx.y;
+  const int d0 = blockIdx.z * kChunk;
+  const int b = bh / H, h = bh % H;
+  const int rs = H * D;
+  const size_t qhead = ((size_t)b * Sq * H + h) * D;
+  const T* kh = k + ((size_t)b * Sk * H + h) * D;
+  const T* vh = v + ((size_t)b * Sk * H + h) * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float lse_i[RI], delta_i[RI], acc[RI][C];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lse_i[i] = row < Sq ? lse[(size_t)bh * Sq + row] : __int_as_float(0x7f800000);
+    delta_i[i] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  }
+
+  int nk = (Sk + KB - 1) / KB;
+  if (causal) {
+    const long long reach = (long long)q_off + q0 + R - 1 - k_off;
+    const int last = reach < 0 ? -1 : (int)(reach / KB);
+    nk = min(nk, last + 1);
+  }
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * KB;
+    float s[RI][KJ], dp[RI][KJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+    for (int dc = 0; dc < D; dc += kChunk) {
+      __syncthreads();
+      load_tile<T, kChunk, R>(qs, q + qhead + dc, q0, Sq, rs);
+      load_tile<T, kChunk, R>(dos, dout + qhead + dc, q0, Sq, rs);
+      load_tile<T, kChunk, KB>(ks, kh + dc, k0, Sk, rs);
+      load_tile<T, kChunk, KB>(vs, vh + dc, k0, Sk, rs);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kChunk; ++d) {
+        float a[RI], g[RI], kb[KJ], vb[KJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          a[i] = qs[(ty + 16 * i) * P + d];
+          g[i] = dos[(ty + 16 * i) * P + d];
+        }
+#pragma unroll
+        for (int jj = 0; jj < KJ; ++jj) {
+          kb[jj] = ks[(tx + 16 * jj) * P + d];
+          vb[jj] = vs[(tx + 16 * jj) * P + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int jj = 0; jj < KJ; ++jj) {
+            s[i][jj] = fmaf(a[i], kb[jj], s[i][jj]);
+            dp[i][jj] = fmaf(g[i], vb[jj], dp[i][jj]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qpos = q_off + q0 + ty + 16 * i;
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int kc = k0 + tx + 16 * jj;
+        const bool ok = kc < Sk && (!causal || qpos >= k_off + kc);
+        const float p = ok ? expf(s[i][jj] * scale - lse_i[i]) : 0.f;
+        dss[(ty + 16 * i) * PS + tx + 16 * jj] =
+            p * (dp[i][jj] - delta_i[i]) * scale;
+      }
+    }
+    __syncthreads();  // dss is whole; the last chunk's reads of ks are done
+    load_tile<T, kChunk, KB>(ks, kh + d0, k0, Sk, rs);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < KB; ++kk) {
+      float ds[RI], kv[C];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) ds[i] = dss[(ty + 16 * i) * PS + kk];
+#pragma unroll
+      for (int c = 0; c < C; ++c) kv[c] = ks[kk * P + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= Sq) continue;
+    T* out = dq + ((size_t)(b * Sq + row) * H + h) * D + d0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[tx + 16 * c] = from_f32<T>(acc[i][c]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int H,
+                             int Sq, int Sk, int D, int q_off, int k_off,
+                             int causal, float scale) {
+  constexpr int P = kChunk + 1;
+  constexpr int C = kChunk / 16;
+  constexpr int R = kBlock;
+  constexpr int RI = R / 16;
+  constexpr int KB = kBlock;
+  constexpr int KJ = KB / 16;
+  constexpr int PS = KB + 1;
+  extern __shared__ float smem[];
+  float* ks = smem;               // [R][P]  chunks of this block's keys
+  float* vs = ks + R * P;         // [R][P]
+  float* qs = vs + R * P;         // [KB][P] chunks of the q tile
+  float* dos = qs + KB * P;       // [KB][P]
+  float* pts = dos + KB * P;      // [R keys][PS]  p^T
+  float* dsts = pts + R * PS;     // [R keys][PS]  ds^T
+  float* lse_s = dsts + R * PS;   // [KB]
+  float* delta_s = lse_s + KB;    // [KB]
+
+  const int k0 = blockIdx.x * R;
+  const int bh = blockIdx.y;
+  const int d0 = blockIdx.z * kChunk;
+  const int b = bh / H, h = bh % H;
+  const int rs = H * D;
+  const size_t qhead = ((size_t)b * Sq * H + h) * D;
+  const size_t khead = ((size_t)b * Sk * H + h) * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float dk_acc[RI][C], dv_acc[RI][C];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  const int nq = (Sq + KB - 1) / KB;
+  int first = 0;
+  if (causal) {
+    const long long need = (long long)k_off + k0 - q_off - (KB - 1);
+    first = need <= 0 ? 0 : (int)((need + KB - 1) / KB);
+  }
+
+  for (int t = first; t < nq; ++t) {
+    const int q0 = t * KB;
+    float s[RI][KJ], dp[RI][KJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+    for (int dc = 0; dc < D; dc += kChunk) {
+      __syncthreads();
+      load_tile<T, kChunk, R>(ks, k + khead + dc, k0, Sk, rs);
+      load_tile<T, kChunk, R>(vs, v + khead + dc, k0, Sk, rs);
+      load_tile<T, kChunk, KB>(qs, q + qhead + dc, q0, Sq, rs);
+      load_tile<T, kChunk, KB>(dos, dout + qhead + dc, q0, Sq, rs);
+      if (dc == 0 && threadIdx.x < KB) {
+        const int row = q0 + threadIdx.x;
+        lse_s[threadIdx.x] =
+            row < Sq ? lse[(size_t)bh * Sq + row] : __int_as_float(0x7f800000);
+        delta_s[threadIdx.x] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+      }
+      __syncthreads();
+      // Transposed tiles: rows are keys (ty + 16*i), columns queries.
+#pragma unroll 4
+      for (int d = 0; d < kChunk; ++d) {
+        float ka[RI], va[RI], qb[KJ], gb[KJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          ka[i] = ks[(ty + 16 * i) * P + d];
+          va[i] = vs[(ty + 16 * i) * P + d];
+        }
+#pragma unroll
+        for (int jj = 0; jj < KJ; ++jj) {
+          qb[jj] = qs[(tx + 16 * jj) * P + d];
+          gb[jj] = dos[(tx + 16 * jj) * P + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int jj = 0; jj < KJ; ++jj) {
+            s[i][jj] = fmaf(ka[i], qb[jj], s[i][jj]);
+            dp[i][jj] = fmaf(va[i], gb[jj], dp[i][jj]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int kpos = k_off + k0 + ty + 16 * i;
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int qc = tx + 16 * jj;
+        const bool ok = q0 + qc < Sq && (!causal || q_off + q0 + qc >= kpos);
+        const float p = ok ? expf(s[i][jj] * scale - lse_s[qc]) : 0.f;
+        pts[(ty + 16 * i) * PS + qc] = p;
+        dsts[(ty + 16 * i) * PS + qc] = p * (dp[i][jj] - delta_s[qc]) * scale;
+      }
+    }
+    __syncthreads();  // p^T, ds^T whole; the last chunk's reads are done
+    load_tile<T, kChunk, KB>(qs, q + qhead + d0, q0, Sq, rs);
+    load_tile<T, kChunk, KB>(dos, dout + qhead + d0, q0, Sq, rs);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int qq = 0; qq < KB; ++qq) {
+      float pt[RI], dst[RI], gv[C], qv[C];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        pt[i] = pts[(ty + 16 * i) * PS + qq];
+        dst[i] = dsts[(ty + 16 * i) * PS + qq];
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        gv[c] = dos[qq * P + tx + 16 * c];
+        qv[c] = qs[qq * P + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dv_acc[i][c] = fmaf(pt[i], gv[c], dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(dst[i], qv[c], dk_acc[i][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= Sk) continue;
+    const size_t off = ((size_t)(b * Sk + row) * H + h) * D + d0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dk[off + tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
+      dv[off + tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t run_dq_chunked(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int B, int H, int Sq,
+                           int Sk, int D, int q_off, int k_off, int causal,
+                           float scale, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes(kChunk, 2, 2, 1, 0);
+  static_assert(bytes <= kMaxSmem, "dq chunk tiles exceed shared memory");
+  const dim3 grid((Sq + kBlock - 1) / kBlock, B * H, D / kChunk);
+  return launch(flash_dq_chunked_kernel<T>, grid, bytes, stream, (const T*)q,
+                (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                (const float*)delta, (T*)dq, H, Sq, Sk, D, q_off, k_off,
+                causal, scale);
+}
+
+template <typename T>
+cudaError_t run_dkv_chunked(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int B,
+                            int H, int Sq, int Sk, int D, int q_off,
+                            int k_off, int causal, float scale,
+                            cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes(kChunk, 2, 2, 2, 2 * kBlock);
+  static_assert(bytes <= kMaxSmem, "dk/dv chunk tiles exceed shared memory");
+  const dim3 grid((Sk + kBlock - 1) / kBlock, B * H, D / kChunk);
+  return launch(flash_dkv_chunked_kernel<T>, grid, bytes, stream,
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, H,
+                Sq, Sk, D, q_off, k_off, causal, scale);
+}
+
 template <typename T, int D>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -358,7 +668,11 @@ cudaError_t dq_for_dim(int D, const void* q, const void* k, const void* v,
     case 256: return run_dq<T, 256>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 384: return run_dq<T, 384>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 512: return run_dq<T, 512>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (D > 512 && D % kChunk == 0)
+        return run_dq_chunked<T>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, D,
+                                 qo, ko, causal, sc, st);
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -377,7 +691,11 @@ cudaError_t dkv_for_dim(int D, const void* q, const void* k, const void* v,
     case 256: return run_dkv<T, 256>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 384: return run_dkv<T, 384>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 512: return run_dkv<T, 512>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (D > 512 && D % kChunk == 0)
+        return run_dkv_chunked<T>(q, k, v, g, lse, delta, dk, dv, B, H, Sq,
+                                  Sk, D, qo, ko, causal, sc, st);
+      return cudaErrorInvalidValue;
   }
 }
 

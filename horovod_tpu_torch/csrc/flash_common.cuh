@@ -1,6 +1,6 @@
 // Shared pieces of the fp32-FMA flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu); the tensor-core kernels (*_sm90.cu) take only kNegInf from
-// here and their own pieces from sm90_common.cuh.
+// flash_bwd.cu); the tensor-core kernels (*_sm90.cu) take only kNegInf and
+// DType from here and their own pieces from sm90_common.cuh.
 //
 // Layout: q, k, v, o, do and the gradients are contiguous [B, S, H, D]
 // tensors (the module layout of models/transformer.py), read in place, so
@@ -30,7 +30,18 @@
 //     D 512 even these tiles do not fit: 16 x 641 x 4 x 2 + 32 x 641 x 4
 //     x 2 = 246144 bytes for the backward's four tiles at D 640, and
 //     shrinking the loop's tiles below 32 rows would leave each thread
-//     one column; the dispatcher refuses D > 512 (ROADMAP.md C4).
+//     one column.
+//   Past D 512 (any multiple of kChunk = 64; the wrapper zero-pads other
+//     D to the next one) the kernels hold no tile of the whole head dim.
+//     grid.z splits the output's head dim into chunks of 64 columns, one
+//     per block, and each block streams the reductions over D (s = q k^T,
+//     and in the backward dp = do v^T) through [64][65] tiles of the same
+//     width, accumulating only its own chunk of o, dq, dk or dv; the
+//     chunk-0 blocks write m and l. R = KB = 64 rows whatever D is: the
+//     forward holds 4 such tiles (q, k, v chunks and the score tile;
+//     4 x 64 x 65 x 4 = 66560 bytes), dq 5 (83200) and dk/dv 6 plus lse
+//     and delta (100352). Every block recomputes s (and dp), so the logit
+//     products are paid D / 64 times: right first, fast later.
 // Tiles live in shared memory as fp32 with a row pitch of D + 1 floats,
 // which puts the 16 rows a half-warp reads at one column in 16 distinct
 // banks.
@@ -64,6 +75,9 @@ template <>
 __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
+
+// Width of the head-dim chunks past D 512 (see Tiling).
+constexpr int kChunk = 64;
 
 // Rows of the tile the loop walks at head dim D (see Tiling).
 template <int D>

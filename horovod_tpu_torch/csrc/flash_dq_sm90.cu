@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` (with the shared recompute
 // `_recompute_p_ds`) in horovod_tpu/parallel/flash_attention.py, launched by
-// `_flash_bwd_bhsd`, as flash_dq_kernel in flash_bwd.cu does for fp32 and the
-// small head dims. Same function: for every visible (q, k) pair recompute
+// `_flash_bwd_bhsd`, as flash_dq_kernel in flash_bwd.cu does for every other
+// input (fp32, fp16, the other head dims). Same function: for every visible (q, k) pair recompute
 // p = exp(s - lse) and ds = p (dp - delta) scale from q, k, v, do and the
 // forward's per-row lse (+inf on rows that saw no key, so p is exactly 0
 // there) and delta = rowsum(do * o); then dq = sum over k of ds k,
@@ -211,7 +211,7 @@ __global__ void __launch_bounds__(384, 1)
         }
         uint32_t op[16];
 #pragma unroll
-        for (int e = 0; e < 16; ++e) op[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
+        for (int e = 0; e < 16; ++e) op[e] = pack2<__nv_bfloat16>(s[2 * e], s[2 * e + 1]);
 
         // dQ += dS K.
         fence_regs(acc);

@@ -24,14 +24,15 @@
 // tensor-core rate (989 TFLOP/s) that the bound is stated against; its
 // 113 KB of shared memory at D=128 also allows one block (8 warps) per SM.
 // flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
-// tiles fed by TMA) for bf16 at head dims 64 and 128; this kernel serves
-// fp32 and fp16 inputs and the other head dims (16, 32, 96, 256, 384,
-// 512; the wrapper zero-pads any other D up to 512 to the next of these
-// and passes the scale of the true D). At D = 256 its three [64][257]
-// tiles and the score tile take 209 KB of shared memory, within the
-// 227 KB a block may have, so the forward keeps its 64-row tiles there;
-// at D 384 and 512 it owns 32 q rows and walks 32-key tiles (201 KB at
-// D 512; flash_common.cuh works the bytes out).
+// tiles fed by TMA) for bf16 and fp16 at head dims 33 to 256; this
+// kernel serves fp32 inputs and the other head dims (16, 32, 384, 512 and
+// any multiple of 64 past 512; the wrapper zero-pads any other D to the
+// next of these and passes the scale of the true D). At D = 256 its three
+// [64][257] tiles and the score tile take 209 KB of shared memory, within
+// the 227 KB a block may have, so the forward keeps its 64-row tiles
+// there; at D 384 and 512 it owns 32 q rows and walks 32-key tiles (201
+// KB at D 512); past D 512 it splits the head dim into 64-column chunks
+// (flash_fwd_chunked_kernel; flash_common.cuh works the bytes out).
 #include "flash_common.cuh"
 
 namespace hvdt {
@@ -182,6 +183,155 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
                 Sk, q_off, k_off, causal, scale);
 }
 
+// Past D 512: one block per (64-row q tile, batch*head, 64-column chunk of
+// the head dim); the logits stream over D through chunk tiles, and the
+// block accumulates only its chunk of o (flash_common.cuh, Tiling).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             float* __restrict__ m_out,
+                             float* __restrict__ l_out, int H, int Sq, int Sk,
+                             int D, int q_off, int k_off, int causal,
+                             float scale) {
+  constexpr int P = kChunk + 1;
+  constexpr int R = kBlock;
+  constexpr int KB = kBlock;
+  constexpr int RI = R / 16;
+  constexpr int KJ = KB / 16;
+  constexpr int PS = KB + 1;
+  constexpr int C = kChunk / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;               // [R][P]  a chunk of the q tile
+  float* ks = qs + R * P;         // [KB][P] the same chunk of the keys
+  float* vs = ks + KB * P;        // [KB][P] this block's chunk of the values
+  float* ps = vs + KB * P;        // [R][PS]
+
+  const int q0 = blockIdx.x * R;
+  const int bh = blockIdx.y;
+  const int d0 = blockIdx.z * kChunk;
+  const int b = bh / H, h = bh % H;
+  const int rs = H * D;
+  const T* qh = q + ((size_t)b * Sq * H + h) * D;
+  const T* kh = k + ((size_t)b * Sk * H + h) * D;
+  const T* vh = v + ((size_t)b * Sk * H + h) * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float acc[RI][C];
+  float m_i[RI], l_i[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m_i[i] = kNegInf;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  }
+
+  int nk = (Sk + KB - 1) / KB;
+  if (causal) {
+    const long long reach = (long long)q_off + q0 + R - 1 - k_off;
+    const int last = reach < 0 ? -1 : (int)(reach / KB);
+    nk = min(nk, last + 1);
+  }
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * KB;
+    float s[RI][KJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) s[i][jj] = 0.f;
+    for (int dc = 0; dc < D; dc += kChunk) {
+      __syncthreads();  // the previous chunk's (or tile's) reads are done
+      load_tile<T, kChunk, R>(qs, qh + dc, q0, Sq, rs);
+      load_tile<T, kChunk, KB>(ks, kh + dc, k0, Sk, rs);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kChunk; ++d) {
+        float a[RI], bb[KJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) a[i] = qs[(ty + 16 * i) * P + d];
+#pragma unroll
+        for (int jj = 0; jj < KJ; ++jj) bb[jj] = ks[(tx + 16 * jj) * P + d];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int jj = 0; jj < KJ; ++jj)
+            s[i][jj] = fmaf(a[i], bb[jj], s[i][jj]);
+      }
+    }
+    load_tile<T, kChunk, KB>(vs, vh + d0, k0, Sk, rs);
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qpos = q_off + q0 + ty + 16 * i;
+      bool ok[KJ];
+      float mx = kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int kc = k0 + tx + 16 * jj;
+        ok[jj] = kc < Sk && (!causal || qpos >= k_off + kc);
+        s[i][jj] = ok[jj] ? s[i][jj] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][jj]);
+      }
+      const float m_new = fmaxf(m_i[i], row_max(mx));
+      const float corr = expf(m_i[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
+        ps[(ty + 16 * i) * PS + tx + 16 * jj] = p;
+        sum += p;
+      }
+      l_i[i] = l_i[i] * corr + row_sum(sum);
+      m_i[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < KB; ++kk) {
+      float p[RI], vv[C];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) p[i] = ps[(ty + 16 * i) * PS + kk];
+#pragma unroll
+      for (int c = 0; c < C; ++c) vv[c] = vs[kk * P + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= Sq) continue;
+    const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
+    T* orow = o + ((size_t)(b * Sq + row) * H + h) * D + d0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+    if (blockIdx.z == 0 && tx == 0) {
+      m_out[(size_t)bh * Sq + row] = m_i[i];
+      l_out[(size_t)bh * Sq + row] = l_i[i];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t run_fwd_chunked(const void* q, const void* k, const void* v,
+                            void* o, void* m, void* l, int B, int H, int Sq,
+                            int Sk, int D, int q_off, int k_off, int causal,
+                            float scale, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes(kChunk, 2, 1, 1, 0);
+  static_assert(bytes <= kMaxSmem, "forward chunk tiles exceed shared memory");
+  const dim3 grid((Sq + kBlock - 1) / kBlock, B * H, D / kChunk);
+  return launch(flash_fwd_chunked_kernel<T>, grid, bytes, stream,
+                (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)m,
+                (float*)l, H, Sq, Sk, D, q_off, k_off, causal, scale);
+}
+
 template <typename T>
 cudaError_t fwd_for_dim(int D, const void* q, const void* k, const void* v,
                         void* o, void* m, void* l, int B, int H, int Sq,
@@ -196,7 +346,11 @@ cudaError_t fwd_for_dim(int D, const void* q, const void* k, const void* v,
     case 256: return run_fwd<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 384: return run_fwd<T, 384>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 512: return run_fwd<T, 512>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (D > 512 && D % kChunk == 0)
+        return run_fwd_chunked<T>(q, k, v, o, m, l, B, H, Sq, Sk, D, q_off,
+                                  k_off, causal, sc, st);
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -1,9 +1,9 @@
-// Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 at head
-// dims 64 and 128.
+// Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 and fp16
+// at head dims 64, 128 and 256.
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
-// (launched by `_flash_bhsd`), as flash_fwd.cu does for fp32 and the small
-// head dims. Same function and contract: an online softmax whose running max
+// (launched by `_flash_bhsd`), as flash_fwd.cu does for fp32, the head dims
+// up to 32 and those past 256. Same function and contract: an online softmax whose running max
 // m, normalizer l and output accumulator stay in fp32; runtime offsets give
 // the global positions of q[0] and k[0]; kv tiles wholly in the future of a
 // q tile are skipped; rows that see no key give o = 0, m = -1e30, l = 0;
@@ -25,12 +25,21 @@
 //   registers. Per kv tile: S = Q K^T as m64n128k16 wgmmas from shared
 //   memory; the online softmax on the accumulator fragments in registers
 //   (row max by two quad shuffles; l summed from the unrounded fp32 p); P
-//   converted to bf16 in registers and fed to O += P V as wgmma's register
-//   A operand, with V read from shared memory as an MN-major B operand, so
-//   V is never transposed.
-// bf16 p is what the reference's own dots take on the TPU by default (bf16
-// multiplies, f32 accumulation); the checks allow for exactly that rounding.
-// At D=128 shared memory holds Q 32 KB + K 2x32 KB + V 2x32 KB = 160 KB.
+//   converted to the input's type in registers and fed to O += P V as
+//   wgmma's register A operand, with V read from shared memory as an
+//   MN-major B operand, so V is never transposed.
+// A 16-bit p is what the reference's own dots take on the TPU by default
+// (16-bit multiplies, f32 accumulation); the checks allow for exactly that
+// rounding, in the input's type (bf16 or fp16).
+// Shared memory and registers by head dim (a consumer thread holds O, D/2
+// fp32, the scores S, kKv/2, and P as kKv/4 packed pairs):
+//   D 64, 128: 128-row kv stages. At D=128, Q 32 KB + K 2x32 KB + V 2x32
+//     KB = 160 KB; O 64 + S 64 + P 32 registers.
+//   D 256: 128-row stages would need Q 64 KB + K 2x64 KB + V 2x64 KB =
+//     320 KB, so the kv stages are 64 rows: Q 128x256x2 = 65,536 B, K
+//     2x64x256x2 = 65,536 B, V 65,536 B, 196,608 B in all (plus the
+//     barriers and the 1 KB alignment pad); O 128 + S 32 + P 16 registers,
+//     under the 240 that setmaxnreg gives a consumer.
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -39,30 +48,41 @@ namespace {
 
 using namespace sm90;
 
-constexpr int kRows = 128;   // q rows of a CTA; kv rows of a stage
+constexpr int kRows = 128;   // q rows of a CTA
 constexpr int kStages = 2;
+
+// Rows of a kv stage at head dim D (see the header).
+template <int D>
+constexpr int kv_rows() {
+  return D <= 128 ? 128 : 64;
+}
 
 template <int D>
 struct FwdSmem {
-  static constexpr int kRegion = kRows * 128;         // [128][64] bf16
-  static constexpr int kTile = (D / 64) * kRegion;    // [128][D]
+  static constexpr int kKv = kv_rows<D>();
+  static constexpr int kRegionQ = kRows * 128;        // [128][64] 16-bit
+  static constexpr int kRegionKv = kKv * 128;         // [kKv][64]
+  static constexpr int kTileQ = (D / 64) * kRegionQ;  // [128][D]
+  static constexpr int kTileKv = (D / 64) * kRegionKv;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kK = kQ + kTileQ;
+  static constexpr int kV = kK + kStages * kTileKv;
+  static constexpr int kBar = kV + kStages * kTileKv;
   // q_full, k_full[2], v_full[2], kv_empty[2]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  static_assert(kBytes + 1024 <= 232448, "forward tiles exceed shared memory");
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                   T* __restrict__ o, float* __restrict__ m_out,
                    float* __restrict__ l_out, int H, int Sq, int Sk,
                    int q_off, int k_off, int causal, float scale) {
   using L = FwdSmem<D>;
+  constexpr int kKv = L::kKv;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -73,11 +93,11 @@ __global__ void __launch_bounds__(384, 1)
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  int nk = (Sk + kRows - 1) / kRows;
+  int nk = (Sk + kKv - 1) / kKv;
   if (causal) {
-    // kv tile j is visible while k_off + 128 j <= q_off + q0 + 127.
+    // kv tile j is visible while k_off + kKv j <= q_off + q0 + 127.
     const long long reach = (long long)q_off + q0 + kRows - 1 - k_off;
-    nk = min(nk, reach < 0 ? 0 : (int)(reach / kRows) + 1);
+    nk = min(nk, reach < 0 ? 0 : (int)(reach / kKv) + 1);
   }
 
   if (threadIdx.x == 0) {
@@ -96,24 +116,24 @@ __global__ void __launch_bounds__(384, 1)
     // Producer.
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      bar_arrive_tx(q_full, L::kTile);
+      bar_arrive_tx(q_full, L::kTileQ);
       for (int r = 0; r < D / 64; ++r)
-        tma_load_4d(smem + L::kQ + r * L::kRegion, &tq, q_full, 64 * r, h, q0,
-                    b);
+        tma_load_4d(smem + L::kQ + r * L::kRegionQ, &tq, q_full, 64 * r, h,
+                    q0, b);
       for (int j = 0; j < nk; ++j) {
         const int st = j % kStages;
         // Stage st is free once the consumers released load j - 2.
         if (j >= kStages) bar_wait(&kv_empty[st], ((j / kStages) & 1) ^ 1);
-        uint8_t* kt = smem + L::kK + st * L::kTile;
-        uint8_t* vt = smem + L::kV + st * L::kTile;
-        bar_arrive_tx(&k_full[st], L::kTile);
+        uint8_t* kt = smem + L::kK + st * L::kTileKv;
+        uint8_t* vt = smem + L::kV + st * L::kTileKv;
+        bar_arrive_tx(&k_full[st], L::kTileKv);
         for (int r = 0; r < D / 64; ++r)
-          tma_load_4d(kt + r * L::kRegion, &tk, &k_full[st], 64 * r, h,
-                      j * kRows, b);
-        bar_arrive_tx(&v_full[st], L::kTile);
+          tma_load_4d(kt + r * L::kRegionKv, &tk, &k_full[st], 64 * r, h,
+                      j * kKv, b);
+        bar_arrive_tx(&v_full[st], L::kTileKv);
         for (int r = 0; r < D / 64; ++r)
-          tma_load_4d(vt + r * L::kRegion, &tv, &v_full[st], 64 * r, h,
-                      j * kRows, b);
+          tma_load_4d(vt + r * L::kRegionKv, &tv, &v_full[st], 64 * r, h,
+                      j * kKv, b);
       }
     }
   } else {
@@ -134,18 +154,19 @@ __global__ void __launch_bounds__(384, 1)
     bar_wait(q_full, 0);
     for (int j = 0; j < nk; ++j) {
       const int st = j % kStages, ph = (j / kStages) & 1;
-      const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTile);
-      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTile);
-      const int k0 = j * kRows;
+      const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTileKv);
+      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileKv);
+      const int k0 = j * kKv;
 
-      float s[64];
+      float s[kKv / 2];
       bar_wait(&k_full[st], ph);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * L::kRegion + (kk % 4) * 32;
-        wgmma_ss<128>(s, desc_sw128(q_base + off, 16),
-                      desc_sw128(k_base + off, 16), kk > 0);
+        const uint32_t step = (kk % 4) * 32;
+        wgmma_ss<kKv, T>(
+            s, desc_sw128(q_base + (kk / 4) * L::kRegionQ + step, 16),
+            desc_sw128(k_base + (kk / 4) * L::kRegionKv + step, 16), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -154,10 +175,10 @@ __global__ void __launch_bounds__(384, 1)
       // Scale, mask (only tiles that cross the diagonal or the ragged
       // end), row max.
       const bool masked =
-          k0 + kRows > Sk || (causal && k_off + k0 + kRows - 1 > first_qpos);
+          k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int n = 0; n < 64; ++n) {
+      for (int n = 0; n < kKv / 2; ++n) {
         const int i = (n / 2) % 2;
         float x = s[n] * scale;
         if (masked) {
@@ -183,7 +204,7 @@ __global__ void __launch_bounds__(384, 1)
       // thread's share of the row; the quad's shares are added at the end.
       float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < 64; ++n) {
+      for (int n = 0; n < kKv / 2; ++n) {
         const int i = (n / 2) % 2;
         const float p = exp2f(fmaf(s[n], kLog2e, -mb[i]));
         s[n] = p;
@@ -193,19 +214,20 @@ __global__ void __launch_bounds__(384, 1)
       for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
 #pragma unroll
       for (int n = 0; n < D / 2; ++n) acc[n] *= corr[(n / 2) % 2];
-      uint32_t pa[32];
+      uint32_t pa[kKv / 4];
 #pragma unroll
-      for (int n = 0; n < 32; ++n) pa[n] = pack_bf16(s[2 * n], s[2 * n + 1]);
+      for (int n = 0; n < kKv / 4; ++n) pa[n] = pack2<T>(s[2 * n], s[2 * n + 1]);
 
       bar_wait(&v_full[st], ph);
       fence_regs(acc);
       fence_regs(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kRows / 16; ++kk) {
+      for (int kk = 0; kk < kKv / 16; ++kk) {
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                pa[4 * kk + 3]};
-        wgmma_rs<D>(acc, a, desc_sw128(v_base + kk * 16 * 128, L::kRegion), 1);
+        wgmma_rs<D, T>(acc, a, desc_sw128(v_base + kk * 16 * 128, L::kRegionKv),
+                       1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -221,12 +243,11 @@ __global__ void __launch_bounds__(384, 1)
       const int row = q0 + row0 + 8 * i;
       if (row >= Sq) continue;
       const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
-      __nv_bfloat16* orow = o + ((size_t)(b * Sq + row) * H + h) * D + col;
+      T* orow = o + ((size_t)(b * Sq + row) * H + h) * D + col;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
-            __floats2bfloat162_rn(acc[4 * jj + 2 * i] * inv,
-                                  acc[4 * jj + 2 * i + 1] * inv);
+        store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv,
+                  acc[4 * jj + 2 * i + 1] * inv);
       if (lane % 4 == 0) {
         m_out[(size_t)bh * Sq + row] = m_i[i];
         l_out[(size_t)bh * Sq + row] = l_i[i];
@@ -235,36 +256,53 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
                 void* l, int B, int H, int Sq, int Sk, int q_off, int k_off,
                 int causal, float scale, cudaStream_t stream) {
+  constexpr int kKv = kv_rows<D>();
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, Sk, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, Sk, H, D, kRows);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kKv);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kKv);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  return launch_ws(flash_fwd_sm90<D>, grid, FwdSmem<D>::kBytes + 1024,
-                   stream, tq, tk, tv, (__nv_bfloat16*)o, (float*)m,
-                   (float*)l, H, Sq, Sk, q_off, k_off, causal, scale);
+  return launch_ws(flash_fwd_sm90<T, D>, grid, FwdSmem<D>::kBytes + 1024,
+                   stream, tq, tk, tv, (T*)o, (float*)m, (float*)l, H, Sq, Sk,
+                   q_off, k_off, causal, scale);
+}
+
+template <typename T>
+cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
+                        void* o, void* m, void* l, int B, int H, int Sq,
+                        int Sk, int q_off, int k_off, int causal, float sc,
+                        cudaStream_t st) {
+  switch (D) {
+    case 64: return run<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 128: return run<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 256: return run<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace hvdt
 
-// q, k, v: contiguous bf16 [B, S, H, D] with 16-byte-aligned bases; D is 64
-// or 128. o: bf16 [B, Sq, H, D]; m, l: fp32 [B, H, Sq]. scale multiplies the
-// logits (1/sqrt of the head dim before any zero padding of D).
-extern "C" int hvdt_flash_fwd_sm90(const void* q, const void* k,
+// dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v: contiguous [B, S, H, D] of
+// that type with 16-byte-aligned bases; D is 64, 128 or 256. o: [B, Sq, H,
+// D] of that type; m, l: fp32 [B, H, Sq]. scale multiplies the logits
+// (1/sqrt of the head dim before any zero padding of D).
+extern "C" int hvdt_flash_fwd_sm90(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* m, void* l,
                                    int B, int H, int Sq, int Sk, int D,
                                    int q_off, int k_off, int causal,
                                    float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 64: return hvdt::run<64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
-    case 128: return hvdt::run<128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype == hvdt::kBFloat16)
+    return hvdt::run_for_dim<__nv_bfloat16>(D, q, k, v, o, m, l, B, H, Sq, Sk,
+                                            q_off, k_off, causal, scale, st);
+  if (dtype == hvdt::kFloat16)
+    return hvdt::run_for_dim<__half>(D, q, k, v, o, m, l, B, H, Sq, Sk, q_off,
+                                     k_off, causal, scale, st);
+  return cudaErrorInvalidValue;
 }

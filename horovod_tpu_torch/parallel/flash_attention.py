@@ -4,29 +4,35 @@ Counterpart of ``horovod_tpu/parallel/flash_attention.py`` (public
 contract :436-566). The three Pallas kernels there have hand-written
 CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
 
-- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu`` (bf16, D 64/128)
-                                or ``flash_fwd.cu``    via :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``  (bf16, D 64/128)
-                                or ``flash_bwd.cu``    via :func:`_flash_dq`
-- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu`` (bf16, D 64/128)
-                                or ``flash_bwd.cu``    via :func:`_flash_dkv`
+- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 33-256)
+                                or ``flash_fwd.cu``     via :func:`_flash_fwd`
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16, D 64/128)
+                                or ``flash_bwd.cu``     via :func:`_flash_dq`
+- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 33-256)
+                                or ``flash_bwd.cu``     via :func:`_flash_dkv`
 
-:func:`_design` picks the design from the dtype and head dim alone,
-before any launch: the ``sm90`` kernels (wgmma on bf16 tiles fed by TMA,
-warp-specialised) take bf16 at head dims 64 and 128; the ``simt``
-kernels (fp32 FMAs from fp32 shared-memory tiles) take fp32, fp16 and
-the head dims 16, 32, 96, 256, 384 and 512 (their tiles shrink as D
-grows so that a block's shared memory holds them, the counterpart of
-the reference's ``_ladders_for``; ``csrc/flash_common.cuh`` works the
-bytes out). The reference takes any head dim: a CUDA call at a head dim
-up to 512 that no kernel is built for runs at the next one that is
-(:func:`padded_head_dim`), with q, k, v (and do) zero-padded along D,
-the scale of the true D, and the outputs sliced back
-(:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and
-the padded columns of v give output columns that are cut away. Past 512
-a CUDA call raises (``ROADMAP.md`` C4). The sm90 kernels read their
-inputs through TMA and need 16-byte-aligned bases; a misaligned CUDA
-tensor raises, it never falls back to the other design.
+:func:`_design` picks each kernel's design from the dtype and head dim
+alone, before any launch. The ``sm90`` kernels (wgmma on 16-bit tiles fed
+by TMA, warp-specialised) are built at head dims 64, 128 and 256
+(``SM90_HEAD_DIMS``): the forward and dk/dv take bf16 and fp16 at any head
+dim in (32, 256], dq takes bf16 whose head dim pads to 64 or 128 on the
+simt ladder. The ``simt`` kernels (fp32 FMAs from fp32 shared-memory
+tiles) take the rest: fp32, fp16 dq, D <= 32, D > 256, and dq at the
+other head dims. They are built at ``HEAD_DIMS`` (16 to 512; their tiles
+shrink as D grows so that a block's shared memory holds them, the
+counterpart of the reference's ``_ladders_for``) and at any multiple of
+64 past 512, where each block computes one 64-column chunk of the output
+and streams the logits' reductions over D through 64-wide tiles
+(``csrc/flash_common.cuh`` works the bytes out). Like the reference, a
+CUDA call takes any head dim: one that the design's kernels are not built
+for runs at the next one that is (:func:`padded_head_dim`), with q, k, v
+(and do) zero-padded along D, the scale of the true D, and the outputs
+sliced back (:func:`_on_padded_head_dim`); zero columns leave q.k^T
+unchanged and the padded columns of v give output columns that are cut
+away. So D 80 runs the forward at 128 and dq at 96, and D 200 the forward
+at 256. The sm90 kernels read their inputs through TMA and need 16-byte
+aligned bases; a misaligned CUDA tensor raises, it never falls back to
+the other design.
 
 Each launcher counts its launches (``launch_counts()``: ``flash_fwd``,
 ``flash_fwd_sm90``, ``flash_dq``, ``flash_dq_sm90``, ``flash_dkv``,
@@ -35,10 +41,10 @@ For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
 ``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
 never reaches a plain version: a kernel launches or the wrapper raises.
-The sm90 kernels feed the tensor cores bf16 p (and ds), as the
-reference's own dots do on the TPU by default; ``bf16_operands=True``
-makes the plain versions round at exactly those places, which is what
-the card's checks compare the rounding with.
+The sm90 kernels feed the tensor cores p (and ds) in the input's 16-bit
+type, as the reference's own dots do on the TPU by default;
+``operands=dtype`` makes the plain versions round at exactly those
+places, which is what the card's checks compare the rounding with.
 
 Tensors are ``[B, S, H, D]`` (the module layout of models/transformer.py)
 and the kernels read that layout in place; the softmax statistics
@@ -62,9 +68,12 @@ from horovod_tpu_torch import _cuda
 
 _NEG_INF = -1e30
 BLOCK = 64   # the sequence granularity of the kernels' tiles
-# head dims the kernels are built for
+# head dims the simt kernels are built for up to 512; past it, every
+# multiple of CHUNK (each block computes one CHUNK-wide slice of D)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256, 384, 512)
-SM90_HEAD_DIMS = (64, 128)      # head dims of the wgmma/TMA kernels
+CHUNK = 64
+SM90_HEAD_DIMS = (64, 128, 256)   # head dims of the wgmma/TMA kernels
+KERNELS = ("fwd", "dq", "dkv")
 
 # Launches of each kernel since the last reset_launch_counts().
 flash_fwd_launches = 0
@@ -102,29 +111,35 @@ def _softmax_scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
 
 
-def padded_head_dim(d: int) -> int:
-    """The head dim a CUDA call at head dim ``d`` runs the kernels at:
-    ``d`` itself when a kernel is built for it, else the next one that
-    is. Past the largest it raises."""
-    for built in HEAD_DIMS:
-        if d <= built:
-            return built
-    raise ValueError(
-        f"head dim {d}: the flash kernels take head dims up to "
-        f"{HEAD_DIMS[-1]} on CUDA (ROADMAP.md C4 is open for larger ones: "
-        f"at D 640 the backward's fp32 tiles, 16 owned rows and 32 loop "
-        f"rows of D + 1 floats, need 246144 bytes of shared memory, above "
-        f"the 232448 a block may have)")
+def _next_built(d: int, built) -> int:
+    return next(b for b in built if d <= b)
 
 
-def _on_padded_head_dim(fn, tensors, *args):
+def padded_head_dim(d: int, design: str) -> int:
+    """The head dim a CUDA call at head dim ``d`` runs the ``design``'s
+    kernels at: ``d`` itself when one is built for it, else the next one
+    that is. sm90: 64, 128 or 256 (the dispatchers send it nothing
+    larger); simt: ``HEAD_DIMS`` up to 512, then the next multiple of
+    ``CHUNK``, so it never refuses a head dim there."""
+    if design == "sm90":
+        if d > SM90_HEAD_DIMS[-1]:
+            raise ValueError(f"head dim {d}: the sm90 kernels take head "
+                             f"dims up to {SM90_HEAD_DIMS[-1]}")
+        return _next_built(d, SM90_HEAD_DIMS)
+    if d <= HEAD_DIMS[-1]:
+        return _next_built(d, HEAD_DIMS)
+    return -(-d // CHUNK) * CHUNK
+
+
+def _on_padded_head_dim(fn, tensors, *args, design: str):
     """``fn(*tensors, *args)`` at the head dim :func:`padded_head_dim`
-    gives: each ``[B, S, H, D]`` tensor zero-padded along D, the scale
-    that of the true D, and every ``[B, S, H, D']`` output sliced back
-    to D (the ``[B, H, S]`` stats pass through). A layout step in front
-    of the same kernel, which takes the plain versions as well."""
+    gives for ``design``: each ``[B, S, H, D]`` tensor zero-padded along
+    D, the scale that of the true D, and every ``[B, S, H, D']`` output
+    sliced back to D (the ``[B, H, S]`` stats pass through). A layout
+    step in front of the same kernel, which takes the plain versions as
+    well."""
     d = tensors[0].shape[-1]
-    built = padded_head_dim(d)
+    built = padded_head_dim(d, design)
     if built == d:
         return fn(*tensors, *args)
     out = fn(*(F.pad(t, (0, built - d)) for t in tensors), *args,
@@ -150,25 +165,26 @@ def _scores(q, k, causal, q_offset, k_offset, scale=None):
     return s.masked_fill(~allowed, _NEG_INF), allowed
 
 
-def _bf16(x):
-    return x.to(torch.bfloat16).float()
+def _rounded(x, operands):
+    """``x`` rounded to the ``operands`` dtype and back to fp32 (as it is
+    when ``None``)."""
+    return x if operands is None else x.to(operands).float()
 
 
-def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset,
-                     bf16_operands=False, scale=None):
+def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset, operands=None,
+                     scale=None):
     """What ``_kernel`` computes, densely: (o [B,Sq,H,D] in q.dtype,
     m [B,H,Sq], l [B,H,Sq] fp32); rows that see no key give o = 0,
-    m = -1e30, l = 0. ``bf16_operands`` rounds p = exp(s - m) to bf16
-    before p @ v, where the sm90 kernel feeds it to the tensor cores; l
-    is still summed from the fp32 p."""
+    m = -1e30, l = 0. ``operands`` (a 16-bit dtype) rounds p = exp(s - m)
+    to that type before p @ v, where the sm90 kernel feeds it to the
+    tensor cores; l is still summed from the fp32 p."""
     s, allowed = _scores(q, k, causal, q_offset, k_offset, scale)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     if allowed is not None:
         p = p * allowed
     l = p.sum(dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", _bf16(p) if bf16_operands else p,
-                     v.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", _rounded(p, operands), v.float())
     denom = torch.where(l == 0.0, torch.ones_like(l), l)
     o = o / denom.transpose(1, 2)[..., None]
     return o.to(q.dtype), m, l
@@ -190,26 +206,24 @@ def _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
 
 
 def _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
-                    bf16_operands=False, scale=None):
+                    operands=None, scale=None):
     """What ``_bwd_dq_kernel`` computes: dq = ds @ k, in q.dtype.
-    ``bf16_operands`` rounds ds to bf16 before the product, as the sm90
+    ``operands`` rounds ds to that dtype before the product, as the sm90
     kernel does."""
     _, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
                         k_offset, scale)
-    if bf16_operands:
-        ds = _bf16(ds)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, operands),
+                        k.float()).to(q.dtype)
 
 
 def _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
-                     bf16_operands=False, scale=None):
+                     operands=None, scale=None):
     """What ``_bwd_dkv_kernel`` computes: dk = ds^T @ q, dv = p^T @ do.
-    ``bf16_operands`` rounds p and ds to bf16 before the two products, as
-    the sm90 kernel does."""
+    ``operands`` rounds p and ds to that dtype before the two products,
+    as the sm90 kernel does (ds from the unrounded p)."""
     p, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
                         k_offset, scale)
-    if bf16_operands:
-        p, ds = _bf16(p), _bf16(ds)
+    p, ds = _rounded(p, operands), _rounded(ds, operands)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -241,11 +255,9 @@ def _check(name, tensors, seqs):
     dev, dt = q.device, q.dtype
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors on {dev}; CPU or CUDA only")
-    if dev.type == "cuda":
-        if dt not in _DTYPES:
-            raise TypeError(f"{name}: the kernel takes float32, bfloat16 "
-                            f"or float16, got {dt}")
-        padded_head_dim(d)
+    if dev.type == "cuda" and dt not in _DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32, bfloat16 or "
+                        f"float16, got {dt}")
     for t, seq in zip(tensors, seqs):
         _same(name, t, dev, (b, seq, h, d), dt)
     return b, h, d
@@ -267,40 +279,69 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _design(dtype: torch.dtype, d: int) -> str:
-    """The kernel design for CUDA inputs of this type and head dim:
-    ``"sm90"`` (wgmma on bf16 tiles fed by TMA) for bf16 whose padded
-    head dim is 64 or 128, ``"simt"`` (fp32 FMAs, flash_fwd.cu /
-    flash_bwd.cu) otherwise."""
-    return ("sm90" if dtype == torch.bfloat16
-            and padded_head_dim(d) in SM90_HEAD_DIMS else "simt")
+# What each sm90 kernel takes: dtypes, and the head dims its dispatcher
+# sends it (after padding). dq's are those whose simt padding is 64 or
+# 128, so D 80 and 96 keep the simt dq at 96.
+SM90_DTYPES = {"fwd": (torch.bfloat16, torch.float16),
+               "dq": (torch.bfloat16,),
+               "dkv": (torch.bfloat16, torch.float16)}
+SM90_KERNEL_DIMS = {"fwd": SM90_HEAD_DIMS, "dq": (64, 128),
+                    "dkv": SM90_HEAD_DIMS}
 
 
-def _launcher(q, sm90, simt):
-    return sm90 if _design(q.dtype, q.shape[-1]) == "sm90" else simt
+def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
+    """The design of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for CUDA
+    inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
+    fed by TMA) for the forward and dk/dv at bf16 and fp16 with
+    32 < d <= 256, and for dq at bf16 whose simt head dim is 64 or 128;
+    ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise."""
+    if dtype not in SM90_DTYPES[kernel]:
+        return "simt"
+    if kernel == "dq":
+        sm90 = padded_head_dim(d, "simt") in SM90_KERNEL_DIMS["dq"]
+    else:
+        sm90 = 32 < d <= SM90_HEAD_DIMS[-1]
+    return "sm90" if sm90 else "simt"
+
+
+def _launch(kernel: str, design: str, tensors, *args):
+    """``kernel``'s launcher of ``design`` on ``tensors`` and ``args``,
+    zero-padded to a head dim it is built for and sliced back."""
+    fn = {("fwd", "sm90"): _flash_fwd_sm90, ("fwd", "simt"): _flash_fwd_simt,
+          ("dq", "sm90"): _flash_dq_sm90, ("dq", "simt"): _flash_dq_simt,
+          ("dkv", "sm90"): _flash_dkv_sm90,
+          ("dkv", "simt"): _flash_dkv_simt}[kernel, design]
+    return _on_padded_head_dim(fn, tensors, *args, design=design)
 
 
 def _cuda_only(name, q):
+    """The simt kernels' limits: CUDA tensors at a head dim they are
+    built for."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
-    if q.shape[-1] not in HEAD_DIMS:
+    d = q.shape[-1]
+    if padded_head_dim(d, "simt") != d:
         raise ValueError(f"{name}: the kernels are built for head dims "
-                         f"{HEAD_DIMS}, got {q.shape[-1]}")
+                         f"{HEAD_DIMS} and the multiples of {CHUNK} past "
+                         f"{HEAD_DIMS[-1]}, got {d}")
 
 
 def _scale_arg(q, scale):
     return _softmax_scale(q.shape[-1]) if scale is None else scale
 
 
-def _check_sm90(name, tensors):
-    """The sm90 kernels' own limits: bf16, D 64 or 128, and 16-byte
-    aligned bases for TMA (contiguity, checked already, makes every
-    outer stride a multiple of 16 bytes at these head dims)."""
+def _check_sm90(name, kernel, tensors):
+    """The sm90 kernel's own limits: CUDA tensors of its dtypes at its
+    head dims, and 16-byte aligned bases for TMA (contiguity, checked
+    already, makes every outer stride a multiple of 16 bytes at these
+    head dims)."""
     q = tensors[0]
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in SM90_HEAD_DIMS:
-        raise ValueError(f"{name}: the sm90 kernel takes bf16 at head dims "
-                         f"{SM90_HEAD_DIMS}, got {q.dtype} and "
-                         f"{q.shape[-1]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
+    dtypes, dims = SM90_DTYPES[kernel], SM90_KERNEL_DIMS[kernel]
+    if q.dtype not in dtypes or q.shape[-1] not in dims:
+        raise ValueError(f"{name}: the sm90 kernel takes {dtypes} at head "
+                         f"dims {dims}, got {q.dtype} and {q.shape[-1]}")
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the sm90 kernel loads through TMA, "
@@ -314,8 +355,8 @@ def _flash_fwd(q, k, v, causal: bool, q_offset: int, k_offset: int):
     _check("flash forward", (q, k, v), (sq, sk, sk))
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
-    return _on_padded_head_dim(_launcher(q, _flash_fwd_sm90, _flash_fwd_simt),
-                               (q, k, v), causal, q_offset, k_offset)
+    return _launch("fwd", _design(q.dtype, q.shape[-1], "fwd"), (q, k, v),
+                   causal, q_offset, k_offset)
 
 
 def _fwd_outputs(q):
@@ -346,19 +387,20 @@ def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int,
 
 def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
-    """The wgmma/TMA forward kernel (flash_fwd_sm90.cu): bf16, D 64/128."""
+    """The wgmma/TMA forward kernel (flash_fwd_sm90.cu): bf16 and fp16,
+    D 64/128/256."""
     global flash_fwd_sm90_launches
     sq, sk = q.shape[1], k.shape[1]
     b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
-    _cuda_only("flash forward", q)
-    _check_sm90("flash forward", (q, k, v))
+    _check_sm90("flash forward", "fwd", (q, k, v))
     lib = _cuda.load()
     o, m, l = _fwd_outputs(q)
     with torch.cuda.device(q.device):
         err = lib.hvdt_flash_fwd_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, h, sq, sk, d, q_offset, k_offset,
-            int(causal), _scale_arg(q, scale), _stream(q))
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, sq, sk, d,
+            q_offset, k_offset, int(causal), _scale_arg(q, scale),
+            _stream(q))
     _cuda.check(err, "flash forward sm90 kernel")
     flash_fwd_sm90_launches += 1
     return o, m, l
@@ -379,9 +421,8 @@ def _flash_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     if q.device.type == "cpu":
         return _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset,
                                k_offset)
-    return _on_padded_head_dim(_launcher(q, _flash_dq_sm90, _flash_dq_simt),
-                               (q, k, v, do), lse, delta, causal, q_offset,
-                               k_offset)
+    return _launch("dq", _design(q.dtype, q.shape[-1], "dq"),
+                   (q, k, v, do), lse, delta, causal, q_offset, k_offset)
 
 
 def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
@@ -408,8 +449,7 @@ def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     """The wgmma/TMA dq kernel (flash_dq_sm90.cu): bf16, D 64/128."""
     global flash_dq_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
-    _cuda_only("flash dq", q)
-    _check_sm90("flash dq", (q, k, v, do))
+    _check_sm90("flash dq", "dq", (q, k, v, do))
     lib = _cuda.load()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -430,9 +470,8 @@ def _flash_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     if q.device.type == "cpu":
         return _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset,
                                 k_offset)
-    return _on_padded_head_dim(
-        _launcher(q, _flash_dkv_sm90, _flash_dkv_simt), (q, k, v, do), lse,
-        delta, causal, q_offset, k_offset)
+    return _launch("dkv", _design(q.dtype, q.shape[-1], "dkv"),
+                   (q, k, v, do), lse, delta, causal, q_offset, k_offset)
 
 
 def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
@@ -457,19 +496,19 @@ def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 
 def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None):
-    """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16, D 64/128."""
+    """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16 and fp16,
+    D 64/128/256."""
     global flash_dkv_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
-    _cuda_only("flash dk/dv", q)
-    _check_sm90("flash dk/dv", (q, k, v, do))
+    _check_sm90("flash dk/dv", "dkv", (q, k, v, do))
     lib = _cuda.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.hvdt_flash_dkv_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, sq, sk, d, q_offset, k_offset, int(causal),
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, sk, d, q_offset, k_offset, int(causal),
             _scale_arg(q, scale), _stream(q))
     _cuda.check(err, "flash dk/dv sm90 kernel")
     flash_dkv_sm90_launches += 1

@@ -17,10 +17,11 @@ itself with ``rows=False`` (the stats m and l).
   output by one fp16 step, 2^-10 (``FP16_STEP``); fp32 outputs have
   step 0.
 - ``plain_b``: for the tensor-core (sm90) kernels only, the plain version
-  with ``bf16_operands=True``, which rounds p (and ds) to bf16 where the
-  kernel feeds them to the tensor cores. The kernel's rounding is of the
-  same kind and size but not of the same values (the forward rounds p
-  against the running row max, not the final one), so it is allowed twice
+  with ``operands`` the input's 16-bit dtype, which rounds p (and ds) to
+  that type where the kernel feeds them to the tensor cores. The
+  kernel's rounding is of the same kind and size but not of the same
+  values (the forward rounds p against the running row max, not the
+  final one), so it is allowed twice
   the largest effect that this rounding alone has in the element's row:
   FlashAttention's own test criterion, taken per row so that the large
   early rows of a causal softmax do not set the bound for the small late

@@ -14,11 +14,11 @@ for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
 of the element itself (2^-7 of it); fp16 outputs by one fp16 step
-(2^-10). The tensor-core (sm90) kernels also round p (and ds) to bf16
-for the tensor cores: their o, dq, dk and dv may differ by twice the
-largest effect that this rounding alone has in the row (the plain
-version with ``bf16_operands=True``); their m and l keep the fp32
-bounds. The sm90 dq has an absolute floor of 1e-5 instead of
+(2^-10). The tensor-core (sm90) kernels also round p (and ds) to the
+input's 16-bit type for the tensor cores: their o, dq, dk and dv may
+differ by twice the largest effect that this rounding alone has in the
+row (the plain version with ``operands`` that dtype); their m and l keep
+the fp32 bounds. The sm90 dq has an absolute floor of 1e-5 instead of
 1e-6 (``tolerance.DQ_ATOL``: the dq of a query that sees one key is pure
 rounding noise).
 """
@@ -79,7 +79,8 @@ def test_kernels_match_plain_versions(cuda, dtype, b, s, h, d, causal, qo,
 
 def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     """Runs the kernels _design picks and holds them to their plain
-    versions; the launch counters must show that design ran."""
+    versions; the launch counters must show that each kernel's design
+    ran."""
     q, k, v, do = _inputs(cuda, dt, b, s, h, d, s + d, sk)
     fa.reset_launch_counts()
     o, m, l = fa._flash_fwd(q, k, v, causal, qo, ko)
@@ -87,26 +88,26 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     dq = fa._flash_dq(q, k, v, do, lse, delta, causal, qo, ko)
     dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
-    sm90 = fa._design(dt, d) == "sm90"
-    suffix = "_sm90" if sm90 else ""
+    sm90 = {kern: fa._design(dt, d, kern) == "sm90" for kern in fa.KERNELS}
     want = dict.fromkeys(fa.launch_counts(), 0)
-    want.update({"flash_fwd" + suffix: 1, "flash_dq" + suffix: 1,
-                 "flash_dkv" + suffix: 1})
+    for kern in fa.KERNELS:
+        want[f"flash_{kern}" + ("_sm90" if sm90[kern] else "")] = 1
     assert fa.launch_counts() == want
     args = (q, k, v, do, lse, delta, causal, qo, ko)
     dq_p = fa._flash_dq_plain(*args)
     dk_p, dv_p = fa._flash_dkv_plain(*args)
     o_b = dq_b = dk_b = dv_b = None
-    if sm90:
-        o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko,
-                                  bf16_operands=True)[0]
-        dq_b = fa._flash_dq_plain(*args, bf16_operands=True)
-        dk_b, dv_b = fa._flash_dkv_plain(*args, bf16_operands=True)
+    if sm90["fwd"]:
+        o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko, operands=dt)[0]
+    if sm90["dq"]:
+        dq_b = fa._flash_dq_plain(*args, operands=dt)
+    if sm90["dkv"]:
+        dk_b, dv_b = fa._flash_dkv_plain(*args, operands=dt)
     step = tolerance.step_of(dt)
     _close(m, m_p, 2e-5, 1e-5, rows=False)
     _close(l, l_p, 2e-5, 1e-5, rows=False)
     _close(o, o_p, 2e-5, 1e-6, step, plain_b=o_b)
-    _close(dq, dq_p, 1e-4, tolerance.DQ_ATOL if sm90 else 1e-6, step,
+    _close(dq, dq_p, 1e-4, tolerance.DQ_ATOL if sm90["dq"] else 1e-6, step,
            plain_b=dq_b)
     _close(dk, dk_p, 1e-4, 1e-6, step, plain_b=dk_b)
     _close(dv, dv_p, 1e-4, 1e-6, step, plain_b=dv_b)
@@ -194,9 +195,10 @@ def test_flash_attention_autograd_matches_dense_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 520, device=cuda)
+    q = torch.zeros(1, 64, 2, 64, device=cuda)
+    k = torch.zeros(1, 64, 2, 96, device=cuda)
     with pytest.raises(ValueError):
-        fa._flash_fwd(q, q, q, True, 0, 0)            # head dim past 512
+        fa._flash_fwd(q, k, k, True, 0, 0)            # head dims differ
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa._flash_fwd(q, q, q, True, 0, 0)            # fp64
@@ -353,11 +355,46 @@ def test_head_dims_and_fp16_match_plain_versions(cuda, dtype, b, s, h, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("float32", 512)])
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("float32", 512),
+                                     ("bfloat16", 640), ("float32", 640),
+                                     ("bfloat16", 1024), ("float32", 1024),
+                                     ("float16", 600)])
 def test_head_dim_past_256_raises_naming_the_roadmap_item(cuda, dtype, d):
-    """Past D 256 the kernels of D 384 and 512 serve (D 320 runs
-    zero-padded at 384); past 512 a CUDA call raises, naming C4."""
+    """Past D 256 the simt kernels of D 384 and 512 serve (D 320 runs
+    zero-padded at 384); past 512 (ROADMAP.md C4, closed: nothing raises
+    any more) the chunked simt kernels, one 64-column chunk of the head
+    dim per block (D 600 zero-padded to 640)."""
     _check_kernels(cuda, getattr(torch, dtype), 1, 128, 2, d, True, 0, 0)
-    q = torch.zeros(1, 64, 1, 640, device=cuda)
-    with pytest.raises(ValueError, match="C4"):
-        fa._flash_fwd(q, q, q, True, 0, 0)
+
+
+SM90_WIDE_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset
+    pytest.param("float16", 1, 128, 2, 64, True, 0, 0, id="fp16_d64"),
+    pytest.param("float16", 2, 256, 2, 128, False, 0, 0,
+                 id="fp16_d128_noncausal"),
+    pytest.param("float16", 1, 192, 2, 256, True, 64, 0,
+                 id="fp16_d256_q_offset"),
+    pytest.param("bfloat16", 2, 40, 2, 80, True, 0, 0, id="bf16_d80_short"),
+    pytest.param("bfloat16", 1, 256, 3, 96, True, 0, 0, id="bf16_d96"),
+    pytest.param("bfloat16", 2, 256, 2, 256, True, 0, 0, id="bf16_d256"),
+    pytest.param("bfloat16", 1, 192, 2, 256, True, 0, 128,
+                 id="bf16_d256_dead_rows"),
+    pytest.param("bfloat16", 1, 128, 2, 200, False, 0, 0,
+                 id="bf16_d200_noncausal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko", SM90_WIDE_CASES)
+def test_sm90_wide_kernels_match_plain_versions(cuda, dtype, b, s, h, d,
+                                                causal, qo, ko):
+    """fp16 at D 64/128/256 and bf16 at D 80, 96, 200 (run zero-padded at
+    128 and 256) and 256: the sm90 forward and dk/dv against their plain
+    versions with fp16 or bf16 operand rounding, dq on its own design;
+    the launch counters show which ran."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko)
+
+
+@pytest.mark.cuda
+def test_sm90_wide_kernels_with_unequal_lengths(cuda):
+    _check_kernels(cuda, torch.float16, 1, 128, 2, 256, True, 256, 0, 384)

@@ -1,5 +1,5 @@
 """The CPU side of the tensor-core (sm90) dq kernel: the plain dq's
-``bf16_operands`` rounding that the card's checks compare the kernel
+``operands=torch.bfloat16`` rounding that the card's checks compare the kernel
 with, its agreement with the reference's dq (Pallas, interpret mode), and
 the shared tolerance (horovod_tpu_torch/utils/tolerance.py), which must
 pass that rounding and fail a dq with one 64-key tile left out, as
@@ -45,7 +45,7 @@ def _rounding_limit(args):
 def test_plain_dq_bf16_operands_within_provable_bound(causal):
     _, args = _bwd_args(0, causal)
     dq = port._flash_dq_plain(*args)
-    dq_b = port._flash_dq_plain(*args, bf16_operands=True)
+    dq_b = port._flash_dq_plain(*args, operands=torch.bfloat16)
     assert torch.all((dq_b - dq).abs() <= _rounding_limit(args))
     assert (dq_b - dq).abs().max() > 0
 
@@ -59,7 +59,7 @@ def test_plain_bf16_operands_dq_matches_reference():
     theirs = ref.flash_attention_bwd(
         *(jnp.asarray(x.numpy()) for x in (q, k, v, o, m, l, do)),
         causal=True, block_q=32, block_k=32, interpret=True)[0]
-    mine = port._flash_dq_plain(*args, bf16_operands=True)
+    mine = port._flash_dq_plain(*args, operands=torch.bfloat16)
     limit = (_rounding_limit(args) + 1e-4).numpy()
     assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)
 
@@ -67,7 +67,7 @@ def test_plain_bf16_operands_dq_matches_reference():
 def test_tolerance_passes_bf16_operands_and_fails_a_lost_kv_tile():
     _, args = _bwd_args(2)
     dq = port._flash_dq_plain(*args)
-    dq_b = port._flash_dq_plain(*args, bf16_operands=True)
+    dq_b = port._flash_dq_plain(*args, operands=torch.bfloat16)
     kw = dict(step=tolerance.BF16_STEP, atol=tolerance.DQ_ATOL,
               plain_b=dq_b)
     assert tolerance.worst(dq_b, dq, 1e-4, **kw)[1] <= 1.0

@@ -62,7 +62,7 @@ def test_padding_helper_on_plain_versions_matches_reference_at_d80():
     qn, kn, vn, don = _inputs(7, 80, n=4)
     q, k, v, do = map(torch.tensor, (qn, kn, vn, don))
     o, m, l = port._on_padded_head_dim(port._flash_fwd_plain, (q, k, v),
-                                       True, 0, 0)
+                                       True, 0, 0, design="simt")
     o_p, m_p, l_p = port._flash_fwd_plain(q, k, v, True, 0, 0)
     assert o.shape == q.shape
     for mine, plain in ((o, o_p), (m, m_p), (l, l_p)):
@@ -74,9 +74,10 @@ def test_padding_helper_on_plain_versions_matches_reference_at_d80():
     lse = port._lse_from_stats(m_p, l_p)
     delta = (do * o_p).sum(-1).transpose(1, 2).contiguous()
     args = (lse, delta, True, 0, 0)
-    dq = port._on_padded_head_dim(port._flash_dq_plain, (q, k, v, do), *args)
+    dq = port._on_padded_head_dim(port._flash_dq_plain, (q, k, v, do), *args,
+                                  design="simt")
     dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),
-                                      *args)
+                                      *args, design="simt")
     grads_ref = ref.flash_attention_bwd(
         *map(jnp.asarray, (qn, kn, vn)), o_r, m_r, l_r, jnp.asarray(don),
         causal=True, block_q=32, block_k=32, interpret=True)
@@ -120,12 +121,17 @@ def test_fp16_matches_reference(d):
 
 
 def test_cuda_head_dims_pad_to_the_next_built_one_and_stop_at_256():
-    assert [port.padded_head_dim(d) for d in (8, 16, 48, 80, 96, 100, 200,
-                                              256, 257, 320, 384, 400,
-                                              512)] == \
-        [16, 16, 64, 96, 96, 128, 256, 256, 384, 384, 384, 512, 512]
-    with pytest.raises(ValueError, match="C4"):
-        port.padded_head_dim(513)
-    assert port._design(torch.bfloat16, 48) == "sm90"
-    assert port._design(torch.bfloat16, 80) == "simt"
-    assert port._design(torch.float16, 128) == "simt"
+    # The simt ladder; past 512 (ROADMAP.md C4, closed) the next multiple
+    # of 64, where the chunked kernels run.
+    assert [port.padded_head_dim(d, "simt")
+            for d in (8, 16, 48, 80, 96, 100, 200, 256, 257, 320, 384, 400,
+                      512, 513, 640)] == \
+        [16, 16, 64, 96, 96, 128, 256, 256, 384, 384, 384, 512, 512, 576,
+         640]
+    assert port._design(torch.bfloat16, 48, "dq") == "sm90"
+    # D 80 and fp16 D 128: the forward on the sm90 kernels (D 80 padded
+    # to 128), dq on the simt ones (D 80 padded to 96).
+    assert port._design(torch.bfloat16, 80, "fwd") == "sm90"
+    assert port._design(torch.bfloat16, 80, "dq") == "simt"
+    assert port._design(torch.float16, 128, "fwd") == "sm90"
+    assert port._design(torch.float16, 128, "dq") == "simt"

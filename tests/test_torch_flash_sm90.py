@@ -1,5 +1,5 @@
 """The CPU side of the tensor-core (sm90) flash-attention kernels: which
-design a dtype and head dim get, the plain versions' ``bf16_operands``
+design a dtype and head dim get, the plain versions' ``operands``
 rounding that the card's checks compare those kernels with, and the
 shared tolerance (horovod_tpu_torch/utils/tolerance.py) that must pass
 that rounding and fail a lost tile, as chip_smoke.py's check of it at
@@ -33,14 +33,18 @@ def _bf16_values(seed, n=4, s=S, d=D):
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
 def test_design_by_dtype_and_head_dim(dtype, d, design):
-    assert port._design(dtype, d) == design
+    # These cases take one design for all three kernels; where the
+    # kernels part (fp16, D 80/96, D 129-256) see
+    # tests/test_torch_flash_sm90_wide.py.
+    for kernel in port.KERNELS:
+        assert port._design(dtype, d, kernel) == design
 
 
 def test_plain_forward_bf16_operands_within_provable_bound():
     (q, k, v), _ = _bf16_values(0, 3)
     o, m, l = port._flash_fwd_plain(q, k, v, True, 0, 0)
     o_b, m_b, l_b = port._flash_fwd_plain(q, k, v, True, 0, 0,
-                                          bf16_operands=True)
+                                          operands=torch.bfloat16)
     assert torch.equal(m, m_b) and torch.equal(l, l_b)
     # Rounding p to bf16 moves each p by at most 2^-8 of itself, so o by
     # at most 2^-8 (|P| @ |V|) / l, plus fp32 noise.
@@ -56,7 +60,7 @@ def test_plain_forward_bf16_operands_differ_with_bf16_inputs():
     _, (q, k, v) = _bf16_values(1, 3)
     o, m, l = port._flash_fwd_plain(q, k, v, False, 0, 0)
     o_b, m_b, l_b = port._flash_fwd_plain(q, k, v, False, 0, 0,
-                                          bf16_operands=True)
+                                          operands=torch.bfloat16)
     assert o_b.dtype == torch.bfloat16
     assert not torch.equal(o, o_b)
     assert torch.equal(m, m_b) and torch.equal(l, l_b)
@@ -69,7 +73,7 @@ def test_plain_dkv_bf16_operands_within_provable_bound():
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, True, 0, 0)
     dk, dv = port._flash_dkv_plain(*args)
-    dk_b, dv_b = port._flash_dkv_plain(*args, bf16_operands=True)
+    dk_b, dv_b = port._flash_dkv_plain(*args, operands=torch.bfloat16)
     p, ds = port._p_ds_plain(*args)
     lim_v = 2.0 ** -8 * torch.einsum("bhqk,bqhd->bkhd", p, do.abs())
     lim_k = 2.0 ** -8 * torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.abs())
@@ -87,7 +91,7 @@ def test_plain_bf16_operands_forward_matches_reference():
         *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
         block_q=32, block_k=32, interpret=True))
     mine = port._flash_fwd_plain(q, k, v, True, 0, 0,
-                                 bf16_operands=True)[0]
+                                 operands=torch.bfloat16)[0]
     limit = 2.0 ** -8 * v.abs().amax().item() + 2e-5
     np.testing.assert_allclose(mine.numpy(), theirs, atol=limit, rtol=0)
 
@@ -95,7 +99,8 @@ def test_plain_bf16_operands_forward_matches_reference():
 def test_tolerance_passes_bf16_operands_and_fails_a_lost_kv_tile():
     _, (q, k, v) = _bf16_values(4, 3)
     o = port._flash_fwd_plain(q, k, v, True, 0, 0)[0]
-    o_b = port._flash_fwd_plain(q, k, v, True, 0, 0, bf16_operands=True)[0]
+    o_b = port._flash_fwd_plain(q, k, v, True, 0, 0,
+                                operands=torch.bfloat16)[0]
     kw = dict(step=tolerance.BF16_STEP, plain_b=o_b)
     assert tolerance.worst(o_b, o, 2e-5, **kw)[1] <= 1.0
     lost = chip_smoke.fwd_without_keys(port, q, k, v, 128, 192)
@@ -112,7 +117,7 @@ def test_tolerance_fails_a_lost_q_tile_in_dk_dv():
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, True, 0, 0)
     plain = port._flash_dkv_plain(*args)
-    plain_b = port._flash_dkv_plain(*args, bf16_operands=True)
+    plain_b = port._flash_dkv_plain(*args, operands=torch.bfloat16)
     do_x, delta_x = do.clone(), delta.clone()
     do_x[:, 128:192] = 0
     delta_x[:, :, 128:192] = 0

@@ -1,0 +1,216 @@
+"""The CPU side of the tensor-core (sm90) forward and dk/dv kernels at fp16
+and at head dims up to 256, and of the simt kernels past D 512: which
+design and padded head dim each kernel gets, the plain versions'
+``operands`` rounding (fp16 p and ds for fp16 inputs, bf16 for bf16) that
+the card's checks compare those kernels with, and the padding paths, all
+against the reference's Pallas kernels in interpret mode on the CPU
+(``block_q=block_k=32``, as tests/test_torch_flash_head_dims.py runs
+them). The kernels themselves run on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+
+Tolerances. Rounding p (or ds) to a 16-bit type moves it by at most u = 2^-8
+(bf16) or 2^-11 (fp16) of itself, and an fp16 p below 2^-14 (subnormal) by
+at most 2^-25; so o moves by at most (u |P| + floor) @ |V| / l and dk, dv by
+the same products with ds and q, p and do: the provable bounds of
+tests/test_torch_flash_sm90.py, with each type's u. Against the reference
+(fp32 throughout) the rounding is the only difference beyond the fp32
+bounds of tests/test_parallel.py (2e-5 forward, 1e-4 gradients).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu.parallel import flash_attention as ref
+from horovod_tpu_torch.parallel import flash_attention as port
+
+FWD_TOL = 2e-5
+GRAD_TOL = 1e-4
+UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+FLOOR = {torch.bfloat16: 0.0, torch.float16: 2.0 ** -25}
+ROUNDED_CASES = [(torch.float16, 128), (torch.bfloat16, 256),
+                 (torch.float16, 256)]
+
+
+def _values(seed, dtype, d, n=4, b=1, s=64, h=2):
+    """Inputs that are exact values of ``dtype``, held as fp32."""
+    rng = np.random.RandomState(seed)
+    return [torch.tensor(rng.randn(b, s, h, d).astype(np.float32))
+            .to(dtype).float() for _ in range(n)]
+
+
+def _rounding(x, dtype):
+    """The most that rounding ``x`` to ``dtype`` can move each element."""
+    return torch.clamp(UNIT[dtype] * x.abs(), min=FLOOR[dtype])
+
+
+def _jax(*xs):
+    return [jnp.asarray(x.numpy()) for x in xs]
+
+
+def _stats(q, k, v, do):
+    o, m, l = port._flash_fwd_plain(q, k, v, True, 0, 0)
+    lse = port._lse_from_stats(m, l)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    return (o, m, l), (q, k, v, do, lse, delta, True, 0, 0)
+
+
+@pytest.mark.parametrize("dtype,d", ROUNDED_CASES)
+def test_plain_forward_operands_within_provable_bound(dtype, d):
+    q, k, v = _values(d, dtype, d, n=3)
+    o, m, l = port._flash_fwd_plain(q, k, v, True, 0, 0)
+    o_r, m_r, l_r = port._flash_fwd_plain(q, k, v, True, 0, 0,
+                                          operands=dtype)
+    assert torch.equal(m, m_r) and torch.equal(l, l_r)
+    s, allowed = port._scores(q, k, True, 0, 0)
+    p = torch.exp(s - m[..., None]) * allowed
+    moved = torch.einsum("bhqk,bkhd->bqhd", _rounding(p, dtype) * allowed,
+                         v.abs())
+    limit = moved / l.transpose(1, 2)[..., None] + 1e-6
+    assert torch.all((o_r - o).abs() <= limit)
+    assert (o_r - o).abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype,d", ROUNDED_CASES)
+def test_plain_dkv_operands_within_provable_bound(dtype, d):
+    q, k, v, do = _values(d + 1, dtype, d)
+    _, args = _stats(q, k, v, do)
+    dk, dv = port._flash_dkv_plain(*args)
+    dk_r, dv_r = port._flash_dkv_plain(*args, operands=dtype)
+    p, ds = port._p_ds_plain(*args)
+    lim_v = torch.einsum("bhqk,bqhd->bkhd", _rounding(p, dtype), do.abs())
+    lim_k = torch.einsum("bhqk,bqhd->bkhd", _rounding(ds, dtype), q.abs())
+    assert torch.all((dv_r - dv).abs() <= lim_v + 1e-6)
+    assert torch.all((dk_r - dk).abs() <= lim_k + 1e-6)
+    assert (dv_r - dv).abs().max() > 0 and (dk_r - dk).abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype,d", ROUNDED_CASES)
+def test_plain_operands_match_reference(dtype, d):
+    """The plain forward and dk/dv with 16-bit operand rounding against
+    the reference's Pallas forward and backward on the same values, fp32
+    throughout: apart from the fp32 bounds, only the rounding differs."""
+    q, k, v, do = _values(d + 2, dtype, d)
+    o_ref, m_ref, l_ref = ref.flash_attention_stats(
+        *_jax(q, k, v), causal=True, block_q=32, block_k=32, interpret=True)
+    o_r = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=dtype)[0]
+    s = q.shape[1]
+    fwd_limit = (UNIT[dtype] + FLOOR[dtype] * s) * v.abs().amax().item()
+    np.testing.assert_allclose(o_r.numpy(), np.asarray(o_ref),
+                               atol=fwd_limit + FWD_TOL, rtol=0)
+    (o, m, l), args = _stats(q, k, v, do)
+    _, dk_ref, dv_ref = ref.flash_attention_bwd(
+        *_jax(q, k, v, o, m, l, do), causal=True, block_q=32, block_k=32,
+        interpret=True)
+    dk_r, dv_r = port._flash_dkv_plain(*args, operands=dtype)
+    p, ds = port._p_ds_plain(*args)
+    lim_v = torch.einsum("bhqk,bqhd->bkhd", _rounding(p, dtype), do.abs())
+    lim_k = torch.einsum("bhqk,bqhd->bkhd", _rounding(ds, dtype), q.abs())
+    for mine, theirs, lim in ((dk_r, dk_ref, lim_k), (dv_r, dv_ref, lim_v)):
+        err = (mine - torch.tensor(np.asarray(theirs))).abs()
+        assert torch.all(err <= lim + GRAD_TOL), err.max()
+
+
+DESIGNS = [
+    # dtype, d, (fwd, dq, dkv) designs, (fwd, dq, dkv) padded head dims
+    (torch.bfloat16, 16, "simt simt simt", (16, 16, 16)),
+    (torch.bfloat16, 32, "simt simt simt", (32, 32, 32)),
+    (torch.bfloat16, 33, "sm90 sm90 sm90", (64, 64, 64)),
+    (torch.bfloat16, 64, "sm90 sm90 sm90", (64, 64, 64)),
+    (torch.bfloat16, 80, "sm90 simt sm90", (128, 96, 128)),
+    (torch.bfloat16, 96, "sm90 simt sm90", (128, 96, 128)),
+    (torch.bfloat16, 128, "sm90 sm90 sm90", (128, 128, 128)),
+    (torch.bfloat16, 160, "sm90 simt sm90", (256, 256, 256)),
+    (torch.bfloat16, 200, "sm90 simt sm90", (256, 256, 256)),
+    (torch.bfloat16, 256, "sm90 simt sm90", (256, 256, 256)),
+    (torch.bfloat16, 257, "simt simt simt", (384, 384, 384)),
+    (torch.bfloat16, 512, "simt simt simt", (512, 512, 512)),
+    (torch.bfloat16, 640, "simt simt simt", (640, 640, 640)),
+    (torch.float16, 32, "simt simt simt", (32, 32, 32)),
+    (torch.float16, 48, "sm90 simt sm90", (64, 64, 64)),
+    (torch.float16, 128, "sm90 simt sm90", (128, 128, 128)),
+    (torch.float16, 256, "sm90 simt sm90", (256, 256, 256)),
+    (torch.float16, 384, "simt simt simt", (384, 384, 384)),
+    (torch.float32, 64, "simt simt simt", (64, 64, 64)),
+    (torch.float32, 128, "simt simt simt", (128, 128, 128)),
+    (torch.float32, 256, "simt simt simt", (256, 256, 256)),
+    (torch.float32, 1000, "simt simt simt", (1024, 1024, 1024)),
+]
+
+
+@pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
+def test_design_and_padding_per_kernel(dtype, d, designs, padded):
+    """The forward and dk/dv take sm90 for bf16 and fp16 at D 33-256, dq
+    only for bf16 at D 64/128 (after padding); fp32, D <= 32 and D > 256
+    take simt. Each kernel pads to a head dim of its own design."""
+    got = [port._design(dtype, d, kern) for kern in port.KERNELS]
+    assert got == designs.split()
+    assert [port.padded_head_dim(d, design) for design in got] == \
+        list(padded)
+
+
+def test_padded_head_dim_past_512_never_raises():
+    for d in range(513, 2200, 7):
+        built = port.padded_head_dim(d, "simt")
+        assert built % port.CHUNK == 0 and d <= built < d + port.CHUNK
+    with pytest.raises(ValueError, match="256"):
+        port.padded_head_dim(320, "sm90")
+
+
+def test_fp32_d640_plain_path_matches_reference():
+    """D 640 on the CPU (the plain versions, which the card's chunked
+    simt kernels are held to) against the reference, at its own fp32
+    bounds; forward and all three gradients through autograd."""
+    import jax
+    qn, kn, vn = (x.numpy() for x in _values(640, torch.float32, 640,
+                                               n=3))
+    qj, kj, vj = map(jnp.asarray, (qn, kn, vn))
+
+    def ref_flash(*a):
+        return ref.flash_attention(*a, causal=True, block_q=32, block_k=32,
+                                   interpret=True)
+    out_ref = ref_flash(qj, kj, vj)
+    grads_ref = jax.grad(lambda *a: (ref_flash(*a) ** 2).sum(),
+                         argnums=(0, 1, 2))(qj, kj, vj)
+    q, k, v = (torch.tensor(x, requires_grad=True) for x in (qn, kn, vn))
+    out = port.flash_attention(q, k, v)
+    (out ** 2).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref),
+                               atol=FWD_TOL)
+    for mine, theirs in zip((q.grad, k.grad, v.grad), grads_ref):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+                                   atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("design,dtype,d", [
+    ("simt", torch.float32, 600), ("sm90", torch.bfloat16, 200),
+    ("sm90", torch.float16, 80)])
+def test_padding_on_plain_versions_matches_unpadded_and_reference(
+        design, dtype, d):
+    """What the card runs at a head dim no kernel of the design is built
+    for (D 600 on the simt chunks of 640, D 200 and fp16 D 80 on the sm90
+    kernels of 256 and 128), with the plain versions in the kernels'
+    place: equal to the unpadded plain versions up to fp32 summation order
+    (the zero columns change how einsum groups the sums: 1e-6 relative),
+    and to the reference."""
+    q, k, v, do = _values(d + 3, dtype, d)
+    fwd = port._on_padded_head_dim(port._flash_fwd_plain, (q, k, v), True,
+                                   0, 0, design=design)
+    plain = port._flash_fwd_plain(q, k, v, True, 0, 0)
+    assert fwd[0].shape == q.shape
+    for mine, p in zip(fwd, plain):
+        np.testing.assert_allclose(mine.numpy(), p.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
+                                      block_q=32, block_k=32,
+                                      interpret=True)[0]
+    np.testing.assert_allclose(fwd[0].numpy(), np.asarray(o_ref),
+                               atol=FWD_TOL)
+    _, args = _stats(q, k, v, do)
+    dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),
+                                      *args[4:], design=design)
+    for mine, p in zip((dk, dv), port._flash_dkv_plain(*args)):
+        assert mine.shape == q.shape
+        np.testing.assert_allclose(mine.numpy(), p.numpy(), rtol=1e-6,
+                                   atol=1e-6)
