@@ -12,18 +12,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    prints the build time.
 2. Kernels against their plain PyTorch versions, on the card. Each
    kernel takes the design ``flash_attention._design`` gives it: the
-   tensor-core (sm90) forward and dk/dv for bf16 and fp16 at head dims
-   33-256, the sm90 dq for bf16 at D 64/128, the fp32-FMA (simt) kernels
-   for the rest (fp32, fp16 dq, D <= 32, D > 256, past D 512 in 64-column
-   chunks of the head dim); a bf16 case at the main shape forces the simt
-   ones. Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
-   causal), a non-causal, two offset, a D=64 and a short ragged case,
-   fp32 at two shapes, each case of C4_CASES at B=2, S=1024, H=8, causal,
-   through the dispatchers (fp16 at D 64/128/256; bf16 at D 80, 96 and 200,
-   run zero-padded at the next built head dim, and 256; fp32 at D 256;
-   bf16 and fp32 at D 320, 384, 512 and 640), and the Gemma-7B geometry
-   (B=2, S=2048, H=16, D=256, bf16, causal); wherever the sm90 forward and
-   dk/dv serve, their simt kernels are checked on the same inputs too.
+   tensor-core (sm90) kernels for bf16 and fp16, the forward at head dims
+   33-512, dq and dk/dv at 33-256; the fp32-FMA (simt) kernels for the
+   rest (fp32, D <= 32, dq and dk/dv past 256, the forward past 512, past
+   D 512 in 64-column chunks of the head dim); a bf16 case at the main
+   shape forces the simt ones. Cases: the main path's shape (B=4, S=2048,
+   H=16, D=128, bf16, causal), a non-causal, two offset, a D=64 and a
+   short ragged case, fp32 at two shapes, each case of C4_CASES at B=2,
+   S=1024, H=8, causal, through the dispatchers (fp16 at D 64/128/256/512;
+   bf16 at D 80, 96 and 200, run zero-padded at the next built head dim,
+   and 256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and 640), and
+   the Gemma-7B geometry (B=2, S=2048, H=16, D=256, bf16, causal);
+   wherever an sm90 kernel serves, its simt kernel is checked on the same
+   inputs too.
    Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
@@ -39,9 +40,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    there too (``operands``), and twice its effect in the row is allowed.
    The bound must show its power: at the main shape a plain result with
    one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
-   one q tile (queries 1536-1599 of dk and dv) left out must fail it, and
-   at the Gemma-7B geometry the same with the D 256 forward's 64-key
-   tile (keys 1024-1087).
+   one q tile (queries 1536-1599 of dk and dv) left out must fail it; at
+   the Gemma-7B geometry the same with the D 256 forward's 64-key tile
+   (keys 1024-1087) and the D 256 dq's 32-key stage (keys 1024-1055); and
+   at bf16 D 512 (C4 shape) with one 32-key stage of the D 512 forward
+   (keys 512-543).
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -58,15 +61,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    4096, MLP x4; google/gemma-7b config.json), vocab 32000, S=2048, batch
    2, bf16 compute with fp32 weights, its 28 layers cut to 2 to fit the
    run: the loss must be finite and fall, and each layer and step must
-   launch the sm90 forward and dk/dv and the simt dq once and no other
-   flash kernel.
+   launch the sm90 forward, dq and dk/dv once and no other flash kernel.
+   Phases 4 and 4b print their seconds per step beside the recorded ones
+   (RECORDED_STEP_S).
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
    the main path's shape in bf16 (printed beside the times PERF.md
-   recorded before they took fp16 and D 256), the simt kernels there in
-   fp32 (their input type on the LM's shapes), each C4 case at its
-   phase-2 shape and the Gemma-7B geometry through the dispatchers
-   (padding copies included), and beside every sm90 forward and dk/dv
-   the simt kernel it replaces on the same inputs, which it must beat;
+   recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the simt
+   kernels there in fp32 (their input type on the LM's shapes), each C4
+   case at its phase-2 shape and the Gemma-7B geometry through the
+   dispatchers (padding copies included), and beside every sm90 kernel
+   the simt kernel it replaces on the same inputs, which it must beat
+   (and, at each case whose head dim is padded, the backward padded once
+   for both kernels, as flash_attention_bwd runs it, against its two
+   kernels padded apart);
    each beside the plain version, the PyTorch library call computing the
    same function in the same dtype (scaled_dot_product_attention, timed
    here only as a yardstick) and the bound: the larger of the operations
@@ -176,13 +183,13 @@ PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
               "float32": 67e12}
 MAIN = dict(b=4, s=2048, h=16, d=128)
 # The head dims and dtypes past the kernels' first set (ROADMAP.md C4 and
-# the sm90 kernels' fp16 and D 33-256): (tag, dtype name, head dim), each
-# checked in phase 2 and timed in phase 5 at this shape, causal, through
-# the dispatchers (a head dim no kernel of a design is built for runs
-# zero-padded at the next one that is: D 80 and 96 at 128 on the sm90
-# kernels and at 96 on the simt ones, D 200 at 256, D 320 at 384). Where
-# the forward and dk/dv take the sm90 kernels, their simt kernels are
-# checked and timed beside them.
+# the sm90 kernels' fp16, D 33-256 and the forward's D 257-512): (tag,
+# dtype name, head dim), each checked in phase 2 and timed in phase 5 at
+# this shape, causal, through the dispatchers (a head dim no kernel of a
+# design is built for runs zero-padded at the next one that is: D 80 and
+# 96 at 128 on the sm90 kernels and at 96 on the simt ones, D 200 at 256,
+# D 320 at 384). Where a kernel takes the sm90 design, its simt kernel is
+# checked and timed beside it.
 C4_SHAPE = dict(b=2, s=1024, h=8)
 C4_CASES = (("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
             ("fp16_d256", "float16", 256), ("bf16_d96", "bfloat16", 96),
@@ -191,26 +198,30 @@ C4_CASES = (("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
             ("bf16_d384", "bfloat16", 384), ("fp32_d384", "float32", 384),
             ("bf16_d320", "bfloat16", 320), ("fp32_d320", "float32", 320),
             ("bf16_d512", "bfloat16", 512), ("fp32_d512", "float32", 512),
+            ("fp16_d512", "float16", 512),
             ("bf16_d640", "bfloat16", 640), ("fp32_d640", "float32", 640))
 # The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
 # and the small head dims and must not launch there.
 MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
 # Phase 4b's model: the attention widths of Gemma-7B (16 heads of 256, d
 # 4096, MLP x4; google/gemma-7b config.json), vocab 32000, S 2048, batch
-# 2, its 28 layers cut to 2. bf16 at D 256 runs the sm90 forward and
-# dk/dv and the simt dq.
+# 2, its 28 layers cut to 2. bf16 at D 256 runs the three sm90 kernels.
 GEMMA = dict(b=2, s=2048, h=16, d=256)
 GEMMA_LAYERS = (28, 2)
-GEMMA_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90")
-# The main shape's sm90 forward and dk/dv as PERF.md records them before
-# the kernels took fp16 and D 256 (H100 80GB HBM3, 700 W): phase 5 prints
-# this run's beside them.
-RECORDED_MAIN_MS = {"flash_fwd_sm90": 0.1947, "flash_dkv_sm90": 0.3444}
+GEMMA_PATH_KERNELS = MAIN_PATH_KERNELS
+# The main shape's sm90 kernels and the seconds per step of phases 4 and
+# 4b as PERF.md records them before dq took fp16 and D 256 (H100 80GB
+# HBM3, 700 W): phases 4, 4b and 5 print this run's beside them.
+RECORDED_MAIN_MS = {"flash_fwd_sm90": 0.1950, "flash_dq_sm90": 0.2328,
+                    "flash_dkv_sm90": 0.3432}
+RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # Keys and queries left out of a plain result by the lost-tile checks:
-# one kv tile of the forward (128 rows at D 128, 64 at D 256), one of dq
-# (64 keys), one q tile of dk/dv (64 queries).
+# one kv tile of the forward (128 rows at D 128, 64 at D 256, 32 at D
+# 512), one kv stage of dq (64 keys at D 128, 32 at D 256), one q tile of
+# dk/dv (64 queries).
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
-LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
+LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
+LOST_C4 = {"bf16_d512": dict(fwd=(512, 544))}
 
 
 def card_line() -> str:
@@ -299,7 +310,8 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     or simt kernels (default: ``fa._design`` per kernel); every launch goes
     through ``fa._launch``, which pads a head dim no kernel of the design
     is built for. ``lost`` (LOST_MAIN, LOST_D256) adds the checks that a
-    plain result with one tile left out fails the bound."""
+    plain result with one tile left out fails the bound, for each kernel
+    it names."""
     from horovod_tpu_torch.utils.tolerance import DQ_ATOL, step_of
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -339,7 +351,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close("forward o", o, o_p, 2e-5, step, plain_b=o_b),
             check_close("forward m", m, m_p, 2e-5, atol=1e-5, rows=False),
             check_close("forward l", l, l_p, 2e-5, rows=False))
-        if lost:
+        if lost and "fwd" in lost:
             lo, hi = lost["fwd"]
             check_close(f"forward o, keys {lo}-{hi - 1} left out",
                         fwd_without_keys(fa, q, k, v, lo, hi), o_p, 2e-5,
@@ -354,7 +366,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         dq_atol = DQ_ATOL if designs["dq"] == "sm90" else 1e-6
         errs[kernel_name("dq", designs["dq"], tag)] = check_close(
             "dq", dq, dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b)
-        if lost:
+        if lost and "dq" in lost:
             lo, hi = lost["dq"]
             check_close(f"dq, keys {lo}-{hi - 1} left out",
                         dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi),
@@ -370,7 +382,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         errs[kernel_name("dkv", designs["dkv"], tag)] = max(
             check_close("dk", dk, dk_p, 1e-4, step, plain_b=dk_b),
             check_close("dv", dv, dv_p, 1e-4, step, plain_b=dv_b))
-        if lost:
+        if lost and "dkv" in lost:
             # Zero do and delta on one q tile: p * do and ds vanish
             # there, which leaves that tile out of dk and dv exactly.
             lo, hi = lost["dkv"]
@@ -414,7 +426,7 @@ def kernel_checks(torch, fa):
     # main shape, the inputs phase 5 times them on.
     errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
                             causal=True, seed=6))
-    cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d), None)
+    cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d), LOST_C4.get(tag))
              for tag, dt, d in C4_CASES]
     # The Gemma-7B geometry, with the lost-tile checks at D 256's tiles.
     cases.append(("gemma", bf16, GEMMA, LOST_D256))
@@ -522,13 +534,14 @@ def print_breakdown(prof, wall, groups):
                   f"x{e.count:<4} {e.key[:90]}")
 
 
-def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels):
+def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels, was):
     """hvd.init(), the bench's training step of ``cfg`` on ``b`` rows
     (bench.transformer_step: random weights from --seed,
     DistributedOptimizer, SGD), --warmup and --steps timed steps and one
     profiled step. The loss must be finite and fall, and each kernel of
     ``path_kernels`` must launch once per layer per step and no other
-    flash kernel at all. Returns the launch counts."""
+    flash kernel at all. Prints the seconds per step beside ``was``, the
+    recorded one. Returns the launch counts."""
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.parallel import flash_attention as fa
     from horovod_tpu_torch.utils.timing import steady_state_sec_per_step
@@ -567,6 +580,8 @@ def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels):
           f"model TFLOP/s {model_flops / sec / 1e12:.1f} "
           f"(MFU {model_flops / sec / PEAK_BF16_FLOPS:.1%} of 989 bf16), "
           f"max_memory_allocated {peak / 2**30:.2f} GiB  [{card}]")
+    print(f"  sec/step {sec:.4f} against {was} recorded before dq took fp16 "
+          f"and D 256 ({sec / was:.3f}x)")
     print_breakdown(prof, wall, LM_GROUPS)
     check_falling(values)
     want = cfg.num_layers * len(values)
@@ -588,7 +603,7 @@ def main_path(torch, hvd, args, card):
     cfg = TransformerConfig(num_layers=args.layers, dtype=torch.bfloat16,
                             **LM_FULL)
     return lm_path(torch, hvd, args, card, "main path", cfg, MAIN["b"],
-                   MAIN_PATH_KERNELS)
+                   MAIN_PATH_KERNELS, RECORDED_STEP_S["main path"])
 
 
 def gemma_path(torch, hvd, args, card):
@@ -600,7 +615,7 @@ def gemma_path(torch, hvd, args, card):
     label = (f"Gemma-7B attention widths (google/gemma-7b config.json), "
              f"depth cut from {GEMMA_LAYERS[0]} to {GEMMA_LAYERS[1]} layers")
     return lm_path(torch, hvd, args, card, label, cfg, GEMMA["b"],
-                   GEMMA_PATH_KERNELS)
+                   GEMMA_PATH_KERNELS, RECORDED_STEP_S["gemma"])
 
 
 def vision_small_check(torch, seed):
@@ -773,7 +788,7 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
             row["library_bwd_only_ms"] = lib_bwd
         # Which build ran: the dtype and the head dim after padding.
         row["built"] = (str(dtype)[6:],
-                        fa.padded_head_dim(d, designs[fn]))
+                        fa.padded_head_dim(d, designs[fn], fn))
         rows[kernel_name(fn, designs[fn], tag)] = row
     del q, k, v, do, o, qt, kt, vt, dot, qg, kg, vg, out
     torch.cuda.empty_cache()
@@ -784,8 +799,8 @@ def kernel_times(torch, fa):
     """Every kernel's row: the sm90 kernels at the main path's shape in
     bf16, the simt kernels there in fp32 (the input type they serve on
     the LM's shapes), each C4 case at its shape and the Gemma-7B
-    geometry, with the simt forward and dk/dv beside every case that the
-    sm90 ones serve. Prints the sm90 rows against their simt ones."""
+    geometry, with the simt kernel beside every case that an sm90 one
+    serves. Prints the sm90 rows against their simt ones."""
     rows = {}
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32))
@@ -812,11 +827,59 @@ def kernel_times(torch, fa):
             slower.append((tag, kern))
     for name, was in RECORDED_MAIN_MS.items():
         print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
-              f"before: {was} ms)")
+              f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
+    backward_pad_times(torch, fa, cases)
     if slower:
         raise AssertionError(f"sm90 kernels slower than the simt ones they "
                              f"replace: {slower}")
     return rows
+
+
+def backward_pad_times(torch, fa, cases):
+    """At each case whose head dim no kernel is built for, the backward
+    as flash_attention_bwd runs it (q, k, v and do zero-padded once for
+    dq and dk/dv) against the two kernels launched apart through
+    fa._launch (each padding its own copies), both with the lse and delta
+    pre-pass; CUDA-event means of 20 calls. The two must give the same
+    gradients bit for bit (each CTA owns its outputs: one order of
+    sums), which holds the entry the model runs to the kernels that
+    phase 2 checks one by one."""
+    print("backward with a padded head dim: padded once against padded "
+          "for each kernel apart (ms):")
+    for tag, dtype, shape in cases:
+        d = shape["d"]
+        built = {fa.padded_head_dim(d, fa._design(dtype, d, kern), kern)
+                 for kern in ("dq", "dkv")}
+        if built == {d}:
+            continue
+        g = torch.Generator(device="cuda").manual_seed(2)
+        q, k, v, do = (torch.randn(shape["b"], shape["s"], shape["h"], d,
+                                   generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
+
+        def apart():
+            lse = fa._lse_from_stats(m.float(), l.float()).contiguous()
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            dq, (dk, dv) = (fa._launch(kern, fa._design(dtype, d, kern),
+                                       (q, k, v, do), lse,
+                                       delta.contiguous(), True, 0, 0)
+                            for kern in ("dq", "dkv"))
+            return dq, dk, dv
+        for mine, theirs in zip(fa.flash_attention_bwd(q, k, v, o, m, l, do),
+                                apart()):
+            if not torch.equal(mine, theirs):
+                raise AssertionError(
+                    f"{tag}: the backward padded once differs from the "
+                    f"kernels padded apart by "
+                    f"{(mine.float() - theirs.float()).abs().max().item()}")
+        once = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do),
+                       20)
+        twice = time_ms(apart, 20)
+        print(f"  {tag:<10} at {sorted(built)}: once {once:.4f}, apart "
+              f"{twice:.4f} ({twice / once:.2f}x)")
+        del q, k, v, do, o, m, l
+    torch.cuda.empty_cache()
 
 
 # The full-width LM of phase 4 (bench.py's), at a depth given per phase.

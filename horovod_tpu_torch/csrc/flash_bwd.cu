@@ -26,10 +26,10 @@
 // products where the forward does 2). This first version runs them as fp32
 // FMAs from fp32 shared-memory tiles (149 KB for dq and 166 KB for dk/dv
 // at D=128, one block per SM), so the fp32 rate is its ceiling. For bf16
-// and fp16 at head dims 33 to 256, flash_dkv_sm90.cu (wgmma on 16-bit
-// tiles fed by TMA) replaces the dk/dv kernel, and for bf16 at head dims
-// 64 and 128 flash_dq_sm90.cu the dq kernel; these serve the rest: fp32,
-// fp16 dq, the head dims 16, 32, 96, 256, 384, 512 and any multiple of 64
+// and fp16 at head dims 33 to 256, flash_dkv_sm90.cu and flash_dq_sm90.cu
+// (wgmma on 16-bit tiles fed by TMA) replace both kernels; these serve
+// the rest: fp32 (at the head dims 16, 32, 64, 96, 128, 256, 384, 512),
+// 16-bit inputs at D 16 and 32 and 384 and 512, and any multiple of 64
 // past 512 (the wrapper zero-pads any other D to the next of these and
 // passes the scale of the true D).
 //

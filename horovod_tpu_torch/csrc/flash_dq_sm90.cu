@@ -1,20 +1,21 @@
-// Flash-attention dq backward for Hopper's tensor cores (sm_90a), bf16 at head
-// dims 64 and 128.
+// Flash-attention dq backward for Hopper's tensor cores (sm_90a), bf16 and
+// fp16 at head dims 64, 128 and 256.
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` (with the shared recompute
 // `_recompute_p_ds`) in horovod_tpu/parallel/flash_attention.py, launched by
-// `_flash_bwd_bhsd`, as flash_dq_kernel in flash_bwd.cu does for every other
-// input (fp32, fp16, the other head dims). Same function: for every visible (q, k) pair recompute
-// p = exp(s - lse) and ds = p (dp - delta) scale from q, k, v, do and the
-// forward's per-row lse (+inf on rows that saw no key, so p is exactly 0
-// there) and delta = rowsum(do * o); then dq = sum over k of ds k,
-// accumulated in fp32 and written in bf16.
+// `_flash_bwd_bhsd`, as flash_dq_kernel in flash_bwd.cu does for fp32, the
+// head dims up to 32 and those past 256. Same function: for every visible
+// (q, k) pair recompute p = exp(s - lse) and ds = p (dp - delta) scale from
+// q, k, v, do and the forward's per-row lse (+inf on rows that saw no key,
+// so p is exactly 0 there) and delta = rowsum(do * o); then dq = sum over k
+// of ds k, accumulated in fp32 and written in the input's type.
 //
 // What bounds it on this card. Three matrix products per visible pair (s, dp,
 // ds k) against five [B, S, H, D] tensors moved: at the main path's shape
 // (B=4, S=2048, H=16, D=128, causal) 1.03e11 operations over 168 MB, about
 // 600 operations per byte, twice the card's balance point of about 295
-// (989 TFLOP/s of bf16 over 3.35 TB/s): the tensor cores are the limit.
+// (989 TFLOP/s of bf16 or fp16 over 3.35 TB/s): the tensor cores are the
+// limit. At D 256 (Gemma-7B's heads) the same count holds per byte.
 //
 // Design. One CTA per (128-row q tile, batch*head), heaviest causal tiles
 // first (the q tile index runs backwards along grid.y, so the short rows form
@@ -22,30 +23,43 @@
 // - a producer, which gives its registers away (setmaxnreg) and whose one
 //   elected thread issues every copy as a TMA load through 4-D tensor maps
 //   over [B, S, H, D]: the Q and dO tiles once, on one barrier, then K and V
-//   through a three-stage ring of 64-row kv tiles guarded by full/empty
-//   mbarriers, from kv tile 0 up to the causal reach of the q tile (on an
-//   H100 a third stage took 4.4% off the two-stage time and a fourth
-//   added nothing: horovod_tpu_torch/tools/dq_stages.py);
+//   through a three-stage ring of kv stages guarded by full/empty
+//   mbarriers, from kv stage 0 up to the causal reach of the q tile (on an
+//   H100 a third stage took 4.4% off the two-stage time at D 128 and a
+//   fourth added nothing: horovod_tpu_torch/tools/dq_stages.py);
 // - two consumers, each owning 64 q rows (wgmma's M), which take the
 //   registers and keep their rows' lse (pre-scaled by log2 e) and delta in
-//   them. Per kv tile, so that at most dQ, S, dP and the bf16 operand are
-//   live (64 + 32 + 32 floats and 16 bf16 pairs a thread at D=128):
-//     S = Q K^T and dP = dO V^T  (m64n64k16, both operands K-major in smem,
-//                                 in one commit group so that they overlap)
-//     P = exp(S scale - lse)     (masked only on tiles that cross the
+//   them. Per kv stage of kKeys keys, so that at most dQ, S, dP and the
+//   16-bit operand are live:
+//     S = Q K^T and dP = dO V^T  (m64 n kKeys k16, both operands K-major in
+//                                 smem, in one commit group so that they
+//                                 overlap)
+//     P = exp(S scale - lse)     (masked only on stages that cross the
 //                                 diagonal or the ragged end of Sk: TMA
 //                                 zero-fills keys past Sk, and the p of a
 //                                 zero score is not zero)
-//     dS = P (dP - delta) scale  (to bf16 in registers as wgmma's A)
-//     dQ += dS K                 (K from smem as an MN-major B, so K is
-//                                 never transposed)
-//   A kv tile wholly in the future of a consumer's 64 rows is waited for and
-//   released without a product.
+//     dS = P (dP - delta) scale  (to the input's type in registers as
+//                                 wgmma's A)
+//     dQ += dS K                 (m64 n D k16, K from smem as an MN-major B
+//                                 over its D / 64 swizzled column regions,
+//                                 so K is never transposed)
+//   A kv stage wholly in the future of a consumer's 64 rows is waited for
+//   and released without a product.
 // Each CTA owns its dq rows: no atomics, no second pass. A CTA that sees no
-// kv tile loads nothing, waits on no barrier and writes dq = 0. bf16 ds is
+// kv stage loads nothing, waits on no barrier and writes dq = 0. 16-bit ds is
 // what the reference's dots take on the TPU by default; the checks allow for
-// exactly that rounding. At D=128 shared memory holds Q 32 KB + dO 32 KB +
-// 3 x (K 16 KB + V 16 KB) = 160 KB.
+// exactly that rounding, in the input's type (bf16 or fp16).
+// Shared memory and registers by head dim (a consumer thread holds dQ, D/2
+// fp32, S and dP, kKeys/2 each, and dS as kKeys/4 packed pairs):
+//   D 64, 128: 64-key stages. At D 128, Q 32 KB + dO 32 KB + 3 x (K 16 KB +
+//     V 16 KB) = 160 KB; dQ 64 + S 32 + dP 32 + dS 16 registers.
+//   D 256: 64-key stages would need Q 64 KB + dO 64 KB + 3 x (K 32 KB + V
+//     32 KB) = 320 KB, and dQ 128 + S 32 + dP 32 + dS 16 registers, so the
+//     stages are 32 keys: Q 128x256x2 = 65,536 B + dO 65,536 B + 3 x (K
+//     32x256x2 = 16,384 B + V 16,384 B) = 229,376 B (plus the barriers and
+//     the 1 KB alignment pad: 230,456 of 232,448); dQ 128 + S 16 + dP 16 +
+//     dS 8 registers, under the 240 that setmaxnreg gives a consumer. S and
+//     dP are m64n32k16 products, dQ += dS K two m64n256k16 ones per stage.
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -55,13 +69,19 @@ namespace {
 using namespace sm90;
 
 constexpr int kRows = 128;  // q rows of a CTA
-constexpr int kKeys = 64;   // keys of a stage
 constexpr int kStages = 3;
+
+// Keys of a kv stage at head dim D (see the header).
+template <int D>
+constexpr int dq_keys() {
+  return D <= 128 ? 64 : 32;
+}
 
 template <int D>
 struct DqSmem {
-  static constexpr int kRegionQ = kRows * 128;  // [128][64] bf16
-  static constexpr int kRegionK = kKeys * 128;  // [64][64] bf16
+  static constexpr int kKeys = dq_keys<D>();
+  static constexpr int kRegionQ = kRows * 128;   // [128][64] 16-bit
+  static constexpr int kRegionK = kKeys * 128;   // [kKeys][64] 16-bit
   static constexpr int kTileQ = (D / 64) * kRegionQ;
   static constexpr int kTileK = (D / 64) * kRegionK;
   static constexpr int kQ = 0;
@@ -71,19 +91,21 @@ struct DqSmem {
   static constexpr int kBar = kV + kStages * kTileK;
   // q_full, full[kStages], empty[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+  static_assert(kBytes + 1024 <= 232448, "dq tiles exceed shared memory");
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(384, 1)
     flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk,
-                  int q_off, int k_off, int causal, float scale) {
+                  const float* __restrict__ delta, T* __restrict__ dq, int H,
+                  int Sq, int Sk, int q_off, int k_off, int causal,
+                  float scale) {
   using L = DqSmem<D>;
+  constexpr int kKeys = L::kKeys;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -95,7 +117,7 @@ __global__ void __launch_bounds__(384, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   int nk = (Sk + kKeys - 1) / kKeys;
   if (causal) {
-    // kv tile j is visible while k_off + 64 j <= q_off + q0 + 127.
+    // kv stage j is visible while k_off + kKeys j <= q_off + q0 + 127.
     const long long reach = (long long)q_off + q0 + kRows - 1 - k_off;
     nk = min(nk, reach < 0 ? 0 : (int)(reach / kKeys) + 1);
   }
@@ -172,33 +194,33 @@ __global__ void __launch_bounds__(384, 1)
       bar_wait(&full[st], ph);
       if (!causal || k_off + k0 <= first_qpos + 63) {
         // S = Q K^T and dP = dO V^T, in one commit group.
-        float s[32], dp[32];
+        float s[kKeys / 2], dp[kKeys / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t a_off = (kk / 4) * L::kRegionQ + (kk % 4) * 32;
           const uint32_t b_off = (kk / 4) * L::kRegionK + (kk % 4) * 32;
-          wgmma_ss<64>(s, desc_sw128(q_base + a_off, 16),
-                       desc_sw128(k_base + b_off, 16), kk > 0);
+          wgmma_ss<kKeys, T>(s, desc_sw128(q_base + a_off, 16),
+                             desc_sw128(k_base + b_off, 16), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t a_off = (kk / 4) * L::kRegionQ + (kk % 4) * 32;
           const uint32_t b_off = (kk / 4) * L::kRegionK + (kk % 4) * 32;
-          wgmma_ss<64>(dp, desc_sw128(do_base + a_off, 16),
-                       desc_sw128(v_base + b_off, 16), kk > 0);
+          wgmma_ss<kKeys, T>(dp, desc_sw128(do_base + a_off, 16),
+                             desc_sw128(v_base + b_off, 16), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
 
-        // P, masked only on tiles that cross the diagonal or the ragged end
+        // P, masked only on stages that cross the diagonal or the ragged end
         // of Sk; then dS = P (dP - delta) scale in place of S.
         const bool masked = k0 + kKeys > Sk ||
                             (causal && k_off + k0 + kKeys - 1 > first_qpos);
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < kKeys / 2; ++e) {
           const int i = (e / 2) % 2;
           float p = exp2f(fmaf(s[e], scale_log2, -lse_r[i]));
           if (masked) {
@@ -209,9 +231,10 @@ __global__ void __launch_bounds__(384, 1)
           }
           s[e] = p * (dp[e] - delta_r[i]) * scale;
         }
-        uint32_t op[16];
+        uint32_t op[kKeys / 4];
 #pragma unroll
-        for (int e = 0; e < 16; ++e) op[e] = pack2<__nv_bfloat16>(s[2 * e], s[2 * e + 1]);
+        for (int e = 0; e < kKeys / 4; ++e)
+          op[e] = pack2<T>(s[2 * e], s[2 * e + 1]);
 
         // dQ += dS K.
         fence_regs(acc);
@@ -221,8 +244,8 @@ __global__ void __launch_bounds__(384, 1)
         for (int kk = 0; kk < kKeys / 16; ++kk) {
           const uint32_t a[4] = {op[4 * kk], op[4 * kk + 1], op[4 * kk + 2],
                                  op[4 * kk + 3]};
-          wgmma_rs<D>(acc, a, desc_sw128(k_base + kk * 16 * 128, L::kRegionK),
-                      1);
+          wgmma_rs<D, T>(acc, a,
+                         desc_sw128(k_base + kk * 16 * 128, L::kRegionK), 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -237,47 +260,64 @@ __global__ void __launch_bounds__(384, 1)
     for (int i = 0; i < 2; ++i) {
       const int row = q0 + row0 + 8 * i;
       if (row >= Sq) continue;
-      __nv_bfloat16* out = dq + ((size_t)(b * Sq + row) * H + h) * D + col;
+      T* out = dq + ((size_t)(b * Sq + row) * H + h) * D + col;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj) =
-            __floats2bfloat162_rn(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+        store2<T>(out + 8 * jj, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, int B, int H,
                 int Sq, int Sk, int q_off, int k_off, int causal,
                 float scale, cudaStream_t stream) {
+  constexpr int kKeys = dq_keys<D>();
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd(&tq, q, B, Sq, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, Sq, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, Sk, H, D, kKeys);
-  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, Sk, H, D, kKeys);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tdo, dout, B, Sq, H, D, kRows);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kKeys);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kKeys);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  return launch_ws(flash_dq_sm90<D>, grid, DqSmem<D>::kBytes + 1024, stream,
+  return launch_ws(flash_dq_sm90<T, D>, grid, DqSmem<D>::kBytes + 1024, stream,
                    tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-                   (__nv_bfloat16*)dq, H, Sq, Sk, q_off, k_off, causal,
-                   scale);
+                   (T*)dq, H, Sq, Sk, q_off, k_off, causal, scale);
+}
+
+template <typename T>
+cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
+                        const void* g, const void* lse, const void* delta,
+                        void* dq, int B, int H, int Sq, int Sk, int qo,
+                        int ko, int causal, float sc, cudaStream_t st) {
+  switch (D) {
+    case 64: return run<T, 64>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 128: return run<T, 128>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 256: return run<T, 256>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace hvdt
 
-// q, k, v, do: contiguous bf16 [B, S, H, D] with 16-byte-aligned bases; D is
-// 64 or 128. lse, delta: fp32 [B, H, Sq]. dq: bf16 [B, Sq, H, D].
-extern "C" int hvdt_flash_dq_sm90(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dq, int B, int H,
-                                  int Sq, int Sk, int D, int q_off, int k_off,
-                                  int causal, float scale, void* stream) {
+// dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v, do: contiguous [B, S, H, D]
+// of that type with 16-byte-aligned bases; D is 64, 128 or 256. lse, delta:
+// fp32 [B, H, Sq]. dq: [B, Sq, H, D] of that type.
+extern "C" int hvdt_flash_dq_sm90(int dtype, const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dq,
+                                  int B, int H, int Sq, int Sk, int D,
+                                  int q_off, int k_off, int causal,
+                                  float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 64: return hvdt::run<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
-    case 128: return hvdt::run<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, q_off, k_off, causal, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype == hvdt::kBFloat16)
+    return hvdt::run_for_dim<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq,
+                                            B, H, Sq, Sk, q_off, k_off, causal,
+                                            scale, st);
+  if (dtype == hvdt::kFloat16)
+    return hvdt::run_for_dim<__half>(D, q, k, v, dout, lse, delta, dq, B, H,
+                                     Sq, Sk, q_off, k_off, causal, scale, st);
+  return cudaErrorInvalidValue;
 }

@@ -24,11 +24,11 @@
 // tensor-core rate (989 TFLOP/s) that the bound is stated against; its
 // 113 KB of shared memory at D=128 also allows one block (8 warps) per SM.
 // flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
-// tiles fed by TMA) for bf16 and fp16 at head dims 33 to 256; this
-// kernel serves fp32 inputs and the other head dims (16, 32, 384, 512 and
-// any multiple of 64 past 512; the wrapper zero-pads any other D to the
-// next of these and passes the scale of the true D). At D = 256 its three
-// [64][257] tiles and the score tile take 209 KB of shared memory, within
+// tiles fed by TMA) for bf16 and fp16 at head dims 33 to 512; this
+// kernel serves fp32 inputs, 16-bit ones at D 16 and 32, and any multiple
+// of 64 past 512 (the wrapper zero-pads any other D to the next built one
+// and passes the scale of the true D). At D = 256 its three [64][257]
+// tiles and the score tile take 209 KB of shared memory, within
 // the 227 KB a block may have, so the forward keeps its 64-row tiles
 // there; at D 384 and 512 it owns 32 q rows and walks 32-key tiles (201
 // KB at D 512); past D 512 it splits the head dim into 64-column chunks

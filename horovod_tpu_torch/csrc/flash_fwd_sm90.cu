@@ -1,10 +1,11 @@
 // Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 and fp16
-// at head dims 64, 128 and 256.
+// at head dims 64, 128, 256, 384 and 512.
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
 // (launched by `_flash_bhsd`), as flash_fwd.cu does for fp32, the head dims
-// up to 32 and those past 256. Same function and contract: an online softmax whose running max
-// m, normalizer l and output accumulator stay in fp32; runtime offsets give
+// up to 32 and those past 512. Same function and contract: an online
+// softmax whose running max m, normalizer l and output accumulator stay in
+// fp32; runtime offsets give
 // the global positions of q[0] and k[0]; kv tiles wholly in the future of a
 // q tile are skipped; rows that see no key give o = 0, m = -1e30, l = 0;
 // [B, S, H, D] is read in place and the stats are written as [B, H, S].
@@ -14,15 +15,15 @@
 // move, above the card's balance point of about 295 (989 TFLOP/s of bf16
 // over 3.35 TB/s): the tensor cores, not the memory, are the limit.
 //
-// Design. One CTA per (128-row q tile, batch*head), heaviest causal tiles
-// first (the q tile index runs backwards along grid.y, so the short rows
-// form the tail wave). Three warpgroups:
+// Design. One CTA per (128-row q tile, batch*head, part of O's head dim),
+// heaviest causal tiles first (the q tile index runs backwards along grid.y,
+// so the short rows form the tail wave). Three warpgroups:
 // - a producer, which gives its registers away (setmaxnreg) and whose one
 //   elected thread issues every copy as a TMA load through 4-D tensor maps
-//   over [B, S, H, D]: the Q tile once, then K and V through a two-stage
-//   ring of 128-row tiles guarded by full/empty mbarriers;
+//   over [B, S, H, D]: the Q tile once, then K and the CTA's columns of V
+//   through a two-stage ring of kv tiles guarded by full/empty mbarriers;
 // - two consumers, each owning 64 q rows (wgmma's M), which take the
-//   registers. Per kv tile: S = Q K^T as m64n128k16 wgmmas from shared
+//   registers. Per kv tile: S = Q K^T as m64 n kKv k16 wgmmas from shared
 //   memory; the online softmax on the accumulator fragments in registers
 //   (row max by two quad shuffles; l summed from the unrounded fp32 p); P
 //   converted to the input's type in registers and fed to O += P V as
@@ -31,15 +32,28 @@
 // A 16-bit p is what the reference's own dots take on the TPU by default
 // (16-bit multiplies, f32 accumulation); the checks allow for exactly that
 // rounding, in the input's type (bf16 or fp16).
-// Shared memory and registers by head dim (a consumer thread holds O, D/2
-// fp32, the scores S, kKv/2, and P as kKv/4 packed pairs):
-//   D 64, 128: 128-row kv stages. At D=128, Q 32 KB + K 2x32 KB + V 2x32
-//     KB = 160 KB; O 64 + S 64 + P 32 registers.
+// Shared memory and registers by head dim (a consumer thread holds its
+// part of O, kOut/2 fp32 for a part kOut columns wide, the scores S, kKv/2,
+// and P as kKv/4 packed pairs):
+//   D 64, 128: 128-row kv stages, O whole. At D=128, Q 32 KB + K 2x32 KB +
+//     V 2x32 KB = 160 KB; O 64 + S 64 + P 32 registers.
 //   D 256: 128-row stages would need Q 64 KB + K 2x64 KB + V 2x64 KB =
 //     320 KB, so the kv stages are 64 rows: Q 128x256x2 = 65,536 B, K
 //     2x64x256x2 = 65,536 B, V 65,536 B, 196,608 B in all (plus the
 //     barriers and the 1 KB alignment pad); O 128 + S 32 + P 16 registers,
 //     under the 240 that setmaxnreg gives a consumer.
+//   D 384, 512: one consumer's whole O would be 64 x D / 128 = 192 or 256
+//     registers, past the 240, so O's head dim is split in two halves
+//     across grid.z (kOut = 192 or 256 columns). Each CTA holds Q at full
+//     D, streams K at full D and its half of V in 32-row kv stages,
+//     recomputes S over the whole D (the two halves pay S twice: 1.5x the
+//     forward's products) and accumulates only its half of O; both halves
+//     compute the same m and l, and the z = 0 CTA writes them. At D 512:
+//     Q 128x512x2 = 131,072 B + 2 x (K 32x512x2 = 32,768 B + V half
+//     32x256x2 = 16,384 B) = 229,376 B (230,456 with the barriers and the
+//     pad, of 232,448); O 128 + S 16 + P 8 registers. At D 384: 98,304 +
+//     2 x (24,576 + 12,288) = 172,032 B; O 96 + S 16 + P 8 registers, and
+//     O += P V is an m64n192k16 product.
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -54,20 +68,28 @@ constexpr int kStages = 2;
 // Rows of a kv stage at head dim D (see the header).
 template <int D>
 constexpr int kv_rows() {
-  return D <= 128 ? 128 : 64;
+  return D <= 128 ? 128 : D <= 256 ? 64 : 32;
+}
+
+// Columns of O that one CTA accumulates: all of D up to 256, half past it.
+template <int D>
+constexpr int out_cols() {
+  return D <= 256 ? D : D / 2;
 }
 
 template <int D>
 struct FwdSmem {
   static constexpr int kKv = kv_rows<D>();
+  static constexpr int kOut = out_cols<D>();
   static constexpr int kRegionQ = kRows * 128;        // [128][64] 16-bit
   static constexpr int kRegionKv = kKv * 128;         // [kKv][64]
   static constexpr int kTileQ = (D / 64) * kRegionQ;  // [128][D]
-  static constexpr int kTileKv = (D / 64) * kRegionKv;
+  static constexpr int kTileK = (D / 64) * kRegionKv;
+  static constexpr int kTileV = (kOut / 64) * kRegionKv;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTileQ;
-  static constexpr int kV = kK + kStages * kTileKv;
-  static constexpr int kBar = kV + kStages * kTileKv;
+  static constexpr int kV = kK + kStages * kTileK;
+  static constexpr int kBar = kV + kStages * kTileV;
   // q_full, k_full[2], v_full[2], kv_empty[2]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
   static_assert(kBytes + 1024 <= 232448, "forward tiles exceed shared memory");
@@ -82,7 +104,7 @@ __global__ void __launch_bounds__(384, 1)
                    float* __restrict__ l_out, int H, int Sq, int Sk,
                    int q_off, int k_off, int causal, float scale) {
   using L = FwdSmem<D>;
-  constexpr int kKv = L::kKv;
+  constexpr int kKv = L::kKv, kOut = L::kOut;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -93,6 +115,7 @@ __global__ void __launch_bounds__(384, 1)
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int c0 = blockIdx.z * kOut;  // the first column of O this CTA owns
   int nk = (Sk + kKv - 1) / kKv;
   if (causal) {
     // kv tile j is visible while k_off + kKv j <= q_off + q0 + 127.
@@ -124,15 +147,15 @@ __global__ void __launch_bounds__(384, 1)
         const int st = j % kStages;
         // Stage st is free once the consumers released load j - 2.
         if (j >= kStages) bar_wait(&kv_empty[st], ((j / kStages) & 1) ^ 1);
-        uint8_t* kt = smem + L::kK + st * L::kTileKv;
-        uint8_t* vt = smem + L::kV + st * L::kTileKv;
-        bar_arrive_tx(&k_full[st], L::kTileKv);
+        uint8_t* kt = smem + L::kK + st * L::kTileK;
+        uint8_t* vt = smem + L::kV + st * L::kTileV;
+        bar_arrive_tx(&k_full[st], L::kTileK);
         for (int r = 0; r < D / 64; ++r)
           tma_load_4d(kt + r * L::kRegionKv, &tk, &k_full[st], 64 * r, h,
                       j * kKv, b);
-        bar_arrive_tx(&v_full[st], L::kTileKv);
-        for (int r = 0; r < D / 64; ++r)
-          tma_load_4d(vt + r * L::kRegionKv, &tv, &v_full[st], 64 * r, h,
+        bar_arrive_tx(&v_full[st], L::kTileV);
+        for (int r = 0; r < kOut / 64; ++r)
+          tma_load_4d(vt + r * L::kRegionKv, &tv, &v_full[st], c0 + 64 * r, h,
                       j * kKv, b);
       }
     }
@@ -146,16 +169,16 @@ __global__ void __launch_bounds__(384, 1)
     const uint32_t q_base = smem_u32(smem + L::kQ) + c * 64 * 128;
     const int first_qpos = q_off + q0 + 64 * c;
 
-    float acc[D / 2];
+    float acc[kOut / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kOut / 2; ++i) acc[i] = 0.f;
     float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
 
     bar_wait(q_full, 0);
     for (int j = 0; j < nk; ++j) {
       const int st = j % kStages, ph = (j / kStages) & 1;
-      const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTileKv);
-      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileKv);
+      const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTileK);
+      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileV);
       const int k0 = j * kKv;
 
       float s[kKv / 2];
@@ -213,7 +236,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
       for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
 #pragma unroll
-      for (int n = 0; n < D / 2; ++n) acc[n] *= corr[(n / 2) % 2];
+      for (int n = 0; n < kOut / 2; ++n) acc[n] *= corr[(n / 2) % 2];
       uint32_t pa[kKv / 4];
 #pragma unroll
       for (int n = 0; n < kKv / 4; ++n) pa[n] = pack2<T>(s[2 * n], s[2 * n + 1]);
@@ -226,8 +249,8 @@ __global__ void __launch_bounds__(384, 1)
       for (int kk = 0; kk < kKv / 16; ++kk) {
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                pa[4 * kk + 3]};
-        wgmma_rs<D, T>(acc, a, desc_sw128(v_base + kk * 16 * 128, L::kRegionKv),
-                       1);
+        wgmma_rs<kOut, T>(acc, a,
+                          desc_sw128(v_base + kk * 16 * 128, L::kRegionKv), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -243,12 +266,12 @@ __global__ void __launch_bounds__(384, 1)
       const int row = q0 + row0 + 8 * i;
       if (row >= Sq) continue;
       const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
-      T* orow = o + ((size_t)(b * Sq + row) * H + h) * D + col;
+      T* orow = o + ((size_t)(b * Sq + row) * H + h) * D + c0 + col;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj)
+      for (int jj = 0; jj < kOut / 8; ++jj)
         store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv,
                   acc[4 * jj + 2 * i + 1] * inv);
-      if (lane % 4 == 0) {
+      if (blockIdx.z == 0 && lane % 4 == 0) {
         m_out[(size_t)bh * Sq + row] = m_i[i];
         l_out[(size_t)bh * Sq + row] = l_i[i];
       }
@@ -266,7 +289,7 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
   if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kKv);
   if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kKv);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows, D / out_cols<D>());
   return launch_ws(flash_fwd_sm90<T, D>, grid, FwdSmem<D>::kBytes + 1024,
                    stream, tq, tk, tv, (T*)o, (float*)m, (float*)l, H, Sq, Sk,
                    q_off, k_off, causal, scale);
@@ -281,6 +304,8 @@ cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
     case 64: return run<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 128: return run<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 256: return run<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 384: return run<T, 384>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 512: return run<T, 512>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -289,9 +314,9 @@ cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace hvdt
 
 // dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v: contiguous [B, S, H, D] of
-// that type with 16-byte-aligned bases; D is 64, 128 or 256. o: [B, Sq, H,
-// D] of that type; m, l: fp32 [B, H, Sq]. scale multiplies the logits
-// (1/sqrt of the head dim before any zero padding of D).
+// that type with 16-byte-aligned bases; D is 64, 128, 256, 384 or 512. o:
+// [B, Sq, H, D] of that type; m, l: fp32 [B, H, Sq]. scale multiplies the
+// logits (1/sqrt of the head dim before any zero padding of D).
 extern "C" int hvdt_flash_fwd_sm90(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* m, void* l,
                                    int B, int H, int Sq, int Sk, int D,

@@ -4,35 +4,38 @@ Counterpart of ``horovod_tpu/parallel/flash_attention.py`` (public
 contract :436-566). The three Pallas kernels there have hand-written
 CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
 
-- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 33-256)
+- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 33-512)
                                 or ``flash_fwd.cu``     via :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16, D 64/128)
-                                or ``flash_bwd.cu``     via :func:`_flash_dq`
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 33-256)
+                                or ``flash_bwd.cu``     via :func:`_flash_bwd`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 33-256)
-                                or ``flash_bwd.cu``     via :func:`_flash_dkv`
+                                or ``flash_bwd.cu``     via :func:`_flash_bwd`
 
 :func:`_design` picks each kernel's design from the dtype and head dim
 alone, before any launch. The ``sm90`` kernels (wgmma on 16-bit tiles fed
-by TMA, warp-specialised) are built at head dims 64, 128 and 256
-(``SM90_HEAD_DIMS``): the forward and dk/dv take bf16 and fp16 at any head
-dim in (32, 256], dq takes bf16 whose head dim pads to 64 or 128 on the
-simt ladder. The ``simt`` kernels (fp32 FMAs from fp32 shared-memory
-tiles) take the rest: fp32, fp16 dq, D <= 32, D > 256, and dq at the
-other head dims. They are built at ``HEAD_DIMS`` (16 to 512; their tiles
-shrink as D grows so that a block's shared memory holds them, the
-counterpart of the reference's ``_ladders_for``) and at any multiple of
-64 past 512, where each block computes one 64-column chunk of the output
-and streams the logits' reductions over D through 64-wide tiles
+by TMA, warp-specialised) take bf16 and fp16: dq and dk/dv at any head dim
+in (32, 256], built at 64, 128 and 256 (``SM90_HEAD_DIMS``), the forward
+at any head dim in (32, 512], built at those and at 384 and 512
+(``SM90_KERNEL_DIMS``; past 256 each CTA accumulates one half of O's head
+dim). The ``simt`` kernels (fp32 FMAs from fp32 shared-memory tiles) take
+the rest: fp32, D <= 32, dq and dk/dv past 256 and the forward past 512.
+They are built at ``HEAD_DIMS`` (16 to 512; their tiles shrink as D grows
+so that a block's shared memory holds them, the counterpart of the
+reference's ``_ladders_for``) and at any multiple of 64 past 512, where
+each block computes one 64-column chunk of the output and streams the
+logits' reductions over D through 64-wide tiles
 (``csrc/flash_common.cuh`` works the bytes out). Like the reference, a
-CUDA call takes any head dim: one that the design's kernels are not built
+CUDA call takes any head dim: one that the kernel's design is not built
 for runs at the next one that is (:func:`padded_head_dim`), with q, k, v
 (and do) zero-padded along D, the scale of the true D, and the outputs
 sliced back (:func:`_on_padded_head_dim`); zero columns leave q.k^T
 unchanged and the padded columns of v give output columns that are cut
-away. So D 80 runs the forward at 128 and dq at 96, and D 200 the forward
-at 256. The sm90 kernels read their inputs through TMA and need 16-byte
-aligned bases; a misaligned CUDA tensor raises, it never falls back to
-the other design.
+away. So bf16 D 80 runs all three kernels at 128, D 200 at 256 and D 320
+the forward at 384 (sm90) and the backward at 384 (simt). The backward
+pads q, k, v and do once for both of its kernels (:func:`_flash_bwd`).
+The sm90 kernels read their inputs through TMA and need 16-byte aligned
+bases; a misaligned CUDA tensor raises, it never falls back to the other
+design.
 
 Each launcher counts its launches (``launch_counts()``: ``flash_fwd``,
 ``flash_fwd_sm90``, ``flash_dq``, ``flash_dq_sm90``, ``flash_dkv``,
@@ -72,8 +75,13 @@ BLOCK = 64   # the sequence granularity of the kernels' tiles
 # multiple of CHUNK (each block computes one CHUNK-wide slice of D)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256, 384, 512)
 CHUNK = 64
-SM90_HEAD_DIMS = (64, 128, 256)   # head dims of the wgmma/TMA kernels
+SM90_HEAD_DIMS = (64, 128, 256)   # head dims all three sm90 kernels take
 KERNELS = ("fwd", "dq", "dkv")
+# What the sm90 kernels take: their dtypes, and the head dims each one is
+# built for (its dispatcher pads any other head dim up to one of them).
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_KERNEL_DIMS = {"fwd": SM90_HEAD_DIMS + (384, 512),
+                    "dq": SM90_HEAD_DIMS, "dkv": SM90_HEAD_DIMS}
 
 # Launches of each kernel since the last reset_launch_counts().
 flash_fwd_launches = 0
@@ -115,39 +123,54 @@ def _next_built(d: int, built) -> int:
     return next(b for b in built if d <= b)
 
 
-def padded_head_dim(d: int, design: str) -> int:
-    """The head dim a CUDA call at head dim ``d`` runs the ``design``'s
-    kernels at: ``d`` itself when one is built for it, else the next one
-    that is. sm90: 64, 128 or 256 (the dispatchers send it nothing
-    larger); simt: ``HEAD_DIMS`` up to 512, then the next multiple of
-    ``CHUNK``, so it never refuses a head dim there."""
+def padded_head_dim(d: int, design: str, kernel: str) -> int:
+    """The head dim a CUDA call at head dim ``d`` runs ``kernel``'s
+    ``design`` at: ``d`` itself when one is built for it, else the next
+    one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (64 to 512 for the
+    forward, to 256 for dq and dk/dv), which raises past the largest (the
+    dispatchers send it nothing larger); simt, the same for every kernel:
+    ``HEAD_DIMS`` up to 512, then the next multiple of ``CHUNK``, so it
+    never refuses a head dim there."""
     if design == "sm90":
-        if d > SM90_HEAD_DIMS[-1]:
-            raise ValueError(f"head dim {d}: the sm90 kernels take head "
-                             f"dims up to {SM90_HEAD_DIMS[-1]}")
-        return _next_built(d, SM90_HEAD_DIMS)
+        built = SM90_KERNEL_DIMS[kernel]
+        if d > built[-1]:
+            raise ValueError(f"head dim {d}: the sm90 {kernel} kernel takes "
+                             f"head dims up to {built[-1]}")
+        return _next_built(d, built)
     if d <= HEAD_DIMS[-1]:
         return _next_built(d, HEAD_DIMS)
     return -(-d // CHUNK) * CHUNK
 
 
-def _on_padded_head_dim(fn, tensors, *args, design: str):
-    """``fn(*tensors, *args)`` at the head dim :func:`padded_head_dim`
-    gives for ``design``: each ``[B, S, H, D]`` tensor zero-padded along
-    D, the scale that of the true D, and every ``[B, S, H, D']`` output
-    sliced back to D (the ``[B, H, S]`` stats pass through). A layout
-    step in front of the same kernel, which takes the plain versions as
-    well."""
+def _pad_head_dim(tensors, built: int):
+    """Each ``[B, S, H, D]`` tensor zero-padded along D to ``built``."""
     d = tensors[0].shape[-1]
-    built = padded_head_dim(d, design)
     if built == d:
-        return fn(*tensors, *args)
-    out = fn(*(F.pad(t, (0, built - d)) for t in tensors), *args,
-             scale=_softmax_scale(d))
+        return tuple(tensors)
+    return tuple(F.pad(t, (0, built - d)) for t in tensors)
+
+
+def _at_head_dim(fn, padded, d: int, *args):
+    """``fn(*padded, *args)`` on tensors zero-padded from head dim ``d``:
+    the scale that of the true D, and every ``[B, S, H, D']`` output
+    sliced back to D (the ``[B, H, S]`` stats pass through)."""
+    if padded[0].shape[-1] == d:
+        return fn(*padded, *args)
+    out = fn(*padded, *args, scale=_softmax_scale(d))
 
     def cut(x):
         return x[..., :d].contiguous() if x.dim() == 4 else x
     return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+
+def _on_padded_head_dim(fn, tensors, *args, design: str, kernel: str):
+    """``fn(*tensors, *args)`` at the head dim :func:`padded_head_dim`
+    gives for ``kernel``'s ``design``, padded and sliced back by
+    :func:`_pad_head_dim` and :func:`_at_head_dim`. A layout step in
+    front of the same kernel, which takes the plain versions as well."""
+    d = tensors[0].shape[-1]
+    built = padded_head_dim(d, design, kernel)
+    return _at_head_dim(fn, _pad_head_dim(tensors, built), d, *args)
 
 
 def _scores(q, k, causal, q_offset, k_offset, scale=None):
@@ -279,48 +302,30 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# What each sm90 kernel takes: dtypes, and the head dims its dispatcher
-# sends it (after padding). dq's are those whose simt padding is 64 or
-# 128, so D 80 and 96 keep the simt dq at 96.
-SM90_DTYPES = {"fwd": (torch.bfloat16, torch.float16),
-               "dq": (torch.bfloat16,),
-               "dkv": (torch.bfloat16, torch.float16)}
-SM90_KERNEL_DIMS = {"fwd": SM90_HEAD_DIMS, "dq": (64, 128),
-                    "dkv": SM90_HEAD_DIMS}
-
-
 def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The design of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for CUDA
     inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
-    fed by TMA) for the forward and dk/dv at bf16 and fp16 with
-    32 < d <= 256, and for dq at bf16 whose simt head dim is 64 or 128;
-    ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise."""
-    if dtype not in SM90_DTYPES[kernel]:
-        return "simt"
-    if kernel == "dq":
-        sm90 = padded_head_dim(d, "simt") in SM90_KERNEL_DIMS["dq"]
-    else:
-        sm90 = 32 < d <= SM90_HEAD_DIMS[-1]
+    fed by TMA) at bf16 and fp16 with 32 < d <= 512 for the forward and
+    32 < d <= 256 for dq and dk/dv; ``"simt"`` (fp32 FMAs, flash_fwd.cu /
+    flash_bwd.cu) otherwise."""
+    sm90 = dtype in SM90_DTYPES and 32 < d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
 
 
 def _launch(kernel: str, design: str, tensors, *args):
     """``kernel``'s launcher of ``design`` on ``tensors`` and ``args``,
     zero-padded to a head dim it is built for and sliced back."""
-    fn = {("fwd", "sm90"): _flash_fwd_sm90, ("fwd", "simt"): _flash_fwd_simt,
-          ("dq", "sm90"): _flash_dq_sm90, ("dq", "simt"): _flash_dq_simt,
-          ("dkv", "sm90"): _flash_dkv_sm90,
-          ("dkv", "simt"): _flash_dkv_simt}[kernel, design]
-    return _on_padded_head_dim(fn, tensors, *args, design=design)
+    return _on_padded_head_dim(_LAUNCHERS[kernel, design], tensors, *args,
+                               design=design, kernel=kernel)
 
 
-def _cuda_only(name, q):
+def _cuda_only(name, kernel, q):
     """The simt kernels' limits: CUDA tensors at a head dim they are
     built for."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
     d = q.shape[-1]
-    if padded_head_dim(d, "simt") != d:
+    if padded_head_dim(d, "simt", kernel) != d:
         raise ValueError(f"{name}: the kernels are built for head dims "
                          f"{HEAD_DIMS} and the multiples of {CHUNK} past "
                          f"{HEAD_DIMS[-1]}, got {d}")
@@ -338,10 +343,11 @@ def _check_sm90(name, kernel, tensors):
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
-    dtypes, dims = SM90_DTYPES[kernel], SM90_KERNEL_DIMS[kernel]
-    if q.dtype not in dtypes or q.shape[-1] not in dims:
-        raise ValueError(f"{name}: the sm90 kernel takes {dtypes} at head "
-                         f"dims {dims}, got {q.dtype} and {q.shape[-1]}")
+    dims = SM90_KERNEL_DIMS[kernel]
+    if q.dtype not in SM90_DTYPES or q.shape[-1] not in dims:
+        raise ValueError(f"{name}: the sm90 kernel takes {SM90_DTYPES} at "
+                         f"head dims {dims}, got {q.dtype} and "
+                         f"{q.shape[-1]}")
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the sm90 kernel loads through TMA, "
@@ -371,7 +377,7 @@ def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int,
     global flash_fwd_launches
     sq, sk = q.shape[1], k.shape[1]
     b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
-    _cuda_only("flash forward", q)
+    _cuda_only("flash forward", "fwd", q)
     lib = _cuda.load()
     o, m, l = _fwd_outputs(q)
     with torch.cuda.device(q.device):
@@ -388,7 +394,7 @@ def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int,
 def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
     """The wgmma/TMA forward kernel (flash_fwd_sm90.cu): bf16 and fp16,
-    D 64/128/256."""
+    D 64/128/256/384/512."""
     global flash_fwd_sm90_launches
     sq, sk = q.shape[1], k.shape[1]
     b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
@@ -414,23 +420,12 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
     return b, h, sq, sk, d
 
 
-def _flash_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-              k_offset: int):
-    """dq kernel; lse and delta are [B,H,Sq] fp32."""
-    _bwd_inputs("flash dq", q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset,
-                               k_offset)
-    return _launch("dq", _design(q.dtype, q.shape[-1], "dq"),
-                   (q, k, v, do), lse, delta, causal, q_offset, k_offset)
-
-
 def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                    k_offset: int, scale=None):
     """The fp32-FMA dq kernel (flash_bwd.cu), any supported input."""
     global flash_dq_launches
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
-    _cuda_only("flash dq", q)
+    _cuda_only("flash dq", "dq", q)
     lib = _cuda.load()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -446,7 +441,8 @@ def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 
 def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                    k_offset: int, scale=None):
-    """The wgmma/TMA dq kernel (flash_dq_sm90.cu): bf16, D 64/128."""
+    """The wgmma/TMA dq kernel (flash_dq_sm90.cu): bf16 and fp16,
+    D 64/128/256."""
     global flash_dq_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
     _check_sm90("flash dq", "dq", (q, k, v, do))
@@ -454,7 +450,8 @@ def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.hvdt_flash_dq_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
             q_offset, k_offset, int(causal), _scale_arg(q, scale),
             _stream(q))
@@ -463,23 +460,12 @@ def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     return dq
 
 
-def _flash_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-               k_offset: int):
-    """dk/dv kernel; lse and delta are [B,H,Sq] fp32."""
-    _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset,
-                                k_offset)
-    return _launch("dkv", _design(q.dtype, q.shape[-1], "dkv"),
-                   (q, k, v, do), lse, delta, causal, q_offset, k_offset)
-
-
 def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None):
     """The fp32-FMA dk/dv kernel (flash_bwd.cu), any supported input."""
     global flash_dkv_launches
     b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
-    _cuda_only("flash dk/dv", q)
+    _cuda_only("flash dk/dv", "dkv", q)
     lib = _cuda.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -513,6 +499,42 @@ def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     _cuda.check(err, "flash dk/dv sm90 kernel")
     flash_dkv_sm90_launches += 1
     return dk, dv
+
+
+_LAUNCHERS = {("fwd", "sm90"): _flash_fwd_sm90,
+              ("fwd", "simt"): _flash_fwd_simt,
+              ("dq", "sm90"): _flash_dq_sm90, ("dq", "simt"): _flash_dq_simt,
+              ("dkv", "sm90"): _flash_dkv_sm90,
+              ("dkv", "simt"): _flash_dkv_simt}
+
+
+def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+               k_offset: int, launchers=None):
+    """dq and dk/dv kernels: (dq, (dk, dv)); lse and delta are [B,H,Sq]
+    fp32. On CUDA each kernel takes the design :func:`_design` gives it,
+    at the head dim :func:`padded_head_dim` gives that design; q, k, v
+    and do are zero-padded once for each head dim the two run at (today
+    always one), so both kernels read the same padded tensors.
+    ``launchers`` ({(kernel, design): function}, default the kernels'
+    own) lets a test run the plain versions through the same steps."""
+    tensors = (q, k, v, do)
+    args = (lse, delta, causal, q_offset, k_offset)
+    _bwd_inputs("flash backward", *tensors, lse, delta)
+    if q.device.type == "cpu" and launchers is None:
+        return (_flash_dq_plain(*tensors, *args),
+                _flash_dkv_plain(*tensors, *args))
+    launchers = launchers or _LAUNCHERS
+    d = q.shape[-1]
+    padded = {}
+
+    def run(kernel):
+        design = _design(q.dtype, d, kernel)
+        built = padded_head_dim(d, design, kernel)
+        if built not in padded:
+            padded[built] = _pad_head_dim(tensors, built)
+        return _at_head_dim(launchers[kernel, design], padded[built], d,
+                            *args)
+    return run("dq"), run("dkv")
 
 
 # ---------------------------------------------------------------------------
@@ -565,9 +587,8 @@ def flash_attention_bwd(q, k, v, o, m, l, do, causal: bool = True,
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     lse = _lse_from_stats(m.float(), l.float()).contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    qo, ko = _offset(q_offset), _offset(k_offset)
-    dq = _flash_dq(q, k, v, do, lse, delta, bool(causal), qo, ko)
-    dk, dv = _flash_dkv(q, k, v, do, lse, delta, bool(causal), qo, ko)
+    dq, (dk, dv) = _flash_bwd(q, k, v, do, lse, delta, bool(causal),
+                              _offset(q_offset), _offset(k_offset))
     return dq, dk, dv
 
 

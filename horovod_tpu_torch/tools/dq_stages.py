@@ -5,8 +5,8 @@ Builds ``csrc/flash_dq_sm90.cu`` once for each ring depth (``kStages`` =
 ``build/horovod_tpu_torch/dq_stages/``, checks that every depth gives
 exactly the dq of the package's own build, and times the depths in turns
 (2, 3, 4, 4, 3, 2; each a CUDA-event mean of 50 launches) at the main
-path's shape (B=4, S=2048, H=16, D=128, bf16, causal). Run from the root
-of a checkout, on the card:
+path's shape (B=4, S=2048, H=16, D=128, bf16, causal), where the kernel
+runs 64-key stages. Run from the root of a checkout, on the card:
 
     python3 horovod_tpu_torch/tools/dq_stages.py
 """
@@ -81,8 +81,9 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(n):
-        _cuda.check(fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _cuda.check(fns[n](fa._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(),
                            outs[n].data_ptr(), b, h, s, s, d, 0, 0, 1,
                            fa._softmax_scale(d), stream),
                     f"dq with {n} stages")

@@ -85,8 +85,7 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     fa.reset_launch_counts()
     o, m, l = fa._flash_fwd(q, k, v, causal, qo, ko)
     (o_p, m_p, l_p), lse, delta = _stats(q, k, v, do, causal, qo, ko)
-    dq = fa._flash_dq(q, k, v, do, lse, delta, causal, qo, ko)
-    dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, qo, ko)
+    dq, (dk, dv) = fa._flash_bwd(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
     sm90 = {kern: fa._design(dt, d, kern) == "sm90" for kern in fa.KERNELS}
     want = dict.fromkeys(fa.launch_counts(), 0)
@@ -170,9 +169,9 @@ def test_sm90_refuses_a_misaligned_tensor_without_falling_back(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa._flash_fwd(bad, good, good, True, 0, 0)
     with pytest.raises(ValueError, match="16-byte"):
-        fa._flash_dq(good, bad, good, good, st, st, True, 0, 0)
+        fa._flash_bwd(good, bad, good, good, st, st, True, 0, 0)
     with pytest.raises(ValueError, match="16-byte"):
-        fa._flash_dkv(good, good, good, bad, st, st, True, 0, 0)
+        fa._flash_bwd(good, good, good, bad, st, st, True, 0, 0)
     assert not any(fa.launch_counts().values())
 
 
@@ -398,3 +397,62 @@ def test_sm90_wide_kernels_match_plain_versions(cuda, dtype, b, s, h, d,
 @pytest.mark.cuda
 def test_sm90_wide_kernels_with_unequal_lengths(cuda):
     _check_kernels(cuda, torch.float16, 1, 128, 2, 256, True, 256, 0, 384)
+
+
+SM90_DQ_FWD512_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset
+    pytest.param("float16", 2, 256, 2, 256, True, 0, 0, id="fp16_d256"),
+    pytest.param("bfloat16", 1, 320, 2, 256, True, 0, 0,
+                 id="bf16_d256_ragged_q_tile"),
+    pytest.param("float16", 1, 40, 2, 200, True, 0, 0, id="fp16_d200_short"),
+    pytest.param("float16", 2, 128, 2, 80, True, 0, 64, id="fp16_d80_dead"),
+    pytest.param("bfloat16", 1, 256, 2, 96, False, 0, 0,
+                 id="bf16_d96_noncausal"),
+    pytest.param("bfloat16", 1, 192, 2, 384, True, 64, 0,
+                 id="bf16_d384_q_offset"),
+    pytest.param("float16", 2, 128, 2, 512, False, 0, 0,
+                 id="fp16_d512_noncausal"),
+    pytest.param("bfloat16", 1, 256, 2, 320, True, 0, 128,
+                 id="bf16_d320_dead_rows"),
+    pytest.param("float16", 1, 40, 3, 448, True, 0, 0, id="fp16_d448_short"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko", SM90_DQ_FWD512_CASES)
+def test_sm90_dq_and_forward_past_256_match_plain_versions(
+        cuda, dtype, b, s, h, d, causal, qo, ko):
+    """The sm90 dq at fp16 and bf16 from D 33 to 256 (32-key stages at D
+    256; D 80, 96 and 200 zero-padded), and the sm90 forward at D 257-512
+    (O's head dim split across two CTAs; D 320 and 448 zero-padded),
+    against their plain versions with 16-bit operand rounding; the launch
+    counters show which design ran."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 512), ("float16", 256)])
+def test_sm90_dq_and_wide_forward_with_unequal_lengths(cuda, dtype, d):
+    _check_kernels(cuda, getattr(torch, dtype), 1, 128, 2, d, True, 256, 0,
+                   384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 200), ("float16", 80),
+                                     ("float32", 80)])
+def test_backward_pads_once_and_equals_separate_launches(cuda, dtype, d):
+    """flash_attention_bwd pads q, k, v and do once for dq and dk/dv; its
+    gradients equal those of the two kernels launched apart, each on its
+    own padded copies, bit for bit (no atomics: one order of sums)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(cuda, dt, 1, 192, 2, d, 3)
+    o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
+    grads = fa.flash_attention_bwd(q, k, v, o, m, l, do)
+    lse = fa._lse_from_stats(m, l)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (lse, delta, True, 0, 0)
+    dq = fa._launch("dq", fa._design(dt, d, "dq"), (q, k, v, do), *args)
+    dk, dv = fa._launch("dkv", fa._design(dt, d, "dkv"), (q, k, v, do),
+                        *args)
+    for mine, apart in zip(grads, (dq, dk, dv)):
+        assert torch.equal(mine, apart)

@@ -1,0 +1,171 @@
+"""The CPU side of the tensor-core (sm90) dq at fp16 and at head dims up to
+256, and of the sm90 forward at head dims 257-512: the plain versions'
+``operands`` rounding (fp16 ds for the dq; bf16 and fp16 p for the
+forward) that the card's checks compare those kernels with, its agreement
+with the reference's dq and forward (Pallas, interpret mode, blocks of
+32, as tests/test_torch_flash_dq_sm90.py and
+tests/test_torch_flash_head_dims.py run them), the shared tolerance
+(horovod_tpu_torch/utils/tolerance.py), which must pass that rounding and
+fail a dq with one 32-key stage (the D 256 kernel's) left out, and the
+backward's single padding of q, k, v and do for both of its kernels. The
+kernels themselves run on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+
+Tolerances. Rounding ds (or p) to a 16-bit type moves it by at most u =
+2^-8 (bf16) or 2^-11 (fp16) of itself, and an fp16 value below 2^-14
+(subnormal) by at most 2^-25; so dq moves by at most (u |dS| + floor) @
+|K| and o by (u |P| + floor) @ |V| / l: the provable bounds of
+tests/test_torch_flash_sm90_wide.py, plus 1e-6 of fp32 noise. Against the
+reference (fp32 throughout) the rounding is the only difference beyond
+the fp32 bounds of tests/test_parallel.py (2e-5 forward, 1e-4
+gradients).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from horovod_tpu.parallel import flash_attention as ref
+from horovod_tpu_torch.parallel import flash_attention as port
+from horovod_tpu_torch.utils import tolerance
+
+FWD_TOL = 2e-5
+GRAD_TOL = 1e-4
+UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+FLOOR = {torch.bfloat16: 0.0, torch.float16: 2.0 ** -25}
+WIDE_FORWARD = [(torch.bfloat16, 384), (torch.float16, 384),
+                (torch.bfloat16, 512), (torch.float16, 512)]
+
+
+def _values(seed, dtype, d, n=4, b=1, s=128, h=2):
+    """Inputs that are exact values of ``dtype``, held as fp32."""
+    rng = np.random.RandomState(seed)
+    return [torch.tensor(rng.randn(b, s, h, d).astype(np.float32))
+            .to(dtype).float() for _ in range(n)]
+
+
+def _rounding(x, dtype):
+    """The most that rounding ``x`` to ``dtype`` can move each element."""
+    return torch.clamp(UNIT[dtype] * x.abs(), min=FLOOR[dtype])
+
+
+def _jax(*xs):
+    return [jnp.asarray(x.numpy()) for x in xs]
+
+
+def _bwd_args(q, k, v, do, causal=True):
+    o, m, l = port._flash_fwd_plain(q, k, v, causal, 0, 0)
+    lse = port._lse_from_stats(m, l)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (o, m, l), (q, k, v, do, lse, delta, causal, 0, 0)
+
+
+def _dq_limit(args, dtype):
+    """The provable effect of rounding ds to ``dtype`` on dq."""
+    _, ds = port._p_ds_plain(*args)
+    return torch.einsum("bhqk,bkhd->bqhd", _rounding(ds, dtype),
+                        args[1].abs()) + 1e-6
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_dq_fp16_operands_within_provable_bound(causal):
+    _, args = _bwd_args(*_values(0, torch.float16, 256, s=256), causal)
+    dq = port._flash_dq_plain(*args)
+    dq_h = port._flash_dq_plain(*args, operands=torch.float16)
+    assert torch.all((dq_h - dq).abs() <= _dq_limit(args, torch.float16))
+    assert (dq_h - dq).abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype,d", WIDE_FORWARD)
+def test_plain_wide_forward_operands_within_provable_bound(dtype, d):
+    q, k, v = _values(d, dtype, d, n=3)
+    o, m, l = port._flash_fwd_plain(q, k, v, True, 0, 0)
+    o_r, m_r, l_r = port._flash_fwd_plain(q, k, v, True, 0, 0,
+                                          operands=dtype)
+    assert torch.equal(m, m_r) and torch.equal(l, l_r)
+    s, allowed = port._scores(q, k, True, 0, 0)
+    p = torch.exp(s - m[..., None]) * allowed
+    moved = torch.einsum("bhqk,bkhd->bqhd", _rounding(p, dtype) * allowed,
+                         v.abs())
+    limit = moved / l.transpose(1, 2)[..., None] + 1e-6
+    assert torch.all((o_r - o).abs() <= limit)
+    assert (o_r - o).abs().max() > 0
+
+
+def test_plain_fp16_operands_dq_matches_reference():
+    """The reference's dq from the same fp16-valued inputs and stats at D
+    256, fp32 throughout: the rounding of ds is the only difference,
+    inside the provable bound."""
+    (o, m, l), args = _bwd_args(*_values(1, torch.float16, 256))
+    q, k, v, do = args[:4]
+    theirs = ref.flash_attention_bwd(*_jax(q, k, v, o, m, l, do),
+                                     causal=True, block_q=32, block_k=32,
+                                     interpret=True)[0]
+    mine = port._flash_dq_plain(*args, operands=torch.float16)
+    limit = (_dq_limit(args, torch.float16) + GRAD_TOL).numpy()
+    assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)
+
+
+@pytest.mark.parametrize("dtype,d", WIDE_FORWARD)
+def test_plain_wide_forward_operands_match_reference(dtype, d):
+    """The plain forward with 16-bit p against the reference's Pallas
+    forward on the same values at D 384 and 512: the rounding of p moves
+    o by at most (u + floor * S) max|v|."""
+    q, k, v = _values(d + 1, dtype, d, n=3)
+    o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
+                                      block_q=32, block_k=32,
+                                      interpret=True)[0]
+    o_r = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=dtype)[0]
+    limit = (UNIT[dtype] + FLOOR[dtype] * q.shape[1]) * v.abs().amax()
+    np.testing.assert_allclose(o_r.numpy(), np.asarray(o_ref),
+                               atol=limit.item() + FWD_TOL, rtol=0)
+
+
+def test_tolerance_passes_fp16_operands_and_fails_a_lost_32_key_stage():
+    _, args = _bwd_args(*_values(2, torch.float16, 256, s=256))
+    dq = port._flash_dq_plain(*args)
+    dq_h = port._flash_dq_plain(*args, operands=torch.float16)
+    kw = dict(step=tolerance.FP16_STEP, atol=tolerance.DQ_ATOL,
+              plain_b=dq_h)
+    assert tolerance.worst(dq_h, dq, GRAD_TOL, **kw)[1] <= 1.0
+    lost = chip_smoke.dq_without_keys(port, *args[:6], 128, 160)
+    assert tolerance.worst(lost, dq, GRAD_TOL, **kw)[1] > 1.0
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 200),
+                                     (torch.float16, 80),
+                                     (torch.float32, 80),
+                                     (torch.float32, 600)])
+def test_backward_pads_once_bit_identical_on_plain_versions(dtype, d):
+    """``_flash_bwd`` with the plain versions in the kernels' place: dq
+    and dk/dv read the same padded tensors (padded once, at the head dim
+    both run at), and give bit for bit what padding for each apart
+    gives."""
+    q, k, v, do = (x.to(dtype) for x in _values(d + 4, dtype, d, s=64))
+    _, args = _bwd_args(q, k, v, do)
+    plains = {"dq": port._flash_dq_plain, "dkv": port._flash_dkv_plain}
+    seen = []
+
+    def recording(fn):
+        def run(*a, **kw):
+            seen.append(a[:4])
+            return fn(*a, **kw)
+        return run
+    launchers = {(kern, design): recording(fn)
+                 for kern, fn in plains.items()
+                 for design in ("sm90", "simt")}
+    dq, (dk, dv) = port._flash_bwd(*args, launchers=launchers)
+    built = {port.padded_head_dim(d, port._design(dtype, d, kern), kern)
+             for kern in plains}
+    assert len(built) == 1 and built.pop() > d
+    assert len(seen) == 2
+    assert all(a is b for a, b in zip(*seen))
+    apart = [port._on_padded_head_dim(fn, args[:4], *args[4:],
+                                      design=port._design(dtype, d, kern),
+                                      kernel=kern)
+             for kern, fn in plains.items()]
+    for mine, theirs in zip((dq, dk, dv), (apart[0], *apart[1])):
+        assert mine.shape == q.shape and mine.dtype == dtype
+        assert torch.equal(mine, theirs)

@@ -62,7 +62,8 @@ def test_padding_helper_on_plain_versions_matches_reference_at_d80():
     qn, kn, vn, don = _inputs(7, 80, n=4)
     q, k, v, do = map(torch.tensor, (qn, kn, vn, don))
     o, m, l = port._on_padded_head_dim(port._flash_fwd_plain, (q, k, v),
-                                       True, 0, 0, design="simt")
+                                       True, 0, 0, design="simt",
+                                       kernel="fwd")
     o_p, m_p, l_p = port._flash_fwd_plain(q, k, v, True, 0, 0)
     assert o.shape == q.shape
     for mine, plain in ((o, o_p), (m, m_p), (l, l_p)):
@@ -75,9 +76,9 @@ def test_padding_helper_on_plain_versions_matches_reference_at_d80():
     delta = (do * o_p).sum(-1).transpose(1, 2).contiguous()
     args = (lse, delta, True, 0, 0)
     dq = port._on_padded_head_dim(port._flash_dq_plain, (q, k, v, do), *args,
-                                  design="simt")
+                                  design="simt", kernel="dq")
     dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),
-                                      *args, design="simt")
+                                      *args, design="simt", kernel="dkv")
     grads_ref = ref.flash_attention_bwd(
         *map(jnp.asarray, (qn, kn, vn)), o_r, m_r, l_r, jnp.asarray(don),
         causal=True, block_q=32, block_k=32, interpret=True)
@@ -123,15 +124,16 @@ def test_fp16_matches_reference(d):
 def test_cuda_head_dims_pad_to_the_next_built_one_and_stop_at_256():
     # The simt ladder; past 512 (ROADMAP.md C4, closed) the next multiple
     # of 64, where the chunked kernels run.
-    assert [port.padded_head_dim(d, "simt")
-            for d in (8, 16, 48, 80, 96, 100, 200, 256, 257, 320, 384, 400,
-                      512, 513, 640)] == \
-        [16, 16, 64, 96, 96, 128, 256, 256, 384, 384, 384, 512, 512, 576,
-         640]
+    for kern in port.KERNELS:
+        assert [port.padded_head_dim(d, "simt", kern)
+                for d in (8, 16, 48, 80, 96, 100, 200, 256, 257, 320, 384,
+                          400, 512, 513, 640)] == \
+            [16, 16, 64, 96, 96, 128, 256, 256, 384, 384, 384, 512, 512,
+             576, 640]
     assert port._design(torch.bfloat16, 48, "dq") == "sm90"
-    # D 80 and fp16 D 128: the forward on the sm90 kernels (D 80 padded
-    # to 128), dq on the simt ones (D 80 padded to 96).
+    # D 80 and fp16 D 128: the forward and dq both on the sm90 kernels (D
+    # 80 padded to 128 for each; the simt dq would run it at 96).
     assert port._design(torch.bfloat16, 80, "fwd") == "sm90"
-    assert port._design(torch.bfloat16, 80, "dq") == "simt"
+    assert port._design(torch.bfloat16, 80, "dq") == "sm90"
     assert port._design(torch.float16, 128, "fwd") == "sm90"
-    assert port._design(torch.float16, 128, "dq") == "simt"
+    assert port._design(torch.float16, 128, "dq") == "sm90"

@@ -34,7 +34,7 @@ def _bf16_values(seed, n=4, s=S, d=D):
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
 def test_design_by_dtype_and_head_dim(dtype, d, design):
     # These cases take one design for all three kernels; where the
-    # kernels part (fp16, D 80/96, D 129-256) see
+    # kernels part (the forward alone on sm90 at 16-bit D 257-512) see
     # tests/test_torch_flash_sm90_wide.py.
     for kernel in port.KERNELS:
         assert port._design(dtype, d, kernel) == design

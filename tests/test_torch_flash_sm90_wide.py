@@ -1,10 +1,10 @@
 """The CPU side of the tensor-core (sm90) forward and dk/dv kernels at fp16
-and at head dims up to 256, and of the simt kernels past D 512: which
-design and padded head dim each kernel gets, the plain versions'
-``operands`` rounding (fp16 p and ds for fp16 inputs, bf16 for bf16) that
-the card's checks compare those kernels with, and the padding paths, all
-against the reference's Pallas kernels in interpret mode on the CPU
-(``block_q=block_k=32``, as tests/test_torch_flash_head_dims.py runs
+and at head dims up to 256 (the forward to 512), and of the simt kernels
+past D 512: which design and padded head dim each kernel gets, the plain
+versions' ``operands`` rounding (fp16 p and ds for fp16 inputs, bf16 for
+bf16) that the card's checks compare those kernels with, and the padding
+paths, all against the reference's Pallas kernels in interpret mode on the
+CPU (``block_q=block_k=32``, as tests/test_torch_flash_head_dims.py runs
 them). The kernels themselves run on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
@@ -118,20 +118,20 @@ DESIGNS = [
     (torch.bfloat16, 32, "simt simt simt", (32, 32, 32)),
     (torch.bfloat16, 33, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.bfloat16, 64, "sm90 sm90 sm90", (64, 64, 64)),
-    (torch.bfloat16, 80, "sm90 simt sm90", (128, 96, 128)),
-    (torch.bfloat16, 96, "sm90 simt sm90", (128, 96, 128)),
+    (torch.bfloat16, 80, "sm90 sm90 sm90", (128, 128, 128)),
+    (torch.bfloat16, 96, "sm90 sm90 sm90", (128, 128, 128)),
     (torch.bfloat16, 128, "sm90 sm90 sm90", (128, 128, 128)),
-    (torch.bfloat16, 160, "sm90 simt sm90", (256, 256, 256)),
-    (torch.bfloat16, 200, "sm90 simt sm90", (256, 256, 256)),
-    (torch.bfloat16, 256, "sm90 simt sm90", (256, 256, 256)),
-    (torch.bfloat16, 257, "simt simt simt", (384, 384, 384)),
-    (torch.bfloat16, 512, "simt simt simt", (512, 512, 512)),
+    (torch.bfloat16, 160, "sm90 sm90 sm90", (256, 256, 256)),
+    (torch.bfloat16, 200, "sm90 sm90 sm90", (256, 256, 256)),
+    (torch.bfloat16, 256, "sm90 sm90 sm90", (256, 256, 256)),
+    (torch.bfloat16, 257, "sm90 simt simt", (384, 384, 384)),
+    (torch.bfloat16, 512, "sm90 simt simt", (512, 512, 512)),
     (torch.bfloat16, 640, "simt simt simt", (640, 640, 640)),
     (torch.float16, 32, "simt simt simt", (32, 32, 32)),
-    (torch.float16, 48, "sm90 simt sm90", (64, 64, 64)),
-    (torch.float16, 128, "sm90 simt sm90", (128, 128, 128)),
-    (torch.float16, 256, "sm90 simt sm90", (256, 256, 256)),
-    (torch.float16, 384, "simt simt simt", (384, 384, 384)),
+    (torch.float16, 48, "sm90 sm90 sm90", (64, 64, 64)),
+    (torch.float16, 128, "sm90 sm90 sm90", (128, 128, 128)),
+    (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
+    (torch.float16, 384, "sm90 simt simt", (384, 384, 384)),
     (torch.float32, 64, "simt simt simt", (64, 64, 64)),
     (torch.float32, 128, "simt simt simt", (128, 128, 128)),
     (torch.float32, 256, "simt simt simt", (256, 256, 256)),
@@ -141,21 +141,30 @@ DESIGNS = [
 
 @pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
-    """The forward and dk/dv take sm90 for bf16 and fp16 at D 33-256, dq
-    only for bf16 at D 64/128 (after padding); fp32, D <= 32 and D > 256
-    take simt. Each kernel pads to a head dim of its own design."""
+    """bf16 and fp16 take sm90 for the forward at D 33-512 and for dq and
+    dk/dv at D 33-256; fp32, D <= 32, dq and dk/dv past 256 and the
+    forward past 512 take simt. Each kernel pads to a head dim of its own
+    design."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]
     assert got == designs.split()
-    assert [port.padded_head_dim(d, design) for design in got] == \
-        list(padded)
+    assert [port.padded_head_dim(d, design, kern)
+            for design, kern in zip(got, port.KERNELS)] == list(padded)
 
 
 def test_padded_head_dim_past_512_never_raises():
     for d in range(513, 2200, 7):
-        built = port.padded_head_dim(d, "simt")
-        assert built % port.CHUNK == 0 and d <= built < d + port.CHUNK
-    with pytest.raises(ValueError, match="256"):
-        port.padded_head_dim(320, "sm90")
+        for kern in port.KERNELS:
+            built = port.padded_head_dim(d, "simt", kern)
+            assert built % port.CHUNK == 0 and d <= built < d + port.CHUNK
+    with pytest.raises(ValueError, match="dkv kernel takes head dims up to "
+                                         "256"):
+        port.padded_head_dim(320, "sm90", "dkv")
+    with pytest.raises(ValueError, match="dq kernel takes head dims up to "
+                                         "256"):
+        port.padded_head_dim(320, "sm90", "dq")
+    with pytest.raises(ValueError, match="512"):
+        port.padded_head_dim(513, "sm90", "fwd")
+    assert port.padded_head_dim(320, "sm90", "fwd") == 384
 
 
 def test_fp32_d640_plain_path_matches_reference():
@@ -196,7 +205,7 @@ def test_padding_on_plain_versions_matches_unpadded_and_reference(
     and to the reference."""
     q, k, v, do = _values(d + 3, dtype, d)
     fwd = port._on_padded_head_dim(port._flash_fwd_plain, (q, k, v), True,
-                                   0, 0, design=design)
+                                   0, 0, design=design, kernel="fwd")
     plain = port._flash_fwd_plain(q, k, v, True, 0, 0)
     assert fwd[0].shape == q.shape
     for mine, p in zip(fwd, plain):
@@ -209,7 +218,8 @@ def test_padding_on_plain_versions_matches_unpadded_and_reference(
                                atol=FWD_TOL)
     _, args = _stats(q, k, v, do)
     dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),
-                                      *args[4:], design=design)
+                                      *args[4:], design=design,
+                                      kernel="dkv")
     for mine, p in zip((dk, dv), port._flash_dkv_plain(*args)):
         assert mine.shape == q.shape
         np.testing.assert_allclose(mine.numpy(), p.numpy(), rtol=1e-6,
