@@ -12,18 +12,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    prints the build time.
 2. Kernels against their plain PyTorch versions, on the card. Each
    kernel takes the design ``flash_attention._design`` gives it: the
-   tensor-core (sm90) kernels for bf16 and fp16, the forward at head dims
-   33-512, dq and dk/dv at 33-256; the fp32-FMA (simt) kernels for the
-   rest (fp32, D <= 32, dq and dk/dv past 256, the forward past 512, past
-   D 512 in 64-column chunks of the head dim); a bf16 case at the main
-   shape forces the simt ones. Cases: the main path's shape (B=4, S=2048,
-   H=16, D=128, bf16, causal), a non-causal, two offset, a D=64 and a
-   short ragged case, fp32 at two shapes, each case of C4_CASES at B=2,
-   S=1024, H=8, causal, through the dispatchers (fp16 at D 64/128/256/512;
-   bf16 at D 80, 96 and 200, run zero-padded at the next built head dim,
-   and 256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and 640), and
-   the Gemma-7B geometry (B=2, S=2048, H=16, D=256, bf16, causal);
-   wherever an sm90 kernel serves, its simt kernel is checked on the same
+   tensor-core kernels (sm90: bf16 and fp16, the forward at head dims
+   33-512, dq and dk/dv at 33-256; the forward's stream design, bf16 and
+   fp16 past D 512, and tf32, fp32 past D 32 through 3xTF32, both
+   streamed over D) and the fp32-FMA (simt) kernels for the rest (D <=
+   32, fp32 dq and dk/dv, 16-bit ones past 256, past D 512 in 64-column
+   chunks of the head dim); a bf16 case at the main shape forces the
+   simt ones. Cases: the main path's shape (B=4, S=2048, H=16, D=128,
+   bf16, causal), a non-causal, two offset, a D=64 and a short ragged
+   case, fp32 at two shapes (the main one with the simt forward beside
+   the tf32 one), each case of C4_CASES at B=2, S=1024, H=8, causal,
+   through the dispatchers (fp16 at D 64/128/256/512/640; bf16 at D 80,
+   96 and 200, run zero-padded at the next built head dim, and 256; fp32
+   at D 256; bf16 and fp32 at D 320, 384, 512 and 640), and the Gemma-7B
+   geometry (B=2, S=2048, H=16, D=256, bf16, causal); wherever a
+   tensor-core kernel serves, its simt kernel is checked on the same
    inputs too.
    Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
@@ -35,16 +38,22 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    compute in fp32 from the same inputs, in another summation order:
    rtol 2e-5 (o, m, l) or 1e-4 (gradients). bf16 outputs are rounded to
    bf16 by both, step = 2^-7; fp16 outputs step = 2^-10; fp32 outputs
-   have step 0. The sm90 kernels also feed p (and ds) to the tensor cores
-   in the input's 16-bit type; plain_b is the plain version that rounds
-   there too (``operands``), and twice its effect in the row is allowed.
+   have step 0. The 16-bit tensor-core kernels also feed p (and ds) to
+   the tensor cores in the input's 16-bit type; plain_b is the plain
+   version that rounds there too (``operands``), and twice its effect in
+   the row is allowed. The tf32 forward has no such allowance: it is held
+   to the fp32 bound as it stands.
    The bound must show its power: at the main shape a plain result with
    one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
    one q tile (queries 1536-1599 of dk and dv) left out must fail it; at
    the Gemma-7B geometry the same with the D 256 forward's 64-key tile
    (keys 1024-1087) and the D 256 dq's 32-key stage (keys 1024-1055); and
    at bf16 D 512 (C4 shape) with one 32-key stage of the D 512 forward
-   (keys 512-543).
+   (keys 512-543); at bf16 D 640 with one 64-key stage of the stream
+   forward (keys 512-575) and with one 64-column region of the head dim
+   left out of the logits (q and k zeroed in columns 256-319); at the
+   fp32 main shape with one 64-key stage of the tf32 forward (keys
+   1024-1087).
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -64,13 +73,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    launch the sm90 forward, dq and dk/dv once and no other flash kernel.
    Phases 4 and 4b print their seconds per step beside the recorded ones
    (RECORDED_STEP_S).
+4c. Phase 4's model in fp32 (``TransformerConfig(dtype=torch.float32)``),
+   depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
+   profiled): the loss must be finite and fall, the tf32 forward, the
+   simt dq and dk/dv must each launch once per layer per step (2 a step)
+   and no other flash kernel; prints the seconds per step.
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
    the main path's shape in bf16 (printed beside the times PERF.md
-   recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the simt
-   kernels there in fp32 (their input type on the LM's shapes), each C4
-   case at its phase-2 shape and the Gemma-7B geometry through the
-   dispatchers (padding copies included), and beside every sm90 kernel
-   the simt kernel it replaces on the same inputs, which it must beat
+   recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
+   kernels there (the tf32 forward, its pre-pass included, and the simt
+   forward, dq and dk/dv), each C4 case at its phase-2 shape and the
+   Gemma-7B geometry through the dispatchers (padding copies included),
+   and beside every tensor-core kernel the simt kernel it replaces on the
+   same inputs, which it must beat
    (and, at each case whose head dim is padded, the backward padded once
    for both kernels, as flash_attention_bwd runs it, against its two
    kernels padded apart);
@@ -80,7 +95,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the function needs (2 x D per visible (q, k) pair and matrix product:
    two products forward, three for dq, four for dk/dv) over the card's
    dense peak for the input type (989 TFLOP/s bf16 and fp16, 67 TFLOP/s
-   fp32) and the bytes in and out over its memory rate (3.35 TB/s).
+   fp32; for the tf32 forward three such products over 494.7 TFLOP/s
+   dense tf32, with the 67 TFLOP/s bound beside it as bound_fma_ms) and
+   the bytes in and out over its memory rate (3.35 TB/s).
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
    weights on both (TF32 off) give the same logits, loss, parameter
@@ -155,10 +172,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    beside phase 10's. The nccl rendering needs a card per rank and is
    not run here.
 
-The last two lines are the JSON ``kernels`` line (the six kernels at
-their main shapes, then each C4 case and the Gemma-7B geometry as
+The last two lines are the JSON ``kernels`` line (the kernels at their
+main shapes, then each C4 case and the Gemma-7B geometry as
 ``<kernel>.<tag>``, a row per kernel and design; launches are those of
-phase 4 for the bf16 D 128 builds, of phase 4b for bf16 D 256, else 0)
+phase 4 for the bf16 D 128 builds, of phase 4b for bf16 D 256, of phase
+4c for fp32 D 128, else 0)
 and the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -178,9 +196,15 @@ import time
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-# Dense peaks by input type (fp32 without the tensor cores).
+# Dense peaks by input type (fp32 without the tensor cores), and the dense
+# tf32 rate that the fp32 forward's tensor-core design (3xTF32) runs at.
 PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
               "float32": 67e12}
+PEAK_TF32_FLOPS = 494.7e12
+# Clock cycles per millisecond that ``time_ms``'s spin assumes: the
+# H100's top SM clock (1.98 GHz) rounded up, so that a spin lasts at
+# least as long as it is asked to.
+SPIN_CYCLES_PER_MS = 2_000_000
 MAIN = dict(b=4, s=2048, h=16, d=128)
 # The head dims and dtypes past the kernels' first set (ROADMAP.md C4 and
 # the sm90 kernels' fp16, D 33-256 and the forward's D 257-512): (tag,
@@ -199,7 +223,8 @@ C4_CASES = (("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
             ("bf16_d320", "bfloat16", 320), ("fp32_d320", "float32", 320),
             ("bf16_d512", "bfloat16", 512), ("fp32_d512", "float32", 512),
             ("fp16_d512", "float16", 512),
-            ("bf16_d640", "bfloat16", 640), ("fp32_d640", "float32", 640))
+            ("bf16_d640", "bfloat16", 640), ("fp16_d640", "float16", 640),
+            ("fp32_d640", "float32", 640))
 # The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
 # and the small head dims and must not launch there.
 MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
@@ -217,11 +242,20 @@ RECORDED_MAIN_MS = {"flash_fwd_sm90": 0.1950, "flash_dq_sm90": 0.2328,
 RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # Keys and queries left out of a plain result by the lost-tile checks:
 # one kv tile of the forward (128 rows at D 128, 64 at D 256, 32 at D
-# 512), one kv stage of dq (64 keys at D 128, 32 at D 256), one q tile of
-# dk/dv (64 queries).
+# 512, 64 on the stream and tf32 designs), one kv stage of dq (64 keys at
+# D 128, 32 at D 256), one q tile of dk/dv (64 queries); ``fwd_columns``:
+# one 64-column region of the head dim left out of the logits (the
+# stream design sums them region by region).
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
+LOST_MAIN_FP32 = dict(fwd=(1024, 1088))
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
-LOST_C4 = {"bf16_d512": dict(fwd=(512, 544))}
+LOST_C4 = {"bf16_d512": dict(fwd=(512, 544)),
+           "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320))}
+# Phase 4c: phase 4's model in fp32 (the forward on tf32, dq and dk/dv on
+# simt), depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
+# profiled).
+FP32_LM = dict(layers=2, warmup=1, steps=2)
+FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq", "flash_dkv")
 
 
 def card_line() -> str:
@@ -233,16 +267,36 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """The card's milliseconds per call of ``fn``: the mean of ``reps``
+    calls between two CUDA events. A spin on the card holds the start
+    event until the host has queued every call, so that the calls run
+    back to back and the host's own time per call (Python, dispatch,
+    descriptor encoding) stays out of a time it would otherwise swamp at
+    small shapes. The spin lasts twice the host's time for the calls, as
+    the last warm-up call took it; where the start event had passed
+    before the host was done, the spin is made four times longer, twice
+    at most, and then the time is taken as the events fell."""
     import torch
+    host_ms = 1.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spin_ms = 2 * reps * host_ms + 1
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            break
+        spin_ms *= 4
     return start.elapsed_time(end) / reps
 
 
@@ -285,6 +339,16 @@ def fwd_without_keys(fa, q, k, v, lo, hi):
     return (o1 * w1 + o2 * w2) / l
 
 
+def fwd_without_columns(fa, q, k, v, lo, hi):
+    """The plain causal forward's o with columns lo..hi-1 of the head dim
+    left out of the logits (q and k zeroed there): a streamed kernel that
+    lost one region of D."""
+    q, k = q.float().clone(), k.float().clone()
+    q[..., lo:hi] = 0
+    k[..., lo:hi] = 0
+    return fa._flash_fwd_plain(q, k, v.float(), True, 0, 0)[0]
+
+
 def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi):
     """The plain causal dq with keys lo..hi-1 left out: dq is a sum over
     keys, so it is the plain dq over keys [:lo] plus that over keys [hi:]
@@ -296,22 +360,22 @@ def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi):
                                  True, 0, hi))
 
 
-def kernel_name(kern, design, tag=None):
-    """A kernel's row name: flash_fwd, flash_fwd_sm90, ... with .tag for
-    a case off the main shape."""
-    name = f"flash_{kern}" + ("_sm90" if design == "sm90" else "")
+def kernel_name(fa, kern, design, tag=None):
+    """A kernel's row name: its launch counter (flash_fwd, flash_fwd_sm90,
+    flash_fwd_tf32, ...) with .tag for a case off the main shape."""
+    name = fa.counter_name(kern, design)
     return name if tag is None else f"{name}.{tag}"
 
 
 def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
                 seed=0, design=None, lost=None, kernels=None, tag=None):
     """Runs ``kernels`` (of fwd, dq, dkv) and their plain versions on one
-    input set; returns {row name: max_abs_err}. ``design`` forces the sm90
-    or simt kernels (default: ``fa._design`` per kernel); every launch goes
+    input set; returns {row name: max_abs_err}. ``design`` forces one
+    design (default: ``fa._design`` per kernel); every launch goes
     through ``fa._launch``, which pads a head dim no kernel of the design
-    is built for. ``lost`` (LOST_MAIN, LOST_D256) adds the checks that a
-    plain result with one tile left out fails the bound, for each kernel
-    it names."""
+    is built for. ``lost`` (LOST_MAIN, LOST_D256, ...) adds the checks
+    that a plain result with one tile (or one region of the head dim)
+    left out fails the bound, for each kernel it names."""
     from horovod_tpu_torch.utils.tolerance import DQ_ATOL, step_of
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -322,8 +386,10 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     print(f"case {name}: B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
           f"causal={causal} q_offset={qo} k_offset={ko} designs "
           + ", ".join(f"{kern} {designs[kern]}" for kern in kernels))
-    # The operand rounding of each sm90 kernel: the input's 16-bit type.
-    rounded = {kern: dtype if designs[kern] == "sm90" else None
+    # The operand rounding of each 16-bit tensor-core kernel (sm90,
+    # stream): p and ds in the input's type. The fp32 forward on the tensor
+    # cores (tf32) is held to the fp32 bound with no such allowance.
+    rounded = {kern: dtype if designs[kern] in ("sm90", "stream") else None
                for kern in fa.KERNELS}
     fwd_args = (q, k, v, causal, qo, ko)
     o_p, m_p, l_p = fa._flash_fwd_plain(*fwd_args)
@@ -347,7 +413,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         o, m, l = out.pop("fwd")
         o_b = (fa._flash_fwd_plain(*fwd_args, operands=rounded["fwd"])[0]
                if rounded["fwd"] else None)
-        errs[kernel_name("fwd", designs["fwd"], tag)] = max(
+        errs[kernel_name(fa, "fwd", designs["fwd"], tag)] = max(
             check_close("forward o", o, o_p, 2e-5, step, plain_b=o_b),
             check_close("forward m", m, m_p, 2e-5, atol=1e-5, rows=False),
             check_close("forward l", l, l_p, 2e-5, rows=False))
@@ -355,6 +421,11 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             lo, hi = lost["fwd"]
             check_close(f"forward o, keys {lo}-{hi - 1} left out",
                         fwd_without_keys(fa, q, k, v, lo, hi), o_p, 2e-5,
+                        step, plain_b=o_b, must_fail=True)
+        if lost and "fwd_columns" in lost:
+            lo, hi = lost["fwd_columns"]
+            check_close(f"forward o, columns {lo}-{hi - 1} left out",
+                        fwd_without_columns(fa, q, k, v, lo, hi), o_p, 2e-5,
                         step, plain_b=o_b, must_fail=True)
         del o, m, l, o_b
     del o_p, m_p, l_p
@@ -364,7 +435,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         dq_b = (fa._flash_dq_plain(*plain_args, operands=rounded["dq"])
                 if rounded["dq"] else None)
         dq_atol = DQ_ATOL if designs["dq"] == "sm90" else 1e-6
-        errs[kernel_name("dq", designs["dq"], tag)] = check_close(
+        errs[kernel_name(fa, "dq", designs["dq"], tag)] = check_close(
             "dq", dq, dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b)
         if lost and "dq" in lost:
             lo, hi = lost["dq"]
@@ -379,7 +450,7 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         dk_b, dv_b = (fa._flash_dkv_plain(*plain_args,
                                           operands=rounded["dkv"])
                       if rounded["dkv"] else (None, None))
-        errs[kernel_name("dkv", designs["dkv"], tag)] = max(
+        errs[kernel_name(fa, "dkv", designs["dkv"], tag)] = max(
             check_close("dk", dk, dk_p, 1e-4, step, plain_b=dk_b),
             check_close("dv", dv, dv_p, 1e-4, step, plain_b=dv_b))
         if lost and "dkv" in lost:
@@ -399,10 +470,11 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     return errs
 
 
-def sm90_kernels_of(fa, dtype, d):
-    """The kernels (of fwd, dq, dkv) that take the sm90 design here."""
+def tensor_core_kernels_of(fa, dtype, d):
+    """The kernels (of fwd, dq, dkv) that take a tensor-core design (sm90,
+    stream, tf32) here rather than simt."""
     return tuple(kern for kern in fa.KERNELS
-                 if fa._design(dtype, d, kern) == "sm90")
+                 if fa._design(dtype, d, kern) != "simt")
 
 
 def kernel_checks(torch, fa):
@@ -422,10 +494,14 @@ def kernel_checks(torch, fa):
     kernel_case(fa, torch, "short_ragged", 2, 40, 3, 64, bf16, True, seed=8)
     kernel_case(fa, torch, "fp32", 2, 512, 4, 128, fp32, True, qo=64,
                 seed=5)
-    # The simt rows of the kernels line carry the fp32 errors at the
-    # main shape, the inputs phase 5 times them on.
+    # The fp32 rows of the kernels line carry the fp32 errors at the main
+    # shape, the inputs phase 5 times them on: the tf32 forward (with a
+    # lost 64-key stage) and the simt forward beside it, dq and dk/dv.
     errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
-                            causal=True, seed=6))
+                            causal=True, seed=6, lost=LOST_MAIN_FP32))
+    errs.update(kernel_case(fa, torch, "main_fp32 on simt", **MAIN,
+                            dtype=fp32, causal=True, seed=6, design="simt",
+                            kernels=("fwd",)))
     cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d), LOST_C4.get(tag))
              for tag, dt, d in C4_CASES]
     # The Gemma-7B geometry, with the lost-tile checks at D 256's tiles.
@@ -433,11 +509,11 @@ def kernel_checks(torch, fa):
     for i, (tag, dtype, shape, lost) in enumerate(cases):
         errs.update(kernel_case(fa, torch, tag, **shape, dtype=dtype,
                                 causal=True, seed=20 + i, lost=lost, tag=tag))
-        sm90 = sm90_kernels_of(fa, dtype, shape["d"])
-        if sm90:
+        tc = tensor_core_kernels_of(fa, dtype, shape["d"])
+        if tc:
             errs.update(kernel_case(fa, torch, f"{tag} on simt", **shape,
                                     dtype=dtype, causal=True, seed=20 + i,
-                                    design="simt", kernels=sm90, tag=tag))
+                                    design="simt", kernels=tc, tag=tag))
     return errs
 
 
@@ -534,14 +610,16 @@ def print_breakdown(prof, wall, groups):
                   f"x{e.count:<4} {e.key[:90]}")
 
 
-def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels, was):
+def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels, was,
+            warmup=None, steps=None):
     """hvd.init(), the bench's training step of ``cfg`` on ``b`` rows
     (bench.transformer_step: random weights from --seed,
-    DistributedOptimizer, SGD), --warmup and --steps timed steps and one
-    profiled step. The loss must be finite and fall, and each kernel of
-    ``path_kernels`` must launch once per layer per step and no other
-    flash kernel at all. Prints the seconds per step beside ``was``, the
-    recorded one. Returns the launch counts."""
+    DistributedOptimizer, SGD), ``warmup`` and ``steps`` timed steps
+    (default --warmup and --steps) and one profiled step. The loss must
+    be finite and fall, and each kernel of ``path_kernels`` must launch
+    once per layer per step and no other flash kernel at all. Prints the
+    seconds per step beside ``was``, the recorded one (if any). Returns
+    the launch counts."""
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.parallel import flash_attention as fa
     from horovod_tpu_torch.utils.timing import steady_state_sec_per_step
@@ -559,17 +637,19 @@ def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels, was):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    warmup = args.warmup if warmup is None else warmup
     sec = steady_state_sec_per_step(step, lambda loss: loss.item(),
-                                    warmup_steps=args.warmup,
-                                    chunks=args.steps, chunk_steps=1)
+                                    warmup_steps=warmup,
+                                    chunks=args.steps if steps is None
+                                    else steps, chunk_steps=1)
     prof, wall = profiled_step(torch, step)
     counts = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     values = [x.item() for x in losses]
     print(f"{label}: L{cfg.num_layers} d{cfg.embed_dim} ({cfg.num_heads} "
-          f"heads of {cfg.head_dim}) S{s} B{b} V{cfg.vocab_size}, "
-          f"{n_params / 1e6:.1f}M parameters, {len(values)} steps "
-          f"({args.warmup} warm-up)")
+          f"heads of {cfg.head_dim}) S{s} B{b} V{cfg.vocab_size} "
+          f"{str(cfg.dtype)[6:]}, {n_params / 1e6:.1f}M parameters, "
+          f"{len(values)} steps ({warmup} warm-up)")
     print(f"  losses: {' '.join(f'{x:.4f}' for x in values)}")
     print(f"  launches: {counts}")
     # Model FLOPs as bench.py counts them: 6 x matmul parameters (all but
@@ -580,8 +660,9 @@ def lm_path(torch, hvd, args, card, label, cfg, b, path_kernels, was):
           f"model TFLOP/s {model_flops / sec / 1e12:.1f} "
           f"(MFU {model_flops / sec / PEAK_BF16_FLOPS:.1%} of 989 bf16), "
           f"max_memory_allocated {peak / 2**30:.2f} GiB  [{card}]")
-    print(f"  sec/step {sec:.4f} against {was} recorded before dq took fp16 "
-          f"and D 256 ({sec / was:.3f}x)")
+    if was is not None:
+        print(f"  sec/step {sec:.4f} against {was} recorded before dq took "
+              f"fp16 and D 256 ({sec / was:.3f}x)")
     print_breakdown(prof, wall, LM_GROUPS)
     check_falling(values)
     want = cfg.num_layers * len(values)
@@ -616,6 +697,19 @@ def gemma_path(torch, hvd, args, card):
              f"depth cut from {GEMMA_LAYERS[0]} to {GEMMA_LAYERS[1]} layers")
     return lm_path(torch, hvd, args, card, label, cfg, GEMMA["b"],
                    GEMMA_PATH_KERNELS, RECORDED_STEP_S["gemma"])
+
+
+def fp32_path(torch, hvd, args, card):
+    """Phase 4c: phase 4's model in fp32, depth cut to 2: the forward on
+    the tf32 kernel, the backward on the simt ones."""
+    from horovod_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(num_layers=FP32_LM["layers"], dtype=torch.float32,
+                            **LM_FULL)
+    label = (f"fp32 LM (phase 4's widths), depth cut from {args.layers} to "
+             f"{FP32_LM['layers']} layers")
+    return lm_path(torch, hvd, args, card, label, cfg, MAIN["b"],
+                   FP32_PATH_KERNELS, None, warmup=FP32_LM["warmup"],
+                   steps=FP32_LM["steps"])
 
 
 def vision_small_check(torch, seed):
@@ -720,8 +814,9 @@ def classifier_leg(torch, hvd, args, card, label, build, batch,
 def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
                 tag=None, seed=1):
     """{row name: ms, plain_ms, library_ms, bound_ms, bound_by} of
-    ``kernels`` on one causal input set of this shape and dtype, each a
-    mean of 20 launches through ``fa._launch`` (padding included) with
+    ``kernels`` on one causal input set of this shape and dtype, each the
+    card's mean of 20 launches through ``fa._launch`` (padding included;
+    ``time_ms``) with
     ``design`` (default: ``fa._design`` per kernel); the library call is
     scaled_dot_product_attention on [B, H, S, D] copies of the same
     inputs, in the same dtype."""
@@ -777,19 +872,26 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     peak = PEAK_FLOPS[str(dtype)[6:]]
     rows = {}
     for fn in kernels:
-        op_ms = flops[fn] / peak * 1e3
+        # The tf32 design does three tf32 products where fp32 does one:
+        # its bound is those at the tf32 rate; the FMA-rate bound of the
+        # fp32 products rides along (bound_fma_ms).
+        tf32 = designs[fn] == "tf32"
+        op_ms = (3 * flops[fn] / PEAK_TF32_FLOPS if tf32
+                 else flops[fn] / peak) * 1e3
         byte_ms = moved[fn] / PEAK_BYTES_PER_S * 1e3
         row = dict(
             ms=ms[fn], plain_ms=plain[fn],
             library_ms=lib_fwd if fn == "fwd" else lib_fwd_bwd,
             bound_ms=max(op_ms, byte_ms),
             bound_by="operations" if op_ms >= byte_ms else "bytes")
+        if tf32:
+            row["bound_fma_ms"] = max(flops[fn] / peak * 1e3, byte_ms)
         if fn != "fwd":
             row["library_bwd_only_ms"] = lib_bwd
         # Which build ran: the dtype and the head dim after padding.
         row["built"] = (str(dtype)[6:],
                         fa.padded_head_dim(d, designs[fn], fn))
-        rows[kernel_name(fn, designs[fn], tag)] = row
+        rows[kernel_name(fa, fn, designs[fn], tag)] = row
     del q, k, v, do, o, qt, kt, vt, dot, qg, kg, vg, out
     torch.cuda.empty_cache()
     return rows
@@ -797,32 +899,36 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
 
 def kernel_times(torch, fa):
     """Every kernel's row: the sm90 kernels at the main path's shape in
-    bf16, the simt kernels there in fp32 (the input type they serve on
-    the LM's shapes), each C4 case at its shape and the Gemma-7B
-    geometry, with the simt kernel beside every case that an sm90 one
-    serves. Prints the sm90 rows against their simt ones."""
+    bf16, the fp32 ones there (the tf32 forward and the simt forward
+    beside it, the simt dq and dk/dv), each C4 case at its shape and the
+    Gemma-7B geometry, with the simt kernel beside every case that a
+    tensor-core one serves. Prints the tensor-core rows against their
+    simt ones."""
     rows = {}
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32))
+    rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32,
+                            design="simt", kernels=("fwd",)))
+    pairs = [(None, torch.float32, MAIN["d"], "fwd")]
     cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d))
              for tag, dt, d in C4_CASES]
     cases.append(("gemma", torch.bfloat16, GEMMA))
-    pairs = []
     for tag, dtype, shape in cases:
         rows.update(kernel_rows(torch, fa, **shape, dtype=dtype, tag=tag))
-        sm90 = sm90_kernels_of(fa, dtype, shape["d"])
-        if sm90:
+        tc = tensor_core_kernels_of(fa, dtype, shape["d"])
+        if tc:
             rows.update(kernel_rows(torch, fa, **shape, dtype=dtype,
-                                    design="simt", kernels=sm90, tag=tag))
-            pairs += [(tag, kern) for kern in sm90]
-    print("sm90 kernels against the simt kernels they replace, same inputs "
-          "(ms, CUDA-event means of 20 launches):")
+                                    design="simt", kernels=tc, tag=tag))
+            pairs += [(tag, dtype, shape["d"], kern) for kern in tc]
+    print("tensor-core kernels against the simt kernels they replace, same "
+          "inputs (ms of the card, CUDA-event means of 20 launches):")
     slower = []
-    for tag, kern in pairs:
-        new = rows[kernel_name(kern, "sm90", tag)]["ms"]
-        old = rows[kernel_name(kern, "simt", tag)]["ms"]
-        print(f"  {tag:<10} {kern:<4} sm90 {new:8.4f}  simt {old:8.4f}  "
-              f"{old / new:6.1f}x")
+    for tag, dtype, d, kern in pairs:
+        design = fa._design(dtype, d, kern)
+        new = rows[kernel_name(fa, kern, design, tag)]["ms"]
+        old = rows[kernel_name(fa, kern, "simt", tag)]["ms"]
+        print(f"  {tag or 'main fp32':<10} {kern:<4} {design:<6} {new:8.4f}  "
+              f"simt {old:8.4f}  {old / new:6.1f}x")
         if not new < old:
             slower.append((tag, kern))
     for name, was in RECORDED_MAIN_MS.items():
@@ -830,8 +936,8 @@ def kernel_times(torch, fa):
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
     backward_pad_times(torch, fa, cases)
     if slower:
-        raise AssertionError(f"sm90 kernels slower than the simt ones they "
-                             f"replace: {slower}")
+        raise AssertionError(f"tensor-core kernels slower than the simt "
+                             f"ones they replace: {slower}")
     return rows
 
 
@@ -1411,6 +1517,9 @@ def main(argv=None) -> int:
     # Phase 4b: the LM at Gemma-7B's attention widths (D 256).
     gemma_counts = gemma_path(torch, hvd, args, card)
 
+    # Phase 4c: the LM in fp32 (the tf32 forward), depth cut.
+    fp32_counts = fp32_path(torch, hvd, args, card)
+
     # Phase 5: times.
     rows = kernel_times(torch, fa)
 
@@ -1443,15 +1552,18 @@ def main(argv=None) -> int:
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),
                "flash_fwd_sm90": ("flash_fwd_sm90.cu", "58"),
+               "flash_fwd_stream": ("flash_fwd_stream_sm90.cu", "58"),
+               "flash_fwd_tf32": ("flash_fwd_stream_sm90.cu", "58"),
                "flash_dq": ("flash_bwd.cu", "204"),
                "flash_dq_sm90": ("flash_dq_sm90.cu", "204"),
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236")}
     # A row's launches are those of its kernel on the path that runs its
     # build (dtype, head dim): bf16 D 128 on phase 4, bf16 D 256 on phase
-    # 4b; the other builds run on no main path.
+    # 4b, fp32 D 128 on phase 4c; the other builds run on no main path.
     paths = {("bfloat16", MAIN["d"]): counts,
-             ("bfloat16", GEMMA["d"]): gemma_counts}
+             ("bfloat16", GEMMA["d"]): gemma_counts,
+             ("float32", MAIN["d"]): fp32_counts}
     kernels = []
     for name, r in rows.items():
         base = name.split(".")[0]

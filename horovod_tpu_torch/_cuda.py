@@ -52,6 +52,12 @@ _SIGNATURES = {
     # dtype, q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
     "hvdt_flash_fwd_sm90": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
+    # dtype, q, k, v, o, m, l, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream
+    "hvdt_flash_fwd_stream": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
+    # q, k, v, o, m, l, scratch, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream (fp32 only)
+    "hvdt_flash_fwd_tf32": [_P] * 7 + [_I] * 8 + [_F, _P],
     # dtype, q, k, v, do, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off,
     # causal, scale, stream
     "hvdt_flash_dq_sm90": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],

@@ -24,10 +24,12 @@
 // tensor-core rate (989 TFLOP/s) that the bound is stated against; its
 // 113 KB of shared memory at D=128 also allows one block (8 warps) per SM.
 // flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
-// tiles fed by TMA) for bf16 and fp16 at head dims 33 to 512; this
-// kernel serves fp32 inputs, 16-bit ones at D 16 and 32, and any multiple
-// of 64 past 512 (the wrapper zero-pads any other D to the next built one
-// and passes the scale of the true D). At D = 256 its three [64][257]
+// tiles fed by TMA) for bf16 and fp16 at head dims 33 to 512, and
+// flash_fwd_stream_sm90.cu for 16-bit head dims past 512 and fp32 past 32
+// (3xTF32); the dispatcher sends this kernel only D 16 and 32, and the
+// card's checks run it beside the tensor-core kernels at every head dim
+// (the wrapper zero-pads any other D to the next built one and passes
+// the scale of the true D). At D = 256 its three [64][257]
 // tiles and the score tile take 209 KB of shared memory, within
 // the 227 KB a block may have, so the forward keeps its 64-row tiles
 // there; at D 384 and 512 it owns 32 q rows and walks 32-key tiles (201

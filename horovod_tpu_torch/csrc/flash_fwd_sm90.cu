@@ -2,8 +2,9 @@
 // at head dims 64, 128, 256, 384 and 512.
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
-// (launched by `_flash_bhsd`), as flash_fwd.cu does for fp32, the head dims
-// up to 32 and those past 512. Same function and contract: an online
+// (launched by `_flash_bhsd`), as flash_fwd_stream_sm90.cu does for fp32
+// and 16-bit head dims past 512 and flash_fwd.cu for the head dims up to
+// 32. Same function and contract: an online
 // softmax whose running max m, normalizer l and output accumulator stay in
 // fp32; runtime offsets give
 // the global positions of q[0] and k[0]; kv tiles wholly in the future of a

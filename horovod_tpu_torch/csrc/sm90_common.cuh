@@ -1,23 +1,28 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
-// (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu): TMA loads through
-// a tensor map, mbarrier init / arrive / expect-tx / wait, wgmma descriptors,
-// fence, commit and wait, setmaxnreg, the proxy fence and named barriers
-// for tiles that the consumers write themselves, and the host-side
-// tensor-map encoder. Every wrapper takes bf16 or fp16 (`T`).
+// (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_dq_sm90.cu,
+// flash_dkv_sm90.cu): TMA loads through a tensor map, mbarrier init /
+// arrive / expect-tx / wait, wgmma descriptors, fence, commit and wait,
+// setmaxnreg, the proxy fence and named barriers for tiles that the
+// consumers write themselves, and the host-side tensor-map encoders.
+// The wrappers take bf16 or fp16 (`T`), and fp32 tiles fed to the tensor
+// cores as tf32 (`wgmma_tf32_ss`, `wgmma_tf32_rs`).
 //
-// Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
-// rows of 64 bf16 or fp16 (128 bytes) in 8-row atoms of 1024 bytes, the 16-byte
-// chunks of row r XOR-ed with r % 8. A [rows][D] tile is D / 64 such
-// "regions" of [rows][64], one after the other; each region must start on
-// a 1024-byte boundary. wgmma reads them through a matrix descriptor in
-// the 128-byte swizzle mode:
+// Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B,
+// and every size below is in bytes, whatever the element: rows of 128
+// bytes (64 bf16 or fp16, 32 fp32) in 8-row atoms of 1024 bytes, the
+// 16-byte chunks of row r XOR-ed with r % 8. A [rows][D] tile is
+// D * sizeof(T) / 128 such "regions" of [rows][128 bytes], one after the
+// other; each region must start on a 1024-byte boundary. A wgmma k step
+// reads 32 bytes of a row: k16 of a 16-bit type, k8 of tf32. wgmma reads
+// the tiles through a matrix descriptor in the 128-byte swizzle mode:
 //   K-major (the reduction dim contiguous): stride between 8-row atoms
-//     (SBO) 1024 bytes; a 16-wide k step advances the start address by
-//     32 bytes inside a region and moves to the next region every 4 steps.
-//   MN-major (the output dim contiguous, wgmma's transpose bit): SBO is
-//     the 1024-byte step to the next 8 rows of the reduction dim, LBO the
-//     step to the next 64-wide column block (the next region); a 16-wide
-//     k step advances 16 rows, 2048 bytes.
+//     (SBO) 1024 bytes; a k step advances the start address by 32 bytes
+//     inside a region and moves to the next region every 4 steps.
+//   MN-major (the output dim contiguous, wgmma's transpose bit, 16-bit
+//     types only: tf32 takes both operands K-major): SBO is the 1024-byte
+//     step to the next 8 rows of the reduction dim, LBO the step to the
+//     next 64-wide column block (the next region); a 16-wide k step
+//     advances 16 rows, 2048 bytes.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point is looked up at run time
@@ -144,9 +149,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 
 // ---- element types --------------------------------------------------------
 
-// The tiles hold T, bf16 or fp16: both are 2 bytes, so every tile, region
-// and swizzle above is the same for either; only the instruction's type,
-// the tensor map's type and the conversions differ.
+// The 16-bit tiles hold T, bf16 or fp16: both are 2 bytes, so every tile,
+// region and swizzle above is the same for either; only the instruction's
+// type, the tensor map's type and the conversions differ. fp32 tiles hold
+// tf32 values (tf32_round) and take the tf32 instructions.
 template <typename T>
 constexpr bool kIsF16 = std::is_same<T, __half>::value;
 
@@ -163,10 +169,22 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// Stores lo, hi rounded to T at p, p + 1 (p 4-byte aligned).
+// Stores lo, hi rounded to T at p, p + 1 (p aligned to two elements).
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
+}
+
+// x rounded to tf32 (10 mantissa bits; to nearest, ties away from zero:
+// half of the dropped 13 bits' range added to the magnitude, then the 13
+// bits cleared), as a float whose low 13 bits are 0: the value a tf32
+// product takes exactly. horovod_tpu_torch's plain version rounds with
+// the same integer steps.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
 // Makes this thread's ordinary shared-memory stores visible to the async
@@ -272,7 +290,8 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 
 // ss: descriptors at %R and %R1, scale_d at %R2, the transpose bit of B
 // at %R3; rs: A's registers at %R .. %R3, B's descriptor at %R4, scale_d
-// at %R5 (R = N / 2 accumulator registers come first).
+// at %R5 (R = N / 2 accumulator registers come first). The tf32 forms
+// take no transpose bits.
 #define HVDT_SS(N, R, R1, R2, R3, TY)                                      \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #R2 ", 0;\n"          \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "."   \
@@ -288,9 +307,35 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
                : HVDT_OUTS_##R                                            \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
                  "r"(scale_d))
+#define HVDT_SS_TF32(N, R, R1, R2)                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #R2 ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" \
+               HVDT_REGS_##R "}, %" #R ", %" #R1 ", p, 1, 1;\n}\n"        \
+               : HVDT_OUTS_##R                                            \
+               : "l"(da), "l"(db), "r"(scale_d))
+#define HVDT_RS_TF32(N, R, R1, R2, R3, R4, R5)                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #R5 ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" \
+               HVDT_REGS_##R "}, {%" #R ", %" #R1 ", %" #R2 ", %" #R3      \
+               "}, %" #R4 ", p, 1, 1;\n}\n"                                \
+               : HVDT_OUTS_##R                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(scale_d))
 #define HVDT_WGMMA_SHAPE(N, R, R1, R2, R3, R4, R5)                         \
   template <>                                                             \
   struct Wgmma<N> {                                                       \
+    static __device__ __forceinline__ void tf32_ss(float (&d)[R],         \
+                                                   uint64_t da,           \
+                                                   uint64_t db,           \
+                                                   int scale_d) {         \
+      HVDT_SS_TF32(N, R, R1, R2);                                         \
+    }                                                                     \
+    static __device__ __forceinline__ void tf32_rs(float (&d)[R],         \
+                                                   const uint32_t (&a)[4], \
+                                                   uint64_t db,           \
+                                                   int scale_d) {         \
+      HVDT_RS_TF32(N, R, R1, R2, R3, R4, R5);                             \
+    }                                                                     \
     template <typename T, int TB>                                         \
     static __device__ __forceinline__ void ss(float (&d)[R], uint64_t da, \
                                               uint64_t db, int scale_d) { \
@@ -320,6 +365,8 @@ HVDT_WGMMA_SHAPE(256, 128, 129, 130, 131, 132, 133)
 #undef HVDT_WGMMA_SHAPE
 #undef HVDT_SS
 #undef HVDT_RS
+#undef HVDT_SS_TF32
+#undef HVDT_RS_TF32
 
 template <int N, typename T = __nv_bfloat16, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
@@ -333,6 +380,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   Wgmma<N>::template rs<T>(d, a, db, scale_d);
 }
 
+// D[64 x N] (+)= A[64 x 8] * B[8 x N] in tf32 with fp32 accumulators, both
+// operands K-major (tf32 has no transpose bit): A and B from shared
+// memory, or A from registers (four tf32 values a thread: rows
+// 16 w + lane / 4 (+ 8 for a1, a3), columns lane % 4 (+ 4 for a2, a3)).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  Wgmma<N>::tf32_ss(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  Wgmma<N>::tf32_rs(d, a, db, scale_d);
+}
+
 // ---- host side ------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -342,13 +405,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// A 4-D tensor map over a contiguous [B, S, H, D] tensor of T (bf16 or
-// fp16; dims D, H, S, B, innermost first), box (64, 1, box_rows, 1) with
-// the 128-byte swizzle. S is a tensor edge, so rows past S read as zeros
-// and no box straddles two batches.
-template <typename T = __nv_bfloat16>
-inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B,
-                               int S, int H, int D, int box_rows) {
+// cuTensorMapEncodeTiled, looked up once at run time.
+inline cudaError_t encode_fn(EncodeTiledFn* out) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -365,21 +423,64 @@ inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  *out = encode;
+  return cudaSuccess;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+    : kIsF16<T>                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// A 4-D tensor map with the 128-byte swizzle over a contiguous tensor of
+// T with dims `dims` (innermost first) and box `box`, whose innermost
+// extent is one 128-byte region row (128 / sizeof(T) elements). Every dim
+// is a tensor edge: boxes read zeros past it and never straddle it.
+template <typename T>
+inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
+                                const cuuint64_t (&dims)[4],
+                                const cuuint32_t (&box)[4]) {
+  EncodeTiledFn encode;
+  const cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t strides[3] = {
+      dims[0] * sizeof(T), dims[0] * dims[1] * sizeof(T),
+      dims[0] * dims[1] * dims[2] * sizeof(T)};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map,
-      kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, kMapType<T>, 4, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a contiguous [B, S, H, D] tensor of T (dims D, H, S,
+// B, innermost first), box (128 / sizeof(T), 1, box_rows, 1): one region
+// of box_rows sequence rows. S is a tensor edge, so rows past S read as
+// zeros and no box straddles two batches.
+template <typename T = __nv_bfloat16>
+inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B,
+                               int S, int H, int D, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / sizeof(T)), 1,
+                             (cuuint32_t)box_rows, 1};
+  return encode_tiled<T>(map, base, dims, box);
+}
+
+// A tensor map over a contiguous [B, H, D, S] tensor of T (a transposed
+// copy, S innermost), box (128 / sizeof(T), box_rows, 1, 1): one region
+// of box_rows head-dim rows by 128 bytes of the sequence. Rows past D and
+// columns past S read as zeros.
+template <typename T>
+inline cudaError_t encode_bhds(CUtensorMap* map, const void* base, int B,
+                               int H, int D, int S, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / sizeof(T)),
+                             (cuuint32_t)box_rows, 1, 1};
+  return encode_tiled<T>(map, base, dims, box);
 }
 
 // Sets the dynamic shared-memory limit and launches `kernel` on 384

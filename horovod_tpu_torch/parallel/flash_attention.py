@@ -2,52 +2,76 @@
 
 Counterpart of ``horovod_tpu/parallel/flash_attention.py`` (public
 contract :436-566). The three Pallas kernels there have hand-written
-CUDA counterparts in ``horovod_tpu_torch/csrc``, in two designs:
+CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
 
 - ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 33-512)
-                                or ``flash_fwd.cu``     via :func:`_flash_fwd`
+                                ``flash_fwd_stream_sm90.cu`` (bf16/fp16
+                                past D 512; fp32 past D 32, 3xTF32)
+                                or ``flash_fwd.cu`` (D <= 32) via
+                                :func:`_flash_fwd`
 - ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 33-256)
                                 or ``flash_bwd.cu``     via :func:`_flash_bwd`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 33-256)
                                 or ``flash_bwd.cu``     via :func:`_flash_bwd`
 
 :func:`_design` picks each kernel's design from the dtype and head dim
-alone, before any launch. The ``sm90`` kernels (wgmma on 16-bit tiles fed
-by TMA, warp-specialised) take bf16 and fp16: dq and dk/dv at any head dim
-in (32, 256], built at 64, 128 and 256 (``SM90_HEAD_DIMS``), the forward
-at any head dim in (32, 512], built at those and at 384 and 512
-(``SM90_KERNEL_DIMS``; past 256 each CTA accumulates one half of O's head
-dim). The ``simt`` kernels (fp32 FMAs from fp32 shared-memory tiles) take
-the rest: fp32, D <= 32, dq and dk/dv past 256 and the forward past 512.
-They are built at ``HEAD_DIMS`` (16 to 512; their tiles shrink as D grows
-so that a block's shared memory holds them, the counterpart of the
-reference's ``_ladders_for``) and at any multiple of 64 past 512, where
-each block computes one 64-column chunk of the output and streams the
-logits' reductions over D through 64-wide tiles
-(``csrc/flash_common.cuh`` works the bytes out). Like the reference, a
-CUDA call takes any head dim: one that the kernel's design is not built
-for runs at the next one that is (:func:`padded_head_dim`), with q, k, v
-(and do) zero-padded along D, the scale of the true D, and the outputs
-sliced back (:func:`_on_padded_head_dim`); zero columns leave q.k^T
-unchanged and the padded columns of v give output columns that are cut
-away. So bf16 D 80 runs all three kernels at 128, D 200 at 256 and D 320
-the forward at 384 (sm90) and the backward at 384 (simt). The backward
-pads q, k, v and do once for both of its kernels (:func:`_flash_bwd`).
-The sm90 kernels read their inputs through TMA and need 16-byte aligned
-bases; a misaligned CUDA tensor raises, it never falls back to the other
-design.
+alone, before any launch:
 
-Each launcher counts its launches (``launch_counts()``: ``flash_fwd``,
-``flash_fwd_sm90``, ``flash_dq``, ``flash_dq_sm90``, ``flash_dkv``,
-``flash_dkv_sm90``).
+- ``sm90`` (wgmma on 16-bit tiles fed by TMA, warp-specialised, the
+  CTA's Q tile resident in shared memory) takes bf16 and fp16: dq and
+  dk/dv at any head dim in (32, 256], built at 64, 128 and 256
+  (``SM90_HEAD_DIMS``), the forward at any head dim in (32, 512], built
+  at those and at 384 and 512 (``SM90_KERNEL_DIMS``; past 256 each CTA
+  accumulates one half of O's head dim).
+- ``stream`` and ``tf32`` (``STREAM_DESIGNS``), the forward only, hold
+  no tile that spans the head dim: Q and K come through a TMA ring one
+  128-byte column region at a time (64 16-bit or 32 fp32 columns), S is
+  summed over the regions and each CTA accumulates one part of O's head
+  dim (256 columns for 16-bit, 128 for fp32) on grid.z. ``stream`` takes
+  bf16 and fp16 past D 512, at every multiple of 64; ``tf32`` takes fp32
+  past D 32, at every multiple of 32, each product as hi.hi + hi.lo +
+  lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a pre-pass
+  that writes q and k's parts and v^T's. The shared-memory bytes of each
+  are worked out in the file's header.
+- ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: the
+  forward at D <= 32, dq and dk/dv at D <= 32, in fp32 and past 256.
+  It is built at ``HEAD_DIMS`` (16 to 512; its tiles shrink as D grows so
+  that a block's shared memory holds them, the counterpart of the
+  reference's ``_ladders_for``) and at any multiple of 64 past 512,
+  where each block computes one 64-column chunk of the output and
+  streams the logits' reductions over D through 64-wide tiles
+  (``csrc/flash_common.cuh`` works the bytes out).
+
+Like the reference, a CUDA call takes any head dim: one that the
+kernel's design is not built for runs at the next one that is
+(:func:`padded_head_dim`), with q, k, v (and do) zero-padded along D, the
+scale of the true D, and the outputs sliced back
+(:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and the
+padded columns of v give output columns that are cut away. So bf16 D 80
+runs all three kernels at 128, D 200 at 256, D 320 the forward at 384
+(sm90) and the backward at 384 (simt), D 600 the forward at 640
+(stream), and fp32 D 100 the forward at 128 (tf32). The backward pads q,
+k, v and do once for both of its kernels (:func:`_flash_bwd`). The
+tensor-core kernels read their inputs through TMA (the tf32 pre-pass in
+16-byte loads) and need 16-byte aligned bases; a misaligned CUDA tensor
+raises, it never falls back to another design.
+
+Each launcher counts its launches (``launch_counts()``, keyed by
+:func:`counter_name`: ``flash_fwd``, ``flash_fwd_sm90``,
+``flash_fwd_stream``, ``flash_fwd_tf32``, ``flash_dq``, ``flash_dq_sm90``,
+``flash_dkv``, ``flash_dkv_sm90``).
 For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
 ``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
 never reaches a plain version: a kernel launches or the wrapper raises.
-The sm90 kernels feed the tensor cores p (and ds) in the input's 16-bit
-type, as the reference's own dots do on the TPU by default;
-``operands=dtype`` makes the plain versions round at exactly those
-places, which is what the card's checks compare the rounding with.
+The 16-bit tensor-core kernels feed the tensor cores p (and ds) in the
+input's 16-bit type, as the reference's own dots do on the TPU by
+default; ``operands=dtype`` makes the plain versions round at exactly
+those places, which is what the card's checks compare the rounding
+with. ``operands=TF32X3`` makes the plain forward take its two products
+as the tf32 kernel does (``TF32``: as one tf32 product, which misses the
+reference's fp32 bound); the card holds the tf32 kernel to the fp32
+bound with no allowance.
 
 Tensors are ``[B, S, H, D]`` (the module layout of models/transformer.py)
 and the kernels read that layout in place; the softmax statistics
@@ -82,10 +106,22 @@ KERNELS = ("fwd", "dq", "dkv")
 SM90_DTYPES = (torch.bfloat16, torch.float16)
 SM90_KERNEL_DIMS = {"fwd": SM90_HEAD_DIMS + (384, 512),
                     "dq": SM90_HEAD_DIMS, "dkv": SM90_HEAD_DIMS}
+# The forward's streamed designs (csrc/flash_fwd_stream_sm90.cu): design ->
+# (its dtypes, the head dim it starts past, the region width: it is built
+# for every multiple of that width past the start).
+STREAM_DESIGNS = {"stream": (SM90_DTYPES, SM90_KERNEL_DIMS["fwd"][-1], 64),
+                  "tf32": ((torch.float32,), HEAD_DIMS[1], 32)}
+# ``operands`` modes of the plain forward for the tf32 design: each product
+# as hi.hi + hi.lo + lo.hi of tf32 parts (what the kernel computes), or as
+# one tf32 product (what plain TF32 would give).
+TF32X3 = "3xtf32"
+TF32 = "tf32"
 
 # Launches of each kernel since the last reset_launch_counts().
 flash_fwd_launches = 0
 flash_fwd_sm90_launches = 0
+flash_fwd_stream_launches = 0
+flash_fwd_tf32_launches = 0
 flash_dq_launches = 0
 flash_dq_sm90_launches = 0
 flash_dkv_launches = 0
@@ -97,17 +133,28 @@ Offset = Union[int, torch.Tensor]
 def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_fwd_sm90_launches, flash_dq_launches
     global flash_dq_sm90_launches, flash_dkv_launches, flash_dkv_sm90_launches
+    global flash_fwd_stream_launches, flash_fwd_tf32_launches
     flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
     flash_dq_sm90_launches = flash_dkv_launches = flash_dkv_sm90_launches = 0
+    flash_fwd_stream_launches = flash_fwd_tf32_launches = 0
 
 
 def launch_counts() -> dict:
+    """{counter_name(kernel, design): launches since the last reset}."""
     return {"flash_fwd": flash_fwd_launches,
             "flash_fwd_sm90": flash_fwd_sm90_launches,
+            "flash_fwd_stream": flash_fwd_stream_launches,
+            "flash_fwd_tf32": flash_fwd_tf32_launches,
             "flash_dq": flash_dq_launches,
             "flash_dq_sm90": flash_dq_sm90_launches,
             "flash_dkv": flash_dkv_launches,
             "flash_dkv_sm90": flash_dkv_sm90_launches}
+
+
+def counter_name(kernel: str, design: str) -> str:
+    """The launch counter (and chip_smoke row) of ``kernel``'s ``design``:
+    ``flash_fwd``, ``flash_fwd_sm90``, ``flash_fwd_tf32``, ..."""
+    return f"flash_{kernel}" + ("" if design == "simt" else f"_{design}")
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +175,17 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     ``design`` at: ``d`` itself when one is built for it, else the next
     one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (64 to 512 for the
     forward, to 256 for dq and dk/dv), which raises past the largest (the
-    dispatchers send it nothing larger); simt, the same for every kernel:
-    ``HEAD_DIMS`` up to 512, then the next multiple of ``CHUNK``, so it
-    never refuses a head dim there."""
+    dispatchers send it nothing larger); the forward's ``stream`` and
+    ``tf32`` (``STREAM_DESIGNS``): the next multiple of 64 past 512 and of
+    32 past 32, which raise at or below their start and never above it;
+    simt, the same for every kernel: ``HEAD_DIMS`` up to 512, then the
+    next multiple of ``CHUNK``, so it never refuses a head dim there."""
+    if design in STREAM_DESIGNS:
+        _, start, width = STREAM_DESIGNS[design]
+        if kernel != "fwd" or d <= start:
+            raise ValueError(f"head dim {d}: the {design} design is a "
+                             f"forward past head dim {start}")
+        return -(-d // width) * width
     if design == "sm90":
         built = SM90_KERNEL_DIMS[kernel]
         if d > built[-1]:
@@ -173,13 +228,38 @@ def _on_padded_head_dim(fn, tensors, *args, design: str, kernel: str):
     return _at_head_dim(fn, _pad_head_dim(tensors, built), d, *args)
 
 
-def _scores(q, k, causal, q_offset, k_offset, scale=None):
+def _tf32(x):
+    """``x`` (fp32) rounded to tf32, 10 mantissa bits, to nearest with
+    ties away from zero, by the integer steps of ``tf32_round`` in
+    csrc/sm90_common.cuh: the same bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(eq, a, b, operands=None):
+    """``torch.einsum(eq, a, b)`` in fp32; with ``operands`` ``TF32X3``
+    each factor is split into hi = tf32(x) and lo = tf32(x - hi) and the
+    product taken as hi.hi + hi.lo + lo.hi, as the tf32 kernel takes it;
+    with ``TF32`` as hi.hi alone. Any other ``operands`` (a 16-bit dtype,
+    whose rounding is of p, not of the products) leaves it fp32."""
+    a, b = a.float(), b.float()
+    if operands not in (TF32, TF32X3):
+        return torch.einsum(eq, a, b)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if operands == TF32X3:
+        out = (torch.einsum(eq, _tf32(a - a_hi), b_hi)
+               + torch.einsum(eq, a_hi, _tf32(b - b_hi)) + out)
+    return out
+
+
+def _scores(q, k, causal, q_offset, k_offset, scale=None, operands=None):
     """Scaled fp32 logits [B,H,Sq,Sk] with masked entries at -1e30, and
     the mask (None when not causal). ``scale`` defaults to that of q's
-    head dim."""
+    head dim; ``operands`` is :func:`_product`'s."""
     if scale is None:
         scale = _softmax_scale(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = _product("bqhd,bkhd->bhqk", q, k, operands) * scale
     if not causal:
         return s, None
     q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
@@ -190,24 +270,28 @@ def _scores(q, k, causal, q_offset, k_offset, scale=None):
 
 def _rounded(x, operands):
     """``x`` rounded to the ``operands`` dtype and back to fp32 (as it is
-    when ``None``)."""
-    return x if operands is None else x.to(operands).float()
+    when ``None`` or a tf32 mode, whose rounding is in the products)."""
+    if operands is None or isinstance(operands, str):
+        return x
+    return x.to(operands).float()
 
 
 def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset, operands=None,
                      scale=None):
     """What ``_kernel`` computes, densely: (o [B,Sq,H,D] in q.dtype,
     m [B,H,Sq], l [B,H,Sq] fp32); rows that see no key give o = 0,
-    m = -1e30, l = 0. ``operands`` (a 16-bit dtype) rounds p = exp(s - m)
-    to that type before p @ v, where the sm90 kernel feeds it to the
-    tensor cores; l is still summed from the fp32 p."""
-    s, allowed = _scores(q, k, causal, q_offset, k_offset, scale)
+    m = -1e30, l = 0. ``operands`` a 16-bit dtype rounds p = exp(s - m)
+    to that type before p @ v, where the sm90 and stream kernels feed it
+    to the tensor cores; ``TF32X3`` (``TF32``) takes q k^T and p v as the
+    tf32 kernel does (as one tf32 product); l is still summed from the
+    fp32 p."""
+    s, allowed = _scores(q, k, causal, q_offset, k_offset, scale, operands)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     if allowed is not None:
         p = p * allowed
     l = p.sum(dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", _rounded(p, operands), v.float())
+    o = _product("bhqk,bkhd->bqhd", _rounded(p, operands), v, operands)
     denom = torch.where(l == 0.0, torch.ones_like(l), l)
     o = o / denom.transpose(1, 2)[..., None]
     return o.to(q.dtype), m, l
@@ -305,9 +389,16 @@ def _stream(t) -> int:
 def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The design of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for CUDA
     inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
-    fed by TMA) at bf16 and fp16 with 32 < d <= 512 for the forward and
-    32 < d <= 256 for dq and dk/dv; ``"simt"`` (fp32 FMAs, flash_fwd.cu /
-    flash_bwd.cu) otherwise."""
+    fed by TMA, Q resident) at bf16 and fp16 with 32 < d <= 512 for the
+    forward and 32 < d <= 256 for dq and dk/dv; for the forward
+    ``"stream"`` (the same, streamed over D) at bf16 and fp16 past 512
+    and ``"tf32"`` (streamed, 3xTF32) at fp32 past 32; ``"simt"`` (fp32
+    FMAs, flash_fwd.cu / flash_bwd.cu) otherwise: the forward only at
+    d <= 32."""
+    if kernel == "fwd" and d > 32:
+        for design, (dtypes, start, _) in STREAM_DESIGNS.items():
+            if dtype in dtypes and d > start:
+                return design
     sm90 = dtype in SM90_DTYPES and 32 < d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
 
@@ -335,24 +426,32 @@ def _scale_arg(q, scale):
     return _softmax_scale(q.shape[-1]) if scale is None else scale
 
 
-def _check_sm90(name, kernel, tensors):
-    """The sm90 kernel's own limits: CUDA tensors of its dtypes at its
-    head dims, and 16-byte aligned bases for TMA (contiguity, checked
-    already, makes every outer stride a multiple of 16 bytes at these
-    head dims)."""
+def _check_tensor_cores(name, kernel, tensors, design="sm90"):
+    """A tensor-core kernel's own limits (``design`` sm90, stream or
+    tf32): CUDA tensors of its dtypes at a head dim it is built for, and
+    16-byte aligned bases for TMA and the tf32 pre-pass's 16-byte loads
+    (contiguity, checked already, makes every outer stride a multiple of
+    16 bytes at these head dims)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
-    dims = SM90_KERNEL_DIMS[kernel]
-    if q.dtype not in SM90_DTYPES or q.shape[-1] not in dims:
-        raise ValueError(f"{name}: the sm90 kernel takes {SM90_DTYPES} at "
-                         f"head dims {dims}, got {q.dtype} and "
-                         f"{q.shape[-1]}")
+    d = q.shape[-1]
+    if design == "sm90":
+        dtypes, dims = SM90_DTYPES, SM90_KERNEL_DIMS[kernel]
+        built = d in dims
+    else:
+        dtypes, start, width = STREAM_DESIGNS[design]
+        dims = f"the multiples of {width} past {start}"
+        built = d > start and d % width == 0
+    if q.dtype not in dtypes or not built:
+        raise ValueError(f"{name}: the {design} kernel takes {dtypes} at "
+                         f"head dims {dims}, got {q.dtype} and {d}")
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the sm90 kernel loads through TMA, "
-                             f"which needs 16-byte-aligned tensors; a base "
-                             f"is {t.data_ptr() % 16} bytes past a boundary")
+            raise ValueError(f"{name}: the {design} kernel loads through "
+                             f"TMA, which needs 16-byte-aligned tensors; a "
+                             f"base is {t.data_ptr() % 16} bytes past a "
+                             f"boundary")
 
 
 def _flash_fwd(q, k, v, causal: bool, q_offset: int, k_offset: int):
@@ -391,25 +490,66 @@ def _flash_fwd_simt(q, k, v, causal: bool, q_offset: int, k_offset: int,
     return o, m, l
 
 
-def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
-                    scale=None):
-    """The wgmma/TMA forward kernel (flash_fwd_sm90.cu): bf16 and fp16,
-    D 64/128/256/384/512."""
-    global flash_fwd_sm90_launches
+def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
+    """Checks and launches the tensor-core forward of ``design`` (sm90,
+    stream or tf32); returns (o, m, l). The tf32 kernel's pre-pass writes
+    q and k's tf32 hi and lo parts and v^T's, [B, H, D, Sk rounded up to
+    32], into scratch allocated here."""
     sq, sk = q.shape[1], k.shape[1]
     b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
-    _check_sm90("flash forward", "fwd", (q, k, v))
+    _check_tensor_cores("flash forward", "fwd", (q, k, v), design)
     lib = _cuda.load()
     o, m, l = _fwd_outputs(q)
+    sizes = (b, h, sq, sk, d, q_offset, k_offset, int(causal),
+             _scale_arg(q, scale), _stream(q))
     with torch.cuda.device(q.device):
-        err = lib.hvdt_flash_fwd_sm90(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, sq, sk, d,
-            q_offset, k_offset, int(causal), _scale_arg(q, scale),
-            _stream(q))
-    _cuda.check(err, "flash forward sm90 kernel")
-    flash_fwd_sm90_launches += 1
+        ptrs = [t.data_ptr() for t in (q, k, v, o, m, l)]
+        if design == "tf32":
+            keys = -(-sk // 32) * 32
+            scratch = torch.empty(
+                2 * (q.numel() + k.numel() + b * h * d * keys),
+                device=q.device)
+            err = lib.hvdt_flash_fwd_tf32(*ptrs, scratch.data_ptr(), *sizes)
+        else:
+            entry = (lib.hvdt_flash_fwd_sm90 if design == "sm90"
+                     else lib.hvdt_flash_fwd_stream)
+            err = entry(_DTYPES[q.dtype], *ptrs, *sizes)
+    _cuda.check(err, f"flash forward {design} kernel")
     return o, m, l
+
+
+def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
+                    scale=None):
+    """The wgmma/TMA forward kernel with Q resident (flash_fwd_sm90.cu):
+    bf16 and fp16, D 64/128/256/384/512."""
+    global flash_fwd_sm90_launches
+    out = _fwd_tensor_cores("sm90", q, k, v, causal, q_offset, k_offset,
+                            scale)
+    flash_fwd_sm90_launches += 1
+    return out
+
+
+def _flash_fwd_stream(q, k, v, causal: bool, q_offset: int, k_offset: int,
+                      scale=None):
+    """The wgmma/TMA forward kernel streamed over D
+    (flash_fwd_stream_sm90.cu): bf16 and fp16 at the multiples of 64 past
+    512."""
+    global flash_fwd_stream_launches
+    out = _fwd_tensor_cores("stream", q, k, v, causal, q_offset, k_offset,
+                            scale)
+    flash_fwd_stream_launches += 1
+    return out
+
+
+def _flash_fwd_tf32(q, k, v, causal: bool, q_offset: int, k_offset: int,
+                    scale=None):
+    """The 3xTF32 forward kernel, streamed over D, with its pre-pass
+    (flash_fwd_stream_sm90.cu): fp32 at the multiples of 32 past 32."""
+    global flash_fwd_tf32_launches
+    out = _fwd_tensor_cores("tf32", q, k, v, causal, q_offset, k_offset,
+                            scale)
+    flash_fwd_tf32_launches += 1
+    return out
 
 
 def _bwd_inputs(name, q, k, v, do, lse, delta):
@@ -445,7 +585,7 @@ def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     D 64/128/256."""
     global flash_dq_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
-    _check_sm90("flash dq", "dq", (q, k, v, do))
+    _check_tensor_cores("flash dq", "dq", (q, k, v, do))
     lib = _cuda.load()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -486,7 +626,7 @@ def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     D 64/128/256."""
     global flash_dkv_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
-    _check_sm90("flash dk/dv", "dkv", (q, k, v, do))
+    _check_tensor_cores("flash dk/dv", "dkv", (q, k, v, do))
     lib = _cuda.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -502,6 +642,8 @@ def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 
 
 _LAUNCHERS = {("fwd", "sm90"): _flash_fwd_sm90,
+              ("fwd", "stream"): _flash_fwd_stream,
+              ("fwd", "tf32"): _flash_fwd_tf32,
               ("fwd", "simt"): _flash_fwd_simt,
               ("dq", "sm90"): _flash_dq_sm90, ("dq", "simt"): _flash_dq_simt,
               ("dkv", "sm90"): _flash_dkv_sm90,

@@ -14,13 +14,15 @@ for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
 of the element itself (2^-7 of it); fp16 outputs by one fp16 step
-(2^-10). The tensor-core (sm90) kernels also round p (and ds) to the
-input's 16-bit type for the tensor cores: their o, dq, dk and dv may
-differ by twice the largest effect that this rounding alone has in the
-row (the plain version with ``operands`` that dtype); their m and l keep
-the fp32 bounds. The sm90 dq has an absolute floor of 1e-5 instead of
-1e-6 (``tolerance.DQ_ATOL``: the dq of a query that sees one key is pure
-rounding noise).
+(2^-10). The 16-bit tensor-core kernels (sm90, and the forward's
+stream) also round p (and ds) to the input's 16-bit type for the tensor
+cores: their o, dq, dk and dv may differ by twice the largest effect that
+this rounding alone has in the row (the plain version with ``operands``
+that dtype); their m and l keep the fp32 bounds. The fp32 forward on the
+tensor cores (tf32: each product as three tf32 products, 3xTF32) is held
+to the fp32 bounds exactly, with no such allowance. The sm90 dq has an
+absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``: the dq of
+a query that sees one key is pure rounding noise).
 """
 
 import pytest
@@ -87,16 +89,17 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     (o_p, m_p, l_p), lse, delta = _stats(q, k, v, do, causal, qo, ko)
     dq, (dk, dv) = fa._flash_bwd(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
-    sm90 = {kern: fa._design(dt, d, kern) == "sm90" for kern in fa.KERNELS}
+    designs = {kern: fa._design(dt, d, kern) for kern in fa.KERNELS}
+    sm90 = {kern: designs[kern] == "sm90" for kern in fa.KERNELS}
     want = dict.fromkeys(fa.launch_counts(), 0)
     for kern in fa.KERNELS:
-        want[f"flash_{kern}" + ("_sm90" if sm90[kern] else "")] = 1
+        want[fa.counter_name(kern, designs[kern])] = 1
     assert fa.launch_counts() == want
     args = (q, k, v, do, lse, delta, causal, qo, ko)
     dq_p = fa._flash_dq_plain(*args)
     dk_p, dv_p = fa._flash_dkv_plain(*args)
     o_b = dq_b = dk_b = dv_b = None
-    if sm90["fwd"]:
+    if designs["fwd"] in ("sm90", "stream"):
         o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko, operands=dt)[0]
     if sm90["dq"]:
         dq_b = fa._flash_dq_plain(*args, operands=dt)
@@ -456,3 +459,64 @@ def test_backward_pads_once_and_equals_separate_launches(cuda, dtype, d):
                         *args)
     for mine, apart in zip(grads, (dq, dk, dv)):
         assert torch.equal(mine, apart)
+
+
+STREAM_TF32_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset
+    pytest.param("bfloat16", 1, 128, 2, 640, True, 0, 0, id="bf16_d640"),
+    pytest.param("float16", 2, 192, 2, 640, True, 64, 0,
+                 id="fp16_d640_q_offset"),
+    pytest.param("bfloat16", 1, 128, 2, 1024, True, 0, 128,
+                 id="bf16_d1024_dead_rows"),
+    pytest.param("float16", 1, 40, 2, 1024, True, 0, 0,
+                 id="fp16_d1024_short"),
+    pytest.param("bfloat16", 1, 128, 2, 600, False, 0, 0,
+                 id="bf16_d600_padded_noncausal"),
+    pytest.param("float32", 1, 128, 2, 64, True, 0, 0, id="fp32_d64"),
+    pytest.param("float32", 2, 256, 3, 128, True, 0, 0, id="fp32_d128"),
+    pytest.param("float32", 1, 192, 2, 256, True, 64, 0,
+                 id="fp32_d256_q_offset"),
+    pytest.param("float32", 1, 128, 2, 640, True, 0, 0, id="fp32_d640"),
+    pytest.param("float32", 1, 128, 2, 128, True, 0, 96,
+                 id="fp32_d128_dead_rows"),
+    pytest.param("float32", 2, 40, 3, 100, True, 0, 0,
+                 id="fp32_d100_padded_short"),
+    pytest.param("float32", 1, 256, 2, 96, False, 0, 0,
+                 id="fp32_d96_noncausal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko", STREAM_TF32_CASES)
+def test_stream_and_tf32_forward_match_plain_versions(cuda, dtype, b, s, h,
+                                                      d, causal, qo, ko):
+    """The forward streamed over D: bf16 and fp16 past D 512 (stream; D
+    600 zero-padded to 640) against the plain version with 16-bit p, and
+    fp32 at D 64-640 (tf32, 3xTF32; D 100 zero-padded to 128) at the fp32
+    bounds exactly; with offsets, dead rows and ragged tiles. dq and dk/dv
+    run their own designs beside it; the counters show which ran."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 640), ("float32", 128)])
+def test_stream_and_tf32_forward_with_unequal_lengths(cuda, dtype, d):
+    _check_kernels(cuda, getattr(torch, dtype), 1, 128, 2, d, True, 256, 0,
+                   384)
+    _check_kernels(cuda, getattr(torch, dtype), 2, 256, 2, d, False, 0, 0,
+                   64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 640), ("float16", 1024),
+                                     ("float32", 128)])
+def test_stream_and_tf32_refuse_a_misaligned_tensor(cuda, dtype, d):
+    dt = getattr(torch, dtype)
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda, dtype=dt)
+    bad = flat[1:].view(1, 64, 2, d)        # contiguous, one element off
+    good = torch.zeros(1, 64, 2, d, device=cuda, dtype=dt)
+    fa.reset_launch_counts()
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_fwd(*args, True, 0, 0)
+    assert not any(fa.launch_counts().values())

@@ -160,6 +160,8 @@ def test_cpu_path_launches_no_kernel():
     port.flash_attention(q, k, v).sum().backward()
     port.flash_attention_stats(q.detach(), k.detach(), v.detach())
     assert port.launch_counts() == {"flash_fwd": 0, "flash_fwd_sm90": 0,
+                                    "flash_fwd_stream": 0,
+                                    "flash_fwd_tf32": 0,
                                     "flash_dq": 0, "flash_dq_sm90": 0,
                                     "flash_dkv": 0, "flash_dkv_sm90": 0}
 

@@ -126,24 +126,30 @@ DESIGNS = [
     (torch.bfloat16, 256, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.bfloat16, 257, "sm90 simt simt", (384, 384, 384)),
     (torch.bfloat16, 512, "sm90 simt simt", (512, 512, 512)),
-    (torch.bfloat16, 640, "simt simt simt", (640, 640, 640)),
+    (torch.bfloat16, 640, "stream simt simt", (640, 640, 640)),
+    (torch.bfloat16, 600, "stream simt simt", (640, 640, 640)),
+    (torch.float16, 640, "stream simt simt", (640, 640, 640)),
     (torch.float16, 32, "simt simt simt", (32, 32, 32)),
     (torch.float16, 48, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.float16, 128, "sm90 sm90 sm90", (128, 128, 128)),
     (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.float16, 384, "sm90 simt simt", (384, 384, 384)),
-    (torch.float32, 64, "simt simt simt", (64, 64, 64)),
-    (torch.float32, 128, "simt simt simt", (128, 128, 128)),
-    (torch.float32, 256, "simt simt simt", (256, 256, 256)),
-    (torch.float32, 1000, "simt simt simt", (1024, 1024, 1024)),
+    (torch.float32, 32, "simt simt simt", (32, 32, 32)),
+    (torch.float32, 64, "tf32 simt simt", (64, 64, 64)),
+    (torch.float32, 96, "tf32 simt simt", (96, 96, 96)),
+    (torch.float32, 128, "tf32 simt simt", (128, 128, 128)),
+    (torch.float32, 256, "tf32 simt simt", (256, 256, 256)),
+    (torch.float32, 320, "tf32 simt simt", (320, 384, 384)),
+    (torch.float32, 1000, "tf32 simt simt", (1024, 1024, 1024)),
 ]
 
 
 @pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
-    """bf16 and fp16 take sm90 for the forward at D 33-512 and for dq and
-    dk/dv at D 33-256; fp32, D <= 32, dq and dk/dv past 256 and the
-    forward past 512 take simt. Each kernel pads to a head dim of its own
+    """bf16 and fp16 take sm90 for the forward at D 33-512 and stream past
+    it, sm90 for dq and dk/dv at D 33-256; fp32 takes tf32 for the
+    forward past D 32; D <= 32 and fp32's dq and dk/dv, and 16-bit ones
+    past 256, take simt. Each kernel pads to a head dim of its own
     design."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]
     assert got == designs.split()
@@ -156,6 +162,16 @@ def test_padded_head_dim_past_512_never_raises():
         for kern in port.KERNELS:
             built = port.padded_head_dim(d, "simt", kern)
             assert built % port.CHUNK == 0 and d <= built < d + port.CHUNK
+        # the forward's own designs there: stream (16-bit), tf32 (fp32)
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            design = port._design(dtype, d, "fwd")
+            width = port.STREAM_DESIGNS[design][2]
+            built = port.padded_head_dim(d, design, "fwd")
+            assert built % width == 0 and d <= built < d + width
+    with pytest.raises(ValueError, match="past head dim 512"):
+        port.padded_head_dim(512, "stream", "fwd")
+    with pytest.raises(ValueError, match="forward"):
+        port.padded_head_dim(640, "stream", "dq")
     with pytest.raises(ValueError, match="dkv kernel takes head dims up to "
                                          "256"):
         port.padded_head_dim(320, "sm90", "dkv")
