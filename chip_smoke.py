@@ -14,20 +14,23 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    kernel takes the design ``flash_attention._design`` gives it: the
    tensor-core kernels (sm90: bf16 and fp16, the forward at head dims
    33-512, dq and dk/dv at 33-256; the forward's stream design, bf16 and
-   fp16 past D 512, and tf32, fp32 past D 32 through 3xTF32, both
-   streamed over D) and the fp32-FMA (simt) kernels for the rest (D <=
-   32, fp32 dq and dk/dv, 16-bit ones past 256, past D 512 in 64-column
-   chunks of the head dim); a bf16 case at the main shape forces the
-   simt ones. Cases: the main path's shape (B=4, S=2048, H=16, D=128,
-   bf16, causal), a non-causal, two offset, a D=64 and a short ragged
-   case, fp32 at two shapes (the main one with the simt forward beside
-   the tf32 one), each case of C4_CASES at B=2, S=1024, H=8, causal,
-   through the dispatchers (fp16 at D 64/128/256/512/640; bf16 at D 80,
-   96 and 200, run zero-padded at the next built head dim, and 256; fp32
-   at D 256; bf16 and fp32 at D 320, 384, 512 and 640), and the Gemma-7B
-   geometry (B=2, S=2048, H=16, D=256, bf16, causal); wherever a
-   tensor-core kernel serves, its simt kernel is checked on the same
-   inputs too.
+   fp16 past D 512; tf32, fp32 past D 32 through 3xTF32 for all three
+   kernels; stream and tf32 streamed over D) and the fp32-FMA (simt)
+   kernels for the rest (D <= 32, 16-bit dq and dk/dv past 256, past D
+   512 in 64-column chunks of the head dim); a bf16 case at the main
+   shape forces the simt ones. Cases: the main path's shape (B=4,
+   S=2048, H=16, D=128, bf16, causal), a non-causal, two offset, a D=64
+   and a short ragged case, fp32 at two shapes (the main one with the
+   simt kernels beside the tf32 ones) and at two with unequal lengths and
+   offsets (D 128 and 640), each case of C4_CASES at B=2, S=1024, H=8,
+   causal, through the dispatchers (bf16 and fp32 at D 16 and 32; fp16 at
+   D 64/128/256/512/640; bf16 at D 80, 96 and 200, run zero-padded at the
+   next built head dim, and 256; fp32 at D 256; bf16 and fp32 at D 320,
+   384, 512 and 640), the Gemma-7B geometry (B=2, S=2048, H=16, D=256,
+   bf16, causal), and ROADMAP C6's ragged lengths on every design
+   (RAGGED_DESIGNS: B=2, H=2, Sq = Sk = 100 and Sq 100 / Sk 127, causal,
+   with offsets); wherever a tensor-core kernel serves, its simt kernel
+   is checked on the same inputs too.
    Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
@@ -41,8 +44,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    have step 0. The 16-bit tensor-core kernels also feed p (and ds) to
    the tensor cores in the input's 16-bit type; plain_b is the plain
    version that rounds there too (``operands``), and twice its effect in
-   the row is allowed. The tf32 forward has no such allowance: it is held
-   to the fp32 bound as it stands.
+   the row is allowed. The tf32 kernels have no such allowance: the
+   forward is held to the fp32 bound as it stands, dq (atol 1e-5, as the
+   sm90 dq) and dk/dv to the plain versions that take their products as
+   three tf32 products (``operands=TF32X3``).
    The bound must show its power: at the main shape a plain result with
    one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
    one q tile (queries 1536-1599 of dk and dv) left out must fail it; at
@@ -52,8 +57,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    (keys 512-543); at bf16 D 640 with one 64-key stage of the stream
    forward (keys 512-575) and with one 64-column region of the head dim
    left out of the logits (q and k zeroed in columns 256-319); at the
-   fp32 main shape with one 64-key stage of the tf32 forward (keys
-   1024-1087).
+   fp32 main shape with one 64-key stage of the tf32 forward and dq
+   (keys 1024-1087) and one 64-query tile of the tf32 dk/dv (queries
+   1536-1599), and at fp32 D 640 with one 32-column region of the head
+   dim left out of the logits of the forward, dq, dk and dv (columns
+   256-287), each of which must fail by more than 10 times the bound; at
+   the ragged length 100 with the ragged tile (keys 64-99) left out of
+   the forward and dq.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -75,14 +85,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    (RECORDED_STEP_S).
 4c. Phase 4's model in fp32 (``TransformerConfig(dtype=torch.float32)``),
    depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
-   profiled): the loss must be finite and fall, the tf32 forward, the
-   simt dq and dk/dv must each launch once per layer per step (2 a step)
-   and no other flash kernel; prints the seconds per step.
+   profiled): the loss must be finite and fall, the tf32 forward, dq and
+   dk/dv must each launch once per layer per step (2 a step) and no other
+   flash kernel; prints the seconds per step.
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
    the main path's shape in bf16 (printed beside the times PERF.md
    recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
-   kernels there (the tf32 forward, its pre-pass included, and the simt
-   forward, dq and dk/dv), each C4 case at its phase-2 shape and the
+   kernels there (the tf32 forward, dq and dk/dv, each with its
+   pre-pass, which is also timed apart for the backward, and the simt
+   ones), each C4 case at its phase-2 shape and the
    Gemma-7B geometry through the dispatchers (padding copies included),
    and beside every tensor-core kernel the simt kernel it replaces on the
    same inputs, which it must beat
@@ -96,8 +107,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    two products forward, three for dq, four for dk/dv) over the card's
    dense peak for the input type (989 TFLOP/s bf16 and fp16, 67 TFLOP/s
    fp32; for the tf32 forward three such products over 494.7 TFLOP/s
-   dense tf32, with the 67 TFLOP/s bound beside it as bound_fma_ms) and
-   the bytes in and out over its memory rate (3.35 TB/s).
+   dense tf32, with the 67 TFLOP/s bound beside it as bound_fma_ms; so
+   for the tf32 dq and dk/dv) and the bytes in and out over its memory
+   rate (3.35 TB/s). The simt kernels at D 16 and 32 are printed beside
+   SDPA.
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
    weights on both (TF32 off) give the same logits, loss, parameter
@@ -215,7 +228,9 @@ MAIN = dict(b=4, s=2048, h=16, d=128)
 # D 320 at 384). Where a kernel takes the sm90 design, its simt kernel is
 # checked and timed beside it.
 C4_SHAPE = dict(b=2, s=1024, h=8)
-C4_CASES = (("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
+C4_CASES = (("bf16_d16", "bfloat16", 16), ("fp32_d16", "float32", 16),
+            ("bf16_d32", "bfloat16", 32), ("fp32_d32", "float32", 32),
+            ("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
             ("fp16_d256", "float16", 256), ("bf16_d96", "bfloat16", 96),
             ("bf16_d80", "bfloat16", 80), ("bf16_d200", "bfloat16", 200),
             ("bf16_d256", "bfloat16", 256), ("fp32_d256", "float32", 256),
@@ -243,19 +258,35 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # Keys and queries left out of a plain result by the lost-tile checks:
 # one kv tile of the forward (128 rows at D 128, 64 at D 256, 32 at D
 # 512, 64 on the stream and tf32 designs), one kv stage of dq (64 keys at
-# D 128, 32 at D 256), one q tile of dk/dv (64 queries); ``fwd_columns``:
-# one 64-column region of the head dim left out of the logits (the
-# stream design sums them region by region).
+# D 128 and on tf32, 32 at D 256), one q tile of dk/dv (64 queries);
+# ``fwd_columns`` and ``bwd_columns``: one region of the head dim (64
+# 16-bit or 32 fp32 columns) left out of the logits of the forward, and
+# of dq, dk and dv (the stream and tf32 designs sum them region by
+# region). The fp32 entries, those of the tf32 kernels, must be rejected
+# at more than LOST_FP32_BY times the bound.
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
-LOST_MAIN_FP32 = dict(fwd=(1024, 1088))
+LOST_MAIN_FP32 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
+LOST_FP32_BY = 10.0
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
 LOST_C4 = {"bf16_d512": dict(fwd=(512, 544)),
-           "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320))}
-# Phase 4c: phase 4's model in fp32 (the forward on tf32, dq and dk/dv on
-# simt), depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
+           "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320)),
+           "fp32_d640": dict(fwd_columns=(256, 288),
+                             bwd_columns=(256, 288))}
+# ROADMAP C6: lengths under 128 that are no multiple of 64 (a full first
+# tile and a ragged second one), on every design: (dtype name, head dim)
+# at B 2, H 2, causal, Sq = Sk = 100 (q_offset 16; keys 64-99, the
+# ragged tile, left out of the forward and dq must fail the bound) and Sq
+# 100, Sk 127 (q_offset 27: the diagonal through both ragged ends).
+RAGGED_DESIGNS = (("bfloat16", 32), ("float32", 32), ("bfloat16", 128),
+                  ("bfloat16", 256), ("bfloat16", 640), ("float32", 128),
+                  ("float32", 640))
+RAGGED_LENGTHS = ((100, 100, 16, dict(fwd=(64, 100), dq=(64, 100))),
+                  (100, 127, 27, None))
+# Phase 4c: phase 4's model in fp32 (the forward, dq and dk/dv on tf32),
+# depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
 # profiled).
 FP32_LM = dict(layers=2, warmup=1, steps=2)
-FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq", "flash_dkv")
+FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32")
 
 
 def card_line() -> str:
@@ -301,16 +332,18 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def check_close(label, mine, plain, rtol, step=0.0, atol=1e-6, rows=True,
-                plain_b=None, must_fail=False) -> float:
+                plain_b=None, must_fail=False, fail_by=1.0) -> float:
     """Holds every element of ``mine`` to the bound of utils/tolerance.py;
     returns the largest absolute error. With ``must_fail``, ``mine`` is a
-    deliberately wrong result and the bound must reject it."""
+    deliberately wrong result and the bound must reject it, by more than
+    ``fail_by`` times the bound."""
     from horovod_tpu_torch.utils import tolerance
     max_err, ratio = tolerance.worst(mine, plain, rtol, atol=atol,
                                      step=step, rows=rows, plain_b=plain_b)
-    ok = math.isfinite(max_err) and ratio <= 1.0
+    ok = math.isfinite(max_err) and ratio <= (fail_by if must_fail else 1.0)
     if must_fail:
-        verdict = "PASSED (too loose)" if ok else "rejected, as it must be"
+        verdict = ("PASSED (too loose)" if ok else
+                   f"rejected, as it must be (over {fail_by:g}x)")
     else:
         verdict = "ok" if ok else "FAIL"
     print(f"  {label:<34} max_abs_err={max_err:.3e} "
@@ -327,12 +360,16 @@ def check_close(label, mine, plain, rtol, step=0.0, atol=1e-6, rows=True,
     return max_err
 
 
-def fwd_without_keys(fa, q, k, v, lo, hi):
+def fwd_without_keys(fa, q, k, v, lo, hi, qo=0, ko=0):
     """The plain causal forward with keys lo..hi-1 left out: two plain
-    calls over the kept keys, merged through their (m, l) stats."""
+    calls over the kept keys, merged through their (m, l) stats (one when
+    hi is the last key)."""
     q, k, v = q.float(), k.float(), v.float()
-    o1, m1, l1 = fa._flash_fwd_plain(q, k[:, :lo], v[:, :lo], True, 0, 0)
-    o2, m2, l2 = fa._flash_fwd_plain(q, k[:, hi:], v[:, hi:], True, 0, hi)
+    o1, m1, l1 = fa._flash_fwd_plain(q, k[:, :lo], v[:, :lo], True, qo, ko)
+    if hi >= k.shape[1]:
+        return o1
+    o2, m2, l2 = fa._flash_fwd_plain(q, k[:, hi:], v[:, hi:], True, qo,
+                                     ko + hi)
     m = m1.maximum(m2)
     w1, w2 = l1 * (m1 - m).exp(), l2 * (m2 - m).exp()
     w1, w2, l = (x.transpose(1, 2)[..., None] for x in (w1, w2, w1 + w2))
@@ -349,15 +386,36 @@ def fwd_without_columns(fa, q, k, v, lo, hi):
     return fa._flash_fwd_plain(q, k, v.float(), True, 0, 0)[0]
 
 
-def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi):
+def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi, qo=0, ko=0,
+                    operands=None):
     """The plain causal dq with keys lo..hi-1 left out: dq is a sum over
     keys, so it is the plain dq over keys [:lo] plus that over keys [hi:]
     at k_offset hi, with the whole attention's lse and delta."""
     q, k, v, do = q.float(), k.float(), v.float(), do.float()
-    return (fa._flash_dq_plain(q, k[:, :lo], v[:, :lo], do, lse, delta,
-                               True, 0, 0)
-            + fa._flash_dq_plain(q, k[:, hi:], v[:, hi:], do, lse, delta,
-                                 True, 0, hi))
+    dq = fa._flash_dq_plain(q, k[:, :lo], v[:, :lo], do, lse, delta, True,
+                            qo, ko, operands=operands)
+    if hi < k.shape[1]:
+        dq = dq + fa._flash_dq_plain(q, k[:, hi:], v[:, hi:], do, lse,
+                                     delta, True, qo, ko + hi,
+                                     operands=operands)
+    return dq
+
+
+def bwd_without_columns(fa, q, k, v, do, lse, delta, lo, hi):
+    """The plain causal dq, dk and dv with columns lo..hi-1 of the head dim
+    left out of the logits (q and k zeroed there for s alone): a streamed
+    backward kernel that lost one region of D from its sum for S."""
+    qz, kz = q.float().clone(), k.float().clone()
+    qz[..., lo:hi] = 0
+    kz[..., lo:hi] = 0
+    s, allowed = fa._scores(qz, kz, True, 0, 0,
+                            scale=fa._softmax_scale(q.shape[-1]))
+    p = (s - lse[..., None]).exp() * allowed
+    dp = fa._product("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * fa._softmax_scale(q.shape[-1])
+    return (fa._product("bhqk,bkhd->bqhd", ds, k),
+            fa._product("bhqk,bqhd->bkhd", ds, q),
+            fa._product("bhqk,bqhd->bkhd", p, do))
 
 
 def kernel_name(fa, kern, design, tag=None):
@@ -368,29 +426,38 @@ def kernel_name(fa, kern, design, tag=None):
 
 
 def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
-                seed=0, design=None, lost=None, kernels=None, tag=None):
+                seed=0, design=None, lost=None, kernels=None, tag=None,
+                sk=None):
     """Runs ``kernels`` (of fwd, dq, dkv) and their plain versions on one
-    input set; returns {row name: max_abs_err}. ``design`` forces one
-    design (default: ``fa._design`` per kernel); every launch goes
-    through ``fa._launch``, which pads a head dim no kernel of the design
-    is built for. ``lost`` (LOST_MAIN, LOST_D256, ...) adds the checks
-    that a plain result with one tile (or one region of the head dim)
-    left out fails the bound, for each kernel it names."""
+    input set (``sk`` keys, default ``s``); returns {row name:
+    max_abs_err}. ``design`` forces one design (default: ``fa._design``
+    per kernel); every launch goes through ``fa._launch``, which pads a
+    head dim no kernel of the design is built for. ``lost`` (LOST_MAIN,
+    LOST_D256, ...) adds the checks that a plain result with one tile (or
+    one region of the head dim) left out fails the bound, for each kernel
+    it names (by more than LOST_FP32_BY times on fp32)."""
     from horovod_tpu_torch.utils.tolerance import DQ_ATOL, step_of
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
-                   .to(dtype) for _ in range(4))
+    sk = sk or s
+    q, k, v, do = (torch.randn(b, n, h, d, generator=g, device="cuda")
+                   .to(dtype) for n in (s, sk, sk, s))
     kernels = kernels or fa.KERNELS
     designs = {kern: design or fa._design(dtype, d, kern)
                for kern in fa.KERNELS}
-    print(f"case {name}: B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
-          f"causal={causal} q_offset={qo} k_offset={ko} designs "
-          + ", ".join(f"{kern} {designs[kern]}" for kern in kernels))
+    print(f"case {name}: B={b} Sq={s} Sk={sk} H={h} D={d} "
+          f"{str(dtype)[6:]} causal={causal} q_offset={qo} k_offset={ko} "
+          f"designs " + ", ".join(f"{kern} {designs[kern]}"
+                                  for kern in kernels))
     # The operand rounding of each 16-bit tensor-core kernel (sm90,
-    # stream): p and ds in the input's type. The fp32 forward on the tensor
-    # cores (tf32) is held to the fp32 bound with no such allowance.
+    # stream): p and ds in the input's type. The fp32 kernels on the tensor
+    # cores (tf32) are held to the fp32 bound with no such allowance: the
+    # forward against the fp32 plain version, dq and dk/dv against the
+    # plain versions that take their products as three tf32 products.
     rounded = {kern: dtype if designs[kern] in ("sm90", "stream") else None
                for kern in fa.KERNELS}
+    tf32 = {kern: fa.TF32X3 if designs[kern] == "tf32" else None
+            for kern in fa.KERNELS}
+    fail_by = LOST_FP32_BY if dtype == torch.float32 else 1.0
     fwd_args = (q, k, v, causal, qo, ko)
     o_p, m_p, l_p = fa._flash_fwd_plain(*fwd_args)
     lse = fa._lse_from_stats(m_p, l_p)
@@ -420,33 +487,42 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         if lost and "fwd" in lost:
             lo, hi = lost["fwd"]
             check_close(f"forward o, keys {lo}-{hi - 1} left out",
-                        fwd_without_keys(fa, q, k, v, lo, hi), o_p, 2e-5,
-                        step, plain_b=o_b, must_fail=True)
+                        fwd_without_keys(fa, q, k, v, lo, hi, qo, ko), o_p,
+                        2e-5, step, plain_b=o_b, must_fail=True,
+                        fail_by=fail_by)
         if lost and "fwd_columns" in lost:
             lo, hi = lost["fwd_columns"]
             check_close(f"forward o, columns {lo}-{hi - 1} left out",
                         fwd_without_columns(fa, q, k, v, lo, hi), o_p, 2e-5,
-                        step, plain_b=o_b, must_fail=True)
+                        step, plain_b=o_b, must_fail=True, fail_by=fail_by)
         del o, m, l, o_b
     del o_p, m_p, l_p
     if "dq" in kernels:
         dq = out.pop("dq")
-        dq_p = fa._flash_dq_plain(*plain_args)
+        dq_p = fa._flash_dq_plain(*plain_args, operands=tf32["dq"])
         dq_b = (fa._flash_dq_plain(*plain_args, operands=rounded["dq"])
                 if rounded["dq"] else None)
-        dq_atol = DQ_ATOL if designs["dq"] == "sm90" else 1e-6
+        dq_atol = 1e-6 if designs["dq"] == "simt" else DQ_ATOL
         errs[kernel_name(fa, "dq", designs["dq"], tag)] = check_close(
             "dq", dq, dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b)
         if lost and "dq" in lost:
             lo, hi = lost["dq"]
             check_close(f"dq, keys {lo}-{hi - 1} left out",
-                        dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi),
+                        dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi,
+                                        qo, ko, tf32["dq"]),
                         dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b,
-                        must_fail=True)
+                        must_fail=True, fail_by=fail_by)
+        if lost and "bwd_columns" in lost:
+            lo, hi = lost["bwd_columns"]
+            check_close(f"dq, columns {lo}-{hi - 1} left out of s",
+                        bwd_without_columns(fa, q, k, v, do, lse, delta, lo,
+                                            hi)[0], dq_p, 1e-4, step,
+                        atol=dq_atol, plain_b=dq_b, must_fail=True,
+                        fail_by=fail_by)
         del dq, dq_p, dq_b
     if "dkv" in kernels:
         dk, dv = out.pop("dkv")
-        dk_p, dv_p = fa._flash_dkv_plain(*plain_args)
+        dk_p, dv_p = fa._flash_dkv_plain(*plain_args, operands=tf32["dkv"])
         dk_b, dv_b = (fa._flash_dkv_plain(*plain_args,
                                           operands=rounded["dkv"])
                       if rounded["dkv"] else (None, None))
@@ -463,9 +539,21 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             dk_x, dv_x = fa._flash_dkv_plain(q, k, v, do_x, lse, delta_x,
                                              causal, qo, ko)
             check_close(f"dk, queries {lo}-{hi - 1} left out", dk_x, dk_p,
-                        1e-4, step, plain_b=dk_b, must_fail=True)
+                        1e-4, step, plain_b=dk_b, must_fail=True,
+                        fail_by=fail_by)
             check_close(f"dv, queries {lo}-{hi - 1} left out", dv_x, dv_p,
-                        1e-4, step, plain_b=dv_b, must_fail=True)
+                        1e-4, step, plain_b=dv_b, must_fail=True,
+                        fail_by=fail_by)
+        if lost and "bwd_columns" in lost:
+            lo, hi = lost["bwd_columns"]
+            _, dk_x, dv_x = bwd_without_columns(fa, q, k, v, do, lse, delta,
+                                                lo, hi)
+            check_close(f"dk, columns {lo}-{hi - 1} left out of s", dk_x,
+                        dk_p, 1e-4, step, plain_b=dk_b, must_fail=True,
+                        fail_by=fail_by)
+            check_close(f"dv, columns {lo}-{hi - 1} left out of s", dv_x,
+                        dv_p, 1e-4, step, plain_b=dv_b, must_fail=True,
+                        fail_by=fail_by)
     torch.cuda.empty_cache()
     return errs
 
@@ -494,14 +582,26 @@ def kernel_checks(torch, fa):
     kernel_case(fa, torch, "short_ragged", 2, 40, 3, 64, bf16, True, seed=8)
     kernel_case(fa, torch, "fp32", 2, 512, 4, 128, fp32, True, qo=64,
                 seed=5)
+    # Unequal lengths with offsets on the tf32 kernels (a ring shard's kv
+    # longer than its queries; a non-causal kv shorter).
+    kernel_case(fa, torch, "fp32_kv_longer", 2, 512, 4, 128, fp32, True,
+                qo=256, sk=768, seed=9)
+    kernel_case(fa, torch, "fp32_d640_kv_shorter", 2, 384, 4, 640, fp32,
+                False, ko=64, sk=256, seed=10)
     # The fp32 rows of the kernels line carry the fp32 errors at the main
-    # shape, the inputs phase 5 times them on: the tf32 forward (with a
-    # lost 64-key stage) and the simt forward beside it, dq and dk/dv.
+    # shape, the inputs phase 5 times them on: the tf32 forward, dq and
+    # dk/dv (with a lost 64-key stage and 64-query tile) and the simt
+    # kernels beside them.
     errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
                             causal=True, seed=6, lost=LOST_MAIN_FP32))
     errs.update(kernel_case(fa, torch, "main_fp32 on simt", **MAIN,
-                            dtype=fp32, causal=True, seed=6, design="simt",
-                            kernels=("fwd",)))
+                            dtype=fp32, causal=True, seed=6, design="simt"))
+    # ROADMAP C6: a ragged second tile on every design.
+    for i, (dt, d) in enumerate(RAGGED_DESIGNS):
+        for sq, sk, qo, lost in RAGGED_LENGTHS:
+            kernel_case(fa, torch, f"ragged_{dt}_d{d}", 2, sq, 2, d,
+                        getattr(torch, dt), True, qo=qo, sk=sk,
+                        seed=40 + i, lost=lost)
     cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d), LOST_C4.get(tag))
              for tag, dt, d in C4_CASES]
     # The Gemma-7B geometry, with the lost-tile checks at D 256's tiles.
@@ -700,8 +800,8 @@ def gemma_path(torch, hvd, args, card):
 
 
 def fp32_path(torch, hvd, args, card):
-    """Phase 4c: phase 4's model in fp32, depth cut to 2: the forward on
-    the tf32 kernel, the backward on the simt ones."""
+    """Phase 4c: phase 4's model in fp32, depth cut to 2: the forward, dq
+    and dk/dv on the tf32 kernels."""
     from horovod_tpu_torch.models import TransformerConfig
     cfg = TransformerConfig(num_layers=FP32_LM["layers"], dtype=torch.float32,
                             **LM_FULL)
@@ -819,7 +919,11 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     ``time_ms``) with
     ``design`` (default: ``fa._design`` per kernel); the library call is
     scaled_dot_product_attention on [B, H, S, D] copies of the same
-    inputs, in the same dtype."""
+    inputs, in the same dtype. The plain version is the one phase 2 holds
+    the kernel to (for the tf32 dq and dk/dv, its TF32X3 products); the
+    tf32 dq and dk/dv times hold the backward's pre-pass, which each
+    standalone launch runs for itself, timed apart as prepass_ms (in
+    fa._flash_bwd one pre-pass serves both)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -837,13 +941,20 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
         "dq": (lambda: fa._launch("dq", designs["dq"], (q, k, v, do), lse,
                                   delta, True, 0, 0),
                lambda: fa._flash_dq_plain(q, k, v, do, lse, delta, True, 0,
-                                          0)),
+                                          0, operands=tf32_ops["dq"])),
         "dkv": (lambda: fa._launch("dkv", designs["dkv"], (q, k, v, do), lse,
                                    delta, True, 0, 0),
                 lambda: fa._flash_dkv_plain(q, k, v, do, lse, delta, True,
-                                            0, 0))}
+                                            0, 0, operands=tf32_ops["dkv"]))}
+    tf32_ops = {kern: fa.TF32X3 if designs[kern] == "tf32" else None
+                for kern in fa.KERNELS}
     ms = {fn: time_ms(calls[fn][0], 20) for fn in kernels}
     plain = {fn: time_ms(calls[fn][1], 5) for fn in kernels}
+    prepass = None
+    if any(designs[fn] == "tf32" for fn in kernels if fn != "fwd"):
+        prepass = time_ms(lambda: fa._on_padded_head_dim(
+            lambda *t, scale=None: fa._tf32_bwd_split(*t), (q, k, v, do),
+            design="tf32", kernel="dq"), 20)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
@@ -888,6 +999,8 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
             row["bound_fma_ms"] = max(flops[fn] / peak * 1e3, byte_ms)
         if fn != "fwd":
             row["library_bwd_only_ms"] = lib_bwd
+            if tf32:
+                row["prepass_ms"] = prepass
         # Which build ran: the dtype and the head dim after padding.
         row["built"] = (str(dtype)[6:],
                         fa.padded_head_dim(d, designs[fn], fn))
@@ -899,17 +1012,18 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
 
 def kernel_times(torch, fa):
     """Every kernel's row: the sm90 kernels at the main path's shape in
-    bf16, the fp32 ones there (the tf32 forward and the simt forward
-    beside it, the simt dq and dk/dv), each C4 case at its shape and the
-    Gemma-7B geometry, with the simt kernel beside every case that a
-    tensor-core one serves. Prints the tensor-core rows against their
-    simt ones."""
+    bf16, the fp32 ones there (the tf32 forward, dq and dk/dv, and the
+    simt ones beside them), each C4 case at its shape and the Gemma-7B
+    geometry, with the simt kernel beside every case that a tensor-core
+    one serves. Prints the tensor-core rows against their simt ones (and
+    the tf32 backward's against SDPA's backward, the plain version and
+    the bound), and the simt rows at D <= 32 against SDPA."""
     rows = {}
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32,
-                            design="simt", kernels=("fwd",)))
-    pairs = [(None, torch.float32, MAIN["d"], "fwd")]
+                            design="simt"))
+    pairs = [(None, torch.float32, MAIN["d"], kern) for kern in fa.KERNELS]
     cases = [(tag, getattr(torch, dt), dict(C4_SHAPE, d=d))
              for tag, dt, d in C4_CASES]
     cases.append(("gemma", torch.bfloat16, GEMMA))
@@ -921,16 +1035,37 @@ def kernel_times(torch, fa):
                                     design="simt", kernels=tc, tag=tag))
             pairs += [(tag, dtype, shape["d"], kern) for kern in tc]
     print("tensor-core kernels against the simt kernels they replace, same "
-          "inputs (ms of the card, CUDA-event means of 20 launches):")
+          "inputs (ms of the card, CUDA-event means of 20 launches; the "
+          "tf32 backward with its pre-pass, beside SDPA's backward alone, "
+          "the plain version and the bound, 3xTF32 / FMA):")
     slower = []
     for tag, dtype, d, kern in pairs:
         design = fa._design(dtype, d, kern)
-        new = rows[kernel_name(fa, kern, design, tag)]["ms"]
-        old = rows[kernel_name(fa, kern, "simt", tag)]["ms"]
+        row = rows[kernel_name(fa, kern, design, tag)]
+        new, old = row["ms"], rows[kernel_name(fa, kern, "simt", tag)]["ms"]
+        more = ""
+        if design == "tf32" and kern != "fwd":
+            more = (f"  pre-pass {row['prepass_ms']:.4f}  SDPA bwd "
+                    f"{row['library_bwd_only_ms']:.4f} "
+                    f"({new / row['library_bwd_only_ms']:.2f}x)  plain "
+                    f"{row['plain_ms']:.3f}  bound {row['bound_ms']:.4f} / "
+                    f"{row['bound_fma_ms']:.4f}")
         print(f"  {tag or 'main fp32':<10} {kern:<4} {design:<6} {new:8.4f}  "
-              f"simt {old:8.4f}  {old / new:6.1f}x")
+              f"simt {old:8.4f}  {old / new:6.1f}x{more}")
         if not new < old:
             slower.append((tag, kern))
+    print("simt kernels at D <= 32 against SDPA (forward; backward alone), "
+          "ms:")
+    for tag, dtype, shape in cases:
+        if shape["d"] > 32:
+            continue
+        for kern in fa.KERNELS:
+            row = rows[kernel_name(fa, kern, "simt", tag)]
+            lib = row["library_ms" if kern == "fwd" else
+                      "library_bwd_only_ms"]
+            print(f"  {tag:<10} {kern:<4} {row['ms']:8.4f}  SDPA "
+                  f"{lib:8.4f}  ({row['ms'] / lib:.2f}x)  bound "
+                  f"{row['bound_ms']:.4f}")
     for name, was in RECORDED_MAIN_MS.items():
         print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
@@ -1517,7 +1652,7 @@ def main(argv=None) -> int:
     # Phase 4b: the LM at Gemma-7B's attention widths (D 256).
     gemma_counts = gemma_path(torch, hvd, args, card)
 
-    # Phase 4c: the LM in fp32 (the tf32 forward), depth cut.
+    # Phase 4c: the LM in fp32 (the tf32 kernels), depth cut.
     fp32_counts = fp32_path(torch, hvd, args, card)
 
     # Phase 5: times.
@@ -1556,8 +1691,10 @@ def main(argv=None) -> int:
                "flash_fwd_tf32": ("flash_fwd_stream_sm90.cu", "58"),
                "flash_dq": ("flash_bwd.cu", "204"),
                "flash_dq_sm90": ("flash_dq_sm90.cu", "204"),
+               "flash_dq_tf32": ("flash_bwd_tf32_sm90.cu", "204"),
                "flash_dkv": ("flash_bwd.cu", "236"),
-               "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236")}
+               "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236"),
+               "flash_dkv_tf32": ("flash_bwd_tf32_sm90.cu", "236")}
     # A row's launches are those of its kernel on the path that runs its
     # build (dtype, head dim): bf16 D 128 on phase 4, bf16 D 256 on phase
     # 4b, fp32 D 128 on phase 4c; the other builds run on no main path.

@@ -64,6 +64,15 @@ _SIGNATURES = {
     # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
     # k_off, causal, scale, stream
     "hvdt_flash_dkv_sm90": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q, k, v, do, scratch, B, H, Sq, Sk, D, stream (fp32 only: the tf32
+    # backward's pre-pass)
+    "hvdt_flash_bwd_tf32_split": [_P] * 5 + [_I] * 5 + [_P],
+    # scratch, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream
+    "hvdt_flash_dq_tf32": [_P] * 4 + [_I] * 8 + [_F, _P],
+    # scratch, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream
+    "hvdt_flash_dkv_tf32": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
 
 _lock = threading.Lock()

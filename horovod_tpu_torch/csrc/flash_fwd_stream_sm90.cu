@@ -63,11 +63,12 @@
 // tolerance (one tf32 product alone misses it more than tenfold:
 // tests/test_torch_flash_fwd_tf32_wide.py). tf32 wgmma takes
 // both operands K-major (no transpose bit), so O += P V needs V^T (keys
-// contiguous). A pre-pass of this file (tf32_split, tf32_split_vt) writes,
+// contiguous). A pre-pass (tf32_split, tf32_split_t) writes,
 // once per call, Q and K hi and lo in their [B, S, H, D] layout and V^T hi
 // and lo as [B, H, D, Skp] (Skp = Sk rounded up to 32, zero past Sk), into
 // scratch the wrapper allocates: it reads q, k, v once and writes six
-// tensors of their size (at the main shape 201 MB in, 403 MB out).
+// tensors of their size (at the main shape 201 MB in, 403 MB out). Its
+// kernels are in sm90_common.cuh, shared with the backward.
 // Within every 8 keys V^T stores key 8g + 2i at 8g + i
 // and key 8g + 2i + 1 at 8g + 4 + i: the accumulator fragment of P holds
 // keys 2t, 2t + 1 of each 8 where tf32's register A fragment wants columns
@@ -462,61 +463,6 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-// ---- the tf32 pre-pass ----------------------------------------------------
-
-// hi = tf32(x), lo = tf32(x - hi), four elements a step (n4 float4s,
-// 16-byte-aligned).
-__global__ void tf32_split(const float4* __restrict__ x,
-                           float4* __restrict__ hi, float4* __restrict__ lo,
-                           size_t n4) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float4 v = x[i];
-    float4 h, l;
-    h.x = tf32_round(v.x);
-    h.y = tf32_round(v.y);
-    h.z = tf32_round(v.z);
-    h.w = tf32_round(v.w);
-    l.x = tf32_round(v.x - h.x);
-    l.y = tf32_round(v.y - h.y);
-    l.z = tf32_round(v.z - h.z);
-    l.w = tf32_round(v.w - h.w);
-    hi[i] = h;
-    lo[i] = l;
-  }
-}
-
-// V [B, Sk, H, D] -> V^T hi and lo [B, H, D, Skp], zero past Sk, the keys
-// of every 8 stored in the order the forward's P fragment takes them:
-// position 8g + i holds key 8g + 2i, position 8g + 4 + i key 8g + 2i + 1
-// (i < 4). One block of 256 threads per (b h, 32 columns of D, 32 keys).
-__global__ void __launch_bounds__(256)
-    tf32_split_vt(const float* __restrict__ v, float* __restrict__ hi,
-                  float* __restrict__ lo, int Sk, int H, int D, int Skp) {
-  __shared__ float tile[32][33];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.z * 32, d0 = blockIdx.y * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  for (int i = ty; i < 32; i += 8) {
-    const int key = k0 + i;
-    tile[i][tx] =
-        key < Sk ? v[(((size_t)b * Sk + key) * H + h) * D + d0 + tx] : 0.f;
-  }
-  __syncthreads();
-  const int e = tx % 8;
-  const int key = 8 * (tx / 8) + (e < 4 ? 2 * e : 2 * (e - 4) + 1);
-  for (int i = ty; i < 32; i += 8) {
-    const float x = tile[key][i];
-    const float xh = tf32_round(x);
-    const size_t off = (((size_t)b * H + h) * D + d0 + i) * Skp + k0 + tx;
-    hi[off] = xh;
-    lo[off] = tf32_round(x - xh);
-  }
-}
-
-// The rows of V^T the pre-pass writes: Sk rounded up to 32.
-inline int padded_keys(int Sk) { return (Sk + 31) / 32 * 32; }
-
 template <typename T>
 cudaError_t run(const void* q, const void* q_lo, const void* k,
                 const void* k_lo, const void* v, const void* v_lo, void* o,
@@ -585,7 +531,7 @@ extern "C" int hvdt_flash_fwd_tf32(const void* q, const void* k,
                                    int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 0 || D % 32) return cudaErrorInvalidValue;
-  const int skp = hvdt::padded_keys(Sk);
+  const int skp = hvdt::sm90::padded_keys(Sk);
   const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
   const size_t nv = (size_t)B * H * D * skp;
   float* qh = (float*)scratch;
@@ -595,11 +541,11 @@ extern "C" int hvdt_flash_fwd_tf32(const void* q, const void* k,
   float* vh = kl + nk;
   float* vl = vh + nv;
   const int blocks = 132 * 8;
-  hvdt::tf32_split<<<blocks, 256, 0, st>>>((const float4*)q, (float4*)qh,
-                                           (float4*)ql, nq / 4);
-  hvdt::tf32_split<<<blocks, 256, 0, st>>>((const float4*)k, (float4*)kh,
-                                           (float4*)kl, nk / 4);
-  hvdt::tf32_split_vt<<<dim3(B * H, D / 32, skp / 32), 256, 0, st>>>(
+  hvdt::sm90::tf32_split<<<blocks, 256, 0, st>>>(
+      (const float4*)q, (float4*)qh, (float4*)ql, nq / 4);
+  hvdt::sm90::tf32_split<<<blocks, 256, 0, st>>>(
+      (const float4*)k, (float4*)kh, (float4*)kl, nk / 4);
+  hvdt::sm90::tf32_split_t<<<dim3(B * H, D / 32, skp / 32), 256, 0, st>>>(
       (const float*)v, vh, vl, Sk, H, D, skp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

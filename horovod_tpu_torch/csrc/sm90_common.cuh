@@ -1,11 +1,12 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
 // (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_dq_sm90.cu,
-// flash_dkv_sm90.cu): TMA loads through a tensor map, mbarrier init /
-// arrive / expect-tx / wait, wgmma descriptors, fence, commit and wait,
-// setmaxnreg, the proxy fence and named barriers for tiles that the
-// consumers write themselves, and the host-side tensor-map encoders.
-// The wrappers take bf16 or fp16 (`T`), and fp32 tiles fed to the tensor
-// cores as tf32 (`wgmma_tf32_ss`, `wgmma_tf32_rs`).
+// flash_dkv_sm90.cu, flash_bwd_tf32_sm90.cu): TMA loads through a tensor
+// map, mbarrier init / arrive / expect-tx / wait, wgmma descriptors,
+// fence, commit and wait, setmaxnreg, the proxy fence and named barriers
+// for tiles that the consumers write themselves, the host-side tensor-map
+// encoders, and the tf32 kernels' pre-pass. The wrappers take bf16 or
+// fp16 (`T`), and fp32 tiles fed to the tensor cores as tf32
+// (`wgmma_tf32_ss`, `wgmma_tf32_rs`).
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B,
 // and every size below is in bytes, whatever the element: rows of 128
@@ -493,6 +494,80 @@ inline cudaError_t launch_ws(K kernel, dim3 grid, size_t bytes,
   if (err != cudaSuccess) return err;
   kernel<<<grid, 384, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// ---- the tf32 pre-pass ----------------------------------------------------
+//
+// The tf32 kernels (the forward in flash_fwd_stream_sm90.cu, dq and dk/dv
+// in flash_bwd_tf32_sm90.cu) read each fp32 operand as two tf32 parts,
+// hi = tf32(x) and lo = tf32(x - hi), written once per call by these
+// kernels into scratch the wrapper allocates. tf32 wgmma takes both
+// operands K-major, so a product that reduces over the sequence (P V,
+// dS K, P^T dO, dS^T Q) reads its second factor transposed, [B, H, D, S
+// rounded up], from tf32_split_t. The kernels live in an unnamed
+// namespace: each file that includes this header has its own copy.
+namespace {
+
+// hi = tf32(x), lo = tf32(x - hi), four elements a step (n4 float4s,
+// 16-byte-aligned).
+__global__ void tf32_split(const float4* __restrict__ x,
+                           float4* __restrict__ hi, float4* __restrict__ lo,
+                           size_t n4) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    float4 h, l;
+    h.x = tf32_round(v.x);
+    h.y = tf32_round(v.y);
+    h.z = tf32_round(v.z);
+    h.w = tf32_round(v.w);
+    l.x = tf32_round(v.x - h.x);
+    l.y = tf32_round(v.y - h.y);
+    l.z = tf32_round(v.z - h.z);
+    l.w = tf32_round(v.w - h.w);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// X [B, S, H, D] -> X^T hi and lo [B, H, D, Sp] (Sp a multiple of 32, at
+// least S), zero past S, the rows of every 8 positions stored in the order
+// in which a tf32 wgmma's register A operand takes an accumulator
+// fragment: position 8g + i holds row 8g + 2i, position 8g + 4 + i row
+// 8g + 2i + 1 (i < 4). A thread's fragment holds columns 2t, 2t + 1 of
+// each 8 where the A operand wants columns t, t + 4, so P or dS (and P^T,
+// dS^T) go to the tensor cores without a shuffle, each value paired with
+// its own row of X. One block of 256 threads per (b h, 32 columns of D,
+// 32 rows of S).
+__global__ void __launch_bounds__(256)
+    tf32_split_t(const float* __restrict__ x, float* __restrict__ hi,
+                 float* __restrict__ lo, int S, int H, int D, int Sp) {
+  __shared__ float tile[32][33];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int s0 = blockIdx.z * 32, d0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int row = s0 + i;
+    tile[i][tx] =
+        row < S ? x[(((size_t)b * S + row) * H + h) * D + d0 + tx] : 0.f;
+  }
+  __syncthreads();
+  const int e = tx % 8;
+  const int row = 8 * (tx / 8) + (e < 4 ? 2 * e : 2 * (e - 4) + 1);
+  for (int i = ty; i < 32; i += 8) {
+    const float v = tile[row][i];
+    const float vh = tf32_round(v);
+    const size_t off = (((size_t)b * H + h) * D + d0 + i) * Sp + s0 + tx;
+    hi[off] = vh;
+    lo[off] = tf32_round(v - vh);
+  }
+}
+
+}  // namespace
+
+// The rows of a transposed plane: S rounded up to `multiple` (of 32).
+inline int padded_keys(int S, int multiple = 32) {
+  return (S + multiple - 1) / multiple * multiple;
 }
 
 }  // namespace sm90

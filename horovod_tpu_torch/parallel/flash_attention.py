@@ -10,8 +10,12 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 or ``flash_fwd.cu`` (D <= 32) via
                                 :func:`_flash_fwd`
 - ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 33-256)
+                                ``flash_bwd_tf32_sm90.cu`` (fp32 past D
+                                32, 3xTF32)
                                 or ``flash_bwd.cu``     via :func:`_flash_bwd`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 33-256)
+                                ``flash_bwd_tf32_sm90.cu`` (fp32 past D
+                                32, 3xTF32)
                                 or ``flash_bwd.cu``     via :func:`_flash_bwd`
 
 :func:`_design` picks each kernel's design from the dtype and head dim
@@ -23,18 +27,21 @@ alone, before any launch:
   (``SM90_HEAD_DIMS``), the forward at any head dim in (32, 512], built
   at those and at 384 and 512 (``SM90_KERNEL_DIMS``; past 256 each CTA
   accumulates one half of O's head dim).
-- ``stream`` and ``tf32`` (``STREAM_DESIGNS``), the forward only, hold
-  no tile that spans the head dim: Q and K come through a TMA ring one
+- ``stream`` and ``tf32`` (``STREAM_DESIGNS``) hold no tile that spans
+  the head dim: the operands of S (and of dP) come through a TMA ring one
   128-byte column region at a time (64 16-bit or 32 fp32 columns), S is
-  summed over the regions and each CTA accumulates one part of O's head
-  dim (256 columns for 16-bit, 128 for fp32) on grid.z. ``stream`` takes
-  bf16 and fp16 past D 512, at every multiple of 64; ``tf32`` takes fp32
-  past D 32, at every multiple of 32, each product as hi.hi + hi.lo +
-  lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a pre-pass
-  that writes q and k's parts and v^T's. The shared-memory bytes of each
-  are worked out in the file's header.
-- ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: the
-  forward at D <= 32, dq and dk/dv at D <= 32, in fp32 and past 256.
+  summed over the regions and each CTA accumulates one part of its
+  output's head dim. ``stream``, the forward only, takes bf16
+  and fp16 past D 512, at every multiple of 64 (parts of 256 columns);
+  ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
+  kernels (parts of 128 columns; dk/dv 64), each product as hi.hi +
+  hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
+  pre-pass that writes the inputs' parts and the transposes the products
+  over the sequence read (the forward's v^T; the backward's k^T, q^T and
+  do^T, one pre-pass for dq and dk/dv, :func:`_tf32_bwd_split`). The
+  shared-memory bytes of each are worked out in the files' headers.
+- ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: all
+  three kernels at D <= 32, and 16-bit dq and dk/dv past 256.
   It is built at ``HEAD_DIMS`` (16 to 512; its tiles shrink as D grows so
   that a block's shared memory holds them, the counterpart of the
   reference's ``_ladders_for``) and at any multiple of 64 past 512,
@@ -50,7 +57,7 @@ scale of the true D, and the outputs sliced back
 padded columns of v give output columns that are cut away. So bf16 D 80
 runs all three kernels at 128, D 200 at 256, D 320 the forward at 384
 (sm90) and the backward at 384 (simt), D 600 the forward at 640
-(stream), and fp32 D 100 the forward at 128 (tf32). The backward pads q,
+(stream), and fp32 D 100 all three at 128 (tf32). The backward pads q,
 k, v and do once for both of its kernels (:func:`_flash_bwd`). The
 tensor-core kernels read their inputs through TMA (the tf32 pre-pass in
 16-byte loads) and need 16-byte aligned bases; a misaligned CUDA tensor
@@ -59,7 +66,7 @@ raises, it never falls back to another design.
 Each launcher counts its launches (``launch_counts()``, keyed by
 :func:`counter_name`: ``flash_fwd``, ``flash_fwd_sm90``,
 ``flash_fwd_stream``, ``flash_fwd_tf32``, ``flash_dq``, ``flash_dq_sm90``,
-``flash_dkv``, ``flash_dkv_sm90``).
+``flash_dq_tf32``, ``flash_dkv``, ``flash_dkv_sm90``, ``flash_dkv_tf32``).
 For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
 ``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
@@ -68,23 +75,26 @@ The 16-bit tensor-core kernels feed the tensor cores p (and ds) in the
 input's 16-bit type, as the reference's own dots do on the TPU by
 default; ``operands=dtype`` makes the plain versions round at exactly
 those places, which is what the card's checks compare the rounding
-with. ``operands=TF32X3`` makes the plain forward take its two products
-as the tf32 kernel does (``TF32``: as one tf32 product, which misses the
-reference's fp32 bound); the card holds the tf32 kernel to the fp32
+with. ``operands=TF32X3`` makes the plain versions take their products
+as the tf32 kernels do (``TF32``: as one tf32 product, which misses the
+reference's fp32 bound); the card holds the tf32 kernels to the fp32
 bound with no allowance.
 
 Tensors are ``[B, S, H, D]`` (the module layout of models/transformer.py)
 and the kernels read that layout in place; the softmax statistics
 ``(m, l)`` are ``[B, H, Sq]`` fp32. Offsets are the global positions of
 q[0] and k[0] and shift the causal mask; they are plain kernel arguments,
-so no value needs a new build. Sequences that are a multiple of 64, or
-shorter than 64, run the kernels; a longer one that is not falls back to
-the dense formulation when causal and raises ``ValueError`` when not, as
-the reference does for its blocks.
+so no value needs a new build. Sequences shorter than 128 or a multiple
+of 64 run the kernels (the kernels mask a ragged last tile); any other
+falls back to the dense formulation when causal and raises
+``ValueError`` when not. That is every length the reference takes (below
+its smallest block, 128, it takes the whole sequence as one block) and,
+on purpose, the multiples of 64 past it that it refuses (S = 192).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple, Union
 
@@ -95,6 +105,9 @@ from horovod_tpu_torch import _cuda
 
 _NEG_INF = -1e30
 BLOCK = 64   # the sequence granularity of the kernels' tiles
+# Below this length any sequence runs the kernels, as one block of the
+# reference does (its smallest block ladder entry).
+WHOLE_BELOW = 128
 # head dims the simt kernels are built for up to 512; past it, every
 # multiple of CHUNK (each block computes one CHUNK-wide slice of D)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256, 384, 512)
@@ -106,14 +119,17 @@ KERNELS = ("fwd", "dq", "dkv")
 SM90_DTYPES = (torch.bfloat16, torch.float16)
 SM90_KERNEL_DIMS = {"fwd": SM90_HEAD_DIMS + (384, 512),
                     "dq": SM90_HEAD_DIMS, "dkv": SM90_HEAD_DIMS}
-# The forward's streamed designs (csrc/flash_fwd_stream_sm90.cu): design ->
-# (its dtypes, the head dim it starts past, the region width: it is built
-# for every multiple of that width past the start).
-STREAM_DESIGNS = {"stream": (SM90_DTYPES, SM90_KERNEL_DIMS["fwd"][-1], 64),
-                  "tf32": ((torch.float32,), HEAD_DIMS[1], 32)}
-# ``operands`` modes of the plain forward for the tf32 design: each product
-# as hi.hi + hi.lo + lo.hi of tf32 parts (what the kernel computes), or as
-# one tf32 product (what plain TF32 would give).
+# The designs streamed over D (csrc/flash_fwd_stream_sm90.cu,
+# csrc/flash_bwd_tf32_sm90.cu): design -> (its dtypes, the head dim it
+# starts past, the region width: it is built for every multiple of that
+# width past the start, the kernels it serves).
+STREAM_DESIGNS = {"stream": (SM90_DTYPES, SM90_KERNEL_DIMS["fwd"][-1], 64,
+                             ("fwd",)),
+                  "tf32": ((torch.float32,), HEAD_DIMS[1], 32, KERNELS)}
+_KERNEL_NAMES = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}
+# ``operands`` modes of the plain versions for the tf32 design: each
+# product as hi.hi + hi.lo + lo.hi of tf32 parts (what the kernels
+# compute), or as one tf32 product (what plain TF32 would give).
 TF32X3 = "3xtf32"
 TF32 = "tf32"
 
@@ -124,8 +140,10 @@ flash_fwd_stream_launches = 0
 flash_fwd_tf32_launches = 0
 flash_dq_launches = 0
 flash_dq_sm90_launches = 0
+flash_dq_tf32_launches = 0
 flash_dkv_launches = 0
 flash_dkv_sm90_launches = 0
+flash_dkv_tf32_launches = 0
 
 Offset = Union[int, torch.Tensor]
 
@@ -134,9 +152,11 @@ def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_fwd_sm90_launches, flash_dq_launches
     global flash_dq_sm90_launches, flash_dkv_launches, flash_dkv_sm90_launches
     global flash_fwd_stream_launches, flash_fwd_tf32_launches
+    global flash_dq_tf32_launches, flash_dkv_tf32_launches
     flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
     flash_dq_sm90_launches = flash_dkv_launches = flash_dkv_sm90_launches = 0
     flash_fwd_stream_launches = flash_fwd_tf32_launches = 0
+    flash_dq_tf32_launches = flash_dkv_tf32_launches = 0
 
 
 def launch_counts() -> dict:
@@ -147,8 +167,10 @@ def launch_counts() -> dict:
             "flash_fwd_tf32": flash_fwd_tf32_launches,
             "flash_dq": flash_dq_launches,
             "flash_dq_sm90": flash_dq_sm90_launches,
+            "flash_dq_tf32": flash_dq_tf32_launches,
             "flash_dkv": flash_dkv_launches,
-            "flash_dkv_sm90": flash_dkv_sm90_launches}
+            "flash_dkv_sm90": flash_dkv_sm90_launches,
+            "flash_dkv_tf32": flash_dkv_tf32_launches}
 
 
 def counter_name(kernel: str, design: str) -> str:
@@ -175,16 +197,18 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     ``design`` at: ``d`` itself when one is built for it, else the next
     one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (64 to 512 for the
     forward, to 256 for dq and dk/dv), which raises past the largest (the
-    dispatchers send it nothing larger); the forward's ``stream`` and
-    ``tf32`` (``STREAM_DESIGNS``): the next multiple of 64 past 512 and of
-    32 past 32, which raise at or below their start and never above it;
+    dispatchers send it nothing larger); ``stream`` (the forward) and
+    ``tf32`` (all three kernels) (``STREAM_DESIGNS``): the next multiple
+    of 64 past 512 and of 32 past 32, which raise at or below their start
+    and for a kernel they do not serve, and never above the start;
     simt, the same for every kernel: ``HEAD_DIMS`` up to 512, then the
     next multiple of ``CHUNK``, so it never refuses a head dim there."""
     if design in STREAM_DESIGNS:
-        _, start, width = STREAM_DESIGNS[design]
-        if kernel != "fwd" or d <= start:
-            raise ValueError(f"head dim {d}: the {design} design is a "
-                             f"forward past head dim {start}")
+        _, start, width, kernels = STREAM_DESIGNS[design]
+        if kernel not in kernels or d <= start:
+            names = " and ".join(_KERNEL_NAMES[k] for k in kernels)
+            raise ValueError(f"head dim {d}: the {design} design serves "
+                             f"the {names} past head dim {start}")
         return -(-d // width) * width
     if design == "sm90":
         built = SM90_KERNEL_DIMS[kernel]
@@ -298,16 +322,17 @@ def _flash_fwd_plain(q, k, v, causal, q_offset, k_offset, operands=None,
 
 
 def _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
-                scale=None):
+                scale=None, operands=None):
     """What ``_recompute_p_ds`` computes for every tile at once:
-    p = exp(s - lse) and ds = p * (dp - delta) * scale, [B,H,Sq,Sk]."""
+    p = exp(s - lse) and ds = p * (dp - delta) * scale, [B,H,Sq,Sk];
+    ``operands`` is :func:`_product`'s, for s and dp."""
     if scale is None:
         scale = _softmax_scale(q.shape[-1])
-    s, allowed = _scores(q, k, causal, q_offset, k_offset, scale)
+    s, allowed = _scores(q, k, causal, q_offset, k_offset, scale, operands)
     p = torch.exp(s - lse[..., None])
     if allowed is not None:
         p = p * allowed
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dp = _product("bqhd,bkhd->bhqk", do, v, operands)
     ds = p * (dp - delta[..., None]) * scale
     return p, ds
 
@@ -315,24 +340,27 @@ def _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
 def _flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
                     operands=None, scale=None):
     """What ``_bwd_dq_kernel`` computes: dq = ds @ k, in q.dtype.
-    ``operands`` rounds ds to that dtype before the product, as the sm90
-    kernel does."""
+    ``operands`` a 16-bit dtype rounds ds to that dtype before the
+    product, as the sm90 kernel does; ``TF32X3`` (``TF32``) takes s, dp
+    and ds @ k as the tf32 kernel does (as one tf32 product each)."""
     _, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
-                        k_offset, scale)
-    return torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, operands),
-                        k.float()).to(q.dtype)
+                        k_offset, scale, operands)
+    return _product("bhqk,bkhd->bqhd", _rounded(ds, operands), k,
+                    operands).to(q.dtype)
 
 
 def _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
                      operands=None, scale=None):
     """What ``_bwd_dkv_kernel`` computes: dk = ds^T @ q, dv = p^T @ do.
-    ``operands`` rounds p and ds to that dtype before the two products,
-    as the sm90 kernel does (ds from the unrounded p)."""
+    ``operands`` a 16-bit dtype rounds p and ds to that dtype before the
+    two products, as the sm90 kernel does (ds from the unrounded p);
+    ``TF32X3`` (``TF32``) takes all four products as the tf32 kernel does
+    (as one tf32 product each)."""
     p, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
-                        k_offset, scale)
+                        k_offset, scale, operands)
     p, ds = _rounded(p, operands), _rounded(ds, operands)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = _product("bhqk,bqhd->bkhd", ds, q, operands)
+    dv = _product("bhqk,bqhd->bkhd", p, do, operands)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -390,15 +418,14 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The design of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for CUDA
     inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
     fed by TMA, Q resident) at bf16 and fp16 with 32 < d <= 512 for the
-    forward and 32 < d <= 256 for dq and dk/dv; for the forward
-    ``"stream"`` (the same, streamed over D) at bf16 and fp16 past 512
-    and ``"tf32"`` (streamed, 3xTF32) at fp32 past 32; ``"simt"`` (fp32
-    FMAs, flash_fwd.cu / flash_bwd.cu) otherwise: the forward only at
-    d <= 32."""
-    if kernel == "fwd" and d > 32:
-        for design, (dtypes, start, _) in STREAM_DESIGNS.items():
-            if dtype in dtypes and d > start:
-                return design
+    forward and 32 < d <= 256 for dq and dk/dv; ``"stream"`` (the same,
+    streamed over D) for the forward at bf16 and fp16 past 512;
+    ``"tf32"`` (streamed, 3xTF32) for all three at fp32 past 32;
+    ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise: every
+    kernel at d <= 32, and 16-bit dq and dk/dv past 256."""
+    for design, (dtypes, start, _, kernels) in STREAM_DESIGNS.items():
+        if kernel in kernels and dtype in dtypes and d > start:
+            return design
     sm90 = dtype in SM90_DTYPES and 32 < d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
 
@@ -440,9 +467,9 @@ def _check_tensor_cores(name, kernel, tensors, design="sm90"):
         dtypes, dims = SM90_DTYPES, SM90_KERNEL_DIMS[kernel]
         built = d in dims
     else:
-        dtypes, start, width = STREAM_DESIGNS[design]
+        dtypes, start, width, kernels = STREAM_DESIGNS[design]
         dims = f"the multiples of {width} past {start}"
-        built = d > start and d % width == 0
+        built = kernel in kernels and d > start and d % width == 0
     if q.dtype not in dtypes or not built:
         raise ValueError(f"{name}: the {design} kernel takes {dtypes} at "
                          f"head dims {dims}, got {q.dtype} and {d}")
@@ -641,12 +668,82 @@ def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     return dk, dv
 
 
+def _tf32_bwd_split(q, k, v, do):
+    """The tf32 backward's pre-pass (csrc/flash_bwd_tf32_sm90.cu), which
+    dq and dk/dv both read: q, do, k and v split into tf32 hi and lo parts
+    in their [B, S, H, D] layout, and k, q and do transposed to [B, H, D,
+    S rounded up to 64] hi and lo, 14 planes in one fp32 scratch tensor
+    allocated here (at the fp32 main shape 0.94 GB)."""
+    _check_tensor_cores("flash backward", "dq", (q, k, v, do), "tf32")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    sqp, skp = (-(-x // BLOCK) * BLOCK for x in (sq, sk))
+    scratch = torch.empty(4 * (q.numel() + k.numel())
+                          + 2 * b * h * d * (skp + 2 * sqp), device=q.device)
+    lib = _cuda.load()
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_bwd_tf32_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            scratch.data_ptr(), b, h, sq, sk, d, _stream(q))
+    _cuda.check(err, "flash backward tf32 pre-pass")
+    return scratch
+
+
+def _bwd_tf32(name, kernel, q, k, v, do, lse, delta, split):
+    """The tf32 dq and dk/dv launchers' checks; their pre-pass, run here
+    unless the caller passes the one it ran for both (``split``)."""
+    _bwd_inputs(name, q, k, v, do, lse, delta)
+    _check_tensor_cores(name, kernel, (q, k, v, do), "tf32")
+    return _tf32_bwd_split(q, k, v, do) if split is None else split
+
+
+def _flash_dq_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                   k_offset: int, scale=None, split=None):
+    """The 3xTF32 dq kernel (flash_bwd_tf32_sm90.cu): fp32 at the multiples
+    of 32 past 32. ``split``: :func:`_tf32_bwd_split` of these inputs."""
+    global flash_dq_tf32_launches
+    split = _bwd_tf32("flash dq", "dq", q, k, v, do, lse, delta, split)
+    b, sq, h, d = q.shape
+    lib = _cuda.load()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_dq_tf32(
+            split.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, h, sq, k.shape[1], d, q_offset, k_offset,
+            int(causal), _scale_arg(q, scale), _stream(q))
+    _cuda.check(err, "flash dq tf32 kernel")
+    flash_dq_tf32_launches += 1
+    return dq
+
+
+def _flash_dkv_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                    k_offset: int, scale=None, split=None):
+    """The 3xTF32 dk/dv kernel (flash_bwd_tf32_sm90.cu): fp32 at the
+    multiples of 32 past 32. ``split``: as for :func:`_flash_dq_tf32`."""
+    global flash_dkv_tf32_launches
+    split = _bwd_tf32("flash dk/dv", "dkv", q, k, v, do, lse, delta, split)
+    b, sq, h, d = q.shape
+    lib = _cuda.load()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_dkv_tf32(
+            split.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], d, q_offset,
+            k_offset, int(causal), _scale_arg(q, scale), _stream(q))
+    _cuda.check(err, "flash dk/dv tf32 kernel")
+    flash_dkv_tf32_launches += 1
+    return dk, dv
+
+
 _LAUNCHERS = {("fwd", "sm90"): _flash_fwd_sm90,
               ("fwd", "stream"): _flash_fwd_stream,
               ("fwd", "tf32"): _flash_fwd_tf32,
               ("fwd", "simt"): _flash_fwd_simt,
-              ("dq", "sm90"): _flash_dq_sm90, ("dq", "simt"): _flash_dq_simt,
+              ("dq", "sm90"): _flash_dq_sm90, ("dq", "tf32"): _flash_dq_tf32,
+              ("dq", "simt"): _flash_dq_simt,
               ("dkv", "sm90"): _flash_dkv_sm90,
+              ("dkv", "tf32"): _flash_dkv_tf32,
               ("dkv", "simt"): _flash_dkv_simt}
 
 
@@ -656,9 +753,11 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     fp32. On CUDA each kernel takes the design :func:`_design` gives it,
     at the head dim :func:`padded_head_dim` gives that design; q, k, v
     and do are zero-padded once for each head dim the two run at (today
-    always one), so both kernels read the same padded tensors.
-    ``launchers`` ({(kernel, design): function}, default the kernels'
-    own) lets a test run the plain versions through the same steps."""
+    always one), so both kernels read the same padded tensors, and where
+    both run the tf32 design one pre-pass of those tensors
+    (:func:`_tf32_bwd_split`) serves both. ``launchers`` ({(kernel,
+    design): function}, default the kernels' own) lets a test run the
+    plain versions through the same steps."""
     tensors = (q, k, v, do)
     args = (lse, delta, causal, q_offset, k_offset)
     _bwd_inputs("flash backward", *tensors, lse, delta)
@@ -667,15 +766,19 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                 _flash_dkv_plain(*tensors, *args))
     launchers = launchers or _LAUNCHERS
     d = q.shape[-1]
-    padded = {}
+    padded, splits = {}, {}
 
     def run(kernel):
         design = _design(q.dtype, d, kernel)
         built = padded_head_dim(d, design, kernel)
         if built not in padded:
             padded[built] = _pad_head_dim(tensors, built)
-        return _at_head_dim(launchers[kernel, design], padded[built], d,
-                            *args)
+        fn = launchers[kernel, design]
+        if design == "tf32" and fn is _LAUNCHERS[kernel, design]:
+            if built not in splits:
+                splits[built] = _tf32_bwd_split(*padded[built])
+            fn = functools.partial(fn, split=splits[built])
+        return _at_head_dim(fn, padded[built], d, *args)
     return run("dq"), run("dkv")
 
 
@@ -684,7 +787,7 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 # ---------------------------------------------------------------------------
 
 def _shapes_ok(seq_q: int, seq_k: int) -> bool:
-    return all(s % min(BLOCK, s) == 0 for s in (seq_q, seq_k))
+    return all(s < WHOLE_BELOW or s % BLOCK == 0 for s in (seq_q, seq_k))
 
 
 def _offset(x: Offset) -> int:
@@ -694,8 +797,8 @@ def _offset(x: Offset) -> int:
 def _require_blocks(seq_q, seq_k):
     if not _shapes_ok(seq_q, seq_k):
         raise ValueError(
-            f"sequence lengths ({seq_q}, {seq_k}) must be multiples of "
-            f"{BLOCK} or shorter than it")
+            f"sequence lengths ({seq_q}, {seq_k}) must be shorter than "
+            f"{WHOLE_BELOW} or multiples of {BLOCK}")
 
 
 def flash_attention_stats(q, k, v, causal: bool = True,
@@ -760,15 +863,19 @@ def flash_attention(q, k, v, causal: bool = True,
     [B, Sq, H, D] in q.dtype, differentiable in q, k and v.
 
     ``q_offset``/``k_offset`` (ints or 0-d tensors) are the global
-    positions of element 0 and shift the causal mask. Products
-    accumulate in fp32 from the input values, so fp32 inputs give
-    fp32-exact attention and bf16 inputs differ from fp32 only by the
-    rounding of the inputs and of the output."""
+    positions of element 0 and shift the causal mask. Softmax statistics
+    and every sum stay fp32. fp32 inputs on CUDA past head dim 32 take
+    each product as three tf32 products (3xTF32), which holds the
+    reference's fp32 bounds; the bf16 and fp16 tensor-core kernels feed
+    p (and in the backward ds) to the tensor cores in the input's type,
+    so they also differ from fp32 by that rounding, beside that of the
+    inputs and of the outputs (utils/tolerance.py states both)."""
     seq_q, seq_k = q.shape[1], k.shape[1]
     if not _shapes_ok(seq_q, seq_k):
         if not causal:
-            raise ValueError("non-causal path requires block-divisible "
-                             "sequence lengths")
+            raise ValueError(f"non-causal path requires sequence lengths "
+                             f"shorter than {WHOLE_BELOW} or multiples of "
+                             f"{BLOCK}")
         return _dense_reference(q, k, v, causal, _offset(q_offset),
                                 _offset(k_offset))
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),

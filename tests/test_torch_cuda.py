@@ -18,11 +18,13 @@ of the element itself (2^-7 of it); fp16 outputs by one fp16 step
 stream) also round p (and ds) to the input's 16-bit type for the tensor
 cores: their o, dq, dk and dv may differ by twice the largest effect that
 this rounding alone has in the row (the plain version with ``operands``
-that dtype); their m and l keep the fp32 bounds. The fp32 forward on the
-tensor cores (tf32: each product as three tf32 products, 3xTF32) is held
-to the fp32 bounds exactly, with no such allowance. The sm90 dq has an
-absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``: the dq of
-a query that sees one key is pure rounding noise).
+that dtype); their m and l keep the fp32 bounds. The fp32 kernels on the
+tensor cores (tf32: each product as three tf32 products, 3xTF32) are held
+to the fp32 bounds exactly, with no such allowance: the forward against
+the fp32 plain version, dq and dk/dv against the plain versions that take
+their products as they do (``operands=fa.TF32X3``). The sm90 and tf32 dq
+have an absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``:
+the dq of a query that sees one key is pure rounding noise).
 """
 
 import pytest
@@ -96,8 +98,10 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
         want[fa.counter_name(kern, designs[kern])] = 1
     assert fa.launch_counts() == want
     args = (q, k, v, do, lse, delta, causal, qo, ko)
-    dq_p = fa._flash_dq_plain(*args)
-    dk_p, dv_p = fa._flash_dkv_plain(*args)
+    tf32 = {kern: fa.TF32X3 if designs[kern] == "tf32" else None
+            for kern in fa.KERNELS}
+    dq_p = fa._flash_dq_plain(*args, operands=tf32["dq"])
+    dk_p, dv_p = fa._flash_dkv_plain(*args, operands=tf32["dkv"])
     o_b = dq_b = dk_b = dv_b = None
     if designs["fwd"] in ("sm90", "stream"):
         o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko, operands=dt)[0]
@@ -109,8 +113,8 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     _close(m, m_p, 2e-5, 1e-5, rows=False)
     _close(l, l_p, 2e-5, 1e-5, rows=False)
     _close(o, o_p, 2e-5, 1e-6, step, plain_b=o_b)
-    _close(dq, dq_p, 1e-4, tolerance.DQ_ATOL if sm90["dq"] else 1e-6, step,
-           plain_b=dq_b)
+    dq_atol = 1e-6 if designs["dq"] == "simt" else tolerance.DQ_ATOL
+    _close(dq, dq_p, 1e-4, dq_atol, step, plain_b=dq_b)
     _close(dk, dk_p, 1e-4, 1e-6, step, plain_b=dk_b)
     _close(dv, dv_p, 1e-4, 1e-6, step, plain_b=dv_b)
 
@@ -520,3 +524,100 @@ def test_stream_and_tf32_refuse_a_misaligned_tensor(cuda, dtype, d):
         with pytest.raises(ValueError, match="16-byte"):
             fa._flash_fwd(*args, True, 0, 0)
     assert not any(fa.launch_counts().values())
+
+
+TF32_BWD_CASES = [
+    # b, s, h, d, causal, q_offset, k_offset
+    pytest.param(1, 128, 2, 64, True, 0, 0, id="d64"),
+    pytest.param(2, 256, 3, 128, True, 0, 0, id="d128"),
+    pytest.param(1, 256, 2, 128, False, 0, 0, id="d128_noncausal"),
+    pytest.param(1, 192, 2, 128, True, 64, 0, id="d128_q_offset"),
+    pytest.param(1, 128, 2, 128, True, 0, 96, id="d128_dead_rows"),
+    pytest.param(1, 192, 2, 320, True, 0, 0, id="d320"),
+    pytest.param(1, 128, 2, 640, True, 0, 0, id="d640"),
+    pytest.param(2, 128, 2, 640, False, 0, 64, id="d640_noncausal_k_offset"),
+    pytest.param(2, 40, 3, 100, True, 0, 0, id="d100_padded_short"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,causal,qo,ko", TF32_BWD_CASES)
+def test_tf32_backward_matches_plain_versions(cuda, b, s, h, d, causal, qo,
+                                              ko):
+    """fp32 dq and dk/dv on the tf32 design (3xTF32, one pre-pass for
+    both; D 100 zero-padded to 128) against the plain versions with
+    ``operands=TF32X3``, at the fp32 bound; the counters show that the
+    forward, dq and dk/dv all ran on tf32."""
+    _check_kernels(cuda, torch.float32, b, s, h, d, causal, qo, ko)
+    assert fa.launch_counts()["flash_dq_tf32"] == 1
+    assert fa.launch_counts()["flash_dkv_tf32"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal,qo,d", [
+    pytest.param(128, 384, True, 256, 128, id="kv_longer_ring_shard"),
+    pytest.param(256, 64, False, 0, 128, id="kv_shorter_noncausal"),
+    pytest.param(192, 320, True, 128, 640, id="d640_kv_longer")])
+def test_tf32_backward_with_unequal_lengths(cuda, sq, sk, causal, qo, d):
+    _check_kernels(cuda, torch.float32, 2, sq, 2, d, causal, qo, 0, sk)
+
+
+@pytest.mark.cuda
+def test_tf32_backward_refuses_a_misaligned_tensor_without_falling_back(
+        cuda):
+    flat = torch.zeros(1 + 64 * 2 * 64, device=cuda)
+    bad = flat[1:].view(1, 64, 2, 64)       # contiguous, 4 bytes off
+    good = torch.zeros(1, 64, 2, 64, device=cuda)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_bwd(*tensors, st, st, True, 0, 0)
+        for kern in ("dq", "dkv"):
+            with pytest.raises(ValueError, match="16-byte"):
+                fa._launch(kern, "tf32", tensors, st, st, True, 0, 0)
+    assert not any(fa.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 640])
+def test_tf32_backward_one_prepass_equals_separate_launches(cuda, d):
+    """The backward's one pre-pass (``_tf32_bwd_split``, read by dq and
+    dk/dv) gives bit for bit what each kernel's own pre-pass gives."""
+    q, k, v, do = _inputs(cuda, torch.float32, 2, 192, 2, d, 7)
+    _, lse, delta = _stats(q, k, v, do, True, 0, 0)
+    args = (q, k, v, do, lse, delta, True, 0, 0)
+    dq, (dk, dv) = fa._flash_bwd(*args)
+    split = fa._tf32_bwd_split(q, k, v, do)
+    assert split.numel() == 4 * (q.numel() + k.numel()) + 2 * 2 * 2 * d * (
+        192 + 2 * 192)
+    mine = (dq, dk, dv, fa._flash_dq_tf32(*args, split=split),
+            *fa._flash_dkv_tf32(*args, split=split))
+    apart = (fa._flash_dq_tf32(*args), *fa._flash_dkv_tf32(*args))
+    for a, b in zip(mine, apart * 2):
+        assert torch.equal(a, b)
+
+
+RAGGED_DESIGNS = [
+    # dtype, head dim: every design of every kernel
+    pytest.param("bfloat16", 32, id="simt_bf16_d32"),
+    pytest.param("float32", 32, id="simt_fp32_d32"),
+    pytest.param("bfloat16", 128, id="sm90_bf16_d128"),
+    pytest.param("bfloat16", 256, id="sm90_bf16_d256"),
+    pytest.param("bfloat16", 640, id="stream_bf16_d640"),
+    pytest.param("float32", 128, id="tf32_fp32_d128"),
+    pytest.param("float32", 640, id="tf32_fp32_d640"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,qo", [(100, 100, 16), (100, 127, 27),
+                                      (127, 96, 0)])
+@pytest.mark.parametrize("dtype,d", RAGGED_DESIGNS)
+def test_ragged_lengths_match_plain_versions(cuda, dtype, d, sq, sk, qo):
+    """Lengths under 128 that are no multiple of 64 (ROADMAP C6): a full
+    first tile and a ragged second one, on every design, causal with the
+    diagonal through the ragged ends."""
+    _check_kernels(cuda, getattr(torch, dtype), 2, sq, 2, d, True, qo, 0, sk)

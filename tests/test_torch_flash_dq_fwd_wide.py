@@ -155,7 +155,7 @@ def test_backward_pads_once_bit_identical_on_plain_versions(dtype, d):
         return run
     launchers = {(kern, design): recording(fn)
                  for kern, fn in plains.items()
-                 for design in ("sm90", "simt")}
+                 for design in ("sm90", "simt", "tf32")}
     dq, (dk, dv) = port._flash_bwd(*args, launchers=launchers)
     built = {port.padded_head_dim(d, port._design(dtype, d, kern), kern)
              for kern in plains}

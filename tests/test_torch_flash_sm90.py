@@ -31,16 +31,14 @@ def _bf16_values(seed, n=4, s=S, d=D):
 @pytest.mark.parametrize("dtype,d,design", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32")])
 def test_design_by_dtype_and_head_dim(dtype, d, design):
-    # These cases take one design for dq and dk/dv, and for the forward
-    # too but at fp32, whose forward takes tf32 past D 32
-    # (tests/test_torch_flash_fwd_tf32_wide.py); where else the kernels
-    # part (the forward alone on sm90 at 16-bit D 257-512, on stream past
-    # it) see tests/test_torch_flash_sm90_wide.py.
-    fwd = "tf32" if dtype == torch.float32 and d > 32 else design
-    assert port._design(dtype, d, "fwd") == fwd
-    for kernel in ("dq", "dkv"):
+    # These cases take one design for all three kernels: fp32 takes tf32
+    # past D 32 (tests/test_torch_flash_fwd_tf32_wide.py,
+    # tests/test_torch_flash_bwd_tf32.py); where the kernels part (the
+    # forward alone on sm90 at 16-bit D 257-512, on stream past it) see
+    # tests/test_torch_flash_sm90_wide.py.
+    for kernel in port.KERNELS:
         assert port._design(dtype, d, kernel) == design
 
 

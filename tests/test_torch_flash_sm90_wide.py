@@ -135,22 +135,23 @@ DESIGNS = [
     (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.float16, 384, "sm90 simt simt", (384, 384, 384)),
     (torch.float32, 32, "simt simt simt", (32, 32, 32)),
-    (torch.float32, 64, "tf32 simt simt", (64, 64, 64)),
-    (torch.float32, 96, "tf32 simt simt", (96, 96, 96)),
-    (torch.float32, 128, "tf32 simt simt", (128, 128, 128)),
-    (torch.float32, 256, "tf32 simt simt", (256, 256, 256)),
-    (torch.float32, 320, "tf32 simt simt", (320, 384, 384)),
-    (torch.float32, 1000, "tf32 simt simt", (1024, 1024, 1024)),
+    (torch.float32, 64, "tf32 tf32 tf32", (64, 64, 64)),
+    (torch.float32, 96, "tf32 tf32 tf32", (96, 96, 96)),
+    (torch.float32, 128, "tf32 tf32 tf32", (128, 128, 128)),
+    (torch.float32, 256, "tf32 tf32 tf32", (256, 256, 256)),
+    (torch.float32, 320, "tf32 tf32 tf32", (320, 320, 320)),
+    (torch.float32, 1000, "tf32 tf32 tf32", (1024, 1024, 1024)),
+    (torch.float32, 100, "tf32 tf32 tf32", (128, 128, 128)),
+    (torch.float32, 600, "tf32 tf32 tf32", (608, 608, 608)),
 ]
 
 
 @pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
     """bf16 and fp16 take sm90 for the forward at D 33-512 and stream past
-    it, sm90 for dq and dk/dv at D 33-256; fp32 takes tf32 for the
-    forward past D 32; D <= 32 and fp32's dq and dk/dv, and 16-bit ones
-    past 256, take simt. Each kernel pads to a head dim of its own
-    design."""
+    it, sm90 for dq and dk/dv at D 33-256; fp32 takes tf32 for all three
+    past D 32; D <= 32, and 16-bit dq and dk/dv past 256, take simt. Each
+    kernel pads to a head dim of its own design."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]
     assert got == designs.split()
     assert [port.padded_head_dim(d, design, kern)
