@@ -13,21 +13,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 2. Kernels against their plain PyTorch versions, on the card. Each
    kernel takes the design ``flash_attention._design`` gives it: the
    tensor-core kernels (sm90: bf16 and fp16, the forward at head dims
-   33-512, dq and dk/dv at 33-256; the forward's stream design, bf16 and
-   fp16 past D 512; tf32, fp32 past D 32 through 3xTF32 for all three
-   kernels; stream and tf32 streamed over D) and the fp32-FMA (simt)
-   kernels for the rest (D <= 32, 16-bit dq and dk/dv past 256, past D
-   512 in 64-column chunks of the head dim); a bf16 case at the main
+   1-512, dk/dv at 1-256, dq at 33-256, D 16 and 32 on the narrow-row
+   builds; the forward's stream design, bf16 and fp16 past D 512; tf32,
+   fp32 past D 32 through 3xTF32 for all three kernels; stream and tf32
+   streamed over D) and the fp32-FMA (simt) kernels for the rest (fp32 at
+   D <= 32, 16-bit dq at D <= 32 and dq and dk/dv past 256, past D 512 in
+   64-column chunks of the head dim); a bf16 case at the main
    shape forces the simt ones. Cases: the main path's shape (B=4,
    S=2048, H=16, D=128, bf16, causal), a non-causal, two offset, a D=64
    and a short ragged case, fp32 at two shapes (the main one with the
    simt kernels beside the tf32 ones) and at two with unequal lengths and
    offsets (D 128 and 640), each case of C4_CASES at B=2, S=1024, H=8,
-   causal, through the dispatchers (bf16 and fp32 at D 16 and 32; fp16 at
-   D 64/128/256/512/640; bf16 at D 80, 96 and 200, run zero-padded at the
+   causal, through the dispatchers (bf16, fp16 and fp32 at D 16 and 32;
+   fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and 200, run zero-padded
+   at the
    next built head dim, and 256; fp32 at D 256; bf16 and fp32 at D 320,
    384, 512 and 640), the Gemma-7B geometry (B=2, S=2048, H=16, D=256,
-   bf16, causal), and ROADMAP C6's ragged lengths on every design
+   bf16, causal), the entry's shape (B=2, S=32, H=4, D=16, bf16, causal),
+   and ROADMAP C6's ragged lengths on every design
    (RAGGED_DESIGNS: B=2, H=2, Sq = Sk = 100 and Sq 100 / Sk 127, causal,
    with offsets); wherever a tensor-core kernel serves, its simt kernel
    is checked on the same inputs too.
@@ -62,8 +65,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    1536-1599), and at fp32 D 640 with one 32-column region of the head
    dim left out of the logits of the forward, dq, dk and dv (columns
    256-287), each of which must fail by more than 10 times the bound; at
-   the ragged length 100 with the ragged tile (keys 64-99) left out of
-   the forward and dq.
+   bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward (keys
+   512-575) and one 64-query tile of the narrow dk/dv (queries 512-575),
+   by more than 10 times too; at the ragged length 100 with the ragged
+   tile (keys 64-99) left out of the forward and dq.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -88,6 +93,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    profiled): the loss must be finite and fall, the tf32 forward, dq and
    dk/dv must each launch once per layer per step (2 a step) and no other
    flash kernel; prints the seconds per step.
+4d. The entry's flagship model (horovod_tpu_torch/entry.py: bf16, 4 heads
+   of 16, S 32, batch 2, 2 layers): its forward through ``entry()``'s own
+   function on the card against the same weights and tokens on the CPU
+   (logits within 2.5% of their largest magnitude, ENTRY_LOGITS_TOL says
+   why), for the entry's example tokens and for tokens from --seed, each
+   call launching the sm90 forward twice and no other flash kernel; then
+   4 training steps of the same configuration through the bench's step
+   (as phase 4): the loss finite and falling, the sm90 forward, the simt
+   dq and the sm90 dk/dv once per layer per step and no other.
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
    the main path's shape in bf16 (printed beside the times PERF.md
    recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
@@ -109,8 +123,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    fp32; for the tf32 forward three such products over 494.7 TFLOP/s
    dense tf32, with the 67 TFLOP/s bound beside it as bound_fma_ms; so
    for the tf32 dq and dk/dv) and the bytes in and out over its memory
-   rate (3.35 TB/s). The simt kernels at D 16 and 32 are printed beside
-   SDPA.
+   rate (3.35 TB/s). At D 16 and 32 the simt kernels and the sm90 ones
+   that replace them are printed beside SDPA; the entry's shape is timed
+   too.
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
    weights on both (TF32 off) give the same logits, loss, parameter
@@ -186,10 +201,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    not run here.
 
 The last two lines are the JSON ``kernels`` line (the kernels at their
-main shapes, then each C4 case and the Gemma-7B geometry as
-``<kernel>.<tag>``, a row per kernel and design; launches are those of
-phase 4 for the bf16 D 128 builds, of phase 4b for bf16 D 256, of phase
-4c for fp32 D 128, else 0)
+main shapes, then the entry's shape, each C4 case and the Gemma-7B
+geometry as ``<kernel>.<tag>``, a row per kernel and design; launches are
+those of phase 4 for the bf16 D 128 builds, of phase 4b for bf16 D 256,
+of phase 4c for fp32 D 128, of phase 4d for the entry's rows, else 0)
 and the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -230,6 +245,7 @@ MAIN = dict(b=4, s=2048, h=16, d=128)
 C4_SHAPE = dict(b=2, s=1024, h=8)
 C4_CASES = (("bf16_d16", "bfloat16", 16), ("fp32_d16", "float32", 16),
             ("bf16_d32", "bfloat16", 32), ("fp32_d32", "float32", 32),
+            ("fp16_d16", "float16", 16), ("fp16_d32", "float16", 32),
             ("fp16_d64", "float16", 64), ("fp16_d128", "float16", 128),
             ("fp16_d256", "float16", 256), ("bf16_d96", "bfloat16", 96),
             ("bf16_d80", "bfloat16", 80), ("bf16_d200", "bfloat16", 200),
@@ -267,8 +283,17 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_MAIN_FP32 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_FP32_BY = 10.0
+# The narrow sm90 forward and dk/dv (16-bit D 16 and 32): 64 keys of the
+# forward and one 64-query tile of dk/dv left out must be rejected at more
+# than this many times the bound (a wrong swizzle or tile offset loses at
+# least that much).
+LOST_NARROW_BY = 10.0
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
-LOST_C4 = {"bf16_d512": dict(fwd=(512, 544)),
+LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dkv=(512, 576),
+                            by=LOST_NARROW_BY),
+           "bf16_d32": dict(fwd=(512, 576), dkv=(512, 576),
+                            by=LOST_NARROW_BY),
+           "bf16_d512": dict(fwd=(512, 544)),
            "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320)),
            "fp32_d640": dict(fwd_columns=(256, 288),
                              bwd_columns=(256, 288))}
@@ -279,7 +304,7 @@ LOST_C4 = {"bf16_d512": dict(fwd=(512, 544)),
 # 100, Sk 127 (q_offset 27: the diagonal through both ragged ends).
 RAGGED_DESIGNS = (("bfloat16", 32), ("float32", 32), ("bfloat16", 128),
                   ("bfloat16", 256), ("bfloat16", 640), ("float32", 128),
-                  ("float32", 640))
+                  ("float32", 640), ("bfloat16", 16), ("float16", 32))
 RAGGED_LENGTHS = ((100, 100, 16, dict(fwd=(64, 100), dq=(64, 100))),
                   (100, 127, 27, None))
 # Phase 4c: phase 4's model in fp32 (the forward, dq and dk/dv on tf32),
@@ -287,6 +312,23 @@ RAGGED_LENGTHS = ((100, 100, 16, dict(fwd=(64, 100), dq=(64, 100))),
 # profiled).
 FP32_LM = dict(layers=2, warmup=1, steps=2)
 FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32")
+# Phase 4d: the entry's flagship model (horovod_tpu_torch/entry.py: bf16,
+# 4 heads of 16, S 32, batch 2, 2 layers), its forward on the card against
+# the CPU, then training steps (1 warm-up, 2 timed, 1 profiled). Head dim
+# 16 runs the narrow sm90 forward and dk/dv and the simt dq.
+ENTRY = dict(b=2, s=32, h=4, d=16)
+ENTRY_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90")
+ENTRY_STEPS = dict(warmup=1, steps=2)
+# The entry's logits on the card against the CPU, elementwise: both run the
+# same bf16 model from the same weights and tokens and differ only in where
+# a bf16 rounding falls (p rounded for the tensor cores on the card, other
+# summation orders in cuBLAS and the CPU's products). Each of the ~10
+# rounded stages of a layer may move a value by one bf16 step (2^-8 of
+# it), so over 2 layers the logits are held within 2.5% of their largest
+# magnitude: the bound tests/test_torch_transformer.py and
+# tests/test_torch_bench_entry.py hold the port's bf16 model to the
+# reference's with.
+ENTRY_LOGITS_TOL = 0.025
 
 
 def card_line() -> str:
@@ -458,6 +500,8 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     tf32 = {kern: fa.TF32X3 if designs[kern] == "tf32" else None
             for kern in fa.KERNELS}
     fail_by = LOST_FP32_BY if dtype == torch.float32 else 1.0
+    if lost and "by" in lost:
+        fail_by = lost["by"]
     fwd_args = (q, k, v, causal, qo, ko)
     o_p, m_p, l_p = fa._flash_fwd_plain(*fwd_args)
     lse = fa._lse_from_stats(m_p, l_p)
@@ -596,6 +640,10 @@ def kernel_checks(torch, fa):
                             causal=True, seed=6, lost=LOST_MAIN_FP32))
     errs.update(kernel_case(fa, torch, "main_fp32 on simt", **MAIN,
                             dtype=fp32, causal=True, seed=6, design="simt"))
+    # The entry's shape (phase 4d's path): the narrow sm90 forward and
+    # dk/dv, the simt dq.
+    errs.update(kernel_case(fa, torch, "entry", **ENTRY, dtype=bf16,
+                            causal=True, seed=11, tag="entry"))
     # ROADMAP C6: a ragged second tile on every design.
     for i, (dt, d) in enumerate(RAGGED_DESIGNS):
         for sq, sk, qo, lost in RAGGED_LENGTHS:
@@ -812,6 +860,57 @@ def fp32_path(torch, hvd, args, card):
                    steps=FP32_LM["steps"])
 
 
+def entry_path(torch, hvd, args, card):
+    """Phase 4d: the entry's flagship model (horovod_tpu_torch/entry.py,
+    bf16 at head dim 16). Its forward on the card, through ``entry()``'s
+    own function, against the same weights and tokens on the CPU
+    (ENTRY_LOGITS_TOL), for the entry's example tokens and for tokens from
+    --seed; each call must launch the sm90 forward twice (once a layer)
+    and no other flash kernel. Then the bench's training step of the same
+    configuration through lm_path. Returns the forward's launch counts of
+    one call and the training steps' counts."""
+    from horovod_tpu_torch.entry import entry, tiny_config
+    from horovod_tpu_torch.parallel import flash_attention as fa
+    fn_cpu, (params, tokens) = entry(device="cpu")
+    fn_card, _ = entry()
+    g = torch.Generator().manual_seed(args.seed)
+    seeded = torch.randint(0, tiny_config().vocab_size, tokens.shape,
+                           generator=g)
+    card_params = {name: p.cuda() for name, p in params.items()}
+    print(f"entry forward (bf16, {tiny_config().num_heads} heads of "
+          f"{tiny_config().head_dim}, S {tokens.shape[1]}, batch "
+          f"{tokens.shape[0]}): the card against the CPU, |card - cpu| <= "
+          f"{ENTRY_LOGITS_TOL} x max|cpu|")
+    counts = None
+    for label, toks in (("example tokens", tokens), ("seeded tokens", seeded)):
+        with torch.no_grad():
+            want = fn_cpu(params, toks)
+            fa.reset_launch_counts()
+            got = fn_card(card_params, toks.cuda())
+            torch.cuda.synchronize()
+            counts = fa.launch_counts()
+        err = (got.cpu() - want).abs().max().item()
+        tol = ENTRY_LOGITS_TOL * want.abs().max().item()
+        ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+              and err <= tol)
+        print(f"  {label:<15} logits {tuple(got.shape)} max |card - cpu| "
+              f"{err:.4e} (tolerance {tol:.4e}, {err / tol:.3f} of it) "
+              f"launches {counts}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"entry forward on the card: {label} "
+                                 f"differ from the CPU by {err:.4e} "
+                                 f"(tolerance {tol:.4e})")
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts["flash_fwd_sm90"] = tiny_config().num_layers
+        if counts != want_counts:
+            raise AssertionError(f"entry forward launched {counts}, "
+                                 f"expected {want_counts}")
+    steps = lm_path(torch, hvd, args, card, "entry config training",
+                    tiny_config(), ENTRY["b"], ENTRY_PATH_KERNELS, None,
+                    **ENTRY_STEPS)
+    return counts, steps
+
+
 def vision_small_check(torch, seed):
     """A narrow fp32 ResNet and ViT with the same weights on the card
     (TF32 off) and on the CPU: logits, loss, every parameter gradient
@@ -1012,14 +1111,18 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
 
 def kernel_times(torch, fa):
     """Every kernel's row: the sm90 kernels at the main path's shape in
-    bf16, the fp32 ones there (the tf32 forward, dq and dk/dv, and the
-    simt ones beside them), each C4 case at its shape and the Gemma-7B
-    geometry, with the simt kernel beside every case that a tensor-core
-    one serves. Prints the tensor-core rows against their simt ones (and
-    the tf32 backward's against SDPA's backward, the plain version and
-    the bound), and the simt rows at D <= 32 against SDPA."""
+    bf16, the entry's shape's kernels (phase 4d), the fp32 ones at the
+    main shape (the tf32 forward, dq and dk/dv, and the simt ones beside
+    them), each C4 case at its shape and the Gemma-7B geometry, with the
+    simt kernel beside every case that a tensor-core one serves. Prints
+    the tensor-core rows against their simt ones (and the tf32
+    backward's against SDPA's backward, the plain version and the
+    bound), and the rows at D <= 32, simt and sm90, against SDPA."""
     rows = {}
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
+    # The entry's shape (phase 4d), the kernels its path runs.
+    rows.update(kernel_rows(torch, fa, **ENTRY, dtype=torch.bfloat16,
+                            tag="entry"))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32,
                             design="simt"))
@@ -1054,18 +1157,21 @@ def kernel_times(torch, fa):
               f"simt {old:8.4f}  {old / new:6.1f}x{more}")
         if not new < old:
             slower.append((tag, kern))
-    print("simt kernels at D <= 32 against SDPA (forward; backward alone), "
-          "ms:")
+    print("kernels at D <= 32 against SDPA (forward; backward alone), ms: "
+          "the simt kernel, and the sm90 one where it serves:")
     for tag, dtype, shape in cases:
         if shape["d"] > 32:
             continue
         for kern in fa.KERNELS:
-            row = rows[kernel_name(fa, kern, "simt", tag)]
-            lib = row["library_ms" if kern == "fwd" else
-                      "library_bwd_only_ms"]
-            print(f"  {tag:<10} {kern:<4} {row['ms']:8.4f}  SDPA "
-                  f"{lib:8.4f}  ({row['ms'] / lib:.2f}x)  bound "
-                  f"{row['bound_ms']:.4f}")
+            design = fa._design(dtype, shape["d"], kern)
+            line = f"  {tag:<10} {kern:<4}"
+            for des in dict.fromkeys(("simt", design)):
+                row = rows[kernel_name(fa, kern, des, tag)]
+                lib = row["library_ms" if kern == "fwd" else
+                          "library_bwd_only_ms"]
+                line += (f"  {des} {row['ms']:8.4f} ({row['ms'] / lib:.2f}x "
+                         f"SDPA {lib:.4f})")
+            print(f"{line}  bound {row['bound_ms']:.4f}")
     for name, was in RECORDED_MAIN_MS.items():
         print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
@@ -1655,6 +1761,9 @@ def main(argv=None) -> int:
     # Phase 4c: the LM in fp32 (the tf32 kernels), depth cut.
     fp32_counts = fp32_path(torch, hvd, args, card)
 
+    # Phase 4d: the entry's model (bf16, head dim 16): the narrow kernels.
+    entry_fwd_counts, entry_counts = entry_path(torch, hvd, args, card)
+
     # Phase 5: times.
     rows = kernel_times(torch, fa)
 
@@ -1697,15 +1806,22 @@ def main(argv=None) -> int:
                "flash_dkv_tf32": ("flash_bwd_tf32_sm90.cu", "236")}
     # A row's launches are those of its kernel on the path that runs its
     # build (dtype, head dim): bf16 D 128 on phase 4, bf16 D 256 on phase
-    # 4b, fp32 D 128 on phase 4c; the other builds run on no main path.
+    # 4b, fp32 D 128 on phase 4c; the rows at the entry's shape those of
+    # phase 4d (the forward: one call of the entry's forward; dq and dk/dv:
+    # its training steps); the other builds (the C4 cases at D 16 and 32
+    # among them) run on no main path.
     paths = {("bfloat16", MAIN["d"]): counts,
              ("bfloat16", GEMMA["d"]): gemma_counts,
              ("float32", MAIN["d"]): fp32_counts}
+    entry_rows = {"flash_fwd_sm90": entry_fwd_counts, "flash_dq": entry_counts,
+                  "flash_dkv_sm90": entry_counts}
     kernels = []
     for name, r in rows.items():
-        base = name.split(".")[0]
+        base, _, tag = name.partition(".")
         src, replaces = sources[base]
-        launches = paths.get(r.pop("built"), {}).get(base, 0)
+        built = r.pop("built")
+        launches = (entry_rows[base][base] if tag == "entry"
+                    else paths.get(built, {}).get(base, 0))
         kernels.append(dict(name=name, route="cuda", source=csrc + src,
                             replaces=ref + replaces, launches=launches,
                             max_abs_err=errs[name], **r))

@@ -1,10 +1,10 @@
 // Flash-attention dk/dv backward for Hopper's tensor cores (sm_90a), bf16 and
-// fp16 at head dims 64, 128 and 256.
+// fp16 at head dims 16, 32, 64, 128 and 256.
 //
 // Replaces the TPU kernel `_bwd_dkv_kernel` (with the shared recompute
 // `_recompute_p_ds`) in horovod_tpu/parallel/flash_attention.py, launched by
-// `_flash_bwd_bhsd`, as flash_dkv_kernel in flash_bwd.cu does for fp32, the
-// head dims up to 32 and those past 256. Same function: for every visible
+// `_flash_bwd_bhsd`, as flash_dkv_kernel in flash_bwd.cu does for fp32 at
+// head dims up to 32 and 16-bit ones past 256. Same function: for every visible
 // (q, k) pair recompute p = exp(s - lse) and ds = p (dp - delta) scale from
 // q, k, v, do and the forward's per-row lse (+inf on rows that saw no key,
 // so p is exactly 0 there) and delta = rowsum(do * o); then dv = sum over q
@@ -35,7 +35,8 @@
 // own kernel (flash_dq_sm90.cu, flash_bwd.cu). 16-bit p and ds are what the
 // reference's dots take on the TPU by default; the checks allow for exactly
 // that rounding, in the input's type. At D=128 shared memory holds K 32 KB
-// + V 32 KB + Q 2x16 KB + dO 2x16 KB. D 256 has a design of its own (below).
+// + V 32 KB + Q 2x16 KB + dO 2x16 KB. D 256 and D 16 and 32 have designs of
+// their own (below).
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -527,6 +528,263 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+// ---- D 16 and 32: narrow rows ---------------------------------------------
+//
+// A 16-bit row is 32 bytes at D 16 and 64 at D 32: each tile is one region
+// in the swizzle of the row's width (sm90_common.cuh), one TMA box. The
+// order of the products is the D 64-128 design's: S^T = K Q^T and dP^T =
+// V dO^T take one k16 step at D 16 and two at D 32 (m64n64, both operands
+// K-major); dV += P^T dO and dK += dS^T Q have N = D (m64n16k16 or
+// m64n32k16, dO and Q read from the same stage as MN-major operands, a k16
+// step 16 rows). As in the narrow forward, the tensor cores and the bytes
+// are far from binding: each CTA's chain per q tile (the TMA wait, two
+// products, the exponentials, two more products) and the number of CTAs
+// in flight are. So a CTA is kNarrowGroups consumer warpgroups of 64 keys
+// and one producer warp (K and V resident, Q, dO, lse and delta through a
+// ring of kNarrowStages 64-row q tiles), no register hand-over (a consumer
+// thread holds dK and dV in D registers, S^T and dP^T in 64), and
+// kNarrowCtasPerSm of them share an SM. tools/narrow_variants.py builds and
+// times the other choices of these constants on the card (PERF.md records
+// the times): 128-key CTAs were 17-18% slower at one an SM (43-52% at
+// two, where they spill), four CTAs an SM spilled and ran 23-34% slower,
+// a third stage 1-3% faster than two (taken), one CTA an SM's bound the
+// same.
+constexpr int kNarrowGroups = 1;     // consumer warpgroups (keys / 64)
+constexpr int kNarrowStages = 3;     // q tiles in the ring
+constexpr int kNarrowCtasPerSm = 2;  // __launch_bounds__' minimum
+constexpr int kNarrowKeys = 64 * kNarrowGroups;
+constexpr int kNarrowThreads = 128 * kNarrowGroups + 32;
+
+template <int D>
+struct NarrowSmem {
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kTileK = kNarrowKeys * kRowBytes;  // [keys][D]
+  static constexpr int kTileQ = kQRows * kRowBytes;       // [64][D]
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTileK;
+  static constexpr int kQ = kV + kTileK;
+  static constexpr int kDo = kQ + kNarrowStages * kTileQ;
+  static constexpr int kStats = kDo + kNarrowStages * kTileQ;  // lse, delta [64]
+  static constexpr int kBar = kStats + kNarrowStages * 2 * kQRows * 4;
+  // kv_full, full[stages], empty[stages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kNarrowStages);
+  static_assert(kTileK % 1024 == 0 && kTileQ % 1024 == 0,
+                "narrow tiles keep the 1024-byte alignment");
+  static_assert(kNarrowCtasPerSm * (kBytes + 1024) <= 232448,
+                "narrow dk/dv tiles exceed shared memory");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowCtasPerSm)
+    flash_dkv_sm90_narrow(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int H,
+                          int Sq, int Sk, int q_off, int k_off, int causal,
+                          float scale) {
+  using L = NarrowSmem<D>;
+  constexpr int kStg = kNarrowStages, kRB = L::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStg;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kNarrowKeys;
+  const int nq = (Sq + kQRows - 1) / kQRows;
+  int first = 0;
+  if (causal) {
+    // q tile t sees this kv tile once q_off + 64 t + 63 >= k_off + k0.
+    const long long need = (long long)k_off + k0 - q_off - (kQRows - 1);
+    first = need <= 0 ? 0 : (int)min((long long)nq, (need + kQRows - 1) / kQRows);
+  }
+
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < kStg; ++s) {
+      bar_init(&full[s], 32);                   // the producer warp's lanes
+      bar_init(&empty[s], 4 * kNarrowGroups);   // lane 0 of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4 * kNarrowGroups) {
+    // Producer: the last warp.
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      bar_arrive_tx(kv_full, 2 * L::kTileK);
+      tma_load_4d(smem + L::kK, &tk, kv_full, 0, h, k0, b);
+      tma_load_4d(smem + L::kV, &tv, kv_full, 0, h, k0, b);
+    }
+    for (int t = first; t < nq; ++t) {
+      const int n = t - first, st = n % kStg;
+      if (n >= kStg) bar_wait(&empty[st], ((n / kStg) & 1) ^ 1);
+      const int q0 = t * kQRows;
+      // lse (pre-scaled by log2 e) and delta of the tile's rows; rows past
+      // Sq get lse = +inf, so their p is exactly 0.
+      float* st_lse = reinterpret_cast<float*>(smem + L::kStats) + st * 2 * kQRows;
+      float* st_delta = st_lse + kQRows;
+      for (int i = lane; i < kQRows; i += 32) {
+        const int row = q0 + i;
+        st_lse[i] = row < Sq ? lse[(size_t)bh * Sq + row] * kLog2e
+                             : __int_as_float(0x7f800000);
+        st_delta[i] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+      }
+      if (lane == 0) {
+        bar_arrive_tx(&full[st], 2 * L::kTileQ);
+        tma_load_4d(smem + L::kQ + st * L::kTileQ, &tq, &full[st], 0, h, q0, b);
+        tma_load_4d(smem + L::kDo + st * L::kTileQ, &tdo, &full[st], 0, h, q0,
+                    b);
+      } else {
+        bar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup c owns keys k0 + 64c .. k0 + 64c + 63.
+  const int c = warp / 4;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int row0 = 64 * c + 16 * (t / 32) + lane / 4;  // +8 for i = 1
+  const int col = 2 * (lane % 4);
+  const int kpos0 = k_off + k0 + row0;
+  const int last_kpos = k_off + k0 + 64 * c + 63;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t k_base = smem_u32(smem + L::kK) + c * 64 * kRB;
+  const uint32_t v_base = smem_u32(smem + L::kV) + c * 64 * kRB;
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  bar_wait(kv_full, 0);
+  for (int tq_i = first; tq_i < nq; ++tq_i) {
+    const int n = tq_i - first, st = n % kStg, ph = (n / kStg) & 1;
+    const int q0 = tq_i * kQRows;
+    const uint32_t q_st = smem_u32(smem + L::kQ + st * L::kTileQ);
+    const uint32_t do_st = smem_u32(smem + L::kDo + st * L::kTileQ);
+    const float* st_lse =
+        reinterpret_cast<const float*>(smem + L::kStats) + st * 2 * kQRows;
+    const float* st_delta = st_lse + kQRows;
+    bar_wait(&full[st], ph);
+
+    // S^T = K Q^T.
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64, T>(s, desc_narrow<kRB>(k_base + kk * 32, 16),
+                      desc_narrow<kRB>(q_st + kk * 32, 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // P^T, masked only on tiles that cross the diagonal or the ragged end.
+    const bool masked = q0 + kQRows > Sq || (causal && q_off + q0 < last_kpos);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qc = 8 * (e / 4) + col + e % 2;
+      float p = exp2f(fmaf(s[e], scale_log2, -st_lse[qc]));
+      if (masked) {
+        const bool ok = q0 + qc < Sq &&
+                        (!causal || q_off + q0 + qc >= kpos0 + 8 * ((e / 2) % 2));
+        p = ok ? p : 0.f;
+      }
+      s[e] = p;
+    }
+    uint32_t op[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) op[e] = pack2<T>(s[2 * e], s[2 * e + 1]);
+
+    // dV += P^T dO, then dP^T = V dO^T, in one commit group.
+    fence_regs(acc_dv);
+    fence_regs(op);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+      const uint32_t a[4] = {op[4 * kk], op[4 * kk + 1], op[4 * kk + 2],
+                             op[4 * kk + 3]};
+      wgmma_rs<D, T>(acc_dv, a, desc_narrow<kRB>(do_st + kk * 16 * kRB, L::kTileQ),
+                     1);
+    }
+    float dp[32];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64, T>(dp, desc_narrow<kRB>(v_base + kk * 32, 16),
+                      desc_narrow<kRB>(do_st + kk * 32, 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(dp);
+    fence_regs(op);
+
+    // dS^T = P^T (dP^T - delta) scale, then dK += dS^T Q.
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qc = 8 * (e / 4) + col + e % 2;
+      dp[e] = s[e] * (dp[e] - st_delta[qc]) * scale;
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) op[e] = pack2<T>(dp[2 * e], dp[2 * e + 1]);
+    fence_regs(acc_dk);
+    fence_regs(op);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+      const uint32_t a[4] = {op[4 * kk], op[4 * kk + 1], op[4 * kk + 2],
+                             op[4 * kk + 3]};
+      wgmma_rs<D, T>(acc_dk, a, desc_narrow<kRB>(q_st + kk * 16 * kRB, L::kTileQ),
+                     1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dk);
+    fence_regs(op);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + row0 + 8 * i;
+    if (key >= Sk) continue;
+    const size_t off = ((size_t)(b * Sk + key) * H + h) * D + col;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      store2<T>(dk + off + 8 * jj, acc_dk[4 * jj + 2 * i],
+                acc_dk[4 * jj + 2 * i + 1]);
+      store2<T>(dv + off + 8 * jj, acc_dv[4 * jj + 2 * i],
+                acc_dv[4 * jj + 2 * i + 1]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t run_narrow(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int Sq, int Sk,
+                       int q_off, int k_off, int causal, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kQRows);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tdo, dout, B, Sq, H, D, kQRows);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kNarrowKeys);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kNarrowKeys);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sk + kNarrowKeys - 1) / kNarrowKeys);
+  return launch_threads(flash_dkv_sm90_narrow<T, D>, grid, kNarrowThreads,
+                        NarrowSmem<D>::kBytes + 1024, stream, tq, tk, tv, tdo,
+                        (const float*)lse, (const float*)delta, (T*)dk,
+                        (T*)dv, H, Sq, Sk, q_off, k_off, causal, scale);
+}
+
 template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B,
@@ -560,6 +818,8 @@ cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
                         int qo, int ko, int causal, float sc,
                         cudaStream_t st) {
   switch (D) {
+    case 16: return run_narrow<T, 16>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+    case 32: return run_narrow<T, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 64: return run<T, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 128: return run<T, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
     case 256: return run<T, 256>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
@@ -571,8 +831,8 @@ cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace hvdt
 
 // dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v, do: contiguous [B, S, H, D]
-// of that type with 16-byte-aligned bases; D is 64, 128 or 256. lse, delta:
-// fp32 [B, H, Sq]. dk, dv: [B, Sk, H, D] of that type.
+// of that type with 16-byte-aligned bases; D is 16, 32, 64, 128 or 256.
+// lse, delta: fp32 [B, H, Sq]. dk, dv: [B, Sk, H, D] of that type.
 extern "C" int hvdt_flash_dkv_sm90(int dtype, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,

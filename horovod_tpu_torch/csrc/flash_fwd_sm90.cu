@@ -1,10 +1,10 @@
 // Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 and fp16
-// at head dims 64, 128, 256, 384 and 512.
+// at head dims 16, 32, 64, 128, 256, 384 and 512.
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
 // (launched by `_flash_bhsd`), as flash_fwd_stream_sm90.cu does for fp32
-// and 16-bit head dims past 512 and flash_fwd.cu for the head dims up to
-// 32. Same function and contract: an online
+// and 16-bit head dims past 512 and flash_fwd.cu for fp32 at head dims up
+// to 32. Same function and contract: an online
 // softmax whose running max m, normalizer l and output accumulator stay in
 // fp32; runtime offsets give
 // the global positions of q[0] and k[0]; kv tiles wholly in the future of a
@@ -55,6 +55,7 @@
 //     pad, of 232,448); O 128 + S 16 + P 8 registers. At D 384: 98,304 +
 //     2 x (24,576 + 12,288) = 172,032 B; O 96 + S 16 + P 8 registers, and
 //     O += P V is an m64n192k16 product.
+//   D 16, 32: a design of its own (flash_fwd_sm90_narrow, below).
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -296,12 +297,274 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
                    q_off, k_off, causal, scale);
 }
 
+// ---- D 16 and 32: narrow rows ---------------------------------------------
+//
+// A 16-bit row of Q, K or V is 32 bytes at D 16 and 64 at D 32, so every
+// tile is one region in the swizzle of the row's width (sm90_common.cuh),
+// loaded by one TMA box. The products are small: S = Q K^T takes one k16
+// step at D 16 and two at D 32, O += P V is m64n16k16 or m64n32k16, and
+// the tiles of a CTA take 40 KB or less. What bounds the kernel at these
+// widths is not the tensor cores or the bytes but each CTA's serial chain
+// per kv tile (the TMA wait, S, the softmax's exponentials, P V) and how
+// many CTAs fill the 132 SMs. So a CTA is small: kNarrowGroups consumer
+// warpgroups of 64 q rows each and one producer warp (no register
+// hand-over: a consumer thread holds O in D / 2, S in kNarrowKv / 2 and P
+// in kNarrowKv / 4 registers), and kNarrowCtasPerSm of them share an SM,
+// so that one CTA's exponentials overlap another's products and loads.
+// The heaviest causal q tiles still come first on grid.y.
+//
+// Two passes over the kv tiles. S is nearly free here, so a first pass
+// computes S alone and each row's max m; the second computes S again, p =
+// exp(s - m) against that final m, l and O += P V. p is then rounded to
+// the input's type for the tensor cores against the same max as the plain
+// version rounds it, l is the sum of the same fp32 p, and no tile rescales
+// O. An online softmax rounds p against the running max instead, which
+// moves each o by as much as the rounding itself; the checks allow twice
+// the rounding's largest effect in a row of o, and a row of 16 or 32
+// outputs is too few to bound that reliably: on an H100 the online form
+// reached 1.19 to 3.49 of the bound at the C4 shape (B 2, S 1024, H 8),
+// bit-equal to the D 64 kernel on zero-padded inputs, and the two-pass
+// form 0.85 at most. K comes through the ring twice (from L2 the second
+// time); the stage's one barrier counts K's bytes, or K's and V's.
+// tools/narrow_variants.py builds and times the other choices of the four
+// constants below on the card (PERF.md records the times): 64-key stages
+// were 12-13% slower, 128-row CTAs 33% slower at one an SM (84-86% at
+// two, where they spill), a third stage within 2% either way, and the
+// grid's CTAs fit two to an SM with or without the launch bound's
+// minimum.
+constexpr int kNarrowGroups = 1;     // consumer warpgroups (q rows / 64)
+constexpr int kNarrowKv = 128;       // keys of a kv stage
+constexpr int kNarrowStages = 2;     // kv stages in the ring
+constexpr int kNarrowCtasPerSm = 2;  // __launch_bounds__' minimum
+constexpr int kNarrowRows = 64 * kNarrowGroups;
+constexpr int kNarrowThreads = 128 * kNarrowGroups + 32;
+
+template <int D>
+struct NarrowFwdSmem {
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kTileQ = kNarrowRows * kRowBytes;  // [rows][D]
+  static constexpr int kTileKv = kNarrowKv * kRowBytes;   // [kKv][D]
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileQ;
+  static constexpr int kV = kK + kNarrowStages * kTileKv;
+  static constexpr int kBar = kV + kNarrowStages * kTileKv;
+  // q_full, full[stages], empty[stages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kNarrowStages);
+  static_assert(kTileQ % 1024 == 0 && kTileKv % 1024 == 0,
+                "narrow tiles keep the 1024-byte alignment");
+  static_assert(kNarrowCtasPerSm * (kBytes + 1024) <= 232448,
+                "narrow forward tiles exceed shared memory");
+};
+
+// S = Q K^T for one kv stage, scaled, with the entries a causal or ragged
+// tile hides at -inf (`masked`: only tiles that cross the diagonal or the
+// ragged end are checked). A consumer thread's fragment: s[n] is row row0
+// + 8 ((n / 2) % 2), key k0 + 8 (n / 4) + col + n % 2.
+template <typename T, int D>
+__device__ __forceinline__ void narrow_scores(
+    float (&s)[kNarrowKv / 2], uint32_t q_base, uint32_t k_base, bool masked,
+    int k0, int Sk, int causal, int qpos0, int k_off, int col, float scale) {
+  constexpr int kRB = D * 2;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kNarrowKv, T>(s, desc_narrow<kRB>(q_base + kk * 32, 16),
+                           desc_narrow<kRB>(k_base + kk * 32, 16), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+#pragma unroll
+  for (int n = 0; n < kNarrowKv / 2; ++n) {
+    float x = s[n] * scale;
+    if (masked) {
+      const int kc = k0 + 8 * (n / 4) + col + n % 2;
+      const bool ok =
+          kc < Sk && (!causal || qpos0 + 8 * ((n / 2) % 2) >= k_off + kc);
+      x = ok ? x : __int_as_float(0xff800000);  // -inf
+    }
+    s[n] = x;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowCtasPerSm)
+    flash_fwd_sm90_narrow(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          T* __restrict__ o, float* __restrict__ m_out,
+                          float* __restrict__ l_out, int H, int Sq, int Sk,
+                          int q_off, int k_off, int causal, float scale) {
+  using L = NarrowFwdSmem<D>;
+  constexpr int kKv = kNarrowKv, kStg = kNarrowStages, kRB = L::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStg;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kNarrowRows;
+  int nk = (Sk + kKv - 1) / kKv;
+  if (causal) {
+    // kv tile j is visible while k_off + kKv j <= q_off + q0 + rows - 1.
+    const long long reach = (long long)q_off + q0 + kNarrowRows - 1 - k_off;
+    nk = min(nk, reach < 0 ? 0 : (int)(reach / kKv) + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStg; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4 * kNarrowGroups);  // lane 0 of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4 * kNarrowGroups) {
+    // Producer: the last warp, one lane. Loads n < nk carry K (pass 1),
+    // loads nk + j K and V of tile j (pass 2).
+    if (threadIdx.x % 32 == 0) {
+      bar_arrive_tx(q_full, L::kTileQ);
+      tma_load_4d(smem + L::kQ, &tq, q_full, 0, h, q0, b);
+      for (int n = 0; n < 2 * nk; ++n) {
+        const int st = n % kStg, j = n < nk ? n : n - nk;
+        if (n >= kStg) bar_wait(&empty[st], ((n / kStg) & 1) ^ 1);
+        bar_arrive_tx(&full[st], (n < nk ? 1 : 2) * L::kTileKv);
+        tma_load_4d(smem + L::kK + st * L::kTileKv, &tk, &full[st], 0, h,
+                    j * kKv, b);
+        if (n >= nk)
+          tma_load_4d(smem + L::kV + st * L::kTileKv, &tv, &full[st], 0, h,
+                      j * kKv, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup c owns rows 64c .. 64c + 63 of the q tile.
+  const int c = warp / 4;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int row0 = 64 * c + 16 * (t / 32) + lane / 4;  // +8 for i = 1
+  const int col = 2 * (lane % 4);
+  const uint32_t q_base = smem_u32(smem + L::kQ) + c * 64 * kRB;
+  const int first_qpos = q_off + q0 + 64 * c;
+  const int qpos0 = q_off + q0 + row0;
+
+  bar_wait(q_full, 0);
+  // Pass 1: the rows' max (kNegInf, the reference's mask value, where a
+  // row sees no key).
+  float m_i[2] = {kNegInf, kNegInf};
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % kStg, k0 = j * kKv;
+    const bool masked =
+        k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
+    float s[kKv / 2];
+    bar_wait(&full[st], (j / kStg) & 1);
+    narrow_scores<T, D>(s, q_base, smem_u32(smem + L::kK + st * L::kTileKv),
+                        masked, k0, Sk, causal, qpos0, k_off, col, scale);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+#pragma unroll
+    for (int n = 0; n < kKv / 2; ++n)
+      m_i[(n / 2) % 2] = fmaxf(m_i[(n / 2) % 2], s[n]);
+  }
+  float mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m_i[i] = fmaxf(m_i[i], __shfl_xor_sync(0xffffffffu, m_i[i], 1));
+    m_i[i] = fmaxf(m_i[i], __shfl_xor_sync(0xffffffffu, m_i[i], 2));
+    mb[i] = m_i[i] * kLog2e;
+  }
+
+  // Pass 2: p = exp(s - m) (masked entries, -inf, give exactly 0), l, and
+  // O += P V with P in the input's type and V an MN-major operand (a k16
+  // step is 16 rows of V).
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float l_i[2] = {0.f, 0.f};
+  for (int j = 0; j < nk; ++j) {
+    const int n = nk + j, st = n % kStg, k0 = j * kKv;
+    const bool masked =
+        k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
+    float s[kKv / 2];
+    bar_wait(&full[st], (n / kStg) & 1);
+    narrow_scores<T, D>(s, q_base, smem_u32(smem + L::kK + st * L::kTileKv),
+                        masked, k0, Sk, causal, qpos0, k_off, col, scale);
+#pragma unroll
+    for (int e = 0; e < kKv / 2; ++e) {
+      const int i = (e / 2) % 2;
+      const float p = exp2f(fmaf(s[e], kLog2e, -mb[i]));
+      s[e] = p;
+      l_i[i] += p;
+    }
+    uint32_t pa[kKv / 4];
+#pragma unroll
+    for (int e = 0; e < kKv / 4; ++e) pa[e] = pack2<T>(s[2 * e], s[2 * e + 1]);
+    const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileKv);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKv / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      wgmma_rs<D, T>(acc, a, desc_narrow<kRB>(v_base + kk * 16 * kRB,
+                                               L::kTileKv), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+    const int row = q0 + row0 + 8 * i;
+    if (row >= Sq) continue;
+    const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
+    T* orow = o + ((size_t)(b * Sq + row) * H + h) * D + col;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv,
+                acc[4 * jj + 2 * i + 1] * inv);
+    if (lane % 4 == 0) {
+      m_out[(size_t)bh * Sq + row] = m_i[i];
+      l_out[(size_t)bh * Sq + row] = l_i[i];
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t run_narrow(const void* q, const void* k, const void* v, void* o,
+                       void* m, void* l, int B, int H, int Sq, int Sk,
+                       int q_off, int k_off, int causal, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kNarrowRows);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kNarrowKv);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kNarrowKv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kNarrowRows - 1) / kNarrowRows);
+  return launch_threads(flash_fwd_sm90_narrow<T, D>, grid, kNarrowThreads,
+                        NarrowFwdSmem<D>::kBytes + 1024, stream, tq, tk, tv,
+                        (T*)o, (float*)m, (float*)l, H, Sq, Sk, q_off, k_off,
+                        causal, scale);
+}
+
 template <typename T>
 cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
                         void* o, void* m, void* l, int B, int H, int Sq,
                         int Sk, int q_off, int k_off, int causal, float sc,
                         cudaStream_t st) {
   switch (D) {
+    case 16: return run_narrow<T, 16>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+    case 32: return run_narrow<T, 32>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 64: return run<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 128: return run<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
     case 256: return run<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
@@ -315,9 +578,10 @@ cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace hvdt
 
 // dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v: contiguous [B, S, H, D] of
-// that type with 16-byte-aligned bases; D is 64, 128, 256, 384 or 512. o:
-// [B, Sq, H, D] of that type; m, l: fp32 [B, H, Sq]. scale multiplies the
-// logits (1/sqrt of the head dim before any zero padding of D).
+// that type with 16-byte-aligned bases; D is 16, 32, 64, 128, 256, 384 or
+// 512. o: [B, Sq, H, D] of that type; m, l: fp32 [B, H, Sq]. scale
+// multiplies the logits (1/sqrt of the head dim before any zero padding of
+// D).
 extern "C" int hvdt_flash_fwd_sm90(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* m, void* l,
                                    int B, int H, int Sq, int Sk, int D,

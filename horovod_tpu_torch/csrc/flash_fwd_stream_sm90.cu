@@ -5,12 +5,12 @@
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
 // (launched by `_flash_bhsd`), as flash_fwd_sm90.cu does for 16-bit head
-// dims 33-512 and flash_fwd.cu for D <= 32. Same function and contract: an
-// online softmax whose running max m, normalizer l and output accumulator
-// stay in fp32; runtime offsets give the global positions of q[0] and k[0];
-// kv tiles wholly in the future of a q tile are skipped; rows that see no
-// key give o = 0, m = -1e30, l = 0; [B, S, H, D] is read in place and the
-// stats are written as [B, H, S].
+// dims up to 512 and flash_fwd.cu for fp32 at D <= 32. Same function and
+// contract: an online softmax whose running max m, normalizer l and output
+// accumulator stay in fp32; runtime offsets give the global positions of
+// q[0] and k[0]; kv tiles wholly in the future of a q tile are skipped;
+// rows that see no key give o = 0, m = -1e30, l = 0; [B, S, H, D] is read
+// in place and the stats are written as [B, H, S].
 //
 // What bounds it on this card. At bf16 D 640 (B 2, S 1024, H 8, causal)
 // the function does about 860 operations per byte it must move, and at the

@@ -24,6 +24,17 @@
 //     step to the next 8 rows of the reduction dim, LBO the step to the
 //     next 64-wide column block (the next region); a 16-wide k step
 //     advances 16 rows, 2048 bytes.
+//
+// Narrow rows (the 16-bit kernels at head dims 16 and 32, whose [rows][D]
+// tiles are rows of 32 or 64 bytes): TMA writes them with the swizzle of
+// the row's width (encode_bshd: CU_TENSOR_MAP_SWIZZLE_32B or _64B, box
+// inner extent D), in 8-row atoms of 8 x the row's bytes (256 or 512), and wgmma reads
+// them through descriptors of the same mode (desc_narrow<kRowBytes>). A
+// whole tile is one region. K-major: SBO 8 x the row's bytes; a k16 step
+// advances 32 bytes inside the row (D 32 has two, D 16 one). MN-major:
+// the head dim is N and fits one swizzle atom, so LBO is never stepped
+// over; SBO is again 8 rows, and a k16 step advances 16 rows (1024 bytes
+// at D 32, 512 at D 16).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point is looked up at run time
@@ -123,6 +134,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// Descriptor of an operand in a narrow row's swizzle (kRowBytes 32 or 64:
+// the layout types 3 and 2 of wgmma's descriptor, 128 bytes being 1),
+// with the 8-row atom step 8 x kRowBytes as SBO; `lbo` as for
+// desc_sw128.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_narrow(uint32_t addr, uint32_t lbo) {
+  static_assert(kRowBytes == 32 || kRowBytes == 64, "narrow rows: 32 or 64 bytes");
+  constexpr uint64_t kLayout = kRowBytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32) | (kLayout << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -205,10 +229,13 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 //             (TB 0) or MN-major (TB 1, wgmma's transpose bit).
 //   wgmma_rs<N, T>: A from registers (four T pairs a thread, the layout of
 //             the accumulator fragment), B from shared memory, MN-major.
-// N is 32, 64, 128, 192 or 256 (16 to 128 accumulator registers a
+// N is 16, 32, 64, 128, 192 or 256 (8 to 128 accumulator registers a
 // thread).
 // Accumulator fragment of thread t (warp w = t / 32, lane = t % 32):
 // d[4j + 2i + e] is row 16w + lane / 4 + 8i, column 8j + 2 (lane % 4) + e.
+#define HVDT_REGS_8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define HVDT_OUTS_8 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7])
 #define HVDT_REGS_16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HVDT_OUTS_16 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -358,6 +385,7 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 
 template <int N>
 struct Wgmma;
+HVDT_WGMMA_SHAPE(16, 8, 9, 10, 11, 12, 13)
 HVDT_WGMMA_SHAPE(32, 16, 17, 18, 19, 20, 21)
 HVDT_WGMMA_SHAPE(64, 32, 33, 34, 35, 36, 37)
 HVDT_WGMMA_SHAPE(128, 64, 65, 66, 67, 68, 69)
@@ -434,14 +462,16 @@ constexpr CUtensorMapDataType kMapType =
     : kIsF16<T>                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-// A 4-D tensor map with the 128-byte swizzle over a contiguous tensor of
-// T with dims `dims` (innermost first) and box `box`, whose innermost
-// extent is one 128-byte region row (128 / sizeof(T) elements). Every dim
-// is a tensor edge: boxes read zeros past it and never straddle it.
+// A 4-D tensor map with the 128-byte swizzle (or `swizzle`) over a
+// contiguous tensor of T with dims `dims` (innermost first) and box
+// `box`, whose innermost extent is one region row: 128 / sizeof(T)
+// elements, or as many as the narrower swizzle spans. Every dim is a
+// tensor edge: boxes read zeros past it and never straddle it.
 template <typename T>
-inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
-                                const cuuint64_t (&dims)[4],
-                                const cuuint32_t (&box)[4]) {
+inline cudaError_t encode_tiled(
+    CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+    const cuuint32_t (&box)[4],
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn encode;
   const cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
@@ -451,7 +481,7 @@ inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, kMapType<T>, 4, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -459,12 +489,22 @@ inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
 // A tensor map over a contiguous [B, S, H, D] tensor of T (dims D, H, S,
 // B, innermost first), box (128 / sizeof(T), 1, box_rows, 1): one region
 // of box_rows sequence rows. S is a tensor edge, so rows past S read as
-// zeros and no box straddles two batches.
+// zeros and no box straddles two batches. A 16-bit row of 32 or 64 bytes
+// (D 16 or 32) is one whole narrow region instead: box (D, 1, box_rows,
+// 1) in the swizzle of the row's width, as desc_narrow reads it.
 template <typename T = __nv_bfloat16>
 inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B,
                                int S, int H, int D, int box_rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
+  const int row_bytes = D * (int)sizeof(T);
+  if (row_bytes < 128) {
+    if (row_bytes != 32 && row_bytes != 64) return cudaErrorInvalidValue;
+    const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)box_rows, 1};
+    return encode_tiled<T>(map, base, dims, box,
+                           row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B);
+  }
   const cuuint32_t box[4] = {(cuuint32_t)(128 / sizeof(T)), 1,
                              (cuuint32_t)box_rows, 1};
   return encode_tiled<T>(map, base, dims, box);
@@ -484,16 +524,24 @@ inline cudaError_t encode_bhds(CUtensorMap* map, const void* base, int B,
   return encode_tiled<T>(map, base, dims, box);
 }
 
-// Sets the dynamic shared-memory limit and launches `kernel` on 384
-// threads (one producer and two consumer warpgroups).
+// Sets the dynamic shared-memory limit and launches `kernel` on `threads`
+// threads.
 template <typename K, typename... Args>
-inline cudaError_t launch_ws(K kernel, dim3 grid, size_t bytes,
-                             cudaStream_t stream, Args... args) {
+inline cudaError_t launch_threads(K kernel, dim3 grid, int threads,
+                                  size_t bytes, cudaStream_t stream,
+                                  Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, 384, bytes, stream>>>(args...);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// The same on 384 threads (one producer and two consumer warpgroups).
+template <typename K, typename... Args>
+inline cudaError_t launch_ws(K kernel, dim3 grid, size_t bytes,
+                             cudaStream_t stream, Args... args) {
+  return launch_threads(kernel, grid, 384, bytes, stream, args...);
 }
 
 // ---- the tf32 pre-pass ----------------------------------------------------

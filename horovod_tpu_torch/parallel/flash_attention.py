@@ -4,16 +4,16 @@ Counterpart of ``horovod_tpu/parallel/flash_attention.py`` (public
 contract :436-566). The three Pallas kernels there have hand-written
 CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
 
-- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 33-512)
+- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 1-512)
                                 ``flash_fwd_stream_sm90.cu`` (bf16/fp16
                                 past D 512; fp32 past D 32, 3xTF32)
-                                or ``flash_fwd.cu`` (D <= 32) via
+                                or ``flash_fwd.cu`` (fp32, D <= 32) via
                                 :func:`_flash_fwd`
 - ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 33-256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
                                 or ``flash_bwd.cu``     via :func:`_flash_bwd`
-- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 33-256)
+- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
                                 or ``flash_bwd.cu``     via :func:`_flash_bwd`
@@ -22,11 +22,13 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
 alone, before any launch:
 
 - ``sm90`` (wgmma on 16-bit tiles fed by TMA, warp-specialised, the
-  CTA's Q tile resident in shared memory) takes bf16 and fp16: dq and
-  dk/dv at any head dim in (32, 256], built at 64, 128 and 256
-  (``SM90_HEAD_DIMS``), the forward at any head dim in (32, 512], built
-  at those and at 384 and 512 (``SM90_KERNEL_DIMS``; past 256 each CTA
-  accumulates one half of O's head dim).
+  CTA's Q tile resident in shared memory) takes bf16 and fp16: dq at any
+  head dim in (32, 256], built at 64, 128 and 256 (``SM90_HEAD_DIMS``),
+  dk/dv at any head dim up to 256 and the forward at any up to 512,
+  built at those and at 16 and 32 (``SM90_NARROW_DIMS``: tiles of 32- or
+  64-byte rows in a swizzle of that width, small CTAs several to an SM),
+  the forward also at 384 and 512 (``SM90_KERNEL_DIMS``; past 256 each
+  CTA accumulates one half of O's head dim).
 - ``stream`` and ``tf32`` (``STREAM_DESIGNS``) hold no tile that spans
   the head dim: the operands of S (and of dP) come through a TMA ring one
   128-byte column region at a time (64 16-bit or 32 fp32 columns), S is
@@ -41,7 +43,8 @@ alone, before any launch:
   do^T, one pre-pass for dq and dk/dv, :func:`_tf32_bwd_split`). The
   shared-memory bytes of each are worked out in the files' headers.
 - ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: all
-  three kernels at D <= 32, and 16-bit dq and dk/dv past 256.
+  three kernels at fp32 D <= 32, dq at 16-bit D <= 32, and 16-bit dq and
+  dk/dv past 256.
   It is built at ``HEAD_DIMS`` (16 to 512; its tiles shrink as D grows so
   that a block's shared memory holds them, the counterpart of the
   reference's ``_ladders_for``) and at any multiple of 64 past 512,
@@ -55,7 +58,8 @@ kernel's design is not built for runs at the next one that is
 scale of the true D, and the outputs sliced back
 (:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and the
 padded columns of v give output columns that are cut away. So bf16 D 80
-runs all three kernels at 128, D 200 at 256, D 320 the forward at 384
+runs all three kernels at 128, D 200 at 256, D 20 all three at 32 (the
+forward and dk/dv on sm90, dq on simt), D 320 the forward at 384
 (sm90) and the backward at 384 (simt), D 600 the forward at 640
 (stream), and fp32 D 100 all three at 128 (tf32). The backward pads q,
 k, v and do once for both of its kernels (:func:`_flash_bwd`). The
@@ -113,12 +117,16 @@ WHOLE_BELOW = 128
 HEAD_DIMS = (16, 32, 64, 96, 128, 256, 384, 512)
 CHUNK = 64
 SM90_HEAD_DIMS = (64, 128, 256)   # head dims all three sm90 kernels take
+# The narrow-row builds of the sm90 forward and dk/dv (dq has none yet: at
+# 16-bit D <= 32 it stays on simt).
+SM90_NARROW_DIMS = (16, 32)
 KERNELS = ("fwd", "dq", "dkv")
 # What the sm90 kernels take: their dtypes, and the head dims each one is
 # built for (its dispatcher pads any other head dim up to one of them).
 SM90_DTYPES = (torch.bfloat16, torch.float16)
-SM90_KERNEL_DIMS = {"fwd": SM90_HEAD_DIMS + (384, 512),
-                    "dq": SM90_HEAD_DIMS, "dkv": SM90_HEAD_DIMS}
+SM90_KERNEL_DIMS = {"fwd": SM90_NARROW_DIMS + SM90_HEAD_DIMS + (384, 512),
+                    "dq": SM90_HEAD_DIMS,
+                    "dkv": SM90_NARROW_DIMS + SM90_HEAD_DIMS}
 # The designs streamed over D (csrc/flash_fwd_stream_sm90.cu,
 # csrc/flash_bwd_tf32_sm90.cu): design -> (its dtypes, the head dim it
 # starts past, the region width: it is built for every multiple of that
@@ -195,14 +203,15 @@ def _next_built(d: int, built) -> int:
 def padded_head_dim(d: int, design: str, kernel: str) -> int:
     """The head dim a CUDA call at head dim ``d`` runs ``kernel``'s
     ``design`` at: ``d`` itself when one is built for it, else the next
-    one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (64 to 512 for the
-    forward, to 256 for dq and dk/dv), which raises past the largest (the
-    dispatchers send it nothing larger); ``stream`` (the forward) and
-    ``tf32`` (all three kernels) (``STREAM_DESIGNS``): the next multiple
-    of 64 past 512 and of 32 past 32, which raise at or below their start
-    and for a kernel they do not serve, and never above the start;
-    simt, the same for every kernel: ``HEAD_DIMS`` up to 512, then the
-    next multiple of ``CHUNK``, so it never refuses a head dim there."""
+    one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (16 to 512 for the
+    forward, 16 to 256 for dk/dv, 64 to 256 for dq), which raises past
+    the largest (the dispatchers send it nothing larger); ``stream`` (the
+    forward) and ``tf32`` (all three kernels) (``STREAM_DESIGNS``): the
+    next multiple of 64 past 512 and of 32 past 32, which raise at or
+    below their start and for a kernel they do not serve, and never above
+    the start; simt, the same for every kernel: ``HEAD_DIMS`` up to 512,
+    then the next multiple of ``CHUNK``, so it never refuses a head dim
+    there."""
     if design in STREAM_DESIGNS:
         _, start, width, kernels = STREAM_DESIGNS[design]
         if kernel not in kernels or d <= start:
@@ -417,16 +426,21 @@ def _stream(t) -> int:
 def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The design of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for CUDA
     inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
-    fed by TMA, Q resident) at bf16 and fp16 with 32 < d <= 512 for the
-    forward and 32 < d <= 256 for dq and dk/dv; ``"stream"`` (the same,
-    streamed over D) for the forward at bf16 and fp16 past 512;
-    ``"tf32"`` (streamed, 3xTF32) for all three at fp32 past 32;
+    fed by TMA, Q resident) at bf16 and fp16 with d <= 512 for the
+    forward, d <= 256 for dk/dv and 32 < d <= 256 for dq; ``"stream"``
+    (the same, streamed over D) for the forward at bf16 and fp16 past
+    512; ``"tf32"`` (streamed, 3xTF32) for all three at fp32 past 32;
     ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise: every
-    kernel at d <= 32, and 16-bit dq and dk/dv past 256."""
+    kernel at fp32 d <= 32, dq at 16-bit d <= 32, and 16-bit dq and dk/dv
+    past 256."""
     for design, (dtypes, start, _, kernels) in STREAM_DESIGNS.items():
         if kernel in kernels and dtype in dtypes and d > start:
             return design
-    sm90 = dtype in SM90_DTYPES and 32 < d <= SM90_KERNEL_DIMS[kernel][-1]
+    built = SM90_KERNEL_DIMS[kernel]
+    # Below its smallest build only a kernel with narrow builds takes sm90:
+    # dq, built from 64, keeps d <= 32 on simt.
+    unbuilt = d <= SM90_NARROW_DIMS[-1] < built[0]
+    sm90 = dtype in SM90_DTYPES and d <= built[-1] and not unbuilt
     return "sm90" if sm90 else "simt"
 
 
@@ -458,7 +472,8 @@ def _check_tensor_cores(name, kernel, tensors, design="sm90"):
     tf32): CUDA tensors of its dtypes at a head dim it is built for, and
     16-byte aligned bases for TMA and the tf32 pre-pass's 16-byte loads
     (contiguity, checked already, makes every outer stride a multiple of
-    16 bytes at these head dims)."""
+    16 bytes at these head dims: the narrowest row, 16-bit D 16, is 32
+    bytes)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
@@ -548,7 +563,7 @@ def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
 def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
     """The wgmma/TMA forward kernel with Q resident (flash_fwd_sm90.cu):
-    bf16 and fp16, D 64/128/256/384/512."""
+    bf16 and fp16, D 16/32/64/128/256/384/512."""
     global flash_fwd_sm90_launches
     out = _fwd_tensor_cores("sm90", q, k, v, causal, q_offset, k_offset,
                             scale)
@@ -650,7 +665,7 @@ def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None):
     """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16 and fp16,
-    D 64/128/256."""
+    D 16/32/64/128/256."""
     global flash_dkv_sm90_launches
     b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
     _check_tensor_cores("flash dk/dv", "dkv", (q, k, v, do))

@@ -27,6 +27,8 @@ have an absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``:
 the dq of a query that sees one key is pure rounding noise).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -267,7 +269,9 @@ def test_entry_runs_on_the_card(cuda):
     out = fn(*args)
     assert out.shape == (2, 32, 256) and out.dtype == torch.float32
     assert out.is_cuda and torch.isfinite(out).all()
-    assert fa.launch_counts()["flash_fwd"] == 2     # head dim 16: simt
+    # head dim 16: the narrow sm90 forward, once a layer; simt never
+    assert fa.launch_counts()["flash_fwd_sm90"] == 2
+    assert fa.launch_counts()["flash_fwd"] == 0
 
 
 @pytest.fixture
@@ -304,6 +308,25 @@ def test_runtime_waits_for_the_ready_event_and_hands_over_on_the_stream(
     assert busy, "the matmuls ended before the enqueue"
     assert out.device == x.device
     assert torch.equal(got, x * 2)
+
+
+@pytest.mark.cuda
+def test_entry_config_trains_on_the_narrow_kernels(cuda_world):
+    """Three training steps of the entry's tiny config (bf16, 2 layers, 4
+    heads of 16) through the bench's step: a finite, falling loss, and
+    each step launches the narrow sm90 forward and dk/dv and the simt dq
+    once a layer, no other flash kernel."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.entry import tiny_config
+    cfg = tiny_config()
+    step, _ = bench.transformer_step(cfg, 2, seed=0)
+    fa.reset_launch_counts()
+    losses = [step().item() for _ in range(3)]
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+    want = dict.fromkeys(fa.launch_counts(), 0)
+    for name in ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90"):
+        want[name] = 3 * cfg.num_layers
+    assert fa.launch_counts() == want
 
 
 @pytest.mark.cuda
@@ -603,6 +626,8 @@ def test_tf32_backward_one_prepass_equals_separate_launches(cuda, d):
 RAGGED_DESIGNS = [
     # dtype, head dim: every design of every kernel
     pytest.param("bfloat16", 32, id="simt_bf16_d32"),
+    pytest.param("bfloat16", 16, id="narrow_bf16_d16"),
+    pytest.param("float16", 32, id="narrow_fp16_d32"),
     pytest.param("float32", 32, id="simt_fp32_d32"),
     pytest.param("bfloat16", 128, id="sm90_bf16_d128"),
     pytest.param("bfloat16", 256, id="sm90_bf16_d256"),
@@ -621,3 +646,66 @@ def test_ragged_lengths_match_plain_versions(cuda, dtype, d, sq, sk, qo):
     first tile and a ragged second one, on every design, causal with the
     diagonal through the ragged ends."""
     _check_kernels(cuda, getattr(torch, dtype), 2, sq, 2, d, True, qo, 0, sk)
+
+
+NARROW_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset, sk
+    pytest.param("bfloat16", 2, 32, 4, 16, True, 0, 0, None,
+                 id="bf16_d16_entry_shape"),
+    pytest.param("float16", 2, 32, 4, 32, True, 0, 0, None, id="fp16_d32_s32"),
+    pytest.param("bfloat16", 2, 100, 2, 32, True, 16, 0, None,
+                 id="bf16_d32_s100_q_offset"),
+    pytest.param("float16", 2, 127, 2, 16, True, 0, 0, None,
+                 id="fp16_d16_s127"),
+    pytest.param("bfloat16", 1, 256, 3, 16, False, 0, 0, None,
+                 id="bf16_d16_noncausal"),
+    pytest.param("float16", 1, 256, 2, 32, True, 0, 192, None,
+                 id="fp16_d32_dead_rows"),
+    pytest.param("bfloat16", 2, 128, 2, 32, True, 256, 0, 384,
+                 id="bf16_d32_kv_longer"),
+    pytest.param("float16", 2, 256, 2, 16, False, 0, 0, 64,
+                 id="fp16_d16_kv_shorter_noncausal"),
+    pytest.param("bfloat16", 1, 100, 2, 20, True, 0, 0, 127,
+                 id="bf16_d20_padded_unequal"),
+    pytest.param("float16", 2, 1024, 8, 16, True, 0, 0, None,
+                 id="fp16_d16_c4_shape"),
+    pytest.param("bfloat16", 2, 1024, 8, 32, True, 0, 0, None,
+                 id="bf16_d32_c4_shape"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko,sk", NARROW_CASES)
+def test_narrow_sm90_kernels_match_plain_versions(cuda, dtype, b, s, h, d,
+                                                  causal, qo, ko, sk):
+    """The narrow sm90 forward and dk/dv (16-bit D 16 and 32; D 20 runs at
+    32) against their plain versions with 16-bit operand rounding, dq on
+    simt beside them: causal and not, with offsets, dead rows, unequal
+    lengths, ragged tiles (S 100, 127) and the entry's S 32; the launch
+    counters show which design ran."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko,
+                   sk)
+    counts = fa.launch_counts()
+    assert counts["flash_fwd_sm90"] == counts["flash_dkv_sm90"] == 1
+    assert counts["flash_dq"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 16), ("float16", 32)])
+def test_narrow_sm90_refuses_a_misaligned_tensor_without_falling_back(
+        cuda, dtype, d):
+    dt = getattr(torch, dtype)
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda, dtype=dt)
+    bad = flat[1:].view(1, 64, 2, d)        # contiguous, 2 bytes off
+    good = torch.zeros(1, 64, 2, d, device=cuda, dtype=dt)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_fwd(*args, True, 0, 0)
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._launch("dkv", "sm90", tensors, st, st, True, 0, 0)
+    assert not any(fa.launch_counts().values())

@@ -114,8 +114,8 @@ def test_plain_operands_match_reference(dtype, d):
 
 DESIGNS = [
     # dtype, d, (fwd, dq, dkv) designs, (fwd, dq, dkv) padded head dims
-    (torch.bfloat16, 16, "simt simt simt", (16, 16, 16)),
-    (torch.bfloat16, 32, "simt simt simt", (32, 32, 32)),
+    (torch.bfloat16, 16, "sm90 simt sm90", (16, 16, 16)),
+    (torch.bfloat16, 32, "sm90 simt sm90", (32, 32, 32)),
     (torch.bfloat16, 33, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.bfloat16, 64, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.bfloat16, 80, "sm90 sm90 sm90", (128, 128, 128)),
@@ -129,7 +129,7 @@ DESIGNS = [
     (torch.bfloat16, 640, "stream simt simt", (640, 640, 640)),
     (torch.bfloat16, 600, "stream simt simt", (640, 640, 640)),
     (torch.float16, 640, "stream simt simt", (640, 640, 640)),
-    (torch.float16, 32, "simt simt simt", (32, 32, 32)),
+    (torch.float16, 32, "sm90 simt sm90", (32, 32, 32)),
     (torch.float16, 48, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.float16, 128, "sm90 sm90 sm90", (128, 128, 128)),
     (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
@@ -148,10 +148,11 @@ DESIGNS = [
 
 @pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
-    """bf16 and fp16 take sm90 for the forward at D 33-512 and stream past
-    it, sm90 for dq and dk/dv at D 33-256; fp32 takes tf32 for all three
-    past D 32; D <= 32, and 16-bit dq and dk/dv past 256, take simt. Each
-    kernel pads to a head dim of its own design."""
+    """bf16 and fp16 take sm90 for the forward at D 1-512 and stream past
+    it, sm90 for dk/dv at D 1-256 and for dq at D 33-256; fp32 takes tf32
+    for all three past D 32; fp32 at D <= 32, 16-bit dq at D <= 32, and
+    16-bit dq and dk/dv past 256, take simt. Each kernel pads to a head
+    dim of its own design."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]
     assert got == designs.split()
     assert [port.padded_head_dim(d, design, kern)
