@@ -13,11 +13,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 2. Kernels against their plain PyTorch versions, on the card. Each
    kernel takes the design ``flash_attention._design`` gives it: the
    tensor-core kernels (sm90: bf16 and fp16, the forward at head dims
-   1-512, dk/dv at 1-256, dq at 33-256, D 16 and 32 on the narrow-row
-   builds; the forward's stream design, bf16 and fp16 past D 512; tf32,
-   fp32 past D 32 through 3xTF32 for all three kernels; stream and tf32
-   streamed over D) and the fp32-FMA (simt) kernels for the rest (fp32 at
-   D <= 32, 16-bit dq at D <= 32 and dq and dk/dv past 256, past D 512 in
+   1-512, dq and dk/dv at 1-256, D 16 and 32 on the narrow-row builds;
+   the stream design, bf16 and fp16, the forward past D 512 and dq past
+   D 256; tf32, fp32 past D 32 through 3xTF32 for all three kernels;
+   stream and tf32 streamed over D) and the fp32-FMA (simt) kernels for
+   the rest (fp32 at D <= 32, 16-bit dk/dv past 256, past D 512 in
    64-column chunks of the head dim); a bf16 case at the main
    shape forces the simt ones. Cases: the main path's shape (B=4,
    S=2048, H=16, D=128, bf16, causal), a non-causal, two offset, a D=64
@@ -58,17 +58,18 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    (keys 1024-1087) and the D 256 dq's 32-key stage (keys 1024-1055); and
    at bf16 D 512 (C4 shape) with one 32-key stage of the D 512 forward
    (keys 512-543); at bf16 D 640 with one 64-key stage of the stream
-   forward (keys 512-575) and with one 64-column region of the head dim
-   left out of the logits (q and k zeroed in columns 256-319); at the
-   fp32 main shape with one 64-key stage of the tf32 forward and dq
-   (keys 1024-1087) and one 64-query tile of the tf32 dk/dv (queries
-   1536-1599), and at fp32 D 640 with one 32-column region of the head
-   dim left out of the logits of the forward, dq, dk and dv (columns
-   256-287), each of which must fail by more than 10 times the bound; at
-   bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward (keys
-   512-575) and one 64-query tile of the narrow dk/dv (queries 512-575),
-   by more than 10 times too; at the ragged length 100 with the ragged
-   tile (keys 64-99) left out of the forward and dq.
+   forward and dq (keys 512-575) and with one 64-column region of the
+   head dim left out of the logits of the forward and dq (q and k zeroed
+   in columns 256-319); at the fp32 main shape with one 64-key stage of
+   the tf32 forward and dq (keys 1024-1087) and one 64-query tile of the
+   tf32 dk/dv (queries 1536-1599), and at fp32 D 640 with one 32-column
+   region of the head dim left out of the logits of the forward, dq, dk
+   and dv (columns 256-287), each of which must fail by more than 10
+   times the bound; at
+   bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward and dq
+   (keys 512-575) and one 64-query tile of the narrow dk/dv (queries
+   512-575), by more than 10 times too; at the ragged length 100 with the
+   ragged tile (keys 64-99) left out of the forward and dq.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
    kernels as through dense attention (2e-5 and 1e-4).
@@ -100,8 +101,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    why), for the entry's example tokens and for tokens from --seed, each
    call launching the sm90 forward twice and no other flash kernel; then
    4 training steps of the same configuration through the bench's step
-   (as phase 4): the loss finite and falling, the sm90 forward, the simt
-   dq and the sm90 dk/dv once per layer per step and no other.
+   (as phase 4): the loss finite and falling, the sm90 forward, dq and
+   dk/dv once per layer per step and no other.
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
    the main path's shape in bf16 (printed beside the times PERF.md
    recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
@@ -274,27 +275,29 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # Keys and queries left out of a plain result by the lost-tile checks:
 # one kv tile of the forward (128 rows at D 128, 64 at D 256, 32 at D
 # 512, 64 on the stream and tf32 designs), one kv stage of dq (64 keys at
-# D 128 and on tf32, 32 at D 256), one q tile of dk/dv (64 queries);
-# ``fwd_columns`` and ``bwd_columns``: one region of the head dim (64
-# 16-bit or 32 fp32 columns) left out of the logits of the forward, and
-# of dq, dk and dv (the stream and tf32 designs sum them region by
-# region). The fp32 entries, those of the tf32 kernels, must be rejected
-# at more than LOST_FP32_BY times the bound.
+# D 128, on the narrow, stream and tf32 designs, 32 at D 256), one q tile
+# of dk/dv (64 queries); ``fwd_columns`` and ``bwd_columns``: one region
+# of the head dim (64 16-bit or 32 fp32 columns) left out of the logits
+# of the forward, and of dq, dk and dv (the kernels streamed over D among
+# them: the stream and tf32 designs sum them region by region). The fp32
+# entries, those of the tf32 kernels, must be rejected at more than
+# LOST_FP32_BY times the bound.
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_MAIN_FP32 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_FP32_BY = 10.0
-# The narrow sm90 forward and dk/dv (16-bit D 16 and 32): 64 keys of the
-# forward and one 64-query tile of dk/dv left out must be rejected at more
+# The narrow sm90 kernels (16-bit D 16 and 32): 64 keys of the forward
+# and dq and one 64-query tile of dk/dv left out must be rejected at more
 # than this many times the bound (a wrong swizzle or tile offset loses at
 # least that much).
 LOST_NARROW_BY = 10.0
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
-LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dkv=(512, 576),
+LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
                             by=LOST_NARROW_BY),
-           "bf16_d32": dict(fwd=(512, 576), dkv=(512, 576),
+           "bf16_d32": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
                             by=LOST_NARROW_BY),
            "bf16_d512": dict(fwd=(512, 544)),
-           "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320)),
+           "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320),
+                             dq=(512, 576), bwd_columns=(256, 320)),
            "fp32_d640": dict(fwd_columns=(256, 288),
                              bwd_columns=(256, 288))}
 # ROADMAP C6: lengths under 128 that are no multiple of 64 (a full first
@@ -315,9 +318,9 @@ FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32")
 # Phase 4d: the entry's flagship model (horovod_tpu_torch/entry.py: bf16,
 # 4 heads of 16, S 32, batch 2, 2 layers), its forward on the card against
 # the CPU, then training steps (1 warm-up, 2 timed, 1 profiled). Head dim
-# 16 runs the narrow sm90 forward and dk/dv and the simt dq.
+# 16 runs the narrow sm90 forward, dq and dk/dv.
 ENTRY = dict(b=2, s=32, h=4, d=16)
-ENTRY_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90")
+ENTRY_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
 ENTRY_STEPS = dict(warmup=1, steps=2)
 # The entry's logits on the card against the CPU, elementwise: both run the
 # same bf16 model from the same weights and tokens and differ only in where
@@ -588,7 +591,8 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close(f"dv, queries {lo}-{hi - 1} left out", dv_x, dv_p,
                         1e-4, step, plain_b=dv_b, must_fail=True,
                         fail_by=fail_by)
-        if lost and "bwd_columns" in lost:
+        if (lost and "bwd_columns" in lost
+                and designs["dkv"] in fa.STREAM_DESIGNS):
             lo, hi = lost["bwd_columns"]
             _, dk_x, dv_x = bwd_without_columns(fa, q, k, v, do, lse, delta,
                                                 lo, hi)
@@ -640,8 +644,8 @@ def kernel_checks(torch, fa):
                             causal=True, seed=6, lost=LOST_MAIN_FP32))
     errs.update(kernel_case(fa, torch, "main_fp32 on simt", **MAIN,
                             dtype=fp32, causal=True, seed=6, design="simt"))
-    # The entry's shape (phase 4d's path): the narrow sm90 forward and
-    # dk/dv, the simt dq.
+    # The entry's shape (phase 4d's path): the narrow sm90 forward, dq and
+    # dk/dv.
     errs.update(kernel_case(fa, torch, "entry", **ENTRY, dtype=bf16,
                             causal=True, seed=11, tag="entry"))
     # ROADMAP C6: a ragged second tile on every design.
@@ -1139,20 +1143,22 @@ def kernel_times(torch, fa):
             pairs += [(tag, dtype, shape["d"], kern) for kern in tc]
     print("tensor-core kernels against the simt kernels they replace, same "
           "inputs (ms of the card, CUDA-event means of 20 launches; the "
-          "tf32 backward with its pre-pass, beside SDPA's backward alone, "
-          "the plain version and the bound, 3xTF32 / FMA):")
+          "stream dq and the tf32 backward (with its pre-pass) beside "
+          "SDPA's backward alone, the plain version and the bound, for "
+          "tf32 3xTF32 / FMA):")
     slower = []
     for tag, dtype, d, kern in pairs:
         design = fa._design(dtype, d, kern)
         row = rows[kernel_name(fa, kern, design, tag)]
         new, old = row["ms"], rows[kernel_name(fa, kern, "simt", tag)]["ms"]
         more = ""
-        if design == "tf32" and kern != "fwd":
-            more = (f"  pre-pass {row['prepass_ms']:.4f}  SDPA bwd "
-                    f"{row['library_bwd_only_ms']:.4f} "
+        if design in ("stream", "tf32") and kern != "fwd":
+            more = (f"  SDPA bwd {row['library_bwd_only_ms']:.4f} "
                     f"({new / row['library_bwd_only_ms']:.2f}x)  plain "
-                    f"{row['plain_ms']:.3f}  bound {row['bound_ms']:.4f} / "
-                    f"{row['bound_fma_ms']:.4f}")
+                    f"{row['plain_ms']:.3f}  bound {row['bound_ms']:.4f}")
+        if design == "tf32" and kern != "fwd":
+            more += (f" / {row['bound_fma_ms']:.4f}  pre-pass "
+                     f"{row['prepass_ms']:.4f}")
         print(f"  {tag or 'main fp32':<10} {kern:<4} {design:<6} {new:8.4f}  "
               f"simt {old:8.4f}  {old / new:6.1f}x{more}")
         if not new < old:
@@ -1800,6 +1806,7 @@ def main(argv=None) -> int:
                "flash_fwd_tf32": ("flash_fwd_stream_sm90.cu", "58"),
                "flash_dq": ("flash_bwd.cu", "204"),
                "flash_dq_sm90": ("flash_dq_sm90.cu", "204"),
+               "flash_dq_stream": ("flash_dq_stream_sm90.cu", "204"),
                "flash_dq_tf32": ("flash_bwd_tf32_sm90.cu", "204"),
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236"),
@@ -1813,7 +1820,8 @@ def main(argv=None) -> int:
     paths = {("bfloat16", MAIN["d"]): counts,
              ("bfloat16", GEMMA["d"]): gemma_counts,
              ("float32", MAIN["d"]): fp32_counts}
-    entry_rows = {"flash_fwd_sm90": entry_fwd_counts, "flash_dq": entry_counts,
+    entry_rows = {"flash_fwd_sm90": entry_fwd_counts,
+                  "flash_dq_sm90": entry_counts,
                   "flash_dkv_sm90": entry_counts}
     kernels = []
     for name, r in rows.items():

@@ -61,6 +61,9 @@ _SIGNATURES = {
     # dtype, q, k, v, do, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off,
     # causal, scale, stream
     "hvdt_flash_dq_sm90": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
+    # dtype, q, k, v, do, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off,
+    # causal, scale, stream
+    "hvdt_flash_dq_stream": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
     # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
     # k_off, causal, scale, stream
     "hvdt_flash_dkv_sm90": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],

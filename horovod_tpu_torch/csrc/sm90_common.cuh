@@ -1,12 +1,12 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
 // (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_dq_sm90.cu,
-// flash_dkv_sm90.cu, flash_bwd_tf32_sm90.cu): TMA loads through a tensor
-// map, mbarrier init / arrive / expect-tx / wait, wgmma descriptors,
-// fence, commit and wait, setmaxnreg, the proxy fence and named barriers
-// for tiles that the consumers write themselves, the host-side tensor-map
-// encoders, and the tf32 kernels' pre-pass. The wrappers take bf16 or
-// fp16 (`T`), and fp32 tiles fed to the tensor cores as tf32
-// (`wgmma_tf32_ss`, `wgmma_tf32_rs`).
+// flash_dq_stream_sm90.cu, flash_dkv_sm90.cu, flash_bwd_tf32_sm90.cu):
+// TMA loads through a tensor map, mbarrier init / arrive / expect-tx /
+// wait, wgmma descriptors, fence, commit and wait, setmaxnreg, the proxy
+// fence and named barriers for tiles that the consumers write themselves,
+// the host-side tensor-map encoders, and the tf32 kernels' pre-pass. The
+// wrappers take bf16 or fp16 (`T`), and fp32 tiles fed to the tensor
+// cores as tf32 (`wgmma_tf32_ss`, `wgmma_tf32_rs`).
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B,
 // and every size below is in bytes, whatever the element: rows of 128

@@ -12,7 +12,8 @@ own parameters and a [2, 32] batch of zero tokens::
     logits = fn(*args)              # [2, 32, 256] fp32
 
 On the card, head dim 16 runs the forward on the sm90 kernel (narrow
-rows); a backward through it takes the sm90 dk/dv and the simt dq.
+rows); a backward through it takes the sm90 dq and dk/dv (narrow rows
+too).
 
 The reference's ``dryrun_multichip`` and ``run_multichip`` drive the
 Trainer over a data x seq x model mesh with ring attention, tensor

@@ -9,10 +9,13 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 past D 512; fp32 past D 32, 3xTF32)
                                 or ``flash_fwd.cu`` (fp32, D <= 32) via
                                 :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 33-256)
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 1-256)
+                                ``flash_dq_stream_sm90.cu`` (bf16/fp16
+                                past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
-                                or ``flash_bwd.cu``     via :func:`_flash_bwd`
+                                or ``flash_bwd.cu`` (fp32, D <= 32) via
+                                :func:`_flash_bwd`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
@@ -22,19 +25,20 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
 alone, before any launch:
 
 - ``sm90`` (wgmma on 16-bit tiles fed by TMA, warp-specialised, the
-  CTA's Q tile resident in shared memory) takes bf16 and fp16: dq at any
-  head dim in (32, 256], built at 64, 128 and 256 (``SM90_HEAD_DIMS``),
+  CTA's Q tile resident in shared memory) takes bf16 and fp16: dq and
   dk/dv at any head dim up to 256 and the forward at any up to 512,
-  built at those and at 16 and 32 (``SM90_NARROW_DIMS``: tiles of 32- or
-  64-byte rows in a swizzle of that width, small CTAs several to an SM),
-  the forward also at 384 and 512 (``SM90_KERNEL_DIMS``; past 256 each
-  CTA accumulates one half of O's head dim).
+  built at 64, 128 and 256 (``SM90_HEAD_DIMS``) and at 16 and 32
+  (``SM90_NARROW_DIMS``: tiles of 32- or 64-byte rows in a swizzle of
+  that width, small CTAs several to an SM), the forward also at 384 and
+  512 (``SM90_KERNEL_DIMS``; past 256 each CTA accumulates one half of
+  O's head dim).
 - ``stream`` and ``tf32`` (``STREAM_DESIGNS``) hold no tile that spans
   the head dim: the operands of S (and of dP) come through a TMA ring one
   128-byte column region at a time (64 16-bit or 32 fp32 columns), S is
   summed over the regions and each CTA accumulates one part of its
-  output's head dim. ``stream``, the forward only, takes bf16
-  and fp16 past D 512, at every multiple of 64 (parts of 256 columns);
+  output's head dim. ``stream`` takes bf16 and fp16 for the forward past
+  D 512 and for dq past D 256, at every multiple of 64 (parts of 256
+  columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
   kernels (parts of 128 columns; dk/dv 64), each product as hi.hi +
   hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
@@ -43,8 +47,7 @@ alone, before any launch:
   do^T, one pre-pass for dq and dk/dv, :func:`_tf32_bwd_split`). The
   shared-memory bytes of each are worked out in the files' headers.
 - ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: all
-  three kernels at fp32 D <= 32, dq at 16-bit D <= 32, and 16-bit dq and
-  dk/dv past 256.
+  three kernels at fp32 D <= 32, and 16-bit dk/dv past 256.
   It is built at ``HEAD_DIMS`` (16 to 512; its tiles shrink as D grows so
   that a block's shared memory holds them, the counterpart of the
   reference's ``_ladders_for``) and at any multiple of 64 past 512,
@@ -58,11 +61,12 @@ kernel's design is not built for runs at the next one that is
 scale of the true D, and the outputs sliced back
 (:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and the
 padded columns of v give output columns that are cut away. So bf16 D 80
-runs all three kernels at 128, D 200 at 256, D 20 all three at 32 (the
-forward and dk/dv on sm90, dq on simt), D 320 the forward at 384
-(sm90) and the backward at 384 (simt), D 600 the forward at 640
-(stream), and fp32 D 100 all three at 128 (tf32). The backward pads q,
-k, v and do once for both of its kernels (:func:`_flash_bwd`). The
+runs all three kernels at 128, D 200 at 256, D 20 all three at 32
+(sm90), D 320 the forward at 384 (sm90), dq at 320 (stream) and dk/dv
+at 384 (simt), D 600 the forward and dq at 640 (stream) and dk/dv at
+640 (simt), and fp32 D 100 all three at 128 (tf32). The backward pads
+q, k, v and do once for each head dim its two kernels run at
+(:func:`_flash_bwd`). The
 tensor-core kernels read their inputs through TMA (the tf32 pre-pass in
 16-byte loads) and need 16-byte aligned bases; a misaligned CUDA tensor
 raises, it never falls back to another design.
@@ -70,7 +74,8 @@ raises, it never falls back to another design.
 Each launcher counts its launches (``launch_counts()``, keyed by
 :func:`counter_name`: ``flash_fwd``, ``flash_fwd_sm90``,
 ``flash_fwd_stream``, ``flash_fwd_tf32``, ``flash_dq``, ``flash_dq_sm90``,
-``flash_dq_tf32``, ``flash_dkv``, ``flash_dkv_sm90``, ``flash_dkv_tf32``).
+``flash_dq_stream``, ``flash_dq_tf32``, ``flash_dkv``, ``flash_dkv_sm90``,
+``flash_dkv_tf32``).
 For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
 ``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
@@ -117,23 +122,26 @@ WHOLE_BELOW = 128
 HEAD_DIMS = (16, 32, 64, 96, 128, 256, 384, 512)
 CHUNK = 64
 SM90_HEAD_DIMS = (64, 128, 256)   # head dims all three sm90 kernels take
-# The narrow-row builds of the sm90 forward and dk/dv (dq has none yet: at
-# 16-bit D <= 32 it stays on simt).
+# The narrow-row builds of all three sm90 kernels.
 SM90_NARROW_DIMS = (16, 32)
 KERNELS = ("fwd", "dq", "dkv")
 # What the sm90 kernels take: their dtypes, and the head dims each one is
 # built for (its dispatcher pads any other head dim up to one of them).
 SM90_DTYPES = (torch.bfloat16, torch.float16)
 SM90_KERNEL_DIMS = {"fwd": SM90_NARROW_DIMS + SM90_HEAD_DIMS + (384, 512),
-                    "dq": SM90_HEAD_DIMS,
+                    "dq": SM90_NARROW_DIMS + SM90_HEAD_DIMS,
                     "dkv": SM90_NARROW_DIMS + SM90_HEAD_DIMS}
 # The designs streamed over D (csrc/flash_fwd_stream_sm90.cu,
-# csrc/flash_bwd_tf32_sm90.cu): design -> (its dtypes, the head dim it
-# starts past, the region width: it is built for every multiple of that
-# width past the start, the kernels it serves).
-STREAM_DESIGNS = {"stream": (SM90_DTYPES, SM90_KERNEL_DIMS["fwd"][-1], 64,
-                             ("fwd",)),
-                  "tf32": ((torch.float32,), HEAD_DIMS[1], 32, KERNELS)}
+# csrc/flash_dq_stream_sm90.cu, csrc/flash_bwd_tf32_sm90.cu): design ->
+# (its dtypes, {kernel it serves: the head dim it starts past}, the region
+# width: it is built for every multiple of that width past the start).
+# stream starts where each kernel's sm90 builds end; its dk/dv is not
+# written yet, so 16-bit dk/dv past 256 stays on simt.
+STREAM_DESIGNS = {"stream": (SM90_DTYPES,
+                             {kern: SM90_KERNEL_DIMS[kern][-1]
+                              for kern in ("fwd", "dq")}, 64),
+                  "tf32": ((torch.float32,),
+                           dict.fromkeys(KERNELS, HEAD_DIMS[1]), 32)}
 _KERNEL_NAMES = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}
 # ``operands`` modes of the plain versions for the tf32 design: each
 # product as hi.hi + hi.lo + lo.hi of tf32 parts (what the kernels
@@ -148,6 +156,7 @@ flash_fwd_stream_launches = 0
 flash_fwd_tf32_launches = 0
 flash_dq_launches = 0
 flash_dq_sm90_launches = 0
+flash_dq_stream_launches = 0
 flash_dq_tf32_launches = 0
 flash_dkv_launches = 0
 flash_dkv_sm90_launches = 0
@@ -160,11 +169,13 @@ def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_fwd_sm90_launches, flash_dq_launches
     global flash_dq_sm90_launches, flash_dkv_launches, flash_dkv_sm90_launches
     global flash_fwd_stream_launches, flash_fwd_tf32_launches
-    global flash_dq_tf32_launches, flash_dkv_tf32_launches
+    global flash_dq_stream_launches, flash_dq_tf32_launches
+    global flash_dkv_tf32_launches
     flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
     flash_dq_sm90_launches = flash_dkv_launches = flash_dkv_sm90_launches = 0
     flash_fwd_stream_launches = flash_fwd_tf32_launches = 0
-    flash_dq_tf32_launches = flash_dkv_tf32_launches = 0
+    flash_dq_stream_launches = flash_dq_tf32_launches = 0
+    flash_dkv_tf32_launches = 0
 
 
 def launch_counts() -> dict:
@@ -175,6 +186,7 @@ def launch_counts() -> dict:
             "flash_fwd_tf32": flash_fwd_tf32_launches,
             "flash_dq": flash_dq_launches,
             "flash_dq_sm90": flash_dq_sm90_launches,
+            "flash_dq_stream": flash_dq_stream_launches,
             "flash_dq_tf32": flash_dq_tf32_launches,
             "flash_dkv": flash_dkv_launches,
             "flash_dkv_sm90": flash_dkv_sm90_launches,
@@ -204,20 +216,19 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     """The head dim a CUDA call at head dim ``d`` runs ``kernel``'s
     ``design`` at: ``d`` itself when one is built for it, else the next
     one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (16 to 512 for the
-    forward, 16 to 256 for dk/dv, 64 to 256 for dq), which raises past
-    the largest (the dispatchers send it nothing larger); ``stream`` (the
-    forward) and ``tf32`` (all three kernels) (``STREAM_DESIGNS``): the
-    next multiple of 64 past 512 and of 32 past 32, which raise at or
-    below their start and for a kernel they do not serve, and never above
-    the start; simt, the same for every kernel: ``HEAD_DIMS`` up to 512,
-    then the next multiple of ``CHUNK``, so it never refuses a head dim
-    there."""
+    forward, 16 to 256 for dq and dk/dv), which raises past the largest
+    (the dispatchers send it nothing larger); ``stream`` (the forward and
+    dq) and ``tf32`` (all three kernels) (``STREAM_DESIGNS``): the next
+    multiple of 64 past the kernel's start (512 for the forward, 256 for
+    dq) and of 32 past 32, which raise at or below the start and for a
+    kernel they do not serve, and never above the start; simt, the same
+    for every kernel: ``HEAD_DIMS`` up to 512, then the next multiple of
+    ``CHUNK``, so it never refuses a head dim there."""
     if design in STREAM_DESIGNS:
-        _, start, width, kernels = STREAM_DESIGNS[design]
-        if kernel not in kernels or d <= start:
-            names = " and ".join(_KERNEL_NAMES[k] for k in kernels)
+        _, starts, width = STREAM_DESIGNS[design]
+        if d <= starts.get(kernel, d):
             raise ValueError(f"head dim {d}: the {design} design serves "
-                             f"the {names} past head dim {start}")
+                             f"{_serves(starts)}")
         return -(-d // width) * width
     if design == "sm90":
         built = SM90_KERNEL_DIMS[kernel]
@@ -228,6 +239,16 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     if d <= HEAD_DIMS[-1]:
         return _next_built(d, HEAD_DIMS)
     return -(-d // CHUNK) * CHUNK
+
+
+def _serves(starts) -> str:
+    """``starts`` ({kernel: head dim}) in words: "the forward past head dim
+    512 and the dq past head dim 256"; kernels with one start share it."""
+    groups = {}
+    for kern, start in starts.items():
+        groups.setdefault(start, []).append(_KERNEL_NAMES[kern])
+    return " and ".join(f"the {' and '.join(names)} past head dim {start}"
+                        for start, names in groups.items())
 
 
 def _pad_head_dim(tensors, built: int):
@@ -427,20 +448,15 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The design of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for CUDA
     inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
     fed by TMA, Q resident) at bf16 and fp16 with d <= 512 for the
-    forward, d <= 256 for dk/dv and 32 < d <= 256 for dq; ``"stream"``
-    (the same, streamed over D) for the forward at bf16 and fp16 past
-    512; ``"tf32"`` (streamed, 3xTF32) for all three at fp32 past 32;
-    ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise: every
-    kernel at fp32 d <= 32, dq at 16-bit d <= 32, and 16-bit dq and dk/dv
-    past 256."""
-    for design, (dtypes, start, _, kernels) in STREAM_DESIGNS.items():
-        if kernel in kernels and dtype in dtypes and d > start:
+    forward and d <= 256 for dq and dk/dv; ``"stream"`` (the same,
+    streamed over D) at bf16 and fp16 for the forward past 512 and dq
+    past 256; ``"tf32"`` (streamed, 3xTF32) for all three at fp32 past
+    32; ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise:
+    every kernel at fp32 d <= 32, and 16-bit dk/dv past 256."""
+    for design, (dtypes, starts, _) in STREAM_DESIGNS.items():
+        if dtype in dtypes and d > starts.get(kernel, d):
             return design
-    built = SM90_KERNEL_DIMS[kernel]
-    # Below its smallest build only a kernel with narrow builds takes sm90:
-    # dq, built from 64, keeps d <= 32 on simt.
-    unbuilt = d <= SM90_NARROW_DIMS[-1] < built[0]
-    sm90 = dtype in SM90_DTYPES and d <= built[-1] and not unbuilt
+    sm90 = dtype in SM90_DTYPES and d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
 
 
@@ -482,9 +498,10 @@ def _check_tensor_cores(name, kernel, tensors, design="sm90"):
         dtypes, dims = SM90_DTYPES, SM90_KERNEL_DIMS[kernel]
         built = d in dims
     else:
-        dtypes, start, width, kernels = STREAM_DESIGNS[design]
+        dtypes, starts, width = STREAM_DESIGNS[design]
+        start = starts.get(kernel)
         dims = f"the multiples of {width} past {start}"
-        built = kernel in kernels and d > start and d % width == 0
+        built = start is not None and d > start and d % width == 0
     if q.dtype not in dtypes or not built:
         raise ValueError(f"{name}: the {design} kernel takes {dtypes} at "
                          f"head dims {dims}, got {q.dtype} and {d}")
@@ -621,24 +638,45 @@ def _flash_dq_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     return dq
 
 
-def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-                   k_offset: int, scale=None):
-    """The wgmma/TMA dq kernel (flash_dq_sm90.cu): bf16 and fp16,
-    D 64/128/256."""
-    global flash_dq_sm90_launches
+def _dq_tensor_cores(design, q, k, v, do, lse, delta, causal, q_offset,
+                     k_offset, scale):
+    """Checks and launches the 16-bit tensor-core dq of ``design`` (sm90
+    or stream); returns dq."""
     b, h, sq, sk, d = _bwd_inputs("flash dq", q, k, v, do, lse, delta)
-    _check_tensor_cores("flash dq", "dq", (q, k, v, do))
+    _check_tensor_cores("flash dq", "dq", (q, k, v, do), design)
     lib = _cuda.load()
     dq = torch.empty_like(q)
+    entry = (lib.hvdt_flash_dq_sm90 if design == "sm90"
+             else lib.hvdt_flash_dq_stream)
     with torch.cuda.device(q.device):
-        err = lib.hvdt_flash_dq_sm90(
+        err = entry(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
-            q_offset, k_offset, int(causal), _scale_arg(q, scale),
-            _stream(q))
-    _cuda.check(err, "flash dq sm90 kernel")
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, h, sq, sk, d, q_offset, k_offset, int(causal),
+            _scale_arg(q, scale), _stream(q))
+    _cuda.check(err, f"flash dq {design} kernel")
+    return dq
+
+
+def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                   k_offset: int, scale=None):
+    """The wgmma/TMA dq kernel with Q and dO resident (flash_dq_sm90.cu):
+    bf16 and fp16, D 16/32/64/128/256."""
+    global flash_dq_sm90_launches
+    dq = _dq_tensor_cores("sm90", q, k, v, do, lse, delta, causal, q_offset,
+                          k_offset, scale)
     flash_dq_sm90_launches += 1
+    return dq
+
+
+def _flash_dq_stream(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                     k_offset: int, scale=None):
+    """The wgmma/TMA dq kernel streamed over D (flash_dq_stream_sm90.cu):
+    bf16 and fp16 at the multiples of 64 past 256."""
+    global flash_dq_stream_launches
+    dq = _dq_tensor_cores("stream", q, k, v, do, lse, delta, causal,
+                          q_offset, k_offset, scale)
+    flash_dq_stream_launches += 1
     return dq
 
 
@@ -755,7 +793,9 @@ _LAUNCHERS = {("fwd", "sm90"): _flash_fwd_sm90,
               ("fwd", "stream"): _flash_fwd_stream,
               ("fwd", "tf32"): _flash_fwd_tf32,
               ("fwd", "simt"): _flash_fwd_simt,
-              ("dq", "sm90"): _flash_dq_sm90, ("dq", "tf32"): _flash_dq_tf32,
+              ("dq", "sm90"): _flash_dq_sm90,
+              ("dq", "stream"): _flash_dq_stream,
+              ("dq", "tf32"): _flash_dq_tf32,
               ("dq", "simt"): _flash_dq_simt,
               ("dkv", "sm90"): _flash_dkv_sm90,
               ("dkv", "tf32"): _flash_dkv_tf32,
@@ -767,8 +807,10 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     """dq and dk/dv kernels: (dq, (dk, dv)); lse and delta are [B,H,Sq]
     fp32. On CUDA each kernel takes the design :func:`_design` gives it,
     at the head dim :func:`padded_head_dim` gives that design; q, k, v
-    and do are zero-padded once for each head dim the two run at (today
-    always one), so both kernels read the same padded tensors, and where
+    and do are zero-padded once for each head dim the two run at (two
+    where 16-bit dq streams past D 256 and dk/dv pads to the simt ladder,
+    as at D 320; else one), so where both run at one head dim they read
+    the same padded tensors, and where
     both run the tf32 design one pre-pass of those tensors
     (:func:`_tf32_bwd_split`) serves both. ``launchers`` ({(kernel,
     design): function}, default the kernels' own) lets a test run the

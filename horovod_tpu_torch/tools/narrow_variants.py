@@ -55,12 +55,16 @@ VARIANTS = {
 ENTRIES = {FWD: "hvdt_flash_fwd_sm90", DKV: "hvdt_flash_dkv_sm90"}
 
 
-def build(cuda):
-    """{variant: its C entry point}; prints ptxas' report of each variant's
-    narrow kernels."""
-    out = os.path.join(cuda.BUILD_DIR, "narrow_variants")
+def build(cuda, variants=None, entries=None, subdir="narrow_variants",
+          report="narrow"):
+    """{variant: (its C entry point, its source)} of ``variants`` (default
+    VARIANTS; ``entries``: {source: C entry point}, default ENTRIES),
+    built under ``build/horovod_tpu_torch/<subdir>/``; prints ptxas'
+    report of each variant's kernels whose names hold ``report``."""
+    variants, entries = variants or VARIANTS, entries or ENTRIES
+    out = os.path.join(cuda.BUILD_DIR, subdir)
     cmds, libs = [], {}
-    for name, (source, edits) in VARIANTS.items():
+    for name, (source, edits) in variants.items():
         with open(os.path.join(cuda.CSRC_DIR, source)) as fh:
             body = fh.read()
         for old, new in edits:
@@ -92,13 +96,13 @@ def build(cuda):
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '(\w+)'", line)
             if m:
-                entry = m.group(1) if "narrow" in m.group(1) else None
+                entry = m.group(1) if report in m.group(1) else None
             elif entry and ("Used" in line or "spill" in line):
                 print(f"  {name}: {entry[:48]}: "
                       f"{line.split('info    :')[-1].strip()}")
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, ENTRIES[source])
-        fn.argtypes = cuda._SIGNATURES[ENTRIES[source]]
+        fn = getattr(lib, entries[source])
+        fn.argtypes = cuda._SIGNATURES[entries[source]]
         fn.restype = ctypes.c_int
         fns[name] = (fn, source)
     return fns

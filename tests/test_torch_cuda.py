@@ -14,16 +14,17 @@ for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
 of the element itself (2^-7 of it); fp16 outputs by one fp16 step
-(2^-10). The 16-bit tensor-core kernels (sm90, and the forward's
-stream) also round p (and ds) to the input's 16-bit type for the tensor
+(2^-10). The 16-bit tensor-core kernels (sm90, and the forward's and
+dq's stream) also round p (and ds) to the input's 16-bit type for the
+tensor
 cores: their o, dq, dk and dv may differ by twice the largest effect that
 this rounding alone has in the row (the plain version with ``operands``
 that dtype); their m and l keep the fp32 bounds. The fp32 kernels on the
 tensor cores (tf32: each product as three tf32 products, 3xTF32) are held
 to the fp32 bounds exactly, with no such allowance: the forward against
 the fp32 plain version, dq and dk/dv against the plain versions that take
-their products as they do (``operands=fa.TF32X3``). The sm90 and tf32 dq
-have an absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``:
+their products as they do (``operands=fa.TF32X3``). The tensor-core dq
+has an absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``:
 the dq of a query that sees one key is pure rounding noise).
 """
 
@@ -94,7 +95,8 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     dq, (dk, dv) = fa._flash_bwd(q, k, v, do, lse, delta, causal, qo, ko)
     torch.cuda.synchronize()
     designs = {kern: fa._design(dt, d, kern) for kern in fa.KERNELS}
-    sm90 = {kern: designs[kern] == "sm90" for kern in fa.KERNELS}
+    # the 16-bit tensor-core designs, which round p and ds to the input's type
+    rounds = {kern: designs[kern] in ("sm90", "stream") for kern in fa.KERNELS}
     want = dict.fromkeys(fa.launch_counts(), 0)
     for kern in fa.KERNELS:
         want[fa.counter_name(kern, designs[kern])] = 1
@@ -105,11 +107,11 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     dq_p = fa._flash_dq_plain(*args, operands=tf32["dq"])
     dk_p, dv_p = fa._flash_dkv_plain(*args, operands=tf32["dkv"])
     o_b = dq_b = dk_b = dv_b = None
-    if designs["fwd"] in ("sm90", "stream"):
+    if rounds["fwd"]:
         o_b = fa._flash_fwd_plain(q, k, v, causal, qo, ko, operands=dt)[0]
-    if sm90["dq"]:
+    if rounds["dq"]:
         dq_b = fa._flash_dq_plain(*args, operands=dt)
-    if sm90["dkv"]:
+    if rounds["dkv"]:
         dk_b, dv_b = fa._flash_dkv_plain(*args, operands=dt)
     step = tolerance.step_of(dt)
     _close(m, m_p, 2e-5, 1e-5, rows=False)
@@ -314,8 +316,8 @@ def test_runtime_waits_for_the_ready_event_and_hands_over_on_the_stream(
 def test_entry_config_trains_on_the_narrow_kernels(cuda_world):
     """Three training steps of the entry's tiny config (bf16, 2 layers, 4
     heads of 16) through the bench's step: a finite, falling loss, and
-    each step launches the narrow sm90 forward and dk/dv and the simt dq
-    once a layer, no other flash kernel."""
+    each step launches the narrow sm90 forward, dq and dk/dv once a
+    layer, no other flash kernel."""
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.entry import tiny_config
     cfg = tiny_config()
@@ -324,7 +326,7 @@ def test_entry_config_trains_on_the_narrow_kernels(cuda_world):
     losses = [step().item() for _ in range(3)]
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
     want = dict.fromkeys(fa.launch_counts(), 0)
-    for name in ("flash_fwd_sm90", "flash_dq", "flash_dkv_sm90"):
+    for name in ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"):
         want[name] = 3 * cfg.num_layers
     assert fa.launch_counts() == want
 
@@ -389,10 +391,11 @@ def test_head_dims_and_fp16_match_plain_versions(cuda, dtype, b, s, h, d,
                                      ("bfloat16", 1024), ("float32", 1024),
                                      ("float16", 600)])
 def test_head_dim_past_256_raises_naming_the_roadmap_item(cuda, dtype, d):
-    """Past D 256 the simt kernels of D 384 and 512 serve (D 320 runs
-    zero-padded at 384); past 512 (ROADMAP.md C4, closed: nothing raises
-    any more) the chunked simt kernels, one 64-column chunk of the head
-    dim per block (D 600 zero-padded to 640)."""
+    """Past D 256 every head dim runs (ROADMAP.md C4, closed: nothing
+    raises any more): the 16-bit dq on the stream design (D 320 native,
+    D 600 zero-padded to 640), the 16-bit dk/dv on the simt kernels of D
+    384 and 512 (D 320 zero-padded to 384) and past 512 on the chunked
+    simt kernels, one 64-column chunk of the head dim per block."""
     _check_kernels(cuda, getattr(torch, dtype), 1, 128, 2, d, True, 0, 0)
 
 
@@ -469,11 +472,13 @@ def test_sm90_dq_and_wide_forward_with_unequal_lengths(cuda, dtype, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 200), ("float16", 80),
-                                     ("float32", 80)])
+                                     ("float32", 80), ("bfloat16", 320)])
 def test_backward_pads_once_and_equals_separate_launches(cuda, dtype, d):
-    """flash_attention_bwd pads q, k, v and do once for dq and dk/dv; its
-    gradients equal those of the two kernels launched apart, each on its
-    own padded copies, bit for bit (no atomics: one order of sums)."""
+    """flash_attention_bwd pads q, k, v and do once for each head dim dq
+    and dk/dv run at (one, but at 16-bit D 320 dq streams at 320 and
+    dk/dv pads to 384); its gradients equal those of the two kernels
+    launched apart, each on its own padded copies, bit for bit (no
+    atomics: one order of sums)."""
     dt = getattr(torch, dtype)
     q, k, v, do = _inputs(cuda, dt, 1, 192, 2, d, 3)
     o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
@@ -678,16 +683,16 @@ NARROW_CASES = [
 @pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko,sk", NARROW_CASES)
 def test_narrow_sm90_kernels_match_plain_versions(cuda, dtype, b, s, h, d,
                                                   causal, qo, ko, sk):
-    """The narrow sm90 forward and dk/dv (16-bit D 16 and 32; D 20 runs at
-    32) against their plain versions with 16-bit operand rounding, dq on
-    simt beside them: causal and not, with offsets, dead rows, unequal
-    lengths, ragged tiles (S 100, 127) and the entry's S 32; the launch
-    counters show which design ran."""
+    """The narrow sm90 forward, dq and dk/dv (16-bit D 16 and 32; D 20
+    runs at 32) against their plain versions with 16-bit operand
+    rounding: causal and not, with offsets, dead rows, unequal lengths,
+    ragged tiles (S 100, 127) and the entry's S 32; the launch counters
+    show which design ran."""
     _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko,
                    sk)
     counts = fa.launch_counts()
     assert counts["flash_fwd_sm90"] == counts["flash_dkv_sm90"] == 1
-    assert counts["flash_dq"] == 1
+    assert counts["flash_dq_sm90"] == 1
 
 
 @pytest.mark.cuda
@@ -706,6 +711,67 @@ def test_narrow_sm90_refuses_a_misaligned_tensor_without_falling_back(
     for i in range(4):
         tensors = [good] * 4
         tensors[i] = bad
+        for kern in ("dq", "dkv"):
+            with pytest.raises(ValueError, match="16-byte"):
+                fa._launch(kern, "sm90", tensors, st, st, True, 0, 0)
         with pytest.raises(ValueError, match="16-byte"):
-            fa._launch("dkv", "sm90", tensors, st, st, True, 0, 0)
+            fa._flash_bwd(*tensors, st, st, True, 0, 0)
+    assert not any(fa.launch_counts().values())
+
+
+STREAM_DQ_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset, sk
+    pytest.param("bfloat16", 2, 256, 2, 320, True, 0, 0, None,
+                 id="bf16_d320"),
+    pytest.param("float16", 1, 256, 3, 320, False, 0, 0, None,
+                 id="fp16_d320_noncausal"),
+    pytest.param("float16", 2, 192, 2, 384, True, 64, 0, None,
+                 id="fp16_d384_q_offset"),
+    pytest.param("bfloat16", 1, 256, 2, 512, True, 0, 192, None,
+                 id="bf16_d512_dead_rows"),
+    pytest.param("float16", 1, 128, 2, 640, True, 0, 0, None,
+                 id="fp16_d640"),
+    pytest.param("bfloat16", 2, 128, 2, 640, False, 0, 64, None,
+                 id="bf16_d640_noncausal_k_offset"),
+    pytest.param("bfloat16", 1, 100, 2, 1024, True, 16, 0, None,
+                 id="bf16_d1024_s100"),
+    pytest.param("float16", 2, 127, 2, 448, True, 0, 0, None,
+                 id="fp16_d448_s127"),
+    pytest.param("bfloat16", 2, 128, 2, 320, True, 256, 0, 384,
+                 id="bf16_d320_kv_longer"),
+    pytest.param("float16", 2, 256, 2, 640, False, 0, 0, 64,
+                 id="fp16_d640_kv_shorter_noncausal"),
+    pytest.param("bfloat16", 1, 100, 2, 300, True, 0, 0, 127,
+                 id="bf16_d300_padded_unequal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko,sk", STREAM_DQ_CASES)
+def test_stream_dq_matches_plain_versions(cuda, dtype, b, s, h, d, causal,
+                                          qo, ko, sk):
+    """The stream dq (16-bit, every multiple of 64 past D 256; D 300 runs
+    at 320) against the plain dq with 16-bit ds: causal and not, with
+    offsets, dead rows, unequal lengths and ragged tiles (S 100, 127);
+    the forward and dk/dv on their own designs beside it."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko,
+                   sk)
+    assert fa.launch_counts()["flash_dq_stream"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("float16", 640)])
+def test_stream_dq_refuses_a_misaligned_tensor_without_falling_back(
+        cuda, dtype, d):
+    dt = getattr(torch, dtype)
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda, dtype=dt)
+    bad = flat[1:].view(1, 64, 2, d)        # contiguous, 2 bytes off
+    good = torch.zeros(1, 64, 2, d, device=cuda, dtype=dt)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._launch("dq", "stream", tensors, st, st, True, 0, 0)
     assert not any(fa.launch_counts().values())

@@ -163,8 +163,10 @@ def test_fp32_backward_design_and_padding_on_plain_versions(d, built):
 
 
 def test_tf32_design_serves_every_kernel_and_stream_the_forward_alone():
-    assert port.STREAM_DESIGNS["tf32"][3] == port.KERNELS
-    assert port.STREAM_DESIGNS["stream"][3] == ("fwd",)
+    """tf32 serves all three kernels past D 32; stream serves the 16-bit
+    forward and dq (past 512 and 256), not dk/dv."""
+    assert port.STREAM_DESIGNS["tf32"][1] == dict.fromkeys(port.KERNELS, 32)
+    assert port.STREAM_DESIGNS["stream"][1] == {"fwd": 512, "dq": 256}
     for d in (33, 64, 96, 257, 1000):
         for kern in port.KERNELS:
             assert port._design(torch.float32, d, kern) == "tf32"

@@ -1,14 +1,16 @@
-"""The CPU side of the tensor-core (sm90) dq at fp16 and at head dims up to
-256, and of the sm90 forward at head dims 257-512: the plain versions'
-``operands`` rounding (fp16 ds for the dq; bf16 and fp16 p for the
-forward) that the card's checks compare those kernels with, its agreement
-with the reference's dq and forward (Pallas, interpret mode, blocks of
-32, as tests/test_torch_flash_dq_sm90.py and
+"""The CPU side of the tensor-core dq at fp16 and at head dims up to 256
+(sm90) and past it (stream), and of the sm90 forward at head dims
+257-512: the plain versions' ``operands`` rounding (16-bit ds for the dq;
+bf16 and fp16 p for the forward) that the card's checks compare those
+kernels with, its agreement with the reference's dq and forward (Pallas,
+interpret mode, blocks of 32, as tests/test_torch_flash_dq_sm90.py and
 tests/test_torch_flash_head_dims.py run them), the shared tolerance
 (horovod_tpu_torch/utils/tolerance.py), which must pass that rounding and
-fail a dq with one 32-key stage (the D 256 kernel's) left out, and the
-backward's single padding of q, k, v and do for both of its kernels. The
-kernels themselves run on the card (tests/test_torch_cuda.py,
+fail a dq with one 32-key stage (the D 256 kernel's), or at D 320 one
+64-key tile or one 64-column region of the logits (the stream dq's),
+left out, the stream design's start per kernel, and the backward's
+padding of q, k, v and do, once for each head dim its two kernels run
+at. The kernels themselves run on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
 Tolerances. Rounding ds (or p) to a 16-bit type moves it by at most u =
@@ -108,6 +110,21 @@ def test_plain_fp16_operands_dq_matches_reference():
     assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)
 
 
+def test_plain_bf16_operands_dq_matches_reference_at_d320():
+    """The same at bf16 D 320, the stream dq's narrowest build: the
+    reference's dq against the plain dq with bf16 ds, inside the provable
+    bound of that rounding."""
+    (o, m, l), args = _bwd_args(*_values(5, torch.bfloat16, 320, s=64))
+    q, k, v, do = args[:4]
+    theirs = ref.flash_attention_bwd(*_jax(q, k, v, o, m, l, do),
+                                     causal=True, block_q=32, block_k=32,
+                                     interpret=True)[0]
+    mine = port._flash_dq_plain(*args, operands=torch.bfloat16)
+    limit = (_dq_limit(args, torch.bfloat16) + GRAD_TOL).numpy()
+    assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)
+    assert port._design(torch.bfloat16, 320, "dq") == "stream"
+
+
 @pytest.mark.parametrize("dtype,d", WIDE_FORWARD)
 def test_plain_wide_forward_operands_match_reference(dtype, d):
     """The plain forward with 16-bit p against the reference's Pallas
@@ -132,6 +149,73 @@ def test_tolerance_passes_fp16_operands_and_fails_a_lost_32_key_stage():
     assert tolerance.worst(dq_h, dq, GRAD_TOL, **kw)[1] <= 1.0
     lost = chip_smoke.dq_without_keys(port, *args[:6], 128, 160)
     assert tolerance.worst(lost, dq, GRAD_TOL, **kw)[1] > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tolerance_passes_operands_and_fails_a_lost_tile_or_region_at_d320(
+        dtype):
+    """The stream dq's two ways to lose work: one 64-key tile, or one
+    64-column region of the sums over D for s (q and k zeroed there for s
+    alone); the bound passes the 16-bit ds rounding and rejects both."""
+    _, args = _bwd_args(*_values(3, dtype, 320, s=256))
+    dq = port._flash_dq_plain(*args)
+    kw = dict(step=tolerance.step_of(dtype), atol=tolerance.DQ_ATOL,
+              plain_b=port._flash_dq_plain(*args, operands=dtype))
+    assert tolerance.worst(kw["plain_b"], dq, GRAD_TOL, **kw)[1] <= 1.0
+    tile = chip_smoke.dq_without_keys(port, *args[:6], 128, 192)
+    region = chip_smoke.bwd_without_columns(port, *args[:6], 64, 128)[0]
+    for lost in (tile, region):
+        assert tolerance.worst(lost, dq, GRAD_TOL, **kw)[1] > 1.0
+
+
+def test_stream_design_starts_past_each_kernels_sm90_builds():
+    """``stream`` serves the forward past 512 and dq past 256 (where each
+    kernel's sm90 builds end) at every multiple of 64, and not dk/dv."""
+    for d in range(257, 1100, 9):
+        assert port._design(torch.float16, d, "dq") == "stream"
+        assert port.padded_head_dim(d, "stream", "dq") == -(-d // 64) * 64
+        if d <= 512:
+            assert port._design(torch.float16, d, "fwd") == "sm90"
+            with pytest.raises(ValueError, match="forward past head dim "
+                                                 "512 and the dq past head "
+                                                 "dim 256"):
+                port.padded_head_dim(d, "stream", "fwd")
+        assert port._design(torch.bfloat16, d, "dkv") == "simt"
+    assert port._design(torch.bfloat16, 256, "dq") == "sm90"
+    for kern in ("dq", "dkv"):
+        with pytest.raises(ValueError, match="dq past head dim 256"):
+            port.padded_head_dim(256 if kern == "dq" else 640, "stream",
+                                 kern)
+
+
+def test_backward_at_d320_pads_only_for_dkv():
+    """At 16-bit D 320, ``_flash_bwd`` runs dq (stream) on q, k, v and do
+    as they are and dk/dv (simt) on copies padded to 384, each bit for
+    bit what its kernel launched apart gives."""
+    q, k, v, do = (x.to(torch.bfloat16)
+                   for x in _values(9, torch.bfloat16, 320, s=64))
+    _, args = _bwd_args(q, k, v, do)
+    plains = {"dq": port._flash_dq_plain, "dkv": port._flash_dkv_plain}
+    seen = {}
+
+    def recording(kern, fn):
+        def run(*a, **kw):
+            seen[kern] = a[:4]
+            return fn(*a, **kw)
+        return run
+    launchers = {(kern, design): recording(kern, fn)
+                 for kern, fn in plains.items()
+                 for design in ("stream", "simt")}
+    dq, (dk, dv) = port._flash_bwd(*args, launchers=launchers)
+    assert all(a is b for a, b in zip(seen["dq"], args[:4]))
+    assert [t.shape[-1] for t in seen["dkv"]] == [384] * 4
+    apart = [port._on_padded_head_dim(fn, args[:4], *args[4:],
+                                      design=port._design(q.dtype, 320,
+                                                          kern),
+                                      kernel=kern)
+             for kern, fn in plains.items()]
+    for mine, theirs in zip((dq, dk, dv), (apart[0], *apart[1])):
+        assert mine.shape == q.shape and torch.equal(mine, theirs)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 200),

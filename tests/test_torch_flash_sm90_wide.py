@@ -1,6 +1,6 @@
 """The CPU side of the tensor-core (sm90) forward and dk/dv kernels at fp16
-and at head dims up to 256 (the forward to 512), and of the simt kernels
-past D 512: which design and padded head dim each kernel gets, the plain
+and at head dims up to 256 (the forward to 512), and of the kernels past D
+512: which design and padded head dim each kernel gets, the plain
 versions' ``operands`` rounding (fp16 p and ds for fp16 inputs, bf16 for
 bf16) that the card's checks compare those kernels with, and the padding
 paths, all against the reference's Pallas kernels in interpret mode on the
@@ -114,8 +114,8 @@ def test_plain_operands_match_reference(dtype, d):
 
 DESIGNS = [
     # dtype, d, (fwd, dq, dkv) designs, (fwd, dq, dkv) padded head dims
-    (torch.bfloat16, 16, "sm90 simt sm90", (16, 16, 16)),
-    (torch.bfloat16, 32, "sm90 simt sm90", (32, 32, 32)),
+    (torch.bfloat16, 16, "sm90 sm90 sm90", (16, 16, 16)),
+    (torch.bfloat16, 32, "sm90 sm90 sm90", (32, 32, 32)),
     (torch.bfloat16, 33, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.bfloat16, 64, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.bfloat16, 80, "sm90 sm90 sm90", (128, 128, 128)),
@@ -124,16 +124,17 @@ DESIGNS = [
     (torch.bfloat16, 160, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.bfloat16, 200, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.bfloat16, 256, "sm90 sm90 sm90", (256, 256, 256)),
-    (torch.bfloat16, 257, "sm90 simt simt", (384, 384, 384)),
-    (torch.bfloat16, 512, "sm90 simt simt", (512, 512, 512)),
-    (torch.bfloat16, 640, "stream simt simt", (640, 640, 640)),
-    (torch.bfloat16, 600, "stream simt simt", (640, 640, 640)),
-    (torch.float16, 640, "stream simt simt", (640, 640, 640)),
-    (torch.float16, 32, "sm90 simt sm90", (32, 32, 32)),
+    (torch.bfloat16, 257, "sm90 stream simt", (384, 320, 384)),
+    (torch.bfloat16, 320, "sm90 stream simt", (384, 320, 384)),
+    (torch.bfloat16, 512, "sm90 stream simt", (512, 512, 512)),
+    (torch.bfloat16, 640, "stream stream simt", (640, 640, 640)),
+    (torch.bfloat16, 600, "stream stream simt", (640, 640, 640)),
+    (torch.float16, 640, "stream stream simt", (640, 640, 640)),
+    (torch.float16, 32, "sm90 sm90 sm90", (32, 32, 32)),
     (torch.float16, 48, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.float16, 128, "sm90 sm90 sm90", (128, 128, 128)),
     (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
-    (torch.float16, 384, "sm90 simt simt", (384, 384, 384)),
+    (torch.float16, 384, "sm90 stream simt", (384, 384, 384)),
     (torch.float32, 32, "simt simt simt", (32, 32, 32)),
     (torch.float32, 64, "tf32 tf32 tf32", (64, 64, 64)),
     (torch.float32, 96, "tf32 tf32 tf32", (96, 96, 96)),
@@ -149,10 +150,10 @@ DESIGNS = [
 @pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
     """bf16 and fp16 take sm90 for the forward at D 1-512 and stream past
-    it, sm90 for dk/dv at D 1-256 and for dq at D 33-256; fp32 takes tf32
-    for all three past D 32; fp32 at D <= 32, 16-bit dq at D <= 32, and
-    16-bit dq and dk/dv past 256, take simt. Each kernel pads to a head
-    dim of its own design."""
+    it, sm90 for dq and dk/dv at D 1-256 and stream for dq past it; fp32
+    takes tf32 for all three past D 32; fp32 at D <= 32 and 16-bit dk/dv
+    past 256 take simt. Each kernel pads to a head dim of its own design
+    (16-bit D 257-320: dq at 320, the forward and dk/dv at 384)."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]
     assert got == designs.split()
     assert [port.padded_head_dim(d, design, kern)
@@ -173,7 +174,7 @@ def test_padded_head_dim_past_512_never_raises():
     with pytest.raises(ValueError, match="past head dim 512"):
         port.padded_head_dim(512, "stream", "fwd")
     with pytest.raises(ValueError, match="forward"):
-        port.padded_head_dim(640, "stream", "dq")
+        port.padded_head_dim(640, "stream", "dkv")
     with pytest.raises(ValueError, match="dkv kernel takes head dims up to "
                                          "256"):
         port.padded_head_dim(320, "sm90", "dkv")
@@ -210,6 +211,65 @@ def test_fp32_d640_plain_path_matches_reference():
                                    atol=GRAD_TOL)
 
 
+U = 2.0 ** -24   # the unit roundoff of fp32
+
+
+def _gamma(n):
+    """gamma_n = n u / (1 - n u): the relative error bound of n fp32
+    roundings in a row (Higham, Accuracy and Stability, 3.1)."""
+    return n * U / (1 - n * U)
+
+
+def _order_bounds(q, k, v, do, lse, delta):
+    """Per-element bounds on how far two fp32 evaluations of the plain
+    forward (o, m, l) and dk/dv on the same inputs can part when only the
+    order of their sums over D differs (see the test's docstring), from
+    these inputs. q, k, v, do: fp32 [B, S, H, D] (causal, offsets 0);
+    lse, delta: the backward's [B, H, S]."""
+    d, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
+    scale = port._softmax_scale(d)
+    allowed = torch.ones(sq, sk, dtype=torch.bool).tril()
+    # |ds| per pair, and its row maximum
+    dsig = (2 * _gamma(d + 1) * scale * allowed
+            * torch.einsum("bqhd,bkhd->bhqk", q.abs(), k.abs()))
+    dmax = dsig.amax(-1)
+    s, _ = port._scores(q, k, True, 0, 0)
+    keys = 2 * _gamma(sk)
+    # forward: m moves by dmax; p (e^{s - m}) by the relative r_p, l by r_l
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * allowed
+    l = p.sum(-1)
+    r_p = torch.expm1(2 * dmax) + 8 * U
+    r_l = r_p + keys
+
+    def per_row(x):   # [B, H, Sq] -> [B, Sq, H, 1]
+        return x.transpose(1, 2)[..., None]
+    a = torch.einsum("bhqk,bkhd->bqhd", p, v.abs()) / per_row(l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v).abs() / per_row(l)
+    b_o = (((per_row(r_p) + keys) * a + per_row(r_l) * o)
+           / (1 - per_row(r_l)) + 2 * U * o)
+    # backward, against the given lse and delta: p (e^{s - lse}) moves by
+    # the relative r_b, dp by eta, ds as the product rule gives
+    p = torch.exp(s - lse[..., None]) * allowed
+    r_b = (torch.expm1(dmax) + 8 * U)[..., None]
+    x = (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta[..., None]).abs()
+    eta = (2 * _gamma(d) * torch.einsum("bqhd,bkhd->bhqk", do.abs(),
+                                        v.abs()) + 2 * U * x)
+    ds = p * x * scale
+    dds = scale * p * (r_b * (x + eta) + eta) + 6 * U * ds
+    rows = 2 * _gamma(sq)
+    b_dk = (torch.einsum("bhqk,bqhd->bkhd", dds, q.abs())
+            + rows * torch.einsum("bhqk,bqhd->bkhd", ds, q.abs()))
+    b_dv = (torch.einsum("bhqk,bqhd->bkhd", r_b * p, do.abs())
+            + rows * torch.einsum("bhqk,bqhd->bkhd", p, do.abs()))
+    return (b_o, dmax, r_l * l), (b_dk, b_dv)
+
+
+def _within(mine, plain, limit):
+    """The largest |mine - plain| / limit over the elements."""
+    return ((mine - plain).abs() / limit).max().item()
+
+
 @pytest.mark.parametrize("design,dtype,d", [
     ("simt", torch.float32, 600), ("sm90", torch.bfloat16, 200),
     ("sm90", torch.float16, 80)])
@@ -218,27 +278,53 @@ def test_padding_on_plain_versions_matches_unpadded_and_reference(
     """What the card runs at a head dim no kernel of the design is built
     for (D 600 on the simt chunks of 640, D 200 and fp16 D 80 on the sm90
     kernels of 256 and 128), with the plain versions in the kernels'
-    place: equal to the unpadded plain versions up to fp32 summation order
-    (the zero columns change how einsum groups the sums: 1e-6 relative),
-    and to the reference."""
+    place: equal to the unpadded plain versions up to the order of the
+    fp32 sums over D, and to the reference.
+
+    The zero columns change how einsum groups the sums over D, in a way
+    that depends on the machine's BLAS, so the padded and unpadded plain
+    versions are held to a bound derived from fp32 summation, per element
+    from these inputs (``_order_bounds``). u = 2^-24, gamma_n = n u / (1 -
+    n u). Each version's s = scale sum_i q_i k_i takes D products, D - 1
+    additions (the padding adds exact zeros) and the scale: within
+    gamma_{D+1} scale sum_i |q_i k_i| of the exact value, so the two part
+    by |ds| <= 2 gamma_{D+1} scale sum_i |q_i k_i|; dmax is a row's
+    largest |ds|. Then m moves by at most dmax; p = exp(s - m) by a
+    relative r_p = e^{2 dmax} - 1 + 8u (the exp and the subtraction round
+    on either side); l = sum_k p by r_l = r_p + 2 gamma_Sk (each side's
+    own sum over the keys); o = sum_k p v / l by ((r_p + 2 gamma_Sk)
+    sum_k p |v| / l + r_l |o|) / (1 - r_l) + 2u |o|. The backward takes
+    lse and delta as given: p = exp(s - lse) moves by r_b = e^{dmax} - 1
+    + 8u, dp = do . v by eta = 2 gamma_D sum_i |do_i v_i| + 2u |dp -
+    delta|, ds = p (dp - delta) scale by scale p (r_b (|dp - delta| +
+    eta) + eta) + 6u |ds|; dk = sum_q ds q and dv = sum_q p do by those
+    times |q| and |do| summed over the queries, plus 2 gamma_Sq of the
+    sums of |ds q| and |p do|. The bound has its power: the padded
+    forward with the padded head dim's scale (what ``_at_head_dim`` would
+    run without ``scale=``) must miss it more than tenfold (D 600: 18.7
+    times the bound, where the two scales differ by 3%)."""
     q, k, v, do = _values(d + 3, dtype, d)
     fwd = port._on_padded_head_dim(port._flash_fwd_plain, (q, k, v), True,
                                    0, 0, design=design, kernel="fwd")
     plain = port._flash_fwd_plain(q, k, v, True, 0, 0)
     assert fwd[0].shape == q.shape
-    for mine, p in zip(fwd, plain):
-        np.testing.assert_allclose(mine.numpy(), p.numpy(), rtol=1e-6,
-                                   atol=1e-6)
+    _, args = _stats(q, k, v, do)
+    fwd_limit, bwd_limit = _order_bounds(q, k, v, do, *args[4:6])
+    for mine, p, limit in zip(fwd, plain, fwd_limit):
+        assert _within(mine, p, limit) <= 1.0
+    built = port.padded_head_dim(d, design, "fwd")
+    wrong_scale = port._flash_fwd_plain(
+        *port._pad_head_dim((q, k, v), built), True, 0, 0)[0][..., :d]
+    assert _within(wrong_scale, plain[0], fwd_limit[0]) > 10.0
     o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
                                       block_q=32, block_k=32,
                                       interpret=True)[0]
     np.testing.assert_allclose(fwd[0].numpy(), np.asarray(o_ref),
                                atol=FWD_TOL)
-    _, args = _stats(q, k, v, do)
     dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),
                                       *args[4:], design=design,
                                       kernel="dkv")
-    for mine, p in zip((dk, dv), port._flash_dkv_plain(*args)):
+    for mine, p, limit in zip((dk, dv), port._flash_dkv_plain(*args),
+                              bwd_limit):
         assert mine.shape == q.shape
-        np.testing.assert_allclose(mine.numpy(), p.numpy(), rtol=1e-6,
-                                   atol=1e-6)
+        assert _within(mine, p, limit) <= 1.0
