@@ -13,22 +13,23 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 2. Kernels against their plain PyTorch versions, on the card. Each
    kernel takes the design ``flash_attention._design`` gives it: the
    tensor-core kernels (sm90: bf16 and fp16, the forward at head dims
-   1-512, dq and dk/dv at 1-256, D 16 and 32 on the narrow-row builds;
-   the stream design, bf16 and fp16, the forward past D 512 and dq past
+   1-512, on the caller's tensors at every multiple of 8 past 32, dq and
+   dk/dv at 1-256, D 16 and 32 on the narrow-row builds; the stream
+   design, bf16 and fp16, the forward past D 512 and dq and dk/dv past
    D 256; tf32, fp32 past D 32 through 3xTF32 for all three kernels;
    stream and tf32 streamed over D) and the fp32-FMA (simt) kernels for
-   the rest (fp32 at D <= 32, 16-bit dk/dv past 256, past D 512 in
-   64-column chunks of the head dim); a bf16 case at the main
-   shape forces the simt ones. Cases: the main path's shape (B=4,
-   S=2048, H=16, D=128, bf16, causal), a non-causal, two offset, a D=64
+   the rest (fp32 at D <= 32; built past D 512 in 64-column chunks of
+   the head dim); a bf16 case at the main shape forces the simt ones.
+   Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
+   causal), a non-causal, two offset, a D=64
    and a short ragged case, fp32 at two shapes (the main one with the
    simt kernels beside the tf32 ones) and at two with unequal lengths and
    offsets (D 128 and 640), each case of C4_CASES at B=2, S=1024, H=8,
    causal, through the dispatchers (bf16, fp16 and fp32 at D 16 and 32;
-   fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and 200, run zero-padded
-   at the
-   next built head dim, and 256; fp32 at D 256; bf16 and fp32 at D 320,
-   384, 512 and 640), the Gemma-7B geometry (B=2, S=2048, H=16, D=256,
+   fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and 200, the forward on
+   the caller's tensors and dq and dk/dv zero-padded at the next built
+   head dim, and 256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and
+   640), the Gemma-7B geometry (B=2, S=2048, H=16, D=256,
    bf16, causal), the entry's shape (B=2, S=32, H=4, D=16, bf16, causal),
    and ROADMAP C6's ragged lengths on every design
    (RAGGED_DESIGNS: B=2, H=2, Sq = Sk = 100 and Sq 100 / Sk 127, causal,
@@ -60,7 +61,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    (keys 512-543); at bf16 D 640 with one 64-key stage of the stream
    forward and dq (keys 512-575) and with one 64-column region of the
    head dim left out of the logits of the forward and dq (q and k zeroed
-   in columns 256-319); at the fp32 main shape with one 64-key stage of
+   in columns 256-319), and with one 64-query tile (queries 512-575) and
+   the same region left out of the stream dk/dv's dk and dv, each by more
+   than 10 times the bound; at bf16 D 96 with columns 64-95 of q and k
+   (the region that straddles d) left out of the in-place forward's
+   logits and with the build's scale, 1/sqrt(128), in place of
+   1/sqrt(96), by more than 10 times too; at the fp32 main shape with one
+   64-key stage of
    the tf32 forward and dq (keys 1024-1087) and one 64-query tile of the
    tf32 dk/dv (queries 1536-1599), and at fp32 D 640 with one 32-column
    region of the head dim left out of the logits of the forward, dq, dk
@@ -89,6 +96,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    launch the sm90 forward, dq and dk/dv once and no other flash kernel.
    Phases 4 and 4b print their seconds per step beside the recorded ones
    (RECORDED_STEP_S).
+4e. The same step at Phi-3-mini's attention widths (32 heads of 96,
+   hidden 3072; microsoft/Phi-3-mini-4k-instruct config.json), vocab
+   32000, S 2048, batch 2, bf16, its 32 layers cut to 2: the loss finite
+   and falling, and each layer and step launching the sm90 forward (on
+   the caller's tensors at D 96), dq and dk/dv (on copies padded to 128)
+   once and no other flash kernel.
 4c. Phase 4's model in fp32 (``TransformerConfig(dtype=torch.float32)``),
    depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
    profiled): the loss must be finite and fall, the tf32 forward, dq and
@@ -204,8 +217,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 The last two lines are the JSON ``kernels`` line (the kernels at their
 main shapes, then the entry's shape, each C4 case and the Gemma-7B
 geometry as ``<kernel>.<tag>``, a row per kernel and design; launches are
-those of phase 4 for the bf16 D 128 builds, of phase 4b for bf16 D 256,
-of phase 4c for fp32 D 128, of phase 4d for the entry's rows, else 0)
+those of phase 4 for bf16 D 128, of phase 4b for bf16 D 256, of phase 4e
+for bf16 D 96, of phase 4c for fp32 D 128, of phase 4d for the entry's
+rows, else 0)
 and the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -266,6 +280,13 @@ MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
 GEMMA = dict(b=2, s=2048, h=16, d=256)
 GEMMA_LAYERS = (28, 2)
 GEMMA_PATH_KERNELS = MAIN_PATH_KERNELS
+# Phase 4e's model: the attention widths of Phi-3-mini (32 heads of 96,
+# hidden 3072; microsoft/Phi-3-mini-4k-instruct config.json), vocab 32000,
+# S 2048, batch 2, its 32 layers cut to 2. bf16 at D 96 runs the sm90
+# forward on the caller's tensors and the sm90 dq and dk/dv padded to 128.
+PHI3 = dict(b=2, s=2048, h=32, d=96)
+PHI3_LAYERS = (32, 2)
+PHI3_PATH_KERNELS = MAIN_PATH_KERNELS
 # The main shape's sm90 kernels and the seconds per step of phases 4 and
 # 4b as PERF.md records them before dq took fp16 and D 256 (H100 80GB
 # HBM3, 700 W): phases 4, 4b and 5 print this run's beside them.
@@ -279,7 +300,9 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # of dk/dv (64 queries); ``fwd_columns`` and ``bwd_columns``: one region
 # of the head dim (64 16-bit or 32 fp32 columns) left out of the logits
 # of the forward, and of dq, dk and dv (the kernels streamed over D among
-# them: the stream and tf32 designs sum them region by region). The fp32
+# them: the stream and tf32 designs sum them region by region);
+# ``fwd_scale``: the forward's logits scaled for that head dim instead of
+# the true one (the in-place sm90 forward runs the build of another). The fp32
 # entries, those of the tf32 kernels, must be rejected at more than
 # LOST_FP32_BY times the bound.
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
@@ -297,7 +320,11 @@ LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
                             by=LOST_NARROW_BY),
            "bf16_d512": dict(fwd=(512, 544)),
            "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320),
-                             dq=(512, 576), bwd_columns=(256, 320)),
+                             dq=(512, 576), dkv=(512, 576),
+                             bwd_columns=(256, 320), by=10.0),
+           # the in-place forward: the region that straddles d lost, and
+           # the build's scale (1/sqrt(128)) taken for the true D's
+           "bf16_d96": dict(fwd_columns=(64, 96), fwd_scale=128, by=10.0),
            "fp32_d640": dict(fwd_columns=(256, 288),
                              bwd_columns=(256, 288))}
 # ROADMAP C6: lengths under 128 that are no multiple of 64 (a full first
@@ -542,6 +569,13 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close(f"forward o, columns {lo}-{hi - 1} left out",
                         fwd_without_columns(fa, q, k, v, lo, hi), o_p, 2e-5,
                         step, plain_b=o_b, must_fail=True, fail_by=fail_by)
+        if lost and "fwd_scale" in lost:
+            dim = lost["fwd_scale"]
+            check_close(f"forward o, scale of head dim {dim}",
+                        fa._flash_fwd_plain(*fwd_args,
+                                            scale=fa._softmax_scale(dim))[0],
+                        o_p, 2e-5, step, plain_b=o_b, must_fail=True,
+                        fail_by=fail_by)
         del o, m, l, o_b
     del o_p, m_p, l_p
     if "dq" in kernels:
@@ -839,6 +873,19 @@ def main_path(torch, hvd, args, card):
                    MAIN_PATH_KERNELS, RECORDED_STEP_S["main path"])
 
 
+def phi3_path(torch, hvd, args, card):
+    """Phase 4e: the LM at Phi-3-mini's attention widths, depth cut."""
+    from horovod_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(vocab_size=32000, num_layers=PHI3_LAYERS[1],
+                            num_heads=PHI3["h"], head_dim=PHI3["d"],
+                            max_seq_len=PHI3["s"], dtype=torch.bfloat16)
+    label = (f"Phi-3-mini attention widths (microsoft/Phi-3-mini-4k-instruct "
+             f"config.json), depth cut from {PHI3_LAYERS[0]} to "
+             f"{PHI3_LAYERS[1]} layers")
+    return lm_path(torch, hvd, args, card, label, cfg, PHI3["b"],
+                   PHI3_PATH_KERNELS, None)
+
+
 def gemma_path(torch, hvd, args, card):
     """Phase 4b: the LM at Gemma-7B's attention widths, depth cut."""
     from horovod_tpu_torch.models import TransformerConfig
@@ -1104,9 +1151,9 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
             row["library_bwd_only_ms"] = lib_bwd
             if tf32:
                 row["prepass_ms"] = prepass
-        # Which build ran: the dtype and the head dim after padding.
-        row["built"] = (str(dtype)[6:],
-                        fa.padded_head_dim(d, designs[fn], fn))
+        # The dtype and head dim of the call, which name the LM path
+        # whose launches the row carries.
+        row["call"] = (str(dtype)[6:], d)
         rows[kernel_name(fa, fn, designs[fn], tag)] = row
     del q, k, v, do, o, qt, kt, vt, dot, qg, kg, vg, out
     torch.cuda.empty_cache()
@@ -1770,6 +1817,9 @@ def main(argv=None) -> int:
     # Phase 4d: the entry's model (bf16, head dim 16): the narrow kernels.
     entry_fwd_counts, entry_counts = entry_path(torch, hvd, args, card)
 
+    # Phase 4e: the LM at Phi-3-mini's attention widths (D 96).
+    phi3_counts = phi3_path(torch, hvd, args, card)
+
     # Phase 5: times.
     rows = kernel_times(torch, fa)
 
@@ -1810,15 +1860,17 @@ def main(argv=None) -> int:
                "flash_dq_tf32": ("flash_bwd_tf32_sm90.cu", "204"),
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236"),
+               "flash_dkv_stream": ("flash_dkv_stream_sm90.cu", "236"),
                "flash_dkv_tf32": ("flash_bwd_tf32_sm90.cu", "236")}
     # A row's launches are those of its kernel on the path that runs its
-    # build (dtype, head dim): bf16 D 128 on phase 4, bf16 D 256 on phase
-    # 4b, fp32 D 128 on phase 4c; the rows at the entry's shape those of
-    # phase 4d (the forward: one call of the entry's forward; dq and dk/dv:
-    # its training steps); the other builds (the C4 cases at D 16 and 32
-    # among them) run on no main path.
+    # dtype and head dim: bf16 D 128 on phase 4, bf16 D 256 on phase 4b,
+    # bf16 D 96 on phase 4e, fp32 D 128 on phase 4c; the rows at the
+    # entry's shape those of phase 4d (the forward: one call of the entry's
+    # forward; dq and dk/dv: its training steps); the other head dims (the
+    # C4 cases at D 16 and 32 among them) run on no main path.
     paths = {("bfloat16", MAIN["d"]): counts,
              ("bfloat16", GEMMA["d"]): gemma_counts,
+             ("bfloat16", PHI3["d"]): phi3_counts,
              ("float32", MAIN["d"]): fp32_counts}
     entry_rows = {"flash_fwd_sm90": entry_fwd_counts,
                   "flash_dq_sm90": entry_counts,
@@ -1827,9 +1879,9 @@ def main(argv=None) -> int:
     for name, r in rows.items():
         base, _, tag = name.partition(".")
         src, replaces = sources[base]
-        built = r.pop("built")
+        call = r.pop("call")
         launches = (entry_rows[base][base] if tag == "entry"
-                    else paths.get(built, {}).get(base, 0))
+                    else paths.get(call, {}).get(base, 0))
         kernels.append(dict(name=name, route="cuda", source=csrc + src,
                             replaces=ref + replaces, launches=launches,
                             max_abs_err=errs[name], **r))

@@ -67,6 +67,9 @@ _SIGNATURES = {
     # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
     # k_off, causal, scale, stream
     "hvdt_flash_dkv_sm90": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
+    # dtype, q, k, v, do, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off,
+    # k_off, causal, scale, stream
+    "hvdt_flash_dkv_stream": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
     # q, k, v, do, scratch, B, H, Sq, Sk, D, stream (fp32 only: the tf32
     # backward's pre-pass)
     "hvdt_flash_bwd_tf32_split": [_P] * 5 + [_I] * 5 + [_P],

@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 and fp16
-// at head dims 16, 32, 64, 128, 256, 384 and 512.
+// Flash-attention forward for Hopper's tensor cores (sm_90a), bf16 and fp16,
+// built at head dims 16, 32, 64, 128, 256, 384 and 512 and run at every
+// multiple of 8 between them on the caller's tensors (below).
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
 // (launched by `_flash_bhsd`), as flash_fwd_stream_sm90.cu does for fp32
@@ -56,6 +57,18 @@
 //     2 x (24,576 + 12,288) = 172,032 B; O 96 + S 16 + P 8 registers, and
 //     O += P V is an m64n192k16 product.
 //   D 16, 32: a design of its own (flash_fwd_sm90_narrow, below).
+// Head dims between the builds (16-bit d past 32, a multiple of 8, so that
+// a row of d values is a legal TMA stride): the kernel of the next build D
+// runs on the caller's [B, S, H, d] tensors as they are (kCut). Their
+// tensor maps take d as the extent and d * 2 bytes as the row stride and
+// keep the build's 128-byte boxes, so TMA fills columns d .. D - 1 of every
+// Q, K and V tile with zeros, as a zero pad of the inputs would (a box that
+// lies wholly past d reads zeros alone; the transaction bytes are the full
+// box either way), and the store of O takes d as its row stride and skips
+// the columns past d. The products and the softmax are the build's own, so
+// o, m and l equal those of the padded inputs bit for bit, without the
+// three copies in and the one out that padding cost (more than the kernel
+// at D 80, 96 and 200, PERF.md). At d = D the build runs as it did.
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -97,13 +110,13 @@ struct FwdSmem {
   static_assert(kBytes + 1024 <= 232448, "forward tiles exceed shared memory");
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kCut>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    T* __restrict__ o, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int H, int Sq, int Sk,
+                   float* __restrict__ l_out, int H, int Sq, int Sk, int d,
                    int q_off, int k_off, int causal, float scale) {
   using L = FwdSmem<D>;
   constexpr int kKv = L::kKv, kOut = L::kOut;
@@ -268,11 +281,14 @@ __global__ void __launch_bounds__(384, 1)
       const int row = q0 + row0 + 8 * i;
       if (row >= Sq) continue;
       const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
-      T* orow = o + ((size_t)(b * Sq + row) * H + h) * D + c0 + col;
+      // kCut: rows of d columns, of which those past d are not stored.
+      T* orow = o + ((size_t)(b * Sq + row) * H + h) * (kCut ? d : D) + c0 +
+                col;
 #pragma unroll
       for (int jj = 0; jj < kOut / 8; ++jj)
-        store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv,
-                  acc[4 * jj + 2 * i + 1] * inv);
+        if (!kCut || c0 + col + 8 * jj < d)
+          store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv,
+                    acc[4 * jj + 2 * i + 1] * inv);
       if (blockIdx.z == 0 && lane % 4 == 0) {
         m_out[(size_t)bh * Sq + row] = m_i[i];
         l_out[(size_t)bh * Sq + row] = l_i[i];
@@ -281,20 +297,27 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+// The build of head dim D on tensors of head dim d <= D (d < D: kCut, see
+// the header).
 template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
-                void* l, int B, int H, int Sq, int Sk, int q_off, int k_off,
-                int causal, float scale, cudaStream_t stream) {
+                void* l, int B, int H, int Sq, int Sk, int d, int q_off,
+                int k_off, int causal, float scale, cudaStream_t stream) {
   constexpr int kKv = kv_rows<D>();
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kKv);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kKv);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, d, kRows, D);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, d, kKv, D);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, d, kKv, D);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows, D / out_cols<D>());
-  return launch_ws(flash_fwd_sm90<T, D>, grid, FwdSmem<D>::kBytes + 1024,
+  if (d == D)
+    return launch_ws(flash_fwd_sm90<T, D, false>, grid,
+                     FwdSmem<D>::kBytes + 1024, stream, tq, tk, tv, (T*)o,
+                     (float*)m, (float*)l, H, Sq, Sk, d, q_off, k_off, causal,
+                     scale);
+  return launch_ws(flash_fwd_sm90<T, D, true>, grid, FwdSmem<D>::kBytes + 1024,
                    stream, tq, tk, tv, (T*)o, (float*)m, (float*)l, H, Sq, Sk,
-                   q_off, k_off, causal, scale);
+                   d, q_off, k_off, causal, scale);
 }
 
 // ---- D 16 and 32: narrow rows ---------------------------------------------
@@ -557,31 +580,32 @@ cudaError_t run_narrow(const void* q, const void* k, const void* v, void* o,
                         causal, scale);
 }
 
+// The build a head dim d runs at: 16 and 32 (narrow) for themselves, any
+// other multiple of 8 past 32 the next of 64, 128, 256, 384 and 512.
 template <typename T>
-cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
+cudaError_t run_for_dim(int d, const void* q, const void* k, const void* v,
                         void* o, void* m, void* l, int B, int H, int Sq,
                         int Sk, int q_off, int k_off, int causal, float sc,
                         cudaStream_t st) {
-  switch (D) {
-    case 16: return run_narrow<T, 16>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    case 32: return run_narrow<T, 32>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    case 64: return run<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    case 128: return run<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    case 256: return run<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    case 384: return run<T, 384>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    case 512: return run<T, 512>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (d == 16) return run_narrow<T, 16>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+  if (d == 32) return run_narrow<T, 32>(q, k, v, o, m, l, B, H, Sq, Sk, q_off, k_off, causal, sc, st);
+  if (d <= 32 || d % 8) return cudaErrorInvalidValue;
+  if (d <= 64) return run<T, 64>(q, k, v, o, m, l, B, H, Sq, Sk, d, q_off, k_off, causal, sc, st);
+  if (d <= 128) return run<T, 128>(q, k, v, o, m, l, B, H, Sq, Sk, d, q_off, k_off, causal, sc, st);
+  if (d <= 256) return run<T, 256>(q, k, v, o, m, l, B, H, Sq, Sk, d, q_off, k_off, causal, sc, st);
+  if (d <= 384) return run<T, 384>(q, k, v, o, m, l, B, H, Sq, Sk, d, q_off, k_off, causal, sc, st);
+  if (d <= 512) return run<T, 512>(q, k, v, o, m, l, B, H, Sq, Sk, d, q_off, k_off, causal, sc, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace hvdt
 
 // dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v: contiguous [B, S, H, D] of
-// that type with 16-byte-aligned bases; D is 16, 32, 64, 128, 256, 384 or
-// 512. o: [B, Sq, H, D] of that type; m, l: fp32 [B, H, Sq]. scale
-// multiplies the logits (1/sqrt of the head dim before any zero padding of
-// D).
+// that type with 16-byte-aligned bases; D is 16, 32 or a multiple of 8 from
+// 40 to 512 (run by the build of 64, 128, 256, 384 or 512). o: [B, Sq, H, D]
+// of that type; m, l: fp32 [B, H, Sq]. scale multiplies the logits (1/sqrt
+// of the head dim before any zero padding of D).
 extern "C" int hvdt_flash_fwd_sm90(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* m, void* l,
                                    int B, int H, int Sq, int Sk, int D,

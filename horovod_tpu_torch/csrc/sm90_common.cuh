@@ -1,6 +1,7 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
 // (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_dq_sm90.cu,
-// flash_dq_stream_sm90.cu, flash_dkv_sm90.cu, flash_bwd_tf32_sm90.cu):
+// flash_dq_stream_sm90.cu, flash_dkv_sm90.cu, flash_dkv_stream_sm90.cu,
+// flash_bwd_tf32_sm90.cu):
 // TMA loads through a tensor map, mbarrier init / arrive / expect-tx /
 // wait, wgmma descriptors, fence, commit and wait, setmaxnreg, the proxy
 // fence and named barriers for tiles that the consumers write themselves,
@@ -492,12 +493,18 @@ inline cudaError_t encode_tiled(
 // zeros and no box straddles two batches. A 16-bit row of 32 or 64 bytes
 // (D 16 or 32) is one whole narrow region instead: box (D, 1, box_rows,
 // 1) in the swizzle of the row's width, as desc_narrow reads it.
+// `built` (default D) is the head dim of the kernel's build, whose boxes
+// the map takes: a tensor of D < built columns (D * sizeof(T) a multiple
+// of 16, TMA's stride unit; built past the narrow rows) is read in the
+// build's 128-byte boxes, and D is a tensor edge too, so the columns from
+// D on read as zeros, as a zero pad of the tensor to `built` would give.
 template <typename T = __nv_bfloat16>
 inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B,
-                               int S, int H, int D, int box_rows) {
+                               int S, int H, int D, int box_rows,
+                               int built = 0) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const int row_bytes = D * (int)sizeof(T);
+  const int row_bytes = (built > 0 ? built : D) * (int)sizeof(T);
   if (row_bytes < 128) {
     if (row_bytes != 32 && row_bytes != 64) return cudaErrorInvalidValue;
     const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)box_rows, 1};

@@ -4,7 +4,9 @@ Counterpart of ``horovod_tpu/parallel/flash_attention.py`` (public
 contract :436-566). The three Pallas kernels there have hand-written
 CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
 
-- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 1-512)
+- ``_kernel`` (:58)          -> ``flash_fwd_sm90.cu``  (bf16/fp16, D 1-512;
+                                the caller's tensors as they are at
+                                every multiple of 8 past 32)
                                 ``flash_fwd_stream_sm90.cu`` (bf16/fp16
                                 past D 512; fp32 past D 32, 3xTF32)
                                 or ``flash_fwd.cu`` (fp32, D <= 32) via
@@ -17,9 +19,12 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 or ``flash_bwd.cu`` (fp32, D <= 32) via
                                 :func:`_flash_bwd`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256)
+                                ``flash_dkv_stream_sm90.cu`` (bf16/fp16
+                                past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
-                                or ``flash_bwd.cu``     via :func:`_flash_bwd`
+                                or ``flash_bwd.cu`` (fp32, D <= 32) via
+                                :func:`_flash_bwd`
 
 :func:`_design` picks each kernel's design from the dtype and head dim
 alone, before any launch:
@@ -37,8 +42,8 @@ alone, before any launch:
   128-byte column region at a time (64 16-bit or 32 fp32 columns), S is
   summed over the regions and each CTA accumulates one part of its
   output's head dim. ``stream`` takes bf16 and fp16 for the forward past
-  D 512 and for dq past D 256, at every multiple of 64 (parts of 256
-  columns);
+  D 512 and for dq and dk/dv past D 256, at every multiple of 64 (parts
+  of 256 columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
   kernels (parts of 128 columns; dk/dv 64), each product as hi.hi +
   hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
@@ -47,13 +52,12 @@ alone, before any launch:
   do^T, one pre-pass for dq and dk/dv, :func:`_tf32_bwd_split`). The
   shared-memory bytes of each are worked out in the files' headers.
 - ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: all
-  three kernels at fp32 D <= 32, and 16-bit dk/dv past 256.
-  It is built at ``HEAD_DIMS`` (16 to 512; its tiles shrink as D grows so
-  that a block's shared memory holds them, the counterpart of the
-  reference's ``_ladders_for``) and at any multiple of 64 past 512,
-  where each block computes one 64-column chunk of the output and
-  streams the logits' reductions over D through 64-wide tiles
-  (``csrc/flash_common.cuh`` works the bytes out).
+  three kernels at fp32 D <= 32. It is built at ``HEAD_DIMS`` (16 to
+  512; its tiles shrink as D grows so that a block's shared memory holds
+  them, the counterpart of the reference's ``_ladders_for``) and at any
+  multiple of 64 past 512, where each block computes one 64-column chunk
+  of the output and streams the logits' reductions over D through
+  64-wide tiles (``csrc/flash_common.cuh`` works the bytes out).
 
 Like the reference, a CUDA call takes any head dim: one that the
 kernel's design is not built for runs at the next one that is
@@ -62,20 +66,24 @@ scale of the true D, and the outputs sliced back
 (:func:`_on_padded_head_dim`); zero columns leave q.k^T unchanged and the
 padded columns of v give output columns that are cut away. So bf16 D 80
 runs all three kernels at 128, D 200 at 256, D 20 all three at 32
-(sm90), D 320 the forward at 384 (sm90), dq at 320 (stream) and dk/dv
-at 384 (simt), D 600 the forward and dq at 640 (stream) and dk/dv at
-640 (simt), and fp32 D 100 all three at 128 (tf32). The backward pads
-q, k, v and do once for each head dim its two kernels run at
-(:func:`_flash_bwd`). The
-tensor-core kernels read their inputs through TMA (the tf32 pre-pass in
-16-byte loads) and need 16-byte aligned bases; a misaligned CUDA tensor
-raises, it never falls back to another design.
+(sm90), D 320 the forward at 384 (sm90) and dq and dk/dv at 320
+(stream), D 600 all three at 640 (stream), and fp32 D 100 all three at
+128 (tf32). The sm90 forward pads nothing where a row of d 16-bit
+values is a legal TMA stride (d a multiple of 8 past 32,
+:func:`_reads_in_place`): its build of the next head dim reads the
+caller's tensors through tensor maps of extent d, which zero-fill the
+columns past d as the pad did, and stores only the columns below d. The
+backward pads q, k, v and do once for the head dim its two kernels run
+at (:func:`_flash_bwd`). The tensor-core kernels read their inputs
+through TMA (the tf32 pre-pass in 16-byte loads) and need 16-byte
+aligned bases; a misaligned CUDA tensor raises, it never falls back to
+another design.
 
 Each launcher counts its launches (``launch_counts()``, keyed by
 :func:`counter_name`: ``flash_fwd``, ``flash_fwd_sm90``,
 ``flash_fwd_stream``, ``flash_fwd_tf32``, ``flash_dq``, ``flash_dq_sm90``,
 ``flash_dq_stream``, ``flash_dq_tf32``, ``flash_dkv``, ``flash_dkv_sm90``,
-``flash_dkv_tf32``).
+``flash_dkv_stream``, ``flash_dkv_tf32``).
 For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
 ``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
@@ -132,14 +140,14 @@ SM90_KERNEL_DIMS = {"fwd": SM90_NARROW_DIMS + SM90_HEAD_DIMS + (384, 512),
                     "dq": SM90_NARROW_DIMS + SM90_HEAD_DIMS,
                     "dkv": SM90_NARROW_DIMS + SM90_HEAD_DIMS}
 # The designs streamed over D (csrc/flash_fwd_stream_sm90.cu,
-# csrc/flash_dq_stream_sm90.cu, csrc/flash_bwd_tf32_sm90.cu): design ->
-# (its dtypes, {kernel it serves: the head dim it starts past}, the region
-# width: it is built for every multiple of that width past the start).
-# stream starts where each kernel's sm90 builds end; its dk/dv is not
-# written yet, so 16-bit dk/dv past 256 stays on simt.
+# csrc/flash_dq_stream_sm90.cu, csrc/flash_dkv_stream_sm90.cu,
+# csrc/flash_bwd_tf32_sm90.cu): design -> (its dtypes, {kernel it serves:
+# the head dim it starts past}, the region width: it is built for every
+# multiple of that width past the start). stream starts where each
+# kernel's sm90 builds end.
 STREAM_DESIGNS = {"stream": (SM90_DTYPES,
                              {kern: SM90_KERNEL_DIMS[kern][-1]
-                              for kern in ("fwd", "dq")}, 64),
+                              for kern in KERNELS}, 64),
                   "tf32": ((torch.float32,),
                            dict.fromkeys(KERNELS, HEAD_DIMS[1]), 32)}
 _KERNEL_NAMES = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}
@@ -160,6 +168,7 @@ flash_dq_stream_launches = 0
 flash_dq_tf32_launches = 0
 flash_dkv_launches = 0
 flash_dkv_sm90_launches = 0
+flash_dkv_stream_launches = 0
 flash_dkv_tf32_launches = 0
 
 Offset = Union[int, torch.Tensor]
@@ -170,12 +179,12 @@ def reset_launch_counts() -> None:
     global flash_dq_sm90_launches, flash_dkv_launches, flash_dkv_sm90_launches
     global flash_fwd_stream_launches, flash_fwd_tf32_launches
     global flash_dq_stream_launches, flash_dq_tf32_launches
-    global flash_dkv_tf32_launches
+    global flash_dkv_stream_launches, flash_dkv_tf32_launches
     flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
     flash_dq_sm90_launches = flash_dkv_launches = flash_dkv_sm90_launches = 0
     flash_fwd_stream_launches = flash_fwd_tf32_launches = 0
     flash_dq_stream_launches = flash_dq_tf32_launches = 0
-    flash_dkv_tf32_launches = 0
+    flash_dkv_stream_launches = flash_dkv_tf32_launches = 0
 
 
 def launch_counts() -> dict:
@@ -190,6 +199,7 @@ def launch_counts() -> dict:
             "flash_dq_tf32": flash_dq_tf32_launches,
             "flash_dkv": flash_dkv_launches,
             "flash_dkv_sm90": flash_dkv_sm90_launches,
+            "flash_dkv_stream": flash_dkv_stream_launches,
             "flash_dkv_tf32": flash_dkv_tf32_launches}
 
 
@@ -217,11 +227,10 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     ``design`` at: ``d`` itself when one is built for it, else the next
     one that is. sm90: ``SM90_KERNEL_DIMS[kernel]`` (16 to 512 for the
     forward, 16 to 256 for dq and dk/dv), which raises past the largest
-    (the dispatchers send it nothing larger); ``stream`` (the forward and
-    dq) and ``tf32`` (all three kernels) (``STREAM_DESIGNS``): the next
-    multiple of 64 past the kernel's start (512 for the forward, 256 for
-    dq) and of 32 past 32, which raise at or below the start and for a
-    kernel they do not serve, and never above the start; simt, the same
+    (the dispatchers send it nothing larger); ``stream`` and ``tf32``
+    (``STREAM_DESIGNS``): the next multiple of 64 past the kernel's start
+    (512 for the forward, 256 for dq and dk/dv) and of 32 past 32, which
+    raise at or below the start and never above it; simt, the same
     for every kernel: ``HEAD_DIMS`` up to 512, then the next multiple of
     ``CHUNK``, so it never refuses a head dim there."""
     if design in STREAM_DESIGNS:
@@ -272,13 +281,28 @@ def _at_head_dim(fn, padded, d: int, *args):
     return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
+def _reads_in_place(d: int, design: str, kernel: str) -> bool:
+    """Whether ``kernel``'s ``design`` takes tensors of head dim ``d`` as
+    they are though its build is of another head dim
+    (:func:`padded_head_dim`): the sm90 forward past its narrow builds,
+    wherever a row of d 16-bit values is a legal TMA stride (d a multiple
+    of 8). Its tensor maps take d as their extent, so the build's boxes
+    read zeros past d where a pad would have put them, and it stores only
+    the columns below d (csrc/flash_fwd_sm90.cu)."""
+    return (kernel == "fwd" and design == "sm90" and d % 8 == 0
+            and SM90_NARROW_DIMS[-1] < d <= SM90_KERNEL_DIMS[kernel][-1])
+
+
 def _on_padded_head_dim(fn, tensors, *args, design: str, kernel: str):
     """``fn(*tensors, *args)`` at the head dim :func:`padded_head_dim`
     gives for ``kernel``'s ``design``, padded and sliced back by
-    :func:`_pad_head_dim` and :func:`_at_head_dim`. A layout step in
-    front of the same kernel, which takes the plain versions as well."""
+    :func:`_pad_head_dim` and :func:`_at_head_dim`, or on ``tensors`` as
+    they are where the kernel reads them so (:func:`_reads_in_place`). A
+    layout step in front of the same kernel, which takes the plain
+    versions as well."""
     d = tensors[0].shape[-1]
-    built = padded_head_dim(d, design, kernel)
+    built = (d if _reads_in_place(d, design, kernel)
+             else padded_head_dim(d, design, kernel))
     return _at_head_dim(fn, _pad_head_dim(tensors, built), d, *args)
 
 
@@ -449,10 +473,11 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     inputs of this type and head dim: ``"sm90"`` (wgmma on 16-bit tiles
     fed by TMA, Q resident) at bf16 and fp16 with d <= 512 for the
     forward and d <= 256 for dq and dk/dv; ``"stream"`` (the same,
-    streamed over D) at bf16 and fp16 for the forward past 512 and dq
-    past 256; ``"tf32"`` (streamed, 3xTF32) for all three at fp32 past
-    32; ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu) otherwise:
-    every kernel at fp32 d <= 32, and 16-bit dk/dv past 256."""
+    streamed over D) at bf16 and fp16 for the forward past 512 and dq and
+    dk/dv past 256; ``"tf32"`` (streamed, 3xTF32) for all three at fp32
+    past 32; ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu)
+    otherwise: every kernel at fp32 d <= 32. No 16-bit input reaches
+    simt."""
     for design, (dtypes, starts, _) in STREAM_DESIGNS.items():
         if dtype in dtypes and d > starts.get(kernel, d):
             return design
@@ -462,7 +487,8 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
 
 def _launch(kernel: str, design: str, tensors, *args):
     """``kernel``'s launcher of ``design`` on ``tensors`` and ``args``,
-    zero-padded to a head dim it is built for and sliced back."""
+    zero-padded to a head dim it is built for and sliced back (or as they
+    are, :func:`_reads_in_place`)."""
     return _on_padded_head_dim(_LAUNCHERS[kernel, design], tensors, *args,
                                design=design, kernel=kernel)
 
@@ -485,18 +511,19 @@ def _scale_arg(q, scale):
 
 def _check_tensor_cores(name, kernel, tensors, design="sm90"):
     """A tensor-core kernel's own limits (``design`` sm90, stream or
-    tf32): CUDA tensors of its dtypes at a head dim it is built for, and
-    16-byte aligned bases for TMA and the tf32 pre-pass's 16-byte loads
-    (contiguity, checked already, makes every outer stride a multiple of
-    16 bytes at these head dims: the narrowest row, 16-bit D 16, is 32
-    bytes)."""
+    tf32): CUDA tensors of its dtypes at a head dim it is built for (or
+    reads in place, :func:`_reads_in_place`), and 16-byte aligned bases
+    for TMA and the tf32 pre-pass's 16-byte loads (contiguity, checked
+    already, makes every outer stride a multiple of 16 bytes at these head
+    dims: the narrowest row, 16-bit D 16, is 32 bytes, and a row read in
+    place is a multiple of 16)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
     d = q.shape[-1]
     if design == "sm90":
         dtypes, dims = SM90_DTYPES, SM90_KERNEL_DIMS[kernel]
-        built = d in dims
+        built = d in dims or _reads_in_place(d, design, kernel)
     else:
         dtypes, starts, width = STREAM_DESIGNS[design]
         start = starts.get(kernel)
@@ -580,7 +607,8 @@ def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
 def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
     """The wgmma/TMA forward kernel with Q resident (flash_fwd_sm90.cu):
-    bf16 and fp16, D 16/32/64/128/256/384/512."""
+    bf16 and fp16, D 16/32/64/128/256/384/512, and the multiples of 8
+    between 32 and 512 on the next one's build."""
     global flash_fwd_sm90_launches
     out = _fwd_tensor_cores("sm90", q, k, v, causal, q_offset, k_offset,
                             scale)
@@ -700,25 +728,48 @@ def _flash_dkv_simt(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     return dk, dv
 
 
+def _dkv_tensor_cores(design, q, k, v, do, lse, delta, causal, q_offset,
+                      k_offset, scale):
+    """Checks and launches the 16-bit tensor-core dk/dv of ``design``
+    (sm90 or stream); returns (dk, dv)."""
+    b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
+    _check_tensor_cores("flash dk/dv", "dkv", (q, k, v, do), design)
+    lib = _cuda.load()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    entry = (lib.hvdt_flash_dkv_sm90 if design == "sm90"
+             else lib.hvdt_flash_dkv_stream)
+    with torch.cuda.device(q.device):
+        err = entry(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, sk, d, q_offset, k_offset, int(causal),
+            _scale_arg(q, scale), _stream(q))
+    _cuda.check(err, f"flash dk/dv {design} kernel")
+    return dk, dv
+
+
 def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None):
     """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16 and fp16,
     D 16/32/64/128/256."""
     global flash_dkv_sm90_launches
-    b, h, sq, sk, d = _bwd_inputs("flash dk/dv", q, k, v, do, lse, delta)
-    _check_tensor_cores("flash dk/dv", "dkv", (q, k, v, do))
-    lib = _cuda.load()
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = lib.hvdt_flash_dkv_sm90(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, sq, sk, d, q_offset, k_offset, int(causal),
-            _scale_arg(q, scale), _stream(q))
-    _cuda.check(err, "flash dk/dv sm90 kernel")
+    out = _dkv_tensor_cores("sm90", q, k, v, do, lse, delta, causal,
+                            q_offset, k_offset, scale)
     flash_dkv_sm90_launches += 1
-    return dk, dv
+    return out
+
+
+def _flash_dkv_stream(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                      k_offset: int, scale=None):
+    """The wgmma/TMA dk/dv kernel streamed over D
+    (flash_dkv_stream_sm90.cu): bf16 and fp16 at the multiples of 64 past
+    256."""
+    global flash_dkv_stream_launches
+    out = _dkv_tensor_cores("stream", q, k, v, do, lse, delta, causal,
+                            q_offset, k_offset, scale)
+    flash_dkv_stream_launches += 1
+    return out
 
 
 def _tf32_bwd_split(q, k, v, do):
@@ -798,6 +849,7 @@ _LAUNCHERS = {("fwd", "sm90"): _flash_fwd_sm90,
               ("dq", "tf32"): _flash_dq_tf32,
               ("dq", "simt"): _flash_dq_simt,
               ("dkv", "sm90"): _flash_dkv_sm90,
+              ("dkv", "stream"): _flash_dkv_stream,
               ("dkv", "tf32"): _flash_dkv_tf32,
               ("dkv", "simt"): _flash_dkv_simt}
 
@@ -807,14 +859,14 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     """dq and dk/dv kernels: (dq, (dk, dv)); lse and delta are [B,H,Sq]
     fp32. On CUDA each kernel takes the design :func:`_design` gives it,
     at the head dim :func:`padded_head_dim` gives that design; q, k, v
-    and do are zero-padded once for each head dim the two run at (two
-    where 16-bit dq streams past D 256 and dk/dv pads to the simt ladder,
-    as at D 320; else one), so where both run at one head dim they read
-    the same padded tensors, and where
-    both run the tf32 design one pre-pass of those tensors
-    (:func:`_tf32_bwd_split`) serves both. ``launchers`` ({(kernel,
-    design): function}, default the kernels' own) lets a test run the
-    plain versions through the same steps."""
+    and do are zero-padded once for each head dim the two run at (one:
+    every dtype and head dim gives dq and dk/dv the same, and at 16-bit
+    D 320 they both stream at 320 on the caller's tensors, with no pad at
+    all), so both read the same padded tensors, and where both run the
+    tf32 design one pre-pass of those tensors (:func:`_tf32_bwd_split`)
+    serves both. ``launchers`` ({(kernel, design): function}, default the
+    kernels' own) lets a test run the plain versions through the same
+    steps."""
     tensors = (q, k, v, do)
     args = (lse, delta, causal, q_offset, k_offset)
     _bwd_inputs("flash backward", *tensors, lse, delta)

@@ -87,18 +87,19 @@ def build(cuda, variants=None, entries=None, subdir="narrow_variants",
              for c in cmds]
     fns = {}
     for (name, (path, source)), proc in zip(libs.items(), procs):
-        report = proc.communicate()[0]
+        out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"{name} failed to build:\n{report}")
-        # ptxas: each narrow entry's registers and spills.
+            raise RuntimeError(f"{name} failed to build:\n{out}")
+        # ptxas: the registers and spills of each entry named by `report`.
         entry = None
-        for line in report.splitlines():
+        for line in out.splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '(\w+)'", line)
             if m:
                 entry = m.group(1) if report in m.group(1) else None
             elif entry and ("Used" in line or "spill" in line):
-                print(f"  {name}: {entry[:48]}: "
+                # the mangled name past its file's unique prefix
+                print(f"  {name}: {entry.split('_cu_')[-1][8:56]}: "
                       f"{line.split('info    :')[-1].strip()}")
         lib = ctypes.CDLL(path)
         fn = getattr(lib, entries[source])

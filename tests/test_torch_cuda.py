@@ -14,14 +14,13 @@ for the forward and 1e-4 for gradients; m and l are held element by
 element. With bf16 inputs both compute in fp32 from the same bf16 values
 and round the output to bf16, which may part them by one more bf16 step
 of the element itself (2^-7 of it); fp16 outputs by one fp16 step
-(2^-10). The 16-bit tensor-core kernels (sm90, and the forward's and
-dq's stream) also round p (and ds) to the input's 16-bit type for the
-tensor
-cores: their o, dq, dk and dv may differ by twice the largest effect that
-this rounding alone has in the row (the plain version with ``operands``
-that dtype); their m and l keep the fp32 bounds. The fp32 kernels on the
-tensor cores (tf32: each product as three tf32 products, 3xTF32) are held
-to the fp32 bounds exactly, with no such allowance: the forward against
+(2^-10). The 16-bit tensor-core kernels (sm90 and stream) also round p
+(and ds) to the input's 16-bit type for the tensor cores: their o, dq, dk
+and dv may differ by twice the largest effect that this rounding alone
+has in the row (the plain version with ``operands`` that dtype); their
+m and l keep the fp32 bounds. The fp32 kernels on the tensor cores
+(tf32: each product as three tf32 products, 3xTF32) are held to the fp32
+bounds exactly, with no such allowance: the forward against
 the fp32 plain version, dq and dk/dv against the plain versions that take
 their products as they do (``operands=fa.TF32X3``). The tensor-core dq
 has an absolute floor of 1e-5 instead of 1e-6 (``tolerance.DQ_ATOL``:
@@ -392,10 +391,8 @@ def test_head_dims_and_fp16_match_plain_versions(cuda, dtype, b, s, h, d,
                                      ("float16", 600)])
 def test_head_dim_past_256_raises_naming_the_roadmap_item(cuda, dtype, d):
     """Past D 256 every head dim runs (ROADMAP.md C4, closed: nothing
-    raises any more): the 16-bit dq on the stream design (D 320 native,
-    D 600 zero-padded to 640), the 16-bit dk/dv on the simt kernels of D
-    384 and 512 (D 320 zero-padded to 384) and past 512 on the chunked
-    simt kernels, one 64-column chunk of the head dim per block."""
+    raises any more): the 16-bit dq and dk/dv on the stream design (D 320
+    native, D 600 zero-padded to 640), the fp32 kernels on tf32."""
     _check_kernels(cuda, getattr(torch, dtype), 1, 128, 2, d, True, 0, 0)
 
 
@@ -474,11 +471,10 @@ def test_sm90_dq_and_wide_forward_with_unequal_lengths(cuda, dtype, d):
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 200), ("float16", 80),
                                      ("float32", 80), ("bfloat16", 320)])
 def test_backward_pads_once_and_equals_separate_launches(cuda, dtype, d):
-    """flash_attention_bwd pads q, k, v and do once for each head dim dq
-    and dk/dv run at (one, but at 16-bit D 320 dq streams at 320 and
-    dk/dv pads to 384); its gradients equal those of the two kernels
-    launched apart, each on its own padded copies, bit for bit (no
-    atomics: one order of sums)."""
+    """flash_attention_bwd pads q, k, v and do once for the head dim dq
+    and dk/dv run at (none at 16-bit D 320, where both stream at 320); its
+    gradients equal those of the two kernels launched apart, each on its
+    own padded copies, bit for bit (no atomics: one order of sums)."""
     dt = getattr(torch, dtype)
     q, k, v, do = _inputs(cuda, dt, 1, 192, 2, d, 3)
     o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
@@ -775,3 +771,122 @@ def test_stream_dq_refuses_a_misaligned_tensor_without_falling_back(
         with pytest.raises(ValueError, match="16-byte"):
             fa._launch("dq", "stream", tensors, st, st, True, 0, 0)
     assert not any(fa.launch_counts().values())
+
+
+STREAM_DKV_CASES = [
+    # dtype, b, s, h, d, causal, q_offset, k_offset, sk
+    pytest.param("bfloat16", 2, 256, 2, 320, True, 0, 0, None,
+                 id="bf16_d320"),
+    pytest.param("float16", 1, 256, 3, 320, False, 0, 0, None,
+                 id="fp16_d320_noncausal"),
+    pytest.param("bfloat16", 1, 192, 2, 640, True, 64, 0, None,
+                 id="bf16_d640_q_offset"),
+    pytest.param("float16", 2, 128, 2, 640, True, 0, 0, None,
+                 id="fp16_d640"),
+    pytest.param("bfloat16", 2, 128, 2, 640, False, 0, 64, None,
+                 id="bf16_d640_noncausal_k_offset"),
+    pytest.param("float16", 1, 256, 2, 320, True, 0, 192, None,
+                 id="fp16_d320_dead_rows"),
+    pytest.param("bfloat16", 2, 100, 2, 320, True, 16, 0, None,
+                 id="bf16_d320_s100"),
+    pytest.param("float16", 2, 127, 2, 640, True, 0, 0, None,
+                 id="fp16_d640_s127"),
+    pytest.param("bfloat16", 2, 128, 2, 320, True, 256, 0, 384,
+                 id="bf16_d320_kv_longer"),
+    pytest.param("float16", 2, 256, 2, 640, False, 0, 0, 64,
+                 id="fp16_d640_kv_shorter_noncausal"),
+    pytest.param("bfloat16", 1, 100, 2, 300, True, 0, 0, 127,
+                 id="bf16_d300_padded_unequal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko,sk", STREAM_DKV_CASES)
+def test_stream_dkv_matches_plain_versions(cuda, dtype, b, s, h, d, causal,
+                                           qo, ko, sk):
+    """The stream dk/dv (16-bit, every multiple of 64 past D 256; D 300
+    runs at 320) against the plain dk/dv with 16-bit p and ds: causal and
+    not, with offsets, dead rows, unequal lengths and ragged tiles (S 100,
+    127); the forward and dq on their own designs beside it, and no simt
+    kernel launched."""
+    _check_kernels(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko,
+                   sk)
+    counts = fa.launch_counts()
+    assert counts["flash_dkv_stream"] == 1
+    assert not any(counts[fa.counter_name(kern, "simt")]
+                   for kern in fa.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("float16", 640)])
+def test_stream_dkv_refuses_a_misaligned_tensor_without_falling_back(
+        cuda, dtype, d):
+    dt = getattr(torch, dtype)
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda, dtype=dt)
+    bad = flat[1:].view(1, 64, 2, d)        # contiguous, 2 bytes off
+    good = torch.zeros(1, 64, 2, d, device=cuda, dtype=dt)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._launch("dkv", "stream", tensors, st, st, True, 0, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_bwd(*tensors, st, st, True, 0, 0)
+    assert not any(fa.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 80, 96, 200, 320])
+def test_sm90_forward_in_place_between_builds(cuda, d):
+    """The sm90 forward at 16-bit head dims between its builds reads the
+    caller's tensors (H 8: a store past d would land in the next head):
+    every element of o within the bound of its plain version, m and l
+    too, and o, m, l bit for bit those of the same build on inputs
+    zero-padded to it (what the wrapper ran before it read in place)."""
+    dt = torch.bfloat16
+    q, k, v, _ = _inputs(cuda, dt, 2, 192, 8, d, d)
+    built = fa.padded_head_dim(d, "sm90", "fwd")
+    assert fa._reads_in_place(d, "sm90", "fwd") and built > d
+    fa.reset_launch_counts()
+    o, m, l = fa._launch("fwd", "sm90", (q, k, v), True, 0, 0)
+    padded = fa._flash_fwd_sm90(*fa._pad_head_dim((q, k, v), built), True,
+                                0, 0, scale=fa._softmax_scale(d))
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_fwd_sm90"] == 2
+    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, True, 0, 0)
+    o_b = fa._flash_fwd_plain(q, k, v, True, 0, 0, operands=dt)[0]
+    _close(o, o_p, 2e-5, 1e-6, tolerance.step_of(dt), plain_b=o_b)
+    _close(m, m_p, 2e-5, 1e-5, rows=False)
+    _close(l, l_p, 2e-5, 1e-5, rows=False)
+    assert torch.equal(o, padded[0][..., :d])
+    assert torch.equal(m, padded[1]) and torch.equal(l, padded[2])
+
+
+@pytest.mark.cuda
+def test_sm90_forward_at_its_built_head_dim_is_unchanged(cuda):
+    """At the main shape (B 4, S 2048, H 16, D 128, bf16), where d is the
+    built head dim, the dispatcher launches the build on the caller's
+    tensors with no cut: its o, m and l equal bit for bit a direct launch
+    of the build, and the in-place path at D 120 on the same build equals
+    that build on the tensors zero-padded to 128."""
+    dt = torch.bfloat16
+    q, k, v, _ = _inputs(cuda, dt, 4, 2048, 16, 128, 1)
+    fa.reset_launch_counts()
+    mine = fa._flash_fwd(q, k, v, True, 0, 0)
+    direct = fa._flash_fwd_sm90(q, k, v, True, 0, 0)
+    cut = fa._launch("fwd", "sm90", (q[..., :120].contiguous(),
+                                     k[..., :120].contiguous(),
+                                     v[..., :120].contiguous()), True, 0, 0)
+    q0, k0, v0 = (x.clone() for x in (q, k, v))
+    for x in (q0, k0, v0):
+        x[..., 120:] = 0
+    padded = fa._flash_fwd_sm90(q0, k0, v0, True, 0, 0,
+                                scale=fa._softmax_scale(120))
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_fwd_sm90"] == 4
+    for a, b in zip(mine, direct):
+        assert torch.equal(a, b)
+    assert torch.equal(cut[0], padded[0][..., :120])
+    assert torch.equal(cut[1], padded[1]) and torch.equal(cut[2], padded[2])

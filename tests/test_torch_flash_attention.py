@@ -259,6 +259,7 @@ def test_cpu_path_launches_no_kernel():
                                     "flash_dq_stream": 0,
                                     "flash_dq_tf32": 0,
                                     "flash_dkv": 0, "flash_dkv_sm90": 0,
+                                    "flash_dkv_stream": 0,
                                     "flash_dkv_tf32": 0}
 
 

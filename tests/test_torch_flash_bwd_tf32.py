@@ -164,9 +164,10 @@ def test_fp32_backward_design_and_padding_on_plain_versions(d, built):
 
 def test_tf32_design_serves_every_kernel_and_stream_the_forward_alone():
     """tf32 serves all three kernels past D 32; stream serves the 16-bit
-    forward and dq (past 512 and 256), not dk/dv."""
+    forward past 512 and dq and dk/dv past 256."""
     assert port.STREAM_DESIGNS["tf32"][1] == dict.fromkeys(port.KERNELS, 32)
-    assert port.STREAM_DESIGNS["stream"][1] == {"fwd": 512, "dq": 256}
+    assert port.STREAM_DESIGNS["stream"][1] == {"fwd": 512, "dq": 256,
+                                                "dkv": 256}
     for d in (33, 64, 96, 257, 1000):
         for kern in port.KERNELS:
             assert port._design(torch.float32, d, kern) == "tf32"

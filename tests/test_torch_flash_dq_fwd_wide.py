@@ -10,8 +10,8 @@ fail a dq with one 32-key stage (the D 256 kernel's), or at D 320 one
 64-key tile or one 64-column region of the logits (the stream dq's),
 left out, the stream design's start per kernel, and the backward's
 padding of q, k, v and do, once for each head dim its two kernels run
-at. The kernels themselves run on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+at (none at 16-bit D 320). The kernels themselves run on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances. Rounding ds (or p) to a 16-bit type moves it by at most u =
 2^-8 (bf16) or 2^-11 (fp16) of itself, and an fp16 value below 2^-14
@@ -169,28 +169,30 @@ def test_tolerance_passes_operands_and_fails_a_lost_tile_or_region_at_d320(
 
 
 def test_stream_design_starts_past_each_kernels_sm90_builds():
-    """``stream`` serves the forward past 512 and dq past 256 (where each
-    kernel's sm90 builds end) at every multiple of 64, and not dk/dv."""
+    """``stream`` serves the forward past 512 and dq and dk/dv past 256
+    (where each kernel's sm90 builds end) at every multiple of 64, for
+    bf16 and fp16 alike: no 16-bit head dim reaches simt."""
     for d in range(257, 1100, 9):
-        assert port._design(torch.float16, d, "dq") == "stream"
-        assert port.padded_head_dim(d, "stream", "dq") == -(-d // 64) * 64
+        for dtype in (torch.bfloat16, torch.float16):
+            for kern in ("dq", "dkv"):
+                assert port._design(dtype, d, kern) == "stream"
+                assert (port.padded_head_dim(d, "stream", kern)
+                        == -(-d // 64) * 64)
         if d <= 512:
             assert port._design(torch.float16, d, "fwd") == "sm90"
             with pytest.raises(ValueError, match="forward past head dim "
-                                                 "512 and the dq past head "
-                                                 "dim 256"):
+                                                 "512 and the dq and dk/dv "
+                                                 "past head dim 256"):
                 port.padded_head_dim(d, "stream", "fwd")
-        assert port._design(torch.bfloat16, d, "dkv") == "simt"
-    assert port._design(torch.bfloat16, 256, "dq") == "sm90"
     for kern in ("dq", "dkv"):
-        with pytest.raises(ValueError, match="dq past head dim 256"):
-            port.padded_head_dim(256 if kern == "dq" else 640, "stream",
-                                 kern)
+        assert port._design(torch.bfloat16, 256, kern) == "sm90"
+        with pytest.raises(ValueError, match="dk/dv past head dim 256"):
+            port.padded_head_dim(256, "stream", kern)
 
 
-def test_backward_at_d320_pads_only_for_dkv():
-    """At 16-bit D 320, ``_flash_bwd`` runs dq (stream) on q, k, v and do
-    as they are and dk/dv (simt) on copies padded to 384, each bit for
+def test_backward_at_d320_reads_the_callers_tensors():
+    """At 16-bit D 320, ``_flash_bwd`` runs dq and dk/dv (both stream, at
+    320) on q, k, v and do as they are, with no pad at all, each bit for
     bit what its kernel launched apart gives."""
     q, k, v, do = (x.to(torch.bfloat16)
                    for x in _values(9, torch.bfloat16, 320, s=64))
@@ -203,12 +205,11 @@ def test_backward_at_d320_pads_only_for_dkv():
             seen[kern] = a[:4]
             return fn(*a, **kw)
         return run
-    launchers = {(kern, design): recording(kern, fn)
-                 for kern, fn in plains.items()
-                 for design in ("stream", "simt")}
+    launchers = {(kern, "stream"): recording(kern, fn)
+                 for kern, fn in plains.items()}
     dq, (dk, dv) = port._flash_bwd(*args, launchers=launchers)
-    assert all(a is b for a, b in zip(seen["dq"], args[:4]))
-    assert [t.shape[-1] for t in seen["dkv"]] == [384] * 4
+    for kern in plains:
+        assert all(a is b for a, b in zip(seen[kern], args[:4]))
     apart = [port._on_padded_head_dim(fn, args[:4], *args[4:],
                                       design=port._design(q.dtype, 320,
                                                           kern),

@@ -124,17 +124,17 @@ DESIGNS = [
     (torch.bfloat16, 160, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.bfloat16, 200, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.bfloat16, 256, "sm90 sm90 sm90", (256, 256, 256)),
-    (torch.bfloat16, 257, "sm90 stream simt", (384, 320, 384)),
-    (torch.bfloat16, 320, "sm90 stream simt", (384, 320, 384)),
-    (torch.bfloat16, 512, "sm90 stream simt", (512, 512, 512)),
-    (torch.bfloat16, 640, "stream stream simt", (640, 640, 640)),
-    (torch.bfloat16, 600, "stream stream simt", (640, 640, 640)),
-    (torch.float16, 640, "stream stream simt", (640, 640, 640)),
+    (torch.bfloat16, 257, "sm90 stream stream", (384, 320, 320)),
+    (torch.bfloat16, 320, "sm90 stream stream", (384, 320, 320)),
+    (torch.bfloat16, 512, "sm90 stream stream", (512, 512, 512)),
+    (torch.bfloat16, 640, "stream stream stream", (640, 640, 640)),
+    (torch.bfloat16, 600, "stream stream stream", (640, 640, 640)),
+    (torch.float16, 640, "stream stream stream", (640, 640, 640)),
     (torch.float16, 32, "sm90 sm90 sm90", (32, 32, 32)),
     (torch.float16, 48, "sm90 sm90 sm90", (64, 64, 64)),
     (torch.float16, 128, "sm90 sm90 sm90", (128, 128, 128)),
     (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
-    (torch.float16, 384, "sm90 stream simt", (384, 384, 384)),
+    (torch.float16, 384, "sm90 stream stream", (384, 384, 384)),
     (torch.float32, 32, "simt simt simt", (32, 32, 32)),
     (torch.float32, 64, "tf32 tf32 tf32", (64, 64, 64)),
     (torch.float32, 96, "tf32 tf32 tf32", (96, 96, 96)),
@@ -150,10 +150,10 @@ DESIGNS = [
 @pytest.mark.parametrize("dtype,d,designs,padded", DESIGNS)
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
     """bf16 and fp16 take sm90 for the forward at D 1-512 and stream past
-    it, sm90 for dq and dk/dv at D 1-256 and stream for dq past it; fp32
-    takes tf32 for all three past D 32; fp32 at D <= 32 and 16-bit dk/dv
-    past 256 take simt. Each kernel pads to a head dim of its own design
-    (16-bit D 257-320: dq at 320, the forward and dk/dv at 384)."""
+    it, sm90 for dq and dk/dv at D 1-256 and stream for both past it; fp32
+    takes tf32 for all three past D 32 and simt up to it. Each kernel pads
+    to a head dim of its own design (16-bit D 257-320: dq and dk/dv at
+    320, the forward's build 384)."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]
     assert got == designs.split()
     assert [port.padded_head_dim(d, design, kern)
@@ -173,8 +173,8 @@ def test_padded_head_dim_past_512_never_raises():
             assert built % width == 0 and d <= built < d + width
     with pytest.raises(ValueError, match="past head dim 512"):
         port.padded_head_dim(512, "stream", "fwd")
-    with pytest.raises(ValueError, match="forward"):
-        port.padded_head_dim(640, "stream", "dkv")
+    with pytest.raises(ValueError, match="dk/dv past head dim 256"):
+        port.padded_head_dim(256, "stream", "dkv")
     with pytest.raises(ValueError, match="dkv kernel takes head dims up to "
                                          "256"):
         port.padded_head_dim(320, "sm90", "dkv")
@@ -277,9 +277,10 @@ def test_padding_on_plain_versions_matches_unpadded_and_reference(
         design, dtype, d):
     """What the card runs at a head dim no kernel of the design is built
     for (D 600 on the simt chunks of 640, D 200 and fp16 D 80 on the sm90
-    kernels of 256 and 128), with the plain versions in the kernels'
-    place: equal to the unpadded plain versions up to the order of the
-    fp32 sums over D, and to the reference.
+    kernels of 256 and 128: dk/dv on copies padded to them, the forward on
+    the tensors as they are, ``_reads_in_place``), with the plain versions
+    in the kernels' place: equal to the unpadded plain versions up to the
+    order of the fp32 sums over D, and to the reference.
 
     The zero columns change how einsum groups the sums over D, in a way
     that depends on the machine's BLAS, so the padded and unpadded plain
