@@ -51,7 +51,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the row is allowed. The tf32 kernels have no such allowance: the
    forward is held to the fp32 bound as it stands, dq (atol 1e-5, as the
    sm90 dq) and dk/dv to the plain versions that take their products as
-   three tf32 products (``operands=TF32X3``).
+   three tf32 products (``operands=TF32X3``). The tf32 forward runs its
+   128-column build up to D 128 and its wide build (256-column parts, P
+   through shared memory) past it, so every fp32 C4 case past 128 (D 256,
+   320, 384, 512, 640), fp32 D 640 with unequal lengths and offsets and
+   RAGGED_DESIGNS' fp32 D 640 hold the wide build to the fp32 bound.
    The bound must show its power: at the main shape a plain result with
    one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
    one q tile (queries 1536-1599 of dk and dv) left out must fail it; at
@@ -71,7 +75,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the tf32 forward and dq (keys 1024-1087) and one 64-query tile of the
    tf32 dk/dv (queries 1536-1599), and at fp32 D 640 with one 32-column
    region of the head dim left out of the logits of the forward, dq, dk
-   and dv (columns 256-287), each of which must fail by more than 10
+   and dv (columns 256-287) and with columns 384-511 of O left out of the
+   forward's P V (the last two 64-column pieces of the wide build's
+   second 256-column part), each of which must fail by more than 10
    times the bound; at
    bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward and dq
    (keys 512-575) and one 64-query tile of the narrow dk/dv (queries
@@ -120,8 +126,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the main path's shape in bf16 (printed beside the times PERF.md
    recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
    kernels there (the tf32 forward, dq and dk/dv, each with its
-   pre-pass, which is also timed apart for the backward, and the simt
-   ones), each C4 case at its phase-2 shape and the
+   pre-pass, which is also timed apart (prepass_ms), and the simt ones;
+   the tf32 forward's rows name its build, part_cols 128 or 256, and
+   print its factor against SDPA's forward), each C4 case at its phase-2
+   shape and the
    Gemma-7B geometry through the dispatchers (padding copies included),
    and beside every tensor-core kernel the simt kernel it replaces on the
    same inputs, which it must beat
@@ -302,7 +310,9 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # of the forward, and of dq, dk and dv (the kernels streamed over D among
 # them: the stream and tf32 designs sum them region by region);
 # ``fwd_scale``: the forward's logits scaled for that head dim instead of
-# the true one (the in-place sm90 forward runs the build of another). The fp32
+# the true one (the in-place sm90 forward runs the build of another);
+# ``fwd_pv_columns``: columns of O left out of P V (a wide tf32 forward
+# that lost a P V piece or read the wrong columns of V^T). The fp32
 # entries, those of the tf32 kernels, must be rejected at more than
 # LOST_FP32_BY times the bound.
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
@@ -325,7 +335,10 @@ LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
            # the in-place forward: the region that straddles d lost, and
            # the build's scale (1/sqrt(128)) taken for the true D's
            "bf16_d96": dict(fwd_columns=(64, 96), fwd_scale=128, by=10.0),
+           # the tf32 forward's wide build: columns 384-511, the last
+           # two P V pieces of its second 256-column part, left out of P V
            "fp32_d640": dict(fwd_columns=(256, 288),
+                             fwd_pv_columns=(384, 512),
                              bwd_columns=(256, 288))}
 # ROADMAP C6: lengths under 128 that are no multiple of 64 (a full first
 # tile and a ragged second one), on every design: (dtype name, head dim)
@@ -458,6 +471,15 @@ def fwd_without_columns(fa, q, k, v, lo, hi):
     return fa._flash_fwd_plain(q, k, v.float(), True, 0, 0)[0]
 
 
+def fwd_without_pv_columns(fa, q, k, v, lo, hi):
+    """The plain causal forward's o with columns lo..hi-1 of the head dim
+    left out of P V (v zeroed there, so o is 0 in them): a kernel that
+    lost the P V product of those columns of O."""
+    v = v.float().clone()
+    v[..., lo:hi] = 0
+    return fa._flash_fwd_plain(q.float(), k.float(), v, True, 0, 0)[0]
+
+
 def dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi, qo=0, ko=0,
                     operands=None):
     """The plain causal dq with keys lo..hi-1 left out: dq is a sum over
@@ -569,6 +591,12 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close(f"forward o, columns {lo}-{hi - 1} left out",
                         fwd_without_columns(fa, q, k, v, lo, hi), o_p, 2e-5,
                         step, plain_b=o_b, must_fail=True, fail_by=fail_by)
+        if lost and "fwd_pv_columns" in lost:
+            lo, hi = lost["fwd_pv_columns"]
+            check_close(f"forward o, columns {lo}-{hi - 1} left out of P V",
+                        fwd_without_pv_columns(fa, q, k, v, lo, hi), o_p,
+                        2e-5, step, plain_b=o_b, must_fail=True,
+                        fail_by=fail_by)
         if lost and "fwd_scale" in lost:
             dim = lost["fwd_scale"]
             check_close(f"forward o, scale of head dim {dim}",
@@ -1071,9 +1099,11 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     scaled_dot_product_attention on [B, H, S, D] copies of the same
     inputs, in the same dtype. The plain version is the one phase 2 holds
     the kernel to (for the tf32 dq and dk/dv, its TF32X3 products); the
-    tf32 dq and dk/dv times hold the backward's pre-pass, which each
-    standalone launch runs for itself, timed apart as prepass_ms (in
-    fa._flash_bwd one pre-pass serves both)."""
+    tf32 times hold their pre-pass, timed apart as prepass_ms: the
+    forward's (the first step of its C entry), and the backward's, which
+    each standalone dq and dk/dv launch runs for itself (in fa._flash_bwd
+    one pre-pass serves both). The tf32 forward's row names its build by
+    the columns of O a CTA owns (part_cols: 128, or 256 past D 128)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -1100,11 +1130,16 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
                 for kern in fa.KERNELS}
     ms = {fn: time_ms(calls[fn][0], 20) for fn in kernels}
     plain = {fn: time_ms(calls[fn][1], 5) for fn in kernels}
-    prepass = None
+    prepass = dict.fromkeys(kernels)
     if any(designs[fn] == "tf32" for fn in kernels if fn != "fwd"):
-        prepass = time_ms(lambda: fa._on_padded_head_dim(
-            lambda *t, scale=None: fa._tf32_bwd_split(*t), (q, k, v, do),
-            design="tf32", kernel="dq"), 20)
+        prepass["dq"] = prepass["dkv"] = time_ms(
+            lambda: fa._on_padded_head_dim(
+                lambda *t, scale=None: fa._tf32_bwd_split(*t), (q, k, v, do),
+                design="tf32", kernel="dq"), 20)
+    if "fwd" in kernels and designs["fwd"] == "tf32":
+        prepass["fwd"] = time_ms(lambda: fa._on_padded_head_dim(
+            lambda *t, scale=None: fa._tf32_fwd_split(*t), (q, k, v),
+            design="tf32", kernel="fwd"), 20)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
@@ -1147,10 +1182,12 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
             bound_by="operations" if op_ms >= byte_ms else "bytes")
         if tf32:
             row["bound_fma_ms"] = max(flops[fn] / peak * 1e3, byte_ms)
+            row["prepass_ms"] = prepass[fn]
+        if fn == "fwd" and tf32:
+            row["part_cols"] = fa.tf32_fwd_part(
+                fa.padded_head_dim(d, "tf32", "fwd"))
         if fn != "fwd":
             row["library_bwd_only_ms"] = lib_bwd
-            if tf32:
-                row["prepass_ms"] = prepass
         # The dtype and head dim of the call, which name the LM path
         # whose launches the row carries.
         row["call"] = (str(dtype)[6:], d)
@@ -1192,7 +1229,8 @@ def kernel_times(torch, fa):
           "inputs (ms of the card, CUDA-event means of 20 launches; the "
           "stream dq and the tf32 backward (with its pre-pass) beside "
           "SDPA's backward alone, the plain version and the bound, for "
-          "tf32 3xTF32 / FMA):")
+          "tf32 3xTF32 / FMA; the tf32 forward (with its pre-pass) beside "
+          "SDPA's forward, its pre-pass alone and its build):")
     slower = []
     for tag, dtype, d, kern in pairs:
         design = fa._design(dtype, d, kern)
@@ -1206,6 +1244,12 @@ def kernel_times(torch, fa):
         if design == "tf32" and kern != "fwd":
             more += (f" / {row['bound_fma_ms']:.4f}  pre-pass "
                      f"{row['prepass_ms']:.4f}")
+        if design == "tf32" and kern == "fwd":
+            more = (f"  SDPA {row['library_ms']:.4f} "
+                    f"({new / row['library_ms']:.2f}x)  pre-pass "
+                    f"{row['prepass_ms']:.4f}  {row['part_cols']}-column "
+                    f"parts  bound {row['bound_ms']:.4f} / "
+                    f"{row['bound_fma_ms']:.4f}")
         print(f"  {tag or 'main fp32':<10} {kern:<4} {design:<6} {new:8.4f}  "
               f"simt {old:8.4f}  {old / new:6.1f}x{more}")
         if not new < old:

@@ -58,6 +58,11 @@ _SIGNATURES = {
     # q, k, v, o, m, l, scratch, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream (fp32 only)
     "hvdt_flash_fwd_tf32": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k, v, scratch, B, H, Sq, Sk, D, stream (fp32 only: the tf32
+    # forward's pre-pass alone)
+    "hvdt_flash_fwd_tf32_split": [_P] * 4 + [_I] * 5 + [_P],
+    # D: the columns of O a CTA of the tf32 forward owns there (its build)
+    "hvdt_flash_fwd_tf32_part": [_I],
     # dtype, q, k, v, do, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off,
     # causal, scale, stream
     "hvdt_flash_dq_sm90": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],

@@ -45,7 +45,8 @@ alone, before any launch:
   D 512 and for dq and dk/dv past D 256, at every multiple of 64 (parts
   of 256 columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
-  kernels (parts of 128 columns; dk/dv 64), each product as hi.hi +
+  kernels (parts of 128 columns, and 256 for the forward past D 128;
+  dk/dv 64), each product as hi.hi +
   hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
   pre-pass that writes the inputs' parts and the transposes the products
   over the sequence read (the forward's v^T; the backward's k^T, q^T and
@@ -591,10 +592,7 @@ def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
     with torch.cuda.device(q.device):
         ptrs = [t.data_ptr() for t in (q, k, v, o, m, l)]
         if design == "tf32":
-            keys = -(-sk // 32) * 32
-            scratch = torch.empty(
-                2 * (q.numel() + k.numel() + b * h * d * keys),
-                device=q.device)
+            scratch = _tf32_fwd_scratch(q, k)
             err = lib.hvdt_flash_fwd_tf32(*ptrs, scratch.data_ptr(), *sizes)
         else:
             entry = (lib.hvdt_flash_fwd_sm90 if design == "sm90"
@@ -602,6 +600,39 @@ def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
             err = entry(_DTYPES[q.dtype], *ptrs, *sizes)
     _cuda.check(err, f"flash forward {design} kernel")
     return o, m, l
+
+
+def _tf32_fwd_scratch(q, k):
+    """The tf32 forward pre-pass's six planes, one fp32 tensor: q and k
+    hi and lo, and v^T hi and lo as [B, H, D, Sk rounded up to 32]."""
+    b, _, h, d = q.shape
+    keys = -(-k.shape[1] // 32) * 32
+    return torch.empty(2 * (q.numel() + k.numel() + b * h * d * keys),
+                       device=q.device)
+
+
+def _tf32_fwd_split(q, k, v):
+    """The tf32 forward's pre-pass alone (the first step of
+    ``hvdt_flash_fwd_tf32``), into scratch allocated here: what
+    ``chip_smoke.py`` times apart from the forward."""
+    _check_tensor_cores("flash forward", "fwd", (q, k, v), "tf32")
+    b, sq, h, d = q.shape
+    scratch = _tf32_fwd_scratch(q, k)
+    lib = _cuda.load()
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_fwd_tf32_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(), b,
+            h, sq, k.shape[1], d, _stream(q))
+    _cuda.check(err, "flash forward tf32 pre-pass")
+    return scratch
+
+
+def tf32_fwd_part(d: int) -> int:
+    """The columns of O that a CTA of the tf32 forward owns at the built
+    head dim ``d``, as its C entry picks the build
+    (csrc/flash_fwd_stream_sm90.cu): 128 up to D 128, 256 past it (the
+    wide build, P through shared memory). Needs the kernels' library."""
+    return _cuda.load().hvdt_flash_fwd_tf32_part(d)
 
 
 def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
@@ -631,7 +662,9 @@ def _flash_fwd_stream(q, k, v, causal: bool, q_offset: int, k_offset: int,
 def _flash_fwd_tf32(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
     """The 3xTF32 forward kernel, streamed over D, with its pre-pass
-    (flash_fwd_stream_sm90.cu): fp32 at the multiples of 32 past 32."""
+    (flash_fwd_stream_sm90.cu): fp32 at the multiples of 32 past 32, in
+    128-column parts of O up to D 128 and 256-column parts past it
+    (:func:`tf32_fwd_part`)."""
     global flash_fwd_tf32_launches
     out = _fwd_tensor_cores("tf32", q, k, v, causal, q_offset, k_offset,
                             scale)

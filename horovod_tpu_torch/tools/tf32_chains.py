@@ -4,11 +4,12 @@ The tensor cores add each product into their fp32 accumulator without
 rounding to nearest, so a long chain of wgmmas on one accumulator drifts.
 ``csrc/flash_fwd_stream_sm90.cu`` therefore gives each region's S and
 each kv tile's P V an accumulator of its own and sums them by fp32 adds
-(``kSplitChains``). This tool builds that file a second time with
-``kSplitChains = false`` (one chain over all of D for S and one over all
-keys for O) into ``build/horovod_tpu_torch/tf32_chains/``, runs both
-builds on the same inputs at the fp32 main shape (B=4, S=2048, H=16,
-D=128) and at fp32 D 640 (B=2, S=1024, H=8), causal, prints each one's
+(``kSplitChains``, in both of its tf32 builds). This tool builds that file
+a second time with ``kSplitChains = false`` (one chain over all of D for
+S and one over all keys for O) into ``build/horovod_tpu_torch/
+tf32_chains/``, runs both builds on the same inputs at the fp32 main
+shape (B=4, S=2048, H=16, D=128: the 128-column build) and at fp32 D 640
+(B=2, S=1024, H=8: the wide build), causal, prints each one's
 largest err / bound of o, m and l against the plain fp32 version (the
 bound of horovod_tpu_torch/utils/tolerance.py that chip_smoke.py holds the
 kernel to: rtol 2e-5, atol 1e-6, m's atol 1e-5) and times them in turns
@@ -28,6 +29,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = "flash_fwd_stream_sm90.cu"
+# The one-chain build's edit: (text of the package's source, its text).
+EDIT = ("constexpr bool kSplitChains = true;",
+        "constexpr bool kSplitChains = false;")
 
 
 def build(cuda):
@@ -35,10 +39,9 @@ def build(cuda):
     src_dir = cuda.CSRC_DIR
     with open(os.path.join(src_dir, SOURCE)) as fh:
         src = fh.read()
-    body = src.replace("constexpr bool kSplitChains = true;",
-                       "constexpr bool kSplitChains = false;")
-    if body == src:
-        raise RuntimeError(f"{SOURCE} declares no kSplitChains = true")
+    if EDIT[0] not in src:
+        raise RuntimeError(f"{SOURCE} declares no {EDIT[0]!r}")
+    body = src.replace(*EDIT)
     out = os.path.join(cuda.BUILD_DIR, "tf32_chains")
     os.makedirs(out, exist_ok=True)
     for name in os.listdir(src_dir):
@@ -80,9 +83,7 @@ def main() -> int:
         q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    for _ in range(3))
         plain = fa._flash_fwd_plain(q, k, v, True, 0, 0)
-        keys = -(-s // 32) * 32
-        scratch = torch.empty(2 * (q.numel() + k.numel() + b * h * d * keys),
-                              device="cuda")
+        scratch = fa._tf32_fwd_scratch(q, k)
         outs = fa._fwd_outputs(q)
         stream = torch.cuda.current_stream().cuda_stream
 

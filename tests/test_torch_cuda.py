@@ -295,8 +295,13 @@ def test_runtime_waits_for_the_ready_event_and_hands_over_on_the_stream(
     g = torch.Generator(device="cuda").manual_seed(0)
     a = torch.randn(8192, 8192, generator=g, device="cuda") / 90.5
     y = torch.randn(8192, 256, generator=g, device="cuda")
-    torch.cuda.synchronize()
     caller = torch.cuda.Stream()
+    # Each kernel of the chain once first: the first launch of a kernel
+    # loads its module, which waits for the device, so in a process that
+    # had not run them the copy below would wait for every matmul.
+    with torch.cuda.stream(caller):
+        torch.tanh(a @ y)[:, 0].contiguous()
+    torch.cuda.synchronize()
     with torch.cuda.stream(caller):
         for _ in range(16):  # 0.55 TFLOP of fp32: milliseconds of work
             y = torch.tanh(a @ y)
@@ -890,3 +895,91 @@ def test_sm90_forward_at_its_built_head_dim_is_unchanged(cuda):
         assert torch.equal(a, b)
     assert torch.equal(cut[0], padded[0][..., :120])
     assert torch.equal(cut[1], padded[1]) and torch.equal(cut[2], padded[2])
+
+
+TF32_WIDE_CASES = [
+    # b, s, h, d, causal, q_offset, k_offset, sk
+    pytest.param(1, 256, 2, 160, True, 0, 0, None, id="d160"),
+    pytest.param(1, 256, 2, 192, False, 0, 0, None, id="d192_noncausal"),
+    pytest.param(2, 256, 3, 256, True, 0, 0, None, id="d256"),
+    pytest.param(1, 192, 2, 256, False, 0, 64, None,
+                 id="d256_noncausal_k_offset"),
+    pytest.param(1, 256, 2, 288, True, 64, 0, None, id="d288_q_offset"),
+    pytest.param(2, 256, 2, 320, True, 0, 0, None, id="d320"),
+    pytest.param(1, 128, 2, 320, False, 0, 0, None, id="d320_noncausal"),
+    pytest.param(1, 384, 2, 640, True, 0, 0, None, id="d640"),
+    pytest.param(1, 256, 2, 640, False, 0, 0, None, id="d640_noncausal"),
+    pytest.param(1, 128, 2, 640, True, 256, 0, 384,
+                 id="d640_kv_longer_q_offset"),
+    pytest.param(2, 256, 2, 384, False, 0, 64, 192,
+                 id="d384_kv_shorter_k_offset"),
+    pytest.param(1, 128, 2, 512, True, 0, 96, None, id="d512_dead_rows"),
+    pytest.param(2, 100, 2, 640, True, 16, 0, None, id="d640_s100"),
+    pytest.param(2, 127, 2, 192, True, 0, 0, None, id="d192_s127"),
+    pytest.param(2, 100, 2, 256, True, 27, 0, 127, id="d256_s100_sk127"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,causal,qo,ko,sk", TF32_WIDE_CASES)
+def test_tf32_wide_forward_matches_plain_version(cuda, b, s, h, d, causal,
+                                                 qo, ko, sk):
+    """The tf32 forward's wide build (fp32 past D 128: 256-column parts of
+    O, P through shared memory, the last part's half past D left out) at
+    the fp32 bounds exactly, against the fp32 plain version: head dims
+    from 160 to 640, causal and not, offsets, dead rows, unequal lengths
+    and ragged lengths (S 100 and 127). The C entry says which build ran,
+    and the counter that the tf32 forward alone launched."""
+    assert fa.tf32_fwd_part(d) == 256
+    q, k, v, _ = _inputs(cuda, torch.float32, b, s, h, d, s + d, sk)
+    fa.reset_launch_counts()
+    o, m, l = fa._flash_fwd(q, k, v, causal, qo, ko)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(fa.launch_counts(), 0)
+    want["flash_fwd_tf32"] = 1
+    assert fa.launch_counts() == want
+    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, causal, qo, ko)
+    _close(o, o_p, 2e-5, 1e-6)
+    _close(m, m_p, 2e-5, 1e-5, rows=False)
+    _close(l, l_p, 2e-5, 1e-5, rows=False)
+
+
+@pytest.mark.cuda
+def test_tf32_forward_keeps_its_128_column_build_up_to_d128(cuda):
+    """Up to D 128 the C entry runs the 128-column build (P from
+    registers), past it the wide one; at D 128 the forward still holds
+    the fp32 bound, and the wide build's rows of P and O at D 160 agree
+    with D 128's on inputs whose columns past 128 are zero (the same
+    logits; o's extra columns zero)."""
+    assert [fa.tf32_fwd_part(d) for d in (64, 96, 128, 160, 640)] == \
+        [128, 128, 128, 256, 256]
+    q, k, v, _ = _inputs(cuda, torch.float32, 1, 256, 2, 128, 5)
+    o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
+    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, True, 0, 0)
+    _close(o, o_p, 2e-5, 1e-6)
+    _close(m, m_p, 2e-5, 1e-5, rows=False)
+    wide = fa._flash_fwd_tf32(*fa._pad_head_dim((q, k, v), 160), True, 0, 0,
+                              scale=fa._softmax_scale(128))
+    torch.cuda.synchronize()
+    _close(wide[0][..., :128], o_p, 2e-5, 1e-6)
+    assert not wide[0][..., 128:].any()
+    _close(wide[1], m_p, 2e-5, 1e-5, rows=False)
+    _close(wide[2], l_p, 2e-5, 1e-5, rows=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 640])
+def test_tf32_wide_forward_refuses_a_misaligned_tensor(cuda, d):
+    """A tensor one element off a 16-byte boundary raises before any
+    launch, on the wide build as on the others: no kernel, no pre-pass and
+    no other design runs in its place."""
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda)
+    bad = flat[1:].view(1, 64, 2, d)
+    good = torch.zeros(1, 64, 2, d, device=cuda)
+    fa.reset_launch_counts()
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_fwd(*args, True, 0, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._tf32_fwd_split(*args)
+    assert not any(fa.launch_counts().values())

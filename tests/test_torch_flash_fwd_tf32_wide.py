@@ -5,7 +5,8 @@ forward's ``operands`` modes that the card's checks hold those kernels to,
 against the reference's Pallas forward in interpret mode (blocks of 32, as
 tests/test_torch_flash_head_dims.py runs it); the shared tolerance
 (horovod_tpu_torch/utils/tolerance.py), which must pass 3xTF32 and fail
-one TF32 product and a logit sum that lost a 64-column region of D; and
+one TF32 product, a logit sum that lost a 64-column region of D and an
+o whose columns lost their P V; and
 the forward's dispatch and padding. The kernels themselves run on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
@@ -23,6 +24,9 @@ bounded here by (u + floor S) max|V|, as tests/test_torch_flash_sm90_wide.py
 bounds it at D 256.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +34,7 @@ import torch
 
 import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
+from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
 
@@ -128,6 +133,37 @@ def test_bound_rejects_a_lost_head_dim_region(dtype):
     kw = dict(step=tolerance.step_of(dtype), plain_b=o_b)
     assert tolerance.worst(o, o, FWD_TOL, **kw)[1] == 0.0
     assert tolerance.worst(lost, o, FWD_TOL, **kw)[1] > 1.0
+
+
+@pytest.mark.parametrize("entry", ["hvdt_flash_fwd_stream",
+                                   "hvdt_flash_fwd_tf32",
+                                   "hvdt_flash_fwd_tf32_split",
+                                   "hvdt_flash_fwd_tf32_part"])
+def test_forward_c_entries_take_what_the_bindings_pass(entry):
+    """The C entry points of csrc/flash_fwd_stream_sm90.cu declare as many
+    parameters as horovod_tpu_torch/_cuda.py's ctypes signature passes
+    (the library is built and loaded on the card only)."""
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_fwd_stream_sm90.cu")) as fh:
+        src = fh.read()
+    decl = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert decl, entry
+    assert len(decl.group(1).split(",")) == len(_cuda._SIGNATURES[entry])
+
+
+def test_bound_rejects_lost_pv_columns_of_a_wide_part():
+    """An o whose columns 384-511 lost their P V (v zeroed there: the
+    last two 64-column P V pieces of the wide tf32 build's second
+    256-column part, which its producer issues only as the first two are
+    consumed; a wrong piece offset or V^T stage would lose them) fails
+    the fp32 bound by more than chip_smoke.py's LOST_FP32_BY, as the card
+    checks the wide build at fp32 D 640 (here B 1, S 128, H 2)."""
+    q, k, v = _values(8, torch.float32, 640)
+    o = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=port.TF32X3)[0]
+    lo, hi = chip_smoke.LOST_C4["fp32_d640"]["fwd_pv_columns"]
+    assert (lo, hi) == (384, 512)
+    lost = chip_smoke.fwd_without_pv_columns(port, q, k, v, lo, hi)
+    assert not lost[..., lo:hi].any() and lost[..., :lo].abs().max() > 0
+    assert tolerance.worst(lost, o, FWD_TOL)[1] > chip_smoke.LOST_FP32_BY
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
