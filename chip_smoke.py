@@ -26,9 +26,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    simt kernels beside the tf32 ones) and at two with unequal lengths and
    offsets (D 128 and 640), each case of C4_CASES at B=2, S=1024, H=8,
    causal, through the dispatchers (bf16, fp16 and fp32 at D 16 and 32;
-   fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and 200, the forward on
-   the caller's tensors and dq and dk/dv zero-padded at the next built
-   head dim, and 256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and
+   fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and 200, all three
+   sm90 kernels on the caller's tensors at the next built head dim, and
+   256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and
    640), the Gemma-7B geometry (B=2, S=2048, H=16, D=256,
    bf16, causal), the entry's shape (B=2, S=32, H=4, D=16, bf16, causal),
    and ROADMAP C6's ragged lengths on every design
@@ -70,7 +70,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    than 10 times the bound; at bf16 D 96 with columns 64-95 of q and k
    (the region that straddles d) left out of the in-place forward's
    logits and with the build's scale, 1/sqrt(128), in place of
-   1/sqrt(96), by more than 10 times too; at the fp32 main shape with one
+   1/sqrt(96), and the same two for the in-place dq, dk and dv (columns
+   64-95 left out of s), by more than 10 times too, and at bf16 D 200
+   with columns 192-199 (the part of the D 256 build's last box below d)
+   left out of the logits of the in-place dq and the wide dk/dv
+   (``flash_dkv_sm90_wide``), by more than 10 times; at the fp32 main
+   shape with one
    64-key stage of
    the tf32 forward and dq (keys 1024-1087) and one 64-query tile of the
    tf32 dk/dv (queries 1536-1599), and at fp32 D 640 with one 32-column
@@ -106,8 +111,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    hidden 3072; microsoft/Phi-3-mini-4k-instruct config.json), vocab
    32000, S 2048, batch 2, bf16, its 32 layers cut to 2: the loss finite
    and falling, and each layer and step launching the sm90 forward (on
-   the caller's tensors at D 96), dq and dk/dv (on copies padded to 128)
-   once and no other flash kernel.
+   the caller's tensors at D 96), dq and dk/dv (on the caller's tensors
+   too, on the build of 128) once and no other flash kernel.
 4c. Phase 4's model in fp32 (``TransformerConfig(dtype=torch.float32)``),
    depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
    profiled): the loss must be finite and fall, the tf32 forward, dq and
@@ -133,9 +138,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    Gemma-7B geometry through the dispatchers (padding copies included),
    and beside every tensor-core kernel the simt kernel it replaces on the
    same inputs, which it must beat
-   (and, at each case whose head dim is padded, the backward padded once
-   for both kernels, as flash_attention_bwd runs it, against its two
-   kernels padded apart);
+   (and the backward as flash_attention_bwd runs it: at bf16 D 260 and
+   fp16 D 20, where it pads, padded once for both kernels against its
+   two kernels padded apart; at bf16 D 80, 96 and 200, where it reads the
+   caller's tensors, against the same builds on copies padded once to
+   them, each kernel also apart; every pair bit-equal; then the sm90 dq
+   and dk/dv together against SDPA's backward alone);
    each beside the plain version, the PyTorch library call computing the
    same function in the same dtype (scaled_dot_product_attention, timed
    here only as a yardstick) and the bound: the larger of the operations
@@ -261,10 +269,11 @@ MAIN = dict(b=4, s=2048, h=16, d=128)
 # the sm90 kernels' fp16, D 33-256 and the forward's D 257-512): (tag,
 # dtype name, head dim), each checked in phase 2 and timed in phase 5 at
 # this shape, causal, through the dispatchers (a head dim no kernel of a
-# design is built for runs zero-padded at the next one that is: D 80 and
-# 96 at 128 on the sm90 kernels and at 96 on the simt ones, D 200 at 256,
-# D 320 at 384). Where a kernel takes the sm90 design, its simt kernel is
-# checked and timed beside it.
+# design is built for runs at the next one that is: on the sm90 kernels
+# D 80 and 96 at 128, D 200 at 256 and the forward's D 320 at 384, on the
+# caller's tensors; on the simt ones zero-padded, D 80 at 96). Where a
+# kernel takes the sm90 design, its simt kernel is checked and timed
+# beside it.
 C4_SHAPE = dict(b=2, s=1024, h=8)
 C4_CASES = (("bf16_d16", "bfloat16", 16), ("fp32_d16", "float32", 16),
             ("bf16_d32", "bfloat16", 32), ("fp32_d32", "float32", 32),
@@ -291,7 +300,7 @@ GEMMA_PATH_KERNELS = MAIN_PATH_KERNELS
 # Phase 4e's model: the attention widths of Phi-3-mini (32 heads of 96,
 # hidden 3072; microsoft/Phi-3-mini-4k-instruct config.json), vocab 32000,
 # S 2048, batch 2, its 32 layers cut to 2. bf16 at D 96 runs the sm90
-# forward on the caller's tensors and the sm90 dq and dk/dv padded to 128.
+# forward, dq and dk/dv on the caller's tensors (the builds of 128).
 PHI3 = dict(b=2, s=2048, h=32, d=96)
 PHI3_LAYERS = (32, 2)
 PHI3_PATH_KERNELS = MAIN_PATH_KERNELS
@@ -309,8 +318,9 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # of the head dim (64 16-bit or 32 fp32 columns) left out of the logits
 # of the forward, and of dq, dk and dv (the kernels streamed over D among
 # them: the stream and tf32 designs sum them region by region);
-# ``fwd_scale``: the forward's logits scaled for that head dim instead of
-# the true one (the in-place sm90 forward runs the build of another);
+# ``fwd_scale`` and ``bwd_scale``: the logits of the forward, and of dq,
+# dk and dv, scaled for that head dim instead of the true one (the
+# in-place sm90 kernels run the build of another);
 # ``fwd_pv_columns``: columns of O left out of P V (a wide tf32 forward
 # that lost a P V piece or read the wrong columns of V^T). The fp32
 # entries, those of the tf32 kernels, must be rejected at more than
@@ -332,9 +342,14 @@ LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
            "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320),
                              dq=(512, 576), dkv=(512, 576),
                              bwd_columns=(256, 320), by=10.0),
-           # the in-place forward: the region that straddles d lost, and
-           # the build's scale (1/sqrt(128)) taken for the true D's
-           "bf16_d96": dict(fwd_columns=(64, 96), fwd_scale=128, by=10.0),
+           # the in-place forward, dq and dk/dv: the region that straddles
+           # d lost, and the build's scale (1/sqrt(128)) taken for the
+           # true D's
+           "bf16_d96": dict(fwd_columns=(64, 96), fwd_scale=128,
+                            bwd_columns=(64, 96), bwd_scale=128, by=10.0),
+           # the in-place dq and the wide dk/dv at D 200: the straddling
+           # box of the D 256 build (columns 192-199 below d) lost
+           "bf16_d200": dict(bwd_columns=(192, 200), by=10.0),
            # the tf32 forward's wide build: columns 384-511, the last
            # two P V pieces of its second 256-column part, left out of P V
            "fp32_d640": dict(fwd_columns=(256, 288),
@@ -350,6 +365,14 @@ RAGGED_DESIGNS = (("bfloat16", 32), ("float32", 32), ("bfloat16", 128),
                   ("float32", 640), ("bfloat16", 16), ("float16", 32))
 RAGGED_LENGTHS = ((100, 100, 16, dict(fwd=(64, 100), dq=(64, 100))),
                   (100, 127, 27, None))
+# Phase 5's backward at the C4 shape through flash_attention_bwd: (tag,
+# dtype name, head dim) where it pads (a row of 260 bf16 values, 520
+# bytes, is no TMA stride: the stream dq and dk/dv at 320; fp16 D 20 runs
+# the narrow builds of 32), and where the sm90 dq and dk/dv read the
+# caller's tensors (D 80 and 96 on the builds of 128, D 200 on 256).
+BWD_PADDED = (("bf16_d260", "bfloat16", 260), ("fp16_d20", "float16", 20))
+BWD_IN_PLACE = (("bf16_d80", "bfloat16", 80), ("bf16_d96", "bfloat16", 96),
+                ("bf16_d200", "bfloat16", 200))
 # Phase 4c: phase 4's model in fp32 (the forward, dq and dk/dv on tf32),
 # depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
 # profiled).
@@ -628,6 +651,13 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
                                             hi)[0], dq_p, 1e-4, step,
                         atol=dq_atol, plain_b=dq_b, must_fail=True,
                         fail_by=fail_by)
+        if lost and "bwd_scale" in lost:
+            dim = lost["bwd_scale"]
+            check_close(f"dq, scale of head dim {dim}",
+                        fa._flash_dq_plain(*plain_args,
+                                           scale=fa._softmax_scale(dim)),
+                        dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b,
+                        must_fail=True, fail_by=fail_by)
         del dq, dq_p, dq_b
     if "dkv" in kernels:
         dk, dv = out.pop("dkv")
@@ -653,17 +683,20 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close(f"dv, queries {lo}-{hi - 1} left out", dv_x, dv_p,
                         1e-4, step, plain_b=dv_b, must_fail=True,
                         fail_by=fail_by)
-        if (lost and "bwd_columns" in lost
-                and designs["dkv"] in fa.STREAM_DESIGNS):
+        wrong = {}
+        if lost and "bwd_columns" in lost:
             lo, hi = lost["bwd_columns"]
-            _, dk_x, dv_x = bwd_without_columns(fa, q, k, v, do, lse, delta,
-                                                lo, hi)
-            check_close(f"dk, columns {lo}-{hi - 1} left out of s", dk_x,
-                        dk_p, 1e-4, step, plain_b=dk_b, must_fail=True,
-                        fail_by=fail_by)
-            check_close(f"dv, columns {lo}-{hi - 1} left out of s", dv_x,
-                        dv_p, 1e-4, step, plain_b=dv_b, must_fail=True,
-                        fail_by=fail_by)
+            wrong[f"columns {lo}-{hi - 1} left out of s"] = (
+                bwd_without_columns(fa, q, k, v, do, lse, delta, lo, hi)[1:])
+        if lost and "bwd_scale" in lost:
+            dim = lost["bwd_scale"]
+            wrong[f"scale of head dim {dim}"] = fa._flash_dkv_plain(
+                *plain_args, scale=fa._softmax_scale(dim))
+        for what, (dk_x, dv_x) in wrong.items():
+            check_close(f"dk, {what}", dk_x, dk_p, 1e-4, step, plain_b=dk_b,
+                        must_fail=True, fail_by=fail_by)
+            check_close(f"dv, {what}", dv_x, dv_p, 1e-4, step, plain_b=dv_b,
+                        must_fail=True, fail_by=fail_by)
     torch.cuda.empty_cache()
     return errs
 
@@ -1272,57 +1305,134 @@ def kernel_times(torch, fa):
     for name, was in RECORDED_MAIN_MS.items():
         print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
-    backward_pad_times(torch, fa, cases)
+    backward_pad_times(torch, fa)
+    print("the sm90 dq and dk/dv together against SDPA's backward alone, "
+          "same inputs (ms):")
+    for tag, dtype, shape in cases:
+        names = [kernel_name(fa, kern, fa._design(dtype, shape["d"], kern),
+                             tag) for kern in ("dq", "dkv")]
+        if shape["d"] <= 32 or not all("_sm90" in n for n in names):
+            continue
+        dq, dkv = (rows[n] for n in names)
+        lib = dq["library_bwd_only_ms"]
+        print(f"  {tag:<10} dq {dq['ms']:.4f} + dk/dv {dkv['ms']:.4f} = "
+              f"{dq['ms'] + dkv['ms']:.4f}  SDPA bwd {lib:.4f} "
+              f"({(dq['ms'] + dkv['ms']) / lib:.2f}x)")
     if slower:
         raise AssertionError(f"tensor-core kernels slower than the simt "
                              f"ones they replace: {slower}")
     return rows
 
 
-def backward_pad_times(torch, fa, cases):
-    """At each case whose head dim no kernel is built for, the backward
-    as flash_attention_bwd runs it (q, k, v and do zero-padded once for
-    dq and dk/dv) against the two kernels launched apart through
-    fa._launch (each padding its own copies), both with the lse and delta
-    pre-pass; CUDA-event means of 20 calls. The two must give the same
-    gradients bit for bit (each CTA owns its outputs: one order of
-    sums), which holds the entry the model runs to the kernels that
-    phase 2 checks one by one."""
+def _c4_backward(torch, fa, dtype, d):
+    """Phase 5's backward inputs at the C4 shape: q, k, v, do and the
+    forward's o, m, l."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(C4_SHAPE["b"], C4_SHAPE["s"], C4_SHAPE["h"],
+                               d, generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    return (q, k, v, do, *fa._flash_fwd(q, k, v, True, 0, 0))
+
+
+def _bwd_stats(fa, do, o, m, l):
+    """lse and delta as flash_attention_bwd makes them."""
+    lse = fa._lse_from_stats(m.float(), l.float()).contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return lse, delta
+
+
+def _bit_equal(torch, label, mine, theirs):
+    for a, b in zip(mine, theirs):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{label}: gradients differ by "
+                f"{(a.float() - b.float()).abs().max().item()}")
+
+
+def backward_pad_times(torch, fa):
+    """The backward as flash_attention_bwd runs it at the C4 shape, with
+    the lse and delta pre-pass, CUDA-event means of 20 calls:
+    - where it pads (BWD_PADDED: q, k, v and do zero-padded once for dq
+      and dk/dv), against the two kernels launched apart through
+      fa._launch, each padding its own copies;
+    - where the sm90 dq and dk/dv read the caller's tensors
+      (BWD_IN_PLACE), against the same builds on copies padded once to
+      them with the true D's scale and sliced back (the route before
+      they read in place), and each kernel in place against that padded
+      route and against its build alone on copies padded beforehand
+      (what the pad and slice copies cost, apart from the kernel).
+    Each pair must give the same gradients bit for bit (each CTA owns its
+    outputs: one order of sums; the padded columns are zeros either way),
+    which holds the entry the model runs to the kernels that phase 2
+    checks one by one."""
     print("backward with a padded head dim: padded once against padded "
           "for each kernel apart (ms):")
-    for tag, dtype, shape in cases:
-        d = shape["d"]
-        built = {fa.padded_head_dim(d, fa._design(dtype, d, kern), kern)
-                 for kern in ("dq", "dkv")}
-        if built == {d}:
-            continue
-        g = torch.Generator(device="cuda").manual_seed(2)
-        q, k, v, do = (torch.randn(shape["b"], shape["s"], shape["h"], d,
-                                   generator=g, device="cuda").to(dtype)
-                       for _ in range(4))
-        o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
+    for tag, dt, d in BWD_PADDED:
+        dtype = getattr(torch, dt)
+        designs = {kern: fa._design(dtype, d, kern) for kern in ("dq", "dkv")}
+        built = {fa._run_head_dim(d, designs[kern], kern) for kern in designs}
+        if d in built or len(built) != 1:
+            raise AssertionError(f"{tag}: expected one padded head dim for "
+                                 f"dq and dk/dv, got {sorted(built)}")
+        q, k, v, do, o, m, l = _c4_backward(torch, fa, dtype, d)
 
         def apart():
-            lse = fa._lse_from_stats(m.float(), l.float()).contiguous()
-            delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
-            dq, (dk, dv) = (fa._launch(kern, fa._design(dtype, d, kern),
-                                       (q, k, v, do), lse,
-                                       delta.contiguous(), True, 0, 0)
+            lse, delta = _bwd_stats(fa, do, o, m, l)
+            dq, (dk, dv) = (fa._launch(kern, designs[kern], (q, k, v, do),
+                                       lse, delta, True, 0, 0)
                             for kern in ("dq", "dkv"))
             return dq, dk, dv
-        for mine, theirs in zip(fa.flash_attention_bwd(q, k, v, o, m, l, do),
-                                apart()):
-            if not torch.equal(mine, theirs):
-                raise AssertionError(
-                    f"{tag}: the backward padded once differs from the "
-                    f"kernels padded apart by "
-                    f"{(mine.float() - theirs.float()).abs().max().item()}")
-        once = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do),
-                       20)
-        twice = time_ms(apart, 20)
-        print(f"  {tag:<10} at {sorted(built)}: once {once:.4f}, apart "
-              f"{twice:.4f} ({twice / once:.2f}x)")
+        def once():
+            return fa.flash_attention_bwd(q, k, v, o, m, l, do)
+        _bit_equal(torch, f"{tag}: the backward padded once against the "
+                   f"kernels padded apart", once(), apart())
+        once_ms, apart_ms = time_ms(once, 20), time_ms(apart, 20)
+        print(f"  {tag:<10} {designs['dq']} at {sorted(built)}: once "
+              f"{once_ms:.4f}, apart {apart_ms:.4f} "
+              f"({apart_ms / once_ms:.2f}x)")
         del q, k, v, do, o, m, l
+    print("backward in place against padded once to the same build (ms; "
+          "each kernel in place, padded with its copies, and its build "
+          "alone on copies padded beforehand):")
+    for tag, dt, d in BWD_IN_PLACE:
+        dtype = getattr(torch, dt)
+        if not all(fa._reads_in_place(d, fa._design(dtype, d, kern), kern)
+                   for kern in ("dq", "dkv")):
+            raise AssertionError(f"{tag}: the sm90 dq and dk/dv should read "
+                                 f"the caller's tensors")
+        built = fa.padded_head_dim(d, "sm90", "dq")
+        q, k, v, do, o, m, l = _c4_backward(torch, fa, dtype, d)
+        lse, delta = _bwd_stats(fa, do, o, m, l)
+        padded = fa._pad_head_dim((q, k, v, do), built)
+        scale = fa._softmax_scale(d)
+        args = (lse, delta, True, 0, 0)
+        fns = {"dq": fa._flash_dq_sm90, "dkv": fa._flash_dkv_sm90}
+
+        def padded_once():
+            lse, delta = _bwd_stats(fa, do, o, m, l)
+            cut = fa._pad_head_dim((q, k, v, do), built)
+            dq = fa._at_head_dim(fns["dq"], cut, d, lse, delta, True, 0, 0)
+            dk, dv = fa._at_head_dim(fns["dkv"], cut, d, lse, delta, True,
+                                     0, 0)
+            return dq, dk, dv
+
+        def in_place():
+            return fa.flash_attention_bwd(q, k, v, o, m, l, do)
+        _bit_equal(torch, f"{tag}: the backward in place against padded "
+                   f"once", in_place(), padded_once())
+        line = (f"  {tag:<10} at {built}: in place "
+                f"{time_ms(in_place, 20):.4f}, padded once "
+                f"{time_ms(padded_once, 20):.4f};")
+        for kern, fn in fns.items():
+            mine = time_ms(lambda: fa._launch(kern, "sm90", (q, k, v, do),
+                                              *args), 20)
+            pad = time_ms(lambda: fa._at_head_dim(
+                fn, fa._pad_head_dim((q, k, v, do), built), d, *args), 20)
+            alone = time_ms(lambda: fn(*padded, *args, scale=scale), 20)
+            line += (f"  {kern} {mine:.4f} (padded {pad:.4f}, build alone "
+                     f"{alone:.4f})")
+        print(line)
+        del q, k, v, do, o, m, l, padded
     torch.cuda.empty_cache()
 
 

@@ -1,5 +1,6 @@
 // Flash-attention dk/dv backward for Hopper's tensor cores (sm_90a), bf16 and
-// fp16 at head dims 16, 32, 64, 128 and 256.
+// fp16, built at head dims 16, 32, 64, 128 and 256 and run at every
+// multiple of 8 between them on the caller's tensors (below).
 //
 // Replaces the TPU kernel `_bwd_dkv_kernel` (with the shared recompute
 // `_recompute_p_ds`) in horovod_tpu/parallel/flash_attention.py, launched by
@@ -37,6 +38,18 @@
 // that rounding, in the input's type. At D=128 shared memory holds K 32 KB
 // + V 32 KB + Q 2x16 KB + dO 2x16 KB. D 256 and D 16 and 32 have designs of
 // their own (below).
+// Head dims between the builds (16-bit d past 32, a multiple of 8, so that
+// a row of d values is a legal TMA stride) run the kernel of the next
+// build D (64 or 128, or 256 on the D 256 design) on the caller's [B, S, H,
+// d] tensors as they are (kCut), as the forward does (flash_fwd_sm90.cu):
+// the tensor maps of K, V, Q and dO take d as the extent and d * 2 bytes
+// as the row stride and keep the build's 128-byte boxes, so TMA fills
+// columns d .. D - 1 of every tile with zeros (a box wholly past d reads
+// zeros alone), and the stores of dK and dV take d as their row stride and
+// skip the columns past d. The products are the build's own, so dk and dv
+// equal those of the inputs zero-padded to D bit for bit, without the four
+// copies in and the two out that padding cost. At d = D the build runs as
+// it did.
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -65,7 +78,7 @@ struct DkvSmem {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kCut>
 __global__ void __launch_bounds__(384, 1)
     flash_dkv_sm90(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -73,8 +86,8 @@ __global__ void __launch_bounds__(384, 1)
                    const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int H, int Sq, int Sk, int q_off,
-                   int k_off, int causal, float scale) {
+                   T* __restrict__ dv, int H, int Sq, int Sk, int d,
+                   int q_off, int k_off, int causal, float scale) {
   using L = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -262,9 +275,12 @@ __global__ void __launch_bounds__(384, 1)
     for (int i = 0; i < 2; ++i) {
       const int key = k0 + row0 + 8 * i;
       if (key >= Sk) continue;
-      const size_t off = ((size_t)(b * Sk + key) * H + h) * D + col;
+      // kCut: rows of d columns, of which those past d are not stored.
+      const size_t off =
+          ((size_t)(b * Sk + key) * H + h) * (kCut ? d : D) + col;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
+        if (kCut && col + 8 * jj >= d) continue;
         store2<T>(dk + off + 8 * jj, acc_dk[4 * jj + 2 * i],
                   acc_dk[4 * jj + 2 * i + 1]);
         store2<T>(dv + off + 8 * jj, acc_dv[4 * jj + 2 * i],
@@ -296,6 +312,9 @@ __global__ void __launch_bounds__(384, 1)
 // Shared memory: K 64x256x2 = 32,768 + V 32,768 + Q 2 x 32,768 + dO 2 x
 // 32,768 + P^T and dS^T 2 x 8,192 + lse and delta 2 x 2 x 64 x 4 = 1,024
 // + barriers = 214,056 bytes (215,080 with the alignment pad).
+// Head dims 136 to 248 run here too (kCut, see the header): warpgroup c
+// stores the columns 128c + col of dK and dV below d, so at d <= 192 the
+// second warpgroup's last 64-column box holds zeros alone.
 
 constexpr int kWideD = 256;
 constexpr int kWideKeys = 64;  // keys of a CTA at D 256
@@ -316,7 +335,7 @@ struct WideSmem {
   static_assert(kBytes + 1024 <= 232448, "dk/dv tiles exceed shared memory");
 };
 
-template <typename T>
+template <typename T, bool kCut>
 __global__ void __launch_bounds__(384, 1)
     flash_dkv_sm90_wide(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -324,8 +343,8 @@ __global__ void __launch_bounds__(384, 1)
                         const __grid_constant__ CUtensorMap tdo,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, int H, int Sq, int Sk, int q_off,
-                        int k_off, int causal, float scale) {
+                        T* __restrict__ dv, int H, int Sq, int Sk, int d,
+                        int q_off, int k_off, int causal, float scale) {
   using L = WideSmem;
   constexpr int D = kWideD;
   extern __shared__ uint8_t smem_raw[];
@@ -516,9 +535,12 @@ __global__ void __launch_bounds__(384, 1)
     for (int i = 0; i < 2; ++i) {
       const int key = k0 + row0 + 8 * i;
       if (key >= Sk) continue;
-      const size_t off = ((size_t)(b * Sk + key) * H + h) * D + 128 * c + col;
+      // kCut: rows of d columns; the mask is on the absolute column.
+      const size_t off =
+          ((size_t)(b * Sk + key) * H + h) * (kCut ? d : D) + 128 * c + col;
 #pragma unroll
       for (int jj = 0; jj < 16; ++jj) {
+        if (kCut && 128 * c + col + 8 * jj >= d) continue;
         store2<T>(dk + off + 8 * jj, acc_dk[4 * jj + 2 * i],
                   acc_dk[4 * jj + 2 * i + 1]);
         store2<T>(dv + off + 8 * jj, acc_dv[4 * jj + 2 * i],
@@ -785,54 +807,74 @@ cudaError_t run_narrow(const void* q, const void* k, const void* v,
                         (T*)dv, H, Sq, Sk, q_off, k_off, causal, scale);
 }
 
+// The build of head dim D on tensors of head dim d <= D (d < D: kCut, see
+// the header).
+template <typename T, int D, bool kCut>
+cudaError_t launch_build(const CUtensorMap& tq, const CUtensorMap& tk,
+                         const CUtensorMap& tv, const CUtensorMap& tdo,
+                         const void* lse, const void* delta, void* dk,
+                         void* dv, dim3 grid, int H, int Sq, int Sk, int d,
+                         int q_off, int k_off, int causal, float scale,
+                         cudaStream_t stream) {
+  if constexpr (D == kWideD)
+    return launch_ws(flash_dkv_sm90_wide<T, kCut>, grid,
+                     WideSmem::kBytes + 1024, stream, tq, tk, tv, tdo,
+                     (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
+                     H, Sq, Sk, d, q_off, k_off, causal, scale);
+  else
+    return launch_ws(flash_dkv_sm90<T, D, kCut>, grid,
+                     DkvSmem<D>::kBytes + 1024, stream, tq, tk, tv, tdo,
+                     (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
+                     H, Sq, Sk, d, q_off, k_off, causal, scale);
+}
+
 template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B,
-                int H, int Sq, int Sk, int q_off, int k_off, int causal,
-                float scale, cudaStream_t stream) {
-  constexpr bool wide = D == kWideD;
-  constexpr int keys = wide ? kWideKeys : kKeys;
+                int H, int Sq, int Sk, int d, int q_off, int k_off,
+                int causal, float scale, cudaStream_t stream) {
+  constexpr int keys = D == kWideD ? kWideKeys : kKeys;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kQRows);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tdo, dout, B, Sq, H, D, kQRows);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, keys);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, keys);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, d, kQRows, D);
+  if (err == cudaSuccess)
+    err = encode_bshd<T>(&tdo, dout, B, Sq, H, d, kQRows, D);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, d, keys, D);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, d, keys, D);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sk + keys - 1) / keys);
-  if constexpr (wide)
-    return launch_ws(flash_dkv_sm90_wide<T>, grid, WideSmem::kBytes + 1024,
-                     stream, tq, tk, tv, tdo, (const float*)lse,
-                     (const float*)delta, (T*)dk, (T*)dv, H, Sq, Sk, q_off,
-                     k_off, causal, scale);
-  else
-    return launch_ws(flash_dkv_sm90<T, D>, grid, DkvSmem<D>::kBytes + 1024,
-                     stream, tq, tk, tv, tdo, (const float*)lse,
-                     (const float*)delta, (T*)dk, (T*)dv, H, Sq, Sk, q_off,
-                     k_off, causal, scale);
+  if (d == D)
+    return launch_build<T, D, false>(tq, tk, tv, tdo, lse, delta, dk, dv,
+                                     grid, H, Sq, Sk, d, q_off, k_off,
+                                     causal, scale, stream);
+  return launch_build<T, D, true>(tq, tk, tv, tdo, lse, delta, dk, dv, grid,
+                                  H, Sq, Sk, d, q_off, k_off, causal, scale,
+                                  stream);
 }
 
+// The build a head dim d runs at: 16 and 32 (narrow) for themselves, any
+// other multiple of 8 past 32 the next of 64, 128 and 256.
 template <typename T>
-cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
+cudaError_t run_for_dim(int d, const void* q, const void* k, const void* v,
                         const void* g, const void* lse, const void* delta,
                         void* dk, void* dv, int B, int H, int Sq, int Sk,
                         int qo, int ko, int causal, float sc,
                         cudaStream_t st) {
-  switch (D) {
-    case 16: return run_narrow<T, 16>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 32: return run_narrow<T, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 64: return run<T, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 128: return run<T, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 256: return run<T, 256>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (d == 16) return run_narrow<T, 16>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+  if (d == 32) return run_narrow<T, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, qo, ko, causal, sc, st);
+  if (d <= 32 || d % 8) return cudaErrorInvalidValue;
+  if (d <= 64) return run<T, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, d, qo, ko, causal, sc, st);
+  if (d <= 128) return run<T, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, d, qo, ko, causal, sc, st);
+  if (d <= 256) return run<T, 256>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk, d, qo, ko, causal, sc, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace hvdt
 
 // dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v, do: contiguous [B, S, H, D]
-// of that type with 16-byte-aligned bases; D is 16, 32, 64, 128 or 256.
-// lse, delta: fp32 [B, H, Sq]. dk, dv: [B, Sk, H, D] of that type.
+// of that type with 16-byte-aligned bases; D is 16, 32 or a multiple of 8
+// from 40 to 256 (run by the build of 64, 128 or 256). lse, delta: fp32
+// [B, H, Sq]. dk, dv: [B, Sk, H, D] of that type.
 extern "C" int hvdt_flash_dkv_sm90(int dtype, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,

@@ -1,5 +1,6 @@
 // Flash-attention dq backward for Hopper's tensor cores (sm_90a), bf16 and
-// fp16 at head dims 16, 32, 64, 128 and 256.
+// fp16, built at head dims 16, 32, 64, 128 and 256 and run at every
+// multiple of 8 between them on the caller's tensors (below).
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` (with the shared recompute
 // `_recompute_p_ds`) in horovod_tpu/parallel/flash_attention.py, launched by
@@ -62,6 +63,17 @@
 //     dS 8 registers, under the 240 that setmaxnreg gives a consumer. S and
 //     dP are m64n32k16 products, dQ += dS K two m64n256k16 ones per stage.
 //   D 16, 32: a design of its own (flash_dq_sm90_narrow, below).
+// Head dims between the builds (16-bit d past 32, a multiple of 8, so that
+// a row of d values is a legal TMA stride) run the kernel of the next
+// build D on the caller's [B, S, H, d] tensors as they are (kCut), as the
+// forward does (flash_fwd_sm90.cu): the tensor maps of Q, dO, K and V take
+// d as the extent and d * 2 bytes as the row stride and keep the build's
+// 128-byte boxes, so TMA fills columns d .. D - 1 of every tile with zeros
+// (a box wholly past d reads zeros alone), and the store of dQ takes d as
+// its row stride and skips the columns past d. The products are the
+// build's own, so dq equals that of the inputs zero-padded to D bit for
+// bit, without the four copies in and the one out that padding cost. At d
+// = D the build runs as it did.
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
 
@@ -96,7 +108,7 @@ struct DqSmem {
   static_assert(kBytes + 1024 <= 232448, "dq tiles exceed shared memory");
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kCut>
 __global__ void __launch_bounds__(384, 1)
     flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -104,7 +116,7 @@ __global__ void __launch_bounds__(384, 1)
                   const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dq, int H,
-                  int Sq, int Sk, int q_off, int k_off, int causal,
+                  int Sq, int Sk, int d, int q_off, int k_off, int causal,
                   float scale) {
   using L = DqSmem<D>;
   constexpr int kKeys = L::kKeys;
@@ -262,10 +274,13 @@ __global__ void __launch_bounds__(384, 1)
     for (int i = 0; i < 2; ++i) {
       const int row = q0 + row0 + 8 * i;
       if (row >= Sq) continue;
-      T* out = dq + ((size_t)(b * Sq + row) * H + h) * D + col;
+      // kCut: rows of d columns, of which those past d are not stored.
+      T* out = dq + ((size_t)(b * Sq + row) * H + h) * (kCut ? d : D) + col;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
-        store2<T>(out + 8 * jj, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+        if (!kCut || col + 8 * jj < d)
+          store2<T>(out + 8 * jj, acc[4 * jj + 2 * i],
+                    acc[4 * jj + 2 * i + 1]);
     }
   }
 }
@@ -500,45 +515,56 @@ cudaError_t run_narrow(const void* q, const void* k, const void* v,
                         H, Sq, Sk, q_off, k_off, causal, scale);
 }
 
+// The build of head dim D on tensors of head dim d <= D (d < D: kCut, see
+// the header).
 template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, int B, int H,
-                int Sq, int Sk, int q_off, int k_off, int causal,
+                int Sq, int Sk, int d, int q_off, int k_off, int causal,
                 float scale, cudaStream_t stream) {
   constexpr int kKeys = dq_keys<D>();
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tdo, dout, B, Sq, H, D, kRows);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, D, kKeys);
-  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, D, kKeys);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, Sq, H, d, kRows, D);
+  if (err == cudaSuccess)
+    err = encode_bshd<T>(&tdo, dout, B, Sq, H, d, kRows, D);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, d, kKeys, D);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, d, kKeys, D);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  return launch_ws(flash_dq_sm90<T, D>, grid, DqSmem<D>::kBytes + 1024, stream,
-                   tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-                   (T*)dq, H, Sq, Sk, q_off, k_off, causal, scale);
+  if (d == D)
+    return launch_ws(flash_dq_sm90<T, D, false>, grid,
+                     DqSmem<D>::kBytes + 1024, stream, tq, tk, tv, tdo,
+                     (const float*)lse, (const float*)delta, (T*)dq, H, Sq,
+                     Sk, d, q_off, k_off, causal, scale);
+  return launch_ws(flash_dq_sm90<T, D, true>, grid, DqSmem<D>::kBytes + 1024,
+                   stream, tq, tk, tv, tdo, (const float*)lse,
+                   (const float*)delta, (T*)dq, H, Sq, Sk, d, q_off, k_off,
+                   causal, scale);
 }
 
+// The build a head dim d runs at: 16 and 32 (narrow) for themselves, any
+// other multiple of 8 past 32 the next of 64, 128 and 256.
 template <typename T>
-cudaError_t run_for_dim(int D, const void* q, const void* k, const void* v,
+cudaError_t run_for_dim(int d, const void* q, const void* k, const void* v,
                         const void* g, const void* lse, const void* delta,
                         void* dq, int B, int H, int Sq, int Sk, int qo,
                         int ko, int causal, float sc, cudaStream_t st) {
-  switch (D) {
-    case 16: return run_narrow<T, 16>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 32: return run_narrow<T, 32>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 64: return run<T, 64>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 128: return run<T, 128>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    case 256: return run<T, 256>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (d == 16) return run_narrow<T, 16>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+  if (d == 32) return run_narrow<T, 32>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, qo, ko, causal, sc, st);
+  if (d <= 32 || d % 8) return cudaErrorInvalidValue;
+  if (d <= 64) return run<T, 64>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, d, qo, ko, causal, sc, st);
+  if (d <= 128) return run<T, 128>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, d, qo, ko, causal, sc, st);
+  if (d <= 256) return run<T, 256>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk, d, qo, ko, causal, sc, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace hvdt
 
 // dtype: 1 bf16, 2 fp16 (hvdt::DType). q, k, v, do: contiguous [B, S, H, D]
-// of that type with 16-byte-aligned bases; D is 16, 32, 64, 128 or 256.
-// lse, delta: fp32 [B, H, Sq]. dq: [B, Sq, H, D] of that type.
+// of that type with 16-byte-aligned bases; D is 16, 32 or a multiple of 8
+// from 40 to 256 (run by the build of 64, 128 or 256). lse, delta: fp32
+// [B, H, Sq]. dq: [B, Sq, H, D] of that type.
 extern "C" int hvdt_flash_dq_sm90(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq,

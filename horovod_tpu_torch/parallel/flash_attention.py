@@ -11,14 +11,18 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 past D 512; fp32 past D 32, 3xTF32)
                                 or ``flash_fwd.cu`` (fp32, D <= 32) via
                                 :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 1-256)
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 1-256;
+                                in place at every multiple of 8 past
+                                32)
                                 ``flash_dq_stream_sm90.cu`` (bf16/fp16
                                 past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
                                 or ``flash_bwd.cu`` (fp32, D <= 32) via
                                 :func:`_flash_bwd`
-- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256)
+- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256;
+                                in place at every multiple of 8 past
+                                32)
                                 ``flash_dkv_stream_sm90.cu`` (bf16/fp16
                                 past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
@@ -69,13 +73,14 @@ padded columns of v give output columns that are cut away. So bf16 D 80
 runs all three kernels at 128, D 200 at 256, D 20 all three at 32
 (sm90), D 320 the forward at 384 (sm90) and dq and dk/dv at 320
 (stream), D 600 all three at 640 (stream), and fp32 D 100 all three at
-128 (tf32). The sm90 forward pads nothing where a row of d 16-bit
-values is a legal TMA stride (d a multiple of 8 past 32,
-:func:`_reads_in_place`): its build of the next head dim reads the
+128 (tf32). The sm90 kernels pad nothing where a row of d 16-bit values
+is a legal TMA stride (d a multiple of 8 past 32, so D 80, 96 and 200,
+:func:`_reads_in_place`): the build of the next head dim reads the
 caller's tensors through tensor maps of extent d, which zero-fill the
-columns past d as the pad did, and stores only the columns below d. The
-backward pads q, k, v and do once for the head dim its two kernels run
-at (:func:`_flash_bwd`). The tensor-core kernels read their inputs
+columns past d as the pad did, and stores only the columns below d.
+Where the backward pads (D 20, 260), it pads q, k, v and do once for
+the head dim its two kernels run at (:func:`_flash_bwd`). The
+tensor-core kernels read their inputs
 through TMA (the tf32 pre-pass in 16-byte loads) and need 16-byte
 aligned bases; a misaligned CUDA tensor raises, it never falls back to
 another design.
@@ -285,25 +290,34 @@ def _at_head_dim(fn, padded, d: int, *args):
 def _reads_in_place(d: int, design: str, kernel: str) -> bool:
     """Whether ``kernel``'s ``design`` takes tensors of head dim ``d`` as
     they are though its build is of another head dim
-    (:func:`padded_head_dim`): the sm90 forward past its narrow builds,
+    (:func:`padded_head_dim`): each sm90 kernel past its narrow builds, up
+    to its widest build (512 for the forward, 256 for dq and dk/dv),
     wherever a row of d 16-bit values is a legal TMA stride (d a multiple
     of 8). Its tensor maps take d as their extent, so the build's boxes
     read zeros past d where a pad would have put them, and it stores only
-    the columns below d (csrc/flash_fwd_sm90.cu)."""
-    return (kernel == "fwd" and design == "sm90" and d % 8 == 0
+    the columns below d (csrc/flash_fwd_sm90.cu, flash_dq_sm90.cu,
+    flash_dkv_sm90.cu)."""
+    return (design == "sm90" and d % 8 == 0
             and SM90_NARROW_DIMS[-1] < d <= SM90_KERNEL_DIMS[kernel][-1])
 
 
+def _run_head_dim(d: int, design: str, kernel: str) -> int:
+    """The head dim of the tensors ``kernel``'s ``design`` is given at
+    head dim ``d``: ``d`` itself where it reads them in place
+    (:func:`_reads_in_place`), else :func:`padded_head_dim`."""
+    if _reads_in_place(d, design, kernel):
+        return d
+    return padded_head_dim(d, design, kernel)
+
+
 def _on_padded_head_dim(fn, tensors, *args, design: str, kernel: str):
-    """``fn(*tensors, *args)`` at the head dim :func:`padded_head_dim`
-    gives for ``kernel``'s ``design``, padded and sliced back by
+    """``fn(*tensors, *args)`` at the head dim :func:`_run_head_dim` gives
+    for ``kernel``'s ``design``, padded and sliced back by
     :func:`_pad_head_dim` and :func:`_at_head_dim`, or on ``tensors`` as
-    they are where the kernel reads them so (:func:`_reads_in_place`). A
-    layout step in front of the same kernel, which takes the plain
-    versions as well."""
+    they are where the kernel reads them so. A layout step in front of the
+    same kernel, which takes the plain versions as well."""
     d = tensors[0].shape[-1]
-    built = (d if _reads_in_place(d, design, kernel)
-             else padded_head_dim(d, design, kernel))
+    built = _run_head_dim(d, design, kernel)
     return _at_head_dim(fn, _pad_head_dim(tensors, built), d, *args)
 
 
@@ -523,8 +537,10 @@ def _check_tensor_cores(name, kernel, tensors, design="sm90"):
         raise ValueError(f"{name}: the kernel launcher takes CUDA tensors")
     d = q.shape[-1]
     if design == "sm90":
-        dtypes, dims = SM90_DTYPES, SM90_KERNEL_DIMS[kernel]
-        built = d in dims or _reads_in_place(d, design, kernel)
+        dtypes, built_dims = SM90_DTYPES, SM90_KERNEL_DIMS[kernel]
+        dims = (f"{built_dims} and the multiples of 8 between "
+                f"{SM90_NARROW_DIMS[-1]} and {built_dims[-1]}")
+        built = d in built_dims or _reads_in_place(d, design, kernel)
     else:
         dtypes, starts, width = STREAM_DESIGNS[design]
         start = starts.get(kernel)
@@ -722,7 +738,8 @@ def _dq_tensor_cores(design, q, k, v, do, lse, delta, causal, q_offset,
 def _flash_dq_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                    k_offset: int, scale=None):
     """The wgmma/TMA dq kernel with Q and dO resident (flash_dq_sm90.cu):
-    bf16 and fp16, D 16/32/64/128/256."""
+    bf16 and fp16, D 16/32/64/128/256, and the multiples of 8 between 32
+    and 256 on the next one's build."""
     global flash_dq_sm90_launches
     dq = _dq_tensor_cores("sm90", q, k, v, do, lse, delta, causal, q_offset,
                           k_offset, scale)
@@ -785,7 +802,8 @@ def _dkv_tensor_cores(design, q, k, v, do, lse, delta, causal, q_offset,
 def _flash_dkv_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None):
     """The wgmma/TMA dk/dv kernel (flash_dkv_sm90.cu): bf16 and fp16,
-    D 16/32/64/128/256."""
+    D 16/32/64/128/256, and the multiples of 8 between 32 and 256 on the
+    next one's build (``flash_dkv_sm90_wide`` past 128)."""
     global flash_dkv_sm90_launches
     out = _dkv_tensor_cores("sm90", q, k, v, do, lse, delta, causal,
                             q_offset, k_offset, scale)
@@ -891,13 +909,15 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                k_offset: int, launchers=None):
     """dq and dk/dv kernels: (dq, (dk, dv)); lse and delta are [B,H,Sq]
     fp32. On CUDA each kernel takes the design :func:`_design` gives it,
-    at the head dim :func:`padded_head_dim` gives that design; q, k, v
-    and do are zero-padded once for each head dim the two run at (one:
-    every dtype and head dim gives dq and dk/dv the same, and at 16-bit
-    D 320 they both stream at 320 on the caller's tensors, with no pad at
-    all), so both read the same padded tensors, and where both run the
-    tf32 design one pre-pass of those tensors (:func:`_tf32_bwd_split`)
-    serves both. ``launchers`` ({(kernel, design): function}, default the
+    on tensors of the head dim :func:`_run_head_dim` gives that design;
+    q, k, v and do are zero-padded once for each head dim the two run at
+    (one: every dtype and head dim gives dq and dk/dv the same), so both
+    read the same tensors: the caller's own where both read them in place
+    (16-bit d a multiple of 8 past 32, D 80, 96 and 200 on the sm90
+    builds; D 320 on the stream design, built there), else one padded
+    copy (16-bit D 20 and 260, fp32 D 100). Where both run the tf32
+    design one pre-pass of those tensors (:func:`_tf32_bwd_split`) serves
+    both. ``launchers`` ({(kernel, design): function}, default the
     kernels' own) lets a test run the plain versions through the same
     steps."""
     tensors = (q, k, v, do)
@@ -912,7 +932,7 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 
     def run(kernel):
         design = _design(q.dtype, d, kernel)
-        built = padded_head_dim(d, design, kernel)
+        built = _run_head_dim(d, design, kernel)
         if built not in padded:
             padded[built] = _pad_head_dim(tensors, built)
         fn = launchers[kernel, design]

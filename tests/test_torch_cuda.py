@@ -474,12 +474,15 @@ def test_sm90_dq_and_wide_forward_with_unequal_lengths(cuda, dtype, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 200), ("float16", 80),
-                                     ("float32", 80), ("bfloat16", 320)])
+                                     ("float32", 80), ("bfloat16", 320),
+                                     ("bfloat16", 260), ("float16", 20)])
 def test_backward_pads_once_and_equals_separate_launches(cuda, dtype, d):
     """flash_attention_bwd pads q, k, v and do once for the head dim dq
-    and dk/dv run at (none at 16-bit D 320, where both stream at 320); its
-    gradients equal those of the two kernels launched apart, each on its
-    own padded copies, bit for bit (no atomics: one order of sums)."""
+    and dk/dv run at (fp32 D 80, bf16 D 260, fp16 D 20; none at 16-bit D
+    320, where both stream at 320, nor at bf16 D 200 and fp16 D 80, where
+    both sm90 kernels read the caller's tensors); its gradients equal
+    those of the two kernels launched apart, each on its own padded
+    copies, bit for bit (no atomics: one order of sums)."""
     dt = getattr(torch, dtype)
     q, k, v, do = _inputs(cuda, dt, 1, 192, 2, d, 3)
     o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
@@ -895,6 +898,83 @@ def test_sm90_forward_at_its_built_head_dim_is_unchanged(cuda):
         assert torch.equal(a, b)
     assert torch.equal(cut[0], padded[0][..., :120])
     assert torch.equal(cut[1], padded[1]) and torch.equal(cut[2], padded[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 48), ("bfloat16", 80),
+                                     ("bfloat16", 96), ("bfloat16", 120),
+                                     ("bfloat16", 136), ("bfloat16", 200),
+                                     ("float16", 80)])
+def test_sm90_backward_in_place_between_builds(cuda, dtype, d):
+    """The sm90 dq and dk/dv at 16-bit head dims between their builds
+    read the caller's tensors (H 8: a store past d would land in the next
+    head; D 136 leaves the D 256 build's last box wholly past d): one
+    launch of each through _flash_bwd, every element of dq, dk and dv
+    within the bound of its plain version, and each bit for bit what the
+    same build gives on inputs zero-padded to it, sliced (what the
+    wrapper ran before it read in place)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(cuda, dt, 2, 192, 8, d, d)
+    _, lse, delta = _stats(q, k, v, do, True, 0, 0)
+    args = (lse, delta, True, 0, 0)
+    built = fa.padded_head_dim(d, "sm90", "dq")
+    for kern in ("dq", "dkv"):
+        assert fa._reads_in_place(d, "sm90", kern)
+        assert fa.padded_head_dim(d, "sm90", kern) == built > d
+    fa.reset_launch_counts()
+    dq, (dk, dv) = fa._flash_bwd(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    assert counts["flash_dq_sm90"] == counts["flash_dkv_sm90"] == 1
+    assert sum(counts.values()) == 2
+    padded = fa._pad_head_dim((q, k, v, do), built)
+    scale = fa._softmax_scale(d)
+    dq_b = fa._flash_dq_sm90(*padded, *args, scale=scale)
+    dk_b, dv_b = fa._flash_dkv_sm90(*padded, *args, scale=scale)
+    torch.cuda.synchronize()
+    plain_args = (q, k, v, do, *args)
+    step = tolerance.step_of(dt)
+    _close(dq, fa._flash_dq_plain(*plain_args), 1e-4, tolerance.DQ_ATOL,
+           step, plain_b=fa._flash_dq_plain(*plain_args, operands=dt))
+    for mine, p, p_b in zip((dk, dv), fa._flash_dkv_plain(*plain_args),
+                            fa._flash_dkv_plain(*plain_args, operands=dt)):
+        _close(mine, p, 1e-4, 1e-6, step, plain_b=p_b)
+    for mine, whole in ((dq, dq_b), (dk, dk_b), (dv, dv_b)):
+        assert mine.shape == q.shape
+        assert torch.equal(mine, whole[..., :d])
+
+
+@pytest.mark.cuda
+def test_sm90_backward_at_its_built_head_dim_is_unchanged(cuda):
+    """At the main shape (B 4, S 2048, H 16, D 128, bf16), where d is the
+    built head dim, _flash_bwd launches the dq and dk/dv builds on the
+    caller's tensors with no cut: dq, dk and dv equal bit for bit a
+    direct launch of each build, and the in-place path at D 120 on the
+    same builds equals them on the tensors zero-padded to 128."""
+    dt = torch.bfloat16
+    q, k, v, do = _inputs(cuda, dt, 4, 2048, 16, 128, 1)
+    _, lse, delta = _stats(q, k, v, do, True, 0, 0)
+    args = (lse, delta, True, 0, 0)
+    fa.reset_launch_counts()
+    dq, (dk, dv) = fa._flash_bwd(q, k, v, do, *args)
+    direct = (fa._flash_dq_sm90(q, k, v, do, *args),
+              *fa._flash_dkv_sm90(q, k, v, do, *args))
+    cut = [x[..., :120].contiguous() for x in (q, k, v, do)]
+    dq_c, (dk_c, dv_c) = fa._flash_bwd(*cut, *args)
+    zeroed = [x.clone() for x in (q, k, v, do)]
+    for x in zeroed:
+        x[..., 120:] = 0
+    scale = fa._softmax_scale(120)
+    padded = (fa._flash_dq_sm90(*zeroed, *args, scale=scale),
+              *fa._flash_dkv_sm90(*zeroed, *args, scale=scale))
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    assert counts["flash_dq_sm90"] == counts["flash_dkv_sm90"] == 4
+    assert sum(counts.values()) == 8
+    for mine, theirs in zip((dq, dk, dv), direct):
+        assert torch.equal(mine, theirs)
+    for mine, theirs in zip((dq_c, dk_c, dv_c), padded):
+        assert torch.equal(mine, theirs[..., :120])
 
 
 TF32_WIDE_CASES = [

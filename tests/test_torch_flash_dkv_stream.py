@@ -1,6 +1,7 @@
 """The CPU side of the stream dk/dv (bf16 and fp16 dk/dv past head dim
 256, csrc/flash_dkv_stream_sm90.cu) and of the sm90 forward on the
-caller's tensors at head dims between its builds (csrc/flash_fwd_sm90.cu):
+caller's tensors at head dims between its builds (csrc/flash_fwd_sm90.cu;
+which head dims each sm90 kernel reads in place):
 the plain dk/dv with 16-bit operands, which the card holds the stream dk/dv
 to, against the reference's ``_bwd_dkv_kernel`` at D 320; which tensors the
 forward's launcher is given (the caller's own at every multiple of 8 past
@@ -110,16 +111,17 @@ def test_tolerance_passes_operands_and_fails_a_lost_q_tile_or_region(dtype):
             assert tolerance.worst(lost, plain[i], GRAD_TOL, **kw)[1] > 1
 
 
-def test_only_the_sm90_forward_reads_in_place_at_multiples_of_8():
-    """The sm90 forward past its narrow builds takes any 16-bit head dim
-    whose row is a multiple of 16 bytes as it is, up to its widest build;
-    no other kernel or design does, and every other head dim pads."""
+@pytest.mark.parametrize("kern,widest", [("fwd", 512), ("dq", 256),
+                                          ("dkv", 256)])
+def test_sm90_kernels_read_in_place_at_multiples_of_8(kern, widest):
+    """Each sm90 kernel past its narrow builds takes any 16-bit head dim
+    whose row is a multiple of 16 bytes as it is, up to its widest build
+    (512 for the forward, 256 for dq and dk/dv); no other design does,
+    and every other head dim pads."""
     for d in range(1, 700):
-        want = d % 8 == 0 and 32 < d <= 512
-        assert port._reads_in_place(d, "sm90", "fwd") == want, d
-        for design, kern in (("sm90", "dq"), ("sm90", "dkv"),
-                             ("stream", "fwd"), ("stream", "dkv"),
-                             ("tf32", "fwd"), ("simt", "fwd")):
+        want = d % 8 == 0 and 32 < d <= widest
+        assert port._reads_in_place(d, "sm90", kern) == want, d
+        for design in ("stream", "tf32", "simt"):
             assert not port._reads_in_place(d, design, kern)
 
 

@@ -10,7 +10,8 @@ fail a dq with one 32-key stage (the D 256 kernel's), or at D 320 one
 64-key tile or one 64-column region of the logits (the stream dq's),
 left out, the stream design's start per kernel, and the backward's
 padding of q, k, v and do, once for each head dim its two kernels run
-at (none at 16-bit D 320). The kernels themselves run on the card
+at (none at 16-bit D 320, nor where both sm90 kernels read the caller's
+tensors). The kernels themselves run on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances. Rounding ds (or p) to a 16-bit type moves it by at most u =
@@ -225,9 +226,10 @@ def test_backward_at_d320_reads_the_callers_tensors():
                                      (torch.float32, 600)])
 def test_backward_pads_once_bit_identical_on_plain_versions(dtype, d):
     """``_flash_bwd`` with the plain versions in the kernels' place: dq
-    and dk/dv read the same padded tensors (padded once, at the head dim
-    both run at), and give bit for bit what padding for each apart
-    gives."""
+    and dk/dv read the same tensors, padded once at the head dim both run
+    at (fp32 D 80 and 600) or, where both sm90 kernels read them in place
+    (bf16 D 200, fp16 D 80), the caller's own, and give bit for bit what
+    each gives apart."""
     q, k, v, do = (x.to(dtype) for x in _values(d + 4, dtype, d, s=64))
     _, args = _bwd_args(q, k, v, do)
     plains = {"dq": port._flash_dq_plain, "dkv": port._flash_dkv_plain}
@@ -242,14 +244,19 @@ def test_backward_pads_once_bit_identical_on_plain_versions(dtype, d):
                  for kern, fn in plains.items()
                  for design in ("sm90", "simt", "tf32")}
     dq, (dk, dv) = port._flash_bwd(*args, launchers=launchers)
-    built = {port.padded_head_dim(d, port._design(dtype, d, kern), kern)
-             for kern in plains}
-    assert len(built) == 1 and built.pop() > d
+    designs = {kern: port._design(dtype, d, kern) for kern in plains}
+    built = {port.padded_head_dim(d, designs[kern], kern) for kern in plains}
+    in_place = {port._reads_in_place(d, designs[kern], kern)
+                for kern in plains}
+    assert len(built) == 1 and built.pop() > d and len(in_place) == 1
     assert len(seen) == 2
     assert all(a is b for a, b in zip(*seen))
+    if in_place.pop():
+        assert all(a is b for a, b in zip(seen[0], args[:4]))
+    else:
+        assert not any(a is b for a, b in zip(seen[0], args[:4]))
     apart = [port._on_padded_head_dim(fn, args[:4], *args[4:],
-                                      design=port._design(dtype, d, kern),
-                                      kernel=kern)
+                                      design=designs[kern], kernel=kern)
              for kern, fn in plains.items()]
     for mine, theirs in zip((dq, dk, dv), (apart[0], *apart[1])):
         assert mine.shape == q.shape and mine.dtype == dtype

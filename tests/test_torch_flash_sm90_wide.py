@@ -277,8 +277,8 @@ def test_padding_on_plain_versions_matches_unpadded_and_reference(
         design, dtype, d):
     """What the card runs at a head dim no kernel of the design is built
     for (D 600 on the simt chunks of 640, D 200 and fp16 D 80 on the sm90
-    kernels of 256 and 128: dk/dv on copies padded to them, the forward on
-    the tensors as they are, ``_reads_in_place``), with the plain versions
+    kernels of 256 and 128, which read the tensors as they are,
+    ``_reads_in_place``), with the plain versions
     in the kernels' place: equal to the unpadded plain versions up to the
     order of the fp32 sums over D, and to the reference.
 
