@@ -1124,7 +1124,7 @@ def classifier_leg(torch, hvd, args, card, label, build, batch,
 
 def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
                 tag=None, seed=1):
-    """{row name: ms, plain_ms, library_ms, bound_ms, bound_by} of
+    """{row name: ms, plain_ms, library_ms, bound_ms, bound_by, flops} of
     ``kernels`` on one causal input set of this shape and dtype, each the
     card's mean of 20 launches through ``fa._launch`` (padding included;
     ``time_ms``) with
@@ -1212,7 +1212,8 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
             ms=ms[fn], plain_ms=plain[fn],
             library_ms=lib_fwd if fn == "fwd" else lib_fwd_bwd,
             bound_ms=max(op_ms, byte_ms),
-            bound_by="operations" if op_ms >= byte_ms else "bytes")
+            bound_by="operations" if op_ms >= byte_ms else "bytes",
+            flops=flops[fn])
         if tf32:
             row["bound_fma_ms"] = max(flops[fn] / peak * 1e3, byte_ms)
             row["prepass_ms"] = prepass[fn]
@@ -2034,14 +2035,19 @@ def main(argv=None) -> int:
         base, _, tag = name.partition(".")
         src, replaces = sources[base]
         call = r.pop("call")
+        flops = r.pop("flops")
         launches = (entry_rows[base][base] if tag == "entry"
                     else paths.get(call, {}).get(base, 0))
         kernels.append(dict(name=name, route="cuda", source=csrc + src,
                             replaces=ref + replaces, launches=launches,
                             max_abs_err=errs[name], **r))
+        # The sm90 forward's rate and share of its bound beside its time.
+        rate = (f", {flops / r['ms'] / 1e9:.0f} TFLOP/s, "
+                f"{r['bound_ms'] / r['ms']:.1%} of the bound"
+                if base == "flash_fwd_sm90" else "")
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} "
-              f"by {r['bound_by']}), {launches} launches")
+              f"by {r['bound_by']}{rate}), {launches} launches")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

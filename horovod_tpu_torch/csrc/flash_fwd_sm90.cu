@@ -17,13 +17,13 @@
 // move, above the card's balance point of about 295 (989 TFLOP/s of bf16
 // over 3.35 TB/s): the tensor cores, not the memory, are the limit.
 //
-// Design. One CTA per (128-row q tile, batch*head, part of O's head dim),
-// heaviest causal tiles first (the q tile index runs backwards along grid.y,
-// so the short rows form the tail wave). Three warpgroups:
+// Design. Tiles of 128 q rows, one per (q tile, batch*head, part of O's
+// head dim). Three warpgroups a CTA:
 // - a producer, which gives its registers away (setmaxnreg) and whose one
 //   elected thread issues every copy as a TMA load through 4-D tensor maps
-//   over [B, S, H, D]: the Q tile once, then K and the CTA's columns of V
-//   through a two-stage ring of kv tiles guarded by full/empty mbarriers;
+//   over [B, S, H, D]: a tile's Q, then K and the CTA's columns of V
+//   through a ring of kv stages guarded by full/empty mbarriers (K and V
+//   released apart, K as soon as S has read it);
 // - two consumers, each owning 64 q rows (wgmma's M), which take the
 //   registers. Per kv tile: S = Q K^T as m64 n kKv k16 wgmmas from shared
 //   memory; the online softmax on the accumulator fragments in registers
@@ -34,25 +34,56 @@
 // A 16-bit p is what the reference's own dots take on the TPU by default
 // (16-bit multiplies, f32 accumulation); the checks allow for exactly that
 // rounding, in the input's type (bf16 or fp16).
+//
+// What keeps the tensor cores busy (FA3, Shah et al. 2024, sections
+// 3.1-3.2), each piece turned off by one constant below, so that
+// tools/fwd_sm90_variants.py can rebuild the serial loop (every piece off)
+// and each piece alone; none changes an operation or its order, so o, m
+// and l are bit for bit those of the serial loop:
+// - kOverlap: a consumer issues S of kv tile j + 1 before the softmax of
+//   tile j is used: per tile it issues S_{j+1} and then O += P_j V_j,
+//   waits for S_{j+1} alone, runs the softmax of j + 1 while P_j V_j is in
+//   flight, then waits for P_j V_j; the rescale of O by tile j + 1's
+//   correction runs before P_{j+1} V_{j+1} is issued, in the shadow of
+//   S_{j+2}. O is still scaled, then summed, tile by tile in order. At D
+//   64 to 256 only (kOV).
+// - kPingPong: the two consumers take turns at issuing their products
+//   (two named barriers, kTurnBar + c), so that one's products run while
+//   the other does its softmax instead of both at once; at D 64 and 128
+//   only (kPP).
+// - kPersistent: min(SMs, tiles) CTAs walk the tiles (FwdTile: the
+//   heaviest causal q tiles first) in rounds of one tile a CTA, every
+//   other round backwards (walk_tile), so that one tile's last products
+//   and stores overlap the next tile's loads and no CTA takes only heavy
+//   tiles; the producer loads the next Q into a second buffer (D <= 128)
+//   or once both consumers have released this one.
+// - kStagedStore: O goes to global memory through the consumer's rows of
+//   the Q buffer, 16 bytes a thread along the rows, instead of as 4-byte
+//   stores straight from the accumulator fragments (8 rows apart).
+// Tried and left out, as they did not pay (PERF.md): a third kv stage at
+// D 64 and 128, and a tile's last turn issuing the next tile's first S.
+// The exponential is one MUFU.EX2 (exp2_ftz).
 // Shared memory and registers by head dim (a consumer thread holds its
 // part of O, kOut/2 fp32 for a part kOut columns wide, the scores S, kKv/2,
-// and P as kKv/4 packed pairs):
-//   D 64, 128: 128-row kv stages, O whole. At D=128, Q 32 KB + K 2x32 KB +
-//     V 2x32 KB = 160 KB; O 64 + S 64 + P 32 registers.
+// and P as kKv/4 packed pairs; with kOverlap, S of one tile and P of the
+// one before are live together):
+//   D 64, 128: 128-row kv stages, O whole. At D=128, Q 2x32 KB (two
+//     buffers) + K 2x32 KB + V 2x32 KB = 192 KB; O 64 + S 64 + P 32
+//     registers.
 //   D 256: 128-row stages would need Q 64 KB + K 2x64 KB + V 2x64 KB =
 //     320 KB, so the kv stages are 64 rows: Q 128x256x2 = 65,536 B, K
 //     2x64x256x2 = 65,536 B, V 65,536 B, 196,608 B in all (plus the
 //     barriers and the 1 KB alignment pad); O 128 + S 32 + P 16 registers,
 //     under the 240 that setmaxnreg gives a consumer.
 //   D 384, 512: one consumer's whole O would be 64 x D / 128 = 192 or 256
-//     registers, past the 240, so O's head dim is split in two halves
-//     across grid.z (kOut = 192 or 256 columns). Each CTA holds Q at full
-//     D, streams K at full D and its half of V in 32-row kv stages,
-//     recomputes S over the whole D (the two halves pay S twice: 1.5x the
-//     forward's products) and accumulates only its half of O; both halves
-//     compute the same m and l, and the z = 0 CTA writes them. At D 512:
-//     Q 128x512x2 = 131,072 B + 2 x (K 32x512x2 = 32,768 B + V half
-//     32x256x2 = 16,384 B) = 229,376 B (230,456 with the barriers and the
+//     registers, past the 240, so O's head dim is split in two parts
+//     (kOut = 192 or 256 columns, two tiles of the walk). Each CTA holds Q
+//     at full D, streams K at full D and its half of V in 32-row kv
+//     stages, recomputes S over the whole D (the two halves pay S twice:
+//     1.5x the forward's products) and accumulates only its half of O;
+//     both halves compute the same m and l, and part 0 writes them. At D
+//     512: Q 128x512x2 = 131,072 B + 2 x (K 32x512x2 = 32,768 B + V half
+//     32x256x2 = 16,384 B) = 229,376 B (230,480 with the barriers and the
 //     pad, of 232,448); O 128 + S 16 + P 8 registers. At D 384: 98,304 +
 //     2 x (24,576 + 12,288) = 172,032 B; O 96 + S 16 + P 8 registers, and
 //     O += P V is an m64n192k16 product.
@@ -77,8 +108,29 @@ namespace {
 
 using namespace sm90;
 
-constexpr int kRows = 128;   // q rows of a CTA
-constexpr int kStages = 2;
+constexpr int kRows = 128;  // q rows of a tile
+
+// 2^x as one MUFU.EX2: exp2f adds a range check and two multiplies around
+// it to keep results below 2^-126 from flushing to zero. Flushed, such a p
+// drops out of l (at least 1: the row's max gives p = 1) and of o below
+// their rounding, as does a correction that small; the checks hold o, m
+// and l to the plain version as before.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The pieces of the overlapped loop (header).
+constexpr bool kOverlap = true;
+constexpr bool kPingPong = true;
+constexpr bool kPersistent = true;
+constexpr bool kStagedStore = true;
+
+// Consumer c waits for its turn on named barrier kTurnBar + c, and for
+// its rows of O in shared memory on kStoreBar + c.
+constexpr int kTurnBar = 1;
+constexpr int kStoreBar = 3;
 
 // Rows of a kv stage at head dim D (see the header).
 template <int D>
@@ -96,19 +148,55 @@ template <int D>
 struct FwdSmem {
   static constexpr int kKv = kv_rows<D>();
   static constexpr int kOut = out_cols<D>();
+  static constexpr int kStages = 2;
+  // Q buffers: a second where it fits (D <= 128) lets the producer load
+  // the next tile's Q while this one's is read.
+  static constexpr int kQBufs = kPersistent && D <= 128 ? 2 : 1;
   static constexpr int kRegionQ = kRows * 128;        // [128][64] 16-bit
   static constexpr int kRegionKv = kKv * 128;         // [kKv][64]
   static constexpr int kTileQ = (D / 64) * kRegionQ;  // [128][D]
   static constexpr int kTileK = (D / 64) * kRegionKv;
   static constexpr int kTileV = (kOut / 64) * kRegionKv;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileQ;
+  static constexpr int kK = kQ + kQBufs * kTileQ;
   static constexpr int kV = kK + kStages * kTileK;
   static constexpr int kBar = kV + kStages * kTileV;
-  // q_full, k_full[2], v_full[2], kv_empty[2]
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  // q_full[], q_empty[], k_full[], v_full[], k_empty[], v_empty[]
+  static constexpr int kBytes = kBar + 8 * (2 * kQBufs + 4 * kStages);
   static_assert(kBytes + 1024 <= 232448, "forward tiles exceed shared memory");
 };
+
+// Tile t of the walk: the part of O's head dim fastest (D 384, 512: the
+// two parts of one q tile side by side), then batch*head, then the q tiles
+// from the last (the heaviest causal one) down, so that the tiles' work
+// never grows along the walk; nk is the number of kv tiles it sees.
+template <int D>
+struct FwdTile {
+  int bh, q0, c0, nk;
+  __device__ FwdTile(int t, int BH, int nq, int Sk, int q_off, int k_off,
+                     int causal) {
+    constexpr int kKv = FwdSmem<D>::kKv, kParts = D / FwdSmem<D>::kOut;
+    c0 = (t % kParts) * FwdSmem<D>::kOut;
+    bh = (t / kParts) % BH;
+    q0 = (nq - 1 - t / kParts / BH) * kRows;
+    nk = (Sk + kKv - 1) / kKv;
+    if (causal) {
+      // kv tile j is visible while k_off + kKv j <= q_off + q0 + 127.
+      const long long reach = (long long)q_off + q0 + kRows - 1 - k_off;
+      nk = min(nk, reach < 0 ? 0 : (int)(reach / kKv) + 1);
+    }
+  }
+};
+
+// The r-th tile a CTA takes: round r of the walk is tiles r G .. r G + G
+// - 1 of a grid of G CTAs, taken in the grid's order in even rounds and
+// backwards in odd ones, so that the CTAs that took the heaviest tiles of
+// a round take the lightest of the next (without kPersistent, G is the
+// number of tiles and each CTA takes one).
+__device__ __forceinline__ int walk_tile(int r) {
+  return r * gridDim.x +
+         (r % 2 == 0 ? blockIdx.x : gridDim.x - 1 - blockIdx.x);
+}
 
 template <typename T, int D, bool kCut>
 __global__ void __launch_bounds__(384, 1)
@@ -116,34 +204,39 @@ __global__ void __launch_bounds__(384, 1)
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    T* __restrict__ o, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int H, int Sq, int Sk, int d,
-                   int q_off, int k_off, int causal, float scale) {
+                   float* __restrict__ l_out, int B, int H, int Sq, int Sk,
+                   int d, int q_off, int k_off, int causal, float scale) {
   using L = FwdSmem<D>;
-  constexpr int kKv = L::kKv, kOut = L::kOut;
+  constexpr int kKv = L::kKv, kOut = L::kOut, kSt = L::kStages;
+  constexpr int kQB = L::kQBufs;
+  // The ping-pong pays with 128-key kv tiles (D <= 128), the overlap with
+  // 64 keys or more (D <= 256); the shorter products past them lost 3-11%
+  // to each (PERF.md).
+  constexpr bool kPP = kPingPong && kKv == 128;
+  constexpr bool kOV = kOverlap && kKv >= 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* kv_empty = v_full + kStages;
+  uint64_t* q_empty = q_full + kQB;
+  uint64_t* k_full = q_empty + kQB;
+  uint64_t* v_full = k_full + kSt;
+  uint64_t* k_empty = v_full + kSt;
+  uint64_t* v_empty = k_empty + kSt;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int c0 = blockIdx.z * kOut;  // the first column of O this CTA owns
-  int nk = (Sk + kKv - 1) / kKv;
-  if (causal) {
-    // kv tile j is visible while k_off + kKv j <= q_off + q0 + 127.
-    const long long reach = (long long)q_off + q0 + kRows - 1 - k_off;
-    nk = min(nk, reach < 0 ? 0 : (int)(reach / kKv) + 1);
-  }
+  const int BH = B * H;
+  const int nq = (Sq + kRows - 1) / kRows;
+  const int tiles = BH * nq * (D / kOut);
 
   if (threadIdx.x == 0) {
-    bar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int b = 0; b < kQB; ++b) {
+      bar_init(&q_full[b], 1);
+      bar_init(&q_empty[b], 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < kSt; ++s) {
       bar_init(&k_full[s], 1);
       bar_init(&v_full[s], 1);
-      bar_init(&kv_empty[s], 8);  // lane 0 of each consumer warp
+      bar_init(&k_empty[s], 8);
+      bar_init(&v_empty[s], 8);
     }
     bar_init_fence();
   }
@@ -151,53 +244,55 @@ __global__ void __launch_bounds__(384, 1)
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // Producer.
+    // Producer. Load n of the ring (counted over the CTA's tiles) goes to
+    // stage n % kSt, once the consumers released load n - kSt there.
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      bar_arrive_tx(q_full, L::kTileQ);
-      for (int r = 0; r < D / 64; ++r)
-        tma_load_4d(smem + L::kQ + r * L::kRegionQ, &tq, q_full, 64 * r, h,
-                    q0, b);
-      for (int j = 0; j < nk; ++j) {
-        const int st = j % kStages;
-        // Stage st is free once the consumers released load j - 2.
-        if (j >= kStages) bar_wait(&kv_empty[st], ((j / kStages) & 1) ^ 1);
-        uint8_t* kt = smem + L::kK + st * L::kTileK;
-        uint8_t* vt = smem + L::kV + st * L::kTileV;
-        bar_arrive_tx(&k_full[st], L::kTileK);
+      int n = 0;
+      for (int it = 0; walk_tile(it) < tiles; ++it) {
+        const FwdTile<D> tl(walk_tile(it), BH, nq, Sk, q_off, k_off, causal);
+        const int b = tl.bh / H, h = tl.bh % H;
+        // Q buffer it % kQB, once the consumers released its last use.
+        const int qb = it % kQB, quse = it / kQB;
+        if (quse > 0) bar_wait(&q_empty[qb], (quse & 1) ^ 1);
+        bar_arrive_tx(&q_full[qb], L::kTileQ);
         for (int r = 0; r < D / 64; ++r)
-          tma_load_4d(kt + r * L::kRegionKv, &tk, &k_full[st], 64 * r, h,
-                      j * kKv, b);
-        bar_arrive_tx(&v_full[st], L::kTileV);
-        for (int r = 0; r < kOut / 64; ++r)
-          tma_load_4d(vt + r * L::kRegionKv, &tv, &v_full[st], c0 + 64 * r, h,
-                      j * kKv, b);
+          tma_load_4d(smem + L::kQ + qb * L::kTileQ + r * L::kRegionQ, &tq,
+                      &q_full[qb], 64 * r, h, tl.q0, b);
+        for (int j = 0; j < tl.nk; ++j, ++n) {
+          const int st = n % kSt, free_ph = ((n / kSt) & 1) ^ 1;
+          uint8_t* kt = smem + L::kK + st * L::kTileK;
+          uint8_t* vt = smem + L::kV + st * L::kTileV;
+          if (n >= kSt) bar_wait(&k_empty[st], free_ph);
+          bar_arrive_tx(&k_full[st], L::kTileK);
+          for (int r = 0; r < D / 64; ++r)
+            tma_load_4d(kt + r * L::kRegionKv, &tk, &k_full[st], 64 * r, h,
+                        j * kKv, b);
+          if (n >= kSt) bar_wait(&v_empty[st], free_ph);
+          bar_arrive_tx(&v_full[st], L::kTileV);
+          for (int r = 0; r < kOut / 64; ++r)
+            tma_load_4d(vt + r * L::kRegionKv, &tv, &v_full[st],
+                        tl.c0 + 64 * r, h, j * kKv, b);
+        }
       }
     }
   } else {
-    // Consumers: warpgroup c owns rows 64c .. 64c + 63 of the q tile.
+    // Consumers: warpgroup c owns rows 64c .. 64c + 63 of each q tile.
     regs_inc<240>();
     const int c = wg - 1;
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row0 = 64 * c + 16 * (t / 32) + lane / 4;  // +8 for i = 1
     const int col = 2 * (lane % 4);
-    const uint32_t q_base = smem_u32(smem + L::kQ) + c * 64 * 128;
-    const int first_qpos = q_off + q0 + 64 * c;
+    uint32_t q_base;  // this consumer's rows of the tile's Q buffer
 
-    float acc[kOut / 2];
-#pragma unroll
-    for (int i = 0; i < kOut / 2; ++i) acc[i] = 0.f;
-    float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-
-    bar_wait(q_full, 0);
-    for (int j = 0; j < nk; ++j) {
-      const int st = j % kStages, ph = (j / kStages) & 1;
+    // Lane 0 of each warp releases a barrier of 8 arrivals.
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) bar_arrive(bar);
+    };
+    // S = Q K^T of stage st into s: issued and committed, not waited for.
+    auto scores = [&](float (&s)[kKv / 2], int st) {
       const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTileK);
-      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileV);
-      const int k0 = j * kKv;
-
-      float s[kKv / 2];
-      bar_wait(&k_full[st], ph);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -207,56 +302,10 @@ __global__ void __launch_bounds__(384, 1)
             desc_sw128(k_base + (kk / 4) * L::kRegionKv + step, 16), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-
-      // Scale, mask (only tiles that cross the diagonal or the ragged
-      // end), row max.
-      const bool masked =
-          k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < kKv / 2; ++n) {
-        const int i = (n / 2) % 2;
-        float x = s[n] * scale;
-        if (masked) {
-          const int kc = k0 + 8 * (n / 4) + col + n % 2;
-          const bool ok =
-              kc < Sk && (!causal || q_off + q0 + row0 + 8 * i >= k_off + kc);
-          x = ok ? x : __int_as_float(0xff800000);  // -inf
-        }
-        s[n] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-      float corr[2], mb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m_i[i], mx[i]);
-        corr[i] = exp2f((m_i[i] - m_new) * kLog2e);
-        m_i[i] = m_new;
-        mb[i] = m_new * kLog2e;
-      }
-      // p = exp(x - m): masked entries (-inf) give exactly 0. l keeps this
-      // thread's share of the row; the quad's shares are added at the end.
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < kKv / 2; ++n) {
-        const int i = (n / 2) % 2;
-        const float p = exp2f(fmaf(s[n], kLog2e, -mb[i]));
-        s[n] = p;
-        rs[i] += p;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
-#pragma unroll
-      for (int n = 0; n < kOut / 2; ++n) acc[n] *= corr[(n / 2) % 2];
-      uint32_t pa[kKv / 4];
-#pragma unroll
-      for (int n = 0; n < kKv / 4; ++n) pa[n] = pack2<T>(s[2 * n], s[2 * n + 1]);
-
-      bar_wait(&v_full[st], ph);
+    };
+    // O += P V of stage st: issued and committed, not waited for.
+    auto pv = [&](float (&acc)[kOut / 2], uint32_t (&pa)[kKv / 4], int st) {
+      const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileV);
       fence_regs(acc);
       fence_regs(pa);
       wgmma_fence();
@@ -268,30 +317,250 @@ __global__ void __launch_bounds__(384, 1)
                           desc_sw128(v_base + kk * 16 * 128, L::kRegionKv), 1);
       }
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      __syncwarp();
-      if (lane == 0) bar_arrive(&kv_empty[st]);
-    }
+    };
 
+    int ring = 0;          // kv loads consumed
+    bool opened = false;   // consumer 1 opened the ping-pong
+    for (int it = 0; walk_tile(it) < tiles; ++it) {
+      const FwdTile<D> tl(walk_tile(it), BH, nq, Sk, q_off, k_off, causal);
+      const int b = tl.bh / H, h = tl.bh % H, q0 = tl.q0, nk = tl.nk;
+      const int first_qpos = q_off + q0 + 64 * c;
+      const int qb = it % kQB;
+      uint8_t* q_rows = smem + L::kQ + qb * L::kTileQ + c * 64 * 128;
+      q_base = smem_u32(q_rows);
+      // Q is released after its last S, or with kStagedStore after O has
+      // gone through this consumer's rows of it.
+      auto release_q = [&]() {
+        if (!kStagedStore) release(&q_empty[qb]);
+      };
+
+      float acc[kOut / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
-      l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
-      const int row = q0 + row0 + 8 * i;
-      if (row >= Sq) continue;
-      const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
+      for (int i = 0; i < kOut / 2; ++i) acc[i] = 0.f;
+      float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+
+      // The turns of the ping-pong: one per point where this consumer
+      // issues products (with kOverlap nk + 1: S_0, then S_{j+1} with
+      // P_j V_j, then the last P V; else 2 nk), and the two consumers'
+      // turns alternate over all the CTA's tiles. Consumer 0 goes first:
+      // consumer 1 opens the first turn for it, hands back every turn of
+      // its own (the last of a tile too, so that consumer 0 starts the next
+      // tile while consumer 1 stores this one) but the CTA's very last, and
+      // so leaves no arrival over.
+      const int turns = nk == 0 ? 0 : kOV ? nk + 1 : 2 * nk;
+      bool last_tile = true;  // no later tile of the CTA has turns
+      for (int r = it + 1; kPP && c == 1 && walk_tile(r) < tiles; ++r)
+        if (FwdTile<D>(walk_tile(r), BH, nq, Sk, q_off, k_off, causal).nk) {
+          last_tile = false;
+          break;
+        }
+      int turn = 0;
+      auto turn_begin = [&]() {
+        if (!kPP) return;
+        if (c == 1 && turn == 0 && !opened) {
+          named_bar_arrive(kTurnBar, 256);
+          opened = true;
+        }
+        named_bar_sync(kTurnBar + c, 256);
+      };
+      auto turn_end = [&]() {
+        if (kPP && !(c == 1 && last_tile && turn == turns - 1))
+          named_bar_arrive(kTurnBar + 1 - c, 256);
+        ++turn;
+      };
+
+      // The online softmax of kv tile j's scores in s, in place: scaled,
+      // masked (only tiles that cross the diagonal or the ragged end), the
+      // row max, the correction of the rows' earlier sums, then p =
+      // exp(x - m) (masked entries, -inf, give exactly 0) and l, which
+      // keeps this thread's share of the row; the quad's shares are added
+      // at the end.
+      auto softmax_of = [&](float (&s)[kKv / 2], int j, float (&corr)[2],
+                            const bool masked) {
+        const int k0 = j * kKv;
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int e = 0; e < kKv / 2; ++e) {
+          const int i = (e / 2) % 2;
+          float x = s[e] * scale;
+          if (masked) {
+            const int kc = k0 + 8 * (e / 4) + col + e % 2;
+            const bool ok = kc < Sk &&
+                            (!causal || q_off + q0 + row0 + 8 * i >= k_off + kc);
+            x = ok ? x : __int_as_float(0xff800000);  // -inf
+          }
+          s[e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+        float mb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m_i[i], mx[i]);
+          corr[i] = exp2_ftz((m_i[i] - m_new) * kLog2e);
+          m_i[i] = m_new;
+          mb[i] = m_new * kLog2e;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < kKv / 2; ++e) {
+          const int i = (e / 2) % 2;
+          const float p = exp2_ftz(fmaf(s[e], kLog2e, -mb[i]));
+          s[e] = p;
+          rs[i] += p;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
+      };
+      // Two whole copies, masked or not: ptxas puts the wait for P V at the
+      // top of the block that holds it, so a softmax ending in a block of
+      // its own keeps its exponentials above that wait (one copy with the
+      // mask inside lost them below it, out of P V's shadow).
+      auto softmax = [&](float (&s)[kKv / 2], int j, float (&corr)[2]) {
+        const int k0 = j * kKv;
+        if (k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos))
+          softmax_of(s, j, corr, true);
+        else
+          softmax_of(s, j, corr, false);
+      };
+      auto rescale = [&](const float (&corr)[2]) {
+#pragma unroll
+        for (int e = 0; e < kOut / 2; ++e) acc[e] *= corr[(e / 2) % 2];
+      };
+      auto pack = [&](uint32_t (&pa)[kKv / 4], const float (&s)[kKv / 2]) {
+#pragma unroll
+        for (int e = 0; e < kKv / 4; ++e)
+          pa[e] = pack2<T>(s[2 * e], s[2 * e + 1]);
+      };
+      // Stage and phase of the tile's kv tile j.
+      auto stage = [&](int j) { return (ring + j) % kSt; };
+      auto phase = [&](int j) { return ((ring + j) / kSt) & 1; };
+
+      bar_wait(&q_full[qb], (it / kQB) & 1);
+      if (nk == 0) release_q();
+      float s[kKv / 2], corr[2];
+      uint32_t pa[kKv / 4];
+      if (kOV && nk > 0) {
+        bar_wait(&k_full[stage(0)], phase(0));
+        turn_begin();
+        scores(s, stage(0));
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(&k_empty[stage(0)]);
+        if (nk == 1) release_q();
+        softmax(s, 0, corr);
+        pack(pa, s);
+        for (int j = 1; j < nk; ++j) {
+          bar_wait(&k_full[stage(j)], phase(j));
+          bar_wait(&v_full[stage(j - 1)], phase(j - 1));
+          turn_begin();
+          scores(s, stage(j));
+          rescale(corr);
+          pv(acc, pa, stage(j - 1));
+          turn_end();
+          wgmma_wait<1>();
+          fence_regs(s);
+          release(&k_empty[stage(j)]);
+          if (j == nk - 1) release_q();
+          softmax(s, j, corr);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          release(&v_empty[stage(j - 1)]);
+          pack(pa, s);
+        }
+        rescale(corr);
+        bar_wait(&v_full[stage(nk - 1)], phase(nk - 1));
+        turn_begin();
+        pv(acc, pa, stage(nk - 1));
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(&v_empty[stage(nk - 1)]);
+      } else if (!kOV) {
+        for (int j = 0; j < nk; ++j) {
+          bar_wait(&k_full[stage(j)], phase(j));
+          turn_begin();
+          scores(s, stage(j));
+          turn_end();
+          wgmma_wait<0>();
+          fence_regs(s);
+          release(&k_empty[stage(j)]);
+          if (j == nk - 1) release_q();
+          softmax(s, j, corr);
+          rescale(corr);
+          pack(pa, s);
+          bar_wait(&v_full[stage(j)], phase(j));
+          turn_begin();
+          pv(acc, pa, stage(j));
+          turn_end();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          release(&v_empty[stage(j)]);
+        }
+      }
+      ring += nk;
+
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
+        l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+        inv[i] = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
+      }
       // kCut: rows of d columns, of which those past d are not stored.
-      T* orow = o + ((size_t)(b * Sq + row) * H + h) * (kCut ? d : D) + c0 +
-                col;
+      const int ld = kCut ? d : D;
+      if (kStagedStore) {
+        // O through this consumer's rows of the Q buffer, in Q's layout (a
+        // region of 64 rows x 128 bytes per 64 columns, 16-byte chunks
+        // XOR-ed with the row % 8, so that neither pass conflicts on the
+        // banks), then to global memory 16 bytes a thread, row by row.
 #pragma unroll
-      for (int jj = 0; jj < kOut / 8; ++jj)
-        if (!kCut || c0 + col + 8 * jj < d)
-          store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv,
-                    acc[4 * jj + 2 * i + 1] * inv);
-      if (blockIdx.z == 0 && lane % 4 == 0) {
-        m_out[(size_t)bh * Sq + row] = m_i[i];
-        l_out[(size_t)bh * Sq + row] = l_i[i];
+        for (int i = 0; i < 2; ++i) {
+          const int rr = row0 - 64 * c + 8 * i;
+#pragma unroll
+          for (int jj = 0; jj < kOut / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(
+                q_rows + (jj / 8) * L::kRegionQ + rr * 128 +
+                (((jj % 8) ^ (rr % 8)) * 16) + col * 2) =
+                pack2<T>(acc[4 * jj + 2 * i] * inv[i],
+                         acc[4 * jj + 2 * i + 1] * inv[i]);
+        }
+        named_bar_sync(kStoreBar + c, 128);
+        constexpr int kChunks = kOut / 8;  // 16-byte chunks of a row
+#pragma unroll
+        for (int e = t; e < 64 * kChunks; e += 128) {
+          const int rr = e / kChunks, jj = e % kChunks;
+          const int row = q0 + 64 * c + rr;
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              q_rows + (jj / 8) * L::kRegionQ + rr * 128 +
+              (((jj % 8) ^ (rr % 8)) * 16));
+          if (row < Sq && (!kCut || tl.c0 + 8 * jj < d))
+            *reinterpret_cast<uint4*>(
+                o + ((size_t)(b * Sq + row) * H + h) * ld + tl.c0 + 8 * jj) =
+                v;
+        }
+        // The next Q that TMA writes here comes after these accesses.
+        fence_proxy_async();
+        release(&q_empty[qb]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + row0 + 8 * i;
+        if (row >= Sq) continue;
+        if (!kStagedStore) {
+          T* orow = o + ((size_t)(b * Sq + row) * H + h) * ld + tl.c0 + col;
+#pragma unroll
+          for (int jj = 0; jj < kOut / 8; ++jj)
+            if (!kCut || tl.c0 + col + 8 * jj < d)
+              store2<T>(orow + 8 * jj, acc[4 * jj + 2 * i] * inv[i],
+                        acc[4 * jj + 2 * i + 1] * inv[i]);
+        }
+        if (tl.c0 == 0 && lane % 4 == 0) {
+          m_out[(size_t)tl.bh * Sq + row] = m_i[i];
+          l_out[(size_t)tl.bh * Sq + row] = l_i[i];
+        }
       }
     }
   }
@@ -309,15 +578,27 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
   if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, Sk, H, d, kKv, D);
   if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, Sk, H, d, kKv, D);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + kRows - 1) / kRows, D / out_cols<D>());
+  const long long tiles =
+      (long long)B * H * ((Sq + kRows - 1) / kRows) * (D / out_cols<D>());
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  int grid = (int)tiles;
+  if (kPersistent) {
+    int dev, sms;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    grid = grid < sms ? grid : sms;
+  }
   if (d == D)
-    return launch_ws(flash_fwd_sm90<T, D, false>, grid,
+    return launch_ws(flash_fwd_sm90<T, D, false>, dim3(grid),
                      FwdSmem<D>::kBytes + 1024, stream, tq, tk, tv, (T*)o,
-                     (float*)m, (float*)l, H, Sq, Sk, d, q_off, k_off, causal,
-                     scale);
-  return launch_ws(flash_fwd_sm90<T, D, true>, grid, FwdSmem<D>::kBytes + 1024,
-                   stream, tq, tk, tv, (T*)o, (float*)m, (float*)l, H, Sq, Sk,
-                   d, q_off, k_off, causal, scale);
+                     (float*)m, (float*)l, B, H, Sq, Sk, d, q_off, k_off,
+                     causal, scale);
+  return launch_ws(flash_fwd_sm90<T, D, true>, dim3(grid),
+                   FwdSmem<D>::kBytes + 1024, stream, tq, tk, tv, (T*)o,
+                   (float*)m, (float*)l, B, H, Sq, Sk, d, q_off, k_off, causal,
+                   scale);
 }
 
 // ---- D 16 and 32: narrow rows ---------------------------------------------

@@ -4,7 +4,8 @@
 // flash_bwd_tf32_sm90.cu):
 // TMA loads through a tensor map, mbarrier init / arrive / expect-tx /
 // wait, wgmma descriptors, fence, commit and wait, setmaxnreg, the proxy
-// fence and named barriers for tiles that the consumers write themselves,
+// fence and named barriers (for tiles that the consumers write themselves,
+// and the forward's turns between its consumers),
 // the host-side tensor-map encoders, and the tf32 kernels' pre-pass. The
 // wrappers take bf16 or fp16 (`T`), and fp32 tiles fed to the tensor
 // cores as tf32 (`wgmma_tf32_ss`, `wgmma_tf32_rs`).
@@ -222,6 +223,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrives at named barrier `id` of `count` threads without waiting: the
+// arriving threads count towards a phase that others wait for with
+// named_bar_sync.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], T (bf16 or fp16) in, fp32

@@ -56,11 +56,13 @@ ENTRIES = {FWD: "hvdt_flash_fwd_sm90", DKV: "hvdt_flash_dkv_sm90"}
 
 
 def build(cuda, variants=None, entries=None, subdir="narrow_variants",
-          report="narrow"):
+          report="narrow", logs=None):
     """{variant: (its C entry point, its source)} of ``variants`` (default
     VARIANTS; ``entries``: {source: C entry point}, default ENTRIES),
     built under ``build/horovod_tpu_torch/<subdir>/``; prints ptxas'
-    report of each variant's kernels whose names hold ``report``."""
+    report of each variant's kernels whose names hold ``report``, and
+    every ptxas warning and note of serialized wgmmas. ``logs``, a dict, takes each variant's whole
+    compiler output."""
     variants, entries = variants or VARIANTS, entries or ENTRIES
     out = os.path.join(cuda.BUILD_DIR, subdir)
     cmds, libs = [], {}
@@ -90,6 +92,8 @@ def build(cuda, variants=None, entries=None, subdir="narrow_variants",
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"{name} failed to build:\n{out}")
+        if logs is not None:
+            logs[name] = out
         # ptxas: the registers and spills of each entry named by `report`.
         entry = None
         for line in out.splitlines():
@@ -97,6 +101,8 @@ def build(cuda, variants=None, entries=None, subdir="narrow_variants",
                           r"for) '(\w+)'", line)
             if m:
                 entry = m.group(1) if report in m.group(1) else None
+            elif "warning" in line or "serialized" in line:
+                print(f"  {name}: {line.strip()}")
             elif entry and ("Used" in line or "spill" in line):
                 # the mangled name past its file's unique prefix
                 print(f"  {name}: {entry.split('_cu_')[-1][8:56]}: "

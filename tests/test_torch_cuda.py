@@ -900,6 +900,90 @@ def test_sm90_forward_at_its_built_head_dim_is_unchanged(cuda):
     assert torch.equal(cut[1], padded[1]) and torch.equal(cut[2], padded[2])
 
 
+@pytest.fixture(scope="module")
+def serial_forward():
+    """The sm90 forward with every piece of its overlap turned off (the
+    ``serial`` variant of tools/fwd_sm90_variants.py), built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from horovod_tpu_torch import _cuda
+    from horovod_tpu_torch.tools import fwd_sm90_variants
+    _cuda.load()
+    fn = fwd_sm90_variants.build(_cuda, ["serial"])["serial"]
+    return lambda *args: fwd_sm90_variants.forward(_cuda, fn, *args)
+
+
+SERIAL_CASES = [
+    # dtype, b, sq, h, d, causal, q_offset, k_offset, sk
+    pytest.param("bfloat16", 4, 2048, 16, 128, True, 0, 0, None, id="main"),
+    pytest.param("bfloat16", 2, 512, 4, 128, False, 0, 0, None,
+                 id="noncausal"),
+    pytest.param("float16", 1, 384, 2, 64, True, 0, 200, None,
+                 id="dead_rows_and_tile"),
+    pytest.param("bfloat16", 2, 200, 3, 128, True, 120, 0, 320,
+                 id="sq200_sk320"),
+    pytest.param("float16", 1, 200, 2, 128, False, 0, 0, 320,
+                 id="sq200_sk320_noncausal"),
+    pytest.param("bfloat16", 2, 512, 8, 96, True, 0, 0, None,
+                 id="in_place_d96"),
+    pytest.param("bfloat16", 2, 512, 8, 200, True, 0, 0, None,
+                 id="in_place_d200"),
+    pytest.param("float16", 2, 1024, 8, 64, True, 0, 0, None, id="d64"),
+    pytest.param("float16", 2, 1024, 8, 256, True, 0, 0, None, id="d256"),
+    pytest.param("bfloat16", 2, 512, 4, 384, True, 0, 0, None, id="d384"),
+    pytest.param("bfloat16", 1, 320, 3, 512, True, 64, 0, None,
+                 id="d512_q_offset"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko,sk", SERIAL_CASES)
+def test_sm90_forward_equals_its_serial_loop(cuda, serial_forward, dtype, b,
+                                             s, h, d, causal, qo, ko, sk):
+    """The sm90 forward's overlap (S issued ahead of the softmax, the
+    consumers' turns, the persistent walk, the third kv stage) changes
+    only when products are issued and waited for: its o, m and l equal
+    bit for bit those of the loop with every piece off, at the main
+    shape, non-causal, with rows and a whole q tile that see no key,
+    ragged lengths, in place between builds and at every build past
+    32."""
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _inputs(cuda, dt, b, s, h, d, d + s, sk)
+    mine = fa._launch("fwd", "sm90", (q, k, v), causal, qo, ko)
+    theirs = serial_forward(q, k, v, causal, qo, ko)
+    torch.cuda.synchronize()
+    for a, c in zip(mine, theirs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d", [
+    ("bfloat16", 1, 200, 2, 128), ("float16", 1, 200, 3, 512),
+    ("bfloat16", 2, 1024, 9, 64), ("float16", 3, 100, 1, 256)])
+def test_sm90_forward_walk_writes_every_row(cuda, dtype, b, s, h, d):
+    """Grids of fewer tiles than SMs, of a ragged last q tile, of O's two
+    parts at D 512, and of more tiles than SMs by a few (144): with o, m
+    and l filled with NaN before the launch, every element is written,
+    within the bound of the plain version."""
+    from horovod_tpu_torch import _cuda
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _inputs(cuda, dt, b, s, h, d, d)
+    o, m, l = (torch.full_like(x, float("nan")) for x in fa._fwd_outputs(q))
+    _cuda.check(_cuda.load().hvdt_flash_fwd_sm90(
+        fa._DTYPES[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, s, s, d, 0, 0, 1,
+        fa._softmax_scale(d), torch.cuda.current_stream().cuda_stream),
+        "flash forward sm90 kernel")
+    torch.cuda.synchronize()
+    for x in (o, m, l):
+        assert not x.isnan().any()
+    o_p, m_p, l_p = fa._flash_fwd_plain(q, k, v, True, 0, 0)
+    o_b = fa._flash_fwd_plain(q, k, v, True, 0, 0, operands=dt)[0]
+    _close(o, o_p, 2e-5, 1e-6, tolerance.step_of(dt), plain_b=o_b)
+    _close(m, m_p, 2e-5, 1e-5, rows=False)
+    _close(l, l_p, 2e-5, 1e-5, rows=False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 48), ("bfloat16", 80),
                                      ("bfloat16", 96), ("bfloat16", 120),

@@ -39,7 +39,8 @@ def _edits(tool):
 
 def test_every_variant_tool_is_found():
     assert {"bwd_tf32_variants", "dkv_variants", "dq_variants",
-            "fwd_tf32_variants", "narrow_variants"} <= set(VARIANT_TOOLS)
+            "fwd_sm90_variants", "fwd_tf32_variants",
+            "narrow_variants"} <= set(VARIANT_TOOLS)
 
 
 @pytest.mark.parametrize("name", VARIANT_TOOLS)
@@ -66,3 +67,27 @@ def test_fwd_tf32_variants_cover_the_designs_they_name():
     assert sorted(tool.VARIANTS["128cols_bh_fastest"][1]) == sorted(
         [tool.NO_WIDE, tool.BH_FASTEST])
     assert set(tool.SAME_SUMS) <= set(tool.VARIANTS)
+
+
+def test_fwd_sm90_trace_marks_name_text_of_their_source():
+    tool = _tool("fwd_sm90_variants")
+    src = _source(tool.SOURCE)
+    for old, new in tool.TRACE:
+        assert src.count(old) == 1 and new not in src, old
+
+
+def test_fwd_sm90_serial_variant_turns_off_every_piece():
+    """The sm90 forward's pieces are the constants of one block of its
+    source; the ``serial`` variant turns off each of them, and each has a
+    variant that turns it off alone."""
+    tool = _tool("fwd_sm90_variants")
+    src = _source(tool.SOURCE)
+    block = src.split("// The pieces of the overlapped loop (header).\n")[1]
+    block = block.split("\n\n")[0]
+    pieces = [line for line in block.splitlines()
+              if line.startswith("constexpr ")]
+    assert len(pieces) == 4
+    serial = dict(tool.VARIANTS["serial"])
+    assert sorted(serial) == sorted(pieces)
+    for line in pieces:
+        assert [(line, serial[line])] in tool.VARIANTS.values()
