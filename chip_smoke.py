@@ -23,12 +23,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
    causal), a non-causal, two offset, a D=64
    and a short ragged case, fp32 at two shapes (the main one with the
-   simt kernels beside the tf32 ones) and at two with unequal lengths and
-   offsets (D 128 and 640), each case of C4_CASES at B=2, S=1024, H=8,
-   causal, through the dispatchers (bf16, fp16 and fp32 at D 16 and 32;
-   fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and 200, all three
-   sm90 kernels on the caller's tensors at the next built head dim, and
-   256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and
+   simt kernels beside the tf32 ones) and at three with unequal lengths
+   and offsets (D 128, 320 and 640), each case of C4_CASES at B=2,
+   S=1024, H=8, causal, through the dispatchers (bf16, fp16 and fp32 at
+   D 16 and 32; fp16 at D 64/128/256/512/640; bf16 at D 80, 96 and
+   200, all three sm90 kernels on the caller's tensors at the next built
+   head dim, and 256; fp32 at D 256; bf16 and fp32 at D 320, 384, 512 and
    640), the Gemma-7B geometry (B=2, S=2048, H=16, D=256,
    bf16, causal), the entry's shape (B=2, S=32, H=4, D=16, bf16, causal),
    and ROADMAP C6's ragged lengths on every design
@@ -55,7 +55,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    128-column build up to D 128 and its wide build (256-column parts, P
    through shared memory) past it, so every fp32 C4 case past 128 (D 256,
    320, 384, 512, 640), fp32 D 640 with unequal lengths and offsets and
-   RAGGED_DESIGNS' fp32 D 640 hold the wide build to the fp32 bound.
+   RAGGED_DESIGNS' fp32 D 640 hold the wide build to the fp32 bound. The
+   tf32 dk/dv likewise runs its 64-column build up to D 128 and its wide
+   build (128-column parts, P^T and dS^T through shared memory) past it:
+   the same fp32 cases past 128, and fp32 D 320 and 640 with unequal
+   lengths and offsets, hold it to the TF32X3 plain versions.
    The bound must show its power: at the main shape a plain result with
    one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
    one q tile (queries 1536-1599 of dk and dv) left out must fail it; at
@@ -82,8 +86,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    region of the head dim left out of the logits of the forward, dq, dk
    and dv (columns 256-287) and with columns 384-511 of O left out of the
    forward's P V (the last two 64-column pieces of the wide build's
-   second 256-column part), each of which must fail by more than 10
-   times the bound; at
+   second 256-column part) and with columns 448-511 of dk and dv left out
+   (the second 64-column piece of the wide dk/dv's fourth 128-column
+   part, the piece its producer issues last in each tile), each of which
+   must fail by more than 10 times the bound; at
    bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward and dq
    (keys 512-575) and one 64-query tile of the narrow dk/dv (queries
    512-575), by more than 10 times too; at the ragged length 100 with the
@@ -133,7 +139,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    kernels there (the tf32 forward, dq and dk/dv, each with its
    pre-pass, which is also timed apart (prepass_ms), and the simt ones;
    the tf32 forward's rows name its build, part_cols 128 or 256, and
-   print its factor against SDPA's forward), each C4 case at its phase-2
+   print its factor against SDPA's forward; the tf32 dk/dv's rows name
+   theirs, part_cols 64 or 128), each C4 case at its phase-2
    shape and the
    Gemma-7B geometry through the dispatchers (padding copies included),
    and beside every tensor-core kernel the simt kernel it replaces on the
@@ -322,7 +329,9 @@ RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
 # dk and dv, scaled for that head dim instead of the true one (the
 # in-place sm90 kernels run the build of another);
 # ``fwd_pv_columns``: columns of O left out of P V (a wide tf32 forward
-# that lost a P V piece or read the wrong columns of V^T). The fp32
+# that lost a P V piece or read the wrong columns of V^T);
+# ``dkv_columns``: columns of dk and dv left out (zero: a wide tf32 dk/dv
+# that lost an output piece or stored it in the wrong columns). The fp32
 # entries, those of the tf32 kernels, must be rejected at more than
 # LOST_FP32_BY times the bound.
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
@@ -351,10 +360,13 @@ LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
            # box of the D 256 build (columns 192-199 below d) lost
            "bf16_d200": dict(bwd_columns=(192, 200), by=10.0),
            # the tf32 forward's wide build: columns 384-511, the last
-           # two P V pieces of its second 256-column part, left out of P V
+           # two P V pieces of its second 256-column part, left out of P V;
+           # the wide dk/dv: columns 448-511, the second piece of its
+           # fourth 128-column part (the piece issued last in a tile)
            "fp32_d640": dict(fwd_columns=(256, 288),
                              fwd_pv_columns=(384, 512),
-                             bwd_columns=(256, 288))}
+                             bwd_columns=(256, 288),
+                             dkv_columns=(448, 512))}
 # ROADMAP C6: lengths under 128 that are no multiple of 64 (a full first
 # tile and a ragged second one), on every design: (dtype name, head dim)
 # at B 2, H 2, causal, Sq = Sk = 100 (q_offset 16; keys 64-99, the
@@ -535,6 +547,15 @@ def bwd_without_columns(fa, q, k, v, do, lse, delta, lo, hi):
             fa._product("bhqk,bqhd->bkhd", p, do))
 
 
+def dkv_without_columns(dk, dv, lo, hi):
+    """dk and dv with columns lo..hi-1 of the head dim left out (zero): a
+    kernel that lost the output product of those columns."""
+    dk, dv = dk.clone(), dv.clone()
+    dk[..., lo:hi] = 0
+    dv[..., lo:hi] = 0
+    return dk, dv
+
+
 def kernel_name(fa, kern, design, tag=None):
     """A kernel's row name: its launch counter (flash_fwd, flash_fwd_sm90,
     flash_fwd_tf32, ...) with .tag for a case off the main shape."""
@@ -692,6 +713,10 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             dim = lost["bwd_scale"]
             wrong[f"scale of head dim {dim}"] = fa._flash_dkv_plain(
                 *plain_args, scale=fa._softmax_scale(dim))
+        if lost and "dkv_columns" in lost:
+            lo, hi = lost["dkv_columns"]
+            wrong[f"columns {lo}-{hi - 1} left out"] = dkv_without_columns(
+                dk_p, dv_p, lo, hi)
         for what, (dk_x, dv_x) in wrong.items():
             check_close(f"dk, {what}", dk_x, dk_p, 1e-4, step, plain_b=dk_b,
                         must_fail=True, fail_by=fail_by)
@@ -731,6 +756,8 @@ def kernel_checks(torch, fa):
                 qo=256, sk=768, seed=9)
     kernel_case(fa, torch, "fp32_d640_kv_shorter", 2, 384, 4, 640, fp32,
                 False, ko=64, sk=256, seed=10)
+    kernel_case(fa, torch, "fp32_d320_kv_longer", 2, 256, 4, 320, fp32, True,
+                qo=256, sk=512, seed=12)
     # The fp32 rows of the kernels line carry the fp32 errors at the main
     # shape, the inputs phase 5 times them on: the tf32 forward, dq and
     # dk/dv (with a lost 64-key stage and 64-query tile) and the simt
@@ -1136,7 +1163,8 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     forward's (the first step of its C entry), and the backward's, which
     each standalone dq and dk/dv launch runs for itself (in fa._flash_bwd
     one pre-pass serves both). The tf32 forward's row names its build by
-    the columns of O a CTA owns (part_cols: 128, or 256 past D 128)."""
+    the columns of O a CTA owns (part_cols: 128, or 256 past D 128), the
+    tf32 dk/dv's by the columns of dK and dV (64, or 128 past D 128)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -1220,6 +1248,9 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
         if fn == "fwd" and tf32:
             row["part_cols"] = fa.tf32_fwd_part(
                 fa.padded_head_dim(d, "tf32", "fwd"))
+        if fn == "dkv" and tf32:
+            row["part_cols"] = fa.tf32_dkv_part(
+                fa.padded_head_dim(d, "tf32", "dkv"))
         if fn != "fwd":
             row["library_bwd_only_ms"] = lib_bwd
         # The dtype and head dim of the call, which name the LM path
@@ -1278,6 +1309,8 @@ def kernel_times(torch, fa):
         if design == "tf32" and kern != "fwd":
             more += (f" / {row['bound_fma_ms']:.4f}  pre-pass "
                      f"{row['prepass_ms']:.4f}")
+        if design == "tf32" and kern == "dkv":
+            more += f"  {row['part_cols']}-column parts"
         if design == "tf32" and kern == "fwd":
             more = (f"  SDPA {row['library_ms']:.4f} "
                     f"({new / row['library_ms']:.2f}x)  pre-pass "

@@ -84,6 +84,9 @@ _SIGNATURES = {
     # scratch, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
     "hvdt_flash_dkv_tf32": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # D: the columns of dK and dV a CTA of the tf32 dk/dv owns there (its
+    # build)
+    "hvdt_flash_dkv_tf32_part": [_I],
 }
 
 _lock = threading.Lock()

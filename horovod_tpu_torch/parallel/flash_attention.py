@@ -50,7 +50,7 @@ alone, before any launch:
   of 256 columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
   kernels (parts of 128 columns, and 256 for the forward past D 128;
-  dk/dv 64), each product as hi.hi +
+  dk/dv 64, and 128 past D 128), each product as hi.hi +
   hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
   pre-pass that writes the inputs' parts and the transposes the products
   over the sequence read (the forward's v^T; the backward's k^T, q^T and
@@ -651,6 +651,15 @@ def tf32_fwd_part(d: int) -> int:
     return _cuda.load().hvdt_flash_fwd_tf32_part(d)
 
 
+def tf32_dkv_part(d: int) -> int:
+    """The columns of dK and dV that a CTA of the tf32 dk/dv owns at the
+    built head dim ``d``, as its C entry picks the build
+    (csrc/flash_bwd_tf32_sm90.cu): 64 up to D 128, 128 past it (the wide
+    build, P^T and dS^T through shared memory, so that S and dP are paid
+    half as often). Needs the kernels' library."""
+    return _cuda.load().hvdt_flash_dkv_tf32_part(d)
+
+
 def _flash_fwd_sm90(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
     """The wgmma/TMA forward kernel with Q resident (flash_fwd_sm90.cu):
@@ -874,7 +883,9 @@ def _flash_dq_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 def _flash_dkv_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None, split=None):
     """The 3xTF32 dk/dv kernel (flash_bwd_tf32_sm90.cu): fp32 at the
-    multiples of 32 past 32. ``split``: as for :func:`_flash_dq_tf32`."""
+    multiples of 32 past 32, in 64-column parts of dK and dV up to D 128
+    and 128-column parts past it (:func:`tf32_dkv_part`). ``split``: as
+    for :func:`_flash_dq_tf32`."""
     global flash_dkv_tf32_launches
     split = _bwd_tf32("flash dk/dv", "dkv", q, k, v, do, lse, delta, split)
     b, sq, h, d = q.shape

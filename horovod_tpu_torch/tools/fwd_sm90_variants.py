@@ -216,15 +216,15 @@ def forward(cuda, fn, q, k, v, causal=True, q_off=0, k_off=0):
     return o, m, l
 
 
-def package_report(log):
-    """[problem] of the package's flash_fwd_sm90 instances in ptxas'
-    output: spills and serialized wgmmas (none is allowed)."""
+def package_report(log, kernel="flash_fwd_sm90"):
+    """[problem] of the package's ``kernel`` instances in ptxas' output:
+    spills and serialized wgmmas (none is allowed)."""
     bad, entry = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '(\w+)'", line)
         if m:
-            entry = m.group(1) if "flash_fwd_sm90" in m.group(1) else None
+            entry = m.group(1) if kernel in m.group(1) else None
         elif "serialized" in line:
             bad.append(line.strip())
         elif entry and re.search(r"[1-9]\d* bytes spill", line):

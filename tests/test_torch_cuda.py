@@ -1132,6 +1132,78 @@ def test_tf32_forward_keeps_its_128_column_build_up_to_d128(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,causal,qo,ko,sk", TF32_WIDE_CASES)
+def test_tf32_wide_dkv_matches_plain_version(cuda, b, s, h, d, causal, qo,
+                                             ko, sk):
+    """The tf32 dk/dv's wide build (fp32 past D 128: 128-column parts of
+    dK and dV, P^T and dS^T through shared memory, the last part's half
+    past D left out) at the fp32 gradient bound exactly, against the plain
+    version that takes its products as three tf32 products: head dims from
+    160 to 640, causal and not, offsets, dead rows, unequal lengths and
+    ragged lengths (S 100 and 127). The C entry says which build ran, and
+    the counter that the tf32 dk/dv launched once."""
+    assert fa.tf32_dkv_part(d) == 128
+    q, k, v, do = _inputs(cuda, torch.float32, b, s, h, d, s + d, sk)
+    _, lse, delta = _stats(q, k, v, do, causal, qo, ko)
+    fa.reset_launch_counts()
+    _, (dk, dv) = fa._flash_bwd(q, k, v, do, lse, delta, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_dkv_tf32"] == 1
+    args = (q, k, v, do, lse, delta, causal, qo, ko)
+    dk_p, dv_p = fa._flash_dkv_plain(*args, operands=fa.TF32X3)
+    _close(dk, dk_p, 1e-4, 1e-6)
+    _close(dv, dv_p, 1e-4, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,qo,ko", [(True, 0, 0), (False, 0, 64),
+                                          (True, 64, 0)])
+def test_tf32_wide_dkv_equals_the_64_column_build_bit_for_bit(cuda, causal,
+                                                              qo, ko):
+    """Up to D 128 the C entry runs the 64-column build, past it the wide
+    one; both sum each output column in the same order (the same region
+    accumulators, the same k steps of a 64-column product, the same tile
+    order), so on inputs whose columns past 128 are zero the wide build at
+    D 160 gives the 64-column build's dk and dv at D 128 bit for bit (its
+    fifth region adds exact zeros to S and dP) and zeros past them."""
+    assert [fa.tf32_dkv_part(d) for d in (64, 96, 128, 160, 640)] == \
+        [64, 64, 64, 128, 128]
+    q, k, v, do = _inputs(cuda, torch.float32, 2, 256, 2, 128, 11)
+    _, lse, delta = _stats(q, k, v, do, causal, qo, ko)
+    args = (lse, delta, causal, qo, ko)
+    dk, dv = fa._flash_dkv_tf32(q, k, v, do, *args)
+    wide = fa._flash_dkv_tf32(*fa._pad_head_dim((q, k, v, do), 160), *args,
+                              scale=fa._softmax_scale(128))
+    torch.cuda.synchronize()
+    for got, want in zip(wide, (dk, dv)):
+        assert torch.equal(got[..., :128], want)
+        assert not got[..., 128:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 640])
+def test_tf32_wide_dkv_refuses_a_misaligned_tensor(cuda, d):
+    """A tensor one element off a 16-byte boundary raises before any
+    launch, on the wide dk/dv as on the others: no kernel, no pre-pass and
+    no other design runs in its place."""
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda)
+    bad = flat[1:].view(1, 64, 2, d)
+    good = torch.zeros(1, 64, 2, d, device=cuda)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_dkv_tf32(*tensors, st, st, True, 0, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._launch("dkv", "tf32", tensors, st, st, True, 0, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._tf32_bwd_split(*tensors)
+    assert not any(fa.launch_counts().values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [256, 640])
 def test_tf32_wide_forward_refuses_a_misaligned_tensor(cuda, d):
     """A tensor one element off a 16-byte boundary raises before any

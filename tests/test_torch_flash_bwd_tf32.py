@@ -4,10 +4,12 @@ versions' ``operands=TF32X3`` mode, which the card's checks hold those
 kernels to, against the reference's Pallas backward in interpret mode
 (blocks of 32, as tests/test_torch_flash_head_dims.py runs it); the bound
 of horovod_tpu_torch/utils/tolerance.py, which must pass it and fail one
-TF32 product, a dq that lost a kv tile and a dk/dv that lost a q tile; and
-the backward's design and padding for fp32 through ``_flash_bwd`` with
-the plain versions in the kernels' place. The kernels themselves run on
-the card (tests/test_torch_cuda.py, chip_smoke.py).
+TF32 product, a dq that lost a kv tile, a dk/dv that lost a q tile and a
+dk/dv that lost a 64-column piece of a wide part; the backward's design
+and padding for fp32 through ``_flash_bwd`` with the plain versions in
+the kernels' place; and that the C entries of the kernels' source take
+what the bindings pass. The kernels themselves run on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance: the reference's fp32 gradient bound (tests/test_parallel.py),
 per element 1e-4 of the largest value in its row (the last axis), plus an
@@ -18,6 +20,9 @@ rounding), under fp32's own summation-order noise at these sizes, while
 one TF32 product (2^-11 of each factor) misses the bound many times over.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ import torch
 
 import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
+from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
 
@@ -81,7 +87,7 @@ CONFIGS = [
 
 
 @pytest.mark.parametrize("causal,qo,ko", CONFIGS)
-@pytest.mark.parametrize("d", [64, 128, 320])
+@pytest.mark.parametrize("d", [64, 128, 320, 512, 640])
 def test_3xtf32_backward_holds_the_fp32_bound_against_reference(d, causal,
                                                                 qo, ko):
     stats, args = _args(*_values(d + qo + ko, d), causal, qo, ko)
@@ -132,6 +138,40 @@ def test_bound_rejects_a_dkv_that_lost_a_q_tile():
                                        *args[6:])
     assert tolerance.worst(dk_x, dk, GRAD_TOL)[1] > 10.0
     assert tolerance.worst(dv_x, dv, GRAD_TOL)[1] > 10.0
+
+
+def test_bound_rejects_lost_columns_of_a_wide_dkv_part():
+    """dk and dv whose columns 448-511 were left out (zero: the second
+    64-column piece of the wide tf32 dk/dv's fourth 128-column part, the
+    piece its producer issues last in a tile; a wrong piece offset or T
+    stage would lose it) fail the fp32 gradient bound by more than
+    chip_smoke.py's LOST_FP32_BY, as the card checks the wide build at fp32
+    D 640 (here B 1, S 128, H 2)."""
+    _, args = _args(*_values(9, 640, sq=128), True, 0, 0)
+    dk, dv = port._flash_dkv_plain(*args, operands=port.TF32X3)
+    lo, hi = chip_smoke.LOST_C4["fp32_d640"]["dkv_columns"]
+    assert (lo, hi) == (448, 512)
+    lost = chip_smoke.dkv_without_columns(dk, dv, lo, hi)
+    for got, want in zip(lost, (dk, dv)):
+        assert not got[..., lo:hi].any()
+        assert torch.equal(got[..., :lo], want[..., :lo])
+        ratio = tolerance.worst(got, want, GRAD_TOL)[1]
+        assert ratio > chip_smoke.LOST_FP32_BY
+
+
+@pytest.mark.parametrize("entry", ["hvdt_flash_bwd_tf32_split",
+                                   "hvdt_flash_dq_tf32",
+                                   "hvdt_flash_dkv_tf32",
+                                   "hvdt_flash_dkv_tf32_part"])
+def test_backward_c_entries_take_what_the_bindings_pass(entry):
+    """The C entry points of csrc/flash_bwd_tf32_sm90.cu declare as many
+    parameters as horovod_tpu_torch/_cuda.py's ctypes signature passes
+    (the library is built and loaded on the card only)."""
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_bwd_tf32_sm90.cu")) as fh:
+        src = fh.read()
+    decl = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert decl, entry
+    assert len(decl.group(1).split(",")) == len(_cuda._SIGNATURES[entry])
 
 
 @pytest.mark.parametrize("d,built", [(48, 64), (100, 128), (320, 320),
