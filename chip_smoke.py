@@ -91,8 +91,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    part, the piece its producer issues last in each tile), each of which
    must fail by more than 10 times the bound; at
    bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward and dq
-   (keys 512-575) and one 64-query tile of the narrow dk/dv (queries
-   512-575), by more than 10 times too; at the ragged length 100 with the
+   (keys 512-575), the keys of one kv tile that the narrow forward's last
+   consumer warpgroup takes (keys 704-767) and one 64-query tile of the
+   narrow dk/dv (queries 512-575), by more than 10 times too; at the
+   ragged length 100 with the
    ragged tile (keys 64-99) left out of the forward and dq.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
@@ -317,6 +319,12 @@ PHI3_PATH_KERNELS = MAIN_PATH_KERNELS
 RECORDED_MAIN_MS = {"flash_fwd_sm90": 0.1950, "flash_dq_sm90": 0.2328,
                     "flash_dkv_sm90": 0.3432}
 RECORDED_STEP_S = {"main path": 0.2112, "gemma": 0.1408}
+# The narrow sm90 forward's times before its kv tiles were split among
+# warpgroups (PERF.md, the same card): at the C4 shape and the entry's;
+# phase 5 prints this run's beside them.
+RECORDED_NARROW_FWD_MS = {"bf16_d16": 0.0185, "bf16_d32": 0.0193,
+                          "fp16_d16": 0.0186, "fp16_d32": 0.0193,
+                          "entry": 0.0049}
 # Keys and queries left out of a plain result by the lost-tile checks:
 # one kv tile of the forward (128 rows at D 128, 64 at D 256, 32 at D
 # 512, 64 on the stream and tf32 designs), one kv stage of dq (64 keys at
@@ -342,10 +350,19 @@ LOST_FP32_BY = 10.0
 # than this many times the bound (a wrong swizzle or tile offset loses at
 # least that much).
 LOST_NARROW_BY = 10.0
+# The narrow forward deals a q tile's 64-key kv tiles round-robin among
+# its 4 consumer warpgroups (kNarrowKv, kNarrowSplit in
+# csrc/flash_fwd_sm90.cu): ``fwd_last_warpgroup`` leaves out the keys of
+# one tile that the last warpgroup takes (tile 11 of the C4 shape's 16,
+# keys 704-767; its tiles are 3, 7, 11 and 15), whose partial O and l
+# reach the output only through the warpgroups' combine.
+NARROW_LAST_WARPGROUP_KEYS = (704, 768)
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
 LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
+                            fwd_last_warpgroup=NARROW_LAST_WARPGROUP_KEYS,
                             by=LOST_NARROW_BY),
            "bf16_d32": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
+                            fwd_last_warpgroup=NARROW_LAST_WARPGROUP_KEYS,
                             by=LOST_NARROW_BY),
            "bf16_d512": dict(fwd=(512, 544)),
            "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320),
@@ -624,9 +641,12 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close("forward o", o, o_p, 2e-5, step, plain_b=o_b),
             check_close("forward m", m, m_p, 2e-5, atol=1e-5, rows=False),
             check_close("forward l", l, l_p, 2e-5, rows=False))
-        if lost and "fwd" in lost:
-            lo, hi = lost["fwd"]
-            check_close(f"forward o, keys {lo}-{hi - 1} left out",
+        for key, what in (("fwd", ""),
+                          ("fwd_last_warpgroup", ", the last warpgroup's")):
+            if not (lost and key in lost):
+                continue
+            lo, hi = lost[key]
+            check_close(f"forward o, keys {lo}-{hi - 1}{what} left out",
                         fwd_without_keys(fa, q, k, v, lo, hi, qo, ko), o_p,
                         2e-5, step, plain_b=o_b, must_fail=True,
                         fail_by=fail_by)
@@ -1270,7 +1290,10 @@ def kernel_times(torch, fa):
     simt kernel beside every case that a tensor-core one serves. Prints
     the tensor-core rows against their simt ones (and the tf32
     backward's against SDPA's backward, the plain version and the
-    bound), and the rows at D <= 32, simt and sm90, against SDPA."""
+    bound), the rows at D <= 32, simt and sm90, against SDPA, and the
+    narrow sm90 forward's rows (C4, the entry's shape) beside SDPA, the
+    bound and their times before the kv tiles were split among
+    warpgroups."""
     rows = {}
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
     # The entry's shape (phase 4d), the kernels its path runs.
@@ -1336,6 +1359,12 @@ def kernel_times(torch, fa):
                 line += (f"  {des} {row['ms']:8.4f} ({row['ms'] / lib:.2f}x "
                          f"SDPA {lib:.4f})")
             print(f"{line}  bound {row['bound_ms']:.4f}")
+    for tag, was in RECORDED_NARROW_FWD_MS.items():
+        row = rows[kernel_name(fa, "fwd", "sm90", tag)]
+        print(f"  narrow forward {tag:<8} {row['ms']:.4f} ms ("
+              f"{row['ms'] / row['library_ms']:.2f}x SDPA "
+              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}; "
+              f"recorded before the split: {was} ms, {row['ms'] / was:.3f}x)")
     for name, was in RECORDED_MAIN_MS.items():
         print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")

@@ -87,7 +87,9 @@
 //     pad, of 232,448); O 128 + S 16 + P 8 registers. At D 384: 98,304 +
 //     2 x (24,576 + 12,288) = 172,032 B; O 96 + S 16 + P 8 registers, and
 //     O += P V is an m64n192k16 product.
-//   D 16, 32: a design of its own (flash_fwd_sm90_narrow, below).
+//   D 16, 32: a design of its own (flash_fwd_sm90_narrow, below): a CTA
+//     per tile of 64 q rows, whose kv tiles its consumer warpgroups
+//     share (kNarrowSplit), in two passes (the rows' max, then p).
 // Head dims between the builds (16-bit d past 32, a multiple of 8, so that
 // a row of d values is a legal TMA stride): the kernel of the next build D
 // runs on the caller's [B, S, H, d] tensors as they are (kCut). Their
@@ -606,16 +608,56 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
 // A 16-bit row of Q, K or V is 32 bytes at D 16 and 64 at D 32, so every
 // tile is one region in the swizzle of the row's width (sm90_common.cuh),
 // loaded by one TMA box. The products are small: S = Q K^T takes one k16
-// step at D 16 and two at D 32, O += P V is m64n16k16 or m64n32k16, and
-// the tiles of a CTA take 40 KB or less. What bounds the kernel at these
-// widths is not the tensor cores or the bytes but each CTA's serial chain
-// per kv tile (the TMA wait, S, the softmax's exponentials, P V) and how
-// many CTAs fill the 132 SMs. So a CTA is small: kNarrowGroups consumer
-// warpgroups of 64 q rows each and one producer warp (no register
-// hand-over: a consumer thread holds O in D / 2, S in kNarrowKv / 2 and P
-// in kNarrowKv / 4 registers), and kNarrowCtasPerSm of them share an SM,
-// so that one CTA's exponentials overlap another's products and loads.
-// The heaviest causal q tiles still come first on grid.y.
+// step at D 16 and two at D 32, O += P V is m64n16k16 or m64n32k16. At
+// these widths neither the tensor cores nor the bytes bound the kernel
+// (at the C4 shape, B 2, S 1024, H 8, causal, the bytes take 0.7 us and
+// the products less than 1 us): what bounds it is the serial chain of
+// steps per kv tile (the TMA wait, S, the softmax's exponentials, P V) of
+// the CTAs that see the most tiles. Each CTA takes one tile of 64 q rows
+// (wgmma's M; the grid is (B H, q tiles), the heaviest causal q tiles
+// first on grid.y), and kNarrowSplit consumer warpgroups share its kv
+// tiles, so that the chain is split among them:
+// - All hold the same 64 rows; warpgroup w takes kv tiles j = w, w + G,
+//   w + 2 G, ... (G = kNarrowSplit; dealt round-robin, so that the causal
+//   diagonal's tile is no one warpgroup's), through a ring of
+//   kNarrowStages stages of its own (K, then V) fed by lane w of the one
+//   producer warp, which waits on that warpgroup's barriers alone. The
+//   heaviest C4 CTA's chain goes from 2 x 16 steps of 64 keys (two
+//   passes, below) to 2 x 4.
+// - After pass 1 the warpgroups leave their rows' maxes in shared memory
+//   behind a named barrier (kNarrowMaxBar) and each takes the max of the
+//   G, so every warpgroup rounds p against the row's final max. After
+//   pass 2 warpgroups 1 .. G - 1 leave their partial O and l in their own
+//   rings (free by then) behind another (kNarrowSumBar), and warpgroup 0
+//   adds them to its own in the order w = 1, 2, ..., normalizes and
+//   stores o, m and l. A warpgroup with no kv tile (S 32, a causal first
+//   q tile) passes both barriers with m = -1e30, l = 0 and O = 0. o, m
+//   and l are the same bits from run to run; against one warpgroup only
+//   the fp32 order of l's and O's sums differs.
+// - kNarrowOverlap (built, off): S of the next tile issued before this
+//   tile's reduction: in pass 1 the max of tile i under S of tile i + 1,
+//   in pass 2 S_{i+1} with P_i V_i and the softmax of i + 1 under P_i V_i
+//   (the sm90 forward's kOverlap). Each product is issued and waited for
+//   in one iteration, the reduction under it in blocks of its own (masked
+//   and unmasked copies), above the wait: ptxas puts a wgmma wait at the
+//   top of its block. With four warpgroups to an SM the others' work
+//   fills those waits already, and the overlap's second S array costs
+//   more than it hides.
+// - kNarrowExp2Ftz: the exponential as one MUFU.EX2 (exp2_ftz) in place
+//   of exp2f's range check and two multiplies around it.
+// - The logits of each tile in two whole copies, masked and unmasked,
+//   chosen once a tile, as in the sm90 forward.
+// None changes the products or the rounding of p: with one warpgroup o, m
+// and l are bit for bit the same at 64- or 128-key stages and with the
+// overlap on or off, and with exp2f those of the design before (one
+// warpgroup, 128-key stages, two CTAs an SM: tools/narrow_variants.py's
+// `before_split`, bit-equal to that source). The tool's A/B on an H100 (C4 bf16
+// and fp16, D 16 and 32; PERF.md): the package 0.76-0.83x SDPA's forward;
+// one warpgroup 1.25x the package, two 1.00-1.08x, three 0.94x at D 16 and
+// 1.03x at D 32; 128-key stages 1.17-1.42x (ptxas serializes the wgmmas
+// for want of registers); 2 or 4 stages 1.04x or 1.01x; the overlap on
+// 1.02-1.03x; exp2f 1.03x; `before_split` 1.09-1.10x (the source before, 1.48-
+// 1.58x); two CTAs an SM do not compile at G 4 (56 registers a thread).
 //
 // Two passes over the kv tiles. S is nearly free here, so a first pass
 // computes S alone and each row's max m; the second computes S again, p =
@@ -626,48 +668,56 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, void* m,
 // moves each o by as much as the rounding itself; the checks allow twice
 // the rounding's largest effect in a row of o, and a row of 16 or 32
 // outputs is too few to bound that reliably: on an H100 the online form
-// reached 1.19 to 3.49 of the bound at the C4 shape (B 2, S 1024, H 8),
-// bit-equal to the D 64 kernel on zero-padded inputs, and the two-pass
-// form 0.85 at most. K comes through the ring twice (from L2 the second
-// time); the stage's one barrier counts K's bytes, or K's and V's.
-// tools/narrow_variants.py builds and times the other choices of the four
-// constants below on the card (PERF.md records the times): 64-key stages
-// were 12-13% slower, 128-row CTAs 33% slower at one an SM (84-86% at
-// two, where they spill), a third stage within 2% either way, and the
-// grid's CTAs fit two to an SM with or without the launch bound's
-// minimum.
-constexpr int kNarrowGroups = 1;     // consumer warpgroups (q rows / 64)
-constexpr int kNarrowKv = 128;       // keys of a kv stage
-constexpr int kNarrowStages = 2;     // kv stages in the ring
-constexpr int kNarrowCtasPerSm = 2;  // __launch_bounds__' minimum
-constexpr int kNarrowRows = 64 * kNarrowGroups;
-constexpr int kNarrowThreads = 128 * kNarrowGroups + 32;
+// reached 1.19 to 3.49 of the bound at the C4 shape, bit-equal to the D
+// 64 kernel on zero-padded inputs, and the two-pass form 0.85 at most. K
+// comes through the ring twice (from L2 the second time); a stage's one
+// barrier counts K's bytes, or K's and V's.
+constexpr int kNarrowSplit = 4;         // consumer warpgroups on one q tile
+constexpr int kNarrowKv = 64;           // keys of a kv stage
+constexpr int kNarrowStages = 3;        // kv stages of each warpgroup's ring
+constexpr int kNarrowCtasPerSm = 1;     // __launch_bounds__' minimum
+constexpr bool kNarrowOverlap = false;  // S of the next tile under this one
+constexpr bool kNarrowExp2Ftz = true;   // p by one MUFU.EX2, else exp2f
+constexpr int kNarrowRows = 64;         // q rows of a CTA
+constexpr int kNarrowThreads = 128 * kNarrowSplit + 32;
+// The consumer warpgroups' named barriers: the rows' maxes of pass 1 in
+// shared memory, and the partial sums of pass 2.
+constexpr int kNarrowMaxBar = 1;
+constexpr int kNarrowSumBar = 2;
 
 template <int D>
 struct NarrowFwdSmem {
   static constexpr int kRowBytes = D * 2;
   static constexpr int kTileQ = kNarrowRows * kRowBytes;  // [rows][D]
   static constexpr int kTileKv = kNarrowKv * kRowBytes;   // [kKv][D]
+  static constexpr int kStage = 2 * kTileKv;              // K, then V
+  static constexpr int kRing = kNarrowStages * kStage;    // a warpgroup's
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileQ;
-  static constexpr int kV = kK + kNarrowStages * kTileKv;
-  static constexpr int kBar = kV + kNarrowStages * kTileKv;
-  // q_full, full[stages], empty[stages]
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kNarrowStages);
+  static constexpr int kRings = kQ + kTileQ;
+  // The warpgroups' row maxes after pass 1: [G][2][128] fp32, a thread's
+  // two rows at [w][i][thread].
+  static constexpr int kMax = kRings + kNarrowSplit * kRing;
+  static constexpr int kBar = kMax + kNarrowSplit * 2 * 128 * 4;
+  // q_full, full[G][stages], empty[G][stages]
+  static constexpr int kBytes =
+      kBar + 8 * (1 + 2 * kNarrowSplit * kNarrowStages);
+  // A warpgroup's partial O (D / 2 fp32 a thread) and l (2), written over
+  // its own ring after its last tile: [D / 2 + 2][128] fp32.
+  static constexpr int kPart = (D / 2 + 2) * 128 * 4;
   static_assert(kTileQ % 1024 == 0 && kTileKv % 1024 == 0,
                 "narrow tiles keep the 1024-byte alignment");
+  static_assert(kPart <= kRing, "a partial O exceeds its warpgroup's ring");
   static_assert(kNarrowCtasPerSm * (kBytes + 1024) <= 232448,
                 "narrow forward tiles exceed shared memory");
 };
 
-// S = Q K^T for one kv stage, scaled, with the entries a causal or ragged
-// tile hides at -inf (`masked`: only tiles that cross the diagonal or the
-// ragged end are checked). A consumer thread's fragment: s[n] is row row0
-// + 8 ((n / 2) % 2), key k0 + 8 (n / 4) + col + n % 2.
+// S = Q K^T for one kv stage into s: issued and committed, not waited for.
+// A consumer thread's fragment: s[n] is row row0 + 8 ((n / 2) % 2), key k0
+// + 8 (n / 4) + col + n % 2.
 template <typename T, int D>
-__device__ __forceinline__ void narrow_scores(
-    float (&s)[kNarrowKv / 2], uint32_t q_base, uint32_t k_base, bool masked,
-    int k0, int Sk, int causal, int qpos0, int k_off, int col, float scale) {
+__device__ __forceinline__ void narrow_scores(float (&s)[kNarrowKv / 2],
+                                              uint32_t q_base,
+                                              uint32_t k_base) {
   constexpr int kRB = D * 2;
   wgmma_fence();
 #pragma unroll
@@ -675,12 +725,20 @@ __device__ __forceinline__ void narrow_scores(
     wgmma_ss<kNarrowKv, T>(s, desc_narrow<kRB>(q_base + kk * 32, 16),
                            desc_narrow<kRB>(k_base + kk * 32, 16), kk > 0);
   wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(s);
+}
+
+// The scores in s scaled, with the entries a causal or ragged tile hides
+// at -inf (kMasked: only tiles that cross the diagonal or the ragged end
+// are checked).
+template <bool kMasked>
+__device__ __forceinline__ void narrow_logits(float (&s)[kNarrowKv / 2],
+                                              int k0, int Sk, int causal,
+                                              int qpos0, int k_off, int col,
+                                              float scale) {
 #pragma unroll
   for (int n = 0; n < kNarrowKv / 2; ++n) {
     float x = s[n] * scale;
-    if (masked) {
+    if (kMasked) {
       const int kc = k0 + 8 * (n / 4) + col + n % 2;
       const bool ok =
           kc < Sk && (!causal || qpos0 + 8 * ((n / 2) % 2) >= k_off + kc);
@@ -699,12 +757,13 @@ __global__ void __launch_bounds__(kNarrowThreads, kNarrowCtasPerSm)
                           float* __restrict__ l_out, int H, int Sq, int Sk,
                           int q_off, int k_off, int causal, float scale) {
   using L = NarrowFwdSmem<D>;
-  constexpr int kKv = kNarrowKv, kStg = kNarrowStages, kRB = L::kRowBytes;
+  constexpr int kKv = kNarrowKv, kStg = kNarrowStages, kG = kNarrowSplit;
+  constexpr int kRB = L::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStg;
+  uint64_t* full = q_full + 1;       // [G][stages]
+  uint64_t* empty = full + kG * kStg;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -715,72 +774,155 @@ __global__ void __launch_bounds__(kNarrowThreads, kNarrowCtasPerSm)
     const long long reach = (long long)q_off + q0 + kNarrowRows - 1 - k_off;
     nk = min(nk, reach < 0 ? 0 : (int)(reach / kKv) + 1);
   }
+  // kv tiles of warpgroup w: j = w + G i for i < tiles_of(w).
+  auto tiles_of = [&](int w) { return nk > w ? (nk - w + kG - 1) / kG : 0; };
 
   if (threadIdx.x == 0) {
     bar_init(q_full, 1);
-    for (int s = 0; s < kStg; ++s) {
+    for (int s = 0; s < kG * kStg; ++s) {
       bar_init(&full[s], 1);
-      bar_init(&empty[s], 4 * kNarrowGroups);  // lane 0 of each consumer warp
+      bar_init(&empty[s], 4);  // lane 0 of each warp of the warpgroup
     }
     bar_init_fence();
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  if (warp == 4 * kNarrowGroups) {
-    // Producer: the last warp, one lane. Loads n < nk carry K (pass 1),
-    // loads nk + j K and V of tile j (pass 2).
-    if (threadIdx.x % 32 == 0) {
+  if (warp == 4 * kG) {
+    // Producer: the last warp. Lane 0 loads Q; lane w < G feeds warpgroup
+    // w's ring: its loads n < nw carry K of its tile n (pass 1), loads nw
+    // + i K and V of its tile i (pass 2). Each lane waits on its own
+    // warpgroup's barriers alone.
+    const int w = threadIdx.x % 32;
+    if (w == 0) {
       bar_arrive_tx(q_full, L::kTileQ);
       tma_load_4d(smem + L::kQ, &tq, q_full, 0, h, q0, b);
-      for (int n = 0; n < 2 * nk; ++n) {
-        const int st = n % kStg, j = n < nk ? n : n - nk;
-        if (n >= kStg) bar_wait(&empty[st], ((n / kStg) & 1) ^ 1);
-        bar_arrive_tx(&full[st], (n < nk ? 1 : 2) * L::kTileKv);
-        tma_load_4d(smem + L::kK + st * L::kTileKv, &tk, &full[st], 0, h,
-                    j * kKv, b);
-        if (n >= nk)
-          tma_load_4d(smem + L::kV + st * L::kTileKv, &tv, &full[st], 0, h,
-                      j * kKv, b);
+    }
+    if (w < kG) {
+      const int nw = tiles_of(w);
+      uint8_t* ring = smem + L::kRings + w * L::kRing;
+      uint64_t* fb = full + w * kStg;
+      uint64_t* eb = empty + w * kStg;
+      for (int n = 0; n < 2 * nw; ++n) {
+        const int st = n % kStg, j = w + kG * (n < nw ? n : n - nw);
+        uint8_t* kt = ring + st * L::kStage;
+        if (n >= kStg) bar_wait(&eb[st], ((n / kStg) & 1) ^ 1);
+        bar_arrive_tx(&fb[st], (n < nw ? 1 : 2) * L::kTileKv);
+        tma_load_4d(kt, &tk, &fb[st], 0, h, j * kKv, b);
+        if (n >= nw)
+          tma_load_4d(kt + L::kTileKv, &tv, &fb[st], 0, h, j * kKv, b);
       }
     }
     return;
   }
 
-  // Consumers: warpgroup c owns rows 64c .. 64c + 63 of the q tile.
-  const int c = warp / 4;
+  // Consumers: warpgroup w, all on the q tile's 64 rows.
+  const int w = warp / 4;
   const int t = threadIdx.x % 128, lane = t % 32;
-  const int row0 = 64 * c + 16 * (t / 32) + lane / 4;  // +8 for i = 1
+  const int row0 = 16 * (t / 32) + lane / 4;  // +8 for i = 1
   const int col = 2 * (lane % 4);
-  const uint32_t q_base = smem_u32(smem + L::kQ) + c * 64 * kRB;
-  const int first_qpos = q_off + q0 + 64 * c;
+  const uint32_t q_base = smem_u32(smem + L::kQ);
+  const uint32_t ring = smem_u32(smem + L::kRings + w * L::kRing);
+  uint64_t* fb = full + w * kStg;
+  uint64_t* eb = empty + w * kStg;
+  const int first_qpos = q_off + q0;
   const int qpos0 = q_off + q0 + row0;
+  const int nw = tiles_of(w);
+
+  // K and V of load n of the ring, its wait and its release.
+  auto k_of = [&](int n) { return ring + (n % kStg) * L::kStage; };
+  auto v_of = [&](int n) { return k_of(n) + L::kTileKv; };
+  auto wait_load = [&](int n) { bar_wait(&fb[n % kStg], (n / kStg) & 1); };
+  auto release = [&](int n) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&eb[n % kStg]);
+  };
+  // Whether the warpgroup's tile i crosses the diagonal or the ragged end.
+  auto masked_at = [&](int i) {
+    const int k0 = (w + kG * i) * kKv;
+    return k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
+  };
 
   bar_wait(q_full, 0);
   // Pass 1: the rows' max (kNegInf, the reference's mask value, where a
   // row sees no key).
   float m_i[2] = {kNegInf, kNegInf};
-  for (int j = 0; j < nk; ++j) {
-    const int st = j % kStg, k0 = j * kKv;
-    const bool masked =
-        k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
-    float s[kKv / 2];
-    bar_wait(&full[st], (j / kStg) & 1);
-    narrow_scores<T, D>(s, q_base, smem_u32(smem + L::kK + st * L::kTileKv),
-                        masked, k0, Sk, causal, qpos0, k_off, col, scale);
-    __syncwarp();
-    if (lane == 0) bar_arrive(&empty[st]);
+  auto fold = [&](const float (&s)[kKv / 2]) {
 #pragma unroll
     for (int n = 0; n < kKv / 2; ++n)
       m_i[(n / 2) % 2] = fmaxf(m_i[(n / 2) % 2], s[n]);
+  };
+  // The max of the warpgroup's tile i, in s: two whole copies, masked or
+  // not, each a block of its own.
+  auto fold_tile = [&](float (&s)[kKv / 2], int i) {
+    const int k0 = (w + kG * i) * kKv;
+    if (masked_at(i)) {
+      narrow_logits<true>(s, k0, Sk, causal, qpos0, k_off, col, scale);
+      fold(s);
+    } else {
+      narrow_logits<false>(s, k0, Sk, causal, qpos0, k_off, col, scale);
+      fold(s);
+    }
+  };
+  if (kNarrowOverlap) {
+    // cur holds S of load i, waited for; S of load i + 1 goes into nxt
+    // while cur's max is taken.
+    auto step = [&](float (&cur)[kKv / 2], float (&nxt)[kKv / 2], int i) {
+      wait_load(i + 1);
+      narrow_scores<T, D>(nxt, q_base, k_of(i + 1));
+      fold_tile(cur, i);
+      wgmma_wait<0>();
+      fence_regs(nxt);
+      release(i + 1);
+    };
+    if (nw > 0) {
+      float sa[kKv / 2], sb[kKv / 2];
+      wait_load(0);
+      narrow_scores<T, D>(sa, q_base, k_of(0));
+      wgmma_wait<0>();
+      fence_regs(sa);
+      release(0);
+      int i = 0;
+      for (; i + 2 < nw; i += 2) {
+        step(sa, sb, i);
+        step(sb, sa, i + 1);
+      }
+      if (i + 1 < nw) {
+        step(sa, sb, i);
+        fold_tile(sb, i + 1);
+      } else {
+        fold_tile(sa, i);
+      }
+    }
+  } else {
+    for (int i = 0; i < nw; ++i) {
+      float s[kKv / 2];
+      wait_load(i);
+      narrow_scores<T, D>(s, q_base, k_of(i));
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(i);
+      fold_tile(s, i);
+    }
   }
-  float mb[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     m_i[i] = fmaxf(m_i[i], __shfl_xor_sync(0xffffffffu, m_i[i], 1));
     m_i[i] = fmaxf(m_i[i], __shfl_xor_sync(0xffffffffu, m_i[i], 2));
-    mb[i] = m_i[i] * kLog2e;
   }
+  if (kG > 1) {
+    // The max over the warpgroups (exact, in any order).
+    float* mx = reinterpret_cast<float*>(smem + L::kMax);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mx[(2 * w + i) * 128 + t] = m_i[i];
+    named_bar_sync(kNarrowMaxBar, 128 * kG);
+#pragma unroll
+    for (int u = 0; u < kG; ++u)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        m_i[i] = fmaxf(m_i[i], mx[(2 * u + i) * 128 + t]);
+  }
+  const float mb[2] = {m_i[0] * kLog2e, m_i[1] * kLog2e};
 
   // Pass 2: p = exp(s - m) (masked entries, -inf, give exactly 0), l, and
   // O += P V with P in the input's type and V an MN-major operand (a k16
@@ -789,25 +931,35 @@ __global__ void __launch_bounds__(kNarrowThreads, kNarrowCtasPerSm)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float l_i[2] = {0.f, 0.f};
-  for (int j = 0; j < nk; ++j) {
-    const int n = nk + j, st = n % kStg, k0 = j * kKv;
-    const bool masked =
-        k0 + kKv > Sk || (causal && k_off + k0 + kKv - 1 > first_qpos);
-    float s[kKv / 2];
-    bar_wait(&full[st], (n / kStg) & 1);
-    narrow_scores<T, D>(s, q_base, smem_u32(smem + L::kK + st * L::kTileKv),
-                        masked, k0, Sk, causal, qpos0, k_off, col, scale);
+  auto exps = [&](float (&s)[kKv / 2]) {
 #pragma unroll
     for (int e = 0; e < kKv / 2; ++e) {
       const int i = (e / 2) % 2;
-      const float p = exp2f(fmaf(s[e], kLog2e, -mb[i]));
+      const float x = fmaf(s[e], kLog2e, -mb[i]);
+      const float p = kNarrowExp2Ftz ? exp2_ftz(x) : exp2f(x);
       s[e] = p;
       l_i[i] += p;
     }
-    uint32_t pa[kKv / 4];
+  };
+  // p of the warpgroup's tile i from its S in s, in place: two whole
+  // copies, as fold_tile.
+  auto softmax = [&](float (&s)[kKv / 2], int i) {
+    const int k0 = (w + kG * i) * kKv;
+    if (masked_at(i)) {
+      narrow_logits<true>(s, k0, Sk, causal, qpos0, k_off, col, scale);
+      exps(s);
+    } else {
+      narrow_logits<false>(s, k0, Sk, causal, qpos0, k_off, col, scale);
+      exps(s);
+    }
+  };
+  auto pack = [&](uint32_t (&pa)[kKv / 4], const float (&s)[kKv / 2]) {
 #pragma unroll
     for (int e = 0; e < kKv / 4; ++e) pa[e] = pack2<T>(s[2 * e], s[2 * e + 1]);
-    const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTileKv);
+  };
+  // O += P V of load n: issued and committed, not waited for.
+  auto pv = [&](uint32_t (&pa)[kKv / 4], int n) {
+    const uint32_t v_base = v_of(n);
     fence_regs(acc);
     fence_regs(pa);
     wgmma_fence();
@@ -819,16 +971,83 @@ __global__ void __launch_bounds__(kNarrowThreads, kNarrowCtasPerSm)
                                                L::kTileKv), 1);
     }
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    __syncwarp();
-    if (lane == 0) bar_arrive(&empty[st]);
+  };
+  if (kNarrowOverlap) {
+    if (nw > 0) {
+      float s[kKv / 2];
+      uint32_t pa[kKv / 4];
+      wait_load(nw);
+      narrow_scores<T, D>(s, q_base, k_of(nw));
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(s, 0);
+      pack(pa, s);
+      for (int i = 1; i < nw; ++i) {
+        wait_load(nw + i);
+        narrow_scores<T, D>(s, q_base, k_of(nw + i));
+        pv(pa, nw + i - 1);
+        wgmma_wait<1>();
+        fence_regs(s);
+        softmax(s, i);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(nw + i - 1);
+        pack(pa, s);
+      }
+      pv(pa, 2 * nw - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(2 * nw - 1);
+    }
+  } else {
+    for (int i = 0; i < nw; ++i) {
+      float s[kKv / 2];
+      uint32_t pa[kKv / 4];
+      wait_load(nw + i);
+      narrow_scores<T, D>(s, q_base, k_of(nw + i));
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(s, i);
+      pack(pa, s);
+      pv(pa, nw + i);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(nw + i);
+    }
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
     l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+  }
+  if (kG > 1) {
+    // Warpgroups 1 .. G - 1 leave their partial O and l in their rings
+    // (whose last reads, by TMA and wgmma, are done); warpgroup 0 adds
+    // them to its own in warpgroup order.
+    if (w > 0) {
+      float* part = reinterpret_cast<float*>(smem + L::kRings + w * L::kRing);
+      fence_proxy_async();
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) part[e * 128 + t] = acc[e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) part[(D / 2 + i) * 128 + t] = l_i[i];
+      named_bar_arrive(kNarrowSumBar, 128 * kG);
+      return;
+    }
+    named_bar_sync(kNarrowSumBar, 128 * kG);
+#pragma unroll
+    for (int u = 1; u < kG; ++u) {
+      const float* part =
+          reinterpret_cast<const float*>(smem + L::kRings + u * L::kRing);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] += part[e * 128 + t];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_i[i] += part[(D / 2 + i) * 128 + t];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     const int row = q0 + row0 + 8 * i;
     if (row >= Sq) continue;
     const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);

@@ -680,6 +680,24 @@ NARROW_CASES = [
                  id="fp16_d16_c4_shape"),
     pytest.param("bfloat16", 2, 1024, 8, 32, True, 0, 0, None,
                  id="bf16_d32_c4_shape"),
+    # The forward's kv tiles dealt among its consumer warpgroups: fewer
+    # tiles than warpgroups (2 of 64 keys), a tile count that is no
+    # multiple of theirs (10 of 64 keys, 5 of 128), a long kv (64 tiles,
+    # causal with a k offset), the C4 shape without the mask, and rows
+    # that see keys in the first tiles and none in a later warpgroup's
+    # (k offset 1: row 64 sees keys 0-63 alone, row 128 keys 0-127).
+    pytest.param("bfloat16", 2, 100, 2, 16, False, 0, 0, None,
+                 id="bf16_d16_fewer_tiles_than_warpgroups"),
+    pytest.param("float16", 1, 640, 2, 32, False, 0, 0, None,
+                 id="fp16_d32_s640_tiles_no_multiple"),
+    pytest.param("bfloat16", 1, 256, 2, 16, True, 3900, 64, 4096,
+                 id="bf16_d16_long_kv_k_offset"),
+    pytest.param("float16", 2, 1024, 8, 16, False, 0, 0, None,
+                 id="fp16_d16_c4_shape_noncausal"),
+    pytest.param("bfloat16", 2, 1024, 8, 32, False, 0, 0, None,
+                 id="bf16_d32_c4_shape_noncausal"),
+    pytest.param("float16", 1, 256, 2, 32, True, 0, 1, None,
+                 id="fp16_d32_rows_dead_in_a_later_warpgroup"),
 ]
 
 
@@ -697,6 +715,28 @@ def test_narrow_sm90_kernels_match_plain_versions(cuda, dtype, b, s, h, d,
     counts = fa.launch_counts()
     assert counts["flash_fwd_sm90"] == counts["flash_dkv_sm90"] == 1
     assert counts["flash_dq_sm90"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,causal,qo,ko,s", [
+    pytest.param("bfloat16", 16, True, 0, 0, 1024, id="bf16_d16_c4"),
+    pytest.param("float16", 32, True, 0, 0, 1024, id="fp16_d32_c4"),
+    pytest.param("bfloat16", 32, False, 0, 0, 100, id="bf16_d32_s100"),
+    pytest.param("float16", 16, True, 0, 1, 256, id="fp16_d16_k_offset")])
+def test_narrow_forward_gives_the_same_bits_on_every_launch(cuda, dtype, d,
+                                                            causal, qo, ko,
+                                                            s):
+    """The narrow forward's warpgroups add their partial l and O in a
+    fixed order: two launches on the same inputs give bit-equal o, m and
+    l."""
+    q, k, v, _ = _inputs(cuda, getattr(torch, dtype), 2, s, 8, d, 5)
+    fa.reset_launch_counts()
+    first = [x.clone() for x in fa._flash_fwd(q, k, v, causal, qo, ko)]
+    second = fa._flash_fwd(q, k, v, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_fwd_sm90"] == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

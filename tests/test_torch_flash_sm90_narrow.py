@@ -17,12 +17,22 @@ tests/test_torch_flash_sm90.py holds the bf16
 forward to at D 64); against the reference, fp32 throughout, the rounding
 is the only difference beyond its fp32 bounds (2e-5 forward, 1e-4
 gradients).
+
+The narrow forward deals a q tile's kv tiles round-robin among several
+consumer warpgroups (``kNarrowSplit`` in csrc/flash_fwd_sm90.cu) and adds
+their partial l and O in warpgroup order: ``_split_order`` repeats that
+order of fp32 sums in torch (each thread's share of a row's l summed key
+by key, the quad's four shares added in pairs, O summed 16 keys at a
+time) so that the CPU holds it to the plain forward and the reference;
+``_one_warpgroup_order`` is the order before the split, one warpgroup
+over every tile.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
@@ -223,3 +233,169 @@ def test_narrow_launchers_take_only_cuda_tensors_of_their_head_dims():
         port._flash_dkv_sm90(q, q, q, q, st, st, True, 0, 0)
     for kern in port.KERNELS:
         assert port.SM90_KERNEL_DIMS[kern][:2] == (16, 32)
+
+
+LOG2E = 1.4426950408889634
+NEG_INF = -1e30
+# The keys of the narrow forward's kv stage (kNarrowKv), and a 16-key tile
+# that no build takes, so that S 100 and 127 deal seven or eight tiles
+# among the warpgroups.
+NARROW_KV = 64
+SPLIT_CASES = [
+    # sq, sk, causal, q_offset, k_offset
+    pytest.param(100, 100, True, 16, 0, id="causal_s100_q_offset"),
+    pytest.param(100, 100, True, 0, 40, id="causal_s100_dead_rows"),
+    pytest.param(100, 127, False, 0, 0, id="noncausal_s100_sk127"),
+    pytest.param(100, 127, True, 27, 0, id="causal_s100_sk127"),
+]
+
+
+def _softmax_parts(q, k, v, causal, qo, ko, kv):
+    """What both orders start from: m (the rows' final max, -1e30 where a
+    row sees no key), p = 2^(s log2 e - m log2 e) with masked entries at
+    -inf (so p is exactly 0 there), zero-padded to whole kv tiles, p in
+    the inputs' type, and v zero-padded alike, [B, H, Sk, D]."""
+    s, allowed = port._scores(q, k, causal, qo, ko)
+    if allowed is not None:
+        s = s.masked_fill(~allowed, float("-inf"))
+    m = s.amax(dim=-1).clamp(min=NEG_INF)
+    p = torch.exp2(s * LOG2E - (m * LOG2E)[..., None])
+    pad = -k.shape[1] % kv
+    p = F.pad(p, (0, pad))
+    vv = F.pad(v.float().transpose(1, 2), (0, 0, 0, pad))
+    return m, p, p.to(q.dtype).float(), vv
+
+
+def _thread_sums(p, keys, lc):
+    """The four quad threads' shares of each row's l, ``lc``, summed on
+    over ``keys`` (a range of whole 8-key groups) key by key in the
+    kernel's order: thread c takes keys 8 g + 2 c and 8 g + 2 c + 1 of
+    each group g."""
+    for g in range(keys.start // 8, keys.stop // 8):
+        pairs = p[..., 8 * g:8 * g + 8].reshape(lc.shape + (2,))
+        for e in range(2):
+            lc = lc + pairs[..., e]
+    return lc
+
+
+def _quad(lc):
+    return (lc[..., 0] + lc[..., 1]) + (lc[..., 2] + lc[..., 3])
+
+
+def _steps(pr, vv, keys, o):
+    """O summed on over ``keys`` 16 at a time, a k16 product a step."""
+    for k0 in range(keys.start, keys.stop, 16):
+        o = o + pr[..., k0:k0 + 16] @ vv[:, :, k0:k0 + 16]
+    return o
+
+
+def _finish(o, l, dtype):
+    inv = 1.0 / torch.where(l == 0.0, torch.ones_like(l), l)
+    return (o * inv[..., None]).transpose(1, 2).to(dtype)
+
+
+def _split_order(q, k, v, causal, qo, ko, split, kv=NARROW_KV):
+    """(o, m, l) as the narrow forward sums them with ``split`` consumer
+    warpgroups on ``kv``-key tiles: warpgroup w takes tiles w, w + split,
+    ... in order, sums its threads' shares of l and its O over them, and
+    the warpgroups' quad-summed l and O are added in the order w = 0, 1,
+    ... (tiles past the causal reach, which the kernel skips, add exact
+    zeros here)."""
+    m, p, pr, vv = _softmax_parts(q, k, v, causal, qo, ko, kv)
+    l = o = None
+    for w in range(split):
+        lc = torch.zeros(p.shape[:-1] + (4,))
+        ow = torch.zeros(p.shape[:-1] + (q.shape[-1],))
+        for j in range(w, p.shape[-1] // kv, split):
+            keys = range(j * kv, (j + 1) * kv)
+            lc = _thread_sums(p, keys, lc)
+            ow = _steps(pr, vv, keys, ow)
+        lw = _quad(lc)
+        l, o = (lw, ow) if w == 0 else (l + lw, o + ow)
+    return _finish(o, l, q.dtype), m, l
+
+
+def _one_warpgroup_order(q, k, v, causal, qo, ko):
+    """(o, m, l) in the order before the split: one warpgroup, every key
+    in turn."""
+    m, p, pr, vv = _softmax_parts(q, k, v, causal, qo, ko, 16)
+    keys = range(0, p.shape[-1])
+    l = _quad(_thread_sums(p, keys, torch.zeros(p.shape[:-1] + (4,))))
+    o = _steps(pr, vv, keys, torch.zeros(p.shape[:-1] + (q.shape[-1],)))
+    return _finish(o, l, q.dtype), m, l
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("sq,sk,causal,qo,ko", SPLIT_CASES)
+def test_split_order_matches_plain_and_reference(dtype, d, sq, sk, causal,
+                                                 qo, ko):
+    """The narrow forward's order of sums with 1, 2 and 4 warpgroups (its
+    64-key tiles, and 16-key ones that deal seven or eight tiles) against
+    the plain forward, within the bound chip_smoke.py holds the kernel to
+    (m bit for bit, l within 2e-5), and against the reference's forward
+    in interpret mode within the provable bound of the 16-bit p beyond
+    its fp32 bound; one warpgroup gives the bits of the order before the
+    split."""
+    # The shapes of the reference calls above and in
+    # tests/test_torch_flash_attention.py, whose compilations they reuse.
+    b = 2 if sq == sk else 1
+    rng = np.random.RandomState(sq + sk + d)
+    q, k, v = (torch.tensor(rng.randn(b, n, 2, d).astype(np.float32))
+               .to(dtype) for n in (sq, sk, sk))
+    o_p, m_p, l_p = port._flash_fwd_plain(q, k, v, causal, qo, ko)
+    o_b = port._flash_fwd_plain(q, k, v, causal, qo, ko, operands=dtype)[0]
+    # The reference runs causal throughout (one compilation a shape): a
+    # q offset of Sk lets every row see every key, as without the mask.
+    o_r, m_r, l_r = (torch.tensor(np.asarray(x)) for x in
+                     ref.flash_attention_stats(
+                         *_jax(q.float(), k.float(), v.float()),
+                         causal=True, q_offset=qo if causal else sk,
+                         k_offset=ko if causal else 0, interpret=True))
+    sc, allowed = port._scores(q, k, causal, qo, ko)
+    p = torch.exp(sc - m_p[..., None])
+    if allowed is not None:
+        p = p * allowed
+    moved = torch.einsum("bhqk,bkhd->bqhd", _rounding(p, dtype),
+                         v.float().abs()) / torch.where(
+        l_p == 0, torch.ones_like(l_p), l_p).transpose(1, 2)[..., None]
+    step = tolerance.step_of(dtype)
+    before = _one_warpgroup_order(q, k, v, causal, qo, ko)
+    for kv in (NARROW_KV, 16):
+        for split in (1, 2, 4):
+            o, m, l = _split_order(q, k, v, causal, qo, ko, split, kv)
+            if split == 1:
+                for a, b in zip((o, m, l), before):
+                    assert torch.equal(a, b)
+            assert torch.equal(m, m_p)
+            assert tolerance.worst(l, l_p, 2e-5, rows=False)[1] <= 1.0
+            assert tolerance.worst(o, o_p, FWD_TOL, step=step,
+                                   plain_b=o_b)[1] <= 1.0
+            err = (o.float() - o_r).abs()
+            assert torch.all(err <= moved + FWD_TOL + step * o_r.abs()), (
+                kv, split, err.max())
+            np.testing.assert_allclose(l.numpy(), l_r.numpy(), rtol=2e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(m.numpy(), m_r.numpy(), rtol=2e-5,
+                                       atol=1e-5)
+
+
+def test_last_warpgroup_tile_of_chip_smoke_follows_the_kernel():
+    """chip_smoke.py's must-fail case for the narrow forward's combine
+    leaves out one whole kv tile that the last consumer warpgroup takes,
+    at the constants csrc/flash_fwd_sm90.cu sets (kv tile j goes to
+    warpgroup j % kNarrowSplit)."""
+    import os
+    import re
+    from horovod_tpu_torch import _cuda
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_fwd_sm90.cu")) as fh:
+        src = fh.read()
+    split, kv = (int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("kNarrowSplit", "kNarrowKv"))
+    assert kv == NARROW_KV
+    lo, hi = chip_smoke.NARROW_LAST_WARPGROUP_KEYS
+    assert hi - lo == kv and lo % kv == 0 and hi <= chip_smoke.C4_SHAPE["s"]
+    assert (lo // kv) % split == split - 1 and split > 1
+    for tag in ("bf16_d16", "bf16_d32"):
+        assert chip_smoke.LOST_C4[tag]["fwd_last_warpgroup"] == (lo, hi)
