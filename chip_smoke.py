@@ -16,10 +16,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    1-512, on the caller's tensors at every multiple of 8 past 32, dq and
    dk/dv at 1-256, D 16 and 32 on the narrow-row builds; the stream
    design, bf16 and fp16, the forward past D 512 and dq and dk/dv past
-   D 256; tf32, fp32 past D 32 through 3xTF32 for all three kernels;
-   stream and tf32 streamed over D) and the fp32-FMA (simt) kernels for
-   the rest (fp32 at D <= 32; built past D 512 in 64-column chunks of
-   the head dim); a bf16 case at the main shape forces the simt ones.
+   D 256; tf32, fp32 past D 32 through 3xTF32 for all three kernels and
+   the forward at every fp32 D up to 32 too, on its narrow builds at D
+   16 and 32; stream and the wider tf32 builds streamed over D) and the
+   fp32-FMA (simt) kernels for the rest (fp32 dq and dk/dv at D <= 32;
+   built past D 512 in 64-column chunks of the head dim); a bf16 case at
+   the main shape forces the simt ones.
    Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
    causal), a non-causal, two offset, a D=64
    and a short ragged case, fp32 at two shapes (the main one with the
@@ -93,8 +95,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward and dq
    (keys 512-575), the keys of one kv tile that the narrow forward's last
    consumer warpgroup takes (keys 704-767) and one 64-query tile of the
-   narrow dk/dv (queries 512-575), by more than 10 times too; at the
-   ragged length 100 with the
+   narrow dk/dv (queries 512-575), by more than 10 times too; at fp32 D
+   16 and 32 (C4 shape) with one 32-key stage of the narrow tf32 forward
+   (keys 512-543) and the keys of one kv tile that its last consumer
+   warpgroup takes (keys 736-767), by more than LOST_FP32_BY times; at
+   the ragged length 100 with the
    ragged tile (keys 64-99) left out of the forward and dq.
 3. A small model checked against the dense reference: a 2-layer fp32
    TransformerLM gives the same loss and gradients through the flash
@@ -140,7 +145,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
    kernels there (the tf32 forward, dq and dk/dv, each with its
    pre-pass, which is also timed apart (prepass_ms), and the simt ones;
-   the tf32 forward's rows name its build, part_cols 128 or 256, and
+   the tf32 forward's rows name its build, part_cols 128 or 256, or 16
+   and 32 for the narrow builds at fp32 D 16 and 32, and
    print its factor against SDPA's forward; the tf32 dk/dv's rows name
    theirs, part_cols 64 or 128), each C4 case at its phase-2
    shape and the
@@ -162,8 +168,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    fp32; for the tf32 forward three such products over 494.7 TFLOP/s
    dense tf32, with the 67 TFLOP/s bound beside it as bound_fma_ms; so
    for the tf32 dq and dk/dv) and the bytes in and out over its memory
-   rate (3.35 TB/s). At D 16 and 32 the simt kernels and the sm90 ones
-   that replace them are printed beside SDPA; the entry's shape is timed
+   rate (3.35 TB/s). At D 16 and 32 the simt kernels and the tensor-core
+   ones that replace them (the sm90 kernels at 16 bits, the narrow tf32
+   forward at fp32) are printed beside SDPA; the entry's shape is timed
    too.
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
@@ -357,6 +364,15 @@ LOST_NARROW_BY = 10.0
 # keys 704-767; its tiles are 3, 7, 11 and 15), whose partial O and l
 # reach the output only through the warpgroups' combine.
 NARROW_LAST_WARPGROUP_KEYS = (704, 768)
+# The narrow tf32 forward (fp32 D 16 and 32) deals its 32-key kv tiles
+# round-robin among 4 consumer warpgroups (kNarrowKv, kNarrowSplit in
+# csrc/flash_fwd_tf32_narrow_sm90.cu): keys 736-767 are tile 23 of the C4
+# shape's 32, the last warpgroup's (its tiles are 3, 7, ..., 31), whose
+# partial O, m and l reach the output only through the combine; 512-543 is
+# one kv stage.
+TF32_NARROW_LAST_WARPGROUP_KEYS = (736, 768)
+TF32_NARROW_LOST = dict(fwd=(512, 544),
+                        fwd_last_warpgroup=TF32_NARROW_LAST_WARPGROUP_KEYS)
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
 LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
                             fwd_last_warpgroup=NARROW_LAST_WARPGROUP_KEYS,
@@ -364,6 +380,8 @@ LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
            "bf16_d32": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
                             fwd_last_warpgroup=NARROW_LAST_WARPGROUP_KEYS,
                             by=LOST_NARROW_BY),
+           "fp32_d16": TF32_NARROW_LOST,
+           "fp32_d32": TF32_NARROW_LOST,
            "bf16_d512": dict(fwd=(512, 544)),
            "bf16_d640": dict(fwd=(512, 576), fwd_columns=(256, 320),
                              dq=(512, 576), dkv=(512, 576),
@@ -1290,9 +1308,9 @@ def kernel_times(torch, fa):
     simt kernel beside every case that a tensor-core one serves. Prints
     the tensor-core rows against their simt ones (and the tf32
     backward's against SDPA's backward, the plain version and the
-    bound), the rows at D <= 32, simt and sm90, against SDPA, and the
-    narrow sm90 forward's rows (C4, the entry's shape) beside SDPA, the
-    bound and their times before the kv tiles were split among
+    bound), the rows at D <= 32, simt and tensor-core, against SDPA, and
+    the narrow sm90 forward's rows (C4, the entry's shape) beside SDPA,
+    the bound and their times before the kv tiles were split among
     warpgroups."""
     rows = {}
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.bfloat16))
@@ -1335,17 +1353,18 @@ def kernel_times(torch, fa):
         if design == "tf32" and kern == "dkv":
             more += f"  {row['part_cols']}-column parts"
         if design == "tf32" and kern == "fwd":
+            build = (f"{row['part_cols']}-column parts" if d > 32
+                     else f"narrow build of {row['part_cols']}")
             more = (f"  SDPA {row['library_ms']:.4f} "
                     f"({new / row['library_ms']:.2f}x)  pre-pass "
-                    f"{row['prepass_ms']:.4f}  {row['part_cols']}-column "
-                    f"parts  bound {row['bound_ms']:.4f} / "
-                    f"{row['bound_fma_ms']:.4f}")
+                    f"{row['prepass_ms']:.4f}  {build}  bound "
+                    f"{row['bound_ms']:.4f} / {row['bound_fma_ms']:.4f}")
         print(f"  {tag or 'main fp32':<10} {kern:<4} {design:<6} {new:8.4f}  "
               f"simt {old:8.4f}  {old / new:6.1f}x{more}")
         if not new < old:
             slower.append((tag, kern))
     print("kernels at D <= 32 against SDPA (forward; backward alone), ms: "
-          "the simt kernel, and the sm90 one where it serves:")
+          "the simt kernel, and the tensor-core one where it serves:")
     for tag, dtype, shape in cases:
         if shape["d"] > 32:
             continue
@@ -2097,6 +2116,8 @@ def main(argv=None) -> int:
         base, _, tag = name.partition(".")
         src, replaces = sources[base]
         call = r.pop("call")
+        if base == "flash_fwd_tf32" and call[1] <= 32:
+            src = "flash_fwd_tf32_narrow_sm90.cu"  # the narrow builds
         flops = r.pop("flops")
         launches = (entry_rows[base][base] if tag == "entry"
                     else paths.get(call, {}).get(base, 0))

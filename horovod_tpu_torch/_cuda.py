@@ -58,6 +58,9 @@ _SIGNATURES = {
     # q, k, v, o, m, l, scratch, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream (fp32 only)
     "hvdt_flash_fwd_tf32": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k, v, o, m, l, scratch, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream (fp32 at D 16 and 32 only: the narrow tf32 forward)
+    "hvdt_flash_fwd_tf32_narrow": [_P] * 7 + [_I] * 8 + [_F, _P],
     # q, k, v, scratch, B, H, Sq, Sk, D, stream (fp32 only: the tf32
     # forward's pre-pass alone)
     "hvdt_flash_fwd_tf32_split": [_P] * 4 + [_I] * 5 + [_P],

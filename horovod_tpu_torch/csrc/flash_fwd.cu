@@ -26,8 +26,9 @@
 // flash_fwd_sm90.cu is the redesign that closes that gap (wgmma on bf16
 // tiles fed by TMA) for bf16 and fp16 at head dims 33 to 512, and
 // flash_fwd_stream_sm90.cu for 16-bit head dims past 512 and fp32 past 32
-// (3xTF32); the dispatcher sends this kernel only D 16 and 32, and the
-// card's checks run it beside the tensor-core kernels at every head dim
+// (3xTF32), flash_fwd_tf32_narrow_sm90.cu for fp32 at D 16 and 32; the
+// dispatcher sends this kernel nothing, and the card's checks run it
+// beside the tensor-core kernels at every head dim
 // (the wrapper zero-pads any other D to the next built one and passes
 // the scale of the true D). At D = 256 its three [64][257]
 // tiles and the score tile take 209 KB of shared memory, within

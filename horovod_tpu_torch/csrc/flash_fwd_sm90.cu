@@ -4,8 +4,8 @@
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
 // (launched by `_flash_bhsd`), as flash_fwd_stream_sm90.cu does for fp32
-// and 16-bit head dims past 512 and flash_fwd.cu for fp32 at head dims up
-// to 32. Same function and contract: an online
+// and 16-bit head dims past 512 and flash_fwd_tf32_narrow_sm90.cu for fp32
+// at head dims up to 32. Same function and contract: an online
 // softmax whose running max m, normalizer l and output accumulator stay in
 // fp32; runtime offsets give
 // the global positions of q[0] and k[0]; kv tiles wholly in the future of a

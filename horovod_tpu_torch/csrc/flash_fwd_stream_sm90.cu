@@ -7,7 +7,8 @@
 //
 // Replaces the TPU kernel `_kernel` in horovod_tpu/parallel/flash_attention.py
 // (launched by `_flash_bhsd`), as flash_fwd_sm90.cu does for 16-bit head
-// dims up to 512 and flash_fwd.cu for fp32 at D <= 32. Same function and
+// dims up to 512 and flash_fwd_tf32_narrow_sm90.cu for fp32 at D 16 and 32
+// (flash_fwd.cu, the fp32-FMA kernel, before it). Same function and
 // contract: an online softmax whose running max m, normalizer l and output
 // accumulator stay in fp32; runtime offsets give the global positions of
 // q[0] and k[0]; kv tiles wholly in the future of a q tile are skipped;
@@ -69,8 +70,10 @@
 // tolerance (one tf32 product alone misses it more than tenfold:
 // tests/test_torch_flash_fwd_tf32_wide.py). tf32 wgmma takes
 // both operands K-major (no transpose bit), so O += P V needs V^T (keys
-// contiguous). A pre-pass (tf32_split, tf32_split_t; its own C entry,
-// hvdt_flash_fwd_tf32_split, which hvdt_flash_fwd_tf32 runs first) writes,
+// contiguous). A pre-pass (tf32_fwd_split: one launch of
+// tf32_fwd_split_all; its own C entry, hvdt_flash_fwd_tf32_split, which
+// hvdt_flash_fwd_tf32 runs first, as the narrow builds'
+// hvdt_flash_fwd_tf32_narrow does) writes,
 // once per call, Q and K hi and lo in their [B, S, H, D] layout and V^T hi
 // and lo as [B, H, D, Skp] (Skp = Sk rounded up to 32, zero past Sk), into
 // scratch the wrapper allocates: it reads q, k, v once and writes six
@@ -281,53 +284,6 @@ __device__ __forceinline__ void region_scores(float (&acc)[kKv / 2],
     wgmma_tf32_ss<kKv>(acc, desc_sw128(q + 32 * kk, 16),
                        desc_sw128(k + 32 * kk, 16), 1);
   wgmma_commit();
-}
-
-// The online softmax of one kv tile (keys k0 ..) on a consumer thread's
-// accumulator fragment s of S (rows qpos, qpos + 8 in global positions):
-// scale, mask (only where `masked`: tiles that cross the diagonal or the
-// ragged end), the row max by two quad shuffles, p = exp(x - m) in place
-// of s (masked entries give exactly 0), l from the unrounded p (this
-// thread's share of the row; the quad's shares are added at the end), and
-// corr, the factor of the O accumulated so far.
-template <int kKv>
-__device__ __forceinline__ void online_softmax(
-    float (&s)[kKv / 2], float (&m_i)[2], float (&l_i)[2], float (&corr)[2],
-    bool masked, int k0, int col, int qpos, int Sk, int k_off, int causal,
-    float scale) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int e = 0; e < kKv / 2; ++e) {
-    const int i = (e / 2) % 2;
-    float x = s[e] * scale;
-    if (masked) {
-      const int kc = k0 + 8 * (e / 4) + col + e % 2;
-      const bool ok = kc < Sk && (!causal || qpos + 8 * i >= k_off + kc);
-      x = ok ? x : __int_as_float(0xff800000);  // -inf
-    }
-    s[e] = x;
-    mx[i] = fmaxf(mx[i], x);
-  }
-  float mb[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m_i[i], mx[i]);
-    corr[i] = exp2f((m_i[i] - m_new) * kLog2e);
-    m_i[i] = m_new;
-    mb[i] = m_new * kLog2e;
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int e = 0; e < kKv / 2; ++e) {
-    const int i = (e / 2) % 2;
-    const float p = exp2f(fmaf(s[e], kLog2e, -mb[i]));
-    s[e] = p;
-    rs[i] += p;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
 }
 
 // Sums l over the quad that holds a row, and stores this thread's part of
@@ -1034,20 +990,6 @@ cudaError_t run_wide(const void* q, const void* q_lo, const void* k,
                    k_off, causal, scale);
 }
 
-// The pre-pass's six planes in scratch order: Q hi, Q lo, K hi, K lo, V^T
-// hi, V^T lo.
-struct Tf32Planes {
-  float *qh, *ql, *kh, *kl, *vh, *vl;
-};
-inline Tf32Planes tf32_planes(void* scratch, int B, int H, int Sq, int Sk,
-                              int D) {
-  const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
-  const size_t nv = (size_t)B * H * D * padded_keys(Sk);
-  float* x = (float*)scratch;
-  return {x, x + nq, x + 2 * nq, x + 2 * nq + nk, x + 2 * nq + 2 * nk,
-          x + 2 * nq + 2 * nk + nv};
-}
-
 }  // namespace
 }  // namespace hvdt
 
@@ -1072,25 +1014,16 @@ extern "C" int hvdt_flash_fwd_stream(int dtype, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// The tf32 forward's pre-pass alone: q, k, v as for hvdt_flash_fwd_tf32,
-// into its scratch (the six planes, in the order given there).
+// The tf32 forward's pre-pass alone (that of either file's builds): q, k,
+// v as for hvdt_flash_fwd_tf32 (or, at D 16 and 32,
+// hvdt_flash_fwd_tf32_narrow), into its scratch (the six planes, in the
+// order given there).
 extern "C" int hvdt_flash_fwd_tf32_split(const void* q, const void* k,
                                          const void* v, void* scratch, int B,
                                          int H, int Sq, int Sk, int D,
                                          void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 0 || D % 32) return cudaErrorInvalidValue;
-  const hvdt::Tf32Planes p = hvdt::tf32_planes(scratch, B, H, Sq, Sk, D);
-  const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
-  const int skp = hvdt::sm90::padded_keys(Sk);
-  const int blocks = 132 * 8;
-  hvdt::sm90::tf32_split<<<blocks, 256, 0, st>>>(
-      (const float4*)q, (float4*)p.qh, (float4*)p.ql, nq / 4);
-  hvdt::sm90::tf32_split<<<blocks, 256, 0, st>>>(
-      (const float4*)k, (float4*)p.kh, (float4*)p.kl, nk / 4);
-  hvdt::sm90::tf32_split_t<<<dim3(B * H, D / 32, skp / 32), 256, 0, st>>>(
-      (const float*)v, p.vh, p.vl, Sk, H, D, skp);
-  return cudaGetLastError();
+  return hvdt::sm90::tf32_fwd_split(q, k, v, scratch, B, H, Sq, Sk, D,
+                                    (cudaStream_t)stream);
 }
 
 // The columns of O a CTA of the tf32 forward owns at head dim D, which
@@ -1103,7 +1036,9 @@ extern "C" int hvdt_flash_fwd_tf32_part(int D) {
 
 // fp32 through 3xTF32: the pre-pass, then the build of D. q, k, v:
 // contiguous fp32 [B, S, H, D] with 16-byte-aligned bases; D a multiple of
-// 32. o: fp32 [B, Sq, H, D]; m, l: fp32 [B, H, Sq]. scratch: fp32,
+// 32 past 32 (D 16 and 32 run flash_fwd_tf32_narrow_sm90.cu's
+// hvdt_flash_fwd_tf32_narrow). o: fp32 [B, Sq, H, D]; m, l: fp32 [B, H,
+// Sq]. scratch: fp32,
 // 16-byte aligned, 2 B Sq H D + 2 B Sk H D + 2 B H D Skp elements (Skp =
 // Sk rounded up to 32): the pre-pass's Q hi, Q lo, K hi, K lo, V^T hi and
 // V^T lo, in that order.
@@ -1113,10 +1048,12 @@ extern "C" int hvdt_flash_fwd_tf32(const void* q, const void* k,
                                    int Sk, int D, int q_off, int k_off,
                                    int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 32 || D % 32) return cudaErrorInvalidValue;
   const int err =
       hvdt_flash_fwd_tf32_split(q, k, v, scratch, B, H, Sq, Sk, D, stream);
   if (err != cudaSuccess) return err;
-  const hvdt::Tf32Planes p = hvdt::tf32_planes(scratch, B, H, Sq, Sk, D);
+  const hvdt::sm90::Tf32Planes p =
+      hvdt::sm90::tf32_planes(scratch, B, H, Sq, Sk, D);
   if (D > hvdt::kWideAbove)
     return hvdt::run_wide(p.qh, p.ql, p.kh, p.kl, p.vh, p.vl, o, m, l, B, H,
                           Sq, Sk, D, q_off, k_off, causal, scale, st);

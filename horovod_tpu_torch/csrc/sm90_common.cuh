@@ -1,7 +1,7 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
-// (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_dq_sm90.cu,
-// flash_dq_stream_sm90.cu, flash_dkv_sm90.cu, flash_dkv_stream_sm90.cu,
-// flash_bwd_tf32_sm90.cu):
+// (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_fwd_tf32_narrow_sm90.cu,
+// flash_dq_sm90.cu, flash_dq_stream_sm90.cu, flash_dkv_sm90.cu,
+// flash_dkv_stream_sm90.cu, flash_bwd_tf32_sm90.cu):
 // TMA loads through a tensor map, mbarrier init / arrive / expect-tx /
 // wait, wgmma descriptors, fence, commit and wait, setmaxnreg, the proxy
 // fence and named barriers (for tiles that the consumers write themselves,
@@ -39,12 +39,15 @@
 // at D 32, 512 at D 16).
 #pragma once
 
+#include "flash_common.cuh"  // kNegInf
+
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace hvdt {
@@ -434,6 +437,54 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
   Wgmma<N>::tf32_rs(d, a, db, scale_d);
 }
 
+// The online softmax of the tf32 forwards (flash_fwd_stream_sm90.cu,
+// flash_fwd_tf32_narrow_sm90.cu) for one kv tile (keys k0 ..) on a
+// consumer thread's accumulator fragment s of S (rows qpos, qpos + 8 in
+// global positions): scale, mask (only where `masked`: tiles that cross the
+// diagonal or the ragged end), the row max by two quad shuffles, p = exp(x
+// - m) in place of s (masked entries give exactly 0), l from the unrounded
+// p (this thread's share of the row; the quad's shares are added at the
+// end), and corr, the factor of the O accumulated so far.
+template <int kKv>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[kKv / 2], float (&m_i)[2], float (&l_i)[2], float (&corr)[2],
+    bool masked, int k0, int col, int qpos, int Sk, int k_off, int causal,
+    float scale) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int e = 0; e < kKv / 2; ++e) {
+    const int i = (e / 2) % 2;
+    float x = s[e] * scale;
+    if (masked) {
+      const int kc = k0 + 8 * (e / 4) + col + e % 2;
+      const bool ok = kc < Sk && (!causal || qpos + 8 * i >= k_off + kc);
+      x = ok ? x : __int_as_float(0xff800000);  // -inf
+    }
+    s[e] = x;
+    mx[i] = fmaxf(mx[i], x);
+  }
+  float mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_i[i], mx[i]);
+    corr[i] = exp2f((m_i[i] - m_new) * kLog2e);
+    m_i[i] = m_new;
+    mb[i] = m_new * kLog2e;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < kKv / 2; ++e) {
+    const int i = (e / 2) % 2;
+    const float p = exp2f(fmaf(s[e], kLog2e, -mb[i]));
+    s[e] = p;
+    rs[i] += p;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + rs[i];
+}
+
 // ---- host side ------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -561,8 +612,9 @@ inline cudaError_t launch_ws(K kernel, dim3 grid, size_t bytes,
 
 // ---- the tf32 pre-pass ----------------------------------------------------
 //
-// The tf32 kernels (the forward in flash_fwd_stream_sm90.cu, dq and dk/dv
-// in flash_bwd_tf32_sm90.cu) read each fp32 operand as two tf32 parts,
+// The tf32 kernels (the forward in flash_fwd_stream_sm90.cu and
+// flash_fwd_tf32_narrow_sm90.cu, dq and dk/dv in flash_bwd_tf32_sm90.cu)
+// read each fp32 operand as two tf32 parts,
 // hi = tf32(x) and lo = tf32(x - hi), written once per call by these
 // kernels into scratch the wrapper allocates. tf32 wgmma takes both
 // operands K-major, so a product that reduces over the sequence (P V,
@@ -571,13 +623,14 @@ inline cudaError_t launch_ws(K kernel, dim3 grid, size_t bytes,
 // namespace: each file that includes this header has its own copy.
 namespace {
 
-// hi = tf32(x), lo = tf32(x - hi), four elements a step (n4 float4s,
-// 16-byte-aligned).
-__global__ void tf32_split(const float4* __restrict__ x,
-                           float4* __restrict__ hi, float4* __restrict__ lo,
-                           size_t n4) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
+// hi = tf32(x), lo = tf32(x - hi) over the float4s first, first + stride,
+// ... below n4 (16-byte-aligned).
+__device__ __forceinline__ void split_range(const float4* __restrict__ x,
+                                            float4* __restrict__ hi,
+                                            float4* __restrict__ lo,
+                                            size_t first, size_t stride,
+                                            size_t n4) {
+  for (size_t i = first; i < n4; i += stride) {
     const float4 v = x[i];
     float4 h, l;
     h.x = tf32_round(v.x);
@@ -593,6 +646,15 @@ __global__ void tf32_split(const float4* __restrict__ x,
   }
 }
 
+// hi = tf32(x), lo = tf32(x - hi), four elements a step (n4 float4s,
+// 16-byte-aligned).
+__global__ void tf32_split(const float4* __restrict__ x,
+                           float4* __restrict__ hi, float4* __restrict__ lo,
+                           size_t n4) {
+  split_range(x, hi, lo, (size_t)blockIdx.x * blockDim.x + threadIdx.x,
+              (size_t)gridDim.x * blockDim.x, n4);
+}
+
 // X [B, S, H, D] -> X^T hi and lo [B, H, D, Sp] (Sp a multiple of 32, at
 // least S), zero past S, the rows of every 8 positions stored in the order
 // in which a tf32 wgmma's register A operand takes an accumulator
@@ -600,24 +662,29 @@ __global__ void tf32_split(const float4* __restrict__ x,
 // 8g + 2i + 1 (i < 4). A thread's fragment holds columns 2t, 2t + 1 of
 // each 8 where the A operand wants columns t, t + 4, so P or dS (and P^T,
 // dS^T) go to the tensor cores without a shuffle, each value paired with
-// its own row of X. One block of 256 threads per (b h, 32 columns of D,
-// 32 rows of S).
-__global__ void __launch_bounds__(256)
-    tf32_split_t(const float* __restrict__ x, float* __restrict__ hi,
-                 float* __restrict__ lo, int S, int H, int D, int Sp) {
-  __shared__ float tile[32][33];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int s0 = blockIdx.z * 32, d0 = blockIdx.y * 32;
+// its own row of X. One 32 x 32 tile, (b h, columns d0 .. d0 + 31 of D,
+// rows s0 .. s0 + 31 of S), on 256 threads through `tile`; a D that is no
+// multiple of 32 (the forward's D 16) leaves the last tile of a row fewer
+// columns, and it reads and writes none past D.
+__device__ __forceinline__ void split_t_tile(float (&tile)[32][33],
+                                             const float* __restrict__ x,
+                                             float* __restrict__ hi,
+                                             float* __restrict__ lo, int S,
+                                             int H, int D, int Sp, int bh,
+                                             int d0, int s0) {
+  const int b = bh / H, h = bh % H;
+  const int cols = min(32, D - d0);
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int i = ty; i < 32; i += 8) {
     const int row = s0 + i;
-    tile[i][tx] =
-        row < S ? x[(((size_t)b * S + row) * H + h) * D + d0 + tx] : 0.f;
+    tile[i][tx] = row < S && tx < cols
+                      ? x[(((size_t)b * S + row) * H + h) * D + d0 + tx]
+                      : 0.f;
   }
   __syncthreads();
   const int e = tx % 8;
   const int row = 8 * (tx / 8) + (e < 4 ? 2 * e : 2 * (e - 4) + 1);
-  for (int i = ty; i < 32; i += 8) {
+  for (int i = ty; i < cols; i += 8) {
     const float v = tile[row][i];
     const float vh = tf32_round(v);
     const size_t off = (((size_t)b * H + h) * D + d0 + i) * Sp + s0 + tx;
@@ -626,12 +693,88 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-}  // namespace
+// split_t_tile on a grid of (B H, D / 32 rounded up, Sp / 32).
+__global__ void __launch_bounds__(256)
+    tf32_split_t(const float* __restrict__ x, float* __restrict__ hi,
+                 float* __restrict__ lo, int S, int H, int D, int Sp) {
+  __shared__ float tile[32][33];
+  split_t_tile(tile, x, hi, lo, S, H, D, Sp, blockIdx.x, blockIdx.y * 32,
+               blockIdx.z * 32);
+}
 
 // The rows of a transposed plane: S rounded up to `multiple` (of 32).
 inline int padded_keys(int S, int multiple = 32) {
   return (S + multiple - 1) / multiple * multiple;
 }
+
+// The forward's pre-pass planes in scratch order: Q hi, Q lo, K hi, K lo,
+// V^T hi, V^T lo (V^T as [B, H, D, Sk rounded up to 32]).
+struct Tf32Planes {
+  float *qh, *ql, *kh, *kl, *vh, *vl;
+};
+inline Tf32Planes tf32_planes(void* scratch, int B, int H, int Sq, int Sk,
+                              int D) {
+  const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
+  const size_t nv = (size_t)B * H * D * padded_keys(Sk);
+  float* x = (float*)scratch;
+  return {x, x + nq, x + 2 * nq, x + 2 * nq + nk, x + 2 * nq + 2 * nk,
+          x + 2 * nq + 2 * nk + nv};
+}
+
+// The forward's pre-pass in one launch of 256-thread blocks: blocks [0,
+// qb) split Q, [qb, qb + kb) split K (each set striding over its tensor),
+// and every later block one 32 x 32 tile of V^T (b h fastest, then the
+// column block of D, then the row block of S). The same values as
+// tf32_split and tf32_split_t in three launches, whose launch gaps took
+// about as long as their bytes at the narrow head dims.
+__global__ void __launch_bounds__(256)
+    tf32_fwd_split_all(const float4* __restrict__ q,
+                       const float4* __restrict__ k,
+                       const float* __restrict__ v, Tf32Planes p,
+                       size_t nq4, size_t nk4, int qb, int kb, int BH,
+                       int H, int Sk, int D, int Skp) {
+  __shared__ float tile[32][33];
+  const int blk = blockIdx.x;
+  if (blk < qb) {
+    split_range(q, (float4*)p.qh, (float4*)p.ql,
+                (size_t)blk * 256 + threadIdx.x, (size_t)qb * 256, nq4);
+  } else if (blk < qb + kb) {
+    split_range(k, (float4*)p.kh, (float4*)p.kl,
+                (size_t)(blk - qb) * 256 + threadIdx.x, (size_t)kb * 256,
+                nk4);
+  } else {
+    const int t = blk - qb - kb, db = (D + 31) / 32;
+    split_t_tile(tile, v, p.vh, p.vl, Sk, H, D, Skp, t % BH,
+                 (t / BH) % db * 32, t / BH / db * 32);
+  }
+}
+
+// The tf32 forward's pre-pass (flash_fwd_stream_sm90.cu and
+// flash_fwd_tf32_narrow_sm90.cu): q, k, v contiguous fp32 [B, S, H, D]
+// with 16-byte-aligned bases, D 16 or a multiple of 32, into the six
+// planes of tf32_planes, in one launch (tf32_fwd_split_all).
+inline cudaError_t tf32_fwd_split(const void* q, const void* k,
+                                  const void* v, void* scratch, int B, int H,
+                                  int Sq, int Sk, int D, cudaStream_t st) {
+  if (D <= 0 || (D % 32 && D != 16)) return cudaErrorInvalidValue;
+  const size_t nq4 = (size_t)B * Sq * H * D / 4;
+  const size_t nk4 = (size_t)B * Sk * H * D / 4;
+  const int skp = padded_keys(Sk);
+  // Blocks of the elementwise splits: 4 float4s a thread or more, at most
+  // 8 blocks an SM a tensor.
+  auto blocks = [](size_t n4) {
+    return (int)std::min<size_t>(132 * 8, (n4 + 1023) / 1024);
+  };
+  const int qb = blocks(nq4), kb = blocks(nk4);
+  const long long tiles = (long long)B * H * ((D + 31) / 32) * (skp / 32);
+  tf32_fwd_split_all<<<(unsigned)(qb + kb + tiles), 256, 0, st>>>(
+      (const float4*)q, (const float4*)k, (const float*)v,
+      tf32_planes(scratch, B, H, Sq, Sk, D), nq4, nk4, qb, kb, B * H, H, Sk,
+      D, skp);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace sm90
 }  // namespace hvdt

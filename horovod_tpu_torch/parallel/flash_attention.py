@@ -9,7 +9,8 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 every multiple of 8 past 32)
                                 ``flash_fwd_stream_sm90.cu`` (bf16/fp16
                                 past D 512; fp32 past D 32, 3xTF32)
-                                or ``flash_fwd.cu`` (fp32, D <= 32) via
+                                or ``flash_fwd_tf32_narrow_sm90.cu``
+                                (fp32, D <= 32, 3xTF32) via
                                 :func:`_flash_fwd`
 - ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 1-256;
                                 in place at every multiple of 8 past
@@ -50,14 +51,18 @@ alone, before any launch:
   of 256 columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
   kernels (parts of 128 columns, and 256 for the forward past D 128;
-  dk/dv 64, and 128 past D 128), each product as hi.hi +
+  dk/dv 64, and 128 past D 128), and the forward at every fp32 D up to
+  32 as well, on narrow builds of its own at D 16 and 32
+  (``TF32_NARROW_DIMS``: a CTA a 64-row q tile whose kv tiles several
+  consumer warpgroups share, csrc/flash_fwd_tf32_narrow_sm90.cu); each
+  product as hi.hi +
   hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
   pre-pass that writes the inputs' parts and the transposes the products
   over the sequence read (the forward's v^T; the backward's k^T, q^T and
   do^T, one pre-pass for dq and dk/dv, :func:`_tf32_bwd_split`). The
   shared-memory bytes of each are worked out in the files' headers.
-- ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: all
-  three kernels at fp32 D <= 32. It is built at ``HEAD_DIMS`` (16 to
+- ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: dq
+  and dk/dv at fp32 D <= 32. It is built at ``HEAD_DIMS`` (16 to
   512; its tiles shrink as D grows so that a block's shared memory holds
   them, the counterpart of the reference's ``_ladders_for``) and at any
   multiple of 64 past 512, where each block computes one 64-column chunk
@@ -72,8 +77,9 @@ scale of the true D, and the outputs sliced back
 padded columns of v give output columns that are cut away. So bf16 D 80
 runs all three kernels at 128, D 200 at 256, D 20 all three at 32
 (sm90), D 320 the forward at 384 (sm90) and dq and dk/dv at 320
-(stream), D 600 all three at 640 (stream), and fp32 D 100 all three at
-128 (tf32). The sm90 kernels pad nothing where a row of d 16-bit values
+(stream), D 600 all three at 640 (stream), fp32 D 100 all three at
+128 (tf32) and fp32 D 20 all three at 32 (the forward on tf32, dq and
+dk/dv on simt). The sm90 kernels pad nothing where a row of d 16-bit values
 is a legal TMA stride (d a multiple of 8 past 32, so D 80, 96 and 200,
 :func:`_reads_in_place`): the build of the next head dim reads the
 caller's tensors through tensor maps of extent d, which zero-fill the
@@ -156,6 +162,10 @@ STREAM_DESIGNS = {"stream": (SM90_DTYPES,
                               for kern in KERNELS}, 64),
                   "tf32": ((torch.float32,),
                            dict.fromkeys(KERNELS, HEAD_DIMS[1]), 32)}
+# The tf32 design's narrow builds below its start, per kernel that has
+# them: the forward at fp32 D 16 and 32
+# (csrc/flash_fwd_tf32_narrow_sm90.cu), which takes every fp32 D up to 32.
+TF32_NARROW_DIMS = {"fwd": (16, 32)}
 _KERNEL_NAMES = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}
 # ``operands`` modes of the plain versions for the tf32 design: each
 # product as hi.hi + hi.lo + lo.hi of tf32 parts (what the kernels
@@ -228,6 +238,12 @@ def _next_built(d: int, built) -> int:
     return next(b for b in built if d <= b)
 
 
+def _narrow_tf32(design: str, kernel: str) -> tuple:
+    """The narrow builds of ``kernel``'s ``design``: those of
+    ``TF32_NARROW_DIMS`` for tf32, none otherwise."""
+    return TF32_NARROW_DIMS.get(kernel, ()) if design == "tf32" else ()
+
+
 def padded_head_dim(d: int, design: str, kernel: str) -> int:
     """The head dim a CUDA call at head dim ``d`` runs ``kernel``'s
     ``design`` at: ``d`` itself when one is built for it, else the next
@@ -236,11 +252,16 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     (the dispatchers send it nothing larger); ``stream`` and ``tf32``
     (``STREAM_DESIGNS``): the next multiple of 64 past the kernel's start
     (512 for the forward, 256 for dq and dk/dv) and of 32 past 32, which
-    raise at or below the start and never above it; simt, the same
+    raise at or below the start and never above it, but for the tf32
+    forward's narrow builds (``TF32_NARROW_DIMS``): 16 for d <= 16 and
+    32 for 17-32; simt, the same
     for every kernel: ``HEAD_DIMS`` up to 512, then the next multiple of
     ``CHUNK``, so it never refuses a head dim there."""
     if design in STREAM_DESIGNS:
         _, starts, width = STREAM_DESIGNS[design]
+        narrow = _narrow_tf32(design, kernel)
+        if narrow and d <= narrow[-1]:
+            return _next_built(d, narrow)
         if d <= starts.get(kernel, d):
             raise ValueError(f"head dim {d}: the {design} design serves "
                              f"{_serves(starts)}")
@@ -490,12 +511,15 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     forward and d <= 256 for dq and dk/dv; ``"stream"`` (the same,
     streamed over D) at bf16 and fp16 for the forward past 512 and dq and
     dk/dv past 256; ``"tf32"`` (streamed, 3xTF32) for all three at fp32
-    past 32; ``"simt"`` (fp32 FMAs, flash_fwd.cu / flash_bwd.cu)
-    otherwise: every kernel at fp32 d <= 32. No 16-bit input reaches
-    simt."""
+    past 32, and for the forward at every fp32 d up to 32 too (its narrow
+    builds, ``TF32_NARROW_DIMS``); ``"simt"`` (fp32 FMAs, flash_bwd.cu)
+    otherwise: dq and dk/dv at fp32 d <= 32. No 16-bit input and no
+    forward reaches simt."""
     for design, (dtypes, starts, _) in STREAM_DESIGNS.items():
         if dtype in dtypes and d > starts.get(kernel, d):
             return design
+    if dtype in STREAM_DESIGNS["tf32"][0] and kernel in TF32_NARROW_DIMS:
+        return "tf32"
     sm90 = dtype in SM90_DTYPES and d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
 
@@ -544,8 +568,11 @@ def _check_tensor_cores(name, kernel, tensors, design="sm90"):
     else:
         dtypes, starts, width = STREAM_DESIGNS[design]
         start = starts.get(kernel)
-        dims = f"the multiples of {width} past {start}"
-        built = start is not None and d > start and d % width == 0
+        narrow = _narrow_tf32(design, kernel)
+        dims = (f"{narrow} and " if narrow else "") + (
+            f"the multiples of {width} past {start}")
+        built = (d in narrow
+                 or start is not None and d > start and d % width == 0)
     if q.dtype not in dtypes or not built:
         raise ValueError(f"{name}: the {design} kernel takes {dtypes} at "
                          f"head dims {dims}, got {q.dtype} and {d}")
@@ -597,7 +624,8 @@ def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
     """Checks and launches the tensor-core forward of ``design`` (sm90,
     stream or tf32); returns (o, m, l). The tf32 kernel's pre-pass writes
     q and k's tf32 hi and lo parts and v^T's, [B, H, D, Sk rounded up to
-    32], into scratch allocated here."""
+    32], into scratch allocated here; its narrow builds (D 16 and 32) have
+    a C entry of their own."""
     sq, sk = q.shape[1], k.shape[1]
     b, h, d = _check("flash forward", (q, k, v), (sq, sk, sk))
     _check_tensor_cores("flash forward", "fwd", (q, k, v), design)
@@ -609,7 +637,10 @@ def _fwd_tensor_cores(design, q, k, v, causal, q_offset, k_offset, scale):
         ptrs = [t.data_ptr() for t in (q, k, v, o, m, l)]
         if design == "tf32":
             scratch = _tf32_fwd_scratch(q, k)
-            err = lib.hvdt_flash_fwd_tf32(*ptrs, scratch.data_ptr(), *sizes)
+            entry = (lib.hvdt_flash_fwd_tf32_narrow
+                     if d in TF32_NARROW_DIMS["fwd"]
+                     else lib.hvdt_flash_fwd_tf32)
+            err = entry(*ptrs, scratch.data_ptr(), *sizes)
         else:
             entry = (lib.hvdt_flash_fwd_sm90 if design == "sm90"
                      else lib.hvdt_flash_fwd_stream)
@@ -645,9 +676,13 @@ def _tf32_fwd_split(q, k, v):
 
 def tf32_fwd_part(d: int) -> int:
     """The columns of O that a CTA of the tf32 forward owns at the built
-    head dim ``d``, as its C entry picks the build
-    (csrc/flash_fwd_stream_sm90.cu): 128 up to D 128, 256 past it (the
-    wide build, P through shared memory). Needs the kernels' library."""
+    head dim ``d``, which name its build: D itself at the narrow builds
+    (D 16 and 32, csrc/flash_fwd_tf32_narrow_sm90.cu); past them as the
+    C entry of csrc/flash_fwd_stream_sm90.cu picks the build, 128 up to D
+    128, 256 past it (the wide build, P through shared memory). Needs the
+    kernels' library past D 32."""
+    if d in TF32_NARROW_DIMS["fwd"]:
+        return d
     return _cuda.load().hvdt_flash_fwd_tf32_part(d)
 
 
@@ -686,8 +721,10 @@ def _flash_fwd_stream(q, k, v, causal: bool, q_offset: int, k_offset: int,
 
 def _flash_fwd_tf32(q, k, v, causal: bool, q_offset: int, k_offset: int,
                     scale=None):
-    """The 3xTF32 forward kernel, streamed over D, with its pre-pass
-    (flash_fwd_stream_sm90.cu): fp32 at the multiples of 32 past 32, in
+    """The 3xTF32 forward kernel with its pre-pass: fp32 at D 16 and 32
+    on the narrow builds (flash_fwd_tf32_narrow_sm90.cu: O whole, a q
+    tile's kv tiles shared among consumer warpgroups), and at the
+    multiples of 32 past 32 streamed over D (flash_fwd_stream_sm90.cu), in
     128-column parts of O up to D 128 and 256-column parts past it
     (:func:`tf32_fwd_part`)."""
     global flash_fwd_tf32_launches
@@ -1037,8 +1074,9 @@ def flash_attention(q, k, v, causal: bool = True,
 
     ``q_offset``/``k_offset`` (ints or 0-d tensors) are the global
     positions of element 0 and shift the causal mask. Softmax statistics
-    and every sum stay fp32. fp32 inputs on CUDA past head dim 32 take
-    each product as three tf32 products (3xTF32), which holds the
+    and every sum stay fp32. fp32 inputs on CUDA take each product of the
+    forward, and of dq and dk/dv past head dim 32, as three tf32
+    products (3xTF32), which holds the
     reference's fp32 bounds; the bf16 and fp16 tensor-core kernels feed
     p (and in the backward ds) to the tensor cores in the input's type,
     so they also differ from fp32 by that rounding, beside that of the

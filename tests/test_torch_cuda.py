@@ -1259,3 +1259,84 @@ def test_tf32_wide_forward_refuses_a_misaligned_tensor(cuda, d):
         with pytest.raises(ValueError, match="16-byte"):
             fa._tf32_fwd_split(*args)
     assert not any(fa.launch_counts().values())
+
+
+TF32_NARROW_CASES = [
+    # b, sq, h, causal, q_offset, k_offset, sk
+    pytest.param(2, 1, 2, True, 0, 0, None, id="s1"),
+    pytest.param(2, 33, 3, False, 0, 0, None, id="s33_noncausal"),
+    pytest.param(2, 100, 2, True, 16, 0, None, id="s100_q_offset"),
+    pytest.param(1, 127, 2, False, 0, 0, None, id="s127_noncausal"),
+    pytest.param(2, 100, 2, True, 27, 0, 127, id="s100_sk127_q_offset"),
+    pytest.param(1, 100, 2, False, 0, 0, 127, id="s100_sk127_noncausal"),
+    pytest.param(1, 128, 2, True, 0, 96, None, id="dead_rows"),
+    # fewer kv tiles than warpgroups (2 of 32 keys); rows that see keys in
+    # the first tiles and none in a later warpgroup's (k offset 1); a long
+    # kv (128 tiles) with both offsets; the C4 shape with and without the
+    # mask
+    pytest.param(2, 64, 2, False, 0, 0, None,
+                 id="fewer_tiles_than_warpgroups"),
+    pytest.param(1, 256, 2, True, 0, 1, None,
+                 id="rows_dead_in_a_later_warpgroup"),
+    pytest.param(1, 256, 2, True, 3900, 64, 4096, id="long_kv_k_offset"),
+    pytest.param(2, 1024, 8, True, 0, 0, None, id="c4_shape"),
+    pytest.param(2, 1024, 8, False, 0, 0, None, id="c4_shape_noncausal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 24, 32])
+@pytest.mark.parametrize("b,s,h,causal,qo,ko,sk", TF32_NARROW_CASES)
+def test_tf32_narrow_forward_matches_plain_versions(cuda, d, b, s, h,
+                                                    causal, qo, ko, sk):
+    """The narrow tf32 forward (fp32 D 16 and 32; D 24 runs at 32) held
+    to the fp32 plain forward with no allowance, dq and dk/dv on simt
+    beside it: causal and not, with offsets, dead rows, unequal lengths
+    and ragged tiles (S 1, 33, 100, 127); the launch counters show that
+    the tf32 forward ran once and the simt forward never."""
+    _check_kernels(cuda, torch.float32, b, s, h, d, causal, qo, ko, sk)
+    counts = fa.launch_counts()
+    assert counts["flash_fwd_tf32"] == 1 and counts["flash_fwd"] == 0
+    assert counts["flash_dq"] == counts["flash_dkv"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_tf32_narrow_forward_rejects_a_lost_warpgroup_tile(cuda, d):
+    """At the C4 shape the bound the narrow tf32 forward passes rejects,
+    by more than chip_smoke.py's LOST_FP32_BY, the plain forward without
+    one kv tile of the last consumer warpgroup (what a combine that lost
+    its partial sums would give); and two launches give the same bits
+    (the warpgroups' sums meet in a fixed order)."""
+    import chip_smoke
+    q, k, v, _ = _inputs(cuda, torch.float32, 2, 1024, 8, d, 9)
+    fa.reset_launch_counts()
+    o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
+    again = fa._flash_fwd(q, k, v, True, 0, 0)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_fwd_tf32"] == 2
+    for a, b in zip((o, m, l), again):
+        assert torch.equal(a, b)
+    o_p = fa._flash_fwd_plain(q, k, v, True, 0, 0)[0]
+    _close(o, o_p, 2e-5, 1e-6)
+    lo, hi = chip_smoke.TF32_NARROW_LAST_WARPGROUP_KEYS
+    lost = chip_smoke.fwd_without_keys(fa, q, k, v, lo, hi)
+    ratio = tolerance.worst(lost, o_p, 2e-5)[1]
+    assert ratio > chip_smoke.LOST_FP32_BY, ratio
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_tf32_narrow_forward_refuses_a_misaligned_tensor(cuda, d):
+    """A tensor one element off a 16-byte boundary raises before any
+    launch: no pre-pass, no kernel and no simt kernel in its place."""
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda)
+    bad = flat[1:].view(1, 64, 2, d)
+    good = torch.zeros(1, 64, 2, d, device=cuda)
+    fa.reset_launch_counts()
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_fwd(*args, True, 0, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._tf32_fwd_split(*args)
+    assert not any(fa.launch_counts().values())

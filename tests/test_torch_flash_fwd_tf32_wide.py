@@ -82,7 +82,7 @@ def test_tf32_rounding_keeps_ten_mantissa_bits_to_nearest():
     assert torch.all((y - hi - lo).abs() <= 2.0 ** -22 * y.abs())
 
 
-@pytest.mark.parametrize("d", [128, 640])
+@pytest.mark.parametrize("d", [32, 128, 640])
 def test_3xtf32_forward_holds_the_fp32_bound_against_reference(d):
     q, k, v = _values(d, torch.float32, d)
     want = _reference_stats(q, k, v)
@@ -90,7 +90,7 @@ def test_3xtf32_forward_holds_the_fp32_bound_against_reference(d):
     assert max(_fp32_ratios(mine, want)) <= 1.0
 
 
-@pytest.mark.parametrize("d", [128, 640])
+@pytest.mark.parametrize("d", [32, 128, 640])
 def test_one_tf32_product_fails_the_fp32_bound(d):
     """Why the tf32 kernel takes three products: one alone misses the
     reference's fp32 bound by far more than its summation order."""
@@ -169,19 +169,21 @@ def test_bound_rejects_lost_pv_columns_of_a_wide_part():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_forward_is_on_tensor_cores_past_head_dim_32(dtype):
-    """On CUDA tensors the forward takes the simt kernel only at fp32 D <=
-    32: sm90 or stream for 16-bit (sm90's narrow builds at D <= 32), tf32
-    for fp32, each at a head dim it is built for within one region width
-    of D."""
+    """On CUDA tensors the forward never takes the simt kernel: sm90 or
+    stream for 16-bit (sm90's narrow builds at D <= 32), tf32 for fp32 at
+    every D (its narrow builds of 16 and 32 up to D 32), each at a head
+    dim it is built for within one region width of D (16 at the narrow
+    builds)."""
     for d in range(1, 1200):
         design = port._design(dtype, d, "fwd")
-        if d <= 32 and dtype == torch.float32:
-            assert design == "simt"
-            continue
         assert design != "simt", d
+        if dtype == torch.float32:
+            assert design == "tf32", d
         built = port.padded_head_dim(d, design, "fwd")
         assert d <= built
-        if design in port.STREAM_DESIGNS:
+        if d <= 32:
+            assert built == (16 if d <= 16 else 32)
+        elif design in port.STREAM_DESIGNS:
             assert built - d < port.STREAM_DESIGNS[design][2]
 
 

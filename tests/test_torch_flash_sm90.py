@@ -30,14 +30,14 @@ def _bf16_values(seed, n=4, s=S, d=D):
 
 @pytest.mark.parametrize("dtype,d,design", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
-    (torch.float32, 32, "simt"), (torch.float32, 16, "simt"),
+    (torch.float32, 96, "tf32"), (torch.float32, 256, "tf32"),
     (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32")])
 def test_design_by_dtype_and_head_dim(dtype, d, design):
     # These cases take one design for all three kernels: fp32 takes tf32
     # past D 32 (tests/test_torch_flash_fwd_tf32_wide.py,
-    # tests/test_torch_flash_bwd_tf32.py) and simt up to it; where the
-    # kernels part (16-bit D <= 32: the forward and dk/dv on sm90, dq on
-    # simt, tests/test_torch_flash_sm90_narrow.py; the forward alone on
+    # tests/test_torch_flash_bwd_tf32.py); where the kernels part (fp32 D
+    # <= 32: the forward on tf32, dq and dk/dv on simt,
+    # tests/test_torch_flash_fwd_tf32_narrow.py; the forward alone on
     # sm90 at 16-bit D 257-512, on stream past it) see
     # tests/test_torch_flash_sm90_wide.py.
     for kernel in port.KERNELS:

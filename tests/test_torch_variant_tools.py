@@ -40,7 +40,7 @@ def _edits(tool):
 def test_every_variant_tool_is_found():
     assert {"bwd_tf32_variants", "dkv_variants", "dq_variants",
             "fwd_sm90_variants", "fwd_tf32_variants",
-            "narrow_variants"} <= set(VARIANT_TOOLS)
+            "narrow_tf32_variants", "narrow_variants"} <= set(VARIANT_TOOLS)
 
 
 @pytest.mark.parametrize("name", VARIANT_TOOLS)
@@ -91,3 +91,21 @@ def test_fwd_sm90_serial_variant_turns_off_every_piece():
     assert sorted(serial) == sorted(pieces)
     for line in pieces:
         assert [(line, serial[line])] in tool.VARIANTS.values()
+
+
+def test_narrow_tf32_variants_edit_the_narrow_tf32_forward():
+    """The narrow tf32 forward's tool rebuilds
+    csrc/flash_fwd_tf32_narrow_sm90.cu alone, through its own C entry,
+    with one warpgroup among its variants, and the variants it requires to
+    keep the package's sums (the ring's depth) are among those it
+    builds."""
+    tool = _tool("narrow_tf32_variants")
+    assert tool.SOURCE == "flash_fwd_tf32_narrow_sm90.cu"
+    assert tool.ENTRIES == {tool.SOURCE: "hvdt_flash_fwd_tf32_narrow"}
+    assert tool.ENTRIES[tool.SOURCE] in _cuda._SIGNATURES
+    assert tool.VARIANTS["split1"] == [tool.SPLIT1]
+    assert tool.SPLIT1[1] == "kNarrowSplit = 1;"
+    assert set(tool.SAME_SUMS) <= set(tool.VARIANTS)
+    for name in tool.SAME_SUMS:
+        assert all(edit in (tool.STAGES2, tool.STAGES4)
+                   for edit in tool.VARIANTS[name])
