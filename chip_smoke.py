@@ -16,12 +16,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    1-512, on the caller's tensors at every multiple of 8 past 32, dq and
    dk/dv at 1-256, D 16 and 32 on the narrow-row builds; the stream
    design, bf16 and fp16, the forward past D 512 and dq and dk/dv past
-   D 256; tf32, fp32 past D 32 through 3xTF32 for all three kernels and
-   the forward at every fp32 D up to 32 too, on its narrow builds at D
-   16 and 32; stream and the wider tf32 builds streamed over D) and the
-   fp32-FMA (simt) kernels for the rest (fp32 dq and dk/dv at D <= 32;
-   built past D 512 in 64-column chunks of the head dim); a bf16 case at
-   the main shape forces the simt ones.
+   D 256; tf32, every fp32 head dim through 3xTF32 for all three
+   kernels, on their narrow builds at D 16 and 32 up to D 32; stream and
+   the wider tf32 builds streamed over D); the fp32-FMA (simt) kernels,
+   which no route runs any more (built past D 512 in 64-column chunks of
+   the head dim), are forced beside them: a bf16 case at the main shape
+   and every case where a tensor-core kernel serves.
    Cases: the main path's shape (B=4, S=2048, H=16, D=128, bf16,
    causal), a non-causal, two offset, a D=64
    and a short ragged case, fp32 at two shapes (the main one with the
@@ -98,7 +98,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    narrow dk/dv (queries 512-575), by more than 10 times too; at fp32 D
    16 and 32 (C4 shape) with one 32-key stage of the narrow tf32 forward
    (keys 512-543) and the keys of one kv tile that its last consumer
-   warpgroup takes (keys 736-767), by more than LOST_FP32_BY times; at
+   warpgroup takes (keys 736-767), one 64-key stage of the narrow tf32 dq
+   (keys 512-575) and one that its last warpgroup takes (keys 704-767),
+   and one 32-query stage of the narrow tf32 dk/dv (queries 512-543) and
+   one that its last warpgroup takes in the first kv tile (queries
+   736-767), by more than LOST_FP32_BY times; at
    the ragged length 100 with the
    ragged tile (keys 64-99) left out of the forward and dq.
 3. A small model checked against the dense reference: a 2-layer fp32
@@ -148,7 +152,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the tf32 forward's rows name its build, part_cols 128 or 256, or 16
    and 32 for the narrow builds at fp32 D 16 and 32, and
    print its factor against SDPA's forward; the tf32 dk/dv's rows name
-   theirs, part_cols 64 or 128), each C4 case at its phase-2
+   theirs, part_cols 64 or 128, or 16 and 32 for the narrow builds),
+   each C4 case at its phase-2
    shape and the
    Gemma-7B geometry through the dispatchers (padding copies included),
    and beside every tensor-core kernel the simt kernel it replaces on the
@@ -157,8 +162,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    fp16 D 20, where it pads, padded once for both kernels against its
    two kernels padded apart; at bf16 D 80, 96 and 200, where it reads the
    caller's tensors, against the same builds on copies padded once to
-   them, each kernel also apart; every pair bit-equal; then the sm90 dq
-   and dk/dv together against SDPA's backward alone);
+   them, each kernel also apart; every pair bit-equal; the fp32 route at
+   C4 D 16 and 32, one pre-pass then the narrow tf32 dq and dk/dv, which
+   must beat the simt dq and dk/dv together; then the sm90 dq and dk/dv
+   together against SDPA's backward alone);
    each beside the plain version, the PyTorch library call computing the
    same function in the same dtype (scaled_dot_product_attention, timed
    here only as a yardstick) and the bound: the larger of the operations
@@ -170,7 +177,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    for the tf32 dq and dk/dv) and the bytes in and out over its memory
    rate (3.35 TB/s). At D 16 and 32 the simt kernels and the tensor-core
    ones that replace them (the sm90 kernels at 16 bits, the narrow tf32
-   forward at fp32) are printed beside SDPA; the entry's shape is timed
+   kernels at fp32) are printed beside SDPA; the entry's shape is timed
    too.
 6. Small vision models, the card against the CPU: a narrow fp32 ResNet
    (bottleneck blocks, 8 filters) and a 2-layer ViT with the same
@@ -304,8 +311,8 @@ C4_CASES = (("bf16_d16", "bfloat16", 16), ("fp32_d16", "float32", 16),
             ("fp16_d512", "float16", 512),
             ("bf16_d640", "bfloat16", 640), ("fp16_d640", "float16", 640),
             ("fp32_d640", "float32", 640))
-# The kernels the main path (bf16, D=128) runs; the simt kernels serve fp32
-# and the small head dims and must not launch there.
+# The kernels the main path (bf16, D=128) runs; the simt kernels, which no
+# route runs, must not launch there.
 MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
 # Phase 4b's model: the attention widths of Gemma-7B (16 heads of 256, d
 # 4096, MLP x4; google/gemma-7b config.json), vocab 32000, S 2048, batch
@@ -369,10 +376,19 @@ NARROW_LAST_WARPGROUP_KEYS = (704, 768)
 # csrc/flash_fwd_tf32_narrow_sm90.cu): keys 736-767 are tile 23 of the C4
 # shape's 32, the last warpgroup's (its tiles are 3, 7, ..., 31), whose
 # partial O, m and l reach the output only through the combine; 512-543 is
-# one kv stage.
+# one kv stage. The narrow tf32 dq deals its 64-key kv stages round-robin
+# among 2 warpgroups (kDqKv, kDqSplit in csrc/flash_bwd_tf32_narrow_sm90.cu):
+# keys 704-767 are stage 11, the last warpgroup's, and 512-575 one stage;
+# dk/dv deals its 32-query stages among 3 (kDkvQ, kDkvSplit) from the first
+# stage a kv tile sees, so in the first kv tile stage u goes to warpgroup
+# u % 3: queries 736-767 are stage 23, the last warpgroup's there, and
+# 512-543 one stage.
 TF32_NARROW_LAST_WARPGROUP_KEYS = (736, 768)
 TF32_NARROW_LOST = dict(fwd=(512, 544),
-                        fwd_last_warpgroup=TF32_NARROW_LAST_WARPGROUP_KEYS)
+                        fwd_last_warpgroup=TF32_NARROW_LAST_WARPGROUP_KEYS,
+                        dq=(512, 576), dq_last_warpgroup=(704, 768),
+                        dkv=(512, 544),
+                        dkv_last_warpgroup=TF32_NARROW_LAST_WARPGROUP_KEYS)
 LOST_D256 = dict(fwd=(1024, 1088), dq=(1024, 1056), dkv=(1536, 1600))
 LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
                             fwd_last_warpgroup=NARROW_LAST_WARPGROUP_KEYS,
@@ -696,9 +712,12 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         dq_atol = 1e-6 if designs["dq"] == "simt" else DQ_ATOL
         errs[kernel_name(fa, "dq", designs["dq"], tag)] = check_close(
             "dq", dq, dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b)
-        if lost and "dq" in lost:
-            lo, hi = lost["dq"]
-            check_close(f"dq, keys {lo}-{hi - 1} left out",
+        for key, what in (("dq", ""),
+                          ("dq_last_warpgroup", ", the last warpgroup's")):
+            if not (lost and key in lost):
+                continue
+            lo, hi = lost[key]
+            check_close(f"dq, keys {lo}-{hi - 1}{what} left out",
                         dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi,
                                         qo, ko, tf32["dq"]),
                         dq_p, 1e-4, step, atol=dq_atol, plain_b=dq_b,
@@ -727,20 +746,23 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
         errs[kernel_name(fa, "dkv", designs["dkv"], tag)] = max(
             check_close("dk", dk, dk_p, 1e-4, step, plain_b=dk_b),
             check_close("dv", dv, dv_p, 1e-4, step, plain_b=dv_b))
-        if lost and "dkv" in lost:
+        for key, what in (("dkv", ""),
+                          ("dkv_last_warpgroup", ", the last warpgroup's")):
+            if not (lost and key in lost):
+                continue
             # Zero do and delta on one q tile: p * do and ds vanish
             # there, which leaves that tile out of dk and dv exactly.
-            lo, hi = lost["dkv"]
+            lo, hi = lost[key]
             do_x, delta_x = do.clone(), delta.clone()
             do_x[:, lo:hi] = 0
             delta_x[:, :, lo:hi] = 0
             dk_x, dv_x = fa._flash_dkv_plain(q, k, v, do_x, lse, delta_x,
                                              causal, qo, ko)
-            check_close(f"dk, queries {lo}-{hi - 1} left out", dk_x, dk_p,
-                        1e-4, step, plain_b=dk_b, must_fail=True,
+            check_close(f"dk, queries {lo}-{hi - 1}{what} left out", dk_x,
+                        dk_p, 1e-4, step, plain_b=dk_b, must_fail=True,
                         fail_by=fail_by)
-            check_close(f"dv, queries {lo}-{hi - 1} left out", dv_x, dv_p,
-                        1e-4, step, plain_b=dv_b, must_fail=True,
+            check_close(f"dv, queries {lo}-{hi - 1}{what} left out", dv_x,
+                        dv_p, 1e-4, step, plain_b=dv_b, must_fail=True,
                         fail_by=fail_by)
         wrong = {}
         if lost and "bwd_columns" in lost:
@@ -1200,9 +1222,11 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     tf32 times hold their pre-pass, timed apart as prepass_ms: the
     forward's (the first step of its C entry), and the backward's, which
     each standalone dq and dk/dv launch runs for itself (in fa._flash_bwd
-    one pre-pass serves both). The tf32 forward's row names its build by
-    the columns of O a CTA owns (part_cols: 128, or 256 past D 128), the
-    tf32 dk/dv's by the columns of dK and dV (64, or 128 past D 128)."""
+    one pre-pass serves both; tf32_route_times times that route). The tf32
+    forward's row names its build by the columns of O a CTA owns
+    (part_cols: 128, or 256 past D 128; D at the narrow builds of 16 and
+    32), the tf32 dk/dv's by the columns of dK and dV (64, or 128 past D
+    128; D at the narrow builds)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -1351,7 +1375,10 @@ def kernel_times(torch, fa):
             more += (f" / {row['bound_fma_ms']:.4f}  pre-pass "
                      f"{row['prepass_ms']:.4f}")
         if design == "tf32" and kern == "dkv":
-            more += f"  {row['part_cols']}-column parts"
+            more += (f"  {row['part_cols']}-column parts" if d > 32
+                     else f"  narrow build of {row['part_cols']}")
+        if design == "tf32" and kern == "dq" and d <= 32:
+            more += f"  narrow build of {fa.padded_head_dim(d, design, kern)}"
         if design == "tf32" and kern == "fwd":
             build = (f"{row['part_cols']}-column parts" if d > 32
                      else f"narrow build of {row['part_cols']}")
@@ -1388,6 +1415,7 @@ def kernel_times(torch, fa):
         print(f"  main shape {name}: {rows[name]['ms']:.4f} ms (recorded "
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
     backward_pad_times(torch, fa)
+    slower += tf32_route_times(torch, fa)
     print("the sm90 dq and dk/dv together against SDPA's backward alone, "
           "same inputs (ms):")
     for tag, dtype, shape in cases:
@@ -1404,6 +1432,45 @@ def kernel_times(torch, fa):
         raise AssertionError(f"tensor-core kernels slower than the simt "
                              f"ones they replace: {slower}")
     return rows
+
+
+def tf32_route_times(torch, fa):
+    """The fp32 backward route at D <= 32 as ``fa._flash_bwd`` runs it at the
+    C4 shape (one pre-pass, then the narrow tf32 dq and dk/dv), CUDA-event
+    means of 20 calls, against SDPA's backward alone on the same inputs,
+    the simt dq and dk/dv it replaced and the pre-pass alone; returns the
+    cases where the route is not faster than the simt kernels."""
+    import torch.nn.functional as F
+    print("the fp32 backward route (_flash_bwd: pre-pass, dq, dk/dv) at D "
+          "16 and 32, C4 shape, against SDPA's backward alone (ms):")
+    slower = []
+    for tag, d in (("fp32_d16", 16), ("fp32_d32", 32)):
+        q, k, v, do, o, m, l = _c4_backward(torch, fa, torch.float32, d)
+        lse, delta = _bwd_stats(fa, do, o, m, l)
+        args = (q, k, v, do, lse, delta, True, 0, 0)
+        if {fa._design(torch.float32, d, kern) for kern in ("dq", "dkv")} \
+                != {"tf32"}:
+            raise AssertionError(f"{tag}: dq and dk/dv should run tf32")
+        route = time_ms(lambda: fa._flash_bwd(*args), 20)
+        pre = time_ms(lambda: fa._tf32_bwd_split(q, k, v, do), 20)
+        simt = (time_ms(lambda: fa._launch("dq", "simt", args[:4],
+                                           *args[4:]), 20)
+                + time_ms(lambda: fa._launch("dkv", "simt", args[:4],
+                                             *args[4:]), 20))
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in
+                           (q, k, v, do))
+        qg, kg, vg = (x.requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        sdpa = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), 20)
+        print(f"  {tag:<10} route {route:.4f} ({route / sdpa:.2f}x SDPA "
+              f"bwd {sdpa:.4f}; pre-pass {pre:.4f} of it)  simt dq + dk/dv "
+              f"{simt:.4f} ({simt / route:.1f}x the route)")
+        if not route < simt:
+            slower.append((tag, "route"))
+        del q, k, v, do, o, m, l, qt, kt, vt, dot, qg, kg, vg, out
+    torch.cuda.empty_cache()
+    return slower
 
 
 def _c4_backward(torch, fa, dtype, d):
@@ -2118,6 +2185,8 @@ def main(argv=None) -> int:
         call = r.pop("call")
         if base == "flash_fwd_tf32" and call[1] <= 32:
             src = "flash_fwd_tf32_narrow_sm90.cu"  # the narrow builds
+        if base in ("flash_dq_tf32", "flash_dkv_tf32") and call[1] <= 32:
+            src = "flash_bwd_tf32_narrow_sm90.cu"
         flops = r.pop("flops")
         launches = (entry_rows[base][base] if tag == "entry"
                     else paths.get(call, {}).get(base, 0))

@@ -79,7 +79,7 @@ _SIGNATURES = {
     # k_off, causal, scale, stream
     "hvdt_flash_dkv_stream": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
     # q, k, v, do, scratch, B, H, Sq, Sk, D, stream (fp32 only: the tf32
-    # backward's pre-pass)
+    # backward's pre-pass, which every tf32 dq and dk/dv build reads)
     "hvdt_flash_bwd_tf32_split": [_P] * 5 + [_I] * 5 + [_P],
     # scratch, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
@@ -90,6 +90,12 @@ _SIGNATURES = {
     # D: the columns of dK and dV a CTA of the tf32 dk/dv owns there (its
     # build)
     "hvdt_flash_dkv_tf32_part": [_I],
+    # scratch, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream (fp32 at D 16 and 32 only: the narrow tf32 dq)
+    "hvdt_flash_dq_tf32_narrow": [_P] * 4 + [_I] * 8 + [_F, _P],
+    # scratch, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off, causal,
+    # scale, stream (fp32 at D 16 and 32 only: the narrow tf32 dk/dv)
+    "hvdt_flash_dkv_tf32_narrow": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
 
 _lock = threading.Lock()

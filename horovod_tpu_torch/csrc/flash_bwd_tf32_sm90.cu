@@ -6,13 +6,14 @@
 // the shared recompute `_recompute_p_ds`) in
 // horovod_tpu/parallel/flash_attention.py, launched by `_flash_bwd_bhsd`,
 // as flash_dq_sm90.cu and flash_dkv_sm90.cu do for bf16 and fp16 up to D
-// 256 and flash_bwd.cu for D <= 32. Same function: for every visible
-// (q, k) pair p = exp(s - lse) (lse = +inf on rows that saw no key, so
-// p = 0 there) and ds = p (dp - delta) scale, recomputed from q, k, v, do
-// and the forward's per-row lse and delta = rowsum(do * o); then
-// dq = sum over k of ds k, dk = sum over q of ds^T q and dv = sum over q of
-// p^T do, in fp32. Runtime offsets shift the causal mask; tiles wholly in
-// the future are skipped; a CTA that sees no tile writes zeros.
+// 256 and flash_bwd_tf32_narrow_sm90.cu for fp32 D <= 32. Same function:
+// for every visible (q, k) pair p = exp(s - lse) (lse = +inf on rows that
+// saw no key, so p = 0 there) and ds = p (dp - delta) scale, recomputed
+// from q, k, v, do and the forward's per-row lse and delta = rowsum(do *
+// o); then dq = sum over k of ds k, dk = sum over q of ds^T q and dv = sum
+// over q of p^T do, in fp32. Runtime offsets shift the causal mask;
+// tiles wholly in the future are skipped; a CTA that sees no tile writes
+// zeros.
 //
 // What bounds it on this card. At the fp32 main shape (B 4, S 2048, H 16,
 // D 128, causal) dq takes three matrix products per visible pair (s, dp,
@@ -51,8 +52,9 @@
 // reduce over D and read [B, S, H, D] as it stands. The output products
 // reduce over the sequence: dq += dS K needs K^T, dk += dS^T Q needs Q^T,
 // dv += P^T dO needs dO^T, each with the sequence contiguous. One pre-pass
-// per backward (hvdt_flash_bwd_tf32_split, the kernels of
-// sm90_common.cuh), which both kernels read, writes 14 planes into scratch
+// per backward (hvdt_flash_bwd_tf32_split: sm90_common.cuh's
+// tf32_bwd_split_all, one launch), which both kernels read (and the narrow
+// builds of flash_bwd_tf32_narrow_sm90.cu), writes 14 planes into scratch
 // the wrapper allocates: q, do, k, v hi and lo in [B, S, H, D], and K^T,
 // Q^T, dO^T hi and lo as [B, H, D, S rounded up to 64] (zero past S, the
 // rows of every 8 permuted so that the accumulator fragment of dS, P^T or
@@ -187,7 +189,8 @@ constexpr int kTile = 64;    // rows of a tile: keys (dq) or queries (dk/dv)
 constexpr int kCols = 32;    // fp32 columns of a 128-byte region
 constexpr int kStages = 2;   // ring stages
 constexpr int kStagesT = 2;  // T stages
-constexpr int kSeqPad = 64;  // the transposed planes' rows: S rounded up
+// the transposed planes' rows: S rounded up
+constexpr int kSeqPad = kTf32BwdSeqPad;
 constexpr int kConsumerRegs = 240;
 // The grid's order: one head's CTAs side by side (see the header).
 // tools/bwd_tf32_variants.py builds this file with false (b h fastest) to
@@ -207,29 +210,6 @@ constexpr bool kSplitByOutput = false;
 // head's CTAs after another (false). tools/bwd_tf32_variants.py builds
 // this file with false.
 constexpr bool kHeadGroups = true;
-
-// The pre-pass's 14 planes, in scratch order.
-struct Planes {
-  float *q, *q_lo, *dout, *do_lo, *k, *k_lo, *v, *v_lo;  // [B, S, H, D]
-  float *kt, *kt_lo;                   // [B, H, D, Sk rounded up to 64]
-  float *qt, *qt_lo, *dot, *dot_lo;    // [B, H, D, Sq rounded up to 64]
-};
-
-inline Planes planes(void* scratch, int B, int H, int Sq, int Sk, int D) {
-  const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
-  const size_t nkt = (size_t)B * H * D * padded_keys(Sk, kSeqPad);
-  const size_t nqt = (size_t)B * H * D * padded_keys(Sq, kSeqPad);
-  float* x = (float*)scratch;
-  float* at[14];
-  const size_t n[14] = {nq, nq, nq, nq, nk, nk, nk, nk,
-                        nkt, nkt, nqt, nqt, nqt, nqt};
-  for (int i = 0; i < 14; ++i) {
-    at[i] = x;
-    x += n[i];
-  }
-  return Planes{at[0], at[1], at[2],  at[3],  at[4],  at[5],  at[6],
-                at[7], at[8], at[9], at[10], at[11], at[12], at[13]};
-}
 
 // The tensor maps of one kernel: the ring's operands of S (pass 0) and dP
 // (pass 1), the CTA's rows (a) and the tile's (b), and the T stage's
@@ -449,18 +429,6 @@ __device__ __forceinline__ void ds_in_place(float (&dp)[kTile / 2],
     const int tc = 8 * (e / 4) + col + e % 2;
     const float dl = kDkv ? st_delta[tc] : delta_r[(e / 2) % 2];
     dp[e] = p[e] * (dp[e] - dl) * scale;
-  }
-}
-
-// x split in registers: hi = tf32(x) (as bits), and x becomes
-// tf32(x - hi).
-__device__ __forceinline__ void split_tf32(float (&x)[kTile / 2],
-                                           uint32_t (&hi)[kTile / 2]) {
-#pragma unroll
-  for (int e = 0; e < kTile / 2; ++e) {
-    const float h = tf32_round(x[e]);
-    hi[e] = __float_as_uint(h);
-    x[e] = tf32_round(x[e] - h);
   }
 }
 
@@ -1315,7 +1283,7 @@ __global__ void __launch_bounds__(384, 1)
 
 // The split design's launch: the tensor maps of its 64-key CTA (the
 // CTA's K and V boxes of 64 rows) and its 32-column T pieces.
-cudaError_t run_split(const Planes& p, const void* lse, const void* delta,
+cudaError_t run_split(const Tf32BwdPlanes& p, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
                       int q_off, int k_off, int causal, float scale,
                       cudaStream_t stream) {
@@ -1351,7 +1319,7 @@ cudaError_t run(void* scratch, const void* lse, const void* delta,
                 int q_off, int k_off, int causal, float scale,
                 cudaStream_t stream) {
   using Sh = BwdShape<kDkv>;
-  const Planes p = planes(scratch, B, H, Sq, Sk, D);
+  const Tf32BwdPlanes p = tf32_bwd_planes(scratch, B, H, Sq, Sk, D);
   const int sqp = padded_keys(Sq, kSeqPad), skp = padded_keys(Sk, kSeqPad);
   // The CTA's rows (box 128) and the tile's (box 64) of S and dP, and the
   // transposed factors (box kOut rows of D by 32 of the sequence; the wide
@@ -1424,38 +1392,21 @@ cudaError_t run(void* scratch, const void* lse, const void* delta,
 }  // namespace
 }  // namespace hvdt
 
-// The backward's pre-pass, one per backward, which both kernels read.
-// q, do: contiguous fp32 [B, Sq, H, D]; k, v: [B, Sk, H, D]; 16-byte-aligned
-// bases; D a multiple of 32. scratch: fp32, 16-byte aligned, 4 B Sq H D +
-// 4 B Sk H D + 2 B H D Skp + 4 B H D Sqp elements (Sqp, Skp: Sq and Sk
-// rounded up to 64): q hi, q lo, do hi, do lo, k hi, k lo, v hi, v lo in
-// their layout, then K^T hi and lo [B, H, D, Skp], Q^T hi and lo and dO^T
-// hi and lo [B, H, D, Sqp], in that order.
+// The backward's pre-pass, one per backward, which the tf32 dq and dk/dv
+// read (these builds and those of flash_bwd_tf32_narrow_sm90.cu), in one
+// launch (sm90_common.cuh: tf32_bwd_split). q, do: contiguous fp32 [B,
+// Sq, H, D]; k, v: [B, Sk, H, D]; 16-byte-aligned bases; D 16 or a
+// multiple of 32. scratch: fp32, 16-byte aligned, 4 B Sq H D + 4 B Sk H D
+// + 2 B H D Skp + 4 B H D Sqp elements (Sqp, Skp: Sq and Sk rounded up to
+// 64): q hi, q lo, do hi, do lo, k hi, k lo, v hi, v lo in their layout,
+// then K^T hi and lo [B, H, D, Skp], Q^T hi and lo and dO^T hi and lo [B,
+// H, D, Sqp], in that order.
 extern "C" int hvdt_flash_bwd_tf32_split(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          void* scratch, int B, int H, int Sq,
                                          int Sk, int D, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 0 || D % 32) return cudaErrorInvalidValue;
-  const hvdt::Planes p = hvdt::planes(scratch, B, H, Sq, Sk, D);
-  const int sqp = hvdt::sm90::padded_keys(Sq, hvdt::kSeqPad);
-  const int skp = hvdt::sm90::padded_keys(Sk, hvdt::kSeqPad);
-  const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
-  const int blocks = 132 * 8;
-  const void* in[4] = {q, dout, k, v};
-  float* hi[4] = {p.q, p.dout, p.k, p.v};
-  float* lo[4] = {p.q_lo, p.do_lo, p.k_lo, p.v_lo};
-  for (int i = 0; i < 4; ++i)
-    hvdt::sm90::tf32_split<<<blocks, 256, 0, st>>>(
-        (const float4*)in[i], (float4*)hi[i], (float4*)lo[i],
-        (i < 2 ? nq : nk) / 4);
-  hvdt::sm90::tf32_split_t<<<dim3(B * H, D / 32, skp / 32), 256, 0, st>>>(
-      (const float*)k, p.kt, p.kt_lo, Sk, H, D, skp);
-  hvdt::sm90::tf32_split_t<<<dim3(B * H, D / 32, sqp / 32), 256, 0, st>>>(
-      (const float*)q, p.qt, p.qt_lo, Sq, H, D, sqp);
-  hvdt::sm90::tf32_split_t<<<dim3(B * H, D / 32, sqp / 32), 256, 0, st>>>(
-      (const float*)dout, p.dot, p.dot_lo, Sq, H, D, sqp);
-  return cudaGetLastError();
+  return hvdt::sm90::tf32_bwd_split(q, k, v, dout, scratch, B, H, Sq, Sk, D,
+                                    (cudaStream_t)stream);
 }
 
 // dq through 3xTF32 from the pre-pass's scratch (of the same B, H, Sq,

@@ -120,79 +120,6 @@ struct NarrowTf32Smem {
                 "narrow tf32 forward tiles exceed shared memory");
 };
 
-// Descriptor of a K-major operand whose rows are kRowBytes (64 or 128)
-// long, in the swizzle of that width.
-template <int kRowBytes>
-__device__ __forceinline__ uint64_t desc_rows(uint32_t addr) {
-  if constexpr (kRowBytes == 128)
-    return desc_sw128(addr, 16);
-  else
-    return desc_narrow<kRowBytes>(addr, 16);
-}
-
-// S = Q K^T for one kv stage in 3xTF32 into s: lo.hi and hi.lo first,
-// then hi.hi, one k8 step per 8 columns of D; issued and committed, not
-// waited for. A consumer thread's fragment: s[e] is row row0 + 8 ((e / 2)
-// % 2), key k0 + 8 (e / 4) + col + e % 2.
-template <int D>
-__device__ __forceinline__ void narrow_scores(float (&s)[kNarrowKv / 2],
-                                              uint32_t q, uint32_t q_lo,
-                                              uint32_t k, uint32_t k_lo) {
-  constexpr int kRB = D * 4;
-  fence_regs(s);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    wgmma_tf32_ss<kNarrowKv>(s, desc_rows<kRB>(q_lo + 32 * kk),
-                             desc_rows<kRB>(k + 32 * kk), kk > 0);
-    wgmma_tf32_ss<kNarrowKv>(s, desc_rows<kRB>(q + 32 * kk),
-                             desc_rows<kRB>(k_lo + 32 * kk), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    wgmma_tf32_ss<kNarrowKv>(s, desc_rows<kRB>(q + 32 * kk),
-                             desc_rows<kRB>(k + 32 * kk), 1);
-  wgmma_commit();
-}
-
-// pv = P V for one kv stage in 3xTF32, P from registers (hi in ph, lo in
-// pl) as wgmma's A operand, V^T (v, v_lo: kKv / 32 regions of [D][32
-// keys]) as B: lo.hi and hi.lo first, then hi.hi; waits for the products.
-// This thread's p of keys 2t, 2t + 1 of each 8 go in as A columns t, t + 4
-// (V^T stores the keys in that order).
-template <int D>
-__device__ __forceinline__ void narrow_pv(float (&pv)[D / 2],
-                                          uint32_t (&ph)[kNarrowKv / 2],
-                                          float (&pl)[kNarrowKv / 2],
-                                          uint32_t v, uint32_t v_lo) {
-  constexpr int kRegionV = NarrowTf32Smem<D>::kRegionV;
-  fence_regs(pv);
-  fence_regs(ph);
-  fence_regs(pl);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kNarrowKv / 8; ++kk) {
-    const uint32_t hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
-                            ph[4 * kk + 3]};
-    const uint32_t lo[4] = {
-        __float_as_uint(pl[4 * kk]), __float_as_uint(pl[4 * kk + 2]),
-        __float_as_uint(pl[4 * kk + 1]), __float_as_uint(pl[4 * kk + 3])};
-    const uint32_t off = (kk / 4) * kRegionV + (kk % 4) * 32;
-    wgmma_tf32_rs<D>(pv, lo, desc_sw128(v + off, 16), kk > 0);
-    wgmma_tf32_rs<D>(pv, hi, desc_sw128(v_lo + off, 16), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < kNarrowKv / 8; ++kk) {
-    const uint32_t hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
-                            ph[4 * kk + 3]};
-    const uint32_t off = (kk / 4) * kRegionV + (kk % 4) * 32;
-    wgmma_tf32_rs<D>(pv, hi, desc_sw128(v + off, 16), 1);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(pv);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, kNarrowCtasPerSm)
     flash_fwd_tf32_narrow(const __grid_constant__ CUtensorMap tq,
@@ -295,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, kNarrowCtasPerSm)
     const uint32_t kt = ring + st * L::kStage, vt = kt + 2 * L::kTileK;
     bar_wait(&fb[st], (i / kStg) & 1);
     float s[kKv / 2];
-    narrow_scores<D>(s, q_hi, q_lo, kt, kt + L::kTileK);
+    tf32x3_scores<D, kKv>(s, q_hi, q_lo, kt, kt + L::kTileK);
     wgmma_wait<0>();
     fence_regs(s);
 
@@ -306,14 +233,9 @@ __global__ void __launch_bounds__(kThreads, kNarrowCtasPerSm)
                         k_off, causal, scale);
     // P split in registers: ph = tf32(p), and s becomes tf32(p - ph).
     uint32_t ph[kKv / 2];
-#pragma unroll
-    for (int e = 0; e < kKv / 2; ++e) {
-      const float hi = tf32_round(s[e]);
-      ph[e] = __float_as_uint(hi);
-      s[e] = tf32_round(s[e] - hi);
-    }
+    split_tf32(s, ph);
     float pv[D / 2];
-    narrow_pv<D>(pv, ph, s, vt, vt + L::kPlaneV);
+    tf32x3_reg_product<D, kKv>(pv, ph, s, vt, vt + L::kPlaneV);
     __syncwarp();
     if (lane == 0) bar_arrive(&eb[st]);
 #pragma unroll

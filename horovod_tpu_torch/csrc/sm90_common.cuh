@@ -1,7 +1,8 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
 // (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_fwd_tf32_narrow_sm90.cu,
 // flash_dq_sm90.cu, flash_dq_stream_sm90.cu, flash_dkv_sm90.cu,
-// flash_dkv_stream_sm90.cu, flash_bwd_tf32_sm90.cu):
+// flash_dkv_stream_sm90.cu, flash_bwd_tf32_sm90.cu,
+// flash_bwd_tf32_narrow_sm90.cu):
 // TMA loads through a tensor map, mbarrier init / arrive / expect-tx /
 // wait, wgmma descriptors, fence, commit and wait, setmaxnreg, the proxy
 // fence and named barriers (for tiles that the consumers write themselves,
@@ -437,6 +438,101 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
   Wgmma<N>::tf32_rs(d, a, db, scale_d);
 }
 
+// x split in registers for 3xTF32: hi = tf32(x) (as bits), and x becomes
+// tf32(x - hi).
+template <int R>
+__device__ __forceinline__ void split_tf32(float (&x)[R], uint32_t (&hi)[R]) {
+#pragma unroll
+  for (int e = 0; e < R; ++e) {
+    const float h = tf32_round(x[e]);
+    hi[e] = __float_as_uint(h);
+    x[e] = tf32_round(x[e] - h);
+  }
+}
+
+// The narrow tf32 kernels (flash_fwd_tf32_narrow_sm90.cu,
+// flash_bwd_tf32_narrow_sm90.cu): fp32 [rows][D] tiles of D 16 or 32,
+// rows of kRowBytes = 64 or 128 bytes in the swizzle of that width (a k8
+// step is 32 bytes of a row), and transposed [D][32 rows] regions of 128
+// bytes.
+
+// Descriptor of a K-major operand whose rows are kRowBytes (64 or 128)
+// long, in the swizzle of that width.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr) {
+  if constexpr (kRowBytes == 128)
+    return desc_sw128(addr, 16);
+  else
+    return desc_narrow<kRowBytes>(addr, 16);
+}
+
+// s = A B^T over D in 3xTF32 (A a [64][D] tile at a, a_lo; B an [N][D]
+// tile at b, b_lo; hi and lo parts): lo.hi and hi.lo first, then hi.hi,
+// one k8 step per 8 columns of D; issued and committed, not waited for. A
+// consumer thread's fragment: s[e] is row 16 (t / 32) + lane / 4 + 8 ((e /
+// 2) % 2), column 8 (e / 4) + 2 (lane % 4) + e % 2.
+template <int D, int N>
+__device__ __forceinline__ void tf32x3_scores(float (&s)[N / 2], uint32_t a,
+                                              uint32_t a_lo, uint32_t b,
+                                              uint32_t b_lo) {
+  constexpr int kRB = D * 4;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    wgmma_tf32_ss<N>(s, desc_rows<kRB>(a_lo + 32 * kk),
+                     desc_rows<kRB>(b + 32 * kk), kk > 0);
+    wgmma_tf32_ss<N>(s, desc_rows<kRB>(a + 32 * kk),
+                     desc_rows<kRB>(b_lo + 32 * kk), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    wgmma_tf32_ss<N>(s, desc_rows<kRB>(a + 32 * kk),
+                     desc_rows<kRB>(b + 32 * kk), 1);
+  wgmma_commit();
+}
+
+// out = X Y over K rows in 3xTF32: X the accumulator fragment of a [64][K]
+// tile split into hi and lo (split_tf32; wgmma's register A operand), Y^T
+// at y (hi) and y_lo, K / 32 regions of [D][32 rows] whose rows of every 8
+// the pre-pass permuted (tf32_split_t), so that this thread's columns 2t,
+// 2t + 1 of each 8 go in as A columns t, t + 4; lo.hi and hi.lo first, then
+// hi.hi; waits for the products.
+template <int D, int K>
+__device__ __forceinline__ void tf32x3_reg_product(float (&out)[D / 2],
+                                                   uint32_t (&hi)[K / 2],
+                                                   float (&lo)[K / 2],
+                                                   uint32_t y, uint32_t y_lo) {
+  constexpr int kRegion = D * 128;
+  fence_regs(out);
+  fence_regs(hi);
+  fence_regs(lo);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 2], hi[4 * kk + 1],
+                            hi[4 * kk + 3]};
+    const uint32_t al[4] = {
+        __float_as_uint(lo[4 * kk]), __float_as_uint(lo[4 * kk + 2]),
+        __float_as_uint(lo[4 * kk + 1]), __float_as_uint(lo[4 * kk + 3])};
+    const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+    wgmma_tf32_rs<D>(out, al, desc_sw128(y + off, 16), kk > 0);
+    wgmma_tf32_rs<D>(out, ah, desc_sw128(y_lo + off, 16), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 2], hi[4 * kk + 1],
+                            hi[4 * kk + 3]};
+    const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+    wgmma_tf32_rs<D>(out, ah, desc_sw128(y + off, 16), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(out);
+  fence_regs(hi);
+  fence_regs(lo);
+}
+
 // The online softmax of the tf32 forwards (flash_fwd_stream_sm90.cu,
 // flash_fwd_tf32_narrow_sm90.cu) for one kv tile (keys k0 ..) on a
 // consumer thread's accumulator fragment s of S (rows qpos, qpos + 8 in
@@ -613,8 +709,8 @@ inline cudaError_t launch_ws(K kernel, dim3 grid, size_t bytes,
 // ---- the tf32 pre-pass ----------------------------------------------------
 //
 // The tf32 kernels (the forward in flash_fwd_stream_sm90.cu and
-// flash_fwd_tf32_narrow_sm90.cu, dq and dk/dv in flash_bwd_tf32_sm90.cu)
-// read each fp32 operand as two tf32 parts,
+// flash_fwd_tf32_narrow_sm90.cu, dq and dk/dv in flash_bwd_tf32_sm90.cu and
+// flash_bwd_tf32_narrow_sm90.cu) read each fp32 operand as two tf32 parts,
 // hi = tf32(x) and lo = tf32(x - hi), written once per call by these
 // kernels into scratch the wrapper allocates. tf32 wgmma takes both
 // operands K-major, so a product that reduces over the sequence (P V,
@@ -771,6 +867,111 @@ inline cudaError_t tf32_fwd_split(const void* q, const void* k,
       (const float4*)q, (const float4*)k, (const float*)v,
       tf32_planes(scratch, B, H, Sq, Sk, D), nq4, nk4, qb, kb, B * H, H, Sk,
       D, skp);
+  return cudaGetLastError();
+}
+
+// The backward's transposed planes: the sequence rounded up to 64.
+constexpr int kTf32BwdSeqPad = 64;
+
+// The backward's pre-pass planes in scratch order: q, do, k, v hi and lo
+// in [B, S, H, D], then K^T hi and lo [B, H, D, Sk rounded up to 64], Q^T
+// and dO^T hi and lo [B, H, D, Sq rounded up to 64].
+struct Tf32BwdPlanes {
+  float *q, *q_lo, *dout, *do_lo, *k, *k_lo, *v, *v_lo;
+  float *kt, *kt_lo, *qt, *qt_lo, *dot, *dot_lo;
+};
+inline Tf32BwdPlanes tf32_bwd_planes(void* scratch, int B, int H, int Sq,
+                                     int Sk, int D) {
+  const size_t nq = (size_t)B * Sq * H * D, nk = (size_t)B * Sk * H * D;
+  const size_t nkt = (size_t)B * H * D * padded_keys(Sk, kTf32BwdSeqPad);
+  const size_t nqt = (size_t)B * H * D * padded_keys(Sq, kTf32BwdSeqPad);
+  float* x = (float*)scratch;
+  float* at[14];
+  const size_t n[14] = {nq, nq, nq, nq, nk, nk, nk, nk,
+                        nkt, nkt, nqt, nqt, nqt, nqt};
+  for (int i = 0; i < 14; ++i) {
+    at[i] = x;
+    x += n[i];
+  }
+  return Tf32BwdPlanes{at[0], at[1], at[2],  at[3],  at[4],  at[5],  at[6],
+                       at[7], at[8], at[9], at[10], at[11], at[12], at[13]};
+}
+
+// The backward's pre-pass in one launch of 256-thread blocks: blocks [0,
+// qb) split q, [qb, 2 qb) do, [2 qb, 2 qb + kb) k and the next kb v (each
+// set striding over its tensor); every later block one 32 x 32 tile of
+// K^T, then of Q^T, then of dO^T (b h fastest, then the column block of D,
+// then the row block of the sequence). The same values as four tf32_split
+// and three tf32_split_t launches, whose launch gaps took about as long as
+// their bytes at the narrow head dims.
+__global__ void __launch_bounds__(256)
+    tf32_bwd_split_all(const float4* __restrict__ q,
+                       const float4* __restrict__ dout,
+                       const float4* __restrict__ k,
+                       const float4* __restrict__ v, Tf32BwdPlanes p,
+                       size_t nq4, size_t nk4, int qb, int kb, int BH,
+                       int H, int Sq, int Sk, int D, int Sqp, int Skp) {
+  __shared__ float tile[32][33];
+  const int blk = blockIdx.x;
+  if (blk < 2 * qb) {
+    const bool is_do = blk >= qb;
+    split_range(is_do ? dout : q, (float4*)(is_do ? p.dout : p.q),
+                (float4*)(is_do ? p.do_lo : p.q_lo),
+                (size_t)(blk - (is_do ? qb : 0)) * 256 + threadIdx.x,
+                (size_t)qb * 256, nq4);
+    return;
+  }
+  if (blk < 2 * qb + 2 * kb) {
+    const int j = blk - 2 * qb;
+    const bool is_v = j >= kb;
+    split_range(is_v ? v : k, (float4*)(is_v ? p.v : p.k),
+                (float4*)(is_v ? p.v_lo : p.k_lo),
+                (size_t)(j - (is_v ? kb : 0)) * 256 + threadIdx.x,
+                (size_t)kb * 256, nk4);
+    return;
+  }
+  const int db = (D + 31) / 32;
+  int t = blk - 2 * qb - 2 * kb;
+  const int kt_tiles = BH * db * (Skp / 32);
+  if (t < kt_tiles) {
+    split_t_tile(tile, (const float*)k, p.kt, p.kt_lo, Sk, H, D, Skp, t % BH,
+                 (t / BH) % db * 32, t / BH / db * 32);
+    return;
+  }
+  t -= kt_tiles;
+  const int qt_tiles = BH * db * (Sqp / 32);
+  const bool is_do = t >= qt_tiles;
+  if (is_do) t -= qt_tiles;
+  split_t_tile(tile, (const float*)(is_do ? dout : q), is_do ? p.dot : p.qt,
+               is_do ? p.dot_lo : p.qt_lo, Sq, H, D, Sqp, t % BH,
+               (t / BH) % db * 32, t / BH / db * 32);
+}
+
+// The tf32 backward's pre-pass (flash_bwd_tf32_sm90.cu and
+// flash_bwd_tf32_narrow_sm90.cu read it): q, do contiguous fp32 [B, Sq,
+// H, D], k, v [B, Sk, H, D], 16-byte-aligned bases, D 16 or a multiple of
+// 32, into the 14 planes of tf32_bwd_planes, in one launch
+// (tf32_bwd_split_all).
+inline cudaError_t tf32_bwd_split(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  void* scratch, int B, int H, int Sq,
+                                  int Sk, int D, cudaStream_t st) {
+  if (D <= 0 || (D % 32 && D != 16)) return cudaErrorInvalidValue;
+  const size_t nq4 = (size_t)B * Sq * H * D / 4;
+  const size_t nk4 = (size_t)B * Sk * H * D / 4;
+  const int sqp = padded_keys(Sq, kTf32BwdSeqPad);
+  const int skp = padded_keys(Sk, kTf32BwdSeqPad);
+  // Blocks of the elementwise splits: as tf32_fwd_split's.
+  auto blocks = [](size_t n4) {
+    return (int)std::min<size_t>(132 * 8, (n4 + 1023) / 1024);
+  };
+  const int qb = blocks(nq4), kb = blocks(nk4);
+  const long long tiles =
+      (long long)B * H * ((D + 31) / 32) * ((skp + 2 * sqp) / 32);
+  tf32_bwd_split_all<<<(unsigned)(2 * qb + 2 * kb + tiles), 256, 0, st>>>(
+      (const float4*)q, (const float4*)dout, (const float4*)k,
+      (const float4*)v, tf32_bwd_planes(scratch, B, H, Sq, Sk, D), nq4, nk4,
+      qb, kb, B * H, H, Sq, Sk, D, sqp, skp);
   return cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
-                                or ``flash_bwd.cu`` (fp32, D <= 32) via
+                                or ``flash_bwd_tf32_narrow_sm90.cu``
+                                (fp32, D <= 32, 3xTF32) via
                                 :func:`_flash_bwd`
 - ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256;
                                 in place at every multiple of 8 past
@@ -28,7 +29,8 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
                                 32, 3xTF32)
-                                or ``flash_bwd.cu`` (fp32, D <= 32) via
+                                or ``flash_bwd_tf32_narrow_sm90.cu``
+                                (fp32, D <= 32, 3xTF32) via
                                 :func:`_flash_bwd`
 
 :func:`_design` picks each kernel's design from the dtype and head dim
@@ -51,23 +53,26 @@ alone, before any launch:
   of 256 columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
   kernels (parts of 128 columns, and 256 for the forward past D 128;
-  dk/dv 64, and 128 past D 128), and the forward at every fp32 D up to
-  32 as well, on narrow builds of its own at D 16 and 32
-  (``TF32_NARROW_DIMS``: a CTA a 64-row q tile whose kv tiles several
-  consumer warpgroups share, csrc/flash_fwd_tf32_narrow_sm90.cu); each
-  product as hi.hi +
-  hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo = tf32(x - hi)) after a
-  pre-pass that writes the inputs' parts and the transposes the products
-  over the sequence read (the forward's v^T; the backward's k^T, q^T and
-  do^T, one pre-pass for dq and dk/dv, :func:`_tf32_bwd_split`). The
-  shared-memory bytes of each are worked out in the files' headers.
-- ``simt`` (fp32 FMAs from fp32 shared-memory tiles) takes the rest: dq
-  and dk/dv at fp32 D <= 32. It is built at ``HEAD_DIMS`` (16 to
-  512; its tiles shrink as D grows so that a block's shared memory holds
-  them, the counterpart of the reference's ``_ladders_for``) and at any
-  multiple of 64 past 512, where each block computes one 64-column chunk
-  of the output and streams the logits' reductions over D through
-  64-wide tiles (``csrc/flash_common.cuh`` works the bytes out).
+  dk/dv 64, and 128 past D 128), and every fp32 D up to 32 as well, on
+  narrow builds of its own at D 16 and 32 (``TF32_NARROW_DIMS``: a CTA
+  owns 64 rows, a q tile for the forward and dq, a kv tile for dk/dv,
+  whose stages of the other sequence several consumer warpgroups share;
+  csrc/flash_fwd_tf32_narrow_sm90.cu, flash_bwd_tf32_narrow_sm90.cu);
+  each product as hi.hi + hi.lo + lo.hi of tf32 parts (hi = tf32(x), lo
+  = tf32(x - hi)) after a pre-pass, one launch, that writes the inputs'
+  parts and the transposes the products over the sequence read (the
+  forward's v^T; the backward's k^T, q^T and do^T, one pre-pass for dq
+  and dk/dv, :func:`_tf32_bwd_split`). The shared-memory bytes of each
+  are worked out in the files' headers.
+- ``simt`` (fp32 FMAs from fp32 shared-memory tiles, csrc/flash_fwd.cu
+  and flash_bwd.cu) takes no input that the dispatchers route: it is
+  built, checked and timed beside the others (``_launch`` with design
+  ``"simt"``). It is built at ``HEAD_DIMS`` (16 to 512; its tiles shrink
+  as D grows so that a block's shared memory holds them, the counterpart
+  of the reference's ``_ladders_for``) and at any multiple of 64 past
+  512, where each block computes one 64-column chunk of the output and
+  streams the logits' reductions over D through 64-wide tiles
+  (``csrc/flash_common.cuh`` works the bytes out).
 
 Like the reference, a CUDA call takes any head dim: one that the
 kernel's design is not built for runs at the next one that is
@@ -78,8 +83,8 @@ padded columns of v give output columns that are cut away. So bf16 D 80
 runs all three kernels at 128, D 200 at 256, D 20 all three at 32
 (sm90), D 320 the forward at 384 (sm90) and dq and dk/dv at 320
 (stream), D 600 all three at 640 (stream), fp32 D 100 all three at
-128 (tf32) and fp32 D 20 all three at 32 (the forward on tf32, dq and
-dk/dv on simt). The sm90 kernels pad nothing where a row of d 16-bit values
+128 (tf32) and fp32 D 20 all three at 32 (the narrow tf32 builds). The
+sm90 kernels pad nothing where a row of d 16-bit values
 is a legal TMA stride (d a multiple of 8 past 32, so D 80, 96 and 200,
 :func:`_reads_in_place`): the build of the next head dim reads the
 caller's tensors through tensor maps of extent d, which zero-fill the
@@ -162,10 +167,10 @@ STREAM_DESIGNS = {"stream": (SM90_DTYPES,
                               for kern in KERNELS}, 64),
                   "tf32": ((torch.float32,),
                            dict.fromkeys(KERNELS, HEAD_DIMS[1]), 32)}
-# The tf32 design's narrow builds below its start, per kernel that has
-# them: the forward at fp32 D 16 and 32
-# (csrc/flash_fwd_tf32_narrow_sm90.cu), which takes every fp32 D up to 32.
-TF32_NARROW_DIMS = {"fwd": (16, 32)}
+# The tf32 design's narrow builds below its start, per kernel: fp32 D 16
+# and 32 (csrc/flash_fwd_tf32_narrow_sm90.cu, flash_bwd_tf32_narrow_sm90.cu),
+# which take every fp32 D up to 32.
+TF32_NARROW_DIMS = dict.fromkeys(KERNELS, (16, 32))
 _KERNEL_NAMES = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}
 # ``operands`` modes of the plain versions for the tf32 design: each
 # product as hi.hi + hi.lo + lo.hi of tf32 parts (what the kernels
@@ -241,7 +246,7 @@ def _next_built(d: int, built) -> int:
 def _narrow_tf32(design: str, kernel: str) -> tuple:
     """The narrow builds of ``kernel``'s ``design``: those of
     ``TF32_NARROW_DIMS`` for tf32, none otherwise."""
-    return TF32_NARROW_DIMS.get(kernel, ()) if design == "tf32" else ()
+    return TF32_NARROW_DIMS[kernel] if design == "tf32" else ()
 
 
 def padded_head_dim(d: int, design: str, kernel: str) -> int:
@@ -253,8 +258,8 @@ def padded_head_dim(d: int, design: str, kernel: str) -> int:
     (``STREAM_DESIGNS``): the next multiple of 64 past the kernel's start
     (512 for the forward, 256 for dq and dk/dv) and of 32 past 32, which
     raise at or below the start and never above it, but for the tf32
-    forward's narrow builds (``TF32_NARROW_DIMS``): 16 for d <= 16 and
-    32 for 17-32; simt, the same
+    narrow builds of all three kernels (``TF32_NARROW_DIMS``): 16 for
+    d <= 16 and 32 for 17-32; simt, the same
     for every kernel: ``HEAD_DIMS`` up to 512, then the next multiple of
     ``CHUNK``, so it never refuses a head dim there."""
     if design in STREAM_DESIGNS:
@@ -510,15 +515,14 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
     fed by TMA, Q resident) at bf16 and fp16 with d <= 512 for the
     forward and d <= 256 for dq and dk/dv; ``"stream"`` (the same,
     streamed over D) at bf16 and fp16 for the forward past 512 and dq and
-    dk/dv past 256; ``"tf32"`` (streamed, 3xTF32) for all three at fp32
-    past 32, and for the forward at every fp32 d up to 32 too (its narrow
-    builds, ``TF32_NARROW_DIMS``); ``"simt"`` (fp32 FMAs, flash_bwd.cu)
-    otherwise: dq and dk/dv at fp32 d <= 32. No 16-bit input and no
-    forward reaches simt."""
+    dk/dv past 256; ``"tf32"`` (3xTF32) for all three at every fp32 d:
+    streamed over D past 32, on the narrow builds up to it
+    (``TF32_NARROW_DIMS``). No dtype the kernels take reaches ``"simt"``
+    (fp32 FMAs), which only a caller that asks for it runs."""
     for design, (dtypes, starts, _) in STREAM_DESIGNS.items():
         if dtype in dtypes and d > starts.get(kernel, d):
             return design
-    if dtype in STREAM_DESIGNS["tf32"][0] and kernel in TF32_NARROW_DIMS:
+    if dtype in STREAM_DESIGNS["tf32"][0]:
         return "tf32"
     sm90 = dtype in SM90_DTYPES and d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
@@ -688,10 +692,14 @@ def tf32_fwd_part(d: int) -> int:
 
 def tf32_dkv_part(d: int) -> int:
     """The columns of dK and dV that a CTA of the tf32 dk/dv owns at the
-    built head dim ``d``, as its C entry picks the build
-    (csrc/flash_bwd_tf32_sm90.cu): 64 up to D 128, 128 past it (the wide
-    build, P^T and dS^T through shared memory, so that S and dP are paid
-    half as often). Needs the kernels' library."""
+    built head dim ``d``, which name its build: D itself at the narrow
+    builds (D 16 and 32, csrc/flash_bwd_tf32_narrow_sm90.cu); past them as
+    the C entry of csrc/flash_bwd_tf32_sm90.cu picks the build, 64 up to D
+    128, 128 past it (the wide build, P^T and dS^T through shared memory,
+    so that S and dP are paid half as often). Needs the kernels' library
+    past D 32."""
+    if d in TF32_NARROW_DIMS["dkv"]:
+        return d
     return _cuda.load().hvdt_flash_dkv_tf32_part(d)
 
 
@@ -870,11 +878,14 @@ def _flash_dkv_stream(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 
 
 def _tf32_bwd_split(q, k, v, do):
-    """The tf32 backward's pre-pass (csrc/flash_bwd_tf32_sm90.cu), which
-    dq and dk/dv both read: q, do, k and v split into tf32 hi and lo parts
-    in their [B, S, H, D] layout, and k, q and do transposed to [B, H, D,
-    S rounded up to 64] hi and lo, 14 planes in one fp32 scratch tensor
-    allocated here (at the fp32 main shape 0.94 GB)."""
+    """The tf32 backward's pre-pass (the C entry
+    ``hvdt_flash_bwd_tf32_split``, one launch of csrc/sm90_common.cuh's
+    ``tf32_bwd_split_all``), which dq and dk/dv both read, on every build
+    (the narrow ones at D 16 and 32 among them): q, do, k and v split into
+    tf32 hi and lo parts in their [B, S, H, D] layout, and k, q and do
+    transposed to [B, H, D, S rounded up to 64] hi and lo, 14 planes in
+    one fp32 scratch tensor allocated here (at the fp32 main shape 0.94
+    GB)."""
     _check_tensor_cores("flash backward", "dq", (q, k, v, do), "tf32")
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -900,15 +911,20 @@ def _bwd_tf32(name, kernel, q, k, v, do, lse, delta, split):
 
 def _flash_dq_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                    k_offset: int, scale=None, split=None):
-    """The 3xTF32 dq kernel (flash_bwd_tf32_sm90.cu): fp32 at the multiples
-    of 32 past 32. ``split``: :func:`_tf32_bwd_split` of these inputs."""
+    """The 3xTF32 dq kernel: fp32 at D 16 and 32 on the narrow builds
+    (flash_bwd_tf32_narrow_sm90.cu: dQ whole, a q tile's kv stages shared
+    among consumer warpgroups) and at the multiples of 32 past 32 streamed
+    over D (flash_bwd_tf32_sm90.cu). ``split``: :func:`_tf32_bwd_split` of
+    these inputs."""
     global flash_dq_tf32_launches
     split = _bwd_tf32("flash dq", "dq", q, k, v, do, lse, delta, split)
     b, sq, h, d = q.shape
     lib = _cuda.load()
     dq = torch.empty_like(q)
+    entry = (lib.hvdt_flash_dq_tf32_narrow if d in TF32_NARROW_DIMS["dq"]
+             else lib.hvdt_flash_dq_tf32)
     with torch.cuda.device(q.device):
-        err = lib.hvdt_flash_dq_tf32(
+        err = entry(
             split.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, sq, k.shape[1], d, q_offset, k_offset,
             int(causal), _scale_arg(q, scale), _stream(q))
@@ -919,18 +935,22 @@ def _flash_dq_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
 
 def _flash_dkv_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                     k_offset: int, scale=None, split=None):
-    """The 3xTF32 dk/dv kernel (flash_bwd_tf32_sm90.cu): fp32 at the
-    multiples of 32 past 32, in 64-column parts of dK and dV up to D 128
-    and 128-column parts past it (:func:`tf32_dkv_part`). ``split``: as
-    for :func:`_flash_dq_tf32`."""
+    """The 3xTF32 dk/dv kernel: fp32 at D 16 and 32 on the narrow builds
+    (flash_bwd_tf32_narrow_sm90.cu: dK and dV whole, a kv tile's q stages
+    shared among consumer warpgroups), and at the multiples of 32 past 32
+    streamed over D (flash_bwd_tf32_sm90.cu) in 64-column parts of dK and
+    dV up to D 128 and 128-column parts past it (:func:`tf32_dkv_part`).
+    ``split``: as for :func:`_flash_dq_tf32`."""
     global flash_dkv_tf32_launches
     split = _bwd_tf32("flash dk/dv", "dkv", q, k, v, do, lse, delta, split)
     b, sq, h, d = q.shape
     lib = _cuda.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    entry = (lib.hvdt_flash_dkv_tf32_narrow if d in TF32_NARROW_DIMS["dkv"]
+             else lib.hvdt_flash_dkv_tf32)
     with torch.cuda.device(q.device):
-        err = lib.hvdt_flash_dkv_tf32(
+        err = entry(
             split.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], d, q_offset,
             k_offset, int(causal), _scale_arg(q, scale), _stream(q))
@@ -963,11 +983,11 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     read the same tensors: the caller's own where both read them in place
     (16-bit d a multiple of 8 past 32, D 80, 96 and 200 on the sm90
     builds; D 320 on the stream design, built there), else one padded
-    copy (16-bit D 20 and 260, fp32 D 100). Where both run the tf32
-    design one pre-pass of those tensors (:func:`_tf32_bwd_split`) serves
-    both. ``launchers`` ({(kernel, design): function}, default the
-    kernels' own) lets a test run the plain versions through the same
-    steps."""
+    copy (16-bit D 20 and 260, fp32 D 20 and 100). Where both run the
+    tf32 design (every fp32 head dim) one pre-pass of those tensors
+    (:func:`_tf32_bwd_split`) serves both. ``launchers`` ({(kernel,
+    design): function}, default the kernels' own) lets a test run the
+    plain versions through the same steps."""
     tensors = (q, k, v, do)
     args = (lse, delta, causal, q_offset, k_offset)
     _bwd_inputs("flash backward", *tensors, lse, delta)
@@ -1075,8 +1095,7 @@ def flash_attention(q, k, v, causal: bool = True,
     ``q_offset``/``k_offset`` (ints or 0-d tensors) are the global
     positions of element 0 and shift the causal mask. Softmax statistics
     and every sum stay fp32. fp32 inputs on CUDA take each product of the
-    forward, and of dq and dk/dv past head dim 32, as three tf32
-    products (3xTF32), which holds the
+    forward, dq and dk/dv as three tf32 products (3xTF32), which holds the
     reference's fp32 bounds; the bf16 and fp16 tensor-core kernels feed
     p (and in the backward ds) to the tensor cores in the input's type,
     so they also differ from fp32 by that rounding, beside that of the

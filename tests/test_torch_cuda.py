@@ -637,7 +637,7 @@ RAGGED_DESIGNS = [
     pytest.param("bfloat16", 32, id="simt_bf16_d32"),
     pytest.param("bfloat16", 16, id="narrow_bf16_d16"),
     pytest.param("float16", 32, id="narrow_fp16_d32"),
-    pytest.param("float32", 32, id="simt_fp32_d32"),
+    pytest.param("float32", 32, id="tf32_narrow_fp32_d32"),
     pytest.param("bfloat16", 128, id="sm90_bf16_d128"),
     pytest.param("bfloat16", 256, id="sm90_bf16_d256"),
     pytest.param("bfloat16", 640, id="stream_bf16_d640"),
@@ -1290,14 +1290,16 @@ TF32_NARROW_CASES = [
 def test_tf32_narrow_forward_matches_plain_versions(cuda, d, b, s, h,
                                                     causal, qo, ko, sk):
     """The narrow tf32 forward (fp32 D 16 and 32; D 24 runs at 32) held
-    to the fp32 plain forward with no allowance, dq and dk/dv on simt
-    beside it: causal and not, with offsets, dead rows, unequal lengths
-    and ragged tiles (S 1, 33, 100, 127); the launch counters show that
-    the tf32 forward ran once and the simt forward never."""
+    to the fp32 plain forward with no allowance, the narrow tf32 dq and
+    dk/dv beside it: causal and not, with offsets, dead rows, unequal
+    lengths and ragged tiles (S 1, 33, 100, 127); the launch counters
+    show that the tf32 forward, dq and dk/dv ran once each and no simt
+    kernel."""
     _check_kernels(cuda, torch.float32, b, s, h, d, causal, qo, ko, sk)
     counts = fa.launch_counts()
     assert counts["flash_fwd_tf32"] == 1 and counts["flash_fwd"] == 0
-    assert counts["flash_dq"] == counts["flash_dkv"] == 1
+    assert counts["flash_dq_tf32"] == counts["flash_dkv_tf32"] == 1
+    assert counts["flash_dq"] == counts["flash_dkv"] == 0
 
 
 @pytest.mark.cuda
@@ -1340,3 +1342,156 @@ def test_tf32_narrow_forward_refuses_a_misaligned_tensor(cuda, d):
         with pytest.raises(ValueError, match="16-byte"):
             fa._tf32_fwd_split(*args)
     assert not any(fa.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 24, 32])
+@pytest.mark.parametrize("b,s,h,causal,qo,ko,sk", TF32_NARROW_CASES)
+def test_tf32_narrow_backward_matches_plain_versions(cuda, d, b, s, h,
+                                                     causal, qo, ko, sk):
+    """The narrow tf32 dq and dk/dv (fp32 D 16 and 32; D 24 runs at 32)
+    through ``_flash_bwd`` (one pre-pass for both) held to their TF32X3
+    plain versions, dq at ``DQ_ATOL`` and dk and dv at the fp32 gradient
+    bound, with no allowance; a second call and each launcher with its own
+    pre-pass give the same bits; one launch each, no simt kernel."""
+    q, k, v, do = _inputs(cuda, torch.float32, b, s, h, d, 3 * s + d, sk)
+    _, lse, delta = _stats(q, k, v, do, causal, qo, ko)
+    args = (q, k, v, do, lse, delta, causal, qo, ko)
+    fa.reset_launch_counts()
+    dq, (dk, dv) = fa._flash_bwd(*args)
+    counts = fa.launch_counts()
+    again = fa._flash_bwd(*args)
+    apart = (fa._launch("dq", "tf32", args[:4], *args[4:]),
+             *fa._launch("dkv", "tf32", args[:4], *args[4:]))
+    torch.cuda.synchronize()
+    assert counts["flash_dq_tf32"] == counts["flash_dkv_tf32"] == 1
+    assert sum(counts.values()) == 2
+    for got in ((again[0], *again[1]), apart):
+        assert all(torch.equal(x, y) for x, y in zip(got, (dq, dk, dv)))
+    _close(dq, fa._flash_dq_plain(*args, operands=fa.TF32X3), 1e-4,
+           tolerance.DQ_ATOL)
+    for got, want in zip((dk, dv), fa._flash_dkv_plain(*args,
+                                                       operands=fa.TF32X3)):
+        _close(got, want, 1e-4, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_tf32_narrow_backward_rejects_a_lost_warpgroup_stage(cuda, d):
+    """At the C4 shape the bound the narrow tf32 dq and dk/dv pass rejects,
+    by more than chip_smoke.py's LOST_FP32_BY, the plain dq without the
+    keys of one kv stage of dq's last consumer warpgroup, and the plain dk
+    and dv without the queries of one q stage of dk/dv's last warpgroup
+    (what a sum that lost that warpgroup's partial would give)."""
+    import chip_smoke
+    q, k, v, do = _inputs(cuda, torch.float32, 2, 1024, 8, d, 9)
+    _, lse, delta = _stats(q, k, v, do, True, 0, 0)
+    args = (q, k, v, do, lse, delta, True, 0, 0)
+    dq, (dk, dv) = fa._flash_bwd(*args)
+    dq_p = fa._flash_dq_plain(*args, operands=fa.TF32X3)
+    dk_p, dv_p = fa._flash_dkv_plain(*args, operands=fa.TF32X3)
+    _close(dq, dq_p, 1e-4, tolerance.DQ_ATOL)
+    _close(dk, dk_p, 1e-4, 1e-6)
+    _close(dv, dv_p, 1e-4, 1e-6)
+    lost = chip_smoke.TF32_NARROW_LOST
+    lo, hi = lost["dq_last_warpgroup"]
+    dq_x = chip_smoke.dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi,
+                                      operands=fa.TF32X3)
+    ratio = tolerance.worst(dq_x, dq_p, 1e-4, atol=tolerance.DQ_ATOL)[1]
+    assert ratio > chip_smoke.LOST_FP32_BY, ratio
+    lo, hi = lost["dkv_last_warpgroup"]
+    do_x, delta_x = do.clone(), delta.clone()
+    do_x[:, lo:hi] = 0
+    delta_x[:, :, lo:hi] = 0
+    for got, want in zip(fa._flash_dkv_plain(q, k, v, do_x, lse, delta_x,
+                                             True, 0, 0,
+                                             operands=fa.TF32X3),
+                         (dk_p, dv_p)):
+        ratio = tolerance.worst(got, want, 1e-4)[1]
+        assert ratio > chip_smoke.LOST_FP32_BY, ratio
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_tf32_narrow_backward_refuses_a_misaligned_tensor(cuda, d):
+    """A tensor one element off a 16-byte boundary raises before any
+    launch: no pre-pass, no narrow kernel and no simt kernel in its
+    place."""
+    flat = torch.zeros(1 + 64 * 2 * d, device=cuda)
+    bad = flat[1:].view(1, 64, 2, d)
+    good = torch.zeros(1, 64, 2, d, device=cuda)
+    st = torch.zeros(1, 2, 64, device=cuda)
+    fa.reset_launch_counts()
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_bwd(*tensors, st, st, True, 0, 0)
+        for kern in ("dq", "dkv"):
+            with pytest.raises(ValueError, match="16-byte"):
+                fa._launch(kern, "tf32", tensors, st, st, True, 0, 0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._tf32_bwd_split(*tensors)
+    assert not any(fa.launch_counts().values())
+
+
+def _tf32_bwd_planes(q, k, v, do):
+    """The backward pre-pass's 14 planes in torch, in scratch order: q, do,
+    k, v as tf32 hi = tf32(x) and lo = tf32(x - hi) in their layout, then
+    k, q and do transposed to [B, H, D, S rounded up to 64] (zero past S)
+    with the rows of every 8 positions in the order 0, 2, 4, 6, 1, 3, 5, 7,
+    each hi and lo: what the seven launches before the one-launch pre-pass
+    wrote."""
+    def split(x):
+        hi = fa._tf32(x)
+        return [hi.flatten(), fa._tf32(x - hi).flatten()]
+
+    def split_t(x):
+        b, s, h, d = x.shape
+        sp = -(-s // 64) * 64
+        xt = torch.zeros(b, h, d, sp, device=x.device)
+        xt[..., :s] = x.permute(0, 2, 3, 1)
+        order = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7], device=x.device)
+        idx = (torch.arange(sp, device=x.device) // 8 * 8
+               + order.repeat(sp // 8))
+        return split(xt[..., idx].contiguous())
+    return torch.cat(split(q) + split(do) + split(k) + split(v) + split_t(k)
+                     + split_t(q) + split_t(do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,sq,sk", [(16, 1024, 1024), (32, 1024, 1024),
+                                     (16, 100, 127), (128, 256, 256),
+                                     (640, 192, 320)])
+def test_tf32_backward_prepass_in_one_launch_writes_the_seven_planes(
+        cuda, d, sq, sk):
+    """The backward's pre-pass, one launch of ``tf32_bwd_split_all``,
+    writes bit for bit the planes that its seven launches (four splits,
+    three transposes) wrote: at the narrow builds' D 16 and 32, with
+    unequal ragged lengths, and at the wider builds' D 128 and 640."""
+    g = torch.Generator(device=cuda).manual_seed(d + sq)
+    q, do = (torch.randn(2, sq, 2, d, generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn(2, sk, 2, d, generator=g, device=cuda)
+            for _ in range(2))
+    split = fa._tf32_bwd_split(q, k, v, do)
+    assert torch.equal(split, _tf32_bwd_planes(q, k, v, do))
+
+
+@pytest.mark.cuda
+def test_simt_launchers_still_hold_fp32_at_d32(cuda):
+    """The simt dq and dk/dv, which no route runs any more, still hold
+    their plain versions at fp32 D 32 (ragged lengths, causal, offsets)
+    when asked for."""
+    q, k, v, do = _inputs(cuda, torch.float32, 2, 100, 2, 32, 5, 127)
+    _, lse, delta = _stats(q, k, v, do, True, 27, 0)
+    args = (q, k, v, do, lse, delta, True, 27, 0)
+    fa.reset_launch_counts()
+    dq = fa._launch("dq", "simt", args[:4], *args[4:])
+    dk, dv = fa._launch("dkv", "simt", args[:4], *args[4:])
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_dq"] == fa.launch_counts()[
+        "flash_dkv"] == 1
+    _close(dq, fa._flash_dq_plain(*args), 1e-4, 1e-6)
+    for got, want in zip((dk, dv), fa._flash_dkv_plain(*args)):
+        _close(got, want, 1e-4, 1e-6)

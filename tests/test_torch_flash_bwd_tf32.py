@@ -203,9 +203,10 @@ def test_fp32_backward_design_and_padding_on_plain_versions(d, built):
 
 
 def test_tf32_design_serves_every_kernel_and_stream_the_forward_alone():
-    """tf32 serves all three kernels past D 32 (and the forward up to it,
-    on its narrow builds); stream serves the 16-bit forward past 512 and
-    dq and dk/dv past 256."""
+    """tf32 serves all three kernels past D 32 streamed over D (and up to
+    it, on their narrow builds, so it refuses no head dim); stream serves
+    the 16-bit forward past 512 and dq and dk/dv past 256, and refuses a
+    head dim at its start."""
     assert port.STREAM_DESIGNS["tf32"][1] == dict.fromkeys(port.KERNELS, 32)
     assert port.STREAM_DESIGNS["stream"][1] == {"fwd": 512, "dq": 256,
                                                 "dkv": 256}
@@ -213,8 +214,9 @@ def test_tf32_design_serves_every_kernel_and_stream_the_forward_alone():
         for kern in port.KERNELS:
             assert port._design(torch.float32, d, kern) == "tf32"
     for kern in port.KERNELS:
-        assert port._design(torch.float32, 32, kern) == (
-            "tf32" if kern == "fwd" else "simt")
-    with pytest.raises(ValueError, match="forward and dq and dk/dv past "
-                                         "head dim 32"):
-        port.padded_head_dim(32, "tf32", "dkv")
+        assert port._design(torch.float32, 32, kern) == "tf32"
+    assert port.padded_head_dim(32, "tf32", "dkv") == 32
+    with pytest.raises(ValueError, match="forward past head dim 512 and "
+                                         "the dq and dk/dv past head dim "
+                                         "256"):
+        port.padded_head_dim(256, "stream", "dkv")

@@ -1,7 +1,8 @@
 """The CPU side of the narrow tf32 forward (fp32 at head dims 16 and 32,
 csrc/flash_fwd_tf32_narrow_sm90.cu): the route every fp32 forward up to
-D 32 takes now (dq and dk/dv keep the simt kernels there), its padding
-ladder and launcher checks, the plain forward in ``TF32X3`` (what the
+D 32 takes now (dq and dk/dv take their own narrow tf32 builds there,
+tests/test_torch_flash_bwd_tf32_narrow.py), its padding ladder and
+launcher checks, the plain forward in ``TF32X3`` (what the
 kernel computes) against the reference's Pallas forward in interpret
 mode, and a CPU model of the kernel's order of sums, whose kv tiles
 several consumer warpgroups share (``kNarrowSplit``, ``kNarrowKv``), held
@@ -64,21 +65,20 @@ class _CudaLike:
 @pytest.mark.parametrize("d", [1, 8, 15, 16, 17, 24, 31, 32])
 def test_fp32_forward_takes_tf32_and_the_backward_simt(d):
     """Every fp32 forward up to D 32 takes the tf32 design (its narrow
-    builds), dq and dk/dv keep simt; all three pad D 1-16 to 16 and D
-    17-32 to 32, so the backward still pads once for both."""
+    builds), and so do dq and dk/dv now (theirs; the simt kernels have no
+    route left); all three pad D 1-16 to 16 and D 17-32 to 32, so the
+    backward still pads once for both."""
     designs = [port._design(torch.float32, d, kern) for kern in port.KERNELS]
-    assert designs == ["tf32", "simt", "simt"]
+    assert designs == ["tf32", "tf32", "tf32"]
     built = 16 if d <= 16 else 32
     assert [port.padded_head_dim(d, design, kern) for design, kern in
             zip(designs, port.KERNELS)] == [built] * 3
     assert port.tf32_fwd_part(built) == built
-    for kern in ("dq", "dkv"):
-        with pytest.raises(ValueError, match="past head dim 32"):
-            port.padded_head_dim(d, "tf32", kern)
+    assert port.tf32_dkv_part(built) == built
 
 
 def test_tf32_route_past_32_is_unchanged():
-    assert port.TF32_NARROW_DIMS == {"fwd": (16, 32)}
+    assert port.TF32_NARROW_DIMS == dict.fromkeys(port.KERNELS, (16, 32))
     for d, built in ((33, 64), (64, 64), (100, 128), (600, 608)):
         for kern in port.KERNELS:
             assert port._design(torch.float32, d, kern) == "tf32"
@@ -91,12 +91,12 @@ def test_tf32_route_past_32_is_unchanged():
 @pytest.mark.parametrize("d", [16, 32])
 def test_launcher_checks_take_the_narrow_builds_alone(d):
     """The tf32 forward takes CUDA fp32 tensors at D 16 and 32 (and a
-    16-byte-aligned base); the tf32 dq and dk/dv still refuse them, and
-    no head dim between the builds or 16-bit input gets through."""
+    16-byte-aligned base), as the tf32 dq and dk/dv now do (their narrow
+    builds), and no head dim between the builds or 16-bit input gets
+    through."""
     port._check_tensor_cores("f", "fwd", [_CudaLike(d)] * 3, "tf32")
     for kern in ("dq", "dkv"):
-        with pytest.raises(ValueError, match="tf32 kernel takes"):
-            port._check_tensor_cores("b", kern, [_CudaLike(d)] * 4, "tf32")
+        port._check_tensor_cores("b", kern, [_CudaLike(d)] * 4, "tf32")
     with pytest.raises(ValueError, match="16-byte"):
         port._check_tensor_cores("f", "fwd", [_CudaLike(d), _CudaLike(
             d, misaligned=4), _CudaLike(d)], "tf32")

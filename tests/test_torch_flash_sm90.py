@@ -34,12 +34,12 @@ def _bf16_values(seed, n=4, s=S, d=D):
     (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32")])
 def test_design_by_dtype_and_head_dim(dtype, d, design):
     # These cases take one design for all three kernels: fp32 takes tf32
-    # past D 32 (tests/test_torch_flash_fwd_tf32_wide.py,
-    # tests/test_torch_flash_bwd_tf32.py); where the kernels part (fp32 D
-    # <= 32: the forward on tf32, dq and dk/dv on simt,
-    # tests/test_torch_flash_fwd_tf32_narrow.py; the forward alone on
-    # sm90 at 16-bit D 257-512, on stream past it) see
-    # tests/test_torch_flash_sm90_wide.py.
+    # at every D (past 32 tests/test_torch_flash_fwd_tf32_wide.py and
+    # tests/test_torch_flash_bwd_tf32.py; up to it
+    # tests/test_torch_flash_fwd_tf32_narrow.py and
+    # tests/test_torch_flash_bwd_tf32_narrow.py); where the kernels part
+    # (the forward alone on sm90 at 16-bit D 257-512, on stream past it)
+    # see tests/test_torch_flash_sm90_wide.py.
     for kernel in port.KERNELS:
         assert port._design(dtype, d, kernel) == design
 

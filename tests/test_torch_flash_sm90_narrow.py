@@ -72,12 +72,11 @@ def _stats(q, k, v, do):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_design_and_padding_at_every_head_dim_up_to_32(dtype):
-    """16-bit: all three kernels on sm90 (narrow builds); fp32: the
-    forward on tf32 (its narrow builds), dq and dk/dv on simt. Every
-    kernel pads D 1-16 to 16 and D 17-32 to 32, so the backward pads q,
-    k, v and do once for dq and dk/dv."""
-    want = (("sm90",) * 3 if dtype in SIXTEEN_BIT
-            else ("tf32", "simt", "simt"))
+    """16-bit: all three kernels on sm90 (narrow builds); fp32: all three
+    on tf32 (their narrow builds). Every kernel pads D 1-16 to 16 and D
+    17-32 to 32, so the backward pads q, k, v and do once for dq and
+    dk/dv."""
+    want = ("sm90",) * 3 if dtype in SIXTEEN_BIT else ("tf32",) * 3
     for d in range(1, 33):
         designs = tuple(port._design(dtype, d, kern) for kern in port.KERNELS)
         assert designs == want, d

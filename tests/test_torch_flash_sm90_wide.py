@@ -135,7 +135,7 @@ DESIGNS = [
     (torch.float16, 128, "sm90 sm90 sm90", (128, 128, 128)),
     (torch.float16, 256, "sm90 sm90 sm90", (256, 256, 256)),
     (torch.float16, 384, "sm90 stream stream", (384, 384, 384)),
-    (torch.float32, 32, "tf32 simt simt", (32, 32, 32)),
+    (torch.float32, 32, "tf32 tf32 tf32", (32, 32, 32)),
     (torch.float32, 64, "tf32 tf32 tf32", (64, 64, 64)),
     (torch.float32, 96, "tf32 tf32 tf32", (96, 96, 96)),
     (torch.float32, 128, "tf32 tf32 tf32", (128, 128, 128)),
@@ -151,8 +151,8 @@ DESIGNS = [
 def test_design_and_padding_per_kernel(dtype, d, designs, padded):
     """bf16 and fp16 take sm90 for the forward at D 1-512 and stream past
     it, sm90 for dq and dk/dv at D 1-256 and stream for both past it; fp32
-    takes tf32 for all three past D 32, and up to it tf32 for the forward
-    and simt for dq and dk/dv. Each kernel pads
+    takes tf32 for all three at every D (the narrow builds up to D 32).
+    Each kernel pads
     to a head dim of its own design (16-bit D 257-320: dq and dk/dv at
     320, the forward's build 384)."""
     got = [port._design(dtype, d, kern) for kern in port.KERNELS]

@@ -40,7 +40,8 @@ def _edits(tool):
 def test_every_variant_tool_is_found():
     assert {"bwd_tf32_variants", "dkv_variants", "dq_variants",
             "fwd_sm90_variants", "fwd_tf32_variants",
-            "narrow_tf32_variants", "narrow_variants"} <= set(VARIANT_TOOLS)
+            "narrow_bwd_tf32_variants", "narrow_tf32_variants",
+            "narrow_variants"} <= set(VARIANT_TOOLS)
 
 
 @pytest.mark.parametrize("name", VARIANT_TOOLS)
@@ -108,4 +109,29 @@ def test_narrow_tf32_variants_edit_the_narrow_tf32_forward():
     assert set(tool.SAME_SUMS) <= set(tool.VARIANTS)
     for name in tool.SAME_SUMS:
         assert all(edit in (tool.STAGES2, tool.STAGES4)
+                   for edit in tool.VARIANTS[name])
+
+
+def test_narrow_bwd_tf32_variants_edit_the_narrow_tf32_backward():
+    """The narrow tf32 dq and dk/dv's tool rebuilds
+    csrc/flash_bwd_tf32_narrow_sm90.cu alone, through its own C entries,
+    with one warpgroup for each kernel among its variants; a variant
+    named for one kernel edits that kernel's constants alone, and those it
+    requires to keep the package's sums change a ring's depth alone."""
+    tool = _tool("narrow_bwd_tf32_variants")
+    assert tool.SOURCE == "flash_bwd_tf32_narrow_sm90.cu"
+    assert tool.ENTRIES == {tool.SOURCE: "hvdt_flash_dq_tf32_narrow"}
+    for entry in (tool.ENTRIES[tool.SOURCE], tool.DKV_ENTRY):
+        assert entry in _cuda._SIGNATURES
+    assert tool.VARIANTS["dq_split1"] == [tool.DQ_SPLIT1]
+    assert tool.VARIANTS["dkv_split1"] == [tool.DKV_SPLIT1]
+    assert tool.DQ_SPLIT1[1] == "kDqSplit = 1;"
+    assert tool.DKV_SPLIT1[1] == "kDkvSplit = 1;"
+    for name, edits in tool.VARIANTS.items():
+        for kern, prefix in (("dq", "kDq"), ("dkv", "kDkv")):
+            if tool.kernels_of(name) == (kern,):
+                assert all(old.startswith(prefix) for old, _ in edits), name
+    assert set(tool.SAME_SUMS) <= set(tool.VARIANTS)
+    for name in tool.SAME_SUMS:
+        assert all(edit in (tool.DQ_STAGES1, tool.DKV_STAGES1)
                    for edit in tool.VARIANTS[name])
