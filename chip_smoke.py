@@ -59,9 +59,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    320, 384, 512, 640), fp32 D 640 with unequal lengths and offsets and
    RAGGED_DESIGNS' fp32 D 640 hold the wide build to the fp32 bound. The
    tf32 dk/dv likewise runs its 64-column build up to D 128 and its wide
-   build (128-column parts, P^T and dS^T through shared memory) past it:
-   the same fp32 cases past 128, and fp32 D 320 and 640 with unequal
-   lengths and offsets, hold it to the TF32X3 plain versions.
+   build (128-column parts, P^T and dS^T through shared memory) past it,
+   and the tf32 dq its 128-column build up to D 128 and its wide build
+   (256-column parts, dS through shared memory) past it: the same fp32
+   cases past 128, and fp32 D 320 and 640 with unequal lengths and
+   offsets, hold them to the TF32X3 plain versions (dq at DQ_ATOL).
    The bound must show its power: at the main shape a plain result with
    one kv tile (keys 1024-1151 of the forward, keys 1024-1087 of dq) or
    one q tile (queries 1536-1599 of dk and dv) left out must fail it; at
@@ -90,7 +92,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    forward's P V (the last two 64-column pieces of the wide build's
    second 256-column part) and with columns 448-511 of dk and dv left out
    (the second 64-column piece of the wide dk/dv's fourth 128-column
-   part, the piece its producer issues last in each tile), each of which
+   part, the piece its producer issues last in each tile) and with
+   columns 448-511 or 576-639 of dq left out (the last 64-column piece of
+   the wide dq's second 256-column part, the piece its producer issues
+   last in a tile, and a piece of its 128-column remainder), each of which
    must fail by more than 10 times the bound; at
    bf16 D 16 and 32 (C4 shape) with 64 keys of the narrow forward and dq
    (keys 512-575), the keys of one kv tile that the narrow forward's last
@@ -152,7 +157,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the tf32 forward's rows name its build, part_cols 128 or 256, or 16
    and 32 for the narrow builds at fp32 D 16 and 32, and
    print its factor against SDPA's forward; the tf32 dk/dv's rows name
-   theirs, part_cols 64 or 128, or 16 and 32 for the narrow builds),
+   theirs, part_cols 64 or 128, and the tf32 dq's theirs, 128 or 256, or
+   16 and 32 for the narrow builds),
    each C4 case at its phase-2
    shape and the
    Gemma-7B geometry through the dispatchers (padding copies included),
@@ -162,10 +168,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    fp16 D 20, where it pads, padded once for both kernels against its
    two kernels padded apart; at bf16 D 80, 96 and 200, where it reads the
    caller's tensors, against the same builds on copies padded once to
-   them, each kernel also apart; every pair bit-equal; the fp32 route at
-   C4 D 16 and 32, one pre-pass then the narrow tf32 dq and dk/dv, which
-   must beat the simt dq and dk/dv together; then the sm90 dq and dk/dv
-   together against SDPA's backward alone);
+   them, each kernel also apart; every pair bit-equal; the fp32 route,
+   one pre-pass then the tf32 dq and dk/dv, against SDPA's backward alone
+   with the pre-pass alone beside it (TF32_ROUTES: C4 D 16 and 32, where
+   the narrow builds must beat the simt dq and dk/dv together, C4 D 256,
+   320, 384, 512 and 640 on the wide builds, and the main shape); then
+   the sm90 dq and dk/dv together against SDPA's backward alone);
    each beside the plain version, the PyTorch library call computing the
    same function in the same dtype (scaled_dot_product_attention, timed
    here only as a yardstick) and the bound: the larger of the operations
@@ -353,9 +361,11 @@ RECORDED_NARROW_FWD_MS = {"bf16_d16": 0.0185, "bf16_d32": 0.0193,
 # ``fwd_pv_columns``: columns of O left out of P V (a wide tf32 forward
 # that lost a P V piece or read the wrong columns of V^T);
 # ``dkv_columns``: columns of dk and dv left out (zero: a wide tf32 dk/dv
-# that lost an output piece or stored it in the wrong columns). The fp32
-# entries, those of the tf32 kernels, must be rejected at more than
-# LOST_FP32_BY times the bound.
+# that lost an output piece or stored it in the wrong columns);
+# ``dq_columns``: column ranges of dq left out one at a time (zero: a wide
+# tf32 dq that lost an output piece or stored it in the wrong columns).
+# The fp32 entries, those of the tf32 kernels, must be rejected at more
+# than LOST_FP32_BY times the bound.
 LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_MAIN_FP32 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_FP32_BY = 10.0
@@ -413,11 +423,15 @@ LOST_C4 = {"bf16_d16": dict(fwd=(512, 576), dq=(512, 576), dkv=(512, 576),
            # the tf32 forward's wide build: columns 384-511, the last
            # two P V pieces of its second 256-column part, left out of P V;
            # the wide dk/dv: columns 448-511, the second piece of its
-           # fourth 128-column part (the piece issued last in a tile)
+           # fourth 128-column part (the piece issued last in a tile); the
+           # wide dq: columns 448-511, the last 64-column piece of its
+           # second 256-column part (the piece its producer issues last in
+           # a tile), and 576-639, a piece of its 128-column remainder
            "fp32_d640": dict(fwd_columns=(256, 288),
                              fwd_pv_columns=(384, 512),
                              bwd_columns=(256, 288),
-                             dkv_columns=(448, 512))}
+                             dkv_columns=(448, 512),
+                             dq_columns=((448, 512), (576, 640)))}
 # ROADMAP C6: lengths under 128 that are no multiple of 64 (a full first
 # tile and a ragged second one), on every design: (dtype name, head dim)
 # at B 2, H 2, causal, Sq = Sk = 100 (q_offset 16; keys 64-99, the
@@ -598,6 +612,14 @@ def bwd_without_columns(fa, q, k, v, do, lse, delta, lo, hi):
             fa._product("bhqk,bqhd->bkhd", p, do))
 
 
+def dq_without_columns(dq, lo, hi):
+    """dq with columns lo..hi-1 of the head dim left out (zero): a kernel
+    that lost the output product of those columns."""
+    dq = dq.clone()
+    dq[..., lo:hi] = 0
+    return dq
+
+
 def dkv_without_columns(dk, dv, lo, hi):
     """dk and dv with columns lo..hi-1 of the head dim left out (zero): a
     kernel that lost the output product of those columns."""
@@ -727,6 +749,11 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
             check_close(f"dq, columns {lo}-{hi - 1} left out of s",
                         bwd_without_columns(fa, q, k, v, do, lse, delta, lo,
                                             hi)[0], dq_p, 1e-4, step,
+                        atol=dq_atol, plain_b=dq_b, must_fail=True,
+                        fail_by=fail_by)
+        for lo, hi in (lost or {}).get("dq_columns", ()):
+            check_close(f"dq, columns {lo}-{hi - 1} left out",
+                        dq_without_columns(dq_p, lo, hi), dq_p, 1e-4, step,
                         atol=dq_atol, plain_b=dq_b, must_fail=True,
                         fail_by=fail_by)
         if lost and "bwd_scale" in lost:
@@ -1209,6 +1236,20 @@ def classifier_leg(torch, hvd, args, card, label, build, batch,
     torch.cuda.empty_cache()
 
 
+# The tf32 builds by kernel and by the output columns a CTA owns
+# (part_cols; at D 16 and 32 the narrow builds own the whole head dim):
+# the CUDA kernel that runs there, named on the kernels line.
+TF32_BUILDS = {"fwd": {128: "flash_fwd_stream<float>",
+                       256: "flash_fwd_tf32_wide"},
+               "dq": {128: "flash_bwd_tf32<false>",
+                      256: "flash_dq_tf32_wide"},
+               "dkv": {64: "flash_bwd_tf32<true>",
+                       128: "flash_dkv_tf32_wide"}}
+TF32_NARROW_BUILDS = {"fwd": "flash_fwd_tf32_narrow",
+                      "dq": "flash_bwd_tf32_narrow<false>",
+                      "dkv": "flash_bwd_tf32_narrow<true>"}
+
+
 def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
                 tag=None, seed=1):
     """{row name: ms, plain_ms, library_ms, bound_ms, bound_by, flops} of
@@ -1225,8 +1266,10 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     one pre-pass serves both; tf32_route_times times that route). The tf32
     forward's row names its build by the columns of O a CTA owns
     (part_cols: 128, or 256 past D 128; D at the narrow builds of 16 and
-    32), the tf32 dk/dv's by the columns of dK and dV (64, or 128 past D
-    128; D at the narrow builds)."""
+    32), the tf32 dq's by the columns of dQ (128, or 256 past D 128; D at
+    the narrow builds) and the tf32 dk/dv's by the columns of dK and dV
+    (64, or 128 past D 128; D at the narrow builds), and each tf32 row
+    by its CUDA kernel too (build: TF32_BUILDS)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -1307,12 +1350,13 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
         if tf32:
             row["bound_fma_ms"] = max(flops[fn] / peak * 1e3, byte_ms)
             row["prepass_ms"] = prepass[fn]
-        if fn == "fwd" and tf32:
-            row["part_cols"] = fa.tf32_fwd_part(
-                fa.padded_head_dim(d, "tf32", "fwd"))
-        if fn == "dkv" and tf32:
-            row["part_cols"] = fa.tf32_dkv_part(
-                fa.padded_head_dim(d, "tf32", "dkv"))
+        if tf32:
+            part = {"fwd": fa.tf32_fwd_part, "dq": fa.tf32_dq_part,
+                    "dkv": fa.tf32_dkv_part}[fn](
+                        fa.padded_head_dim(d, "tf32", fn))
+            row["part_cols"] = part
+            row["build"] = (TF32_NARROW_BUILDS[fn] if d <= 32
+                            else TF32_BUILDS[fn][part])
         if fn != "fwd":
             row["library_bwd_only_ms"] = lib_bwd
         # The dtype and head dim of the call, which name the LM path
@@ -1374,11 +1418,9 @@ def kernel_times(torch, fa):
         if design == "tf32" and kern != "fwd":
             more += (f" / {row['bound_fma_ms']:.4f}  pre-pass "
                      f"{row['prepass_ms']:.4f}")
-        if design == "tf32" and kern == "dkv":
+        if design == "tf32" and kern != "fwd":
             more += (f"  {row['part_cols']}-column parts" if d > 32
                      else f"  narrow build of {row['part_cols']}")
-        if design == "tf32" and kern == "dq" and d <= 32:
-            more += f"  narrow build of {fa.padded_head_dim(d, design, kern)}"
         if design == "tf32" and kern == "fwd":
             build = (f"{row['part_cols']}-column parts" if d > 32
                      else f"narrow build of {row['part_cols']}")
@@ -1434,18 +1476,29 @@ def kernel_times(torch, fa):
     return rows
 
 
+# Phase 5's fp32 backward route (``fa._flash_bwd``: one pre-pass, then the
+# tf32 dq and dk/dv): (tag, shape) at the C4 shape's D 16 and 32 (the
+# narrow builds), D 256-640 (the wide dq and dk/dv) and the main shape.
+TF32_ROUTES = tuple((f"fp32_d{d}", dict(C4_SHAPE, d=d))
+                    for d in (16, 32, 256, 320, 384, 512, 640)) + (
+    ("main fp32", MAIN),)
+
+
 def tf32_route_times(torch, fa):
-    """The fp32 backward route at D <= 32 as ``fa._flash_bwd`` runs it at the
-    C4 shape (one pre-pass, then the narrow tf32 dq and dk/dv), CUDA-event
-    means of 20 calls, against SDPA's backward alone on the same inputs,
-    the simt dq and dk/dv it replaced and the pre-pass alone; returns the
-    cases where the route is not faster than the simt kernels."""
+    """The fp32 backward route as ``fa._flash_bwd`` runs it (one pre-pass,
+    then the tf32 dq and dk/dv; TF32_ROUTES), CUDA-event means of 20
+    calls, against SDPA's backward alone on the same inputs, with the
+    pre-pass alone and the builds of dq and dk/dv beside it, and at D <=
+    32 the simt dq and dk/dv the narrow builds replaced; returns the cases
+    where the route is not faster than those simt kernels."""
     import torch.nn.functional as F
-    print("the fp32 backward route (_flash_bwd: pre-pass, dq, dk/dv) at D "
-          "16 and 32, C4 shape, against SDPA's backward alone (ms):")
+    print("the fp32 backward route (_flash_bwd: pre-pass, dq, dk/dv) "
+          "against SDPA's backward alone, same inputs (ms):")
     slower = []
-    for tag, d in (("fp32_d16", 16), ("fp32_d32", 32)):
-        q, k, v, do, o, m, l = _c4_backward(torch, fa, torch.float32, d)
+    for tag, shape in TF32_ROUTES:
+        d = shape["d"]
+        q, k, v, do, o, m, l = _c4_backward(torch, fa, torch.float32, d,
+                                            shape)
         lse, delta = _bwd_stats(fa, do, o, m, l)
         args = (q, k, v, do, lse, delta, True, 0, 0)
         if {fa._design(torch.float32, d, kern) for kern in ("dq", "dkv")} \
@@ -1453,32 +1506,38 @@ def tf32_route_times(torch, fa):
             raise AssertionError(f"{tag}: dq and dk/dv should run tf32")
         route = time_ms(lambda: fa._flash_bwd(*args), 20)
         pre = time_ms(lambda: fa._tf32_bwd_split(q, k, v, do), 20)
-        simt = (time_ms(lambda: fa._launch("dq", "simt", args[:4],
-                                           *args[4:]), 20)
-                + time_ms(lambda: fa._launch("dkv", "simt", args[:4],
-                                             *args[4:]), 20))
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in
                            (q, k, v, do))
         qg, kg, vg = (x.requires_grad_() for x in (qt, kt, vt))
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         sdpa = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), dot, retain_graph=True), 20)
-        print(f"  {tag:<10} route {route:.4f} ({route / sdpa:.2f}x SDPA "
-              f"bwd {sdpa:.4f}; pre-pass {pre:.4f} of it)  simt dq + dk/dv "
-              f"{simt:.4f} ({simt / route:.1f}x the route)")
-        if not route < simt:
-            slower.append((tag, "route"))
+        built = fa.padded_head_dim(d, "tf32", "dq")
+        line = (f"  {tag:<10} route {route:.4f} ({route / sdpa:.2f}x SDPA "
+                f"bwd {sdpa:.4f}; pre-pass {pre:.4f} of it; dq "
+                f"{fa.tf32_dq_part(built)}-column parts, dk/dv "
+                f"{fa.tf32_dkv_part(built)})")
+        if d <= 32:
+            simt = (time_ms(lambda: fa._launch("dq", "simt", args[:4],
+                                               *args[4:]), 20)
+                    + time_ms(lambda: fa._launch("dkv", "simt", args[:4],
+                                                 *args[4:]), 20))
+            line += (f"  simt dq + dk/dv {simt:.4f} ({simt / route:.1f}x "
+                     f"the route)")
+            if not route < simt:
+                slower.append((tag, "route"))
+        print(line, flush=True)
         del q, k, v, do, o, m, l, qt, kt, vt, dot, qg, kg, vg, out
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return slower
 
 
-def _c4_backward(torch, fa, dtype, d):
-    """Phase 5's backward inputs at the C4 shape: q, k, v, do and the
-    forward's o, m, l."""
+def _c4_backward(torch, fa, dtype, d, shape=C4_SHAPE):
+    """Phase 5's backward inputs at the C4 shape (or ``shape``'s B, S and
+    H) and head dim d: q, k, v, do and the forward's o, m, l."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v, do = (torch.randn(C4_SHAPE["b"], C4_SHAPE["s"], C4_SHAPE["h"],
-                               d, generator=g, device="cuda").to(dtype)
+    q, k, v, do = (torch.randn(shape["b"], shape["s"], shape["h"], d,
+                               generator=g, device="cuda").to(dtype)
                    for _ in range(4))
     return (q, k, v, do, *fa._flash_fwd(q, k, v, True, 0, 0))
 

@@ -84,6 +84,8 @@ _SIGNATURES = {
     # scratch, lse, delta, dq, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
     "hvdt_flash_dq_tf32": [_P] * 4 + [_I] * 8 + [_F, _P],
+    # D: the columns of dQ a CTA of the tf32 dq owns there (its build)
+    "hvdt_flash_dq_tf32_part": [_I],
     # scratch, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream
     "hvdt_flash_dkv_tf32": [_P] * 5 + [_I] * 8 + [_F, _P],

@@ -61,7 +61,8 @@
 // dS^T is wgmma's register A operand with no shuffle). At the fp32 main
 // shape each plane is 67.1 MB: 0.94 GB written and 0.27 GB read.
 //
-// Design. One template serves both kernels. A CTA owns kRows = 128 rows
+// Design. One template serves both kernels up to D 128 (and dk/dv's narrower
+// parts; the wide builds past D 128 follow below). A CTA owns kRows = 128 rows
 // (queries for dq, keys for dk/dv; two consumer warpgroups of 64, wgmma's
 // M) and one part of the output's head dim (kOut columns), and walks the
 // tiles of kTile = 64 rows of the other sequence that it can see. The
@@ -96,11 +97,12 @@
 // Registers of a consumer thread (setmaxnreg gives 240): dq holds dQ 64,
 // S (then P) 32, dP (then dS) 32 and a region's product 32 while dP is
 // summed, then dQ 64 + the tile's product 64 + dS hi 32 + dS lo 32 = 192
-// at the output product (ptxas spills 96 bytes of it). The 64-column
+// at the output product (ptxas spills 100 bytes of it). The 64-column
 // dk/dv build holds dK 32 + dV 32 + P 32 + dS 32 + the split's hi 32 +
 // the tile's product 32 = 192. Its parts pay S and dP once each: at D 128
 // dq does the function's three products and dk/dv 2 x 2 + 2 = 6 of its
-// 4; at D 640, 5 x 2 + 1 of 3 and 10 x 2 + 2 of 4.
+// 4; in 128-column parts of dq and 64-column parts of dk/dv D 640 would
+// take 5 x 2 + 1 of 3 and 10 x 2 + 2 of 4.
 //
 // The wide dk/dv build (flash_dkv_tf32_wide, fp32 past D kWideAbove =
 // 128): parts of 128 columns of dK and dV (D 640: five; D 160: 128 + 32,
@@ -151,6 +153,53 @@
 // heaviest first, lost 1.31x with 64 heads (L2; PERF.md).
 // Its times against the 64-column build: tools/bwd_tf32_variants.py and
 // PERF.md (at D 128 the wide build was no faster, so it starts past 128).
+//
+// The wide dq build (flash_dq_tf32_wide, fp32 past D kWideDqAbove = 128):
+// parts of 256 columns of dQ (D 640: 256 + 256 + 128; D 160: one part of
+// 160, its columns past D neither loaded, multiplied nor stored), so that
+// S and dP are paid once per 256 columns: at D 640 3 x 2 + 1 = 7 products
+// of the function's 3 (11 in 128-column parts), at D 512 and 384 5 (9
+// and 7), at D 256 3 (5). The ring, its regions and its order are the
+// 128-column build's, and so are S, P, dP and dS. A consumer holds dQ for
+// its 64 queries and 256 columns, 128 registers, beside S (or dP) and a
+// region's product (192 while a ring pass is summed), so dS goes to the
+// tensor cores from shared memory, as the wide dk/dv's dS^T does: per
+// tile, S, then P (registers) parked unrounded in the consumer's X hi
+// plane while dP is summed, at the very words where store_x will put this
+// thread's dS (so a thread takes back and overwrites only its own words:
+// one barrier of the warpgroup fewer than a park of P^T takes in the wide
+// dk/dv), then dS = P (dP - delta) scale split into the X planes, [64
+// queries][64 keys] hi and lo in the 128-byte swizzle, the keys of every
+// 8 in the order in which the pre-pass stores K^T's rows; behind a proxy
+// fence and a named barrier, dQ += dS K in 64-column pieces (kPiece), SS
+// wgmmas (m64n64k8, lo.hi and hi.lo, then hi.hi, reg_product's k steps)
+// into a fresh 32-register accumulator each, folded into its columns of
+// dQ by fp32 adds; the K^T pieces (hi and lo, 32 KB) come through a ring
+// of two T stages. Each column of dQ is summed in the 128-column build's
+// order, and a 64-column piece of an SS product gives each column the
+// bits the 128-column register-A product gave it, so dq is that build's
+// bit for bit (the card tests and tools/bwd_tf32_variants.py check it).
+// The producer (one thread) issues per tile the ring pass of S, the
+// part's first two K^T pieces, the ring pass of dP and the part's other
+// pieces; the consumers' rows' lse and delta sit in shared memory, loaded
+// once (1 KB for both), each thread reading its two rows' in each tile.
+// Shared memory: 2 ring stages 98,304 B, X hi and lo of both consumers
+// 65,536 B, 2 T stages 65,536 B, the stats 1,024 B, the barriers and the
+// CTA's place 80 B: 230,480 B, and the 1 KB pad, of 232,448. Registers:
+// ptxas reports no spill for the wide dq after three changes, each
+// measured by its report: S and dP are zeroed before their ring passes
+// (ring_sum's first fold reads them; left undefined, nvdisasm's life
+// ranges showed some 60 registers live from the kernel's entry, and 16-32
+// bytes of dQ spilled), the X planes' per-thread addresses are worked out
+// from the thread's index read anew in each tile (thread_anew: hoisted
+// out of the tile loop they spilled up to 732 bytes), and the rows' stats
+// are read from shared memory in each tile (without the zeroing the
+// other two left 8-32 bytes; the zeroing with the addresses and stats
+// kept as the wide dk/dv keeps them left 84). Its grid is the wide
+// dk/dv's, head-major in groups of heads of about one wave
+// (kDqHeadGroups), the heaviest causal q tiles (the last) first: in
+// tools/bwd_tf32_variants.py the groups won 1.23-1.25x where a head's
+// CTAs make two waves and lost up to 1.19x with 64 heads (PERF.md).
 //
 // The split design (flash_dkv_tf32_split, kSplitByOutput; built and
 // timed by tools/bwd_tf32_variants.py, not run by the package): a CTA owns
@@ -210,6 +259,15 @@ constexpr bool kSplitByOutput = false;
 // head's CTAs after another (false). tools/bwd_tf32_variants.py builds
 // this file with false.
 constexpr bool kHeadGroups = true;
+// dq: head dims past this take the wide build (256-column parts of dQ,
+// dS through shared memory), the others the 128-column build.
+// tools/bwd_tf32_variants.py builds this file with no wide dq at all, and
+// with the wide dq past 256.
+constexpr int kWideDqAbove = 128;
+// The wide dq's grid as kHeadGroups (true) or one head's CTAs after
+// another (false). tools/bwd_tf32_variants.py builds this file with
+// false.
+constexpr bool kDqHeadGroups = true;
 
 // The tensor maps of one kernel: the ring's operands of S (pass 0) and dP
 // (pass 1), the CTA's rows (a) and the tile's (b), and the T stage's
@@ -254,37 +312,50 @@ struct BwdShape {
   static_assert(kTile % kCols == 0 && kOut % 8 == 0, "tile shapes");
 };
 
-// The wide dk/dv build's tiles and shared memory (see the header).
-struct WideDkv {
-  static constexpr int kOut = 128;    // columns of dK and dV a CTA owns
+// The wide builds' tiles and shared memory (see the header): dk/dv's
+// (kDkv: 128-column parts of dK and dV, and each consumer's copy of the
+// tile's lse and delta) and dq's (256-column parts of dQ; its rows' lse
+// and delta stay in the consumers' registers).
+template <bool kDkv>
+struct Wide {
+  static constexpr int kOut = kDkv ? 128 : 256;  // output columns a CTA owns
   static constexpr int kPiece = 64;   // columns of one output product
   static constexpr int kPieces = kOut / kPiece;
   static constexpr int kStagesT = 2;  // T pieces in flight
-  static constexpr int kRegionX = 64 * 128;       // [64 keys][32 queries]
-  static constexpr int kPlaneX = 64 * kTile * 4;  // a consumer's P^T or
-                                                  // dS^T, hi or lo
-  static constexpr int kRegionT = kPiece * 128;   // [64 columns][32 queries]
+  static constexpr int kRegionX = 64 * 128;       // [64 rows][32 tile rows]
+  static constexpr int kPlaneX = 64 * kTile * 4;  // a consumer's P^T, dS^T
+                                                  // or dS, hi or lo
+  static constexpr int kRegionT = kPiece * 128;   // [64 columns][32 tile rows]
   static constexpr int kPlaneT = kPiece * kTile * 4;  // a piece, hi or lo
   static constexpr int kStageT = 2 * kPlaneT;
   static constexpr int kX = Ring::kBytes;
   static constexpr int kT = kX + 2 * 2 * kPlaneX;
-  // Each consumer's copy of the tile's lse and delta.
+  // Each consumer's lse and delta: dk/dv's of the tile, dq's of its rows.
   static constexpr int kStats = kT + kStagesT * kStageT;
   static constexpr int kBar = kStats + 2 * 2 * kTile * 4;
   // full and empty per ring stage and per T stage, then the CTA's place
   static constexpr int kPlace = kBar + 8 * 2 * (kStages + kStagesT);
   static constexpr int kBytes = kPlace + 16;
   static_assert(kBytes + 1024 <= 232448,
-                "wide tf32 dk/dv tiles exceed shared memory");
+                "wide tf32 backward tiles exceed shared memory");
   static_assert(kX % 1024 == 0 && kT % 1024 == 0 && kPlaneX % 1024 == 0 &&
                     kRegionT % 1024 == 0,
                 "swizzled regions start on 1024-byte boundaries");
-  // Both dk/dv builds read the transposed factors through one tensor
-  // map's boxes of 64 rows of D.
-  static_assert(kPiece == BwdShape<true>::kOut, "T boxes of both builds");
   // A park of P (a consumer thread's 32 values) fits one X plane.
   static_assert(128 * (kTile / 2) * 4 == kPlaneX, "P's park");
+  // fp32 registers of a consumer thread at its peak, a ring pass: the
+  // outputs, S or dP and a region's product (P parked); the rest of the
+  // 240 holds addresses, stats and loop state.
+  static_assert((kDkv ? 2 : 1) * kOut / 2 + 2 * (kTile / 2) <= 192,
+                "wide tf32 backward accumulators exceed the consumer "
+                "registers");
 };
+using WideDkv = Wide<true>;
+using WideDq = Wide<false>;
+// Both dk/dv builds read the transposed factors through one tensor map's
+// boxes of 64 rows of D.
+static_assert(WideDkv::kPiece == BwdShape<true>::kOut, "T boxes of both "
+              "builds");
 
 // The first q tile that keys row_start .. row_start + kRows - 1 see: q
 // tile u sees the CTA's first key once q_off + 64 u + 63 >= its position.
@@ -295,6 +366,16 @@ __device__ __forceinline__ int dkv_first_tile(int row_start, int q_off,
   const long long need = (long long)k_off + row_start - q_off - (kTile - 1);
   return need <= 0 ? 0
                    : (int)min((long long)tiles, (need + kTile - 1) / kTile);
+}
+
+// The kv tiles [0, u1) that queries row_start .. row_start + kRows - 1
+// see: kv tile u is visible while k_off + 64 u <= q_off + row_start + 127.
+__device__ __forceinline__ int dq_tile_end(int row_start, int q_off,
+                                           int k_off, int causal,
+                                           int tiles) {
+  if (!causal) return tiles;
+  const long long reach = (long long)q_off + row_start + kRows - 1 - k_off;
+  return min(tiles, reach < 0 ? 0 : (int)(reach / kTile) + 1);
 }
 
 // The producer's ring pass of one tile into the ring at `ring` (S's
@@ -509,11 +590,7 @@ __global__ void __launch_bounds__(384, 1)
     u0 = dkv_first_tile(row_start, q_off, k_off, causal, u1);
   } else {
     row_start = ((rows_len + kRows - 1) / kRows - 1 - row_tile) * kRows;
-    if (causal) {
-      // kv tile u is visible while k_off + 64 u <= q_off + row_start + 127.
-      const long long reach = (long long)q_off + row_start + kRows - 1 - k_off;
-      u1 = min(u1, reach < 0 ? 0 : (int)(reach / kTile) + 1);
-    }
+    u1 = dq_tile_end(row_start, q_off, k_off, causal, u1);
   }
 
   if (threadIdx.x == 0) {
@@ -665,27 +742,33 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-// ---- the wide dk/dv build -------------------------------------------------
+// ---- the wide builds (dk/dv, then dq) ----------------------------------
 
-// This consumer thread's fragment of P^T or dS^T (keys r16, r16 + 8 of
-// the consumer's 64; queries 2 t4, 2 t4 + 1 of every 8) split into hi =
-// tf32(x) and lo = tf32(x - hi), written to the consumer's X planes: each
-// [64 keys][64 query positions] as two K-major regions of [64][32] in the
-// 128-byte swizzle (element (r, p) of a region at byte r * 128 + ((p / 4)
-// ^ (r % 8)) * 16 + (p % 4) * 4), queries 8g + 2 t4 and 8g + 2 t4 + 1 at
-// positions 8g + t4 and 8g + 4 + t4: the order in which the pre-pass
-// stores the rows of Q^T and dO^T, and in which reg_product feeds the
-// register fragment. A warp's 32 stores of one e fall on 32 distinct
-// banks.
+// The byte of a consumer's X plane that holds value e of a thread's
+// fragment (rows r16, r16 + 8 of the consumer's 64; tile rows 2 t4, 2 t4
+// + 1 of every 8): each plane [64 rows][64 tile positions] as two K-major
+// regions of [64][32] in the 128-byte swizzle (element (r, p) of a region
+// at byte r * 128 + ((p / 4) ^ (r % 8)) * 16 + (p % 4) * 4), tile rows 8g
+// + 2 t4 and 8g + 2 t4 + 1 at positions 8g + t4 and 8g + 4 + t4: the
+// order in which the pre-pass stores the rows of K^T, Q^T and dO^T, and
+// in which reg_product feeds the register fragment. A warp's 32 values of
+// one e fall on 32 distinct banks.
+__device__ __forceinline__ uint32_t x_byte(int e, int r16, int t4) {
+  const int g = e / 4, r = r16 + 8 * ((e / 2) % 2);
+  const int chunk = 2 * (g % 4) + e % 2;  // the 16-byte chunk, unswizzled
+  return (g / 4) * WideDkv::kRegionX + r * 128 + ((chunk ^ (r % 8)) << 4) +
+         t4 * 4;
+}
+
+// This consumer thread's fragment of P^T or dS^T (dk/dv: keys by
+// queries) or of dS (dq: queries by keys) split into hi = tf32(x) and lo
+// = tf32(x - hi), written to the consumer's X planes at x_byte.
 __device__ __forceinline__ void store_x(const float (&x)[kTile / 2],
                                         uint32_t hi, uint32_t lo, int r16,
                                         int t4) {
 #pragma unroll
   for (int e = 0; e < kTile / 2; ++e) {
-    const int g = e / 4, r = r16 + 8 * ((e / 2) % 2);
-    const int chunk = 2 * (g % 4) + e % 2;  // the 16-byte chunk, unswizzled
-    const uint32_t byte = (g / 4) * WideDkv::kRegionX + r * 128 +
-                          ((chunk ^ (r % 8)) << 4) + t4 * 4;
+    const uint32_t byte = x_byte(e, r16, t4);
     const float h = tf32_round(x[e]);
     asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(hi + byte), "f"(h)
                  : "memory");
@@ -716,15 +799,56 @@ __device__ __forceinline__ void unpark(float (&x)[kTile / 2], uint32_t plane,
                  : "memory");
 }
 
+// An fp32 word of shared memory at `addr`.
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// P parked while dP is summed by the wide dq: this thread's 32 values at
+// the words of the X hi plane where ds_to_x puts its dS (x_byte), so that
+// each thread takes back and then overwrites only its own words.
+__device__ __forceinline__ void park_x(const float (&x)[kTile / 2],
+                                       uint32_t plane, int r16, int t4) {
+#pragma unroll
+  for (int e = 0; e < kTile / 2; ++e)
+    asm volatile("st.shared.f32 [%0], %1;\n"
+                 ::"r"(plane + x_byte(e, r16, t4)), "f"(x[e])
+                 : "memory");
+}
+
+// The wide dq's dS = P (dP - delta) scale (ds_in_place's arithmetic), P
+// taken from its park, split into hi and lo as store_x splits and stored
+// over the park, one value at a time, so that P is never held whole
+// beside dP and dQ.
+__device__ __forceinline__ void ds_to_x(const float (&dp)[kTile / 2],
+                                        const float (&delta_r)[2],
+                                        float scale, uint32_t hi,
+                                        uint32_t lo, int r16, int t4) {
+#pragma unroll
+  for (int e = 0; e < kTile / 2; ++e) {
+    const uint32_t byte = x_byte(e, r16, t4);
+    const float ds =
+        ld_shared_f32(hi + byte) * (dp[e] - delta_r[(e / 2) % 2]) * scale;
+    const float h = tf32_round(ds);
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(hi + byte), "f"(h)
+                 : "memory");
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(lo + byte),
+                 "f"(tf32_round(ds - h))
+                 : "memory");
+  }
+}
+
 // out = X Y for kPiece columns in 3xTF32, both factors from shared
-// memory: X (P^T or dS^T: hi at x, lo at x_lo; two regions of [64][32])
-// as the A operand, Y^T (a T piece: y, y_lo; two regions of [kPiece][32])
-// as B; lo.hi and hi.lo first, then hi.hi, one k8 step per 8 query
-// positions, as reg_product; waits for the products.
-__device__ __forceinline__ void x_product(float (&out)[WideDkv::kPiece / 2],
+// memory: X (P^T, dS^T or dS: hi at x, lo at x_lo; two regions of
+// [64][32]) as the A operand, Y^T (a T piece: y, y_lo; two regions of
+// [kPiece][32]) as B; lo.hi and hi.lo first, then hi.hi, one k8 step per 8
+// tile positions, as reg_product; waits for the products.
+template <class W>
+__device__ __forceinline__ void x_product(float (&out)[W::kPiece / 2],
                                           uint32_t x, uint32_t x_lo,
                                           uint32_t y, uint32_t y_lo) {
-  using W = WideDkv;
   fence_regs(out);
   wgmma_fence();
 #pragma unroll
@@ -748,11 +872,12 @@ __device__ __forceinline__ void x_product(float (&out)[WideDkv::kPiece / 2],
   fence_regs(out);
 }
 
-// The producer's v-th T piece of a design W (WideDkv, SplitDkv): hi and
-// lo of a transposed factor (`map`: Q^T or dO^T) for rows `row` .. row +
-// W::kPiece - 1 of D (zeros past D), the tile's 64 queries from tile0 in
-// two regions, into stage v % W::kStagesT of the T ring at `tring`, which
-// is free once the consumers released piece v - W::kStagesT.
+// The producer's v-th T piece of a design W (WideDkv, WideDq, SplitDkv):
+// hi and lo of a transposed factor (`map`: Q^T or dO^T, or K^T for dq)
+// for rows `row` .. row + W::kPiece - 1 of D (zeros past D), the tile's
+// 64 rows from tile0 in two regions, into stage v % W::kStagesT of the T
+// ring at `tring`, which is free once the consumers released piece v -
+// W::kStagesT.
 template <class W>
 __device__ __forceinline__ void load_t_piece(uint8_t* tring, uint64_t* t_full,
                                              uint64_t* t_empty,
@@ -776,11 +901,11 @@ __device__ __forceinline__ void load_t_piece(uint8_t* tring, uint64_t* t_full,
 // into a fresh accumulator, adds it into the piece's columns of acc by
 // fp32 adds, and releases the stage (a warpgroup whose rows do not see
 // the tile releases it without a product).
+template <class W>
 __device__ __forceinline__ void pieces_product(
-    float (&acc)[WideDkv::kPieces][WideDkv::kPiece / 2], uint8_t* smem,
-    uint64_t* t_full, uint64_t* t_empty, int& v, int pieces, uint32_t x,
-    uint32_t x_lo, bool live, int lane) {
-  using W = WideDkv;
+    float (&acc)[W::kPieces][W::kPiece / 2], uint8_t* smem, uint64_t* t_full,
+    uint64_t* t_empty, int& v, int pieces, uint32_t x, uint32_t x_lo,
+    bool live, int lane) {
 #pragma unroll
   for (int pc = 0; pc < W::kPieces; ++pc, ++v) {
     if (pc == pieces) break;
@@ -789,7 +914,7 @@ __device__ __forceinline__ void pieces_product(
     if (live) {
       const uint32_t y = smem_u32(smem + W::kT + st * W::kStageT);
       float part[W::kPiece / 2];
-      x_product(part, x, x_lo, y, y + W::kPlaneT);
+      x_product<W>(part, x, x_lo, y, y + W::kPlaneT);
 #pragma unroll
       for (int e = 0; e < W::kPiece / 2; ++e) acc[pc][e] += part[e];
     }
@@ -815,30 +940,43 @@ __device__ __forceinline__ CtaPlace cta_place(int D) {
   const int nparts = (D + kOut - 1) / kOut;
   return {bh, cta / nparts * kKeys, cta % nparts * kOut};
 }
-// The wide build's CTA place. Head-major, its grid is one line of CTAs in
-// groups of `group` heads (the last group may hold fewer): a group's CTAs
-// row tile by row tile, heaviest first, its heads side by side, a row
-// tile's parts fastest; with group 1, one head's CTAs after another.
-// Thread 0 works it out once, into shared memory (wide_place reads it).
-__device__ __forceinline__ CtaPlace wide_cta(int D, int Sk, int group) {
-  if constexpr (!kHeadMajor) return cta_place<kRows, WideDkv::kOut>(D);
-  const int x = blockIdx.x, n = gridDim.x;
-  const int nparts = (D + WideDkv::kOut - 1) / WideDkv::kOut;
-  const int per_head = (Sk + kRows - 1) / kRows * nparts;
-  const int first = x / (group * per_head) * group;
-  const int heads = min(group, n / per_head - first);
-  const int idx = x - first * per_head;
-  const int row_tile = idx / (heads * nparts), rest = idx % (heads * nparts);
-  return {first + rest / nparts, row_tile * kRows,
-          rest % nparts * WideDkv::kOut};
+// A wide build's CTA place, for `rows` rows (keys of dk/dv, queries of
+// dq) in parts of W::kOut columns. Head-major, its grid is one line of
+// CTAs in groups of `group` heads (the last group may hold fewer): a
+// group's CTAs row tile by row tile, heaviest first (the first key tiles
+// of dk/dv; with kLastFirst the last query tiles of dq), its heads side by
+// side, a row tile's parts fastest; with group 1, one head's CTAs after
+// another. Thread 0 works it out once, into shared memory (wide_place
+// reads it).
+template <class W, bool kLastFirst>
+__device__ __forceinline__ CtaPlace wide_cta(int D, int rows, int group) {
+  const int nparts = (D + W::kOut - 1) / W::kOut;
+  const int row_tiles = (rows + kRows - 1) / kRows;
+  int bh, cta;
+  if constexpr (kHeadMajor) {
+    const int x = blockIdx.x, n = gridDim.x, per_head = row_tiles * nparts;
+    const int first = x / (group * per_head) * group;
+    const int heads = min(group, n / per_head - first);
+    const int idx = x - first * per_head;
+    const int rest = idx % (heads * nparts);
+    bh = first + rest / nparts;
+    cta = idx / (heads * nparts) * nparts + rest % nparts;
+  } else {
+    bh = blockIdx.x;
+    cta = blockIdx.y;
+  }
+  const int row_tile = kLastFirst ? row_tiles - 1 - cta / nparts
+                                  : cta / nparts;
+  return {bh, row_tile * kRows, cta % nparts * W::kOut};
 }
 
 // The CTA's place from shared memory, read anew at each call: the
 // consumers take it afresh in every tile, and nothing of it stays live
 // across the tile loop (kept there, it was what ptxas spilled).
+template <class W>
 __device__ __forceinline__ CtaPlace wide_place(const uint8_t* smem) {
   const volatile int* q =
-      reinterpret_cast<const volatile int*>(smem + WideDkv::kPlace);
+      reinterpret_cast<const volatile int*>(smem + W::kPlace);
   return {q[0], q[1], q[2]};
 }
 
@@ -875,10 +1013,10 @@ __device__ __forceinline__ void dkv_wide_consumer(
     for (int e = 0; e < W::kPiece / 2; ++e) acc_k[pc][e] = acc_v[pc][e] = 0.f;
 
   int n = 0, v = 0;  // ring stages and T pieces consumed so far
-  const int u0 = dkv_first_tile(wide_place(smem).row_start, q_off,
+  const int u0 = dkv_first_tile(wide_place<W>(smem).row_start, q_off,
                                 k_off, causal, (Sq + kTile - 1) / kTile);
   for (int tile0 = u0 * kTile; tile0 < Sq; tile0 += kTile) {
-    const CtaPlace at = wide_place(smem);
+    const CtaPlace at = wide_place<W>(smem);
     const int first_pos = k_off + at.row_start + 64 * C;
     // The part's pieces that start below D (the last part's others are
     // neither loaded, multiplied nor stored).
@@ -918,8 +1056,8 @@ __device__ __forceinline__ void dkv_wide_consumer(
       named_bar_sync(1 + C, 128);
     }
     // dV += P^T dO, a 64-column piece a product.
-    pieces_product(acc_v, smem, t_full, t_empty, v, pieces, x_hi, x_lo, live,
-                   lane);
+    pieces_product<W>(acc_v, smem, t_full, t_empty, v, pieces, x_hi, x_lo,
+                      live, lane);
     // P parked in the hi plane once every product that read it is done.
     if (live) {
       named_bar_sync(1 + C, 128);
@@ -940,11 +1078,11 @@ __device__ __forceinline__ void dkv_wide_consumer(
       named_bar_sync(1 + C, 128);
     }
     // dK += dS^T Q.
-    pieces_product(acc_k, smem, t_full, t_empty, v, pieces, x_hi, x_lo, live,
-                   lane);
+    pieces_product<W>(acc_k, smem, t_full, t_empty, v, pieces, x_hi, x_lo,
+                      live, lane);
   }
 
-  const CtaPlace end = wide_place(smem);
+  const CtaPlace end = wide_place<W>(smem);
   const int b = end.bh / H, h = end.bh % H;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -982,7 +1120,7 @@ __global__ void __launch_bounds__(384, 1)
   uint64_t* t_empty = t_full + W::kStagesT;
 
   if (threadIdx.x == 0) {
-    const CtaPlace place = wide_cta(D, Sk, group);
+    const CtaPlace place = wide_cta<W, false>(D, Sk, group);
     int* at = reinterpret_cast<int*>(smem + W::kPlace);
     at[0] = place.bh;
     at[1] = place.row_start;
@@ -1006,7 +1144,7 @@ __global__ void __launch_bounds__(384, 1)
     // in which the consumers take them.
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      const CtaPlace at = wide_place(smem);
+      const CtaPlace at = wide_place<W>(smem);
       const int b = at.bh / H, h = at.bh % H;
       const int u0 = dkv_first_tile(at.row_start, q_off, k_off, causal,
                                     (Sq + kTile - 1) / kTile);
@@ -1032,6 +1170,215 @@ __global__ void __launch_bounds__(384, 1)
     else
       dkv_wide_consumer<1>(smem, lse, delta, dk, dv, H, Sq, Sk, D, q_off,
                            k_off, causal, scale);
+  }
+}
+
+// This thread's index, read anew at each call (volatile asm), so that the
+// addresses worked out from it are not kept live across the tile loop
+// (hoisted there, the X planes' addresses were what ptxas spilled).
+__device__ __forceinline__ int thread_anew() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// The wide dq's consumer warpgroup C (queries 64 C .. 64 C + 63 of the
+// CTA), a template on C as dkv_wide_consumer is.
+template <int C>
+__device__ __forceinline__ void dq_wide_consumer(
+    uint8_t* smem, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int H, int Sq,
+    int Sk, int D, int q_off, int k_off, int causal, float scale) {
+  using W = WideDq;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* t_full = empty + kStages;
+  uint64_t* t_empty = t_full + W::kStagesT;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t x_hi = smem_u32(smem + W::kX + 2 * C * W::kPlaneX);
+  const uint32_t x_lo = x_hi + W::kPlaneX;
+  // The consumer's copy of its rows' lse (pre-scaled by log2 e; +inf past
+  // Sq, so that p is 0 there) and delta, [lse 64][delta 64]: one row a
+  // thread of the first 64, loaded once; each thread reads its own two
+  // rows' in each tile (kept in registers across the tile loop, they and
+  // what they displaced were spilled).
+  const uint32_t st = smem_u32(smem + W::kStats + C * 2 * kTile * 4);
+  {
+    const int t = threadIdx.x % 128;
+    const CtaPlace at = wide_place<W>(smem);
+    const int row = at.row_start + 64 * C + t;
+    if (t < kTile) {
+      float* own = reinterpret_cast<float*>(smem + W::kStats) + C * 2 * kTile;
+      own[t] = row < Sq ? lse[(size_t)at.bh * Sq + row] * kLog2e
+                        : __int_as_float(0x7f800000);
+      own[kTile + t] = row < Sq ? delta[(size_t)at.bh * Sq + row] : 0.f;
+    }
+    named_bar_sync(1 + C, 128);
+  }
+
+  float acc[W::kPieces][W::kPiece / 2];
+#pragma unroll
+  for (int pc = 0; pc < W::kPieces; ++pc)
+#pragma unroll
+    for (int e = 0; e < W::kPiece / 2; ++e) acc[pc][e] = 0.f;
+
+  int n = 0, v = 0;  // ring stages and T pieces consumed so far
+  // The tiles it sees, worked out anew in each tile from the CTA's place.
+  for (int tile0 = 0;
+       tile0 < kTile * dq_tile_end(wide_place<W>(smem).row_start, q_off,
+                                   k_off, causal, (Sk + kTile - 1) / kTile);
+       tile0 += kTile) {
+    // The CTA's place and the thread's, read anew in each tile (what is
+    // worked out from them and kept across the tile loop is what ptxas
+    // spilled): its queries r16, r16 + 8 of the consumer's 64, the tile
+    // rows col, col + 1 of every 8.
+    const CtaPlace at = wide_place<W>(smem);
+    const int ta = thread_anew() % 128, lane = ta % 32;
+    const int r16 = 16 * (ta / 32) + lane / 4, col = 2 * (lane % 4);
+    const int first_pos = q_off + at.row_start + 64 * C;
+    // The part's pieces that start below D (the last part's others are
+    // neither loaded, multiplied nor stored).
+    const int pieces = (min(W::kOut, D - at.c0) + W::kPiece - 1) / W::kPiece;
+    // Whether the warpgroup's queries see any of the tile (the same for
+    // its 128 threads), and whether some pair of the tile is hidden.
+    bool live = true, masked = tile0 + kTile > Sk;
+    if (causal) {
+      live = k_off + tile0 <= first_pos + 63;
+      masked = masked || k_off + tile0 + kTile - 1 > first_pos;
+    }
+
+    // S, then P parked in the X hi plane, at the words where this thread's
+    // dS will go, once every product of the last tile that read the
+    // planes is done.
+    // (S and dP zeroed first: ring_sum's first fold reads them; see the
+    // header.)
+    float s[kTile / 2];
+#pragma unroll
+    for (int e = 0; e < kTile / 2; ++e) s[e] = 0.f;
+    ring_sum(s, smem_u32(smem), full, empty, n, D, C * 64 * 128, live, lane);
+    if (live) {
+      const float lse_r[2] = {ld_shared_f32(st + 4 * r16),
+                              ld_shared_f32(st + 4 * (r16 + 8))};
+      p_in_place<false>(s, nullptr, lse_r, masked,
+                        first_pos + r16, k_off + tile0, Sk - tile0, causal,
+                        col, scale_log2);
+      named_bar_sync(1 + C, 128);
+      const int tb = thread_anew() % 128;
+      park_x(s, x_hi, 16 * (tb / 32) + tb % 32 / 4, tb % 4);
+    }
+    // dP, then dS = P (dP - delta) scale split into the X planes over P's
+    // park (each thread its own words: no barrier between), handed to the
+    // products by the proxy fence and the barrier.
+    float dp[kTile / 2];
+#pragma unroll
+    for (int e = 0; e < kTile / 2; ++e) dp[e] = 0.f;
+    ring_sum(dp, smem_u32(smem), full, empty, n, D, C * 64 * 128, live,
+             lane);
+    if (live) {
+      const int tb = thread_anew() % 128;
+      const int r16b = 16 * (tb / 32) + tb % 32 / 4;
+      const float delta_r[2] = {ld_shared_f32(st + 4 * (kTile + r16b)),
+                                ld_shared_f32(st + 4 * (kTile + r16b + 8))};
+      ds_to_x(dp, delta_r, scale, x_hi, x_lo, r16b, tb % 4);
+      fence_proxy_async();
+      named_bar_sync(1 + C, 128);
+    }
+    // dQ += dS K, a 64-column piece a product.
+    pieces_product<W>(acc, smem, t_full, t_empty, v, pieces, x_hi, x_lo,
+                      live, lane);
+  }
+
+  const CtaPlace end = wide_place<W>(smem);
+  const int b = end.bh / H, h = end.bh % H;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int row0 = 64 * C + 16 * (t / 32) + lane / 4, col = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = end.row_start + row0 + 8 * i;
+    if (row >= Sq) continue;
+    const size_t off = ((size_t)(b * Sq + row) * H + h) * D + end.c0 + col;
+#pragma unroll
+    for (int pc = 0; pc < W::kPieces; ++pc)
+#pragma unroll
+      for (int jj = 0; jj < W::kPiece / 8; ++jj) {
+        const int cc = W::kPiece * pc + 8 * jj;
+        if (end.c0 + col + cc >= D) continue;
+        store2<float>(dq + off + cc, acc[pc][4 * jj + 2 * i],
+                      acc[pc][4 * jj + 2 * i + 1]);
+      }
+  }
+}
+
+// dq past kWideDqAbove: 256-column parts of dQ (see the header).
+__global__ void __launch_bounds__(384, 1)
+    flash_dq_tf32_wide(const __grid_constant__ Maps maps,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq, int H, int Sq, int Sk, int D,
+                       int q_off, int k_off, int causal, float scale,
+                       int group) {
+  using W = WideDq;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* t_full = empty + kStages;
+  uint64_t* t_empty = t_full + W::kStagesT;
+
+  if (threadIdx.x == 0) {
+    const CtaPlace place = wide_cta<W, true>(D, Sq, group);
+    int* at = reinterpret_cast<int*>(smem + W::kPlace);
+    at[0] = place.bh;
+    at[1] = place.row_start;
+    at[2] = place.c0;
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < W::kStagesT; ++s) {
+      bar_init(&t_full[s], 1);
+      bar_init(&t_empty[s], 8);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: thread 0 issues, per tile, the ring pass of S, the part's
+    // first kStagesT K^T pieces, the ring pass of dP and the other pieces:
+    // the order in which the consumers take them, with the first pieces
+    // in flight while dP is summed (the others wait for their stages).
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      const CtaPlace at = wide_place<W>(smem);
+      const int b = at.bh / H, h = at.bh % H;
+      const int u1 = dq_tile_end(at.row_start, q_off, k_off, causal,
+                                 (Sk + kTile - 1) / kTile);
+      const int c1 = min(D, at.c0 + W::kOut);
+      int n = 0, v = 0;  // ring stages and T pieces issued so far
+      for (int tile0 = 0; tile0 < u1 * kTile; tile0 += kTile) {
+        issue_ring_pass(smem, maps.a[0], maps.b[0], full, empty, n, D, h, b,
+                        at.row_start, tile0);
+        int c = at.c0;
+        for (int i = 0; i < W::kStagesT && c < c1; ++i, c += W::kPiece)
+          load_t_piece<W>(smem + W::kT, t_full, t_empty, maps.t[0], v++,
+                          tile0, c, h, b);
+        issue_ring_pass(smem, maps.a[1], maps.b[1], full, empty, n, D, h, b,
+                        at.row_start, tile0);
+        for (; c < c1; c += W::kPiece)
+          load_t_piece<W>(smem + W::kT, t_full, t_empty, maps.t[0], v++,
+                          tile0, c, h, b);
+      }
+    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    if (wg == 1)
+      dq_wide_consumer<0>(smem, lse, delta, dq, H, Sq, Sk, D, q_off, k_off,
+                          causal, scale);
+    else
+      dq_wide_consumer<1>(smem, lse, delta, dq, H, Sq, Sk, D, q_off, k_off,
+                          causal, scale);
   }
 }
 
@@ -1323,7 +1670,8 @@ cudaError_t run(void* scratch, const void* lse, const void* delta,
   const int sqp = padded_keys(Sq, kSeqPad), skp = padded_keys(Sk, kSeqPad);
   // The CTA's rows (box 128) and the tile's (box 64) of S and dP, and the
   // transposed factors (box kOut rows of D by 32 of the sequence; the wide
-  // dk/dv build's pieces are boxes of the same 64 rows).
+  // dk/dv build's pieces are boxes of the same 64 rows, the wide dq's of
+  // 64 rows of K^T).
   const float* a[2][2] = {{p.q, p.q_lo}, {p.dout, p.do_lo}};
   const float* bt[2][2] = {{p.k, p.k_lo}, {p.v, p.v_lo}};
   const float* t[2][2] = {{p.kt, p.kt_lo}, {p.kt, p.kt_lo}};
@@ -1342,6 +1690,7 @@ cudaError_t run(void* scratch, const void* lse, const void* delta,
     tiles = Sq;
     tp = sqp;
   }
+  const bool wide_dq = !kDkv && D > kWideDqAbove;
   Maps maps;
   cudaError_t err = cudaSuccess;
   for (int i = 0; i < 2 && err == cudaSuccess; ++i)
@@ -1352,28 +1701,45 @@ cudaError_t run(void* scratch, const void* lse, const void* delta,
                                  kTile);
       if (err == cudaSuccess)
         err = encode_bhds<float>(&maps.t[i][j], t[i][j], B, H, D, tp,
-                                 Sh::kOut);
+                                 wide_dq ? WideDq::kPiece : Sh::kOut);
     }
   if (err != cudaSuccess) return err;
   const int row_tiles = (rows + kRows - 1) / kRows;
+  // A wide build's heads in groups of about one wave of CTAs (a head's
+  // CTAs, per_head, times the group): kHeadGroups (dk/dv) and
+  // kDqHeadGroups (dq), else one head at a time.
+  auto head_group = [&](int per_head, bool groups, int& group) {
+    group = 1;
+    if (!groups) return cudaSuccess;
+    int dev, sms;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) group = (sms + per_head - 1) / per_head;
+    return e;
+  };
+  if (wide_dq) {
+    const int per_head = row_tiles * ((D + WideDq::kOut - 1) / WideDq::kOut);
+    int group;
+    err = head_group(per_head, kDqHeadGroups, group);
+    if (err != cudaSuccess) return err;
+    const dim3 grid =
+        kHeadMajor ? dim3(per_head * B * H) : dim3(B * H, per_head);
+    return launch_ws(flash_dq_tf32_wide, grid, WideDq::kBytes + 1024, stream,
+                     maps, (const float*)lse, (const float*)delta,
+                     (float*)out0, H, Sq, Sk, D, q_off, k_off, causal, scale,
+                     group);
+  }
   if constexpr (kDkv) {
     if (D > kWideAbove && kSplitByOutput)
       return run_split(p, lse, delta, out0, out1, B, H, Sq, Sk, D, q_off,
                        k_off, causal, scale, stream);
     if (D > kWideAbove) {
-      // A head's CTAs, and the heads of a group: about one wave.
       const int per_head =
           row_tiles * ((D + WideDkv::kOut - 1) / WideDkv::kOut);
-      int group = 1;
-      if (kHeadGroups) {
-        int dev, sms;
-        err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-          err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev);
-        if (err != cudaSuccess) return err;
-        group = (sms + per_head - 1) / per_head;
-      }
+      int group;
+      err = head_group(per_head, kHeadGroups, group);
+      if (err != cudaSuccess) return err;
       const dim3 grid =
           kHeadMajor ? dim3(per_head * B * H) : dim3(B * H, per_head);
       return launch_ws(flash_dkv_tf32_wide, grid, WideDkv::kBytes + 1024,
@@ -1409,9 +1775,18 @@ extern "C" int hvdt_flash_bwd_tf32_split(const void* q, const void* k,
                                     (cudaStream_t)stream);
 }
 
+// The columns of dQ a CTA of the tf32 dq owns at head dim D, which names
+// the build hvdt_flash_dq_tf32 runs: 128 up to kWideDqAbove, 256 (the wide
+// build) past it.
+extern "C" int hvdt_flash_dq_tf32_part(int D) {
+  return D <= hvdt::kWideDqAbove ? hvdt::BwdShape<false>::kOut
+                                 : hvdt::WideDq::kOut;
+}
+
 // dq through 3xTF32 from the pre-pass's scratch (of the same B, H, Sq,
-// Sk, D). lse, delta: fp32 [B, H, Sq]. dq: fp32 [B, Sq, H, D]. scale
-// multiplies the logits (1/sqrt of the head dim before any zero padding).
+// Sk, D), on the build of D (hvdt_flash_dq_tf32_part). lse, delta: fp32
+// [B, H, Sq]. dq: fp32 [B, Sq, H, D]. scale multiplies the logits (1/sqrt
+// of the head dim before any zero padding).
 extern "C" int hvdt_flash_dq_tf32(void* scratch, const void* lse,
                                   const void* delta, void* dq, int B, int H,
                                   int Sq, int Sk, int D, int q_off,

@@ -52,8 +52,8 @@ alone, before any launch:
   D 512 and for dq and dk/dv past D 256, at every multiple of 64 (parts
   of 256 columns);
   ``tf32`` takes fp32 past D 32, at every multiple of 32, for all three
-  kernels (parts of 128 columns, and 256 for the forward past D 128;
-  dk/dv 64, and 128 past D 128), and every fp32 D up to 32 as well, on
+  kernels (parts of 128 columns, and 256 for the forward and dq past D
+  128; dk/dv 64, and 128 past D 128), and every fp32 D up to 32 as well, on
   narrow builds of its own at D 16 and 32 (``TF32_NARROW_DIMS``: a CTA
   owns 64 rows, a q tile for the forward and dq, a kv tile for dk/dv,
   whose stages of the other sequence several consumer warpgroups share;
@@ -690,6 +690,18 @@ def tf32_fwd_part(d: int) -> int:
     return _cuda.load().hvdt_flash_fwd_tf32_part(d)
 
 
+def tf32_dq_part(d: int) -> int:
+    """The columns of dQ that a CTA of the tf32 dq owns at the built head
+    dim ``d``, which name its build: D itself at the narrow builds (D 16
+    and 32, csrc/flash_bwd_tf32_narrow_sm90.cu); past them as the C entry
+    of csrc/flash_bwd_tf32_sm90.cu picks the build, 128 up to D 128, 256
+    past it (the wide build, dS through shared memory, so that S and dP
+    are paid half as often). Needs the kernels' library past D 32."""
+    if d in TF32_NARROW_DIMS["dq"]:
+        return d
+    return _cuda.load().hvdt_flash_dq_tf32_part(d)
+
+
 def tf32_dkv_part(d: int) -> int:
     """The columns of dK and dV that a CTA of the tf32 dk/dv owns at the
     built head dim ``d``, which name its build: D itself at the narrow
@@ -914,8 +926,9 @@ def _flash_dq_tf32(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     """The 3xTF32 dq kernel: fp32 at D 16 and 32 on the narrow builds
     (flash_bwd_tf32_narrow_sm90.cu: dQ whole, a q tile's kv stages shared
     among consumer warpgroups) and at the multiples of 32 past 32 streamed
-    over D (flash_bwd_tf32_sm90.cu). ``split``: :func:`_tf32_bwd_split` of
-    these inputs."""
+    over D (flash_bwd_tf32_sm90.cu) in 128-column parts of dQ up to D 128
+    and 256-column parts past it (:func:`tf32_dq_part`). ``split``:
+    :func:`_tf32_bwd_split` of these inputs."""
     global flash_dq_tf32_launches
     split = _bwd_tf32("flash dq", "dq", q, k, v, do, lse, delta, split)
     b, sq, h, d = q.shape

@@ -1221,6 +1221,54 @@ def test_tf32_wide_dkv_equals_the_64_column_build_bit_for_bit(cuda, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,causal,qo,ko,sk", TF32_WIDE_CASES)
+def test_tf32_wide_dq_matches_plain_version(cuda, b, s, h, d, causal, qo, ko,
+                                            sk):
+    """The tf32 dq's wide build (fp32 past D 128: 256-column parts of dQ,
+    dS through shared memory, the last part's columns past D left out) at
+    the fp32 gradient bound with ``DQ_ATOL`` and no other allowance,
+    against the plain version that takes its products as three tf32
+    products: head dims from 160 to 640, causal and not, offsets, dead
+    rows, unequal lengths and ragged lengths (S 100 and 127). The C entry
+    says which build ran, and the counter that the tf32 dq launched
+    once."""
+    assert fa.tf32_dq_part(d) == 256
+    q, k, v, do = _inputs(cuda, torch.float32, b, s, h, d, s + d, sk)
+    _, lse, delta = _stats(q, k, v, do, causal, qo, ko)
+    fa.reset_launch_counts()
+    dq, _ = fa._flash_bwd(q, k, v, do, lse, delta, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_dq_tf32"] == 1
+    args = (q, k, v, do, lse, delta, causal, qo, ko)
+    dq_p = fa._flash_dq_plain(*args, operands=fa.TF32X3)
+    _close(dq, dq_p, 1e-4, tolerance.DQ_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,qo,ko", [(True, 0, 0), (False, 0, 64),
+                                          (True, 64, 0)])
+def test_tf32_wide_dq_equals_the_128_column_build_bit_for_bit(cuda, causal,
+                                                              qo, ko):
+    """Up to D 128 the C entry runs the 128-column build, past it the wide
+    one; both sum each column of dQ in the same order (the same region
+    accumulators, the same k steps of a product, the same tile order), so
+    on inputs whose columns past 128 are zero the wide build at D 160
+    gives the 128-column build's dq at D 128 bit for bit (its fifth region
+    adds exact zeros to S and dP) and zeros past it."""
+    assert [fa.tf32_dq_part(d) for d in (64, 96, 128, 160, 640)] == \
+        [128, 128, 128, 256, 256]
+    q, k, v, do = _inputs(cuda, torch.float32, 2, 256, 2, 128, 13)
+    _, lse, delta = _stats(q, k, v, do, causal, qo, ko)
+    args = (lse, delta, causal, qo, ko)
+    dq = fa._flash_dq_tf32(q, k, v, do, *args)
+    wide = fa._flash_dq_tf32(*fa._pad_head_dim((q, k, v, do), 160), *args,
+                             scale=fa._softmax_scale(128))
+    torch.cuda.synchronize()
+    assert torch.equal(wide[..., :128], dq)
+    assert not wide[..., 128:].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [256, 640])
 def test_tf32_wide_dkv_refuses_a_misaligned_tensor(cuda, d):
     """A tensor one element off a 16-byte boundary raises before any

@@ -5,10 +5,10 @@ kernels to, against the reference's Pallas backward in interpret mode
 (blocks of 32, as tests/test_torch_flash_head_dims.py runs it); the bound
 of horovod_tpu_torch/utils/tolerance.py, which must pass it and fail one
 TF32 product, a dq that lost a kv tile, a dk/dv that lost a q tile and a
-dk/dv that lost a 64-column piece of a wide part; the backward's design
-and padding for fp32 through ``_flash_bwd`` with the plain versions in
-the kernels' place; and that the C entries of the kernels' source take
-what the bindings pass. The kernels themselves run on the card
+dq or dk/dv that lost a 64-column piece of a wide part; the backward's
+design and padding for fp32 through ``_flash_bwd`` with the plain
+versions in the kernels' place; and that the C entries of the kernels'
+source take what the bindings pass. The kernels themselves run on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance: the reference's fp32 gradient bound (tests/test_parallel.py),
@@ -159,8 +159,56 @@ def test_bound_rejects_lost_columns_of_a_wide_dkv_part():
         assert ratio > chip_smoke.LOST_FP32_BY
 
 
+def _wide_constant(name, dkv):
+    """An int constant of the wide builds' ``struct Wide`` in
+    csrc/flash_bwd_tf32_sm90.cu, for dk/dv or for dq."""
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_bwd_tf32_sm90.cu")) as fh:
+        body = fh.read().split("struct Wide {")[1].split("};")[0]
+    value = re.search(r"static constexpr int " + name + r" = ([^;]+);",
+                      body).group(1)
+    ternary = re.fullmatch(r"kDkv \? (\d+) : (\d+)", value)
+    return int(ternary.group(1 if dkv else 2)) if ternary else int(value)
+
+
+def test_bound_rejects_lost_columns_of_a_wide_dq_part():
+    """dq whose columns 448-511 (the last 64-column piece of the wide tf32
+    dq's second 256-column part, the piece its producer issues last in a
+    tile) or 576-639 (a piece of D 640's 128-column remainder) were left
+    out (zero) fails the fp32 gradient bound with ``DQ_ATOL`` by more than
+    chip_smoke.py's LOST_FP32_BY, as the card checks the wide build at
+    fp32 D 640 (here B 1, S 128, H 2); the ranges follow the source's part
+    width and piece."""
+    part, piece = (_wide_constant(n, dkv=False) for n in ("kOut", "kPiece"))
+    lost = chip_smoke.LOST_C4["fp32_d640"]["dq_columns"]
+    assert lost == ((2 * part - piece, 2 * part), (640 - piece, 640))
+    assert lost[1][0] >= 640 - 640 % part > lost[0][0]
+    _, args = _args(*_values(10, 640, sq=128), True, 0, 0)
+    dq = port._flash_dq_plain(*args, operands=port.TF32X3)
+    for lo, hi in lost:
+        got = chip_smoke.dq_without_columns(dq, lo, hi)
+        assert not got[..., lo:hi].any()
+        assert torch.equal(got[..., :lo], dq[..., :lo])
+        ratio = tolerance.worst(got, dq, GRAD_TOL,
+                                atol=tolerance.DQ_ATOL)[1]
+        assert ratio > chip_smoke.LOST_FP32_BY
+
+
+def test_tf32_dq_part_gives_the_narrow_builds_head_dim_on_the_cpu():
+    """At D 16 and 32 the tf32 dq runs its narrow builds, which own the
+    whole of dQ: ``tf32_dq_part`` says D there without the kernels'
+    library (not built here). Past them the C entry answers from the
+    source's parts: 128 columns, and 256 past D 128."""
+    for d in port.TF32_NARROW_DIMS["dq"]:
+        assert port.tf32_dq_part(d) == d
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_bwd_tf32_sm90.cu")) as fh:
+        assert fh.read().count("constexpr int kWideDqAbove = 128;") == 1
+    assert _wide_constant("kOut", dkv=False) == 256
+    assert _wide_constant("kOut", dkv=True) == 128
+
+
 @pytest.mark.parametrize("entry", ["hvdt_flash_bwd_tf32_split",
                                    "hvdt_flash_dq_tf32",
+                                   "hvdt_flash_dq_tf32_part",
                                    "hvdt_flash_dkv_tf32",
                                    "hvdt_flash_dkv_tf32_part"])
 def test_backward_c_entries_take_what_the_bindings_pass(entry):

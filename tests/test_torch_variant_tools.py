@@ -135,3 +135,27 @@ def test_narrow_bwd_tf32_variants_edit_the_narrow_tf32_backward():
     for name in tool.SAME_SUMS:
         assert all(edit in (tool.DQ_STAGES1, tool.DKV_STAGES1)
                    for edit in tool.VARIANTS[name])
+
+
+def test_bwd_tf32_variants_cover_the_dq_designs():
+    """The tf32 backward's tool rebuilds the dq design before the wide
+    build (``dq_128cols``: no wide dq), the wide dq from a later head dim
+    and its grid one head at a time; a ``dq_`` variant edits only dq's
+    constants and is timed on dq alone, and the tool reads dq from each
+    variant's library through the entry the bindings declare."""
+    tool = _tool("bwd_tf32_variants")
+    assert tool.VARIANTS["dq_128cols"] == (tool.SOURCE, [tool.NO_WIDE_DQ])
+    assert tool.VARIANTS["dq_wide_from_256"] == (tool.SOURCE,
+                                                 [tool.DQ_WIDE_FROM_256])
+    assert tool.VARIANTS["dq_wide_from_64"] == (tool.SOURCE,
+                                                [tool.DQ_WIDE_FROM_64])
+    assert tool.NO_WIDE_DQ[0] == tool.DQ_WIDE_FROM_256[0] == \
+        tool.DQ_WIDE_FROM_64[0] == "constexpr int kWideDqAbove = 128;"
+    for name, (_, edits) in tool.VARIANTS.items():
+        if name.startswith("dq_"):
+            assert tool.kernels_of(name) == ("dq",)
+            assert all("Dq" in old for old, _ in edits), name
+    assert tool.kernels_of("package") == tool.kernels_of("parent") == \
+        ("dq", "dkv")
+    assert tool.DQ_ENTRY in _cuda._SIGNATURES
+    assert tool.ENTRIES[tool.SOURCE] in _cuda._SIGNATURES
