@@ -36,7 +36,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    and ROADMAP C6's ragged lengths on every design
    (RAGGED_DESIGNS: B=2, H=2, Sq = Sk = 100 and Sq 100 / Sk 127, causal,
    with offsets); wherever a tensor-core kernel serves, its simt kernel
-   is checked on the same inputs too.
+   is checked on the same inputs too. Wherever the fused 16-bit backward
+   serves (bf16 and fp16 at D 33-128: the main shape, d64, the C4 cases
+   at D 64-128, the ragged bf16 D 128 lengths), it runs on the same
+   inputs, lse and delta as the sm90 dq and dk/dv (which no route runs
+   there any more): its dq held to the plain dq at DQ_ATOL with the
+   16-bit operands' allowance of ``_flash_bwd_sm90_plain`` (dq summed per
+   128-key kv tile), its dk and dv bit for bit the sm90 dk/dv's, and at
+   the main shape a plain dq with one 128-key kv tile (keys 1024-1151,
+   one add of the fused kernel) left out must fail the bound. In every
+   case the backward's pre-pass kernel (lse and delta from the forward's
+   o, m, l and do) is held to its plain version: lse within 1e-6 of |m|
+   + |log l| (+inf on dead rows, equal), delta within 1e-5 of the sum of
+   |do o|.
    Each element is held to the bound of
    horovod_tpu_torch/utils/tolerance.py: |mine - plain| <= atol + rtol *
    max|plain row| + step * |plain| (+ 2 * max over the row of |plain_b -
@@ -118,28 +130,31 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    compute) with random weights from --seed, DistributedOptimizer(SGD
    lr 0.01, momentum 0.9), broadcast_parameters, and training steps on
    one fixed batch of 4 x 2048 random tokens. The loss must be finite and
-   fall, and the path must launch the sm90 forward, dq and dk/dv kernels
-   once per layer per step and the simt ones never.
+   fall, and the path must launch the sm90 forward, the backward's
+   pre-pass and the fused backward once per layer per step, and no other
+   flash kernel (the sm90 dq and dk/dv and the simt kernels never).
    One more step runs under torch.profiler and prints its device time by
    kernel.
 4b. The same step at Gemma-7B's attention widths (16 heads of 256, d
    4096, MLP x4; google/gemma-7b config.json), vocab 32000, S=2048, batch
    2, bf16 compute with fp32 weights, its 28 layers cut to 2 to fit the
    run: the loss must be finite and fall, and each layer and step must
-   launch the sm90 forward, dq and dk/dv once and no other flash kernel.
+   launch the sm90 forward, dq and dk/dv and the backward's pre-pass once
+   and no other flash kernel.
    Phases 4 and 4b print their seconds per step beside the recorded ones
    (RECORDED_STEP_S).
 4e. The same step at Phi-3-mini's attention widths (32 heads of 96,
    hidden 3072; microsoft/Phi-3-mini-4k-instruct config.json), vocab
    32000, S 2048, batch 2, bf16, its 32 layers cut to 2: the loss finite
    and falling, and each layer and step launching the sm90 forward (on
-   the caller's tensors at D 96), dq and dk/dv (on the caller's tensors
-   too, on the build of 128) once and no other flash kernel.
+   the caller's tensors at D 96), the backward's pre-pass and the fused
+   backward (on the caller's tensors too, on the build of 128) once and no
+   other flash kernel.
 4c. Phase 4's model in fp32 (``TransformerConfig(dtype=torch.float32)``),
    depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
    profiled): the loss must be finite and fall, the tf32 forward, dq and
-   dk/dv must each launch once per layer per step (2 a step) and no other
-   flash kernel; prints the seconds per step.
+   dk/dv and the backward's pre-pass must each launch once per layer per
+   step (2 a step) and no other flash kernel; prints the seconds per step.
 4d. The entry's flagship model (horovod_tpu_torch/entry.py: bf16, 4 heads
    of 16, S 32, batch 2, 2 layers): its forward through ``entry()``'s own
    function on the card against the same weights and tokens on the CPU
@@ -148,7 +163,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    call launching the sm90 forward twice and no other flash kernel; then
    4 training steps of the same configuration through the bench's step
    (as phase 4): the loss finite and falling, the sm90 forward, dq and
-   dk/dv once per layer per step and no other.
+   dk/dv and the backward's pre-pass once per layer per step and no
+   other.
 5. The kernels' times, each a mean of 20 launches: the sm90 kernels at
    the main path's shape in bf16 (printed beside the times PERF.md
    recorded before dq took fp16 and D 256, RECORDED_MAIN_MS), the fp32
@@ -173,7 +189,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    with the pre-pass alone beside it (TF32_ROUTES: C4 D 16 and 32, where
    the narrow builds must beat the simt dq and dk/dv together, C4 D 256,
    320, 384, 512 and 640 on the wide builds, and the main shape); then
-   the sm90 dq and dk/dv together against SDPA's backward alone);
+   the sm90 dq and dk/dv together, and the fused backward beside them
+   where it serves (its bound: five products), against SDPA's backward
+   alone; then the 16-bit backward route whole, flash_attention_bwd (the
+   pre-pass, then the fused backward, or dq and dk/dv at Gemma-7B's D
+   256), against SDPA's backward alone and against the route before the
+   fused kernel (torch's lse and delta, then the sm90 dq and dk/dv) in
+   turns, at the main shape, Phi-3-mini's, C4 bf16 D 80 and Gemma-7B's
+   (BWD_ROUTES)); the fused backward's rows and the pre-pass's carry the
+   same keys as the others (the pre-pass has no library call: null);
    each beside the plain version, the PyTorch library call computing the
    same function in the same dtype (scaled_dot_product_attention, timed
    here only as a yardstick) and the bound: the larger of the operations
@@ -319,19 +343,27 @@ C4_CASES = (("bf16_d16", "bfloat16", 16), ("fp32_d16", "float32", 16),
             ("fp16_d512", "float16", 512),
             ("bf16_d640", "bfloat16", 640), ("fp16_d640", "float16", 640),
             ("fp32_d640", "float32", 640))
-# The kernels the main path (bf16, D=128) runs; the simt kernels, which no
-# route runs, must not launch there.
-MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+# The kernels the main path (bf16, D=128) runs: the sm90 forward, the
+# backward's lse and delta pre-pass and the fused backward (dq, dk and dv
+# in one launch, 16-bit D 33-128); the sm90 dq and dk/dv there, and the
+# simt kernels, which no route runs, must not launch.
+MAIN_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_prep", "flash_bwd_sm90")
+# The kernels of a 16-bit backward outside the fused kernel's head dims
+# (D <= 32, 129-256): the sm90 dq and dk/dv, and the pre-pass.
+PAIR_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
+                     "flash_bwd_prep")
 # Phase 4b's model: the attention widths of Gemma-7B (16 heads of 256, d
 # 4096, MLP x4; google/gemma-7b config.json), vocab 32000, S 2048, batch
-# 2, its 28 layers cut to 2. bf16 at D 256 runs the three sm90 kernels.
+# 2, its 28 layers cut to 2. bf16 at D 256 runs the three sm90 kernels
+# (the dq and dk/dv pair: past the fused backward's head dims).
 GEMMA = dict(b=2, s=2048, h=16, d=256)
 GEMMA_LAYERS = (28, 2)
-GEMMA_PATH_KERNELS = MAIN_PATH_KERNELS
+GEMMA_PATH_KERNELS = PAIR_PATH_KERNELS
 # Phase 4e's model: the attention widths of Phi-3-mini (32 heads of 96,
 # hidden 3072; microsoft/Phi-3-mini-4k-instruct config.json), vocab 32000,
 # S 2048, batch 2, its 32 layers cut to 2. bf16 at D 96 runs the sm90
-# forward, dq and dk/dv on the caller's tensors (the builds of 128).
+# forward and the fused backward on the caller's tensors (the builds of
+# 128).
 PHI3 = dict(b=2, s=2048, h=32, d=96)
 PHI3_LAYERS = (32, 2)
 PHI3_PATH_KERNELS = MAIN_PATH_KERNELS
@@ -363,10 +395,13 @@ RECORDED_NARROW_FWD_MS = {"bf16_d16": 0.0185, "bf16_d32": 0.0193,
 # ``dkv_columns``: columns of dk and dv left out (zero: a wide tf32 dk/dv
 # that lost an output piece or stored it in the wrong columns);
 # ``dq_columns``: column ranges of dq left out one at a time (zero: a wide
-# tf32 dq that lost an output piece or stored it in the wrong columns).
+# tf32 dq that lost an output piece or stored it in the wrong columns);
+# ``bwd``: the keys of one 128-key kv tile left out of dq, the part of dq
+# that the fused backward adds as one (a lost or doubled add).
 # The fp32 entries, those of the tf32 kernels, must be rejected at more
 # than LOST_FP32_BY times the bound.
-LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600))
+LOST_MAIN = dict(fwd=(1024, 1152), dq=(1024, 1088), dkv=(1536, 1600),
+                 bwd=(1024, 1152))
 LOST_MAIN_FP32 = dict(fwd=(1024, 1088), dq=(1024, 1088), dkv=(1536, 1600))
 LOST_FP32_BY = 10.0
 # The narrow sm90 kernels (16-bit D 16 and 32): 64 keys of the forward
@@ -454,13 +489,14 @@ BWD_IN_PLACE = (("bf16_d80", "bfloat16", 80), ("bf16_d96", "bfloat16", 96),
 # depth cut to 2, batch 4, S 2048, 4 steps (1 warm-up, 2 timed, 1
 # profiled).
 FP32_LM = dict(layers=2, warmup=1, steps=2)
-FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32")
+FP32_PATH_KERNELS = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32",
+                     "flash_bwd_prep")
 # Phase 4d: the entry's flagship model (horovod_tpu_torch/entry.py: bf16,
 # 4 heads of 16, S 32, batch 2, 2 layers), its forward on the card against
 # the CPU, then training steps (1 warm-up, 2 timed, 1 profiled). Head dim
 # 16 runs the narrow sm90 forward, dq and dk/dv.
 ENTRY = dict(b=2, s=32, h=4, d=16)
-ENTRY_PATH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+ENTRY_PATH_KERNELS = PAIR_PATH_KERNELS
 ENTRY_STEPS = dict(warmup=1, steps=2)
 # The entry's logits on the card against the CPU, elementwise: both run the
 # same bf16 model from the same weights and tokens and differ only in where
@@ -686,6 +722,16 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
     if "dkv" in kernels:
         out["dkv"] = fa._launch("dkv", designs["dkv"], (q, k, v, do), lse,
                                 delta, causal, qo, ko)
+    # The fused backward where it serves (16-bit D 33-128), on the same
+    # inputs, lse and delta as the pair.
+    fused = (design is None and {"dq", "dkv"} <= set(kernels)
+             and fa._fused_bwd(dtype, d))
+    if fused:
+        out["bwd"] = fa._launch("bwd", "sm90", (q, k, v, do), lse, delta,
+                                causal, qo, ko)
+    if design is None and "dq" in kernels:
+        out["prep"] = fa._bwd_prep(*(x.contiguous()
+                                     for x in (o_p, do, m_p, l_p)))[:2]
     torch.cuda.synchronize()
     step = step_of(dtype)
     errs = {}
@@ -725,7 +771,58 @@ def kernel_case(fa, torch, name, b, s, h, d, dtype, causal, qo=0, ko=0,
                         o_p, 2e-5, step, plain_b=o_b, must_fail=True,
                         fail_by=fail_by)
         del o, m, l, o_b
+    if "prep" in out:
+        # The pre-pass kernel against its plain version (the lse and delta
+        # above): lse within 1e-6 of |m| + |log l| (+inf where l = 0,
+        # equal), delta within 1e-5 of the sum of |do o| (another order of
+        # the same fp32 sum).
+        lse_k, delta_k = out.pop("prep")
+        dead = torch.isinf(lse)
+        live_l = torch.where(l_p > 0, l_p, torch.ones_like(l_p))
+        terms = m_p.abs() + live_l.log().abs()
+        size = (do.float() * o_p.float()).abs().sum(-1).transpose(1, 2)
+        lse_err = (lse_k - lse).abs()[~dead]
+        # (a floor of 1e-30 keeps 0 / 0 out of the ratios)
+        ratio = max((lse_err / (1e-6 * terms[~dead] + 1e-30)).max().item()
+                    if lse_err.numel() else 0.0,
+                    ((delta_k - delta).abs() / (1e-5 * size + 1e-30))
+                    .max().item())
+        same_dead = torch.equal(torch.isinf(lse_k), dead)
+        err = max(lse_err.max().item() if lse_err.numel() else 0.0,
+                  (delta_k - delta).abs().max().item())
+        print(f"  {'pre-pass lse, delta':<34} max_abs_err={err:.3e} worst "
+              f"err/tol={ratio:.3f} (lse 1e-6 of |m| + |log l|, delta 1e-5 "
+              f"of sum |do o|; dead rows +inf: {same_dead}) "
+              f"{'ok' if ratio <= 1 and same_dead else 'FAIL'}")
+        if not (ratio <= 1 and same_dead):
+            raise AssertionError(f"the backward's pre-pass differs from its "
+                                 f"plain version ({ratio:.3f} of the bound)")
+        errs[kernel_name(fa, "bwd", "prep", tag)] = err
     del o_p, m_p, l_p
+    if fused:
+        # The fused backward: dq to the fp32 plain dq with the bound of the
+        # sm90 dq (DQ_ATOL; the 16-bit operands' allowance from
+        # _flash_bwd_sm90_plain, whose dq sums 128-key kv tiles apart), dk
+        # and dv bit for bit the sm90 dk/dv's on the same inputs.
+        dq_f, dk_f, dv_f = out.pop("bwd")
+        dk_s, dv_s = out["dkv"]
+        if not (torch.equal(dk_f, dk_s) and torch.equal(dv_f, dv_s)):
+            raise AssertionError("the fused backward's dk and dv differ "
+                                 "from flash_dkv_sm90's")
+        dq_p = fa._flash_dq_plain(*plain_args)
+        dq_b = fa._flash_bwd_sm90_plain(*plain_args, operands=dtype)[0]
+        err = check_close("fused dq", dq_f, dq_p, 1e-4, step_of(dtype),
+                          atol=DQ_ATOL, plain_b=dq_b)
+        print(f"  {'fused dk, dv':<34} bit-equal to flash_dkv_sm90's")
+        if lost and "bwd" in lost:
+            lo, hi = lost["bwd"]
+            check_close(f"fused dq, keys {lo}-{hi - 1} left out",
+                        dq_without_keys(fa, q, k, v, do, lse, delta, lo, hi,
+                                        qo, ko),
+                        dq_p, 1e-4, step_of(dtype), atol=DQ_ATOL,
+                        plain_b=dq_b, must_fail=True)
+        errs[kernel_name(fa, "bwd", "sm90", tag)] = err
+        del dq_f, dk_f, dv_f, dq_p, dq_b
     if "dq" in kernels:
         dq = out.pop("dq")
         dq_p = fa._flash_dq_plain(*plain_args, operands=tf32["dq"])
@@ -849,8 +946,11 @@ def kernel_checks(torch, fa):
     # shape, the inputs phase 5 times them on: the tf32 forward, dq and
     # dk/dv (with a lost 64-key stage and 64-query tile) and the simt
     # kernels beside them.
-    errs.update(kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
-                            causal=True, seed=6, lost=LOST_MAIN_FP32))
+    # (The pre-pass's untagged row is the bf16 main shape's.)
+    fp32_errs = kernel_case(fa, torch, "main_fp32", **MAIN, dtype=fp32,
+                            causal=True, seed=6, lost=LOST_MAIN_FP32)
+    fp32_errs.pop(kernel_name(fa, "bwd", "prep"))
+    errs.update(fp32_errs)
     errs.update(kernel_case(fa, torch, "main_fp32 on simt", **MAIN,
                             dtype=fp32, causal=True, seed=6, design="simt"))
     # The entry's shape (phase 4d's path): the narrow sm90 forward, dq and
@@ -1251,7 +1351,7 @@ TF32_NARROW_BUILDS = {"fwd": "flash_fwd_tf32_narrow",
 
 
 def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
-                tag=None, seed=1):
+                tag=None, seed=1, prep=True):
     """{row name: ms, plain_ms, library_ms, bound_ms, bound_by, flops} of
     ``kernels`` on one causal input set of this shape and dtype, each the
     card's mean of 20 launches through ``fa._launch`` (padding included;
@@ -1269,7 +1369,11 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     32), the tf32 dq's by the columns of dQ (128, or 256 past D 128; D at
     the narrow builds) and the tf32 dk/dv's by the columns of dK and dV
     (64, or 128 past D 128; D at the narrow builds), and each tf32 row
-    by its CUDA kernel too (build: TF32_BUILDS)."""
+    by its CUDA kernel too (build: TF32_BUILDS). With no ``design``, the
+    fused backward's row where it serves (16-bit D 33-128; five products,
+    7 tensors moved) and, with ``prep``, the pre-pass's (o and do read,
+    lse and delta written: bytes; no PyTorch call computes both, so its
+    library_ms is null)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -1294,6 +1398,15 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
                                             0, 0, operands=tf32_ops["dkv"]))}
     tf32_ops = {kern: fa.TF32X3 if designs[kern] == "tf32" else None
                 for kern in fa.KERNELS}
+    if design is None and fa._fused_bwd(dtype, d):
+        calls["bwd"] = (lambda: fa._launch("bwd", "sm90", (q, k, v, do), lse,
+                                           delta, True, 0, 0),
+                        lambda: fa._flash_bwd_sm90_plain(
+                            q, k, v, do, lse, delta, True, 0, 0,
+                            operands=dtype))
+        designs["bwd"] = "sm90"
+        tf32_ops["bwd"] = None
+        kernels = tuple(kernels) + ("bwd",)
     ms = {fn: time_ms(calls[fn][0], 20) for fn in kernels}
     plain = {fn: time_ms(calls[fn][1], 5) for fn in kernels}
     prepass = dict.fromkeys(kernels)
@@ -1327,10 +1440,12 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
     # and ds.k for dq; s, dp, p^T.do and ds^T.q for dk/dv.
     flops = {"fwd": 4 * bh * s * s * d // 2,
              "dq": 6 * bh * s * s * d // 2,
-             "dkv": 8 * bh * s * s * d // 2}
+             "dkv": 8 * bh * s * s * d // 2,
+             "bwd": 10 * bh * s * s * d // 2}   # the fused kernel: five
     moved = {"fwd": 4 * tensor + 2 * stats,      # q k v in, o m l out
              "dq": 5 * tensor + 2 * stats,       # q k v do lse delta, dq
-             "dkv": 6 * tensor + 2 * stats}      # ... dk dv out
+             "dkv": 6 * tensor + 2 * stats,      # ... dk dv out
+             "bwd": 7 * tensor + 2 * stats}      # ... dq dk dv out
     peak = PEAK_FLOPS[str(dtype)[6:]]
     rows = {}
     for fn in kernels:
@@ -1363,6 +1478,19 @@ def kernel_rows(torch, fa, b, s, h, d, dtype, design=None, kernels=None,
         # whose launches the row carries.
         row["call"] = (str(dtype)[6:], d)
         rows[kernel_name(fa, fn, designs[fn], tag)] = row
+    if design is None and prep:
+        # The pre-pass: o, do, m, l read, lse and delta written; a multiply
+        # and an add a value of o and do, on the fp32 pipe.
+        n = fa._fused_bwd_counters(q) if fa._fused_bwd(dtype, d) else 0
+        prep_ms = time_ms(lambda: fa._bwd_prep(o, do, m, l, n), 20)
+        op_ms = 2 * b * s * h * d / PEAK_FLOPS["float32"] * 1e3
+        byte_ms = (2 * tensor + 4 * stats) / PEAK_BYTES_PER_S * 1e3
+        rows[kernel_name(fa, "bwd", "prep", tag)] = dict(
+            ms=prep_ms,
+            plain_ms=time_ms(lambda: fa._bwd_stats_plain(o, do, m, l), 20),
+            library_ms=None, bound_ms=max(op_ms, byte_ms),
+            bound_by="operations" if op_ms >= byte_ms else "bytes",
+            flops=2 * b * s * h * d, call=(str(dtype)[6:], d))
     del q, k, v, do, o, qt, kt, vt, dot, qg, kg, vg, out
     torch.cuda.empty_cache()
     return rows
@@ -1385,7 +1513,8 @@ def kernel_times(torch, fa):
     # The entry's shape (phase 4d), the kernels its path runs.
     rows.update(kernel_rows(torch, fa, **ENTRY, dtype=torch.bfloat16,
                             tag="entry"))
-    rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32))
+    rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32,
+                            prep=False))
     rows.update(kernel_rows(torch, fa, **MAIN, dtype=torch.float32,
                             design="simt"))
     pairs = [(None, torch.float32, MAIN["d"], kern) for kern in fa.KERNELS]
@@ -1458,18 +1587,27 @@ def kernel_times(torch, fa):
               f"before: {was} ms, {rows[name]['ms'] / was:.3f}x)")
     backward_pad_times(torch, fa)
     slower += tf32_route_times(torch, fa)
-    print("the sm90 dq and dk/dv together against SDPA's backward alone, "
-          "same inputs (ms):")
-    for tag, dtype, shape in cases:
+    print("the sm90 dq and dk/dv together, and the fused backward where it "
+          "serves (16-bit D 33-128), against SDPA's backward alone, same "
+          "inputs (ms; the fused kernel's bound of five products):")
+    for tag, dtype, shape in [(None, torch.bfloat16, MAIN)] + cases:
         names = [kernel_name(fa, kern, fa._design(dtype, shape["d"], kern),
                              tag) for kern in ("dq", "dkv")]
         if shape["d"] <= 32 or not all("_sm90" in n for n in names):
             continue
         dq, dkv = (rows[n] for n in names)
         lib = dq["library_bwd_only_ms"]
-        print(f"  {tag:<10} dq {dq['ms']:.4f} + dk/dv {dkv['ms']:.4f} = "
-              f"{dq['ms'] + dkv['ms']:.4f}  SDPA bwd {lib:.4f} "
-              f"({(dq['ms'] + dkv['ms']) / lib:.2f}x)")
+        line = (f"  {tag or 'main':<10} dq {dq['ms']:.4f} + dk/dv "
+                f"{dkv['ms']:.4f} = {dq['ms'] + dkv['ms']:.4f}  SDPA bwd "
+                f"{lib:.4f} ({(dq['ms'] + dkv['ms']) / lib:.2f}x)")
+        fused = rows.get(kernel_name(fa, "bwd", "sm90", tag))
+        if fused:
+            line += (f"; fused {fused['ms']:.4f} ({fused['ms'] / lib:.2f}x "
+                     f"SDPA, {fused['ms'] / (dq['ms'] + dkv['ms']):.3f}x the "
+                     f"pair; bound {fused['bound_ms']:.4f}, "
+                     f"{fused['bound_ms'] / fused['ms']:.1%} of it)")
+        print(line)
+    bwd_route_times(torch, fa)
     if slower:
         raise AssertionError(f"tensor-core kernels slower than the simt "
                              f"ones they replace: {slower}")
@@ -1532,6 +1670,60 @@ def tf32_route_times(torch, fa):
     return slower
 
 
+# Phase 5's 16-bit backward route as flash_attention_bwd runs it, against
+# SDPA's backward alone and the parent's route: (tag, shape) at the main
+# shape, Phi-3-mini's (D 96), the C4 shape at bf16 D 80 (the fused
+# backward) and Gemma-7B's (D 256: the sm90 dq and dk/dv).
+BWD_ROUTES = (("main", MAIN), ("phi3", PHI3), ("bf16_d80", dict(C4_SHAPE, d=80)),
+              ("gemma", GEMMA))
+
+
+def bwd_route_times(torch, fa):
+    """flash_attention_bwd whole at bf16 (the pre-pass, then the fused
+    backward or the sm90 dq and dk/dv; BWD_ROUTES), CUDA-event means of 20
+    calls, against SDPA's backward alone on the same inputs and against
+    the route before the fused kernel and the pre-pass (torch's lse and
+    delta, then the sm90 dq and dk/dv: ``_flash_bwd`` with the pair's
+    launchers alone), in turns in this run; the pre-pass alone beside
+    them."""
+    import torch.nn.functional as F
+    pair = {key: fn for key, fn in fa._LAUNCHERS.items()
+            if key != ("bwd", "sm90")}
+    print("the bf16 backward route (flash_attention_bwd: pre-pass, then the "
+          "fused backward or dq and dk/dv) against SDPA's backward alone and "
+          "the route before (torch's lse and delta, then the sm90 dq and "
+          "dk/dv), same inputs (ms):")
+    for tag, shape in BWD_ROUTES:
+        d = shape["d"]
+        q, k, v, do, o, m, l = _c4_backward(torch, fa, torch.bfloat16, d,
+                                            shape)
+
+        def route():
+            return fa.flash_attention_bwd(q, k, v, o, m, l, do)
+
+        def before():
+            lse, delta = fa._bwd_stats_plain(o, do, m, l)
+            return fa._flash_bwd(q, k, v, do, lse, delta, True, 0, 0,
+                                 launchers=pair)
+        t = [time_ms(f, 20) for f in (route, before, before, route)]
+        now, was = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        n = fa._fused_bwd_counters(q) if fa._fused_bwd(q.dtype, d) else 0
+        pre = time_ms(lambda: fa._bwd_prep(o, do, m, l, n), 20)
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in
+                           (q, k, v, do))
+        qg, kg, vg = (x.requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        sdpa = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), 20)
+        kind = "fused" if n else "dq + dk/dv"
+        print(f"  {tag:<10} B{shape['b']} S{shape['s']} H{shape['h']} D{d} "
+              f"({kind}): route {now:.4f} ({now / sdpa:.2f}x SDPA bwd "
+              f"{sdpa:.4f}; pre-pass {pre:.4f} of it); before {was:.4f} "
+              f"({was / sdpa:.2f}x; {was / now:.3f}x the route)", flush=True)
+        del q, k, v, do, o, m, l, qt, kt, vt, dot, qg, kg, vg, out
+        torch.cuda.empty_cache()
+
+
 def _c4_backward(torch, fa, dtype, d, shape=C4_SHAPE):
     """Phase 5's backward inputs at the C4 shape (or ``shape``'s B, S and
     H) and head dim d: q, k, v, do and the forward's o, m, l."""
@@ -1543,10 +1735,8 @@ def _c4_backward(torch, fa, dtype, d, shape=C4_SHAPE):
 
 
 def _bwd_stats(fa, do, o, m, l):
-    """lse and delta as flash_attention_bwd makes them."""
-    lse = fa._lse_from_stats(m.float(), l.float()).contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    return lse, delta
+    """lse and delta as flash_attention_bwd makes them: the pre-pass."""
+    return fa._bwd_prep(o, do, m.float(), l.float())[:2]
 
 
 def _bit_equal(torch, label, mine, theirs):
@@ -1563,16 +1753,19 @@ def backward_pad_times(torch, fa):
     - where it pads (BWD_PADDED: q, k, v and do zero-padded once for dq
       and dk/dv), against the two kernels launched apart through
       fa._launch, each padding its own copies;
-    - where the sm90 dq and dk/dv read the caller's tensors
-      (BWD_IN_PLACE), against the same builds on copies padded once to
-      them with the true D's scale and sliced back (the route before
-      they read in place), and each kernel in place against that padded
-      route and against its build alone on copies padded beforehand
-      (what the pad and slice copies cost, apart from the kernel).
-    Each pair must give the same gradients bit for bit (each CTA owns its
-    outputs: one order of sums; the padded columns are zeros either way),
-    which holds the entry the model runs to the kernels that phase 2
-    checks one by one."""
+    - where the sm90 backward reads the caller's tensors (BWD_IN_PLACE:
+      the fused backward at bf16 D 80 and 96, the sm90 dq and dk/dv at D
+      200), against the same builds on copies padded once to them with
+      the true D's scale and sliced back (the route before they read in
+      place), and each kernel in place against that padded route and
+      against its build alone on copies padded beforehand (what the pad
+      and slice copies cost, apart from the kernel).
+    lse and delta come from the pre-pass, as flash_attention_bwd makes
+    them. Each pair must give the same gradients bit for bit (one order of
+    sums: each CTA owns its dk and dv, the fused kernel adds dq's parts in
+    a fixed order; the padded columns are zeros either way), which holds
+    the entry the model runs to the kernels that phase 2 checks one by
+    one."""
     print("backward with a padded head dim: padded once against padded "
           "for each kernel apart (ms):")
     for tag, dt, d in BWD_PADDED:
@@ -1600,28 +1793,33 @@ def backward_pad_times(torch, fa):
               f"({apart_ms / once_ms:.2f}x)")
         del q, k, v, do, o, m, l
     print("backward in place against padded once to the same build (ms; "
-          "each kernel in place, padded with its copies, and its build "
-          "alone on copies padded beforehand):")
+          "each kernel in place (the fused backward at D 80 and 96), padded "
+          "with its copies, and its build alone on copies padded "
+          "beforehand):")
     for tag, dt, d in BWD_IN_PLACE:
         dtype = getattr(torch, dt)
-        if not all(fa._reads_in_place(d, fa._design(dtype, d, kern), kern)
-                   for kern in ("dq", "dkv")):
-            raise AssertionError(f"{tag}: the sm90 dq and dk/dv should read "
-                                 f"the caller's tensors")
-        built = fa.padded_head_dim(d, "sm90", "dq")
+        # The fused backward at 16-bit D 33-128, the sm90 dq and dk/dv past
+        # it.
+        fns = ({"bwd": fa._flash_bwd_sm90} if fa._fused_bwd(dtype, d) else
+               {"dq": fa._flash_dq_sm90, "dkv": fa._flash_dkv_sm90})
+        if not all(fa._reads_in_place(d, "sm90", kern) for kern in fns):
+            raise AssertionError(f"{tag}: the sm90 backward should read the "
+                                 f"caller's tensors")
+        built = fa.padded_head_dim(d, "sm90", next(iter(fns)))
         q, k, v, do, o, m, l = _c4_backward(torch, fa, dtype, d)
         lse, delta = _bwd_stats(fa, do, o, m, l)
         padded = fa._pad_head_dim((q, k, v, do), built)
         scale = fa._softmax_scale(d)
         args = (lse, delta, True, 0, 0)
-        fns = {"dq": fa._flash_dq_sm90, "dkv": fa._flash_dkv_sm90}
 
         def padded_once():
             lse, delta = _bwd_stats(fa, do, o, m, l)
             cut = fa._pad_head_dim((q, k, v, do), built)
-            dq = fa._at_head_dim(fns["dq"], cut, d, lse, delta, True, 0, 0)
-            dk, dv = fa._at_head_dim(fns["dkv"], cut, d, lse, delta, True,
-                                     0, 0)
+            outs = [fa._at_head_dim(fn, cut, d, lse, delta, True, 0, 0)
+                    for fn in fns.values()]
+            if len(outs) == 1:
+                return outs[0]
+            dq, (dk, dv) = outs
             return dq, dk, dv
 
         def in_place():
@@ -1637,8 +1835,8 @@ def backward_pad_times(torch, fa):
             pad = time_ms(lambda: fa._at_head_dim(
                 fn, fa._pad_head_dim((q, k, v, do), built), d, *args), 20)
             alone = time_ms(lambda: fn(*padded, *args, scale=scale), 20)
-            line += (f"  {kern} {mine:.4f} (padded {pad:.4f}, build alone "
-                     f"{alone:.4f})")
+            line += (f"  {kern if kern != 'bwd' else 'fused'} {mine:.4f} "
+                     f"(padded {pad:.4f}, build alone {alone:.4f})")
         print(line)
         del q, k, v, do, o, m, l, padded
     torch.cuda.empty_cache()
@@ -2223,20 +2421,27 @@ def main(argv=None) -> int:
                "flash_dkv": ("flash_bwd.cu", "236"),
                "flash_dkv_sm90": ("flash_dkv_sm90.cu", "236"),
                "flash_dkv_stream": ("flash_dkv_stream_sm90.cu", "236"),
-               "flash_dkv_tf32": ("flash_bwd_tf32_sm90.cu", "236")}
+               "flash_dkv_tf32": ("flash_bwd_tf32_sm90.cu", "236"),
+               # dq's and dk/dv's kernels in one, and the jnp lse and delta
+               # of the reference's flash_attention_bwd (no Pallas kernel)
+               "flash_bwd_sm90": ("flash_bwd_sm90.cu", "204, :236"),
+               "flash_bwd_prep": ("flash_bwd_sm90.cu", "462-471, :498-499")}
     # A row's launches are those of its kernel on the path that runs its
     # dtype and head dim: bf16 D 128 on phase 4, bf16 D 256 on phase 4b,
     # bf16 D 96 on phase 4e, fp32 D 128 on phase 4c; the rows at the
     # entry's shape those of phase 4d (the forward: one call of the entry's
-    # forward; dq and dk/dv: its training steps); the other head dims (the
-    # C4 cases at D 16 and 32 among them) run on no main path.
+    # forward; dq, dk/dv and the pre-pass: its training steps); the other
+    # head dims (the C4 cases at D 16 and 32 among them) run on no main
+    # path. The sm90 dq and dk/dv at bf16 D 96 and 128 are timed beside
+    # the fused backward that took their place there: 0 launches.
     paths = {("bfloat16", MAIN["d"]): counts,
              ("bfloat16", GEMMA["d"]): gemma_counts,
              ("bfloat16", PHI3["d"]): phi3_counts,
              ("float32", MAIN["d"]): fp32_counts}
     entry_rows = {"flash_fwd_sm90": entry_fwd_counts,
                   "flash_dq_sm90": entry_counts,
-                  "flash_dkv_sm90": entry_counts}
+                  "flash_dkv_sm90": entry_counts,
+                  "flash_bwd_prep": entry_counts}
     kernels = []
     for name, r in rows.items():
         base, _, tag = name.partition(".")
@@ -2256,8 +2461,10 @@ def main(argv=None) -> int:
         rate = (f", {flops / r['ms'] / 1e9:.0f} TFLOP/s, "
                 f"{r['bound_ms'] / r['ms']:.1%} of the bound"
                 if base == "flash_fwd_sm90" else "")
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f}")
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
-              f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} "
+              f"library {lib}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']}{rate}), {launches} launches")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -98,6 +98,13 @@ _SIGNATURES = {
     # scratch, lse, delta, dk, dv, B, H, Sq, Sk, D, q_off, k_off, causal,
     # scale, stream (fp32 at D 16 and 32 only: the narrow tf32 dk/dv)
     "hvdt_flash_dkv_tf32_narrow": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # dtype, q, k, v, do, lse, delta, dq, dk, dv, acc, counters, B, H, Sq,
+    # Sk, D, q_off, k_off, causal, scale, stream (16-bit D 33-128: the
+    # fused backward)
+    "hvdt_flash_bwd_sm90": [_I] + [_P] * 11 + [_I] * 8 + [_F, _P],
+    # dtype, o, do, m, l, lse, delta, counters, n_counters, B, H, Sq, D,
+    # stream (every dtype: the backward's lse and delta pre-pass)
+    "hvdt_flash_bwd_prep": [_I] + [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

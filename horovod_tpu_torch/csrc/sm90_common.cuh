@@ -1,7 +1,7 @@
 // Shared PTX wrappers of the Hopper flash-attention kernels
 // (flash_fwd_sm90.cu, flash_fwd_stream_sm90.cu, flash_fwd_tf32_narrow_sm90.cu,
 // flash_dq_sm90.cu, flash_dq_stream_sm90.cu, flash_dkv_sm90.cu,
-// flash_dkv_stream_sm90.cu, flash_bwd_tf32_sm90.cu,
+// flash_dkv_stream_sm90.cu, flash_bwd_sm90.cu, flash_bwd_tf32_sm90.cu,
 // flash_bwd_tf32_narrow_sm90.cu):
 // TMA loads through a tensor map, mbarrier init / arrive / expect-tx /
 // wait, wgmma descriptors, fence, commit and wait, setmaxnreg, the proxy
@@ -238,7 +238,9 @@ __device__ __forceinline__ void named_bar_arrive(int id, int count) {
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], T (bf16 or fp16) in, fp32
 // accumulators; the accumulator is overwritten when scale_d is 0.
-//   wgmma_ss<N, T, TB>: A and B from shared memory, A K-major; B K-major
+//   wgmma_ss<N, T, TB, TA>: A and B from shared memory; A K-major (TA 0)
+//             or MN-major (TA 1: an [K][64] tile whose rows are the
+//             reduction dim, read through its transpose bit); B K-major
 //             (TB 0) or MN-major (TB 1, wgmma's transpose bit).
 //   wgmma_rs<N, T>: A from registers (four T pairs a thread, the layout of
 //             the accumulator fragment), B from shared memory, MN-major.
@@ -329,17 +331,17 @@ __device__ __forceinline__ void named_bar_arrive(int id, int count) {
   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
   "+f"(d[126]), "+f"(d[127])
 
-// ss: descriptors at %R and %R1, scale_d at %R2, the transpose bit of B
-// at %R3; rs: A's registers at %R .. %R3, B's descriptor at %R4, scale_d
+// ss: descriptors at %R and %R1, scale_d at %R2, the transpose bits of B
+// at %R3 and of A at %R4; rs: A's registers at %R .. %R3, B's descriptor at %R4, scale_d
 // at %R5 (R = N / 2 accumulator registers come first). The tf32 forms
 // take no transpose bits.
-#define HVDT_SS(N, R, R1, R2, R3, TY)                                      \
+#define HVDT_SS(N, R, R1, R2, R3, R4, TY)                                  \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #R2 ", 0;\n"          \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "."   \
                TY " {" HVDT_REGS_##R "}, %" #R ", %" #R1                  \
-               ", p, 1, 1, 0, %" #R3 ";\n}\n"                             \
+               ", p, 1, 1, %" #R4 ", %" #R3 ";\n}\n"                      \
                : HVDT_OUTS_##R                                            \
-               : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
 #define HVDT_RS(N, R, R1, R2, R3, R4, R5, TY)                              \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #R5 ", 0;\n"          \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "."   \
@@ -377,13 +379,13 @@ __device__ __forceinline__ void named_bar_arrive(int id, int count) {
                                                    int scale_d) {         \
       HVDT_RS_TF32(N, R, R1, R2, R3, R4, R5);                             \
     }                                                                     \
-    template <typename T, int TB>                                         \
+    template <typename T, int TB, int TA>                                 \
     static __device__ __forceinline__ void ss(float (&d)[R], uint64_t da, \
                                               uint64_t db, int scale_d) { \
       if constexpr (kIsF16<T>)                                            \
-        HVDT_SS(N, R, R1, R2, R3, "f16");                                 \
+        HVDT_SS(N, R, R1, R2, R3, R4, "f16");                             \
       else                                                                \
-        HVDT_SS(N, R, R1, R2, R3, "bf16");                                \
+        HVDT_SS(N, R, R1, R2, R3, R4, "bf16");                            \
     }                                                                     \
     template <typename T>                                                 \
     static __device__ __forceinline__ void rs(float (&d)[R],              \
@@ -410,10 +412,10 @@ HVDT_WGMMA_SHAPE(256, 128, 129, 130, 131, 132, 133)
 #undef HVDT_SS_TF32
 #undef HVDT_RS_TF32
 
-template <int N, typename T = __nv_bfloat16, int TB = 0>
+template <int N, typename T = __nv_bfloat16, int TB = 0, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  Wgmma<N>::template ss<T, TB>(d, da, db, scale_d);
+  Wgmma<N>::template ss<T, TB, TA>(d, da, db, scale_d);
 }
 template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],

@@ -12,9 +12,12 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 or ``flash_fwd_tf32_narrow_sm90.cu``
                                 (fp32, D <= 32, 3xTF32) via
                                 :func:`_flash_fwd`
-- ``_bwd_dq_kernel`` (:204)  -> ``flash_dq_sm90.cu``   (bf16/fp16, D 1-256;
-                                in place at every multiple of 8 past
-                                32)
+- ``_bwd_dq_kernel`` (:204)  -> ``flash_bwd_sm90.cu``  (bf16/fp16, D 33-128,
+                                dq, dk and dv in one launch; in place
+                                at every multiple of 8)
+                                ``flash_dq_sm90.cu``   (bf16/fp16, D 1-32
+                                and 129-256; in place at every multiple
+                                of 8 past 128)
                                 ``flash_dq_stream_sm90.cu`` (bf16/fp16
                                 past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
@@ -22,9 +25,10 @@ CUDA counterparts in ``horovod_tpu_torch/csrc``, in several designs:
                                 or ``flash_bwd_tf32_narrow_sm90.cu``
                                 (fp32, D <= 32, 3xTF32) via
                                 :func:`_flash_bwd`
-- ``_bwd_dkv_kernel`` (:236) -> ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-256;
-                                in place at every multiple of 8 past
-                                32)
+- ``_bwd_dkv_kernel`` (:236) -> ``flash_bwd_sm90.cu``  (bf16/fp16, D 33-128)
+                                ``flash_dkv_sm90.cu``  (bf16/fp16, D 1-32
+                                and 129-256; in place at every multiple
+                                of 8 past 128)
                                 ``flash_dkv_stream_sm90.cu`` (bf16/fp16
                                 past D 256)
                                 ``flash_bwd_tf32_sm90.cu`` (fp32 past D
@@ -64,6 +68,15 @@ alone, before any launch:
   forward's v^T; the backward's k^T, q^T and do^T, one pre-pass for dq
   and dk/dv, :func:`_tf32_bwd_split`). The shared-memory bytes of each
   are worked out in the files' headers.
+- The 16-bit backward at D 33-128 (:func:`_fused_bwd`, asked before
+  :func:`_design` by :func:`_flash_bwd`) runs no sm90 dq and dk/dv pair:
+  one launch of ``flash_bwd_sm90`` (csrc/flash_bwd_sm90.cu, built at 64
+  and 128, in place at every multiple of 8 between) computes dq, dk and dv,
+  paying S and dP once, and adds each kv tile's part of dq into an fp32
+  accumulator in a fixed kv-tile order (a second small kernel of the same
+  C entry writes dq from it), so dq has the same bits on every run. The sm90 dq and
+  dk/dv at D 64 and 128 stay built, checked and timed beside it
+  (``_launch("dq", "sm90", ...)``), with no route.
 - ``simt`` (fp32 FMAs from fp32 shared-memory tiles, csrc/flash_fwd.cu
   and flash_bwd.cu) takes no input that the dispatchers route: it is
   built, checked and timed beside the others (``_launch`` with design
@@ -96,14 +109,23 @@ through TMA (the tf32 pre-pass in 16-byte loads) and need 16-byte
 aligned bases; a misaligned CUDA tensor raises, it never falls back to
 another design.
 
+:func:`flash_attention_bwd` makes the backward's lse and delta on CUDA
+with one pre-pass kernel (``flash_bwd_prep`` in csrc/flash_bwd_sm90.cu,
+:func:`_bwd_prep`, every dtype and head dim), which also zeroes the
+fused kernel's turn counters; its plain version is
+:func:`_bwd_stats_plain`.
+
 Each launcher counts its launches (``launch_counts()``, keyed by
 :func:`counter_name`: ``flash_fwd``, ``flash_fwd_sm90``,
 ``flash_fwd_stream``, ``flash_fwd_tf32``, ``flash_dq``, ``flash_dq_sm90``,
 ``flash_dq_stream``, ``flash_dq_tf32``, ``flash_dkv``, ``flash_dkv_sm90``,
-``flash_dkv_stream``, ``flash_dkv_tf32``).
+``flash_dkv_stream``, ``flash_dkv_tf32``, ``flash_bwd_sm90``, and the
+pre-pass's ``flash_bwd_prep``).
 For CPU tensors the dispatchers compute the same function with the
 plain PyTorch versions (``_flash_fwd_plain``, ``_flash_dq_plain``,
-``_flash_dkv_plain``), which is what the CPU tests run. A CUDA tensor
+``_flash_dkv_plain``, ``_bwd_stats_plain``), which is what the CPU tests
+run; ``_flash_bwd_sm90_plain`` sums dq per 128-key kv tile as the fused
+kernel does. A CUDA tensor
 never reaches a plain version: a kernel launches or the wrapper raises.
 The 16-bit tensor-core kernels feed the tensor cores p (and ds) in the
 input's 16-bit type, as the reference's own dots do on the TPU by
@@ -156,6 +178,13 @@ SM90_DTYPES = (torch.bfloat16, torch.float16)
 SM90_KERNEL_DIMS = {"fwd": SM90_NARROW_DIMS + SM90_HEAD_DIMS + (384, 512),
                     "dq": SM90_NARROW_DIMS + SM90_HEAD_DIMS,
                     "dkv": SM90_NARROW_DIMS + SM90_HEAD_DIMS}
+# The fused 16-bit backward (csrc/flash_bwd_sm90.cu, kernel "bwd": dq, dk
+# and dv in one launch): built at 64 and 128, it takes every 16-bit
+# backward at D 33-128 (:func:`_fused_bwd`), in place at the multiples of
+# 8 between.
+SM90_KERNEL_DIMS["bwd"] = (64, 128)
+# The fused kernel's kv tiles: dq is summed over them in a fixed order.
+FUSED_KV_TILE = 128
 # The designs streamed over D (csrc/flash_fwd_stream_sm90.cu,
 # csrc/flash_dq_stream_sm90.cu, csrc/flash_dkv_stream_sm90.cu,
 # csrc/flash_bwd_tf32_sm90.cu): design -> (its dtypes, {kernel it serves:
@@ -191,6 +220,8 @@ flash_dkv_launches = 0
 flash_dkv_sm90_launches = 0
 flash_dkv_stream_launches = 0
 flash_dkv_tf32_launches = 0
+flash_bwd_sm90_launches = 0
+flash_bwd_prep_launches = 0
 
 Offset = Union[int, torch.Tensor]
 
@@ -201,11 +232,13 @@ def reset_launch_counts() -> None:
     global flash_fwd_stream_launches, flash_fwd_tf32_launches
     global flash_dq_stream_launches, flash_dq_tf32_launches
     global flash_dkv_stream_launches, flash_dkv_tf32_launches
+    global flash_bwd_sm90_launches, flash_bwd_prep_launches
     flash_fwd_launches = flash_fwd_sm90_launches = flash_dq_launches = 0
     flash_dq_sm90_launches = flash_dkv_launches = flash_dkv_sm90_launches = 0
     flash_fwd_stream_launches = flash_fwd_tf32_launches = 0
     flash_dq_stream_launches = flash_dq_tf32_launches = 0
     flash_dkv_stream_launches = flash_dkv_tf32_launches = 0
+    flash_bwd_sm90_launches = flash_bwd_prep_launches = 0
 
 
 def launch_counts() -> dict:
@@ -221,12 +254,15 @@ def launch_counts() -> dict:
             "flash_dkv": flash_dkv_launches,
             "flash_dkv_sm90": flash_dkv_sm90_launches,
             "flash_dkv_stream": flash_dkv_stream_launches,
-            "flash_dkv_tf32": flash_dkv_tf32_launches}
+            "flash_dkv_tf32": flash_dkv_tf32_launches,
+            "flash_bwd_sm90": flash_bwd_sm90_launches,
+            "flash_bwd_prep": flash_bwd_prep_launches}
 
 
 def counter_name(kernel: str, design: str) -> str:
     """The launch counter (and chip_smoke row) of ``kernel``'s ``design``:
-    ``flash_fwd``, ``flash_fwd_sm90``, ``flash_fwd_tf32``, ..."""
+    ``flash_fwd``, ``flash_fwd_sm90``, ``flash_fwd_tf32``, ...; the fused
+    backward (kernel ``"bwd"``) is ``flash_bwd_sm90``."""
     return f"flash_{kernel}" + ("" if design == "simt" else f"_{design}")
 
 
@@ -459,6 +495,40 @@ def _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _flash_bwd_sm90_plain(q, k, v, do, lse, delta, causal, q_offset,
+                          k_offset, operands=None, scale=None):
+    """What the fused backward (csrc/flash_bwd_sm90.cu) computes: (dq, dk,
+    dv), dk and dv as :func:`_flash_dkv_plain` gives them, dq summed as the
+    kernel sums it: each 128-key kv tile's part ds_j @ k_j in fp32, the
+    parts added one after another in kv-tile order (the kernel adds them in
+    ascending or, where its CTAs all fit on the card at once, descending
+    order: fp32 sums in another order). ``operands`` a 16-bit dtype rounds
+    p and ds to it before the products, where the kernel feeds them to the
+    tensor cores."""
+    _, ds = _p_ds_plain(q, k, v, do, lse, delta, causal, q_offset,
+                        k_offset, scale, operands)
+    ds = _rounded(ds, operands)
+    dq = None
+    for k0 in range(0, k.shape[1], FUSED_KV_TILE):
+        part = _product("bhqk,bkhd->bqhd", ds[..., k0:k0 + FUSED_KV_TILE],
+                        k[:, k0:k0 + FUSED_KV_TILE])
+        dq = part if dq is None else dq + part
+    dk, dv = _flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset,
+                              k_offset, operands, scale)
+    return dq.to(q.dtype), dk, dv
+
+
+def _bwd_stats_plain(o, do, m, l):
+    """The backward's lse and delta, [B,H,Sq] fp32, from the forward's o
+    and the incoming do ([B,Sq,H,D]) and its stats m and l ([B,H,Sq]):
+    lse = m + log l (+inf where l == 0, :func:`_lse_from_stats`) and delta
+    = rowsum(do * o) in fp32 (reference :462-471, :498-499). The plain
+    version of the pre-pass kernel (:func:`_bwd_prep`)."""
+    lse = _lse_from_stats(m.float(), l.float()).contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return lse, delta
+
+
 def _dense_reference(q, k, v, causal: bool, q_offset=0, k_offset=0):
     """Dense attention with an fp32 softmax (reference :347-362): the
     fallback for indivisible causal shapes and the tests' oracle.
@@ -526,6 +596,19 @@ def _design(dtype: torch.dtype, d: int, kernel: str) -> str:
         return "tf32"
     sm90 = dtype in SM90_DTYPES and d <= SM90_KERNEL_DIMS[kernel][-1]
     return "sm90" if sm90 else "simt"
+
+
+def _fused_bwd(dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA backward of this type and head dim runs the fused
+    kernel (csrc/flash_bwd_sm90.cu: dq, dk and dv in one launch, kernel
+    ``"bwd"``) in place of the dq and dk/dv pair: bf16 and fp16 at D
+    33-128, on the build of 64 or 128 (:func:`padded_head_dim` with
+    kernel ``"bwd"``), in place at the multiples of 8 between
+    (:func:`_reads_in_place`), padded once otherwise. :func:`_design` keeps
+    its meaning per kernel: it names the pair's design there, which stays
+    built, checked and timed."""
+    return (dtype in SM90_DTYPES
+            and SM90_NARROW_DIMS[-1] < d <= SM90_KERNEL_DIMS["bwd"][-1])
 
 
 def _launch(kernel: str, design: str, tensors, *args):
@@ -889,6 +972,75 @@ def _flash_dkv_stream(q, k, v, do, lse, delta, causal: bool, q_offset: int,
     return out
 
 
+def _fused_bwd_counters(q):
+    """How many int32 counters the fused backward takes for q's shape, all
+    zero on entry: a turn flag for each (b h, q tile), then the tile
+    counter (csrc/flash_bwd_sm90.cu)."""
+    b, sq, h, _ = q.shape
+    return b * h * -(-sq // BLOCK) + 1
+
+
+def _flash_bwd_sm90(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                    k_offset: int, scale=None, counters=None):
+    """The fused wgmma/TMA backward (flash_bwd_sm90.cu): bf16 and fp16,
+    D 64 and 128 and the multiples of 8 between 32 and 128 on the next
+    one's build; returns (dq, dk, dv) in one launch. ``counters``: int32
+    zeros, :func:`_fused_bwd_counters` of them, as :func:`_bwd_prep` makes
+    them; zeroed here when not given. dq is summed in an fp32 scratch
+    allocated here, [B H, Sq / 64, 64, the build's D], which the kernel
+    fills itself (no zeroing) and the C entry's second kernel converts."""
+    global flash_bwd_sm90_launches
+    b, h, sq, sk, d = _bwd_inputs("flash backward", q, k, v, do, lse, delta)
+    _check_tensor_cores("flash backward", "bwd", (q, k, v, do), "sm90")
+    n = _fused_bwd_counters(q)
+    if counters is None:
+        counters = torch.zeros(n, dtype=torch.int32, device=q.device)
+    _same("flash backward", counters, q.device, (n,), torch.int32)
+    built = padded_head_dim(d, "sm90", "bwd")
+    acc = torch.empty((n - 1) * BLOCK * built, device=q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lib = _cuda.load()
+    with torch.cuda.device(q.device):
+        err = lib.hvdt_flash_bwd_sm90(
+            _DTYPES[q.dtype], *(t.data_ptr() for t in (
+                q, k, v, do, lse, delta, dq, dk, dv, acc, counters)),
+            b, h, sq, sk, d, q_offset, k_offset, int(causal),
+            _scale_arg(q, scale), _stream(q))
+    _cuda.check(err, "flash backward sm90 kernel")
+    flash_bwd_sm90_launches += 1
+    return dq, dk, dv
+
+
+def _bwd_prep(o, do, m, l, counters: int = 0):
+    """The backward's lse and delta (:func:`_bwd_stats_plain`) and, with
+    ``counters`` > 0, that many int32 zeros (the fused kernel's,
+    :func:`_fused_bwd_counters`): on CUDA one launch of the pre-pass
+    kernel (csrc/flash_bwd_sm90.cu ``flash_bwd_prep``: o and do read once
+    in their own type, every dtype and head dim); on the CPU the plain
+    version, and no counters. Returns (lse, delta, counters or None)."""
+    global flash_bwd_prep_launches
+    b, sq, h, d = o.shape
+    if do.device.type == "cpu" and o.device.type == "cpu":
+        return (*_bwd_stats_plain(o, do, m, l), None)
+    _check("flash backward pre-pass", (o, do), (sq, sq))
+    for t in (m, l):
+        _same("flash backward pre-pass", t, o.device, (b, h, sq),
+              torch.float32)
+    lse, delta = torch.empty_like(m), torch.empty_like(m)
+    cnt = (torch.empty(counters, dtype=torch.int32, device=o.device)
+           if counters else None)
+    lib = _cuda.load()
+    with torch.cuda.device(o.device):
+        err = lib.hvdt_flash_bwd_prep(
+            _DTYPES[o.dtype], o.data_ptr(), do.data_ptr(), m.data_ptr(),
+            l.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            cnt.data_ptr() if cnt is not None else None, counters, b, h, sq,
+            d, _stream(o))
+    _cuda.check(err, "flash backward pre-pass")
+    flash_bwd_prep_launches += 1
+    return lse, delta, cnt
+
+
 def _tf32_bwd_split(q, k, v, do):
     """The tf32 backward's pre-pass (the C entry
     ``hvdt_flash_bwd_tf32_split``, one launch of csrc/sm90_common.cuh's
@@ -983,13 +1135,21 @@ _LAUNCHERS = {("fwd", "sm90"): _flash_fwd_sm90,
               ("dkv", "sm90"): _flash_dkv_sm90,
               ("dkv", "stream"): _flash_dkv_stream,
               ("dkv", "tf32"): _flash_dkv_tf32,
-              ("dkv", "simt"): _flash_dkv_simt}
+              ("dkv", "simt"): _flash_dkv_simt,
+              ("bwd", "sm90"): _flash_bwd_sm90}
 
 
 def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
-               k_offset: int, launchers=None):
+               k_offset: int, launchers=None, counters=None):
     """dq and dk/dv kernels: (dq, (dk, dv)); lse and delta are [B,H,Sq]
-    fp32. On CUDA each kernel takes the design :func:`_design` gives it,
+    fp32. On CUDA a 16-bit backward at D 33-128 (:func:`_fused_bwd`) is
+    one launch of the fused kernel (``launchers[("bwd", "sm90")]``) on the
+    caller's tensors where it reads them in place (D a multiple of 8),
+    else on one copy padded to its build, with ``counters`` (the
+    pre-pass's zeros, :func:`_bwd_prep`; the launcher zeroes its own when
+    None); a ``launchers`` without that key (a test's) runs its dq and
+    dk/dv instead. Otherwise each kernel takes the design
+    :func:`_design` gives it,
     on tensors of the head dim :func:`_run_head_dim` gives that design;
     q, k, v and do are zero-padded once for each head dim the two run at
     (one: every dtype and head dim gives dq and dk/dv the same), so both
@@ -1009,6 +1169,13 @@ def _flash_bwd(q, k, v, do, lse, delta, causal: bool, q_offset: int,
                 _flash_dkv_plain(*tensors, *args))
     launchers = launchers or _LAUNCHERS
     d = q.shape[-1]
+    if _fused_bwd(q.dtype, d) and ("bwd", "sm90") in launchers:
+        fn = launchers["bwd", "sm90"]
+        if fn is _LAUNCHERS["bwd", "sm90"]:
+            fn = functools.partial(fn, counters=counters)
+        built = _run_head_dim(d, "sm90", "bwd")
+        dq, dk, dv = _at_head_dim(fn, _pad_head_dim(tensors, built), d, *args)
+        return dq, (dk, dv)
     padded, splits = {}, {}
 
     def run(kernel):
@@ -1070,13 +1237,18 @@ def flash_attention_bwd(q, k, v, o, m, l, do, causal: bool = True,
     """Flash backward against given softmax stats. q, k, v, o, do:
     [B,S,H,D]; m, l: [B,H,Sq] as flash_attention_stats returns them (or
     as ring attention merges them). Returns (dq, dk, dv) in the input
-    dtypes."""
+    dtypes. On CUDA, lse and delta come from one pre-pass launch
+    (:func:`_bwd_prep`), which also zeroes the fused kernel's counters
+    where it runs (16-bit D 33-128); then :func:`_flash_bwd`."""
     _require_blocks(q.shape[1], k.shape[1])
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    lse = _lse_from_stats(m.float(), l.float()).contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    fused = q.device.type == "cuda" and _fused_bwd(q.dtype, q.shape[-1])
+    lse, delta, counters = _bwd_prep(
+        o.contiguous(), do, m.float().contiguous(), l.float().contiguous(),
+        _fused_bwd_counters(q) if fused else 0)
     dq, (dk, dv) = _flash_bwd(q, k, v, do, lse, delta, bool(causal),
-                              _offset(q_offset), _offset(k_offset))
+                              _offset(q_offset), _offset(k_offset),
+                              counters=counters)
     return dq, dk, dv
 
 
@@ -1112,7 +1284,11 @@ def flash_attention(q, k, v, causal: bool = True,
     reference's fp32 bounds; the bf16 and fp16 tensor-core kernels feed
     p (and in the backward ds) to the tensor cores in the input's type,
     so they also differ from fp32 by that rounding, beside that of the
-    inputs and of the outputs (utils/tolerance.py states both)."""
+    inputs and of the outputs (utils/tolerance.py states both). On CUDA
+    the 16-bit backward at D 33-128 is one fused launch (dq, dk and dv,
+    csrc/flash_bwd_sm90.cu) whose dq is summed over 128-key kv tiles in a
+    fixed order, so its bits are the same on every run; every backward
+    takes its lse and delta from one pre-pass launch."""
     seq_q, seq_k = q.shape[1], k.shape[1]
     if not _shapes_ok(seq_q, seq_k):
         if not causal:

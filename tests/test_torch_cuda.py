@@ -84,9 +84,10 @@ def test_kernels_match_plain_versions(cuda, dtype, b, s, h, d, causal, qo,
 
 
 def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
-    """Runs the kernels _design picks and holds them to their plain
-    versions; the launch counters must show that each kernel's design
-    ran."""
+    """Runs the kernels _design picks (and, for the 16-bit backward at D
+    33-128, the fused kernel in place of dq and dk/dv: _fused_bwd) and
+    holds them to their plain versions; the launch counters must show that
+    each kernel's design ran."""
     q, k, v, do = _inputs(cuda, dt, b, s, h, d, s + d, sk)
     fa.reset_launch_counts()
     o, m, l = fa._flash_fwd(q, k, v, causal, qo, ko)
@@ -97,8 +98,12 @@ def _check_kernels(cuda, dt, b, s, h, d, causal, qo, ko, sk=None):
     # the 16-bit tensor-core designs, which round p and ds to the input's type
     rounds = {kern: designs[kern] in ("sm90", "stream") for kern in fa.KERNELS}
     want = dict.fromkeys(fa.launch_counts(), 0)
+    fused = fa._fused_bwd(dt, d)
     for kern in fa.KERNELS:
-        want[fa.counter_name(kern, designs[kern])] = 1
+        if kern == "fwd" or not fused:
+            want[fa.counter_name(kern, designs[kern])] = 1
+    if fused:
+        want["flash_bwd_sm90"] = 1
     assert fa.launch_counts() == want
     args = (q, k, v, do, lse, delta, causal, qo, ko)
     tf32 = {kern: fa.TF32X3 if designs[kern] == "tf32" else None
@@ -320,8 +325,9 @@ def test_runtime_waits_for_the_ready_event_and_hands_over_on_the_stream(
 def test_entry_config_trains_on_the_narrow_kernels(cuda_world):
     """Three training steps of the entry's tiny config (bf16, 2 layers, 4
     heads of 16) through the bench's step: a finite, falling loss, and
-    each step launches the narrow sm90 forward, dq and dk/dv once a
-    layer, no other flash kernel."""
+    each step launches the narrow sm90 forward, dq and dk/dv and the
+    backward's lse and delta pre-pass once a layer, no other flash
+    kernel."""
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.entry import tiny_config
     cfg = tiny_config()
@@ -330,7 +336,8 @@ def test_entry_config_trains_on_the_narrow_kernels(cuda_world):
     losses = [step().item() for _ in range(3)]
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
     want = dict.fromkeys(fa.launch_counts(), 0)
-    for name in ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"):
+    for name in ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
+                 "flash_bwd_prep"):
         want[name] = 3 * cfg.num_layers
     assert fa.launch_counts() == want
 
@@ -479,22 +486,27 @@ def test_sm90_dq_and_wide_forward_with_unequal_lengths(cuda, dtype, d):
 def test_backward_pads_once_and_equals_separate_launches(cuda, dtype, d):
     """flash_attention_bwd pads q, k, v and do once for the head dim dq
     and dk/dv run at (fp32 D 80, bf16 D 260, fp16 D 20; none at 16-bit D
-    320, where both stream at 320, nor at bf16 D 200 and fp16 D 80, where
-    both sm90 kernels read the caller's tensors); its gradients equal
-    those of the two kernels launched apart, each on its own padded
-    copies, bit for bit (no atomics: one order of sums)."""
+    320, where both stream at 320, nor at bf16 D 200, where both sm90
+    kernels read the caller's tensors, nor at fp16 D 80, where the fused
+    kernel does); its gradients, from the pre-pass's lse and delta, equal
+    those of the two kernels (at fp16 D 80 the fused one) launched apart
+    through _launch on the same lse and delta, bit for bit (one order of
+    sums)."""
     dt = getattr(torch, dtype)
     q, k, v, do = _inputs(cuda, dt, 1, 192, 2, d, 3)
     o, m, l = fa._flash_fwd(q, k, v, True, 0, 0)
     grads = fa.flash_attention_bwd(q, k, v, o, m, l, do)
-    lse = fa._lse_from_stats(m, l)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    lse, delta, _ = fa._bwd_prep(o, do, m, l)
     args = (lse, delta, True, 0, 0)
-    dq = fa._launch("dq", fa._design(dt, d, "dq"), (q, k, v, do), *args)
-    dk, dv = fa._launch("dkv", fa._design(dt, d, "dkv"), (q, k, v, do),
-                        *args)
-    for mine, apart in zip(grads, (dq, dk, dv)):
-        assert torch.equal(mine, apart)
+    if fa._fused_bwd(dt, d):
+        apart = fa._launch("bwd", "sm90", (q, k, v, do), *args)
+    else:
+        apart = (fa._launch("dq", fa._design(dt, d, "dq"), (q, k, v, do),
+                            *args),
+                 *fa._launch("dkv", fa._design(dt, d, "dkv"), (q, k, v, do),
+                             *args))
+    for mine, theirs in zip(grads, apart):
+        assert torch.equal(mine, theirs)
 
 
 STREAM_TF32_CASES = [
@@ -1030,31 +1042,38 @@ def test_sm90_forward_walk_writes_every_row(cuda, dtype, b, s, h, d):
                                      ("bfloat16", 136), ("bfloat16", 200),
                                      ("float16", 80)])
 def test_sm90_backward_in_place_between_builds(cuda, dtype, d):
-    """The sm90 dq and dk/dv at 16-bit head dims between their builds
-    read the caller's tensors (H 8: a store past d would land in the next
-    head; D 136 leaves the D 256 build's last box wholly past d): one
-    launch of each through _flash_bwd, every element of dq, dk and dv
-    within the bound of its plain version, and each bit for bit what the
-    same build gives on inputs zero-padded to it, sliced (what the
-    wrapper ran before it read in place)."""
+    """The sm90 backward at 16-bit head dims between its builds reads the
+    caller's tensors (H 8: a store past d would land in the next head; D
+    136 leaves the D 256 build's last box wholly past d): one launch of
+    the fused kernel (D 48-120) or of dq and dk/dv each (D 136, 200)
+    through _flash_bwd, every element of dq, dk and dv within the bound of
+    its plain version, and each bit for bit what the same build gives on
+    inputs zero-padded to it, sliced (what the wrapper ran before it read
+    in place)."""
     dt = getattr(torch, dtype)
     q, k, v, do = _inputs(cuda, dt, 2, 192, 8, d, d)
     _, lse, delta = _stats(q, k, v, do, True, 0, 0)
     args = (lse, delta, True, 0, 0)
-    built = fa.padded_head_dim(d, "sm90", "dq")
-    for kern in ("dq", "dkv"):
+    fused = fa._fused_bwd(dt, d)
+    kerns = ("bwd",) if fused else ("dq", "dkv")
+    built = fa.padded_head_dim(d, "sm90", kerns[0])
+    for kern in kerns:
         assert fa._reads_in_place(d, "sm90", kern)
         assert fa.padded_head_dim(d, "sm90", kern) == built > d
     fa.reset_launch_counts()
     dq, (dk, dv) = fa._flash_bwd(q, k, v, do, *args)
     torch.cuda.synchronize()
     counts = fa.launch_counts()
-    assert counts["flash_dq_sm90"] == counts["flash_dkv_sm90"] == 1
-    assert sum(counts.values()) == 2
+    for kern in kerns:
+        assert counts[fa.counter_name(kern, "sm90")] == 1
+    assert sum(counts.values()) == len(kerns)
     padded = fa._pad_head_dim((q, k, v, do), built)
     scale = fa._softmax_scale(d)
-    dq_b = fa._flash_dq_sm90(*padded, *args, scale=scale)
-    dk_b, dv_b = fa._flash_dkv_sm90(*padded, *args, scale=scale)
+    if fused:
+        dq_b, dk_b, dv_b = fa._flash_bwd_sm90(*padded, *args, scale=scale)
+    else:
+        dq_b = fa._flash_dq_sm90(*padded, *args, scale=scale)
+        dk_b, dv_b = fa._flash_dkv_sm90(*padded, *args, scale=scale)
     torch.cuda.synchronize()
     plain_args = (q, k, v, do, *args)
     step = tolerance.step_of(dt)
@@ -1071,30 +1090,28 @@ def test_sm90_backward_in_place_between_builds(cuda, dtype, d):
 @pytest.mark.cuda
 def test_sm90_backward_at_its_built_head_dim_is_unchanged(cuda):
     """At the main shape (B 4, S 2048, H 16, D 128, bf16), where d is the
-    built head dim, _flash_bwd launches the dq and dk/dv builds on the
-    caller's tensors with no cut: dq, dk and dv equal bit for bit a
-    direct launch of each build, and the in-place path at D 120 on the
-    same builds equals them on the tensors zero-padded to 128."""
+    built head dim, _flash_bwd launches the fused build on the caller's
+    tensors with no cut: dq, dk and dv equal bit for bit a direct launch
+    of the build, and the in-place path at D 120 on the same build equals
+    it on the tensors zero-padded to 128."""
     dt = torch.bfloat16
     q, k, v, do = _inputs(cuda, dt, 4, 2048, 16, 128, 1)
     _, lse, delta = _stats(q, k, v, do, True, 0, 0)
     args = (lse, delta, True, 0, 0)
     fa.reset_launch_counts()
     dq, (dk, dv) = fa._flash_bwd(q, k, v, do, *args)
-    direct = (fa._flash_dq_sm90(q, k, v, do, *args),
-              *fa._flash_dkv_sm90(q, k, v, do, *args))
+    direct = fa._flash_bwd_sm90(q, k, v, do, *args)
     cut = [x[..., :120].contiguous() for x in (q, k, v, do)]
     dq_c, (dk_c, dv_c) = fa._flash_bwd(*cut, *args)
     zeroed = [x.clone() for x in (q, k, v, do)]
     for x in zeroed:
         x[..., 120:] = 0
     scale = fa._softmax_scale(120)
-    padded = (fa._flash_dq_sm90(*zeroed, *args, scale=scale),
-              *fa._flash_dkv_sm90(*zeroed, *args, scale=scale))
+    padded = fa._flash_bwd_sm90(*zeroed, *args, scale=scale)
     torch.cuda.synchronize()
     counts = fa.launch_counts()
-    assert counts["flash_dq_sm90"] == counts["flash_dkv_sm90"] == 4
-    assert sum(counts.values()) == 8
+    assert counts["flash_bwd_sm90"] == 4
+    assert sum(counts.values()) == 4
     for mine, theirs in zip((dq, dk, dv), direct):
         assert torch.equal(mine, theirs)
     for mine, theirs in zip((dq_c, dk_c, dv_c), padded):
@@ -1543,3 +1560,161 @@ def test_simt_launchers_still_hold_fp32_at_d32(cuda):
     _close(dq, fa._flash_dq_plain(*args), 1e-4, 1e-6)
     for got, want in zip((dk, dv), fa._flash_dkv_plain(*args)):
         _close(got, want, 1e-4, 1e-6)
+
+
+# The fused 16-bit backward (csrc/flash_bwd_sm90.cu): dtype, b, sq, h, d,
+# causal, q_offset, k_offset, sk. D 64 and 128 are its builds; 40, 80, 96
+# and 120 run in place, 50 on one copy padded to 64.
+FUSED_CASES = [
+    pytest.param("bfloat16", 2, 256, 3, 128, True, 0, 0, None,
+                 id="bf16_d128"),
+    pytest.param("float16", 1, 512, 2, 64, False, 0, 0, None,
+                 id="fp16_d64_noncausal"),
+    pytest.param("bfloat16", 1, 512, 2, 64, True, 128, 0, None,
+                 id="bf16_d64_q_offset"),
+    pytest.param("float16", 1, 256, 2, 128, True, 0, 192, None,
+                 id="fp16_d128_dead_rows"),
+    pytest.param("bfloat16", 2, 100, 8, 40, True, 16, 0, None,
+                 id="bf16_d40_s100"),
+    pytest.param("float16", 2, 127, 8, 80, True, 0, 0, None,
+                 id="fp16_d80_s127"),
+    pytest.param("bfloat16", 2, 100, 8, 96, True, 27, 0, 127,
+                 id="bf16_d96_sq100_sk127"),
+    pytest.param("float16", 2, 192, 8, 120, False, 0, 64, None,
+                 id="fp16_d120_noncausal_k_offset"),
+    pytest.param("bfloat16", 2, 192, 4, 50, True, 0, 0, None,
+                 id="bf16_d50_padded"),
+    pytest.param("float16", 1, 128, 2, 96, True, 256, 0, 384,
+                 id="fp16_d96_kv_longer"),
+    pytest.param("bfloat16", 1, 256, 2, 80, False, 0, 0, 64,
+                 id="bf16_d80_kv_shorter_noncausal"),
+]
+
+
+def _fused_check(cuda, dt, b, s, h, d, causal, qo, ko, sk=None, seed=0):
+    """The fused kernel through _flash_bwd against its plain versions (dq
+    at DQ_ATOL with the 16-bit operands' allowance of
+    _flash_bwd_sm90_plain, dk and dv as _check_kernels holds them), one
+    launch and no dq or dk/dv; its dk and dv equal flash_dkv_sm90's on the
+    same inputs (through _launch, in place or padded as the pair runs
+    them). Returns the inputs, the lse and delta and dq."""
+    q, k, v, do = _inputs(cuda, dt, b, s, h, d, seed, sk)
+    _, lse, delta = _stats(q, k, v, do, causal, qo, ko)
+    args = (lse, delta, causal, qo, ko)
+    fa.reset_launch_counts()
+    dq, (dk, dv) = fa._flash_bwd(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(fa.launch_counts(), 0)
+    want["flash_bwd_sm90"] = 1
+    assert fa.launch_counts() == want
+    pair_dk, pair_dv = fa._launch("dkv", "sm90", (q, k, v, do), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, pair_dk) and torch.equal(dv, pair_dv)
+    plain = (q, k, v, do, *args)
+    step = tolerance.step_of(dt)
+    dq_b = fa._flash_bwd_sm90_plain(*plain, operands=dt)[0]
+    _close(dq, fa._flash_dq_plain(*plain), 1e-4, tolerance.DQ_ATOL, step,
+           plain_b=dq_b)
+    for mine, p, p_b in zip((dk, dv), fa._flash_dkv_plain(*plain),
+                            fa._flash_dkv_plain(*plain, operands=dt)):
+        _close(mine, p, 1e-4, 1e-6, step, plain_b=p_b)
+    return (q, k, v, do), args, dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,d,causal,qo,ko,sk", FUSED_CASES)
+def test_fused_backward_matches_plain_versions(cuda, dtype, b, s, h, d,
+                                               causal, qo, ko, sk):
+    """The fused backward (16-bit D 33-128: its builds of 64 and 128, in
+    place at multiples of 8, padded at D 50) against its plain versions,
+    causal and not, with offsets, dead rows, ragged lengths (S 100, 127)
+    and unequal ones; dk and dv bit for bit flash_dkv_sm90's."""
+    _fused_check(cuda, getattr(torch, dtype), b, s, h, d, causal, qo, ko, sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("float16", 80)])
+def test_fused_backward_gives_the_same_bits_on_every_call(cuda, dtype, d):
+    """dq (and dk, dv) of the fused kernel are the same bits over five
+    calls, one of them queued behind a spin on the card, so that its CTAs
+    start with the card idle, and one on another stream: the parts of dq
+    are added in one fixed order, whatever order the CTAs run in."""
+    dt = getattr(torch, dtype)
+    (q, k, v, do), args, first = _fused_check(cuda, dt, 2, 1024, 8, d, True,
+                                              0, 0, seed=4)
+    outs = []
+    side = torch.cuda.Stream()
+    for i in range(5):
+        if i == 2:
+            torch.cuda._sleep(50_000_000)
+        if i == 3:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                outs.append(fa._flash_bwd(q, k, v, do, *args))
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            outs.append(fa._flash_bwd(q, k, v, do, *args))
+    torch.cuda.synchronize()
+    for dq, (dk, dv) in outs:
+        assert torch.equal(dq, first)
+        assert torch.equal(dk, outs[0][1][0]) and torch.equal(dv,
+                                                              outs[0][1][1])
+
+
+@pytest.mark.cuda
+def test_fused_backward_in_many_waves_finishes_and_holds(cuda):
+    """B 4, H 64, S 2048, bf16 D 128: 4096 CTAs, some 31 waves on an H100,
+    whose dq adds wait on CTAs handed out before them. The launch ends
+    (within a minute: a wait on a CTA that is not resident would hang) and
+    holds the plain versions."""
+    import time
+    t0 = time.perf_counter()
+    _fused_check(cuda, torch.bfloat16, 4, 2048, 64, 128, True, 0, 0, seed=6)
+    assert time.perf_counter() - t0 < 60
+
+
+@pytest.mark.cuda
+def test_fused_backward_refuses_a_misaligned_tensor(cuda):
+    flat = torch.zeros(1 + 128 * 2 * 80, device=cuda, dtype=torch.bfloat16)
+    bad = flat[1:].view(1, 128, 2, 80)       # contiguous, 2 bytes off
+    good = torch.zeros(1, 128, 2, 80, device=cuda, dtype=torch.bfloat16)
+    st = torch.zeros(1, 2, 128, device=cuda)
+    fa.reset_launch_counts()
+    for i in range(4):
+        tensors = [good] * 4
+        tensors[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_bwd(*tensors, st, st, True, 0, 0)
+    assert not any(fa.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("s,d", [(100, 20), (192, 64), (127, 80),
+                                 (256, 128), (64, 640)])
+def test_prepass_matches_its_plain_version(cuda, dtype, s, d):
+    """The backward's pre-pass kernel (lse and delta in one launch, every
+    dtype and head dim, 16-byte loads where a row allows them: not at
+    16-bit D 20) against _bwd_stats_plain: lse within 1e-6 of |m| +
+    |log l| (+inf where l == 0, equal), delta within 1e-5 of the sum of
+    |do o| (another order of the same fp32 sum); and the counters it
+    zeroes are zero."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    o, do = (torch.randn(2, s, 3, d, generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    m = torch.randn(2, 3, s, generator=g, device=cuda)
+    l = torch.rand(2, 3, s, generator=g, device=cuda) + 0.5
+    l[:, :, ::7] = 0
+    fa.reset_launch_counts()
+    lse, delta, counters = fa._bwd_prep(o, do, m, l, 37)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_bwd_prep"] == 1
+    lse_p, delta_p = fa._bwd_stats_plain(o, do, m, l)
+    dead = torch.isinf(lse_p)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] > 0).all())
+    terms = m.abs() + torch.log(torch.where(l > 0, l, torch.ones_like(l))).abs()
+    assert bool(((lse - lse_p).abs()[~dead] <= 1e-6 * terms[~dead]).all())
+    size = (do.float() * o.float()).abs().sum(-1).transpose(1, 2)
+    assert bool(((delta - delta_p).abs() <= 1e-5 * size).all())
+    assert counters.dtype == torch.int32 and not bool(counters.any())

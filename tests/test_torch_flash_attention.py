@@ -260,7 +260,9 @@ def test_cpu_path_launches_no_kernel():
                                     "flash_dq_tf32": 0,
                                     "flash_dkv": 0, "flash_dkv_sm90": 0,
                                     "flash_dkv_stream": 0,
-                                    "flash_dkv_tf32": 0}
+                                    "flash_dkv_tf32": 0,
+                                    "flash_bwd_sm90": 0,
+                                    "flash_bwd_prep": 0}
 
 
 def test_wrappers_reject_bad_inputs():

@@ -38,7 +38,8 @@ def _edits(tool):
 
 
 def test_every_variant_tool_is_found():
-    assert {"bwd_tf32_variants", "dkv_variants", "dq_variants",
+    assert {"bwd_sm90_variants", "bwd_tf32_variants", "dkv_variants",
+            "dq_variants",
             "fwd_sm90_variants", "fwd_tf32_variants",
             "narrow_bwd_tf32_variants", "narrow_tf32_variants",
             "narrow_variants"} <= set(VARIANT_TOOLS)
@@ -159,3 +160,23 @@ def test_bwd_tf32_variants_cover_the_dq_designs():
         ("dq", "dkv")
     assert tool.DQ_ENTRY in _cuda._SIGNATURES
     assert tool.ENTRIES[tool.SOURCE] in _cuda._SIGNATURES
+
+
+def test_bwd_sm90_variants_cover_the_choices_they_name():
+    """The fused backward's tool rebuilds it with the adds in arrival
+    order, by RED or plain loads and stores in place of the bulk reduce,
+    converted in the kernel in place of the conversion pass, with a third
+    Q and dO stage and in either fixed order, each one constant apart; the
+    variants whose dq may take other bits are named as such."""
+    tool = _tool("bwd_sm90_variants")
+    src = _source(tool.SOURCE)
+    names = {"free_order": "kFreeOrder", "red": "kAddMode",
+             "stores": "kAddMode", "convert_in_kernel": "kConvertPass",
+             "stages3": "kStages", "ascending": "kOrder",
+             "descending": "kOrder"}
+    for name, constant in names.items():
+        (old, new), = tool.VARIANTS[name]
+        assert "constexpr" in old and constant in old and constant in new
+        assert src.count(old) == 1
+    assert set(tool.OTHER_BITS) <= set(tool.VARIANTS)
+    assert set(tool.UNCHECKED) <= set(tool.OTHER_BITS)
