@@ -283,7 +283,33 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    whole batch, and the script says which held. Prints the seconds per
    step, the loop's busy ms and the responses per step (per backend)
    beside phase 10's. The nccl rendering needs a card per rank and is
-   not run here.
+   not run here. Phases 9-11 run with the heartbeat at its defaults.
+12. Wire dtypes on the card, every rank a child process of the script
+   (``--child``): phase 10's two-rank star world with
+   HOROVOD_COMPRESSION=bf16 on both ranks, and a two-rank int8 world,
+   started together. CUDA fp32 (and fp64) tensors go through every
+   compressed collective (allreduce summed, averaged, scaled and fused,
+   allgather, reducescatter, and 6 steps under one name: speculative
+   cycles at bf16, an error-feedback chain at int8) and must equal the
+   port's CPU codec's closed forms on the same inputs bit for bit;
+   bf16, int32 and the broadcast pass uncompressed. int8's residuals on
+   the card must equal the CPU's. The bf16 world's depth-2 LM takes
+   phase 10's 5 eager steps: the ranks' parameters equal, each loss
+   within 2^-6 of its move since step 1 plus 1e-4 of it of phase 10's
+   (the argument is at ``wire_phase``), and the card->host bytes exactly
+   phase 10's less 2 bytes per fp32 gradient element of the model (in
+   both phases leaving out the packs of speculative bids the world
+   answered the classic way, which pack their batch again: the
+   runtime's ``spec_unused_bytes``, printed).
+13. The abort on the card: two three-rank worlds of child processes on
+   CUDA tensors (heartbeat interval 0.3 s, timeout 3 s), started
+   together. Three ops into the gradient allreduces of the LM's first
+   eager step (mid-allreduce), rank 1's loop hangs for 8 s in one and
+   rank 1 is SIGKILLed in the other. Both survivors of each must raise
+   WorldAbortedError naming rank 1 within the timeout plus 4 s of the
+   time rank 1 stamped at its fault (the hang's not before the
+   timeout); rank 2 learns it only from the coordinator's ABORT. Prints
+   the seconds each took.
 
 The last two lines are the JSON ``kernels`` line (the kernels at their
 main shapes, then the entry's shape, each C4 case and the Gemma-7B
@@ -2204,8 +2230,16 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None,
         losses, secs = losses + more, secs + more_secs
         print(f"    losses {' '.join(f'{v:.6f}' for v in losses)}; sec/step "
               f"{' '.join(f'{v:.3f}' for v in secs)}")
+        # A speculative bid the world answers the classic way is packed
+        # again: its first pack's bytes are left out of the comparison
+        # with phase 12's (printed beside them).
+        unused = runtime_counts()["spec_unused_bytes"] \
+            - before["spec_unused_bytes"]
+        to_host_total = star.bytes_to_host - to_host - unused
         print(f"    star bytes card->host "
-              f"{(star.bytes_to_host - to_host) / WORLD_STEPS:.4g} and "
+              f"{(star.bytes_to_host - to_host) / WORLD_STEPS:.4g} "
+              f"({unused / WORLD_STEPS:.4g} of them in unused speculative "
+              f"bids) and "
               f"host->card "
               f"{(star.bytes_from_host - from_host) / WORLD_STEPS:.4g} per "
               f"step")
@@ -2250,9 +2284,9 @@ def two_rank_world(torch, hvd, args, rank, port, workdir, ref=None,
                               "NEGOTIATE_CACHED")
                    + (("MEMCPY_OUT_FUSION_BUFFER", "NEGOTIATE_CACHED_FUSED")
                       if mode == "star" else ()))
-    run = (all_losses, params, (secs, per_step))
+    run = (all_losses, params, (secs, per_step), to_host_total)
     if star_run is not None:
-        s_losses, s_params, (s_secs, s_per) = star_run
+        s_losses, s_params, (s_secs, s_per), _ = star_run
         print(f"  plane against star: sec/step "
               f"{' '.join(f'{v:.3f}' for v in secs)} against "
               f"{' '.join(f'{v:.3f}' for v in s_secs)}; the loop busy "
@@ -2316,6 +2350,433 @@ def world_of_two(torch, hvd, args, workdir, ref, mode, star_run=None):
     return run
 
 
+# Phases 12 and 13 run their ranks as children of this script (the main
+# process keeps no runtime of theirs): ``chip_smoke.py --child KIND RANK
+# SIZE PORT DIR`` with KIND wire-bf16, wire-int8, abort-hang or
+# abort-kill. The abort worlds take the heartbeat knobs of the
+# reference's multi-process tests (tests/test_multiprocess.py:624-627).
+ABORT_HB = {"HOROVOD_HEARTBEAT_INTERVAL": "0.3",
+            "HOROVOD_HEARTBEAT_TIMEOUT": "3"}
+# Detection latency a survivor may take past the heartbeat timeout: a
+# ping slice, the 0.25 s sweep for a queued notice, the teardown, three
+# processes sharing the card and the host.
+ABORT_SLACK_S = 4.0
+# Phase 12's steps under one name (the speculative cycle, or int8's
+# error-feedback chain).
+WIRE_STEADY = 6
+
+
+def wire_inputs(torch, rank, size, seed):
+    """Rank ``rank``'s phase-12 inputs on the CPU, from a seed: every
+    rank makes every rank's, for the CPU codec's closed forms."""
+    g = torch.Generator().manual_seed(seed * 1000 + rank)
+    x = {"a": torch.randn(1 << 20, generator=g) * (rank + 1),
+         "b": torch.randn(4099, generator=g),
+         "g0": torch.randn(17, generator=g),
+         "g1": torch.randn(1 << 16, generator=g) * 10,
+         "g2": torch.randn(5, generator=g) * 1e-3,
+         "d": torch.randn(5000, generator=g, dtype=torch.float64),
+         "i": torch.randint(-1000, 1000, (50,), generator=g,
+                            dtype=torch.int32),
+         "ag": torch.randn(rank + 1, 3, generator=g),
+         "rs": torch.randn(size * 256, 2, generator=g)}
+    for k in range(WIRE_STEADY):
+        x[f"s{k}"] = torch.randn(3 << 12, generator=g)
+    return x
+
+
+def wire_closed_forms(torch, xs, verdict, rank):
+    """Every phase-12 output of rank ``rank``, from the port's CPU codec
+    on all ranks' inputs (``xs``), as the star computes them: the
+    prescale, the cast or the int8 quantization (with each rank's error
+    feedback), the coordinator's sum in rank order, the decompression
+    and the postscale. Returns (outputs, each rank's error feedback)."""
+    from horovod_tpu_torch.common import wire_dtype as wd
+    from horovod_tpu_torch.ops.backend import scale, scale_
+    from horovod_tpu_torch.ops.socket_ops import _accumulate
+    size = len(xs)
+    efs = [wd.ErrorFeedback() for _ in range(size)]
+    floats = (torch.float32, torch.float64)
+
+    def allreduce(parts, pre=1.0, post=1.0, key=None):
+        parts = [scale(p.reshape(-1), pre) for p in parts]
+        dt, n = parts[0].dtype, parts[0].numel()
+        w = verdict if dt in floats else wd.WIRE_NONE
+        if w == wd.WIRE_NONE:
+            acc = parts[0].clone()
+            for p in parts[1:]:
+                _accumulate(acc, p)
+        elif w == wd.WIRE_INT8:
+            qs = [wd.quantize_ef(p, ef, key) for p, ef in zip(parts, efs)]
+            acc = wd.dequantize(wd.reduce_wire(qs[0], qs[1:], w, dt, n),
+                                dt, n)
+        else:
+            ws = [wd.compress(p, w) for p in parts]
+            acc = wd.decompress(wd.reduce_wire(ws[0], ws[1:], w, dt, n), w,
+                                dt, n)
+        scale_(acc, post)
+        return acc
+
+    def reducescatter(parts, post):
+        flat = [p.reshape(-1) for p in parts]
+        n = flat[0].numel()
+        per = n // size
+        mine = slice(rank * per, (rank + 1) * per)
+        if verdict == wd.WIRE_INT8:
+            acc = wd.dequantize(wd.quantize(flat[0]), flat[0].dtype, n)
+            for p in flat[1:]:
+                acc += wd.dequantize(wd.quantize(p), p.dtype, n)
+            res = wd.dequantize(wd.quantize(acc[mine]), acc.dtype, per)
+        elif verdict != wd.WIRE_NONE:
+            ws = [wd.compress(p, verdict) for p in flat]
+            acc = wd.reduce_wire(ws[0], ws[1:], verdict, flat[0].dtype, n)
+            res = wd.decompress(acc[mine], verdict, flat[0].dtype, per)
+        else:
+            acc = flat[0].clone()
+            for p in flat[1:]:
+                acc += p
+            res = acc[mine].clone()
+        scale_(res, post)
+        return res.view((per // parts[0].shape[1],) + parts[0].shape[1:])
+
+    want = {"ar_sum": allreduce([x["a"] for x in xs], key=("p12.ar_sum",)),
+            "ar_avg": allreduce([x["a"] for x in xs], post=1.0 / size,
+                                key=("p12.ar_avg",)),
+            "ar_scaled": allreduce([x["b"] for x in xs], 0.5, 3.0,
+                                   key=("p12.ar_scaled",))}
+    names = ("p12.grp.0", "p12.grp.1", "p12.grp.2")
+    fused = allreduce([torch.cat([x["g0"], x["g1"], x["g2"]]) for x in xs],
+                      key=names)
+    at = 0
+    for i in range(3):
+        n = xs[0][f"g{i}"].numel()
+        want[f"grp{i}"] = fused[at:at + n]
+        at += n
+    want["ar_f64"] = allreduce([x["d"] for x in xs], key=("p12.ar_f64",))
+    want["ar_bf16"] = allreduce([x["a"].bfloat16() for x in xs])
+    want["ar_int"] = allreduce([x["i"] for x in xs])
+    agw = wd.allgather_wire(verdict)
+    want["ag"] = torch.cat([
+        x["ag"] if agw == wd.WIRE_NONE else wd.decompress(
+            wd.compress(x["ag"].reshape(-1), agw), agw, torch.float32,
+            x["ag"].numel()).view(x["ag"].shape) for x in xs])
+    want["rs"] = reducescatter([x["rs"] for x in xs], 1.0)
+    want["rs_avg"] = reducescatter([x["rs"] for x in xs], 1.0 / size)
+    want["bc"] = xs[1]["a"]
+    for k in range(WIRE_STEADY):
+        want[f"s{k}"] = allreduce([x[f"s{k}"] for x in xs],
+                                  key=("p12.steady",))
+    return want, efs
+
+
+def child_env(rank, size, port, extra=()):
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                      HOROVOD_CONTROLLER_PORT=str(port), **dict(extra))
+
+
+def star_only(hvd):
+    """The runtime's socket star, with the process-group plane taken out
+    of the backend list (NCCL refuses two ranks on one card): phase
+    10's arrangement."""
+    from horovod_tpu_torch.common import basics
+    rt = basics.runtime()
+    rt.op_manager.backends = [b for b in rt.op_manager.backends
+                              if b.name != "process_group"]
+    return rt, next(b for b in rt.op_manager.backends if b.name == "socket")
+
+
+def wire_child(torch, hvd, args, rank, size, port, workdir, wire):
+    """One rank of phase 12's world: every collective on CUDA tensors
+    under HOROVOD_COMPRESSION=``wire``, held bit for bit to the CPU
+    codec's closed forms; at bf16 the depth-2 full-width LM's eager
+    steps (phase 10's). Writes its numbers to
+    ``wire-<wire>-<rank>.json``."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.common import wire_dtype as wd
+    from horovod_tpu_torch.models import TransformerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    child_env(rank, size, port, {"HOROVOD_COMPRESSION": wire})
+    hvd.init()
+    result = {"rank": rank}
+    try:
+        rt, star = star_only(hvd)
+        dev = rt.device or torch.device("cpu")  # the CPU: a rehearsal
+        xs = [wire_inputs(torch, r, size, args.seed) for r in range(size)]
+        verdict = wd.wire_code_of(wire)
+        want, efs = wire_closed_forms(torch, xs, verdict, rank)
+        x = {k: v.to(dev) for k, v in xs[rank].items()}
+        got = {"ar_sum": hvd.allreduce(x["a"], op=hvd.Sum, name="p12.ar_sum"),
+               "ar_avg": hvd.allreduce(x["a"], name="p12.ar_avg"),
+               "ar_scaled": hvd.allreduce(
+                   x["b"], op=hvd.Sum, name="p12.ar_scaled",
+                   prescale_factor=0.5, postscale_factor=3.0)}
+        for i, o in enumerate(hvd.grouped_allreduce(
+                [x["g0"], x["g1"], x["g2"]], op=hvd.Sum, name="p12.grp")):
+            got[f"grp{i}"] = o
+        got["ar_f64"] = hvd.allreduce(x["d"], op=hvd.Sum, name="p12.ar_f64")
+        got["ar_bf16"] = hvd.allreduce(x["a"].bfloat16(), op=hvd.Sum,
+                                       name="p12.ar_bf16")
+        got["ar_int"] = hvd.allreduce(x["i"], op=hvd.Sum, name="p12.ar_int")
+        got["ag"] = hvd.allgather(x["ag"], name="p12.ag")
+        got["rs"] = hvd.reducescatter(x["rs"], name="p12.rs")
+        got["rs_avg"] = hvd.reducescatter(x["rs"], name="p12.rs_avg",
+                                          op=hvd.Average)
+        got["bc"] = hvd.broadcast(x["a"], 1, name="p12.bc")
+        spec0 = rt.stats["spec_cycles"]
+        for k in range(WIRE_STEADY):
+            got[f"s{k}"] = hvd.allreduce(x[f"s{k}"], op=hvd.Sum,
+                                         name="p12.steady")
+        torch.cuda.synchronize()
+        bad = [k for k in want if not (
+            got[k].device == dev and got[k].dtype == want[k].dtype
+            and got[k].shape == want[k].shape
+            and torch.equal(got[k].cpu().view(torch.uint8),
+                            want[k].contiguous().view(torch.uint8)))]
+        result.update(collectives=len(want), bad=bad,
+                      spec_cycles=rt.stats["spec_cycles"] - spec0)
+        if verdict == wd.WIRE_INT8:
+            mine = {k: v.cpu() for k, v in star._ef._residuals.items()}
+            theirs = efs[rank]._residuals
+            result["residuals"] = len(theirs)
+            result["residuals_equal"] = sorted(mine) == sorted(theirs) and \
+                all(torch.equal(mine[k], theirs[k]) for k in theirs)
+        else:
+            cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
+                                    **LM_FULL)
+            step, model = bench.transformer_step(cfg, 2, seed=args.seed,
+                                                 eager=True)
+            torch.cuda.synchronize()
+            n_fp32 = sum(p.numel() for p in model.parameters()
+                         if p.requires_grad and p.dtype == torch.float32)
+            to_host, from_host = star.bytes_to_host, star.bytes_from_host
+            before = runtime_counts()
+            losses, secs = timed_steps(step, WORLD_STEPS)
+            after = runtime_counts()
+            unused = after["spec_unused_bytes"] - before["spec_unused_bytes"]
+            result.update(
+                losses=losses, secs=secs, n_fp32=n_fp32, unused=unused,
+                to_host=star.bytes_to_host - to_host - unused,
+                from_host=star.bytes_from_host - from_host,
+                lm_spec_cycles=after["spec_cycles"] - before["spec_cycles"],
+                sums=[p.detach().double().sum().item()
+                      for p in model.parameters()])
+            del step, model
+    finally:
+        hvd.shutdown()
+    with open(os.path.join(workdir, f"wire-{wire}-{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def abort_child(torch, hvd, args, rank, size, port, workdir, mode):
+    """One rank of phase 13's world: the depth-2 full-width LM's eager
+    steps on CUDA tensors, rank 1 faulted (``mode`` hang or kill) three
+    ops into the first step's gradient allreduces. Rank 1 stamps the
+    time its fault fires; each rank writes what it raised, and when, to
+    ``abort-<mode>-<rank>.json``."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.common import faults
+    from horovod_tpu_torch.models import TransformerConfig
+    child_env(rank, size, port, ABORT_HB)
+    hvd.init()
+    rt, _ = star_only(hvd)
+    cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16, **LM_FULL)
+    step, model = bench.transformer_step(cfg, 2, seed=args.seed, eager=True)
+    result = {"rank": rank, "losses": []}
+    stamp = os.path.join(workdir, f"abort-{mode}-fired")
+    if rank == 1:
+        fire = faults._apply
+
+        def stamped(fault, runtime):
+            with open(stamp, "w") as f:
+                f.write(repr(time.time()))
+            fire(fault, runtime)
+
+        faults._apply = stamped
+        faults.install(mode, at_op=rt._op_count + 3, seconds=8)
+    try:
+        for _ in range(WORLD_STEPS):
+            result["losses"].append(step().item())
+        result["raised"] = None
+    except hvd.HorovodInternalError as e:
+        result.update(raised=type(e).__name__, at=time.time(),
+                      origin=getattr(e, "origin_rank", None),
+                      message=str(e)[:300])
+    del step, model
+    if rt.device is not None:
+        result["peak_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"abort-{mode}-{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def start_children(args, kind, size, port, workdir, ranks):
+    # This process's cached blocks go back to the card first: the
+    # children of phases 12 and 13 share it (six at once in phase 13).
+    import torch
+    torch.cuda.empty_cache()
+    procs = {}
+    for r in ranks:
+        log = open(os.path.join(workdir, f"{kind}-{r}.log"), "w")
+        procs[r] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed",
+             str(args.seed), "--child", kind, str(r), str(size), str(port),
+             workdir], stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+    return procs
+
+
+def wait_children(procs, workdir, kind, timeout, expect_rc=None):
+    """Waits for every child (killing all of them if one outlasts
+    ``timeout``); a return code other than ``expect_rc[rank]`` (0 by
+    default) is a failure, shown with the child's log."""
+    expect_rc = expect_rc or {}
+    deadline = time.monotonic() + timeout
+    try:
+        for r, p in procs.items():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in procs.items():
+        if p.returncode != expect_rc.get(r, 0):
+            with open(os.path.join(workdir, f"{kind}-{r}.log")) as f:
+                print(f.read()[-4000:])
+            raise AssertionError(f"{kind} rank {r} exited with "
+                                 f"{p.returncode}")
+
+
+def wire_phase(torch, args, workdir, star_run):
+    """Phase 12: wire dtypes on the card. Phase 10's two-rank star world
+    with HOROVOD_COMPRESSION=bf16 on both ranks and a two-rank int8
+    world, started together; the bf16 world's LM steps held to phase
+    10's (``star_run``)."""
+    t0 = time.perf_counter()
+    worlds = {w: start_children(args, f"wire-{w}", 2, free_port(), workdir,
+                                (0, 1)) for w in ("bf16", "int8")}
+    res = {}
+    for w, procs in worlds.items():
+        wait_children(procs, workdir, f"wire-{w}", 600)
+        res[w] = [json.load(open(os.path.join(workdir, f"wire-{w}-{r}.json")))
+                  for r in (0, 1)]
+    print(f"wire dtypes on the card: two ranks each of a bf16 and an int8 "
+          f"world through the socket star ({time.perf_counter() - t0:.1f} s "
+          f"for both, started together)")
+    for w in ("bf16", "int8"):
+        for r in (0, 1):
+            out = res[w][r]
+            extra = (f", error-feedback residuals ({out['residuals']}) equal "
+                     f"to the CPU's: {out['residuals_equal']}"
+                     if w == "int8" else "")
+            print(f"  {w} rank {r}: {out['collectives'] - len(out['bad'])} "
+                  f"of {out['collectives']} outputs bit-equal to the CPU "
+                  f"codec's closed forms; {out['spec_cycles']} speculative "
+                  f"cycles in {WIRE_STEADY} steps under one name" + extra)
+            if out["bad"]:
+                raise AssertionError(f"{w} rank {r}: {out['bad']} differ "
+                                     f"from the CPU codec")
+            if w == "int8" and not (out["residuals_equal"]
+                                    and out["spec_cycles"] == 0):
+                raise AssertionError("int8: residuals differ from the CPU's, "
+                                     "or a cycle speculated")
+            if w == "bf16" and not out["spec_cycles"] > 0:
+                raise AssertionError("bf16: no speculative cycle")
+    s_losses, _, (s_secs, _), s_to_host = star_run
+    b0, b1 = res["bf16"]
+    n = b0["n_fp32"]
+    want_bytes = s_to_host - 2 * n * WORLD_STEPS
+    print(f"  the LM at full width, depth 2, 2 rows per rank, {WORLD_STEPS} "
+          f"eager steps, bf16 on the wire: sec/step "
+          f"{' '.join(f'{v:.3f}' for v in b0['secs'])} (phase 10: "
+          f"{' '.join(f'{v:.3f}' for v in s_secs)}); {b0['lm_spec_cycles']} "
+          f"speculative cycles")
+    print(f"    card->host bytes per step {b0['to_host'] / WORLD_STEPS:.6g} "
+          f"(phase 10: {s_to_host / WORLD_STEPS:.6g}; less 2 bytes for each "
+          f"of the model's {n} fp32 gradient elements: "
+          f"{want_bytes / WORLD_STEPS:.6g}), unused speculative bids left "
+          f"out ({b0['unused'] / WORLD_STEPS:.6g} per step here); host->card "
+          f"{b0['from_host'] / WORLD_STEPS:.6g}")
+    if not b0["to_host"] == b1["to_host"] == want_bytes:
+        raise AssertionError(f"card->host bytes {b0['to_host']}, "
+                             f"{b1['to_host']}; want {want_bytes}")
+    # The bound: each rank's fp32 gradient and the sum are rounded to bf16
+    # once each (2^-9 relative apiece), so every element of the averaged
+    # gradient, and so of each update, is off by at most 2^-8 of it. The
+    # loss moves from its first step by the updates (gradient times
+    # update, all of one sign under SGD), so it moves off phase 10's by
+    # at most 2^-8 of that move to first order: held to 2^-6 of it, plus
+    # phase 10's own 1e-4 of the loss for the order of bf16 sums.
+    worst = 0.0
+    for r, b in enumerate((b0, b1)):
+        ref = s_losses[r].tolist()
+        for k, (got, was) in enumerate(zip(b["losses"], ref)):
+            bound = 2 ** -6 * abs(was - ref[0]) + 1e-4 * abs(was)
+            worst = max(worst, abs(got - was) / bound)
+        print(f"    rank {r} losses "
+              f"{' '.join(f'{v:.6f}' for v in b['losses'])} (phase 10: "
+              f"{' '.join(f'{v:.6f}' for v in ref)})")
+    same = b0["sums"] == b1["sums"]
+    print(f"    worst loss difference {worst:.3f} of its bound (2^-6 of the "
+          f"loss's move since step 1 plus 1e-4 of the loss); the two ranks' "
+          f"parameters equal: {same}")
+    if not (worst <= 1.0 and same):
+        raise AssertionError("the bf16 wire's steps leave phase 10's bound, "
+                             "or the ranks' parameters differ")
+
+
+def abort_phase(torch, args, workdir):
+    """Phase 13: the abort on the card. A three-rank world in which rank
+    1's loop hangs in the LM's eager steps and one in which rank 1 is
+    killed mid-allreduce, started together: both survivors of each must
+    raise WorldAbortedError naming rank 1 within the heartbeat timeout
+    plus ABORT_SLACK_S of the fault."""
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  (the card's free memory before the children start: "
+          f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB)")
+    worlds = {m: start_children(args, f"abort-{m}", 3, free_port(), workdir,
+                                (0, 1, 2)) for m in ("hang", "kill")}
+    for m, procs in worlds.items():
+        wait_children(procs, workdir, f"abort-{m}", 300,
+                      {1: -9} if m == "kill" else None)
+    timeout = float(ABORT_HB["HOROVOD_HEARTBEAT_TIMEOUT"])
+    print(f"abort on the card: three ranks on one card, the LM's eager steps, "
+          f"heartbeat interval {ABORT_HB['HOROVOD_HEARTBEAT_INTERVAL']} s and "
+          f"timeout {timeout:g} s ({time.perf_counter() - t0:.1f} s for both "
+          f"worlds, started together)")
+    for m in ("hang", "kill"):
+        with open(os.path.join(workdir, f"abort-{m}-fired")) as f:
+            fired = float(f.read())
+        for r in (0, 2):
+            with open(os.path.join(workdir, f"abort-{m}-{r}.json")) as f:
+                out = json.load(f)
+            took = out["at"] - fired if out.get("at") else float("nan")
+            via = "its own deadline or socket" if r == 0 else \
+                "the coordinator's ABORT"
+            print(f"  {m}: rank {r} raised {out['raised']} naming rank "
+                  f"{out['origin']} {took:.2f} s after the fault (through "
+                  f"{via}; bound {timeout + ABORT_SLACK_S:g} s); its peak "
+                  f"card memory {out.get('peak_gib', 0.0):.1f} GiB")
+            if not (out["raised"] == "WorldAbortedError"
+                    and out["origin"] == 1
+                    and took < timeout + ABORT_SLACK_S):
+                raise AssertionError(f"{m}: rank {r}: {out}")
+            if m == "hang" and took < timeout - 0.5:
+                raise AssertionError(f"hang: rank {r} aborted before the "
+                                     f"deadline could have seen the hang")
+        if m == "hang":
+            with open(os.path.join(workdir, "abort-hang-1.json")) as f:
+                out = json.load(f)
+            print(f"  hang: rank 1, awake after 8 s, raised {out['raised']} "
+                  f"naming rank {out['origin']}")
+            if out["raised"] not in ("WorldAbortedError",
+                                     "HorovodInternalError"):
+                raise AssertionError(f"hang: rank 1: {out}")
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2332,6 +2793,10 @@ def main(argv=None) -> int:
     # directory, "star" or "plane").
     ap.add_argument("--world-rank1", nargs=3,
                     metavar=("PORT", "DIR", "MODE"), help=argparse.SUPPRESS)
+    # Internal: run as a rank of phase 12's or 13's worlds.
+    ap.add_argument("--child", nargs=5,
+                    metavar=("KIND", "RANK", "SIZE", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2346,6 +2811,12 @@ def main(argv=None) -> int:
     if args.world_rank1:
         port, workdir, mode = args.world_rank1
         two_rank_world(torch, hvd, args, 1, int(port), workdir, mode=mode)
+        return 0
+    if args.child:
+        kind, rank, size, port, workdir = args.child
+        child = wire_child if kind.startswith("wire-") else abort_child
+        child(torch, hvd, args, int(rank), int(size), int(port), workdir,
+              kind.split("-", 1)[1])
         return 0
 
     # Phase 1: card and build.
@@ -2408,6 +2879,10 @@ def main(argv=None) -> int:
         star_run = world_of_two(torch, hvd, args, workdir, ref, "star")
         # Phase 11: the same world through the process-group plane.
         world_of_two(torch, hvd, args, workdir, ref, "plane", star_run)
+        # Phase 12: wire dtypes on the card.
+        wire_phase(torch, args, workdir, star_run)
+        # Phase 13: the abort on the card.
+        abort_phase(torch, args, workdir)
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),

@@ -11,7 +11,10 @@ first use, with the socket star as the fallback and for CPU tensors) and
 ``[SocketBackend, LocalBackend]`` on the CPU. Identity (rank, size,
 local and cross ranks) comes from the controller's handshake, as in the
 reference; ``HOROVOD_RANK`` and ``HOROVOD_SIZE`` say who this process
-is, and ``HOROVOD_LOCAL_RANK`` picks its card.
+is, and ``HOROVOD_LOCAL_RANK`` picks its card. The controllers arm their
+channels with ``HOROVOD_HEARTBEAT_INTERVAL`` and
+``HOROVOD_HEARTBEAT_TIMEOUT`` (5 s and 30 s, on by default), and
+``HOROVOD_COMPRESSION`` sets this rank's wire-dtype proposal.
 
 ``init`` also creates the ``torch.distributed`` process group that the
 in-step path (``horovod_tpu_torch.spmd``) runs on: NCCL on CUDA, gloo on
@@ -32,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import logging as hlog
+from horovod_tpu_torch.common import wire_dtype as _wd
 from horovod_tpu_torch.common.config import Config, env_int
 from horovod_tpu_torch.common.controller import (
     Controller, LocalController, TcpCoordinator, TcpWorker,
@@ -71,14 +75,18 @@ def _build_runtime(cfg: Config, device: Optional[torch.device]) -> Runtime:
         raise ValueError("a world of size > 1 needs HOROVOD_CONTROLLER_ADDR "
                          "and HOROVOD_CONTROLLER_PORT")
     elif rank == 0:
-        controller = TcpCoordinator(size, port=cfg.controller_port,
-                                    secret=secret,
-                                    start_timeout=cfg.start_timeout)
+        controller = TcpCoordinator(
+            size, port=cfg.controller_port, secret=secret,
+            start_timeout=cfg.start_timeout,
+            heartbeat_interval=cfg.heartbeat_interval_s,
+            heartbeat_timeout=cfg.heartbeat_timeout_s)
         controller.accept_workers()
     else:
-        controller = TcpWorker(rank, size, cfg.controller_addr,
-                               cfg.controller_port, secret=secret,
-                               start_timeout=cfg.start_timeout)
+        controller = TcpWorker(
+            rank, size, cfg.controller_addr, cfg.controller_port,
+            secret=secret, start_timeout=cfg.start_timeout,
+            heartbeat_interval=cfg.heartbeat_interval_s,
+            heartbeat_timeout=cfg.heartbeat_timeout_s)
     backends = [SocketBackend(controller),
                 LocalBackend(lambda: controller.size)]
     if device is not None:
@@ -124,6 +132,9 @@ def init(device=None) -> None:
         dev = resolve_device(device)
         cfg = Config.from_env()
         hlog.set_level(cfg.log_level)
+        # The wire-compression latch the framework-level Compression
+        # helpers read (common/wire_dtype.py).
+        _wd.set_active(_wd.wire_code_of(cfg.compression))
         if dev.type == "cuda":
             local_rank = env_int("HOROVOD_LOCAL_RANK", max(cfg.rank, 0))
             dev = torch.device("cuda",
@@ -154,6 +165,7 @@ def _stop_runtime() -> None:
     theirs is in flight once the loop has ended."""
     global _runtime
     rt, _runtime = _runtime, None
+    _wd.set_active(_wd.WIRE_NONE)
     if rt is not None:
         rt.request_shutdown()
         rt.join(timeout=30.0)

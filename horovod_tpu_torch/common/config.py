@@ -5,7 +5,10 @@ runs: the same ``HOROVOD_*`` names with the same defaults (fusion
 threshold 64 MiB, cycle time 5 ms, stall check at 60 s, timeline off,
 the response cache on at 1024 slots with speculative cycles, :77-96,
 :409-414; capacity 0 or ``HOROVOD_CACHE_ENABLED=0`` turns the cache
-off). The planes of the reference that are not ported yet are off here.
+off; the heartbeat on, a PING every 5 s and a peer dead after 30 s of
+silence, :302-311, a timeout of 0 or less turning it off; wire
+compression off, ``HOROVOD_COMPRESSION`` none, bf16, fp16 or int8,
+:145-155). The planes of the reference that are not ported yet are off here.
 A variable that would switch one of them on raises
 ``NotImplementedError`` naming its item in ``ROADMAP.md``, so that
 nothing quietly runs another configuration than the one asked for. The
@@ -65,17 +68,12 @@ def _positive(name: str) -> bool:
 # its item in ROADMAP.md). The debug sanitizers (HOROVOD_TPU_LOCKCHECK,
 # HOROVOD_TPU_THREADCHECK, A6.9) change no result and are not listed.
 _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
-    "HOROVOD_HEARTBEAT_TIMEOUT": (
-        _positive, "the heartbeat and world abort (A6.2)"),
     "HOROVOD_TPU_HIER_CONTROLLER": (
         _on, "the hierarchical control plane (A6.3)"),
     "HOROVOD_TPU_RING_THRESHOLD": (
         lambda n: env_int(n, -1) >= 0, "the ring data plane (A6.4)"),
     "HOROVOD_TPU_SHM": (_on, "the shm data plane (A6.4)"),
     "HOROVOD_TWO_LEVEL": (_on, "two-level allreduce (A6.4)"),
-    "HOROVOD_COMPRESSION": (
-        lambda n: env_str(n, "none").lower() != "none",
-        "wire dtypes and compression negotiation (A6.5)"),
     "HOROVOD_TPU_ZERO_COPY": (_on, "the arena zero-copy path (A6.6)"),
     "HOROVOD_TPU_METRICS": (_on, "the metrics plane (A6.7)"),
     "HOROVOD_TPU_TRACE": (lambda n: bool(env_str(n)),
@@ -85,8 +83,9 @@ _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "HOROVOD_OVERLAP_BUCKETS": (_positive, "the overlap tier (A9)"),
     "HOROVOD_OVERLAP_BYTES": (_positive, "the overlap tier (A9)"),
     "HOROVOD_TPU_ICI": (
-        _on, "the fused steady-cycle plane, IciPlane, which packs in the "
-             "negotiated wire dtypes and comes after them (A6.5)"),
+        _on, "the fused steady-cycle plane, IciPlane, which packs and "
+             "casts to the negotiated wire dtype in one collective over "
+             "the local cards (A6.5)"),
     "HOROVOD_ELASTIC": (_on, "elastic worlds (A9)"),
 }
 
@@ -143,6 +142,16 @@ class Config:
     # The reference's two renderings of a broadcast on its mesh; both
     # are one torch.distributed broadcast here.
     xla_broadcast: str = "psum"
+    # Fail-fast liveness: PINGs ride idle waits every interval; a channel
+    # silent for the timeout is declared dead and the world aborts with
+    # WorldAbortedError. A timeout <= 0 turns detection off.
+    heartbeat_interval_s: float = 5.0
+    heartbeat_timeout_s: float = 30.0
+    # Wire-dtype compression (common/wire_dtype.py): this rank's proposal
+    # for its float32/float64 allreduces, allgathers and reducescatters;
+    # the coordinator resolves the world's least aggressive one per
+    # tensor. none | bf16 | fp16 | int8 (with error feedback).
+    compression: str = "none"
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -181,6 +190,16 @@ class Config:
             "HOROVOD_HIERARCHICAL_ALLGATHER", c.hierarchical_allgather)
         c.xla_broadcast = env_str("HOROVOD_XLA_BCAST",
                                   c.xla_broadcast).lower()
+        c.heartbeat_interval_s = env_float(
+            "HOROVOD_HEARTBEAT_INTERVAL", c.heartbeat_interval_s)
+        c.heartbeat_timeout_s = env_float(
+            "HOROVOD_HEARTBEAT_TIMEOUT", c.heartbeat_timeout_s)
+        c.compression = os.environ.get("HOROVOD_COMPRESSION",
+                                       c.compression).lower()
+        # A typo must not run uncompressed: wire_code_of raises naming
+        # the variable.
+        from horovod_tpu_torch.common import wire_dtype as _wd
+        _wd.wire_code_of(c.compression)
         if c.xla_broadcast not in ("psum", "tree"):
             # A typo must not pick a rendering silently.
             raise ValueError(f"HOROVOD_XLA_BCAST={c.xla_broadcast!r}: "

@@ -8,11 +8,20 @@ workers send their serialized RequestList to rank 0 and receive the
 fused ResponseList from it, over persistent HMAC'd TCP connections
 opened by a handshake that also shares every rank's hostname, from which
 each rank derives the same local/cross topology. Frames carry the
-reference's tags. The hierarchical control plane, the native fan-out
-and the heartbeat and abort fan-out wait for their slices
-(``ROADMAP.md`` A6.2, A6.3, A6.10). Without them a peer whose socket
-closes is still seen at once: the recv on its channel fails, which the
-runtime turns into a ``WorldAbortedError`` on every pending handle.
+reference's tags.
+
+The fail-fast liveness layer (:78-79, :123-227): every channel is armed
+with the heartbeat deadline (``Channel.arm``), so a recv gives up after
+``HOROVOD_HEARTBEAT_TIMEOUT`` seconds of silence from its peer. Any frame
+proves that its sender is alive. While the coordinator waits on a
+straggler it PINGs the other workers, and a PING is absorbed wherever a
+frame is received, data receives included. A rank that sees a failure
+fans an ABORT naming the origin rank to every peer it can reach; a rank
+that receives one raises ``WorldAbortedError`` naming that origin. A
+worker also PINGs its coordinator while its loop waits on the card
+(``keepalive``), which the reference's coordinator absorbs alike. The
+hierarchical control plane, the native fan-out and the metrics and trace
+frames wait for their slices (``ROADMAP.md`` A6.3, A6.10, A6.7).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import time
 from typing import Dict, List, Optional
 
 from horovod_tpu_torch.common import config as hconfig
+from horovod_tpu_torch.common import heartbeat
 from horovod_tpu_torch.common import logging as hlog
 from horovod_tpu_torch.common import network
 from horovod_tpu_torch.common.status import (
@@ -35,6 +45,8 @@ TAG_HANDSHAKE = 1
 TAG_REQUESTS = 2    # worker -> coordinator: a cycle-request frame
 TAG_RESPONSES = 3   # coordinator -> worker: a cycle-response frame
 TAG_DATA = 4        # data-plane payload of the socket backend
+TAG_PING = 5        # liveness beacon (heartbeat.encode_ping)
+TAG_ABORT = 6       # world abort notice (heartbeat.encode_abort)
 
 
 def _my_hostname() -> str:
@@ -86,20 +98,23 @@ def compute_topology(rank: int, hostnames: List[str]) -> Topology:
                     is_homogeneous=all(s == sizes[0] for s in sizes))
 
 
-def _abort_error(origin: int, cause: str) -> WorldAbortedError:
-    return WorldAbortedError(world_abort_message(origin, cause),
-                             origin_rank=origin, cause=cause)
-
-
 def _dead_peers(channels: Dict[int, network.Channel]) -> List[int]:
-    """Ranks whose socket has hung up, probed without blocking (failure
-    paths only: it names the peer behind an anonymous transport
-    error)."""
+    """Ranks whose socket has hung up, errored or was closed here,
+    probed without blocking (failure paths only: it names the peer
+    behind an anonymous transport error)."""
     dead: List[int] = []
     for r, ch in channels.items():
         try:
+            fd = ch.sock.fileno()
+        except OSError:
+            fd = -1
+        if fd < 0:
+            # Closed here (an injected sever): dead by definition.
+            dead.append(r)
+            continue
+        try:
             p = select.poll()
-            p.register(ch.sock.fileno(), select.POLLIN)
+            p.register(fd, select.POLLIN)
             events = p.poll(0)
             if not events:
                 continue
@@ -110,6 +125,94 @@ def _dead_peers(channels: Dict[int, network.Channel]) -> List[int]:
         except (OSError, ValueError):
             dead.append(r)
     return dead
+
+
+def _abort_error(origin: int, cause: str,
+                 resolved: bool = False) -> WorldAbortedError:
+    """``resolved`` marks a notice decoded off the wire: the runtime then
+    takes its origin as it is instead of sweeping the channels for a
+    better one."""
+    err = WorldAbortedError(world_abort_message(origin, cause),
+                            origin_rank=origin, cause=cause)
+    err.resolved = resolved
+    return err
+
+
+def _raise_if_abort(tag: int, data) -> None:
+    """An ABORT frame raises its notice as the resolved origin."""
+    if tag == TAG_ABORT:
+        origin, cause = heartbeat.decode_abort(data)
+        raise _abort_error(origin, cause, resolved=True)
+
+
+def _drain_abort(channels: Dict[int, network.Channel],
+                 grace_s: float) -> Optional[tuple]:
+    """Sweep the channels for an ABORT notice that is queued or arrives
+    within ``grace_s``: (origin, cause), else None. A blame inferred
+    from a transport error can race the notice of the rank that found
+    the failure, whose teardown closes channels that peers then see as
+    a second failure; deferring to the notice makes the world agree on
+    one origin. Failure paths only; other frames found are dropped (the
+    world is already dead)."""
+    deadline = time.monotonic() + grace_s
+    while True:
+        for ch in channels.values():
+            # Past the channel's liveness slicing: 50 ms per read keeps
+            # the sweep prompt over a frame a dying peer left partial.
+            prev_hb, ch._hb = ch._hb, None
+            try:
+                prev_to = ch.sock.gettimeout()
+                ch.sock.settimeout(0.05)
+                try:
+                    p = select.poll()
+                    p.register(ch.sock.fileno(), select.POLLIN)
+                    while p.poll(0):
+                        tag, data = ch.recv()
+                        if tag == TAG_ABORT:
+                            return heartbeat.decode_abort(data)
+                finally:
+                    ch.sock.settimeout(prev_to)
+            except (OSError, ValueError):
+                pass  # a dead or garbled channel: nothing to learn
+            finally:
+                ch._hb = prev_hb
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(0.02)
+
+
+def _maybe_ping(ctl, channels: Dict[int, network.Channel],
+                sender_rank: int) -> None:
+    """PING ``channels``, at most once per ping interval; send failures
+    are left to the recv and abort paths, which report them."""
+    now = time.monotonic()
+    if now - ctl._last_ping < _ping_interval(ctl._hb_timeout,
+                                            ctl._hb_interval):
+        return
+    ctl._last_ping = now
+    ctl._ping_seq += 1
+    payload = heartbeat.encode_ping(sender_rank, ctl._ping_seq)
+    for ch in channels.values():
+        try:
+            ch.send(payload, TAG_PING)
+        except OSError:
+            pass
+
+
+def _hb_normalized(timeout_s: float, interval_s: float) -> tuple:
+    """(timeout_s, interval_s) with the interval clamped into (0,
+    timeout/2], the normalization ``Channel.arm`` applies."""
+    half = timeout_s / 2.0
+    interval_s = min(interval_s, half) if interval_s > 0 else half
+    return timeout_s, interval_s
+
+
+def _ping_interval(timeout_s: float, interval_s: float) -> float:
+    """The PING gate beacons at least twice per deadline window whatever
+    the configured interval: gating on an interval at or past the
+    timeout would starve the waiting receivers and abort a healthy
+    world."""
+    return _hb_normalized(timeout_s, interval_s)[1]
 
 
 def _accept_handshakes(server, secret: bytes, deadline: float,
@@ -213,6 +316,25 @@ class Controller:
                 b"\x01" if ok else b"\x00") == b"\x01"
         return self.broadcast_data(None) == b"\x01"
 
+    # -- liveness and the world abort (no-ops without peers) -------------
+    def keepalive(self) -> None:
+        """Beacon to the peers that wait on this rank while its loop is
+        busy elsewhere (a wait on the card): rate-limited PINGs."""
+
+    def abort(self, origin_rank: int, cause: str) -> None:
+        """Fan an ABORT naming ``origin_rank`` to every reachable peer."""
+
+    def sever_connection(self, target_rank: Optional[int] = None) -> None:
+        """Close this rank's channel(s) (fault injection's ``sever``)."""
+
+    def drain_abort_notice(self, grace_s: float = 0.0) -> Optional[tuple]:
+        """An ABORT notice queued on the channels: (origin, cause)."""
+        return None
+
+    def peer_heartbeat_ages(self) -> Dict[int, float]:
+        """Seconds since the last frame from each peer."""
+        return {}
+
     def close(self) -> None:
         pass
 
@@ -248,17 +370,26 @@ class TcpCoordinator(Controller):
     """Rank 0: one persistent connection per worker (flat star)."""
 
     def __init__(self, size: int, port: int = 0, secret: bytes = b"",
-                 start_timeout: float = 30.0):
+                 start_timeout: float = 30.0,
+                 heartbeat_interval: float = 5.0,
+                 heartbeat_timeout: float = 30.0):
         self._secret = secret
         self._server = network.listen(port)
         self.port = self._server.getsockname()[1]
         self._channels: Dict[int, network.Channel] = {}
         self._size = size
         self._start_timeout = start_timeout
+        self._hb_interval = heartbeat_interval
+        self._hb_timeout = heartbeat_timeout
+        self._ping_seq = 0
+        self._last_ping = 0.0
+        # rank -> monotonic time of its last frame (peer_heartbeat_ages)
+        self._last_seen: Dict[int, float] = {}
         self.topology = None  # set by accept_workers
 
     def accept_workers(self) -> None:
-        """Accept every worker, then send each the hostname list."""
+        """Accept every worker, send each the hostname list, and arm the
+        channels with the heartbeat deadline."""
         deadline = time.monotonic() + self._start_timeout
         hostnames = [None] * self._size
         hostnames[0] = _my_hostname()
@@ -284,35 +415,79 @@ class TcpCoordinator(Controller):
         self._server.close()
         self.topology = compute_topology(0, hostnames)
         blob = json.dumps({"hostnames": hostnames, "hier": False}).encode()
-        for ch in self._channels.values():
+        now = time.monotonic()
+        for r, ch in self._channels.items():
             ch.send(blob, TAG_HANDSHAKE)
+            self._last_seen[r] = now
+        if self._hb_timeout and self._hb_timeout > 0:
+            for ch in self._channels.values():
+                ch.arm(self._hb_timeout, self._hb_interval,
+                       on_idle=self._ping_peers)
 
-    def _recv(self, r: int, expect_tag: int) -> bytes:
-        ch = self._channels[r]
-        try:
-            tag, data = ch.recv()
-        except (ConnectionError, OSError) as e:
-            raise _abort_error(
-                r, f"control channel to {ch.peer} failed: {e}") from e
-        if tag != expect_tag:
-            raise ConnectionError(f"expected tag {expect_tag} from rank "
-                                  f"{r}, got {tag}")
-        return data
+    def _ping_peers(self) -> None:
+        """Run at each idle slice of a recv: tell every worker the world
+        is alive (the straggler this rank waits on is silent to them too,
+        and their deadlines would fire on a merely slow peer)."""
+        _maybe_ping(self, self._channels, 0)
 
-    def _recv_into(self, r: int, out) -> int:
+    keepalive = _ping_peers
+
+    def peer_heartbeat_ages(self) -> Dict[int, float]:
+        now = time.monotonic()
+        return {r: now - t for r, t in list(self._last_seen.items())}
+
+    def _recv_ctrl(self, r: int, expect_tag: int) -> bytes:
+        """One frame from rank ``r``: PINGs are skipped, an ABORT raises
+        the structured error, transport failures name the peer."""
         ch = self._channels[r]
-        try:
-            tag, n, spill = ch.recv_into_spill(out)
-        except (ConnectionError, OSError) as e:
+        while True:
+            try:
+                tag, data = ch.recv()
+            except (ConnectionError, OSError) as e:
+                raise _abort_error(
+                    r, f"control channel to {ch.peer} failed: {e}") from e
+            self._last_seen[r] = time.monotonic()
+            if tag in (TAG_PING, TAG_ABORT):
+                _raise_if_abort(tag, data)  # a PING: proof of life only
+                continue
+            if tag != expect_tag:
+                raise ConnectionError(f"expected tag {expect_tag} from rank "
+                                      f"{r}, got {tag}")
+            return data
+
+    def _recv_data_into(self, r: int, out) -> int:
+        """One data frame from rank ``r`` straight into ``out``; an
+        out-of-band frame lands in ``out`` too (or spills when larger)
+        and is absorbed."""
+        ch = self._channels[r]
+        view = memoryview(network.as_byte_view(out))
+        while True:
+            try:
+                tag, n, spill = ch.recv_into_spill(view)
+            except (ConnectionError, OSError) as e:
+                raise _abort_error(
+                    r, f"control channel to {ch.peer} failed: {e}") from e
+            self._last_seen[r] = time.monotonic()
+            if tag in (TAG_PING, TAG_ABORT):
+                _raise_if_abort(tag, spill if spill is not None
+                                else bytes(view[:n]))
+                continue
+            if tag != TAG_DATA:
+                raise ConnectionError(f"expected tag {TAG_DATA} from rank "
+                                      f"{r}, got {tag}")
+            if spill is not None:
+                raise ConnectionError(f"data frame of {n} bytes from rank "
+                                      f"{r} overflows its buffer")
+            return n
+
+    def _raise_transport(self, e: Exception) -> None:
+        """An anonymous transport error as a WorldAbortedError naming the
+        dead peer when one can be found."""
+        dead = _dead_peers(self._channels)
+        if dead:
             raise _abort_error(
-                r, f"control channel to {ch.peer} failed: {e}") from e
-        if tag != TAG_DATA:
-            raise ConnectionError(f"expected tag {TAG_DATA} from rank {r}, "
-                                  f"got {tag}")
-        if spill is not None:
-            raise ConnectionError(f"data frame of {n} bytes from rank {r} "
-                                  f"overflows its buffer")
-        return n
+                dead[0], f"connection to rank {dead[0]} lost: {e}") from e
+        raise _abort_error(0, f"coordinator transport failure: {e}") from e
 
     def _send_all(self, payload, tag: int, exclude: int = -1) -> None:
         try:
@@ -320,30 +495,28 @@ class TcpCoordinator(Controller):
                 if r != exclude:
                     ch.send(payload, tag)
         except (ConnectionError, OSError) as e:
-            dead = _dead_peers(self._channels)
-            origin = dead[0] if dead else 0
-            raise _abort_error(origin, f"send from the coordinator "
-                                       f"failed: {e}") from e
+            self._raise_transport(e)
+
+    def _gather_frames(self, payload, expect_tag: int) -> List[bytes]:
+        """One frame per worker, rank-indexed, this rank's own at 0."""
+        out = [payload] + [b""] * (self._size - 1)
+        for r in self._channels:
+            out[r] = self._recv_ctrl(r, expect_tag)
+        return out
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
-        out = [_frame(payload)] + [b""] * (self._size - 1)
-        for r in self._channels:
-            out[r] = self._recv(r, TAG_REQUESTS)
-        return out
+        return self._gather_frames(_frame(payload), TAG_REQUESTS)
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
         self._send_all(payload, TAG_RESPONSES)
         return payload
 
     def gather_data(self, payload) -> Optional[List[bytes]]:
-        out = [payload] + [b""] * (self._size - 1)
-        for r in self._channels:
-            out[r] = self._recv(r, TAG_DATA)
-        return out
+        return self._gather_frames(payload, TAG_DATA)
 
     def broadcast_data(self, payload, root_rank: int = 0) -> bytes:
         if root_rank != 0:
-            payload = self._recv(root_rank, TAG_DATA)
+            payload = self._recv_ctrl(root_rank, TAG_DATA)
         self._send_all(payload, TAG_DATA, exclude=root_rank)
         return payload
 
@@ -352,21 +525,20 @@ class TcpCoordinator(Controller):
             for r, ch in self._channels.items():
                 ch.send(payloads[r], TAG_DATA)
         except (ConnectionError, OSError) as e:
-            raise _abort_error(0, f"scatter from the coordinator "
-                                  f"failed: {e}") from e
+            self._raise_transport(e)
         return payloads[0]
 
     def gather_data_into(self, payload, outs) -> Optional[List[int]]:
         lens = [len(network.as_byte_view(payload))] + [0] * (self._size - 1)
         for r in self._channels:
-            lens[r] = self._recv_into(r, outs[r])
+            lens[r] = self._recv_data_into(r, outs[r])
         return lens
 
     def broadcast_data_into(self, payload, out, root_rank: int = 0) -> int:
         if root_rank == 0:
             self._send_all(payload, TAG_DATA)
             return len(network.as_byte_view(payload))
-        n = self._recv_into(root_rank, out)
+        n = self._recv_data_into(root_rank, out)
         self._send_all(network.as_byte_view(out)[:n], TAG_DATA,
                        exclude=root_rank)
         return n
@@ -375,16 +547,45 @@ class TcpCoordinator(Controller):
         self.scatter_data(payloads)
         return len(network.as_byte_view(payloads[0]))
 
-    def close(self) -> None:
+    def abort(self, origin_rank: int, cause: str) -> None:
+        payload = heartbeat.encode_abort(origin_rank, cause)
+        for ch in self._channels.values():
+            try:
+                ch.send(payload, TAG_ABORT)
+            except Exception:
+                pass  # that peer is already gone
+
+    def sever_connection(self, target_rank: Optional[int] = None) -> None:
+        if target_rank is not None:
+            ch = self._channels.get(target_rank)
+            if ch is not None:
+                ch.close()
+            return
         for ch in self._channels.values():
             ch.close()
+
+    def drain_abort_notice(self, grace_s: float = 0.0) -> Optional[tuple]:
+        return _drain_abort(self._channels, grace_s)
+
+    def close(self) -> None:
+        for ch in self._channels.values():
+            try:
+                ch.close()
+            except OSError:
+                pass  # the others must still close
 
 
 class TcpWorker(Controller):
     """Ranks 1..size-1: one persistent connection to the coordinator."""
 
     def __init__(self, rank: int, size: int, addr: str, port: int,
-                 secret: bytes = b"", start_timeout: float = 30.0):
+                 secret: bytes = b"", start_timeout: float = 30.0,
+                 heartbeat_interval: float = 5.0,
+                 heartbeat_timeout: float = 30.0):
+        self._hb_interval = heartbeat_interval
+        self._hb_timeout = heartbeat_timeout
+        self._ping_seq = 0
+        self._last_ping = 0.0
         self._ch = network.connect(addr, port, secret,
                                    timeout=start_timeout,
                                    retry_deadline=start_timeout)
@@ -396,10 +597,30 @@ class TcpWorker(Controller):
             raise ConnectionError("handshake failed")
         info = json.loads(payload.decode())
         self.topology = compute_topology(rank, info["hostnames"])
+        self._up_seen = time.monotonic()
+        # (sender, sequence) of the last PING from the coordinator
+        self.last_ping: Optional[tuple] = None
+        if self._hb_timeout and self._hb_timeout > 0:
+            self._ch.arm(self._hb_timeout, self._hb_interval)
 
     def _fail(self, e: Exception) -> WorldAbortedError:
         return _abort_error(
             0, f"control channel to {self._ch.peer} failed: {e}")
+
+    def keepalive(self) -> None:
+        if self._hb_timeout and self._hb_timeout > 0:
+            _maybe_ping(self, {0: self._ch}, self.rank)
+
+    def peer_heartbeat_ages(self) -> Dict[int, float]:
+        return {0: time.monotonic() - self._up_seen}
+
+    def _note_ping(self, data) -> None:
+        """A coordinator PING: liveness whatever its bytes say; a well
+        formed one is kept as ``last_ping``."""
+        try:
+            self.last_ping = heartbeat.decode_ping(bytes(data))
+        except ValueError:
+            pass
 
     def _send(self, payload, tag: int) -> None:
         try:
@@ -407,33 +628,53 @@ class TcpWorker(Controller):
         except (ConnectionError, OSError) as e:
             raise self._fail(e) from e
 
-    def _recv(self, expect_tag: int) -> bytes:
-        try:
-            tag, data = self._ch.recv()
-        except (ConnectionError, OSError) as e:
-            raise self._fail(e) from e
-        if tag != expect_tag:
-            raise ConnectionError(f"expected tag {expect_tag} from "
-                                  f"{self._ch.peer}, got {tag}")
-        return data
+    def _recv_up(self, expect_tag: int) -> bytes:
+        """One frame from the coordinator. PINGs prove the world alive,
+        an ABORT raises its notice, and silence past the deadline or a
+        dead socket names the coordinator as the origin."""
+        while True:
+            try:
+                tag, data = self._ch.recv()
+            except (ConnectionError, OSError) as e:
+                raise self._fail(e) from e
+            self._up_seen = time.monotonic()
+            if tag == TAG_PING:
+                self._note_ping(data)
+                continue
+            _raise_if_abort(tag, data)
+            if tag != expect_tag:
+                raise ConnectionError(f"expected tag {expect_tag} from "
+                                      f"{self._ch.peer}, got {tag}")
+            return data
 
-    def _recv_into(self, out) -> int:
-        try:
-            tag, n, spill = self._ch.recv_into_spill(out)
-        except (ConnectionError, OSError) as e:
-            raise self._fail(e) from e
-        if tag != TAG_DATA or spill is not None:
-            raise ConnectionError(f"expected a data frame that fits its "
-                                  f"buffer from {self._ch.peer}, got tag "
-                                  f"{tag} of {n} bytes")
-        return n
+    def _recv_up_into(self, out) -> int:
+        """The recv-into mirror of :meth:`_recv_up`: the payload lands in
+        ``out``; an out-of-band frame larger than ``out`` spills."""
+        view = memoryview(network.as_byte_view(out))
+        while True:
+            try:
+                tag, n, spill = self._ch.recv_into_spill(view)
+            except (ConnectionError, OSError) as e:
+                raise self._fail(e) from e
+            self._up_seen = time.monotonic()
+            if tag in (TAG_PING, TAG_ABORT):
+                data = spill if spill is not None else bytes(view[:n])
+                if tag == TAG_PING:
+                    self._note_ping(data)
+                    continue
+                _raise_if_abort(tag, data)
+            if tag != TAG_DATA or spill is not None:
+                raise ConnectionError(f"expected a data frame that fits its "
+                                      f"buffer from {self._ch.peer}, got tag "
+                                      f"{tag} of {n} bytes")
+            return n
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
         self._send(payload, TAG_REQUESTS)
         return None
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
-        return self._recv(TAG_RESPONSES)
+        return self._recv_up(TAG_RESPONSES)
 
     def gather_data(self, payload) -> Optional[List[bytes]]:
         self._send(payload, TAG_DATA)
@@ -443,10 +684,10 @@ class TcpWorker(Controller):
         if self.rank == root_rank:
             self._send(payload, TAG_DATA)
             return payload
-        return self._recv(TAG_DATA)
+        return self._recv_up(TAG_DATA)
 
     def scatter_data(self, payloads) -> bytes:
-        return self._recv(TAG_DATA)
+        return self._recv_up(TAG_DATA)
 
     def gather_data_into(self, payload, outs) -> Optional[List[int]]:
         self._send(payload, TAG_DATA)
@@ -456,10 +697,23 @@ class TcpWorker(Controller):
         if self.rank == root_rank:
             self._send(payload, TAG_DATA)
             return len(network.as_byte_view(payload))
-        return self._recv_into(out)
+        return self._recv_up_into(out)
 
     def scatter_data_into(self, payloads, out) -> int:
-        return self._recv_into(out)
+        return self._recv_up_into(out)
+
+    def abort(self, origin_rank: int, cause: str) -> None:
+        try:
+            self._ch.send(heartbeat.encode_abort(origin_rank, cause),
+                          TAG_ABORT)  # up to the coordinator
+        except Exception:
+            pass
+
+    def sever_connection(self, target_rank: Optional[int] = None) -> None:
+        self._ch.close()
+
+    def drain_abort_notice(self, grace_s: float = 0.0) -> Optional[tuple]:
+        return _drain_abort({0: self._ch}, grace_s)
 
     def close(self) -> None:
         self._ch.close()

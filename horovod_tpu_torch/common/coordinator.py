@@ -2,7 +2,8 @@
 and stall detection.
 
 Counterpart of ``horovod_tpu/common/coordinator.py``: ``MessageTable``
-(:42), ``construct_response`` (:99) with all of its cross-rank checks,
+(:42), ``construct_response`` (:99) with all of its cross-rank checks
+and the wire-dtype verdict (:222-271),
 ``_response_bytes`` and ``fuse_responses`` (:282-390), and
 ``StallInspector`` (:613), and the response cache: ``CACHEABLE_*``
 (:383), ``iter_set_bits``, ``_CacheEntry`` and ``ResponseCache``
@@ -27,6 +28,7 @@ from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
 from horovod_tpu_torch.common import logging as hlog
+from horovod_tpu_torch.common import wire_dtype as _wd
 from horovod_tpu_torch.common.message import (
     DataType, Request, RequestType, Response, ResponseType, datatype_name,
     datatype_size,
@@ -214,6 +216,11 @@ def construct_response(table: MessageTable, name: str,
         return Response(response_type=ResponseType.ERROR,
                         tensor_names=[name], error_message=error)
 
+    # The wire-dtype verdict (common/wire_dtype.py): the least aggressive
+    # proposal across the ranks, so that one rank started without
+    # compression keeps the tensor uncompressed everywhere; only
+    # float32/float64 tensors ever carry one.
+    compressible = first.tensor_type in _wd.COMPRESSIBLE
     if op == RequestType.ALLREDUCE:
         numel = 1
         for d in first.tensor_shape:
@@ -222,11 +229,18 @@ def construct_response(table: MessageTable, name: str,
                         tensor_names=[name], devices=devices,
                         tensor_sizes=[numel],
                         prescale_factor=first.prescale_factor,
-                        postscale_factor=first.postscale_factor)
+                        postscale_factor=first.postscale_factor,
+                        wire_dtype=_wd.resolve(r.wire_dtype for r in requests)
+                        if compressible else _wd.WIRE_NONE)
     if op == RequestType.ALLGATHER:
+        # int8 degrades to bf16: the gathered blocks join into one
+        # payload, which cannot carry per-rank scales.
         return Response(response_type=ResponseType.ALLGATHER,
                         tensor_names=[name], devices=devices,
-                        tensor_sizes=tensor_sizes)
+                        tensor_sizes=tensor_sizes,
+                        wire_dtype=_wd.allgather_wire(
+                            _wd.resolve(r.wire_dtype for r in requests))
+                        if compressible else _wd.WIRE_NONE)
     if op == RequestType.BROADCAST:
         return Response(response_type=ResponseType.BROADCAST,
                         tensor_names=[name], devices=devices)
@@ -237,11 +251,15 @@ def construct_response(table: MessageTable, name: str,
         numel = 1
         for d in first.tensor_shape:
             numel *= d
+        # int8 in full: the star's coordinator dequantizes each rank's
+        # payload with its own scale and quantizes each output slice.
         return Response(response_type=ResponseType.REDUCESCATTER,
                         tensor_names=[name], devices=devices,
                         tensor_sizes=[numel],
                         prescale_factor=first.prescale_factor,
-                        postscale_factor=first.postscale_factor)
+                        postscale_factor=first.postscale_factor,
+                        wire_dtype=_wd.resolve(r.wire_dtype for r in requests)
+                        if compressible else _wd.WIRE_NONE)
     if op == RequestType.BARRIER:
         return Response(response_type=ResponseType.BARRIER,
                         tensor_names=[name])
@@ -440,7 +458,9 @@ class ResponseCache:
     @staticmethod
     def signature(req: Request) -> tuple:
         """Everything that determines a Request's negotiated verdict
-        (rank-local: shape and device may differ per rank)."""
+        (rank-local: shape and device may differ per rank). The proposed
+        wire dtype is part of it: a changed knob renegotiates the
+        compression verdict instead of replaying a stale one."""
         return (int(req.request_type), int(req.tensor_type),
                 req.tensor_shape, req.root_rank, req.device,
                 req.prescale_factor, req.postscale_factor,

@@ -5,9 +5,9 @@ Counterpart of ``horovod_tpu/common/message.py`` (:1-367): the same
 enums with the same codes and the same fields, so that ``wire.py``
 writes frames byte for byte as the reference does, the response
 cache's cycle messages (``CacheCycleRequest``/``CacheCycleResponse``,
-:243-330) included. ``Request.wire_dtype`` and ``Response.wire_dtype`` /
-``algorithm`` stay on the wire but are always 0 here: wire compression
-and the algorithm stamp are not ported yet (``ROADMAP.md`` A6.5).
+:243-330) included. ``Request.wire_dtype`` carries this rank's wire-dtype
+proposal; ``Response.wire_dtype`` and ``algorithm`` carry the
+coordinator's verdict (``common/wire_dtype.py``).
 
 Tensors are torch tensors: ``torch_dtype_to_datatype`` maps their dtypes
 (bfloat16 included) beside the reference's numpy mapping.

@@ -5,14 +5,17 @@ Counterpart of ``horovod_tpu/common/network.py``: ``Channel`` (:181),
 ``backoff_delays``, with the same frame layout, so that the bytes on the
 wire are the reference's: ``u32 payload_len | u8 tag | payload``, and
 with a secret key a 32-byte HMAC-SHA256 of (tag | payload) before the
-payload. Payloads are sent from and received into the memory of
+payload. ``Channel.arm`` (:216-265) gives every later recv on a channel
+a liveness deadline: silence from the peer for the heartbeat timeout
+fails the recv instead of blocking for ever, and the wait is cut into
+slices at whose ends the caller may beacon (the coordinator PINGs its
+workers there). Payloads are sent from and received into the memory of
 contiguous host buffers (bytes, numpy arrays, CPU torch tensors,
 pinned ones included) without a copy; a frame may be sent from a list
 of such buffers (the response cache's speculative frames: a header per
 segment between the fused payloads), and a received frame is a fresh
 ``bytearray`` the receiver owns. The native core's vectored and
-zero-copy sends and the heartbeat deadlines wait for their slices
-(``ROADMAP.md`` A6.2, A6.6, A6.10).
+zero-copy sends wait for their slices (``ROADMAP.md`` A6.6, A6.10).
 """
 
 from __future__ import annotations
@@ -55,29 +58,63 @@ def as_byte_view(payload):
 
 
 def _recv_exact_into(sock: socket.socket, view: memoryview,
-                     who: str = "peer") -> None:
-    """Fill ``view`` from ``sock``; ``who`` names the peer in errors."""
+                     who: str = "peer", hb=None) -> None:
+    """Fill ``view`` from ``sock``; ``who`` names the peer in errors.
+    ``hb`` is an optional ``(timeout_s, interval_s, on_idle)`` liveness
+    deadline: the wait is cut into ``interval_s`` slices (``on_idle``
+    runs at the end of each idle one), and silence for ``timeout_s``
+    raises. Any byte received restarts the clock, so a large frame that
+    trickles in never counts as silence."""
     got = 0
     n = len(view)
-    while got < n:
-        r = sock.recv_into(view[got:])
-        if r == 0:
-            raise ConnectionError(f"connection to {who} closed while "
-                                  f"reading")
-        got += r
+    if hb is None:
+        while got < n:
+            r = sock.recv_into(view[got:])
+            if r == 0:
+                raise ConnectionError(f"connection to {who} closed while "
+                                      f"reading")
+            got += r
+        return
+    timeout_s, interval_s, on_idle = hb
+    idle = 0.0
+    prev = sock.gettimeout()
+    sock.settimeout(interval_s)
+    try:
+        while got < n:
+            try:
+                r = sock.recv_into(view[got:])
+            except socket.timeout:
+                idle += interval_s
+                if on_idle is not None:
+                    on_idle()
+                if idle >= timeout_s:
+                    raise ConnectionError(
+                        f"no data from {who} for {idle:.0f}s: peer "
+                        f"presumed dead (heartbeat timeout "
+                        f"{timeout_s:g}s; raise HOROVOD_HEARTBEAT_TIMEOUT "
+                        f"if peers legitimately stall longer)")
+                continue
+            if r == 0:
+                raise ConnectionError(f"connection to {who} closed while "
+                                      f"reading")
+            got += r
+            idle = 0.0
+    finally:
+        sock.settimeout(prev)
 
 
-def _recv_exact(sock: socket.socket, n: int,
-                who: str = "peer") -> bytearray:
+def _recv_exact(sock: socket.socket, n: int, who: str = "peer",
+                hb=None) -> bytearray:
     buf = bytearray(n)
-    _recv_exact_into(sock, memoryview(buf), who)
+    _recv_exact_into(sock, memoryview(buf), who, hb)
     return buf
 
 
 class Channel:
     """One framed duplex connection, HMAC-authenticated when a secret is
     set. ``peer`` labels the other end in every transport error; the
-    controllers set it to the peer's rank after the handshake."""
+    controllers set it to the peer's rank after the handshake.
+    :meth:`arm` puts a liveness deadline on every later recv."""
 
     def __init__(self, sock: socket.socket, secret: bytes = b"",
                  peer: Optional[str] = None):
@@ -93,11 +130,47 @@ class Channel:
             except OSError:
                 peer = "peer"
         self.peer = peer
+        self._hb = None
         # Collectives are latency-bound: do not batch small frames.
         try:
             self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError:
             pass  # not a TCP socket (a socketpair in a test)
+
+    def arm(self, timeout_s: float, interval_s: float,
+            on_idle: Optional[Callable[[], None]] = None) -> None:
+        """Give every later recv a liveness deadline: silence from the
+        peer for ``timeout_s`` fails it instead of blocking for ever.
+        ``on_idle`` runs at the end of each idle slice of ``interval_s``;
+        ``timeout_s <= 0`` disarms. The slice is at most half the
+        deadline: ``on_idle`` is how a waiting sender beacons to the
+        ranks that wait on it, and it must fire at least twice in their
+        deadline window.
+
+        Also sets SO_RCVTIMEO and SO_SNDTIMEO on the socket: a peer that
+        is alive but stops draining fills the TCP buffers and would
+        block a send for ever, during which this rank could neither run
+        its own deadline nor fan an ABORT. The kernel's timeout fires
+        only after ``timeout_s`` without progress, so a slow reader
+        keeps every send moving."""
+        if timeout_s and timeout_s > 0:
+            half = timeout_s / 2.0
+            interval_s = min(interval_s, half) if interval_s > 0 else half
+            self._hb = (timeout_s, interval_s, on_idle)
+            self._set_kernel_timeouts(timeout_s)
+        else:
+            self._hb = None
+            self._set_kernel_timeouts(0.0)
+
+    def _set_kernel_timeouts(self, timeout_s: float) -> None:
+        sec = int(timeout_s)
+        usec = int((timeout_s - sec) * 1e6)
+        tv = struct.pack("ll", sec, usec)
+        for opt in (socket.SO_RCVTIMEO, socket.SO_SNDTIMEO):
+            try:
+                self.sock.setsockopt(socket.SOL_SOCKET, opt, tv)
+            except (OSError, struct.error):
+                pass  # the sliced recv deadline still holds
 
     def send(self, payload, tag: int = 0) -> None:
         """Send one frame from any contiguous host buffer, or from a list
@@ -125,11 +198,11 @@ class Channel:
             self.sock.sendall(b"".join(small))
 
     def recv(self) -> Tuple[int, bytearray]:
-        who = self.peer
-        n, tag = _HDR.unpack(_recv_exact(self.sock, _HDR.size, who))
-        digest = (_recv_exact(self.sock, _DIGEST_LEN, who) if self.secret
-                  else None)
-        payload = _recv_exact(self.sock, n, who)
+        who, hb = self.peer, self._hb
+        n, tag = _HDR.unpack(_recv_exact(self.sock, _HDR.size, who, hb))
+        digest = (_recv_exact(self.sock, _DIGEST_LEN, who, hb)
+                  if self.secret else None)
+        payload = _recv_exact(self.sock, n, who, hb)
         self._verify(tag, payload, digest)
         return tag, payload
 
@@ -137,17 +210,18 @@ class Channel:
         """Receive one frame into the writable buffer ``buf``. A frame
         larger than ``buf`` comes back whole as bytes instead. Returns
         (tag, payload_nbytes, spill), ``spill`` None when the payload
-        landed in ``buf``."""
-        who = self.peer
-        n, tag = _HDR.unpack(_recv_exact(self.sock, _HDR.size, who))
-        digest = (_recv_exact(self.sock, _DIGEST_LEN, who) if self.secret
-                  else None)
+        landed in ``buf``. Out-of-band frames (PING, ABORT) share the
+        channel with data and may be larger than ``buf``: they spill."""
+        who, hb = self.peer, self._hb
+        n, tag = _HDR.unpack(_recv_exact(self.sock, _HDR.size, who, hb))
+        digest = (_recv_exact(self.sock, _DIGEST_LEN, who, hb)
+                  if self.secret else None)
         view = memoryview(as_byte_view(buf)) if n else memoryview(b"")
         if n > len(view):
-            payload = _recv_exact(self.sock, n, who)
+            payload = _recv_exact(self.sock, n, who, hb)
             self._verify(tag, payload, digest)
             return tag, n, payload
-        _recv_exact_into(self.sock, view[:n], who)
+        _recv_exact_into(self.sock, view[:n], who, hb)
         self._verify(tag, view[:n], digest)
         return tag, n, None
 

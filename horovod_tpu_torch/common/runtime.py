@@ -3,13 +3,14 @@
 Counterpart of ``horovod_tpu/common/runtime.py``: ``enqueue`` (:698),
 ``enqueue_group`` (:735), the background loop (:863, :1767),
 ``_coordinate`` (:2808), ``_check_stall`` (:2736),
-``_perform_operations`` (:2909-3034), and the response cache's share of
-the loop (:1035-1360, :1758, :2095-2530, :2700). One daemon thread per
-process runs a negotiation cycle every ``HOROVOD_CYCLE_TIME`` ms: it
-drains this rank's request queue, gathers every rank's requests at the
-coordinator, which fuses the ready tensors under the fusion threshold
-and broadcasts the agreed ResponseList, and runs that list through the
-backends. Enqueues return at once; completion comes back through each
+``_perform_operations`` (:2909-3034), the response cache's share of
+the loop (:1035-1360, :1758, :2095-2530, :2700), the world abort
+(:801-880) and the fault-injection ticks (:155, :1780, :2412, :2914).
+One daemon thread per process runs a negotiation cycle every
+``HOROVOD_CYCLE_TIME`` ms: it drains this rank's request queue, gathers
+every rank's requests at the coordinator, which fuses the ready tensors
+under the fusion threshold and broadcasts the agreed ResponseList, and
+runs that list through the backends. Enqueues return at once; completion comes back through each
 entry's callback.
 
 The response cache (on by default, ``HOROVOD_CACHE_*``). Negotiated
@@ -34,11 +35,30 @@ Ranks whose caches disagree fail with ``ConnectionError`` on every rank.
 A backend may complete a batch on a finalizer thread
 (``common/finalizer.py``) and return ``Status.InProgress()``; the loop
 then fires no callbacks for it and goes on cycling, and its shutdown
-drains the finalizer before it fails what is left. Left out until their
-slices (``ROADMAP.md`` A6 and A9): the ICI plane and the native steady
-plan (which ride the cache), overlapped cycles, elastic worlds,
-self-operation, fault injection, tenancy, the trace and metrics planes,
-the heartbeat and autotune.
+drains the finalizer before it fails what is left.
+
+The world abort. A rank that sees a peer fail (a closed socket, silence
+past the heartbeat deadline, an ABORT notice, a data-plane error or the
+stall-shutdown threshold) first sweeps its channels briefly for an ABORT
+that names another origin (a blame inferred from a transport error can
+race the notice of the rank that found the failure), records the abort,
+fans it to every peer it can still reach, and completes every pending
+handle, CUDA tensors' included, with ``Status.WorldAborted(origin,
+cause)``. Every hold of the loop stays under a quarter of the heartbeat
+timeout, and its idle backoff under a half: a rank that holds sends
+nothing, and its next frame is its only proof of life.
+
+Wire compression: every request carries this rank's wire-dtype proposal
+(``HOROVOD_COMPRESSION`` for float32/float64 allreduces, allgathers and
+reducescatters), the coordinator stamps the verdict and the algorithm on
+each fused response, and the speculative cycle carries a cast wire's
+payload in the wire dtype (an int8 batch takes the classic path, whose
+coordinator dequantizes the ranks' payloads).
+
+Left out until their slices (``ROADMAP.md`` A6 and A9): the ICI plane
+and the native steady plan (which ride the cache), overlapped cycles,
+elastic worlds, self-operation, tenancy, the trace and metrics planes
+and autotune.
 
 The loop keeps counts that say what it costs (``stats``): cycles,
 responses and the tensors in them, the responses each backend ran
@@ -47,8 +67,10 @@ metrics plane until ``ROADMAP.md`` A6.7), the seconds of negotiation
 (building, gathering, coordinating and broadcasting the lists), of
 execution (replaying and running the responses) and of burst holds, and
 the cache's: cached cycles (negotiated through the bitmask alone), spec
-cycles (completed by the fused round), spec bids and denials, and the
-cache's hits, misses and evictions.
+cycles (completed by the fused round), spec bids and denials, the bytes
+of bids left unused (``spec_unused_bytes``: a bid the world answered the
+classic way, which packs its batch again), and the cache's hits, misses
+and evictions.
 """
 
 from __future__ import annotations
@@ -61,8 +83,10 @@ from typing import Dict, List, Optional
 
 import torch
 
+from horovod_tpu_torch.common import faults
 from horovod_tpu_torch.common import logging as hlog
 from horovod_tpu_torch.common import wire
+from horovod_tpu_torch.common import wire_dtype as _wd
 from horovod_tpu_torch.common.config import Config
 from horovod_tpu_torch.common.controller import Controller
 from horovod_tpu_torch.common.coordinator import (
@@ -73,7 +97,7 @@ from horovod_tpu_torch.common.finalizer import Finalizer
 from horovod_tpu_torch.common.invariants import world_coherent
 from horovod_tpu_torch.common.message import (
     CacheCycleRequest, CacheCycleResponse, DataType, Request, RequestList,
-    RequestType, Response, ResponseList, ResponseType,
+    RequestType, Response, ResponseList, ResponseType, datatype_size,
     datatype_to_torch_dtype, torch_dtype_to_datatype,
 )
 from horovod_tpu_torch.common.status import (
@@ -174,13 +198,22 @@ class Runtime:
         self._thread: Optional[threading.Thread] = None
         # (origin_rank, cause) once the world has aborted.
         self._abort_info: Optional[tuple] = None
+        # Lifetime count of executed responses: fault injection's op
+        # triggers key off it, to land a failure squarely mid-collective.
+        self._op_count = 0
+        faults.load_env()
+        # This rank's wire-dtype proposal; the coordinator's verdict
+        # rides each Response (and the cache with it).
+        self._wire_propose = _wd.wire_code_of(config.compression)
+        self._wire_policy = _wd.StaticWirePolicy()
         self._idle_cycles = 0
         # Set by enqueue and request_shutdown: wakes a sleeping loop.
         self._wake = threading.Event()
         self.stats = {"cycles": 0, "responses": 0, "tensors": 0,
                       "negotiate_s": 0.0, "execute_s": 0.0, "hold_s": 0.0,
                       "cached_cycles": 0, "spec_cycles": 0, "spec_bids": 0,
-                      "spec_denials": 0, "cache_hits": 0,
+                      "spec_denials": 0, "spec_unused_bytes": 0,
+                      "cache_hits": 0,
                       "cache_misses": 0, "cache_evictions": 0}
         # -- the response cache --------------------------------------
         self._cache: Optional[ResponseCache] = None
@@ -211,8 +244,10 @@ class Runtime:
         # full grant.
         self._spec_denied: Dict[int, int] = {}
         # [(fused Response, entries, backend)] of the speculative frame
-        # in flight this cycle, None when the cycle is not speculative.
+        # in flight this cycle, None when the cycle is not speculative,
+        # and the bytes of its packed payloads.
         self._spec_inflight = None
+        self._spec_bytes = 0
         # Hits the last cycle bid but the world did not grant, requeued:
         # their peers were granted and will not come again, so they
         # never start a burst hold.
@@ -253,7 +288,20 @@ class Runtime:
                        tensor_name=entry.tensor_name,
                        root_rank=entry.root_rank, device=entry.device,
                        tensor_shape=shape, prescale_factor=prescale,
-                       postscale_factor=postscale)
+                       postscale_factor=postscale,
+                       wire_dtype=self._propose_wire(request_type, dtype))
+
+    def _propose_wire(self, request_type: RequestType,
+                      dtype: DataType) -> int:
+        """This rank's wire-dtype bid for one request: the configured
+        compression for float32/float64 allreduces, allgathers and
+        reducescatters, none for everything else."""
+        if self._wire_propose and dtype in _wd.COMPRESSIBLE \
+                and request_type in (RequestType.ALLREDUCE,
+                                     RequestType.ALLGATHER,
+                                     RequestType.REDUCESCATTER):
+            return self._wire_propose
+        return _wd.WIRE_NONE
 
     def enqueue(self, request_type: RequestType, entry: TensorTableEntry,
                 dtype: DataType, shape, prescale: float = 1.0,
@@ -306,7 +354,12 @@ class Runtime:
             while self._run_loop_once():
                 pass
         except WorldAbortedError as e:
-            self._fail_world(e.origin_rank, e.cause)
+            # Received over the wire or found here: fan the notice to
+            # every peer still reachable (relays are idempotent), then
+            # fail everything in flight. The bare cause travels, so that
+            # each hop wraps the origin banner once.
+            self._fail_world(e.origin_rank, e.cause,
+                             resolved=getattr(e, "resolved", False))
         except (ConnectionError, OSError, TimeoutError) as e:
             rank = self.controller.rank
             self._fail_world(rank, f"transport failure on rank {rank}: {e}")
@@ -316,11 +369,49 @@ class Runtime:
         finally:
             self._teardown()
 
-    def _fail_world(self, origin: int, cause: str) -> None:
+    def _resolve_abort(self, origin: int, cause: str) -> tuple:
+        """Defer a blame inferred from a transport error to an ABORT
+        notice queued on (or arriving within 0.25 s at) the channels: the
+        teardown of the rank that found the failure closes its channels,
+        which its peers see as a second failure, and the notice makes the
+        world agree on one origin. Failure paths only."""
+        try:
+            notice = self.controller.drain_abort_notice(0.25)
+        except Exception:
+            notice = None
+        return notice if notice is not None else (origin, cause)
+
+    def _data_plane_abort(self, entries, origin: int, cause: str,
+                          resolved: bool = False) -> WorldAbortedError:
+        """Fail a batch that was mid-collective as a world abort: resolve
+        the origin first (the callbacks complete user-visible handles,
+        which must carry the world's origin), fire the callbacks, and
+        return the error for the loop to raise."""
+        if not resolved:
+            origin, cause = self._resolve_abort(origin, cause)
+        status = Status.WorldAborted(origin, cause)
+        for en in entries:
+            if en.callback:
+                en.callback(status)
+        err = WorldAbortedError(world_abort_message(origin, cause),
+                                origin_rank=origin, cause=cause)
+        err.resolved = True
+        return err
+
+    def _fail_world(self, origin: int, cause: str,
+                    resolved: bool = False) -> None:
+        """Record the world abort and fan the notice to every reachable
+        peer."""
+        if not resolved:
+            origin, cause = self._resolve_abort(origin, cause)
         self._abort_info = (origin, cause)
         hlog.error(f"horovod_tpu_torch world aborted: "
                    f"{world_abort_message(origin, cause)}",
                    rank=self.controller.rank)
+        try:
+            self.controller.abort(origin, cause)
+        except Exception:
+            pass
 
     def _teardown(self) -> None:
         """Fail everything in flight, then close the timeline and the
@@ -359,6 +450,7 @@ class Runtime:
         signature, eviction or uncacheable op rides the full path in the
         same frame and repopulates the cache alike everywhere."""
         self.stats["cycles"] += 1
+        faults.tick_cycle(self, self.stats["cycles"])
         self.timeline.mark_cycle_start()
         requests = self.tensor_table.pop_messages()
         if requests and self._cache is not None:
@@ -418,6 +510,10 @@ class Runtime:
                 sleep_s = max(sleep_s, self._bounded_hold_s(
                     8, self._STEADY_IDLE_S))
         backoff_s = self.config.idle_backoff_ms / 1000.0
+        if self.config.heartbeat_timeout_s > 0:
+            # A sleeping rank sends nothing: its next frame is its only
+            # proof of life, so its backoff stays under the deadline.
+            backoff_s = min(backoff_s, self.config.heartbeat_timeout_s / 2.0)
         if backoff_s > 0 and self._idle_cycles > self._IDLE_GRACE:
             ramp = cycle_s * (self._idle_cycles - self._IDLE_GRACE)
             sleep_s = max(sleep_s, min(backoff_s, ramp))
@@ -428,10 +524,15 @@ class Runtime:
 
     def _bounded_hold_s(self, multiple: float, floor_s: float) -> float:
         """A hold budget from the cycle time: ``multiple`` cycles, at
-        least ``floor_s``. (The reference caps it under a quarter of the
-        heartbeat timeout; the heartbeat is not ported, ROADMAP.md
-        A6.2.)"""
-        return max(multiple * self.config.cycle_time_ms / 1000.0, floor_s)
+        least ``floor_s``, and under a quarter of the heartbeat timeout
+        as a whole: a holding rank sends no frames, and must never look
+        dead to its peers, whatever HOROVOD_CYCLE_TIME says. The one
+        budget rule of the burst hold and the steady idle hold."""
+        hold = max(multiple * self.config.cycle_time_ms / 1000.0, floor_s)
+        hb = self.config.heartbeat_timeout_s
+        if hb > 0:
+            hold = min(hold, hb / 4.0)
+        return hold
 
     # -- the response cache's cycle ----------------------------------------
     def _record_signature(self, req: Request) -> None:
@@ -448,6 +549,8 @@ class Runtime:
         """This cycle's frame: (payload, bit_requests), ``bit_requests``
         being [(slot, request)] for the hits the grant mask decides."""
         cache = self._cache
+        if self._spec_inflight is not None:
+            self.stats["spec_unused_bytes"] += self._spec_bytes
         self._spec_inflight = None
         if cache is None:
             return wire.serialize_cycle_request(
@@ -559,6 +662,10 @@ class Runtime:
         for resp in plan:
             if resp.response_type != ResponseType.ALLREDUCE:
                 return None
+            if resp.wire_dtype == _wd.WIRE_INT8:
+                # Per-rank int8 scales cannot be summed inline: the
+                # classic star, which dequantizes, carries them.
+                return None
             entries = self.tensor_table.peek_entries(resp.tensor_names)
             if entries is None:
                 return None
@@ -573,9 +680,14 @@ class Runtime:
             inflight.append((resp, entries, backend))
         segments = []
         for resp, entries, backend in inflight:
-            host = backend.pack_to_host(entries, resp.prescale_factor)
+            # A cast wire's segment travels, and is summed, in the wire
+            # dtype, as the classic star's payload is.
+            host = backend.pack_to_host(entries, resp.prescale_factor,
+                                        resp.wire_dtype)
             segments.append((torch_dtype_to_datatype(host.dtype), host))
         self._spec_inflight = inflight
+        self._spec_bytes = sum(h.numel() * h.element_size()
+                               for _, h in segments)
         self.stats["spec_bids"] += 1
         return wire.spec_frame_chunks(cache.epoch, cache.nslots, hit_mask,
                                       segments)
@@ -706,6 +818,7 @@ class Runtime:
                 # answered classically: some peer will not speculate.
                 self._spec_denied[bid] = self._spec_denied.get(bid, 0) + 1
                 self.stats["spec_denials"] += 1
+                self.stats["spec_unused_bytes"] += self._spec_bytes
                 self._spec_inflight = None
             if not missed and not inner.responses \
                     and not meta.invalid_mask:
@@ -811,6 +924,8 @@ class Runtime:
         timeline = self.timeline
         for (resp, entries, backend), (dt, buf) in zip(inflight,
                                                        meta.spec_payload):
+            self._op_count += 1
+            faults.tick_op(self, self._op_count)
             popped = self.tensor_table.pop_entries(resp.tensor_names)
             # The coordinator's own sum is fresh, and so is a received
             # frame (the channel's own buffer): the outputs may alias
@@ -823,7 +938,8 @@ class Runtime:
                 timeline.start(name, op_name)
             try:
                 backend.unpack_from_host(entries, result,
-                                         resp.postscale_factor)
+                                         resp.postscale_factor,
+                                         resp.wire_dtype)
                 status = Status.OK()
             except Exception as e:
                 status = Status.UnknownError(
@@ -977,6 +1093,7 @@ class Runtime:
         fused = fuse_responses(responses, self._dtypes,
                                self.config.fusion_threshold_bytes,
                                self._slice_numels)
+        self._stamp_wire_plan(fused)
         for resp in fused:
             for n in resp.tensor_names:
                 self._dtypes.pop(n, None)
@@ -992,10 +1109,29 @@ class Runtime:
                 self.config.fusion_threshold_bytes
         return resp_list
 
+    def _stamp_wire_plan(self, fused: List[Response]) -> None:
+        """Stamp each fused allreduce with the policy's algorithm for its
+        uncompressed size, and cap its wire verdict where the policy
+        says, before the broadcast."""
+        for resp in fused:
+            if resp.response_type != ResponseType.ALLREDUCE \
+                    or not resp.tensor_names:
+                continue
+            dtype = self._dtypes.get(resp.tensor_names[0])
+            if dtype is None:
+                continue
+            alg, cap = self._wire_policy.plan(
+                sum(resp.tensor_sizes) * datatype_size(dtype))
+            resp.algorithm = alg
+            if cap is not None and resp.wire_dtype > cap:
+                resp.wire_dtype = cap
+
     def _perform_operations(self, resp_list: ResponseList) -> None:
         """Run each agreed response and fire the callbacks."""
         timeline = self.timeline
         for response in resp_list.responses:
+            self._op_count += 1
+            faults.tick_op(self, self._op_count)
             entries = self.tensor_table.pop_entries(response.tensor_names)
             if response.response_type == ResponseType.ERROR:
                 for e in entries:
@@ -1025,20 +1161,14 @@ class Runtime:
             except WorldAbortedError as e:
                 # The channel died mid-collective: fail this batch with
                 # the structured status, then let the loop abort.
-                for en in entries:
-                    if en.callback:
-                        en.callback(Status.WorldAborted(e.origin_rank,
-                                                        e.cause))
-                raise
+                raise self._data_plane_abort(
+                    entries, e.origin_rank, e.cause,
+                    getattr(e, "resolved", False)) from e
             except (ConnectionError, OSError, TimeoutError) as e:
                 rank = self.controller.rank
-                cause = (f"data-plane failure during {op_name} on rank "
-                         f"{rank}: {e}")
-                for en in entries:
-                    if en.callback:
-                        en.callback(Status.WorldAborted(rank, cause))
-                raise WorldAbortedError(world_abort_message(rank, cause),
-                                        origin_rank=rank, cause=cause) from e
+                raise self._data_plane_abort(
+                    entries, rank, f"data-plane failure during {op_name} "
+                                   f"on rank {rank}: {e}") from e
             except Exception as e:
                 status = Status.UnknownError(
                     f"collective execution failed: {e!r}")

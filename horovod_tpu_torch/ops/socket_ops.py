@@ -21,18 +21,40 @@ The coordinator accumulates in the tensor's dtype, in rank order
 (``acc += peer`` for ranks 1..N-1), as the reference does at :396-418,
 so that the result equals the reference's bit for bit, bfloat16
 included (torch's CPU add and ml_dtypes' both round each sum to
-nearest-even). The ring (``ops/ring.py``), shm, wire compression and the
-fusion arena are not ported yet (``ROADMAP.md`` A6.4-A6.6).
+nearest-even).
+
+Wire compression (the compressed legs of :75-94, :375-610, :790-864).
+When a response carries a wire-dtype verdict, the cast (or the int8
+quantization, with this rank's error-feedback residuals on the tensors'
+device) is the last step of the pack: on the card it runs on the data
+plane's stream after the ready events, after the prescale, so that only
+wire bytes cross PCIe and the socket. The coordinator reduces in the
+wire dtype on the host (``wire_dtype.reduce_wire``: a cast wire sums in
+its own dtype in rank order; int8 payloads are dequantized with each
+rank's scale, summed and quantized again), and every rank decompresses
+the result on the card before the postscale. Allreduce, allgather (never
+int8: one joined payload cannot carry per-rank scales) and
+reducescatter (int8 without error feedback: its output is a reduced
+slice, not this rank's next gradient) compress; broadcast and alltoall
+carry no verdict, as in the reference.
+
+A wait on the card for the pack's copy is cut into slices, at whose
+ends the controller beacons to the peers waiting on this rank
+(``Controller.keepalive``), so that a long wait never reads as a dead
+rank. The ring (``ops/ring.py``), shm and the fusion arena are not
+ported yet (``ROADMAP.md`` A6.4, A6.6).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import List
 
 import torch
 
+from horovod_tpu_torch.common import wire_dtype as _wd
 from horovod_tpu_torch.common.controller import Controller
 from horovod_tpu_torch.common.message import Response
 from horovod_tpu_torch.common.status import Status
@@ -78,6 +100,8 @@ class SocketBackend(CollectiveBackend):
         # Bytes copied between the card and the host (CUDA tensors).
         self.bytes_to_host = 0
         self.bytes_from_host = 0
+        # This rank's int8 residuals, keyed by the fused batch's names.
+        self._ef = _wd.ErrorFeedback()
 
     def enabled(self, entries, response) -> bool:
         return self._ctl.size > 1
@@ -89,28 +113,40 @@ class SocketBackend(CollectiveBackend):
         carry any of them."""
         return self._ctl.size > 1
 
-    def pack_to_host(self, entries, prescale: float) -> torch.Tensor:
+    def pack_to_host(self, entries, prescale: float,
+                     wire: int = _wd.WIRE_NONE) -> torch.Tensor:
         """The fused allreduce buffer of ``entries`` in host memory
-        (pinned for CUDA tensors), the prescale applied: what
+        (pinned for CUDA tensors), the prescale applied and then the
+        ``wire`` verdict (int8 with this rank's error feedback): what
         ``execute_allreduce`` sends, and a speculative cycle frame's
-        segment. On CUDA the pack waits for every entry's ready event.
-        The entries' outputs and done events are left alone: the world
-        may deny a speculative bid."""
+        segment. On CUDA the pack and the cast wait for every entry's
+        ready event. The entries' outputs and done events are left
+        alone: the world may deny a speculative bid."""
         stream = self.ready_stream(entries)
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
-            return self._to_host(pack([e.tensor for e in entries],
-                                      prescale), stream)
+            flat = pack([e.tensor for e in entries], prescale)
+            if wire == _wd.WIRE_INT8:
+                flat = _wd.quantize_ef(
+                    flat, self._ef, tuple(e.tensor_name for e in entries))
+            else:
+                flat = _wd.compress(flat, wire)
+            return self._to_host(flat, stream)
 
     def unpack_from_host(self, entries, result: torch.Tensor,
-                         postscale: float) -> None:
-        """The world's fused result (a fresh host buffer, postscaled in
-        place on the CPU) into the entries' outputs: to the device,
-        postscaled, unpacked, and on CUDA the done event recorded after
-        all of it."""
+                         postscale: float,
+                         wire: int = _wd.WIRE_NONE) -> None:
+        """The world's fused result (a fresh host buffer, at wire width
+        under a verdict) into the entries' outputs: to the device,
+        decompressed, postscaled, unpacked, and on CUDA the done event
+        recorded after all of it."""
         with self.plane_stream(entries) as stream:
             result = self._to_device(result, entries[0].tensor.device,
                                      stream)
+            if wire != _wd.WIRE_NONE:
+                result = _wd.decompress(
+                    result, wire, entries[0].tensor.dtype,
+                    sum(e.tensor.numel() for e in entries))
             scale_(result, postscale)
             unpack(entries, result)
 
@@ -123,9 +159,22 @@ class SocketBackend(CollectiveBackend):
             return flat.contiguous()
         host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
         host.copy_(flat, non_blocking=True)
-        stream.synchronize()
+        self._wait(stream)
         self.bytes_to_host += host.numel() * host.element_size()
         return host
+
+    def _wait(self, stream) -> None:
+        """Wait for ``stream``'s work so far in slices of at most 1 ms,
+        beaconing to the waiting peers between them (rate-limited by
+        the controller): the loop sends no frame while it waits on the
+        card."""
+        done = torch.cuda.Event()
+        done.record(stream)
+        delay = 5e-5
+        while not done.query():
+            self._ctl.keepalive()
+            time.sleep(delay)
+            delay = min(2 * delay, 1e-3)
 
     @staticmethod
     def _host_empty(n: int, dtype, stream) -> torch.Tensor:
@@ -137,13 +186,19 @@ class SocketBackend(CollectiveBackend):
         self.bytes_from_host += host.numel() * host.element_size()
         return host.to(device, non_blocking=True)
 
-    def _star_reduce(self, host: torch.Tensor, fresh: bool) -> torch.Tensor:
-        """Coordinator: the sum over ranks of ``host``, in rank order.
-        ``fresh`` says ``host`` may be accumulated into."""
+    def _star_reduce(self, host: torch.Tensor, fresh: bool,
+                     wire: int = _wd.WIRE_NONE, dtype=None,
+                     count: int = 0) -> torch.Tensor:
+        """Coordinator: the sum over ranks of ``host``, in rank order, at
+        ``wire`` (``dtype`` and ``count`` the uncompressed payload's).
+        ``fresh`` says ``host`` may be accumulated into (a compressed
+        payload always may)."""
         ctl = self._ctl
         outs = [None] + [torch.empty_like(host)
                          for _ in range(1, ctl.size)]
         ctl.gather_data_into(host, outs)
+        if wire != _wd.WIRE_NONE:
+            return _wd.reduce_wire(host, outs[1:], wire, dtype, count)
         acc = host if fresh else host.clone()
         for peer in outs[1:]:
             _accumulate(acc, peer)
@@ -154,13 +209,16 @@ class SocketBackend(CollectiveBackend):
         ctl = self._ctl
         names = [e.tensor_name for e in entries]
         multi = len(entries) > 1
+        wire = response.wire_dtype
         with self.activity(names, ACT_MEMCPY_IN_FUSION_BUFFER, multi):
-            host = self.pack_to_host(entries, response.prescale_factor)
+            host = self.pack_to_host(entries, response.prescale_factor, wire)
         # A pinned ``host`` is a copy of CUDA tensors.
         pinned = host.is_pinned()
         if ctl.is_coordinator:
             fresh = pinned or multi or response.prescale_factor != 1.0
-            result = self._star_reduce(host, fresh)
+            result = self._star_reduce(
+                host, fresh, wire, entries[0].tensor.dtype,
+                sum(e.tensor.numel() for e in entries))
             ctl.broadcast_data(result)
         else:
             ctl.gather_data_into(host, None)
@@ -168,7 +226,8 @@ class SocketBackend(CollectiveBackend):
                                  pin_memory=pinned)
             ctl.broadcast_data_into(None, result)
         with self.activity(names, ACT_MEMCPY_OUT_FUSION_BUFFER, multi):
-            self.unpack_from_host(entries, result, response.postscale_factor)
+            self.unpack_from_host(entries, result, response.postscale_factor,
+                                  wire)
         return Status.OK()
 
     # -- allgather (fused responses; dim 0 may differ per rank) ----------
@@ -179,13 +238,15 @@ class SocketBackend(CollectiveBackend):
         multi = len(entries) > 1
         tensors = [e.tensor for e in entries]
         device = tensors[0].device
+        wire = response.wire_dtype  # a cast wire, never int8
         comp, rank_counts = _allgather_layout(tensors, response, size)
         offs = [0] * size
         for r in range(1, size):
             offs[r] = offs[r - 1] + rank_counts[r - 1]
         with self.plane_stream(entries) as stream:
             with self.activity(names, ACT_MEMCPY_IN_FUSION_BUFFER, multi):
-                host = self._to_host(pack(tensors, 1.0), stream)
+                host = self._to_host(
+                    _wd.compress(pack(tensors, 1.0), wire), stream)
             result = self._host_empty(sum(rank_counts), host.dtype, stream)
             if ctl.is_coordinator:
                 # Peer r's block lands straight in its window of the
@@ -200,6 +261,9 @@ class SocketBackend(CollectiveBackend):
                 ctl.broadcast_data_into(None, result)
             with self.activity(names, ACT_MEMCPY_OUT_FUSION_BUFFER, multi):
                 result = self._to_device(result, device, stream)
+                if wire != _wd.WIRE_NONE:
+                    result = _wd.decompress(result, wire, tensors[0].dtype,
+                                            result.numel())
                 at = list(offs)  # where each rank's next component starts
                 for ec, (e, t) in enumerate(zip(entries, tensors)):
                     parts = []
@@ -266,9 +330,20 @@ class SocketBackend(CollectiveBackend):
         t = entry.tensor
         per_rank = t.shape[0] // size
         per_elems = t.numel() // size
+        wire = response.wire_dtype
         with self.plane_stream(entries) as stream:
-            host = self._to_host(
-                scale(t.reshape(-1), response.prescale_factor), stream)
+            flat = scale(t.reshape(-1), response.prescale_factor)
+            if wire != _wd.WIRE_NONE:
+                result = self._compressed_reducescatter(
+                    self._to_host(_wd.compress(flat, wire), stream), wire,
+                    t.dtype, t.numel(), per_elems, stream)
+                result = _wd.decompress(self._to_device(result, t.device,
+                                                        stream),
+                                        wire, t.dtype, per_elems)
+                scale_(result, response.postscale_factor)
+                entry.output = result.view((per_rank,) + t.shape[1:])
+                return Status.OK()
+            host = self._to_host(flat, stream)
             if ctl.is_coordinator:
                 fresh = stream is not None or response.prescale_factor != 1.0
                 acc = self._star_reduce(host, fresh)
@@ -284,6 +359,41 @@ class SocketBackend(CollectiveBackend):
             scale_(result, response.postscale_factor)
             entry.output = result.view((per_rank,) + t.shape[1:])
         return Status.OK()
+
+    def _compressed_reducescatter(self, host: torch.Tensor, wire: int,
+                                  dtype, count: int, per_elems: int,
+                                  stream) -> torch.Tensor:
+        """The star's reducescatter at ``wire`` on the host payload
+        ``host``: returns this rank's slice, still at wire width. A cast
+        wire sums in its dtype; int8 sums the ranks' dequantized payloads
+        in ``dtype`` and quantizes each output slice with a fresh scale,
+        the coordinator's own included."""
+        ctl = self._ctl
+        size = ctl.size
+        slice_nbytes = _wd.compressed_nbytes(wire, per_elems, 0)
+        if ctl.is_coordinator:
+            if wire == _wd.WIRE_INT8:
+                outs = [None] + [torch.empty_like(host)
+                                 for _ in range(1, size)]
+                ctl.gather_data_into(host, outs)
+                acc = _wd.dequantize(host, dtype, count)
+                for peer in outs[1:]:
+                    acc += _wd.dequantize(peer, dtype, count)
+                slices = [_wd.quantize(acc[d * per_elems:(d + 1) * per_elems])
+                          for d in range(size)]
+            else:
+                acc = self._star_reduce(host, True, wire, dtype, count)
+                slices = [acc[d * per_elems:(d + 1) * per_elems]
+                          for d in range(size)]
+            ctl.scatter_data_into(slices, None)
+            return slices[0]
+        ctl.gather_data_into(host, None)
+        if wire == _wd.WIRE_INT8:
+            out = self._host_empty(slice_nbytes, torch.uint8, stream)
+        else:
+            out = self._host_empty(per_elems, host.dtype, stream)
+        ctl.scatter_data_into(None, out)
+        return out
 
     def execute_barrier(self, entries, response: Response) -> Status:
         if self._ctl.gather_data(b"") is not None:

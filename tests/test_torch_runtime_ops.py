@@ -536,10 +536,12 @@ def test_autograd_through_the_eager_ops(port_world):
 
 def test_not_ported_planes_raise(monkeypatch):
     import horovod_tpu_torch as hvd
-    for name, value in (("HOROVOD_HEARTBEAT_TIMEOUT", "5"),
+    # The heartbeat (A6.2) and wire compression (A6.5) are ported now;
+    # their knobs are held in tests/test_torch_faults.py.
+    for name, value in (("HOROVOD_TPU_ICI", "1"),
                         ("HOROVOD_TPU_RING_THRESHOLD", "0"),
                         ("HOROVOD_TPU_SHM", "1"),
-                        ("HOROVOD_COMPRESSION", "bf16")):
+                        ("HOROVOD_TWO_LEVEL", "1")):
         monkeypatch.setenv(name, value)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             hvd.init(device="cpu")
@@ -770,6 +772,9 @@ def test_eviction_world_stays_coherent_with_speculation_off_on_one_rank(
     assert results[1]["cache"]["spec_bids"] == 0
     assert 0 < results[0]["cache"]["spec_bids"] <= 8
     assert results[0]["stats"]["spec_denials"] > 0
+    # each denied bid's pack is counted as unused (it is packed again)
+    assert results[0]["stats"]["spec_unused_bytes"] > 0
+    assert results[1]["stats"]["spec_unused_bytes"] == 0
 
 
 @pytest.mark.parametrize("dead", [0, 1])
