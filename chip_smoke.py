@@ -309,7 +309,22 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    WorldAbortedError naming rank 1 within the timeout plus 4 s of the
    time rank 1 stamped at its fault (the hang's not before the
    timeout); rank 2 learns it only from the coordinator's ABORT. Prints
-   the seconds each took.
+   the seconds each took. Every survivor's flight recorder
+   (HOROVOD_TPU_FLIGHT_DIR, a directory of the world's under the work
+   directory) must leave one postmortem whose header and ``abort`` event
+   name rank 1.
+14. The observability planes on the card: phase 10's two-rank world
+   through the star again, its LM's eager steps only, with the metrics
+   plane (HOROVOD_TPU_METRICS=1, an ephemeral HOROVOD_TPU_METRICS_PORT,
+   a JSONL log) and the trace plane (HOROVOD_TPU_TRACE) on, their files
+   under the work directory. The losses and parameters must equal phase
+   10's bit for bit; on rank 0 the world's cached and speculative cycles
+   must equal the sums of the ranks' ``runtime.stats``, its
+   hvd_cycles_total the sum of the snapshots it folded (each a rank's
+   stats["cycles"] when taken), and ``GET /metrics`` the same numbers;
+   the trace must hold one track per rank with the same round numbers on
+   the batches both ranks ran. Prints seconds per step with the planes
+   on against phase 10's, with them off.
 
 The last two lines are the JSON ``kernels`` line (the kernels at their
 main shapes, then the entry's shape, each C4 case and the Gemma-7B
@@ -2578,7 +2593,8 @@ def abort_child(torch, hvd, args, rank, size, port, workdir, mode):
     from horovod_tpu_torch import bench
     from horovod_tpu_torch.common import faults
     from horovod_tpu_torch.models import TransformerConfig
-    child_env(rank, size, port, ABORT_HB)
+    child_env(rank, size, port, dict(
+        ABORT_HB, HOROVOD_TPU_FLIGHT_DIR=flight_dir(workdir, mode)))
     hvd.init()
     rt, _ = star_only(hvd)
     cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16, **LM_FULL)
@@ -2727,6 +2743,24 @@ def wire_phase(torch, args, workdir, star_run):
                              "or the ranks' parameters differ")
 
 
+def flight_dir(workdir, mode):
+    """Where phase 13's ``mode`` world leaves its flight dumps."""
+    return os.path.join(workdir, f"flight-{mode}")
+
+
+def flight_dump(workdir, mode, rank):
+    """The records of rank ``rank``'s one flight dump of phase 13's
+    ``mode`` world: the header, then the ring's events."""
+    d = flight_dir(workdir, mode)
+    files = [f for f in os.listdir(d)
+             if f.startswith(f"hvd-flight-rank{rank}.pid")]
+    if len(files) != 1:
+        raise AssertionError(f"{mode}: rank {rank} left {len(files)} flight "
+                             f"dumps in {sorted(os.listdir(d))}")
+    with open(os.path.join(d, files[0])) as f:
+        return [json.loads(line) for line in f]
+
+
 def abort_phase(torch, args, workdir):
     """Phase 13: the abort on the card. A three-rank world in which rank
     1's loop hangs in the LM's eager steps and one in which rank 1 is
@@ -2737,6 +2771,8 @@ def abort_phase(torch, args, workdir):
     free, total = torch.cuda.mem_get_info()
     print(f"  (the card's free memory before the children start: "
           f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB)")
+    for m in ("hang", "kill"):
+        os.makedirs(flight_dir(workdir, m))
     worlds = {m: start_children(args, f"abort-{m}", 3, free_port(), workdir,
                                 (0, 1, 2)) for m in ("hang", "kill")}
     for m, procs in worlds.items():
@@ -2767,6 +2803,17 @@ def abort_phase(torch, args, workdir):
             if m == "hang" and took < timeout - 0.5:
                 raise AssertionError(f"hang: rank {r} aborted before the "
                                      f"deadline could have seen the hang")
+            head, *events = flight_dump(workdir, m, r)
+            aborts = [e for e in events if e["ev"] == "abort"]
+            print(f"    its flight dump: cause {head['cause'][:60]!r}, "
+                  f"origin {head['origin']}, {head['events']} events, the "
+                  f"last round {max((e['cycle'] for e in events), default=0)}"
+                  f", abort events naming rank "
+                  f"{[e.get('arg') for e in aborts]}")
+            if not (head["origin"] == 1 and aborts
+                    and all(e.get("arg") == 1 for e in aborts)):
+                raise AssertionError(f"{m}: rank {r}'s flight dump: "
+                                     f"{head}, {aborts}")
         if m == "hang":
             with open(os.path.join(workdir, "abort-hang-1.json")) as f:
                 out = json.load(f)
@@ -2775,6 +2822,198 @@ def abort_phase(torch, args, workdir):
             if out["raised"] not in ("WorldAbortedError",
                                      "HorovodInternalError"):
                 raise AssertionError(f"hang: rank 1: {out}")
+
+
+# Phase 14's planes: metrics snapshots and trace batches every 50 ms.
+PLANES_INTERVAL_S = "0.05"
+# The world series that stop with the steps: rank 0 holds them to the
+# sums of the ranks' own counts.
+PLANES_SUMMED = {"hvd_cached_cycles_total": "cached_cycles",
+                 "hvd_fused_spec_cycles_total": "spec_cycles"}
+
+
+def planes_world(torch, hvd, args, rank, port, workdir):
+    """Phase 14, run by both ranks of a world of two on one card: phase
+    10's star world with the metrics and trace planes on, the LM's eager
+    steps only. Rank 0 returns (the ranks' losses, its parameters, the
+    step seconds, what it read of the planes)."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import TransformerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trace = os.path.join(workdir, "trace_size2.json")
+    log = os.path.join(workdir, "metrics_size2.jsonl")
+    knobs = dict(HOROVOD_TPU_METRICS="1", HOROVOD_TPU_METRICS_PORT="0",
+                 HOROVOD_TPU_METRICS_ADDR="127.0.0.1",
+                 HOROVOD_TPU_METRICS_INTERVAL=PLANES_INTERVAL_S,
+                 HOROVOD_TPU_METRICS_LOG=log, HOROVOD_TPU_TRACE=trace,
+                 HOROVOD_TPU_TRACE_INTERVAL=PLANES_INTERVAL_S)
+    child_env(rank, 2, port, knobs)
+    hvd.init()
+    read = {}
+    try:
+        rt, _ = star_only(hvd)
+        cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
+                                **LM_FULL)
+        step, model = bench.transformer_step(cfg, 2, seed=args.seed,
+                                             eager=True)
+        torch.cuda.synchronize()
+        before = runtime_counts()
+        losses, secs = timed_steps(step, WORLD_STEPS)
+        per_step = print_negotiation(before, runtime_counts(), WORLD_STEPS)
+        params = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+        del step, model
+        all_losses = hvd.allgather(torch.tensor([losses]), name="w.losses")
+        st = dict(rt.stats)
+        mine = torch.tensor([[float(st[k]) for k in PLANES_SUMMED.values()]
+                             + [float(st["cycles"])]], dtype=torch.float64)
+        ranks = hvd.allgather(mine, name="p14.counts")
+        if rank == 0:
+            read = read_planes(hvd, rt, ranks)
+        # the worker's shutdown would end the world under rank 0's reads
+        hvd.barrier()
+    finally:
+        hvd.shutdown()
+        for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+                  "HOROVOD_CONTROLLER_ADDR", "HOROVOD_CONTROLLER_PORT",
+                  *knobs):
+            os.environ.pop(k, None)
+    if rank != 0:
+        return None
+    read["trace"] = read_trace(trace, 2)
+    read["busy_ms"] = per_step["busy_ms"]
+    with open(log) as f:
+        lines = f.read().splitlines()
+    read["log_lines"] = len(lines)
+    if not lines or "hvd_cycles_total" not in json.loads(lines[-1])["world"]:
+        raise AssertionError(f"the JSONL log {log} holds no world view")
+    return all_losses, params, secs, read
+
+
+def folded_cycles(agg):
+    """({rank: hvd_cycles_total of the latest snapshot rank 0 holds of
+    it}, the world's hvd_cycles_total), read with no frame folded in
+    between (a rank's count rises with every round, so equal reads
+    before and after the world's fold mean it folded those)."""
+    def latest():
+        with agg._lock:
+            out = {r: snap["hvd_cycles_total"]["v"]
+                   for r, (_, snap, _) in agg._owners.items()}
+            out[0] = agg._local["hvd_cycles_total"]["v"]
+        return out
+    while True:
+        before = latest()
+        world = agg.world()["hvd_cycles_total"]["v"]
+        if latest() == before:
+            return before, world
+
+
+def read_planes(hvd, rt, ranks):
+    """Rank 0's checks of the world view, polled until every rank's
+    latest snapshot is from its last gather or later (a worker's comes
+    with its next interval): the summed series equal to the ranks'
+    counts, hvd_cycles_total equal to the sum of the snapshots folded,
+    and GET /metrics equal to hvd.metrics()."""
+    import urllib.request
+    want = {n: float(ranks[:, i].sum())
+            for i, n in enumerate(PLANES_SUMMED)}
+    at_gather = {r: float(c) for r, c in enumerate(ranks[:, -1].tolist())}
+    agg = rt._aggregator
+    deadline = time.monotonic() + 10.0
+    while True:
+        view = hvd.metrics()
+        world = view["world"]
+        got = {n: world.get(n, {}).get("v") for n in want}
+        folded, cycles = folded_cycles(agg)
+        fresh = folded.keys() == at_gather.keys() and all(
+            folded[r] >= c for r, c in at_gather.items())
+        if (got == want and world["hvd_ranks_reporting"]["v"] == 2
+                and fresh) or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
+    text = urllib.request.urlopen(
+        f"http://127.0.0.1:{view['http_port']}/metrics",
+        timeout=10).read().decode()
+    scraped = {line.split(" ")[0]: float(line.split(" ")[1])
+               for line in text.splitlines()
+               if line.split(" ")[0] in want}
+    print(f"  world view on rank 0: {got} against the ranks' sums {want}; "
+          f"hvd_cycles_total {cycles:g} = the folded snapshots {folded} "
+          f"(stats[\"cycles\"] at the ranks' last gather: {at_gather}); "
+          f"GET /metrics on port {view['http_port']}: {scraped}; "
+          f"straggler: {rt._straggler.report_line()!r}")
+    if not (got == want and scraped == want and fresh
+            and cycles == sum(folded.values())):
+        raise AssertionError("the world view is not the sum of the ranks'")
+    return {"world": got, "cycles": cycles, "folded": folded,
+            "port": view["http_port"], "series": len(world)}
+
+
+def read_trace(path, size):
+    """The merged trace's checks: a track per rank, the round numbers of
+    each rank's ROUND spans rising, and the batches both ranks executed
+    the classic way stamped with the same rounds (a worker's tail may
+    miss the file: the shorter sequence is compared)."""
+    with open(path) as f:
+        events = json.load(f)
+    names = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("name") == "process_name"}
+    spans = [e for e in events if e.get("ph") in ("X", "i")]
+    rounds = {r: [e["args"]["wc"] for e in spans
+                  if e["pid"] == r and e["name"] == "ROUND"]
+              for r in range(size)}
+    execs = {r: [(e["name"], e["args"]["wc"]) for e in spans
+                 if e["pid"] == r and e["name"] != "ROUND"]
+             for r in range(size)}
+    n = min(len(v) for v in execs.values())
+    print(f"  trace {os.path.basename(path)}: tracks {names}, "
+          f"{len(spans)} spans, ROUND spans per rank "
+          f"{[len(v) for v in rounds.values()]}, executed batches per rank "
+          f"{[len(v) for v in execs.values()]}, the first {n} on the same "
+          f"rounds: {all(v[:n] == execs[0][:n] for v in execs.values())}")
+    if not (names == {r: f"rank {r}" for r in range(size)} and n > 0
+            and all(v and v == sorted(set(v)) for v in rounds.values())
+            and all(v[:n] == execs[0][:n] for v in execs.values())):
+        raise AssertionError(f"the merged trace {path} is not one world "
+                             f"trace")
+    return {"spans": len(spans), "same_rounds": n}
+
+
+def planes_phase(torch, hvd, args, workdir, star_run):
+    """Phase 14: rank 0 here, rank 1 in a process of its own; the steps
+    held to phase 10's (``star_run``) bit for bit."""
+    t0 = time.perf_counter()
+    port = free_port()
+    rank1 = start_rank1(args, port, workdir, "planes")
+    try:
+        all_losses, params, secs, read = planes_world(
+            torch, hvd, args, 0, port, workdir)
+        rank1.wait(timeout=300)
+    finally:
+        if rank1.poll() is None:
+            rank1.kill()
+            rank1.wait()
+    if rank1.returncode != 0:
+        with open(os.path.join(workdir, "rank1_planes.log")) as f:
+            print(f.read()[-4000:])
+        raise AssertionError(f"rank 1 exited with {rank1.returncode}")
+    s_losses, s_params, (s_secs, s_per), _ = star_run
+    same = torch.equal(all_losses, s_losses) and all(
+        torch.equal(a, b) for a, b in zip(params, s_params))
+    on, off = statistics.median(secs[2:]), statistics.median(s_secs[2:])
+    print(f"observability planes on the card ({card_line()}): phase 10's "
+          f"two-rank star world, metrics every {PLANES_INTERVAL_S} s and "
+          f"the world trace on ({time.perf_counter() - t0:.1f} s)")
+    print(f"  sec/step with the planes on "
+          f"{' '.join(f'{v:.3f}' for v in secs)} against phase 10's off "
+          f"{' '.join(f'{v:.3f}' for v in s_secs)}; steps 3-{WORLD_STEPS} "
+          f"median {on:.4f} against {off:.4f} s ({on - off:+.4f} s, "
+          f"{(on - off) / off:+.2%} per step); the loop's thread busy "
+          f"{read['busy_ms']:.1f} against {s_per['busy_ms']:.1f} ms per "
+          f"step")
+    print(f"  losses and parameters equal to phase 10's bit for bit: {same}")
+    if not same:
+        raise AssertionError("the planes changed the steps' results")
+    return read
 
 
 def free_port() -> int:
@@ -2789,8 +3028,8 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
-    # Internal: run as rank 1 of phase 10's or 11's world (port, work
-    # directory, "star" or "plane").
+    # Internal: run as rank 1 of phase 10's, 11's or 14's world (port,
+    # work directory, "star", "plane" or "planes").
     ap.add_argument("--world-rank1", nargs=3,
                     metavar=("PORT", "DIR", "MODE"), help=argparse.SUPPRESS)
     # Internal: run as a rank of phase 12's or 13's worlds.
@@ -2810,7 +3049,11 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.parallel import flash_attention as fa
     if args.world_rank1:
         port, workdir, mode = args.world_rank1
-        two_rank_world(torch, hvd, args, 1, int(port), workdir, mode=mode)
+        if mode == "planes":
+            planes_world(torch, hvd, args, 1, int(port), workdir)
+        else:
+            two_rank_world(torch, hvd, args, 1, int(port), workdir,
+                           mode=mode)
         return 0
     if args.child:
         kind, rank, size, port, workdir = args.child
@@ -2883,6 +3126,8 @@ def main(argv=None) -> int:
         wire_phase(torch, args, workdir, star_run)
         # Phase 13: the abort on the card.
         abort_phase(torch, args, workdir)
+        # Phase 14: the observability planes on the card.
+        planes_phase(torch, hvd, args, workdir, star_run)
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),

@@ -10,6 +10,7 @@ input's device)::
     hvd.init()                                   # CUDA unless device="cpu"
     total = hvd.allreduce(x, op=hvd.Sum, name="x")
     handle = hvd.allreduce_async(y, name="y"); mean = hvd.synchronize(handle)
+    view = hvd.metrics()                         # HOROVOD_TPU_METRICS=1
 
 They run through the negotiated runtime (``common/runtime.py``): a
 background thread per process whose coordinator agrees one order of the
@@ -34,7 +35,7 @@ neither JAX nor ``horovod_tpu``.
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
     coordinator_threads_supported, cross_rank, cross_size, init,
-    initialized, is_homogeneous, local_rank, local_size,
+    initialized, is_homogeneous, local_rank, local_size, metrics,
     mpi_threads_supported, rank, shutdown, size,
 )
 from horovod_tpu_torch.common.compression import Compression  # noqa: F401

@@ -199,6 +199,17 @@ def runtime() -> Runtime:
     return _runtime
 
 
+def metrics() -> dict:
+    """The live metrics view (``HOROVOD_TPU_METRICS=1``): ``{"enabled":
+    bool, "local": {...}, "world": {...} | None, "http_port": int |
+    None}``. ``local`` is this rank's fresh registry snapshot; ``world``
+    is the world fold, on rank 0 only; ``http_port`` is the port of the
+    Prometheus endpoint when ``HOROVOD_TPU_METRICS_PORT`` started it.
+    With the plane off the snapshots are empty and ``enabled`` is
+    False (reference ``horovod_tpu/common/basics.py:353-364``)."""
+    return runtime().metrics_view()
+
+
 def initialized() -> bool:
     return _runtime is not None
 

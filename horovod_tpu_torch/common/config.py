@@ -8,7 +8,10 @@ the response cache on at 1024 slots with speculative cycles, :77-96,
 off; the heartbeat on, a PING every 5 s and a peer dead after 30 s of
 silence, :302-311, a timeout of 0 or less turning it off; wire
 compression off, ``HOROVOD_COMPRESSION`` none, bf16, fp16 or int8,
-:145-155). The planes of the reference that are not ported yet are off here.
+:145-155; the metrics and trace planes off, ``HOROVOD_TPU_METRICS``,
+``_METRICS_INTERVAL``, ``_METRICS_PORT``, ``_METRICS_ADDR``,
+``_METRICS_LOG``, ``HOROVOD_TPU_TRACE`` and ``_TRACE_INTERVAL``,
+:250-290, :467-480). The planes of the reference that are not ported yet are off here.
 A variable that would switch one of them on raises
 ``NotImplementedError`` naming its item in ``ROADMAP.md``, so that
 nothing quietly runs another configuration than the one asked for. The
@@ -75,9 +78,6 @@ _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "HOROVOD_TPU_SHM": (_on, "the shm data plane (A6.4)"),
     "HOROVOD_TWO_LEVEL": (_on, "two-level allreduce (A6.4)"),
     "HOROVOD_TPU_ZERO_COPY": (_on, "the arena zero-copy path (A6.6)"),
-    "HOROVOD_TPU_METRICS": (_on, "the metrics plane (A6.7)"),
-    "HOROVOD_TPU_TRACE": (lambda n: bool(env_str(n)),
-                          "the trace plane (A6.7)"),
     "HOROVOD_AUTOTUNE": (_on, "autotune (A6.8)"),
     "HOROVOD_TPU_NATIVE": (_on, "the native core (A6.10)"),
     "HOROVOD_OVERLAP_BUCKETS": (_positive, "the overlap tier (A9)"),
@@ -152,6 +152,24 @@ class Config:
     # the coordinator resolves the world's least aggressive one per
     # tensor. none | bf16 | fp16 | int8 (with error feedback).
     compression: str = "none"
+    # The world trace plane (common/trace.py): HOROVOD_TPU_TRACE=<path>
+    # on every rank; each rank ships its cycle and exec spans every
+    # interval in TAG_TRACE frames and rank 0 writes one Chrome trace
+    # with a track per rank, in the coordinator's clock. Empty is off.
+    # The flight recorder is apart and on by default (HOROVOD_TPU_FLIGHT,
+    # _FLIGHT_EVENTS and _FLIGHT_DIR are read by trace.flight()).
+    trace_path: str = ""
+    trace_interval_s: float = 1.0
+    # The metrics plane (common/metrics.py): HOROVOD_TPU_METRICS=1 arms
+    # the registry; each rank sends a METRICS frame every interval and
+    # rank 0 folds the world view. Rank 0's Prometheus endpoint: -1 off,
+    # 0 an ephemeral port (hvd.metrics()["http_port"]); its bind address
+    # (all interfaces by default); its JSONL log of world snapshots.
+    metrics_enabled: bool = False
+    metrics_interval_s: float = 5.0
+    metrics_port: int = -1
+    metrics_addr: str = ""
+    metrics_log: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -194,6 +212,18 @@ class Config:
             "HOROVOD_HEARTBEAT_INTERVAL", c.heartbeat_interval_s)
         c.heartbeat_timeout_s = env_float(
             "HOROVOD_HEARTBEAT_TIMEOUT", c.heartbeat_timeout_s)
+        c.trace_path = os.environ.get("HOROVOD_TPU_TRACE", "")
+        c.trace_interval_s = env_float("HOROVOD_TPU_TRACE_INTERVAL",
+                                       c.trace_interval_s)
+        c.metrics_enabled = env_bool("HOROVOD_TPU_METRICS",
+                                     c.metrics_enabled)
+        c.metrics_interval_s = env_float("HOROVOD_TPU_METRICS_INTERVAL",
+                                         c.metrics_interval_s)
+        c.metrics_port = env_int("HOROVOD_TPU_METRICS_PORT", c.metrics_port)
+        c.metrics_addr = os.environ.get("HOROVOD_TPU_METRICS_ADDR",
+                                        c.metrics_addr)
+        c.metrics_log = os.environ.get("HOROVOD_TPU_METRICS_LOG",
+                                       c.metrics_log)
         c.compression = os.environ.get("HOROVOD_COMPRESSION",
                                        c.compression).lower()
         # A typo must not run uncompressed: wire_code_of raises naming

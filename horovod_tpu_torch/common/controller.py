@@ -19,9 +19,19 @@ frame is received, data receives included. A rank that sees a failure
 fans an ABORT naming the origin rank to every peer it can reach; a rank
 that receives one raises ``WorldAbortedError`` naming that origin. A
 worker also PINGs its coordinator while its loop waits on the card
-(``keepalive``), which the reference's coordinator absorbs alike. The
-hierarchical control plane, the native fan-out and the metrics and trace
-frames wait for their slices (``ROADMAP.md`` A6.3, A6.10, A6.7).
+(``keepalive``), which the reference's coordinator absorbs alike.
+
+The observability planes (:80-85, :806-900, :1370-1500, :2040-2180):
+METRICS and TRACE frames flow upward out of band and are absorbed
+wherever a frame is received, like a PING: the coordinator hands them
+to the runtime's sinks (``metrics_sink``, ``trace_sink``; dropped
+without one). ``attach_trace`` arms the clock exchange (every
+coordinator PING's send time is kept as t1, and a worker notes the
+receipt of each as t2 for its next TRACE frame) and, on the coordinator,
+the arrival stamps of every request gather. ``attach_metrics`` counts
+the control bytes. The hierarchical control plane and its relays of
+these frames, and the native fan-out, wait for their slices
+(``ROADMAP.md`` A6.3, A6.10).
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from horovod_tpu_torch.common import config as hconfig
 from horovod_tpu_torch.common import heartbeat
 from horovod_tpu_torch.common import logging as hlog
 from horovod_tpu_torch.common import network
+from horovod_tpu_torch.common import trace as htrace
+from horovod_tpu_torch.common.metrics import NOOP_METRIC
 from horovod_tpu_torch.common.status import (
     WorldAbortedError, world_abort_message,
 )
@@ -47,6 +59,11 @@ TAG_RESPONSES = 3   # coordinator -> worker: a cycle-response frame
 TAG_DATA = 4        # data-plane payload of the socket backend
 TAG_PING = 5        # liveness beacon (heartbeat.encode_ping)
 TAG_ABORT = 6       # world abort notice (heartbeat.encode_abort)
+TAG_METRICS = 7     # upward metrics snapshot (wire.*_metrics_frame), out
+                    # of band like a PING: absorbed wherever a control
+                    # frame is awaited, never negotiated
+TAG_TRACE = 8       # upward span batch (wire.*_trace_frame), out of band
+                    # like METRICS; carries the worker's clock echo
 
 
 def _my_hostname() -> str:
@@ -191,6 +208,10 @@ def _maybe_ping(ctl, channels: Dict[int, network.Channel],
         return
     ctl._last_ping = now
     ctl._ping_seq += 1
+    if sender_rank == 0:
+        # The clock exchange's t1: the coordinator's clock is the world's
+        # reference, so only its PINGs are kept (trace.ClockSync).
+        htrace.clock().ping_sent(ctl._ping_seq, now)
     payload = heartbeat.encode_ping(sender_rank, ctl._ping_seq)
     for ch in channels.values():
         try:
@@ -251,6 +272,54 @@ class Controller:
     at the same negotiated response on every rank."""
 
     topology: Topology
+
+    # -- the observability planes ----------------------------------------
+    # Rank 0's sinks for METRICS and TRACE frames: callable(rank,
+    # payload), set by the runtime once its aggregator or trace writer
+    # exists; without one a frame is absorbed and dropped, so that a rank
+    # with a plane on never hurts a coordinator with it off.
+    metrics_sink = None
+    trace_sink = None
+    # Set by attach_trace: a worker notes coordinator PINGs for the clock
+    # echo; the coordinator calls _on_arrivals({rank: monotonic stamp})
+    # at every request gather (None keeps the gather free of clock reads).
+    _trace_on = False
+    _on_arrivals = None
+    # Control-plane byte counters (attach_metrics); no-ops while off.
+    _m_ctrl_rx = NOOP_METRIC
+    _m_ctrl_tx = NOOP_METRIC
+    _metrics_on = False
+
+    def attach_trace(self, on_arrivals=None) -> None:
+        """Arm the trace plane's hooks: PING noting for the clock echo
+        and, on the coordinator, the gathers' arrival stamps."""
+        self._trace_on = True
+        if on_arrivals is not None:
+            self._on_arrivals = on_arrivals
+
+    def attach_metrics(self, registry) -> None:
+        """The control-plane byte counters, from the runtime's registry
+        (the disabled one hands back no-ops)."""
+        self._m_ctrl_rx = registry.counter(
+            'hvd_control_bytes_total{direction="rx"}',
+            "control-plane bytes received by this rank")
+        self._m_ctrl_tx = registry.counter(
+            'hvd_control_bytes_total{direction="tx"}',
+            "control-plane bytes sent by this rank")
+        self._metrics_on = bool(registry.enabled)
+
+    def send_metrics(self, payload: bytes) -> None:
+        """Best-effort upward METRICS frame (workers). Never raises: a
+        dead channel is the cycle path's to report."""
+
+    def send_trace(self, payload: bytes) -> None:
+        """Best-effort upward TRACE frame (workers). Never raises."""
+
+    def _on_oob(self, r: int, tag: int, data) -> None:
+        """A METRICS or TRACE frame from rank ``r``: to its sink."""
+        sink = self.metrics_sink if tag == TAG_METRICS else self.trace_sink
+        if sink is not None:
+            sink(r, bytes(data))
 
     @property
     def rank(self) -> int:
@@ -337,6 +406,13 @@ class Controller:
 
     def close(self) -> None:
         pass
+
+
+def _nbytes(payload) -> int:
+    """The bytes of a frame given whole or as a list of buffers."""
+    if isinstance(payload, list):
+        return sum(len(network.as_byte_view(p)) for p in payload)
+    return len(network.as_byte_view(payload))
 
 
 def _frame(payload):
@@ -450,6 +526,9 @@ class TcpCoordinator(Controller):
             if tag in (TAG_PING, TAG_ABORT):
                 _raise_if_abort(tag, data)  # a PING: proof of life only
                 continue
+            if tag in (TAG_METRICS, TAG_TRACE):
+                self._on_oob(r, tag, data)
+                continue
             if tag != expect_tag:
                 raise ConnectionError(f"expected tag {expect_tag} from rank "
                                       f"{r}, got {tag}")
@@ -468,9 +547,11 @@ class TcpCoordinator(Controller):
                 raise _abort_error(
                     r, f"control channel to {ch.peer} failed: {e}") from e
             self._last_seen[r] = time.monotonic()
-            if tag in (TAG_PING, TAG_ABORT):
-                _raise_if_abort(tag, spill if spill is not None
-                                else bytes(view[:n]))
+            if tag in (TAG_PING, TAG_ABORT, TAG_METRICS, TAG_TRACE):
+                data = spill if spill is not None else bytes(view[:n])
+                if tag in (TAG_METRICS, TAG_TRACE):
+                    self._on_oob(r, tag, data)
+                _raise_if_abort(tag, data)
                 continue
             if tag != TAG_DATA:
                 raise ConnectionError(f"expected tag {TAG_DATA} from rank "
@@ -498,10 +579,22 @@ class TcpCoordinator(Controller):
             self._raise_transport(e)
 
     def _gather_frames(self, payload, expect_tag: int) -> List[bytes]:
-        """One frame per worker, rank-indexed, this rank's own at 0."""
+        """One frame per worker, rank-indexed, this rank's own at 0. On a
+        request gather with the trace plane's hook armed, each rank's
+        arrival is stamped as its recv returns (this rank's own at the
+        start, the baseline of every lag) and handed to the hook."""
         out = [payload] + [b""] * (self._size - 1)
+        on_arrivals = self._on_arrivals
+        track = expect_tag == TAG_REQUESTS and on_arrivals is not None
+        arrivals = {0: time.monotonic()} if track else None
         for r in self._channels:
             out[r] = self._recv_ctrl(r, expect_tag)
+            if track:
+                arrivals[r] = time.monotonic()
+        if self._metrics_on:
+            self._m_ctrl_rx.inc(sum(len(out[r]) for r in self._channels))
+        if track:
+            on_arrivals(arrivals)
         return out
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
@@ -509,6 +602,8 @@ class TcpCoordinator(Controller):
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
         self._send_all(payload, TAG_RESPONSES)
+        if self._metrics_on:
+            self._m_ctrl_tx.inc(_nbytes(payload) * len(self._channels))
         return payload
 
     def gather_data(self, payload) -> Optional[List[bytes]]:
@@ -616,11 +711,31 @@ class TcpWorker(Controller):
 
     def _note_ping(self, data) -> None:
         """A coordinator PING: liveness whatever its bytes say; a well
-        formed one is kept as ``last_ping``."""
+        formed one is kept as ``last_ping`` and, with the trace plane
+        armed, its receipt is the clock exchange's t2."""
+        t2 = time.monotonic()
         try:
             self.last_ping = heartbeat.decode_ping(bytes(data))
         except ValueError:
-            pass
+            return
+        if self._trace_on:
+            htrace.clock().ping_received(*self.last_ping, t2)
+
+    def send_metrics(self, payload: bytes) -> None:
+        try:
+            self._ch.send(payload, TAG_METRICS)
+            if self._metrics_on:
+                self._m_ctrl_tx.inc(len(payload))
+        except Exception:
+            pass  # best effort: the cycle path reports a dead channel
+
+    def send_trace(self, payload: bytes) -> None:
+        try:
+            self._ch.send(payload, TAG_TRACE)
+            if self._metrics_on:
+                self._m_ctrl_tx.inc(len(payload))
+        except Exception:
+            pass  # best effort, like send_metrics
 
     def _send(self, payload, tag: int) -> None:
         try:
@@ -641,10 +756,14 @@ class TcpWorker(Controller):
             if tag == TAG_PING:
                 self._note_ping(data)
                 continue
+            if tag in (TAG_METRICS, TAG_TRACE):
+                continue  # these only flow upward; a stray is dropped
             _raise_if_abort(tag, data)
             if tag != expect_tag:
                 raise ConnectionError(f"expected tag {expect_tag} from "
                                       f"{self._ch.peer}, got {tag}")
+            if self._metrics_on:
+                self._m_ctrl_rx.inc(len(data))
             return data
 
     def _recv_up_into(self, out) -> int:
@@ -657,6 +776,8 @@ class TcpWorker(Controller):
             except (ConnectionError, OSError) as e:
                 raise self._fail(e) from e
             self._up_seen = time.monotonic()
+            if tag in (TAG_METRICS, TAG_TRACE):
+                continue  # a stray downward frame is dropped
             if tag in (TAG_PING, TAG_ABORT):
                 data = spill if spill is not None else bytes(view[:n])
                 if tag == TAG_PING:
@@ -671,6 +792,8 @@ class TcpWorker(Controller):
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
         self._send(payload, TAG_REQUESTS)
+        if self._metrics_on:
+            self._m_ctrl_tx.inc(_nbytes(payload))
         return None
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:

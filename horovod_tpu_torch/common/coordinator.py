@@ -605,15 +605,21 @@ class StallInspector:
         with self._warned_lock:
             self._warned.discard(name)
 
-    def check(self, table: MessageTable, cache_stats: str = "") -> bool:
+    def check(self, table: MessageTable, cache_stats: str = "",
+              straggler_stats: str = "") -> bool:
         """Log a report of stalled tensors; returns True if the shutdown
         threshold was exceeded (the caller must then shut down).
         ``cache_stats``: a one-line summary of the response cache (hits,
         misses, cached cycles) logged with the report, which says
-        whether negotiation went the full way or through the bitmask."""
+        whether negotiation went the full way or through the bitmask.
+        ``straggler_stats``: the trace plane's critical-path line ("rank
+        3 last-arriver in 84% of the last 1000 gathers"), which names a
+        slow rank even when nothing is stalled outright."""
         self._last_check = time.monotonic()
         if cache_stats:
             hlog.info(f"negotiation {cache_stats}")
+        if straggler_stats:
+            hlog.info(f"stragglers: {straggler_stats}")
         must_shutdown = False
         for name, age, ranks_reported in table.pending():
             if age < self.warning_time:

@@ -183,6 +183,9 @@ def _apply(fault: Fault, runtime) -> None:
     rank = runtime.controller.rank
     hlog.warning(f"fault injection firing on rank {rank}: {fault!r}",
                  rank=rank)
+    from horovod_tpu_torch.common import trace as htrace
+    htrace.flight().record(htrace.EV_FAULT,
+                           note=f"{fault!r} fired on rank {rank}")
     if fault.action == "kill":
         os.kill(os.getpid(), signal.SIGKILL)
     elif fault.action == "exit":

@@ -5,7 +5,9 @@ Counterpart of ``horovod_tpu/common/runtime.py``: ``enqueue`` (:698),
 ``_coordinate`` (:2808), ``_check_stall`` (:2736),
 ``_perform_operations`` (:2909-3034), the response cache's share of
 the loop (:1035-1360, :1758, :2095-2530, :2700), the world abort
-(:801-880) and the fault-injection ticks (:155, :1780, :2412, :2914).
+(:801-880), the fault-injection ticks (:155, :1780, :2412, :2914) and
+the metrics and trace planes (:418-656, :834-860, :1715-1760, :1944,
+:2529-2643, :2744-2750, :2984-3016).
 One daemon thread per process runs a negotiation cycle every
 ``HOROVOD_CYCLE_TIME`` ms: it drains this rank's request queue, gathers
 every rank's requests at the coordinator, which fuses the ready tensors
@@ -57,13 +59,24 @@ coordinator dequantizes the ranks' payloads).
 
 Left out until their slices (``ROADMAP.md`` A6 and A9): the ICI plane
 and the native steady plan (which ride the cache), overlapped cycles,
-elastic worlds, self-operation, tenancy, the trace and metrics planes
-and autotune.
+elastic worlds, self-operation, tenancy and autotune.
+
+The observability planes. The metrics plane (``HOROVOD_TPU_METRICS=1``)
+registers the reference's series under its names (a series of a plane
+the port lacks, native steady cycles, arena bytes, overlap, reads 0);
+each rank sends its snapshot every interval in a METRICS frame and rank
+0 folds the world view, served by ``hvd.metrics()``, ``GET /metrics``
+and a JSONL log. The trace plane (``HOROVOD_TPU_TRACE=<path>``) records
+a ROUND span per world round, an issue-side span per executed batch and
+an ABORT mark, each with the world-identical round number; rank 0
+writes them all into one Chrome trace in its clock, and stamps every
+rank's arrival at each gather for the straggler attribution. The
+flight recorder is on by default and dumps its ring on every world
+abort and on SIGUSR2.
 
 The loop keeps counts that say what it costs (``stats``): cycles,
 responses and the tensors in them, the responses each backend ran
-(``responses.<backend name>``, which stands in for the reference's
-metrics plane until ``ROADMAP.md`` A6.7), the seconds of negotiation
+(``responses.<backend name>``), the seconds of negotiation
 (building, gathering, coordinating and broadcasting the lists), of
 execution (replaying and running the responses) and of burst holds, and
 the cache's: cached cycles (negotiated through the bitmask alone), spec
@@ -85,6 +98,8 @@ import torch
 
 from horovod_tpu_torch.common import faults
 from horovod_tpu_torch.common import logging as hlog
+from horovod_tpu_torch.common import metrics as hmetrics
+from horovod_tpu_torch.common import trace as htrace
 from horovod_tpu_torch.common import wire
 from horovod_tpu_torch.common import wire_dtype as _wd
 from horovod_tpu_torch.common.config import Config
@@ -252,6 +267,252 @@ class Runtime:
         # their peers were granted and will not come again, so they
         # never start a burst hold.
         self._requeued_names: frozenset = frozenset()
+        self._init_metrics_plane()
+        self._init_trace_plane()
+
+    # -- the observability planes ----------------------------------------
+    def _init_metrics_plane(self) -> None:
+        """The registry (the shared no-op one while the plane is off,
+        whose hooks hand every call site NOOP_METRIC) and the reference's
+        series; on rank 0 the world aggregator and its read surfaces."""
+        config, controller = self.config, self.controller
+        self.metrics = hmetrics.create_registry(config.metrics_enabled)
+        self._metrics_on = bool(config.metrics_enabled)
+        reg = self.metrics
+        self._m_cycle_s = reg.histogram(
+            "hvd_cycle_seconds", "negotiation cycle wall time")
+        self._m_negotiation_s = reg.histogram(
+            "hvd_negotiation_seconds",
+            "request gather -> response broadcast round trip")
+        self._m_cycles = reg.counter("hvd_cycles_total")
+        self._m_cached_cycles = reg.counter(
+            "hvd_cached_cycles_total",
+            "cycles negotiated purely via the cache bitmask")
+        self._m_spec_cycles = reg.counter(
+            "hvd_fused_spec_cycles_total",
+            "single-round fused speculative cycles completed")
+        self._m_spec_bids = reg.counter("hvd_spec_bids_total")
+        self._m_spec_denials = reg.counter("hvd_spec_denials_total")
+        self._m_native_steady = reg.counter(
+            "hvd_native_steady_cycles_total",
+            "steady steps completed by the one-call native data plane")
+        self._m_arena_bytes = reg.gauge(
+            "hvd_arena_bytes",
+            "capacity of the persistent fusion arenas on this rank")
+        self._m_data_copies = reg.counter(
+            "hvd_data_copies_total",
+            "payload byte-object copies on fallback data paths "
+            "(0 while the zero-copy plane is engaged)")
+        # The same counter objects as the socket plane's (the registry
+        # memoizes by name).
+        self._m_wire_saved = reg.counter(
+            "hvd_wire_bytes_saved_total",
+            "payload bytes kept OFF the wire by the negotiated "
+            "wire dtype (uncompressed minus wire size, per send)")
+        self._m_comp_ratio = reg.histogram(
+            "hvd_compression_ratio",
+            "wire bytes / uncompressed bytes per compressed payload",
+            hmetrics.RATIO_BUCKETS)
+        self._m_overlap_fraction = reg.histogram(
+            "hvd_overlap_fraction",
+            "per overlapped cycle: fraction of its wire time hidden "
+            "under compute (1.0 = the loop never blocked on it)",
+            hmetrics.RATIO_BUCKETS)
+        self._m_inflight = reg.gauge(
+            "hvd_inflight_cycles",
+            "steady cycles outstanding on the overlap runner",
+            agg=hmetrics.AGG_MAX)
+        self._m_overlap_buckets = reg.counter(
+            "hvd_overlap_buckets_total",
+            "gradient buckets submitted by bucketed grouped dispatch")
+        self._m_overlap_cycles = reg.counter(
+            "hvd_overlap_cycles_total",
+            "steady cycles completed through the overlap runner")
+        self._m_cache_hits = reg.counter("hvd_cache_hits_total")
+        self._m_cache_misses = reg.counter("hvd_cache_misses_total")
+        self._m_cache_evictions = reg.counter(
+            "hvd_cache_evictions_total")
+        self._m_cache_entries = reg.gauge("hvd_cache_entries")
+        self._m_queue_depth = reg.gauge(
+            "hvd_tensor_queue_depth",
+            "in-flight collectives tabled on this rank")
+        self._m_burst_hold_s = reg.counter(
+            "hvd_burst_hold_seconds_total",
+            "time spent absorbing enqueue bursts")
+        self._m_idle_hold_s = reg.counter(
+            "hvd_idle_hold_seconds_total",
+            "time spent in the steady-state idle hold")
+        self._m_timeline_dropped = reg.counter(
+            "hvd_timeline_dropped_events_total")
+        self._m_world_size = reg.gauge(
+            "hvd_world_size",
+            "current world size (max-aggregated: the world view IS "
+            "the size)", agg=hmetrics.AGG_MAX)
+        # The fused speculative cycle bypasses the OperationManager: the
+        # runtime keeps its share of the allreduce totals (the same
+        # counters, memoized by name).
+        self._m_bytes_allreduced = reg.counter("hvd_bytes_allreduced_total")
+        self._m_ops_allreduce = reg.counter('hvd_ops_total{op="allreduce"}')
+        self._idle_hold_total = 0.0
+        controller.attach_metrics(reg)
+        self.op_manager.attach_metrics(
+            reg, lambda: self._world_fusion_threshold)
+        self._aggregator = None
+        self._metrics_http = None
+        self._metrics_log = None
+        self._metrics_last_pub = 0.0
+        if not self._metrics_on:
+            return
+        reg.add_collector(self._collect_runtime_metrics)
+        if controller.rank == 0:
+            self._aggregator = hmetrics.WorldAggregator(controller.size)
+            controller.metrics_sink = self._aggregator.ingest
+            if config.metrics_port >= 0:
+                self._metrics_http = hmetrics.MetricsHTTPServer(
+                    self._aggregator.world, config.metrics_port,
+                    host=config.metrics_addr)
+            if config.metrics_log:
+                self._metrics_log = hmetrics.JsonlMetricsLog(
+                    config.metrics_log)
+        # Build identity, info-style (the labels are the payload).
+        bi = htrace.build_info()
+        reg.gauge(
+            f'hvd_build_info{{version="{bi["version"]}",'
+            f'native="{bi["native"]}",knobs="{bi["knobs"]}",'
+            f'flags="{bi["flags"]}"}}',
+            "build identity: package version, native .so build "
+            "hash, armed-knobs digest, kernel-feature flags "
+            "(io_uring/zerocopy; value is always 1)",
+            agg=hmetrics.AGG_MAX).set(1)
+
+    def _init_trace_plane(self) -> None:
+        """The flight recorder (on by default, process-lifetime) and its
+        SIGUSR2 dump, the span collector and the world round number; on
+        rank 0 the world trace writer and the straggler tracker."""
+        controller = self.controller
+        self._flight = htrace.flight()
+        self._flight.set_identity(controller.rank)
+        htrace.install_sigusr2()
+        self._trace = htrace.create_collector(bool(self.config.trace_path))
+        self._trace_on = self._trace.enabled
+        self._world_cycle = 0
+        self._trace_last_pub = 0.0
+        self._trace_spans_sent = 0
+        self._m_trace_spans = self.metrics.counter(
+            "hvd_trace_spans_total",
+            "trace spans this rank shipped (or wrote, on rank 0) "
+            "into the world trace plane")
+        self._trace_writer = None
+        self._straggler = None
+        if controller.rank == 0:
+            if self._trace_on:
+                self._trace_writer = htrace.WorldTraceWriter(
+                    self.config.trace_path)
+                controller.trace_sink = self._trace_writer.ingest
+            if self._metrics_on or self._trace_on:
+                self._straggler = htrace.StragglerTracker(self.metrics)
+                controller.attach_trace(
+                    on_arrivals=self._straggler.note_gather)
+        elif self._trace_on:
+            controller.attach_trace()
+
+    def _note_round(self) -> int:
+        """One world round (gather and broadcast) completed here. Every
+        rank takes part in every round in the same order, so the number
+        is the same on every rank: the key the world trace and the
+        flight recorder stamp."""
+        self._world_cycle += 1
+        self._flight.record(htrace.EV_CYCLE, self._world_cycle)
+        return self._world_cycle
+
+    def _collect_runtime_metrics(self) -> None:
+        """Registry collector: mirror the counts the loop keeps in
+        ``stats`` and the cache, once per snapshot, never per event."""
+        st, c = self.stats, self._cache
+        if c is not None:
+            self._m_cache_hits.set_total(c.hits)
+            self._m_cache_misses.set_total(c.misses)
+            self._m_cache_evictions.set_total(c.evictions)
+            self._m_cache_entries.set(len(c))
+        self._m_world_size.set(self.controller.size)
+        self._m_cycles.set_total(st["cycles"])
+        self._m_cached_cycles.set_total(st["cached_cycles"])
+        self._m_spec_cycles.set_total(st["spec_cycles"])
+        self._m_spec_bids.set_total(st["spec_bids"])
+        self._m_spec_denials.set_total(st["spec_denials"])
+        self._m_burst_hold_s.set_total(st["hold_s"])
+        self._m_idle_hold_s.set_total(self._idle_hold_total)
+        self._m_queue_depth.set(len(self.tensor_table))
+        self._m_timeline_dropped.set_total(
+            getattr(self.timeline, "dropped_events", 0))
+        self._m_trace_spans.set_total(self._trace_spans_sent)
+        for r, age in self.controller.peer_heartbeat_ages().items():
+            self.metrics.gauge(
+                f'hvd_peer_heartbeat_age_seconds{{peer="{r}"}}',
+                "seconds since the last control frame from this peer",
+                agg=hmetrics.AGG_MAX).set(age)
+
+    def _maybe_publish_metrics(self) -> None:
+        """Every interval (loop thread only): feed rank 0's aggregator
+        and JSONL log, or send one METRICS frame up the control channel,
+        out of band."""
+        now = time.monotonic()
+        if now - self._metrics_last_pub < self.config.metrics_interval_s:
+            return
+        self._metrics_last_pub = now
+        snap = self.metrics.snapshot()
+        if self._aggregator is not None:
+            self._aggregator.update_local(snap)
+            if self._metrics_log is not None:
+                self._metrics_log.append(self._aggregator.world())
+            return
+        try:
+            payload = wire.serialize_metrics_frame(1, snap)
+        except Exception:
+            return  # a malformed record must not kill the loop
+        self.controller.send_metrics(payload)
+
+    def _maybe_publish_trace(self) -> None:
+        """Every interval (loop thread only): drain the span collector
+        into rank 0's writer, or into one TRACE frame up the control
+        channel with the clock echo that closes the exchange."""
+        now = time.monotonic()
+        if now - self._trace_last_pub < self.config.trace_interval_s:
+            return
+        self._trace_last_pub = now
+        self._ship_spans()
+
+    def _ship_spans(self) -> None:
+        spans, dropped = self._trace.drain()
+        if self._trace_writer is not None:
+            self._trace_writer.add_section(0, spans, dropped)
+            self._trace_spans_sent += len(spans)
+            return
+        echo = htrace.clock().take_echo()
+        if not spans and not dropped and echo is None:
+            return
+        try:
+            payload = wire.serialize_trace_frame(
+                [{"rank": self.controller.rank, "dropped": dropped,
+                  "echo": echo, "spans": spans}])
+        except Exception:
+            return  # a malformed span must not kill the loop
+        self._trace_spans_sent += len(spans)
+        self.controller.send_trace(payload)
+
+    def metrics_view(self) -> Dict:
+        """The ``hvd.metrics()`` payload: this rank's fresh snapshot, the
+        world view (rank 0 only; None elsewhere) and the HTTP port of the
+        Prometheus endpoint when it is live."""
+        local = self.metrics.snapshot()
+        view = {"enabled": self._metrics_on, "local": local,
+                "world": None, "http_port": None}
+        if self._aggregator is not None:
+            self._aggregator.update_local(local)
+            view["world"] = self._aggregator.world()
+        if self._metrics_http is not None:
+            view["http_port"] = self._metrics_http.port
+        return view
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> None:
@@ -408,10 +669,17 @@ class Runtime:
         hlog.error(f"horovod_tpu_torch world aborted: "
                    f"{world_abort_message(origin, cause)}",
                    rank=self.controller.rank)
+        self._flight.record(htrace.EV_ABORT, self._world_cycle,
+                            arg=origin, note=cause[:200])
+        if self._trace_on:
+            self._trace.mark("ABORT", time.monotonic(), self._world_cycle)
         try:
             self.controller.abort(origin, cause)
         except Exception:
             pass
+        # The postmortem after the fan-out: file I/O must not delay the
+        # notice the survivors' deadlines wait on.
+        self._flight.dump(cause=cause, origin=origin)
 
     def _teardown(self) -> None:
         """Fail everything in flight, then close the timeline and the
@@ -419,6 +687,7 @@ class Runtime:
         if self._teardown_started:
             return
         self._teardown_started = True
+        self._flight.record(htrace.EV_TEARDOWN, self._world_cycle)
         self._done.set()
         try:
             self.finalizer.drain()
@@ -435,6 +704,32 @@ class Runtime:
             self.timeline.shutdown()
         except Exception:
             pass
+        # The trace's tail: rank 0 writes its own and closes the file
+        # (the JSON array must end: an aborted run's trace is the one to
+        # read); a worker sends its own while the channel may be up.
+        if self._trace_on:
+            try:
+                self._ship_spans()
+            except Exception:
+                pass
+        if self._trace_writer is not None:
+            try:
+                self._trace_writer.close()
+            except Exception:
+                pass
+        if self._aggregator is not None and self._metrics_log is not None:
+            # A last JSONL line with rank 0's own totals exact and every
+            # rank's last frame folded in.
+            try:
+                self._aggregator.update_local(self.metrics.snapshot())
+                self._metrics_log.append(self._aggregator.world())
+            except Exception:
+                pass
+        if self._metrics_http is not None:
+            try:
+                self._metrics_http.close()
+            except Exception:
+                pass
         # Closing the channels is what tells the peers, whose recv on
         # them then fails, that this rank is gone.
         try:
@@ -461,6 +756,7 @@ class Runtime:
         shutting_down = self._shutdown_requested.is_set()
         payload, bit_requests = self._build_request_frame(
             requests, shutting_down)
+        tn = time.monotonic() if self._metrics_on or self._trace_on else 0.0
         gathered = self.controller.gather_requests(payload)
         if self.controller.is_coordinator:
             reply, meta = self._coordinate_cycle(gathered)
@@ -469,6 +765,11 @@ class Runtime:
             meta = wire.parse_cycle_response(
                 self.controller.broadcast_responses(None))
         t1 = time.monotonic()
+        wc = self._note_round()
+        if self._trace_on:
+            self._trace.slice("ROUND", tn, t1 - tn, wc)
+        if self._metrics_on:
+            self._m_negotiation_s.observe(t1 - tn)
         self.stats["negotiate_s"] += t1 - t0
         if isinstance(meta, CacheCycleResponse):
             resp_list = self._apply_cached_cycle(meta, bit_requests)
@@ -488,6 +789,11 @@ class Runtime:
                               cache_evictions=c.evictions)
         if resp_list.shutdown:
             return False
+        if self._metrics_on:
+            self._m_cycle_s.observe(time.monotonic() - t0)
+            self._maybe_publish_metrics()
+        if self._trace_on:
+            self._maybe_publish_trace()
 
         # Pace the cycle.
         cycle_s = self.config.cycle_time_ms / 1000.0
@@ -496,6 +802,7 @@ class Runtime:
         else:
             self._idle_cycles += 1
         sleep_s = cycle_s - (time.monotonic() - t0)
+        idle_hold = False
         if not self.tensor_table.queue_pending():
             if sleep_s <= 0:
                 # The cycle overran its budget and drained everything
@@ -509,6 +816,7 @@ class Runtime:
                 # enqueue or a shutdown wakes the loop at once).
                 sleep_s = max(sleep_s, self._bounded_hold_s(
                     8, self._STEADY_IDLE_S))
+                idle_hold = True
         backoff_s = self.config.idle_backoff_ms / 1000.0
         if self.config.heartbeat_timeout_s > 0:
             # A sleeping rank sends nothing: its next frame is its only
@@ -518,7 +826,10 @@ class Runtime:
             ramp = cycle_s * (self._idle_cycles - self._IDLE_GRACE)
             sleep_s = max(sleep_s, min(backoff_s, ramp))
         if sleep_s > 0:
+            th = time.monotonic() if idle_hold and self._metrics_on else 0.0
             self._wake.wait(sleep_s)
+            if th:
+                self._idle_hold_total += time.monotonic() - th
         self._wake.clear()
         return True
 
@@ -934,6 +1245,13 @@ class Runtime:
                 else _buffer_tensor(buf, dt,
                                     copy=memoryview(buf).readonly)
             op_name = resp.response_type.name
+            if self._metrics_on:
+                # The fused round is this batch's data plane: keep the
+                # allreduce totals exact though the OperationManager
+                # never sees it.
+                self._m_ops_allreduce.inc()
+                self._m_bytes_allreduced.inc(
+                    sum(e.tensor.nbytes for e in entries))
             for name in resp.tensor_names:
                 timeline.start(name, op_name)
             try:
@@ -1051,9 +1369,15 @@ class Runtime:
         """Periodic coordinator-side stall scan; past the shutdown
         threshold it aborts the world, blaming the lowest rank missing
         from the oldest stalled tensor."""
-        if not self._stall.should_check() or not self._stall.check(
-                table, cache_stats=self._cache_stats_line()):
+        if not self._stall.should_check():
             return
+        straggler = (self._straggler.report_line()
+                     if self._straggler is not None else "")
+        if not self._stall.check(table, cache_stats=self._cache_stats_line(),
+                                 straggler_stats=straggler):
+            return
+        self._flight.record(htrace.EV_STALL, self._world_cycle,
+                            note="stall shutdown threshold")
         origin, note = -1, ""
         pending = sorted(table.pending(), key=lambda p: -p[1])
         if pending:
@@ -1154,6 +1478,7 @@ class Runtime:
             timeline.activity_start_all(names, ACT_QUEUE)
             timeline.activity_end_all(names)
             timeline.activity_start_all(names, ACT_COLLECTIVE)
+            tx = time.monotonic() if self._trace_on else 0.0
             try:
                 backend, status = self.op_manager.execute(entries, response)
                 key = f"responses.{backend}"
@@ -1172,6 +1497,11 @@ class Runtime:
             except Exception as e:
                 status = Status.UnknownError(
                     f"collective execution failed: {e!r}")
+            if tx:
+                # The batch's issue-side wall time (a batch completed on
+                # the finalizer ends later, as the timeline's span does).
+                self._trace.slice(f"{op_name} x{len(entries)}", tx,
+                                  time.monotonic() - tx, self._world_cycle)
             # An InProgress batch ends its spans at the issue; its
             # finalizer fires the callbacks when it completes.
             timeline.activity_end_all(names)

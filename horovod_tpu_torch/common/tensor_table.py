@@ -53,6 +53,11 @@ class TensorTable:
         self._table: Dict[str, TensorTableEntry] = {}
         self._message_queue: List[Request] = []
 
+    def __len__(self) -> int:
+        """Entries tabled (in flight) on this rank."""
+        with self._lock:
+            return len(self._table)
+
     def add(self, entry: TensorTableEntry, request: Request) -> bool:
         """Insert entry and request together; False on a duplicate
         name."""

@@ -4,11 +4,13 @@ Counterpart of ``horovod_tpu/common/wire.py``: the request-list and
 response-list frames (:69-350), the cycle frames that carry them (FULL
 and the response cache's CACHED, CACHED_AGG and CACHED_SPEC kinds,
 :329-600), ``combine_cycle_requests`` (:705) and the world-id envelope
-(``stamp_world``, ``unstamp_world``). For equal contents the frames are
+(``stamp_world``, ``unstamp_world``), and the METRICS and TRACE frames
+of the observability planes with the span kinds and the flight
+recorder's event codes (:585-880). For equal contents the frames are
 byte-identical to the reference's, and each side parses the other's. A
 truncated frame raises ``ConnectionError``, never ``struct.error``; a
-frame of an unknown kind is refused by its number. The metrics, trace,
-elastic and tenant frames wait for their slices (``ROADMAP.md`` A6).
+frame of an unknown kind is refused by its number. The elastic and
+tenant frames wait for their slices (``ROADMAP.md`` A6 and A9).
 
 Layout (all little-endian; strings are u32 length + UTF-8 bytes,
 vectors u32 count + elements):
@@ -555,3 +557,231 @@ def unstamp_world(data: bytes, expect_id: int) -> bytes:
             f"world {expect_id:#010x} — two worlds are sharing a "
             f"connection (check sub-world coordinator ports)")
     return data[off:] if off else data
+
+
+# ---------------------------------------------------------------------------
+# METRICS frames: a rank's registry snapshot, sent upward every
+# HOROVOD_TPU_METRICS_INTERVAL seconds out of band (TAG_METRICS, absorbed
+# wherever a control frame is awaited, like a PING); rank 0 folds the
+# owners into the world view (common/metrics.py WorldAggregator).
+#
+#   MetricsFrame := u8 version | u32 nranks | u32 nmetrics | Metric[n]
+#   Metric       := u8 kind | str name | payload
+#     kind 'c' COUNTER   : f64 value
+#     kind 'g' GAUGE     : u8 agg (0 sum | 1 max) | f64 value
+#     kind 'h' HISTOGRAM : u16 nbounds | f64 bounds[nbounds]
+#                        | u64 counts[nbounds+1] | f64 sum | u64 count
+#
+# Bounds travel with every histogram, so that the aggregator verifies
+# bucket identity instead of assuming it.
+
+_METRICS_VERSION = 1
+_KIND_BYTE = {"c": 0, "g": 1, "h": 2}
+_BYTE_KIND = {v: k for k, v in _KIND_BYTE.items()}
+_AGG_BYTE = {"sum": 0, "max": 1}
+_BYTE_AGG = {v: k for k, v in _AGG_BYTE.items()}
+_U16 = struct.Struct("<H")
+_U64 = struct.Struct("<Q")
+
+
+def serialize_metrics_frame(nranks: int, snap: dict) -> bytes:
+    """Encode a (possibly pre-summed) snapshot; ``nranks`` is how many
+    ranks the frame stands for (rank 0 reports hvd_ranks_reporting)."""
+    w = _Writer()
+    w.u8(_METRICS_VERSION)
+    w.u32(nranks)
+    w.u32(len(snap))
+    for name, rec in snap.items():
+        w.u8(_KIND_BYTE[rec["k"]])
+        w.string(name)
+        if rec["k"] == "c":
+            w.f64(rec["v"])
+        elif rec["k"] == "g":
+            w.u8(_AGG_BYTE[rec.get("agg", "sum")])
+            w.f64(rec["v"])
+        else:
+            bounds = rec["bounds"]
+            w.parts.append(_U16.pack(len(bounds)))
+            if bounds:
+                w.parts.append(struct.pack(f"<{len(bounds)}d", *bounds))
+            counts = rec["counts"]
+            w.parts.append(struct.pack(f"<{len(counts)}Q", *counts))
+            w.f64(rec["sum"])
+            w.parts.append(_U64.pack(rec["count"]))
+    return w.bytes()
+
+
+def _read_u16(r: _Reader) -> int:
+    r._need(_U16.size)
+    (v,) = _U16.unpack_from(r.data, r.off)
+    r.off += _U16.size
+    return v
+
+
+def _read_u64(r: _Reader) -> int:
+    r._need(_U64.size)
+    (v,) = _U64.unpack_from(r.data, r.off)
+    r.off += _U64.size
+    return v
+
+
+def parse_metrics_frame(data: bytes):
+    """-> (nranks, snapshot dict). Raises on a malformed frame or an
+    unknown version; the control plane drops such a frame (it is best
+    effort, never a world error)."""
+    r = _Reader(data)
+    version = r.u8()
+    if version != _METRICS_VERSION:
+        raise ValueError(f"unknown metrics frame version {version}")
+    nranks = r.u32()
+    snap = {}
+    for _ in range(r.u32()):
+        kind = _BYTE_KIND[r.u8()]
+        name = r.string()
+        if kind == "c":
+            snap[name] = {"k": "c", "v": r.f64()}
+        elif kind == "g":
+            agg = _BYTE_AGG[r.u8()]
+            snap[name] = {"k": "g", "agg": agg, "v": r.f64()}
+        else:
+            nb = _read_u16(r)
+            r._need(8 * nb)
+            bounds = list(struct.unpack_from(f"<{nb}d", r.data, r.off))
+            r.off += 8 * nb
+            r._need(8 * (nb + 1))
+            counts = list(struct.unpack_from(f"<{nb + 1}Q", r.data, r.off))
+            r.off += 8 * (nb + 1)
+            total = r.f64()
+            snap[name] = {"k": "h", "bounds": bounds, "counts": counts,
+                          "sum": total, "count": _read_u64(r)}
+    return nranks, snap
+
+
+def combine_metrics_frames(frames, drop_incompatible: bool = False) -> bytes:
+    """Sum several METRICS frames into one: nranks add, the records merge
+    with the world fold's semantics. ``drop_incompatible`` skips a
+    garbled or identity-mismatched frame instead of raising; each frame
+    folds into a scratch copy first, so that a bad one leaks nothing."""
+    from horovod_tpu_torch.common.metrics import merge_into
+    total_ranks = 0
+    merged: dict = {}
+    for f in frames:
+        try:
+            nranks, snap = parse_metrics_frame(f)
+            trial = merge_into(merge_into({}, merged), snap)
+        except Exception:
+            if drop_incompatible:
+                continue
+            raise
+        merged = trial
+        total_ranks += nranks
+    return serialize_metrics_frame(total_ranks, merged)
+
+
+# ---------------------------------------------------------------------------
+# TRACE frames: a rank's batch of completed spans (TAG_TRACE, out of band
+# like METRICS); rank 0 merges every rank's track into one clock-aligned
+# Chrome trace (common/trace.py WorldTraceWriter). Spans are one-shot
+# deltas, so frames are concatenated, never folded.
+#
+#   TraceFrame := u8 version | u32 nsections | Section[nsections]
+#   Section    := i32 rank | u32 dropped
+#               | u8 has_echo [| u64 ping_seq | f64 t_ping_recv
+#                              | f64 t_send]
+#               | u32 nspans | Span[nspans]
+#   Span       := u8 kind | u64 cycle | f64 ts | f64 dur | str name
+#
+# The echo is the worker's half of the clock exchange (trace.ClockSync):
+# the coordinator PING it answers and this rank's monotonic clock at the
+# PING's receipt and at the frame's build. ``cycle`` is the world-
+# identical round number, so spans correlate across ranks before the
+# clocks are aligned.
+
+_TRACE_VERSION = 1
+
+# Span kinds (u8 on the wire).
+SPAN_SLICE = 0   # a complete span: Chrome "X" (ts + dur)
+SPAN_MARK = 1    # an instant: Chrome "i" (dur ignored)
+
+SPAN_NAMES = {SPAN_SLICE: "slice", SPAN_MARK: "mark"}
+
+# Flight-recorder event codes (trace.FlightRecorder).
+EV_CYCLE = 0      # one world negotiation round completed
+EV_ABORT = 1      # world abort observed or raised on this rank
+EV_ELASTIC = 2    # elastic lifecycle event (A9)
+EV_STALL = 3      # stall-inspector shutdown
+EV_FAULT = 4      # injected fault fired (common/faults.py)
+EV_TEARDOWN = 5   # runtime teardown entered
+EV_MARK = 6       # free-form marker (tests, user code)
+EV_SELFOP = 7     # supervision-policy verdict (A9)
+
+EV_NAMES = {EV_CYCLE: "cycle", EV_ABORT: "abort",
+            EV_ELASTIC: "elastic", EV_STALL: "stall",
+            EV_FAULT: "fault", EV_TEARDOWN: "teardown",
+            EV_MARK: "mark", EV_SELFOP: "selfop"}
+
+
+def serialize_trace_frame(sections) -> bytes:
+    """``sections``: [{"rank", "dropped", "echo": None|(seq, t_recv,
+    t_send), "spans": [(kind, cycle, ts, dur, name), ...]}, ...]."""
+    w = _Writer()
+    w.u8(_TRACE_VERSION)
+    w.u32(len(sections))
+    for sec in sections:
+        w.i32(sec["rank"])
+        w.u32(sec.get("dropped", 0))
+        echo = sec.get("echo")
+        if echo is None:
+            w.u8(0)
+        else:
+            seq, t_recv, t_send = echo
+            w.u8(1)
+            w.parts.append(_U64.pack(seq))
+            w.f64(t_recv)
+            w.f64(t_send)
+        spans = sec.get("spans", ())
+        w.u32(len(spans))
+        for kind, cycle, ts, dur, name in spans:
+            w.u8(kind)
+            w.parts.append(_U64.pack(cycle))
+            w.f64(ts)
+            w.f64(dur)
+            w.string(name)
+    return w.bytes()
+
+
+def parse_trace_frame(data: bytes):
+    """-> [section dict, ...] (layout above). Raises on a malformed frame
+    or an unknown version; the control plane drops such a frame."""
+    r = _Reader(data)
+    version = r.u8()
+    if version != _TRACE_VERSION:
+        raise ValueError(f"unknown trace frame version {version}")
+    sections = []
+    for _ in range(r.u32()):
+        rank = r.i32()
+        dropped = r.u32()
+        echo = None
+        if r.u8():
+            seq = _read_u64(r)
+            echo = (seq, r.f64(), r.f64())
+        spans = []
+        for _s in range(r.u32()):
+            kind = r.u8()
+            cycle = _read_u64(r)
+            spans.append((kind, cycle, r.f64(), r.f64(), r.string()))
+        sections.append({"rank": rank, "dropped": dropped,
+                         "echo": echo, "spans": spans})
+    return sections
+
+
+def combine_trace_frames(frames) -> bytes:
+    """Concatenate several TRACE frames' sections into one, each section
+    verbatim with its rank; a garbled frame is dropped."""
+    sections = []
+    for f in frames:
+        try:
+            sections.extend(parse_trace_frame(f))
+        except Exception:
+            continue
+    return serialize_trace_frame(sections)

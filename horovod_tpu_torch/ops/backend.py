@@ -20,6 +20,7 @@ from typing import Dict, List
 import torch
 
 from horovod_tpu_torch.common.message import Response
+from horovod_tpu_torch.common.metrics import NOOP_METRIC
 from horovod_tpu_torch.common.status import Status
 from horovod_tpu_torch.common.tensor_table import TensorTableEntry
 from horovod_tpu_torch.common.timeline import NOOP_TIMELINE
@@ -84,10 +85,22 @@ class CollectiveBackend:
     # Set by OperationManager.attach_finalizer: where a backend that
     # returns Status.InProgress() completes its batch.
     finalizer = None
+    # Per-plane batch and byte counters, set by attach_metrics; the
+    # class-level no-ops keep the disabled path free.
+    m_ops = NOOP_METRIC
+    m_bytes = NOOP_METRIC
 
     def __init__(self):
         # CUDA device index -> this plane's stream there.
         self._streams: Dict[int, torch.cuda.Stream] = {}
+
+    def attach_metrics(self, registry) -> None:
+        self.m_ops = registry.counter(
+            f'hvd_backend_ops_total{{backend="{self.name}"}}',
+            "collective batches executed by this data plane")
+        self.m_bytes = registry.counter(
+            f'hvd_backend_bytes_total{{backend="{self.name}"}}',
+            "payload bytes moved through this data plane")
 
     @contextmanager
     def activity(self, names, act, enabled: bool = True):

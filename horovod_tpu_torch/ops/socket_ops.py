@@ -57,6 +57,7 @@ import torch
 from horovod_tpu_torch.common import wire_dtype as _wd
 from horovod_tpu_torch.common.controller import Controller
 from horovod_tpu_torch.common.message import Response
+from horovod_tpu_torch.common.metrics import NOOP_METRIC, RATIO_BUCKETS
 from horovod_tpu_torch.common.status import Status
 from horovod_tpu_torch.common.timeline import (
     ACT_MEMCPY_IN_FUSION_BUFFER, ACT_MEMCPY_OUT_FUSION_BUFFER,
@@ -102,6 +103,22 @@ class SocketBackend(CollectiveBackend):
         self.bytes_from_host = 0
         # This rank's int8 residuals, keyed by the fused batch's names.
         self._ef = _wd.ErrorFeedback()
+        self._m_wire_saved = NOOP_METRIC
+        self._m_comp_ratio = NOOP_METRIC
+
+    def attach_metrics(self, registry) -> None:
+        """The plane's counters, and the wire dtype's: bytes kept off the
+        wire and the ratio of each compressed payload (the reference's
+        names, counted where its compress leg counts them)."""
+        super().attach_metrics(registry)
+        self._m_wire_saved = registry.counter(
+            "hvd_wire_bytes_saved_total",
+            "payload bytes kept OFF the wire by the negotiated "
+            "wire dtype (uncompressed minus wire size, per send)")
+        self._m_comp_ratio = registry.histogram(
+            "hvd_compression_ratio",
+            "wire bytes / uncompressed bytes per compressed payload",
+            RATIO_BUCKETS)
 
     def enabled(self, entries, response) -> bool:
         return self._ctl.size > 1
@@ -126,11 +143,15 @@ class SocketBackend(CollectiveBackend):
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
             flat = pack([e.tensor for e in entries], prescale)
+            src_nbytes = flat.nbytes
             if wire == _wd.WIRE_INT8:
                 flat = _wd.quantize_ef(
                     flat, self._ef, tuple(e.tensor_name for e in entries))
             else:
                 flat = _wd.compress(flat, wire)
+            if wire != _wd.WIRE_NONE:
+                self._m_wire_saved.inc(max(0, src_nbytes - flat.nbytes))
+                self._m_comp_ratio.observe(flat.nbytes / max(1, src_nbytes))
             return self._to_host(flat, stream)
 
     def unpack_from_host(self, entries, result: torch.Tensor,

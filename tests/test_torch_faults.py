@@ -12,16 +12,18 @@
   reference's channel; an armed channel's deadline, beacons and ABORT
   handling in the controllers; ``WorldAborted`` statuses.
 - Spawned worlds, all started at once by one module fixture (this file
-  run as a script is a rank), with the reference's heartbeat knobs of
+  run as a script is a rank; ``tests/torch_worlds.py``, one deadline
+  for all of them), with the reference's heartbeat knobs of
   its multi-process tests (interval 0.3 s, timeout 3 s): SIGKILL of
   rank 1 of 3 just before its 3rd collective, of rank 0, a 8 s hang of
   rank 1's loop at cycle 20, a severed control channel at cycle 20, and
   SIGKILL of rank 1 at op 40 of a bf16-compressed world deep in its
   cached, speculative steady state. Every survivor raises
   WorldAbortedError naming the faulted rank within the heartbeat timeout
-  plus ``SLACK_S`` of its last good collective; rank 2 of the worlds
-  that lose rank 1 has no channel to rank 1, so it names rank 1 only
-  through the ABORT the coordinator fans to it.
+  plus ``SLACK_S`` of its last good collective and leaves a flight dump
+  naming it; rank 2 of the worlds that lose rank 1 has no channel to
+  rank 1, so it names rank 1 only through the ABORT the coordinator
+  fans to it.
 """
 
 import json
@@ -29,7 +31,6 @@ import os
 import pathlib
 import signal
 import socket
-import subprocess
 import sys
 import threading
 import time
@@ -38,7 +39,6 @@ import traceback
 import pytest
 import torch
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 HB_ENV = {"HOROVOD_HEARTBEAT_INTERVAL": "0.3",
           "HOROVOD_HEARTBEAT_TIMEOUT": "3"}
 HB_TIMEOUT_S = 3.0
@@ -482,17 +482,6 @@ def _abort_main(out_dir: str, victim: int, same_name: bool) -> int:
     return 0
 
 
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
-
-
 # World -> (ranks, faulted rank, fault spec, one name throughout, extra
 # environment of every rank).
 WORLDS = {
@@ -503,65 +492,77 @@ WORLDS = {
     "cached1": (3, 1, "rank=1:kill:op=40", True,
                 {"HOROVOD_COMPRESSION": "bf16"}),
 }
+# One deadline for all five worlds together, from their start: a world
+# that misses it costs it once and names its unfinished ranks. On an
+# 8-core host the five are done about 12 s after they start, 35 s with
+# 16 busy loops beside them, and 63 s with the whole run pinned to one
+# core.
+WORLDS_DEADLINE_S = 75.0
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Start every world of ``WORLDS`` at once; the tests wait for them
     (the in-process tests above run meanwhile)."""
-    started = {}
-    for kind, port in zip(WORLDS, _free_ports(len(WORLDS))):
-        n, victim, spec, same, extra = WORLDS[kind]
-        out = tmp_path_factory.mktemp(f"abort_{kind}")
-        procs = []
-        for r in range(n):
-            env = dict(os.environ, **HB_ENV, **extra,
-                       HOROVOD_FAULT_SPEC=spec,
-                       HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
-                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                       HOROVOD_CONTROLLER_PORT=str(port),
-                       HOROVOD_CYCLE_TIME="2",
-                       GLOO_SOCKET_IFNAME="lo",
-                       PYTHONPATH=str(REPO) + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(pathlib.Path(__file__)), str(out),
-                 str(victim), "1" if same else "0"],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True))
-        started[kind] = (out, procs)
-    done = {}
+    from tests.torch_worlds import Worlds, child_env
+    spawned = Worlds(WORLDS_DEADLINE_S)
+    try:
+        for kind, (n, victim, spec, same, extra) in WORLDS.items():
+            out = tmp_path_factory.mktemp(f"abort_{kind}")
+            port = spawned.reserve_port()
+            envs = [child_env(**HB_ENV, **extra, HOROVOD_FAULT_SPEC=spec,
+                              HOROVOD_RANK=r, HOROVOD_SIZE=n,
+                              HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                              HOROVOD_CONTROLLER_PORT=port,
+                              HOROVOD_CYCLE_TIME=2,
+                              HOROVOD_TPU_FLIGHT_DIR=out)
+                    for r in range(n)]
+            argv = [pathlib.Path(__file__), out, victim, "1" if same else "0"]
+            spawned.start(kind, out, [argv] * n, envs)
+        yield spawned
+    finally:
+        spawned.close()
 
-    def wait(kind):
-        if kind not in done:
-            out, procs = started[kind]
-            logs, rcs = [], []
-            for p in procs:
-                try:
-                    stdout, stderr = p.communicate(timeout=90)
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    raise
-                logs.append(stdout + stderr)
-                rcs.append(p.returncode)
-            results = [json.loads(f.read_text()) if f.exists() else None
-                       for f in (out / f"result{r}.json"
-                                 for r in range(len(procs)))]
-            done[kind] = (rcs, results, "\n".join(logs))
-        return done[kind]
 
-    yield wait
-    for _, procs in started.values():
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+def test_a_world_past_the_shared_deadline_is_named_and_killed(tmp_path):
+    """The worlds' fixture: a rank still running when the shared deadline
+    passes fails its world at once, named, and is killed; the logs of
+    the world's ranks come with it, the late one's with its stack."""
+    from tests.torch_worlds import Worlds, child_env
+    spawned = Worlds(1.0)
+    try:
+        spawned.start("slow", tmp_path, [
+            ["-c", "print('rank 0 done')"],
+            ["-c", "import time; print('rank 1 up', flush=True); "
+                   "time.sleep(60)"]], [child_env()] * 2)
+        t0 = time.monotonic()
+        with pytest.raises(AssertionError) as e:
+            spawned.wait("slow")
+        assert time.monotonic() - t0 < 5.0
+        msg = str(e.value)
+        assert msg.startswith("world slow: ranks [") and "1] of 2" in msg
+        assert "rank 1 up" in msg and "most recent call first" in msg
+        procs = spawned._started["slow"][1]
+        assert all(p.poll() is not None for p in procs)
+        with pytest.raises(AssertionError):  # the verdict is kept
+            spawned.wait("slow")
+    finally:
+        spawned.close()
+
+
+def _flight_dump(out: pathlib.Path, rank: int) -> list:
+    """The records of rank ``rank``'s one flight dump in ``out``: the
+    header, then the ring's events."""
+    files = list(out.glob(f"hvd-flight-rank{rank}.pid*.jsonl"))
+    assert len(files) == 1, (rank, sorted(p.name for p in out.iterdir()))
+    return [json.loads(line) for line in files[0].read_text().splitlines()]
 
 
 @pytest.mark.parametrize("kind", list(WORLDS))
 def test_survivors_name_the_faulted_rank_in_time(worlds, kind):
     n, victim, spec, same, _ = WORLDS[kind]
-    rcs, results, logs = worlds(kind)
+    rcs, results, logs = worlds.wait(kind)
+    logs = "\n".join(logs)
     action = spec.split(":")[1]
     for r in range(n):
         res = results[r]
@@ -580,6 +581,11 @@ def test_survivors_name_the_faulted_rank_in_time(worlds, kind):
         assert res["after_last_ok"] < HB_TIMEOUT_S + SLACK_S, res
         # handles enqueued after the abort fail the same structured way
         assert res["after"] == ["WorldAbortedError", victim], res
+        # and the flight recorder left a postmortem naming the origin
+        dump = _flight_dump(worlds.out(kind), r)
+        assert dump[0]["origin"] == victim, dump[0]
+        assert any(e["ev"] == "abort" and e.get("arg") == victim
+                   for e in dump[1:]), dump
     # Where rank 1 is faulted, rank 2 named it above: its only channel is
     # to the coordinator, so that name came in the coordinator's ABORT.
     if kind == "hang1":

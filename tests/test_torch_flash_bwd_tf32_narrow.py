@@ -223,58 +223,87 @@ def test_fp32_backward_pads_once_for_both_narrow_kernels(d, built):
     assert _ratio((dq, dk, dv), _reference(d, 100, 127, True, 27, 0)) <= 1.0
 
 
-def _dq_order(args, split, n, lost=None):
+def _dq_stages(args, n):
+    """Each ``n``-key kv stage's ds k, a TF32X3 product of its own, in
+    stage order: what the narrow tf32 dq's warpgroups add, computed once
+    for every count of warpgroups."""
+    q, k, v, do, lse, delta, causal, qo, ko = args
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out = []
+    for j in range(-(-k.shape[1] // n)):
+        keys = slice(j * n, (j + 1) * n)
+        _, ds = port._p_ds_plain(q, k[:, keys], v[:, keys], do, lse, delta,
+                                 causal, qo, ko + j * n, scale, port.TF32X3)
+        out.append(port._product("bhqk,bkhd->bqhd", ds, k[:, keys],
+                                 port.TF32X3))
+    return out
+
+
+def _dq_order(args, split, n, lost=None, stages=None):
     """dq as the narrow tf32 dq sums it at ``split`` consumer warpgroups and
     ``n``-key stages: warpgroup w takes kv stages w, w + split, ... (those
     wholly in a q tile's future add zeros, so every q tile's may be taken
     here), each stage's ds k a TF32X3 product of its own added to the
     warpgroup's sum; then the warpgroups' sums added in the order w = 0, 1,
-    .... ``lost``: a stage left out (a kernel that dropped it)."""
-    q, k, v, do, lse, delta, causal, qo, ko = args
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    parts = [torch.zeros_like(q) for _ in range(split)]
-    for j in range(-(-k.shape[1] // n)):
-        if j == lost:
-            continue
-        keys = slice(j * n, (j + 1) * n)
-        _, ds = port._p_ds_plain(q, k[:, keys], v[:, keys], do, lse, delta,
-                                 causal, qo, ko + j * n, scale, port.TF32X3)
-        parts[j % split] = parts[j % split] + port._product(
-            "bhqk,bkhd->bqhd", ds, k[:, keys], port.TF32X3)
+    .... ``lost``: a stage left out (a kernel that dropped it). ``stages``:
+    ``_dq_stages(args, n)``, where the caller has them."""
+    stages = _dq_stages(args, n) if stages is None else stages
+    parts = [torch.zeros_like(args[0]) for _ in range(split)]
+    for j, ds_k in enumerate(stages):
+        if j != lost:
+            parts[j % split] = parts[j % split] + ds_k
     return functools.reduce(torch.add, parts)
 
 
-def _dkv_order(args, split, n, lost=None):
+def _dkv_stages(args, n):
+    """For each 64-key tile: its keys, the first ``n``-query stage it sees
+    (u0), and each stage's (u, ds^T q, p^T do) from u0 on, TF32X3 products
+    of their own: what the narrow tf32 dk/dv's warpgroups add, computed
+    once for every count of warpgroups."""
+    q, k, v, do, lse, delta, causal, qo, ko = args
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    sq, sk = q.shape[1], k.shape[1]
+    stages = -(-sq // n)
+    tiles = []
+    for t0 in range(0, sk, 64):
+        keys = slice(t0, t0 + 64)
+        need = ko + t0 - qo - (n - 1)
+        u0 = min(stages, -(-need // n)) if causal and need > 0 else 0
+        prods = []
+        for u in range(u0, stages):
+            qs = slice(u * n, (u + 1) * n)
+            p, ds = port._p_ds_plain(q[:, qs], k[:, keys], v[:, keys],
+                                     do[:, qs], lse[..., qs], delta[..., qs],
+                                     causal, qo + u * n, ko + t0, scale,
+                                     port.TF32X3)
+            prods.append((u, port._product("bhqk,bqhd->bkhd", ds, q[:, qs],
+                                           port.TF32X3),
+                          port._product("bhqk,bqhd->bkhd", p, do[:, qs],
+                                        port.TF32X3)))
+        tiles.append((keys, u0, prods))
+    return tiles
+
+
+def _dkv_order(args, split, n, lost=None, tiles=None):
     """(dk, dv) as the narrow tf32 dk/dv sums them at ``split`` consumer
     warpgroups and ``n``-query stages: for each 64-key tile, the q stages
     from the first one the tile sees (u0) dealt round-robin (stage u to
     warpgroup (u - u0) % split), each stage's p^T do and ds^T q TF32X3
     products of their own added to the warpgroup's sums; then the
     warpgroups' sums added in the order w = 0, 1, .... ``lost``: a q stage
-    left out of every tile."""
-    q, k, v, do, lse, delta, causal, qo, ko = args
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    sq, sk = q.shape[1], k.shape[1]
-    stages = -(-sq // n)
+    left out of every tile. ``tiles``: ``_dkv_stages(args, n)``, where the
+    caller has them."""
+    k, v = args[1], args[2]
+    tiles = _dkv_stages(args, n) if tiles is None else tiles
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for t0 in range(0, sk, 64):
-        keys = slice(t0, t0 + 64)
-        need = ko + t0 - qo - (n - 1)
-        u0 = min(stages, -(-need // n)) if causal and need > 0 else 0
+    for keys, u0, prods in tiles:
         parts = [[0, 0] for _ in range(split)]
-        for u in range(u0, stages):
+        for u, ds_q, p_do in prods:
             if u == lost:
                 continue
-            qs = slice(u * n, (u + 1) * n)
-            p, ds = port._p_ds_plain(q[:, qs], k[:, keys], v[:, keys],
-                                     do[:, qs], lse[..., qs], delta[..., qs],
-                                     causal, qo + u * n, ko + t0, scale,
-                                     port.TF32X3)
             w = parts[(u - u0) % split]
-            w[0] = w[0] + port._product("bhqk,bqhd->bkhd", ds, q[:, qs],
-                                        port.TF32X3)
-            w[1] = w[1] + port._product("bhqk,bqhd->bkhd", p, do[:, qs],
-                                        port.TF32X3)
+            w[0] = w[0] + ds_q
+            w[1] = w[1] + p_do
         dk[:, keys] = functools.reduce(torch.add, (w[0] for w in parts))
         dv[:, keys] = functools.reduce(torch.add, (w[1] for w in parts))
     return dk, dv
@@ -296,8 +325,10 @@ def test_kernel_order_matches_plain_and_reference(d, sq, sk, causal, qo,
     stages = (_constant("kDqKv"), _constant("kDkvQ"))
     assert splits == (2, 3) and stages == (64, 32)
     for n in (32, 64):
+        dq_stages, dkv_tiles = _dq_stages(args, n), _dkv_stages(args, n)
         for g in (1, 2) + splits:
-            mine = (_dq_order(args, g, n), *_dkv_order(args, g, n))
+            mine = (_dq_order(args, g, n, stages=dq_stages),
+                    *_dkv_order(args, g, n, tiles=dkv_tiles))
             assert _ratio(mine, plain) <= 1.0, (n, g)
             assert _ratio(mine, theirs) <= 1.0, (n, g)
 
@@ -334,15 +365,16 @@ def test_last_warpgroup_stages_of_chip_smoke_follow_the_kernels():
     split, n = _constant("kDqSplit"), _constant("kDqKv")
     lo, hi = lost["dq_last_warpgroup"]
     dq = port._flash_dq_plain(*args, operands=port.TF32X3)
-    dq_lost = _dq_order(args, split, n, lost=lo // n)
+    dq_stages = _dq_stages(args, n)
+    dq_lost = _dq_order(args, split, n, lost=lo // n, stages=dq_stages)
     kept = chip_smoke.dq_without_keys(port, q, k, v, do, lse, delta, lo, hi,
                                       operands=port.TF32X3)
     for x in (dq_lost, kept):
         assert tolerance.worst(x, dq, GRAD_TOL, **kw)[1] > (
             chip_smoke.LOST_FP32_BY)
     assert tolerance.worst(dq_lost, kept, GRAD_TOL, **kw)[1] <= 1.0
-    assert tolerance.worst(_dq_order(args, split, n), dq, GRAD_TOL,
-                           **kw)[1] <= 1.0
+    assert tolerance.worst(_dq_order(args, split, n, stages=dq_stages), dq,
+                           GRAD_TOL, **kw)[1] <= 1.0
     split, n = _constant("kDkvSplit"), _constant("kDkvQ")
     lo, hi = lost["dkv_last_warpgroup"]
     dk, dv = port._flash_dkv_plain(*args, operands=port.TF32X3)

@@ -38,18 +38,63 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(path):
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
 
 
-def test_importing_the_port_loads_no_jax():
-    code = ("import sys, pkgutil, importlib, horovod_tpu_torch as p\n"
-            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-            "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]\n"
-            "assert not bad, bad\n"
-            "import horovod_tpu_torch._cuda as c\n"
-            "assert c._lib is None  # nothing built or loaded on import\n")
+IMPORT_CODE = (
+    "import sys, pkgutil, importlib, horovod_tpu_torch as p\n"
+    "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+    "    importlib.import_module(m.name)\n"
+    "bad = [m for m in sys.modules if m.split('.')[0] in "
+    f"{FORBIDDEN!r}]\n"
+    "assert not bad, bad\n"
+    "import horovod_tpu_torch._cuda as c\n"
+    "assert c._lib is None  # nothing built or loaded on import\n")
+
+
+@pytest.fixture(scope="module")
+def children(tmp_path_factory):
+    """The fresh interpreters this file's checks run, started at once by
+    the first test that asks (each spends seconds starting and
+    importing); ``result(name, timeout)`` waits for one and gives its
+    (return code, stdout, stderr). Where there is a card, the checks of
+    its absence are not started (their tests skip)."""
+    out = tmp_path_factory.mktemp("port_rules")
+    shutil.copy(REPO / "chip_smoke.py", out / "chip_smoke.py")
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    subprocess.run([sys.executable, "-c", code], env=env, check=True,
-                   timeout=60)
+    specs = {"imports": ([sys.executable, "-c", IMPORT_CODE], REPO, env),
+             "chip_smoke": ([sys.executable, "chip_smoke.py"], out,
+                            {k: v for k, v in os.environ.items()
+                             if k != "PYTHONPATH"})}
+    if not torch.cuda.is_available():
+        specs["bench"] = ([sys.executable, "-m", "horovod_tpu_torch.bench"],
+                          REPO, env)
+        specs["cuda_tests"] = (
+            [sys.executable, "-m", "pytest", "--noconftest", "-q",
+             "-p", "no:cacheprovider", "-rs", "tests/test_torch_cuda.py"],
+            REPO, dict(env, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1"))
+    procs = {}
+    for name, (argv, cwd, proc_env) in specs.items():
+        with open(out / f"{name}.out", "w") as o, \
+                open(out / f"{name}.err", "w") as e:
+            procs[name] = subprocess.Popen(
+                argv, cwd=cwd, env=proc_env, stdin=subprocess.DEVNULL,
+                stdout=o, stderr=e, text=True)
+
+    def result(name, timeout):
+        procs[name].wait(timeout=timeout)
+        return (procs[name].returncode,
+                (out / f"{name}.out").read_text(),
+                (out / f"{name}.err").read_text())
+    try:
+        yield result
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def test_importing_the_port_loads_no_jax(children):
+    rc, stdout, stderr = children("imports", timeout=60)
+    assert rc == 0, stdout + stderr
 
 
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
@@ -81,37 +126,25 @@ def test_vision_models_and_entry_raise_without_cuda(build):
         make(device="cpu")
 
 
-def test_bench_refuses_to_run_without_the_card():
+def test_bench_refuses_to_run_without_the_card(children):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.bench"],
-                         cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert res.returncode != 0
-    assert "device='cpu'" in res.stderr
-    assert "metric" not in res.stdout
+    rc, stdout, stderr = children("bench", timeout=120)
+    assert rc != 0
+    assert "device='cpu'" in stderr
+    assert "metric" not in stdout
 
 
-def test_cuda_tests_skip_cleanly_without_a_card():
+def test_cuda_tests_skip_cleanly_without_a_card(children):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the tests run instead")
-    env = dict(os.environ, PYTHONPATH=str(REPO),
-               PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
-    res = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", "-rs", "tests/test_torch_cuda.py"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert "passed" not in res.stdout and "failed" not in res.stdout
-    assert "skipped" in res.stdout and "needs a CUDA device" in res.stdout
+    rc, stdout, stderr = children("cuda_tests", timeout=120)
+    assert rc == 0, stdout + stderr
+    assert "passed" not in stdout and "failed" not in stdout
+    assert "skipped" in stdout and "needs a CUDA device" in stdout
 
 
-def test_chip_smoke_fails_without_the_card_or_the_package(tmp_path):
-    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
-    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
-                         capture_output=True, text=True, timeout=120,
-                         env={k: v for k, v in os.environ.items()
-                              if k != "PYTHONPATH"})
-    assert res.returncode != 0
-    assert '"ok"' not in res.stdout
+def test_chip_smoke_fails_without_the_card_or_the_package(children):
+    rc, stdout, _ = children("chip_smoke", timeout=120)
+    assert rc != 0
+    assert '"ok"' not in stdout

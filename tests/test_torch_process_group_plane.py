@@ -35,8 +35,6 @@ import dataclasses
 import json
 import os
 import pathlib
-import socket
-import subprocess
 import sys
 import traceback
 
@@ -44,7 +42,6 @@ import numpy as np
 import pytest
 import torch
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 WORLDS = {"two": 2, "four": 4, "refuse": 2}
 
 
@@ -205,67 +202,45 @@ def _world_main(kind: str, out_dir: str) -> int:
 
 
 # -- the spawned worlds --------------------------------------------------
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+# One deadline for the three worlds together, from their start (about
+# 7 s on an 8-core host).
+WORLDS_DEADLINE_S = 90.0
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """Start the three worlds at once; the tests below wait for them."""
-    started = {}
-    for (kind, size), port in zip(WORLDS.items(), _free_ports(len(WORLDS))):
-        out = tmp_path_factory.mktemp(f"plane_{kind}")
-        procs = []
-        for r in range(size):
-            env = dict(os.environ, HOROVOD_RANK=str(r),
-                       HOROVOD_SIZE=str(size),
-                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                       HOROVOD_CONTROLLER_PORT=str(port),
-                       HOROVOD_CYCLE_TIME="1",
-                       GLOO_SOCKET_IFNAME="lo",
-                       PYTHONPATH=str(REPO) + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
+    """Start the three worlds at once; the tests below wait for them
+    (``tests/torch_worlds.py``: one deadline, logs in files, the ports
+    held until the worlds end)."""
+    from tests.torch_worlds import Worlds, child_env
+    spawned = Worlds(WORLDS_DEADLINE_S)
+    try:
+        for kind, size in WORLDS.items():
+            out = tmp_path_factory.mktemp(f"plane_{kind}")
+            port = spawned.reserve_port()
+            extra = {}
             if kind == "four":
-                env.update(HOROVOD_HOSTNAME=f"fakehost{r // 2}",
-                           HOROVOD_XLA_BCAST="tree",
-                           HOROVOD_HIERARCHICAL_ALLREDUCE="1",
-                           HOROVOD_HIERARCHICAL_ALLGATHER="1")
-            procs.append(subprocess.Popen(
-                [sys.executable, str(pathlib.Path(__file__)), kind,
-                 str(out)], env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
-        started[kind] = (out, procs)
-    done = {}
+                extra = dict(HOROVOD_XLA_BCAST="tree",
+                             HOROVOD_HIERARCHICAL_ALLREDUCE="1",
+                             HOROVOD_HIERARCHICAL_ALLGATHER="1")
+            envs = [child_env(**extra, HOROVOD_RANK=r, HOROVOD_SIZE=size,
+                              HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                              HOROVOD_CONTROLLER_PORT=port,
+                              HOROVOD_CYCLE_TIME=1,
+                              **({"HOROVOD_HOSTNAME": f"fakehost{r // 2}"}
+                                 if kind == "four" else {}))
+                    for r in range(size)]
+            spawned.start(kind, out, [[pathlib.Path(__file__), kind, out]]
+                          * size, envs)
 
-    def wait(kind):
-        if kind not in done:
-            out, procs = started[kind]
-            logs = []
-            for p in procs:
-                try:
-                    stdout, stderr = p.communicate(timeout=120)
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    raise
-                logs.append(stdout + stderr)
-                assert p.returncode == 0, "\n".join(logs)
-            done[kind] = ([json.loads((out / f"result{r}.json").read_text())
-                           for r in range(len(procs))], logs)
-        return done[kind]
-
-    yield wait
-    for _, procs in started.values():
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+        def wait(kind):
+            rcs, results, logs = spawned.wait(kind)
+            assert rcs == [0] * len(rcs) and None not in results, \
+                "\n".join(logs)
+            return results, logs
+        yield wait
+    finally:
+        spawned.close()
 
 
 # -- the tests -----------------------------------------------------------

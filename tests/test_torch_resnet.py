@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from horovod_tpu.models import resnet as ref
 from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import resnet as port
-from tests.test_torch_train_step import _join, _spawn_world
+from tests.test_torch_train_step import _spawn_world
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
@@ -188,16 +188,17 @@ def bn_world(tmp_path_factory):
     data = {"state": state, "images": torch.tensor(images),
             "labels": torch.tensor(labels)}
     torch.save(data, out / "init.pt")
-    procs = _spawn_world(out, "bn", worker=_BN_WORKER)
-    yield out, data, procs
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    from tests.torch_worlds import Worlds
+    spawned = Worlds(60.0)
+    try:
+        _spawn_world(spawned, out, "bn", worker=_BN_WORKER)
+        yield out, data, spawned
+    finally:
+        spawned.close()
 
 
 def test_cross_replica_batchnorm_step_equals_whole_batch_step(bn_world):
-    out, data, procs = bn_world
+    out, data, spawned = bn_world
     model = port.ResNet(block_cls=port.BottleneckBlock, dtype=torch.float32,
                         device="cpu", **NARROW)
     model.load_state_dict(data["state"])
@@ -207,7 +208,8 @@ def test_cross_replica_batchnorm_step_equals_whole_batch_step(bn_world):
     want = model.state_dict()
     want_momentum = [opt.state[p]["momentum_buffer"]
                      for p in model.parameters()]
-    _join(procs)
+    rcs, _, logs = spawned.wait("bn")
+    assert rcs == [0, 0], "\n".join(logs)
 
     def worst(got):
         errs = [(got["state"][k] - want[k]).abs().max().item() for k in want]

@@ -31,8 +31,6 @@ import copy
 import json
 import os
 import pathlib
-import socket
-import subprocess
 import sys
 import time
 import traceback
@@ -41,7 +39,6 @@ import numpy as np
 import pytest
 import torch
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 SCENARIOS = ["allreduce", "allreduce_fused", "allreduce_multi_dtype",
              "allgather", "broadcast", "alltoall", "reducescatter",
              "grouped_allreduce", "out_of_order", "mismatch", "stall",
@@ -327,19 +324,6 @@ def _death_main(out_dir: str, dead: int) -> int:
 
 
 # -- the spawned worlds --------------------------------------------------
-def _free_ports(n):
-    """``n`` distinct free ports: held open together while they are
-    picked, so that two worlds never get the same one."""
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
-
-
 # World kind -> (ranks, environment of every rank, of rank 1 only).
 WORLD_ENV = {2: (2, {}, {}), 3: (3, {}, {}),
              "nocache": (2, {"HOROVOD_CACHE_CAPACITY": "0"}, {}),
@@ -348,66 +332,48 @@ WORLD_ENV = {2: (2, {}, {}), 3: (3, {}, {}),
              "dead0": (2, {}, {}), "dead1": (2, {}, {})}
 
 
+# One deadline for the worlds together, from their start (about 10 s on
+# an 8-core host).
+WORLDS_DEADLINE_S = 90.0
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Start the worlds of ``WORLD_ENV`` at once (a 2-rank and a 3-rank
     world, the 2-rank world without the cache and with 4 slots, and two
     2-rank worlds that lose rank 0 or rank 1); the tests below wait for
-    them (the in-process tests run meanwhile)."""
-    started = {}
-    for size, port in zip(WORLD_ENV, _free_ports(len(WORLD_ENV))):
-        out = tmp_path_factory.mktemp(f"world{size}")
-        args = [str(out)]
-        if str(size).startswith("dead"):
-            args = ["--death", size[-1], str(out)]
-        elif size == "evict":
-            args.append(",".join(EVICT_SCENARIOS))
-        procs = []
-        n, every, rank1 = WORLD_ENV[size]
-        for r in range(n):
-            env = dict(os.environ, **every, **(rank1 if r == 1 else {}),
-                       HOROVOD_RANK=str(r),
-                       HOROVOD_SIZE=str(n),
-                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                       HOROVOD_CONTROLLER_PORT=str(port),
-                       HOROVOD_CYCLE_TIME="2",
-                       HOROVOD_STALL_CHECK_TIME_SECONDS="1",
-                       HOROVOD_TIMELINE=str(out / "timeline.json"),
-                       HOROVOD_TIMELINE_MARK_CYCLES="1",
-                       GLOO_SOCKET_IFNAME="lo",
-                       PYTHONPATH=str(REPO) + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(pathlib.Path(__file__))] + args,
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True))
-        started[size] = (out, procs)
-    done = {}
+    them (the in-process tests run meanwhile; ``tests/torch_worlds.py``:
+    one deadline, logs in files, the ports held until the worlds end)."""
+    from tests.torch_worlds import Worlds, child_env
+    spawned = Worlds(WORLDS_DEADLINE_S)
+    try:
+        for size, (n, every, rank1) in WORLD_ENV.items():
+            out = tmp_path_factory.mktemp(f"world{size}")
+            args = [out]
+            if str(size).startswith("dead"):
+                args = ["--death", size[-1], out]
+            elif size == "evict":
+                args.append(",".join(EVICT_SCENARIOS))
+            port = spawned.reserve_port()
+            envs = [child_env(**every, **(rank1 if r == 1 else {}),
+                              HOROVOD_RANK=r, HOROVOD_SIZE=n,
+                              HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                              HOROVOD_CONTROLLER_PORT=port,
+                              HOROVOD_CYCLE_TIME=2,
+                              HOROVOD_STALL_CHECK_TIME_SECONDS=1,
+                              HOROVOD_TIMELINE=out / "timeline.json",
+                              HOROVOD_TIMELINE_MARK_CYCLES=1)
+                    for r in range(n)]
+            spawned.start(size, out, [[pathlib.Path(__file__)] + args] * n,
+                          envs)
 
-    def wait(size):
-        if size not in done:
-            out, procs = started[size]
-            logs = []
-            for p in procs:
-                try:
-                    stdout, stderr = p.communicate(timeout=90)
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    raise
-                logs.append(stdout + stderr)
-                assert p.returncode == 0, "\n".join(logs)
-            results = [json.loads(f.read_text()) if f.exists() else None
-                       for f in (out / f"result{r}.json"
-                                 for r in range(len(procs)))]
-            done[size] = (out, results, logs)
-        return done[size]
-
-    yield wait
-    for _, procs in started.values():
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+        def wait(size):
+            rcs, results, logs = spawned.wait(size)
+            assert rcs == [0] * len(rcs), "\n".join(logs)
+            return spawned.out(size), results, logs
+        yield wait
+    finally:
+        spawned.close()
 
 
 @pytest.fixture

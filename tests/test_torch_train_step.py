@@ -12,11 +12,6 @@ TransformerLM, chunked loss) against the reference's, on the CPU.
   step stays within bf16 rounding of the gradients of the uncompressed one.
 """
 
-import os
-import socket
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +28,6 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import transformer as port
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = dict(vocab_size=256, num_layers=2, num_heads=4, head_dim=16,
              mlp_ratio=4, max_seq_len=32)
 LR = 0.1
@@ -57,7 +51,24 @@ def cpu_world():
     hvd.shutdown()
 
 
-def test_world_size_one_steps_match_optax_reference(cpu_world):
+@pytest.fixture(scope="module")
+def gloo_worlds(tmp_path_factory):
+    """The two-rank gloo worlds (uncompressed and bf16 on the wire),
+    started at once under one deadline (``tests/torch_worlds.py``); the
+    first test asks for them, so that they run while it does."""
+    from tests.torch_worlds import Worlds
+    spawned = Worlds(60.0)
+    try:
+        dirs = {mode: tmp_path_factory.mktemp(f"gloo_{mode}")
+                for mode in ("none", "bf16")}
+        for mode, out in dirs.items():
+            _spawn_world(spawned, out, mode)
+        yield spawned, dirs
+    finally:
+        spawned.close()
+
+
+def test_world_size_one_steps_match_optax_reference(cpu_world, gloo_worlds):
     batches = _batches(3)
     fmodel = ref.TransformerLM(ref.TransformerConfig(dtype=jnp.float32,
                                                      **SHAPE))
@@ -163,48 +174,22 @@ hvd.shutdown()
 """ % LR
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _spawn_world(out_dir, mode, worker=_WORKER):
+def _spawn_world(spawned, out_dir, mode, worker=_WORKER):
     """Two ranks of a gloo world, each running ``worker`` with the
-    arguments ``out_dir`` and ``mode``."""
-    port_no = _free_port()
-    procs = []
-    for r in range(2):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
-                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port_no),
-                   GLOO_SOCKET_IFNAME="lo",
-                   PYTHONPATH=REPO + os.pathsep +
-                   os.environ.get("PYTHONPATH", ""))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", worker, str(out_dir), mode], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return procs
+    arguments ``out_dir`` and ``mode`` (``tests/torch_worlds.py``)."""
+    from tests.torch_worlds import child_env
+    port_no = spawned.reserve_port()
+    envs = [child_env(HOROVOD_RANK=r, HOROVOD_SIZE=2,
+                      HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                      HOROVOD_CONTROLLER_PORT=port_no) for r in range(2)]
+    spawned.start(mode, out_dir, [["-c", worker, out_dir, mode]] * 2, envs)
 
 
-def _join(procs):
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        assert p.returncode == 0, out
-
-
-def test_two_rank_gloo_step_equals_single_process_step(tmp_path):
-    worlds = {mode: (tmp_path / mode, None) for mode in ("none", "bf16")}
-    for mode, (out, _) in worlds.items():
-        out.mkdir()
-        worlds[mode] = (out, _spawn_world(out, mode))
-    for out, procs in worlds.values():
-        _join(procs)
+def test_two_rank_gloo_step_equals_single_process_step(gloo_worlds):
+    spawned, worlds = gloo_worlds
+    for mode in worlds:
+        rcs, _, logs = spawned.wait(mode)
+        assert rcs == [0, 0], "\n".join(logs)
 
     # The single-process step on the concatenated batch, from root 1's
     # weights.
@@ -218,7 +203,7 @@ def test_two_rank_gloo_step_equals_single_process_step(tmp_path):
     opt.step()
     want = model.state_dict()
 
-    ranks = [torch.load(worlds["none"][0] / f"{r}.pt") for r in range(2)]
+    ranks = [torch.load(worlds["none"] / f"{r}.pt") for r in range(2)]
     for name in want:
         for got in ranks:
             assert torch.equal(got["init"][name], start[name]), name
@@ -230,7 +215,7 @@ def test_two_rank_gloo_step_equals_single_process_step(tmp_path):
     # bf16 on the wire rounds each gradient to 8 significant bits before
     # the sum and again after it: the update may differ from the exact one
     # by 2^-7 of the largest update, plus float noise.
-    compressed = torch.load(worlds["bf16"][0] / "0.pt")["after"]
+    compressed = torch.load(worlds["bf16"] / "0.pt")["after"]
     for name in want:
         step = (want[name] - start[name]).abs().max().item()
         err = (compressed[name] - want[name]).abs().max().item()

@@ -30,8 +30,6 @@ port's torch ones.
 
 import os
 import pathlib
-import socket
-import subprocess
 import sys
 import traceback
 
@@ -39,7 +37,6 @@ import numpy as np
 import pytest
 import torch
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 STEADY = 12
 
 
@@ -476,69 +473,47 @@ def _compression_main(out_dir: str) -> int:
     return 0
 
 
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
-
-
 # World -> (ranks, HOROVOD_COMPRESSION of each rank).
 WORLDS = {"bf16": ("bf16", "bf16", "bf16"), "int8": ("int8", "int8"),
           "mixed": ("none", "bf16")}
+# One deadline for the three worlds together, from their start (about
+# 5 s on an 8-core host).
+WORLDS_DEADLINE_S = 90.0
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Start every world of ``WORLDS`` at once; the first test asks for
-    them, so that they run while the in-process tests do."""
-    started = {}
-    for kind, port in zip(WORLDS, _free_ports(len(WORLDS))):
-        out = tmp_path_factory.mktemp(f"wire_{kind}")
-        procs = []
-        for r, comp in enumerate(WORLDS[kind]):
-            env = dict(os.environ, HOROVOD_COMPRESSION=comp,
-                       HOROVOD_RANK=str(r),
-                       HOROVOD_SIZE=str(len(WORLDS[kind])),
-                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                       HOROVOD_CONTROLLER_PORT=str(port),
-                       HOROVOD_CYCLE_TIME="2",
-                       GLOO_SOCKET_IFNAME="lo",
-                       PYTHONPATH=str(REPO) + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(pathlib.Path(__file__)), str(out)],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True))
-        started[kind] = (out, procs)
-    done = {}
+    them, so that they run while the in-process tests do
+    (``tests/torch_worlds.py``: one deadline, logs in files, the ports
+    held until the worlds end)."""
+    from tests.torch_worlds import Worlds, child_env
+    spawned = Worlds(WORLDS_DEADLINE_S)
+    try:
+        for kind, comps in WORLDS.items():
+            out = tmp_path_factory.mktemp(f"wire_{kind}")
+            port = spawned.reserve_port()
+            envs = [child_env(HOROVOD_COMPRESSION=comp, HOROVOD_RANK=r,
+                              HOROVOD_SIZE=len(comps),
+                              HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                              HOROVOD_CONTROLLER_PORT=port,
+                              HOROVOD_CYCLE_TIME=2)
+                    for r, comp in enumerate(comps)]
+            spawned.start(kind, out, [[pathlib.Path(__file__), out]]
+                          * len(comps), envs)
+        done = {}
 
-    def wait(kind):
-        if kind not in done:
-            out, procs = started[kind]
-            logs = []
-            for p in procs:
-                try:
-                    stdout, stderr = p.communicate(timeout=90)
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    raise
-                logs.append(stdout + stderr)
-                assert p.returncode == 0, "\n".join(logs)
-            done[kind] = [torch.load(out / f"result{r}.pt")
-                          for r in range(len(procs))]
-        return done[kind]
-
-    yield wait
-    for _, procs in started.values():
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+        def wait(kind):
+            if kind not in done:
+                rcs, _, logs = spawned.wait(kind)
+                assert rcs == [0] * len(rcs), "\n".join(logs)
+                out = spawned.out(kind)
+                done[kind] = [torch.load(out / f"result{r}.pt")
+                              for r in range(len(rcs))]
+            return done[kind]
+        yield wait
+    finally:
+        spawned.close()
 
 
 def _expected(wires, size):
