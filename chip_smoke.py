@@ -324,7 +324,29 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    stats["cycles"] when taken), and ``GET /metrics`` the same numbers;
    the trace must hold one track per rank with the same round numbers on
    the batches both ranks ran. Prints seconds per step with the planes
-   on against phase 10's, with them off.
+   on against phase 10's, with them off, and rank 0's ROUND spans step
+   by step (those that ran a classic batch, those over 5 ms, the gaps
+   between round starts) beside the rounds per step of both phases.
+15. Autotune on the card: phase 10's two-rank star world as child
+   processes (``--child autotune``) with HOROVOD_AUTOTUNE=1, a bf16
+   proposal (two wire candidates a bucket), one warm-up sample, 2 cycles
+   a sample and 3 Bayesian samples, the CSV log under the work
+   directory. Each rank allreduces one CUDA fp32 tensor of each size
+   bucket (16 KiB, 512 KiB, 8 MiB) a step, and rank 0 broadcasts its
+   tuning flag so that every rank leaves together; running past the
+   budget of steps fails. The world must converge; every rank's fusion
+   threshold and cycle time equal rank 0's (the trailer); the settled
+   plan holds only candidates; the plan moved, and at every move rank 0
+   evicted the cached allreduce verdicts (both ranks' evictions and
+   epochs equal); every result equals the CPU codec's sum at one of the
+   two wires, and under the settled plan at its bucket's; the CSV holds
+   a header and one row a sample inside the box. Then phase 10's LM
+   takes its 5 eager steps under the settled plan: the ranks' parameters
+   equal, each loss within phase 12's bound of phase 10's, and bit for
+   bit where no bucket casts (the star sums element by element in rank
+   order, whatever the fusion). Prints the tuned values and the plan,
+   the revisions and evictions, the seconds to converge and the seconds
+   per step against phase 10's.
 
 The last two lines are the JSON ``kernels`` line (the kernels at their
 main shapes, then the entry's shape, each C4 case and the Gemma-7B
@@ -2858,10 +2880,20 @@ def planes_world(torch, hvd, args, rank, port, workdir):
                                              eager=True)
         torch.cuda.synchronize()
         before = runtime_counts()
-        losses, secs = timed_steps(step, WORLD_STEPS)
+        # Each step's start and the last one's end on this rank's clock,
+        # which on rank 0 is the world trace's: the rounds of each step.
+        edges = []
+
+        def marked():
+            edges.append(time.monotonic())
+            return step()
+
+        losses, secs = timed_steps(marked, WORLD_STEPS)
+        edges.append(time.monotonic())
         per_step = print_negotiation(before, runtime_counts(), WORLD_STEPS)
         params = [p.detach().to("cpu", copy=True) for p in model.parameters()]
         del step, model
+        trace_t0 = rt._trace_writer._t0 if rank == 0 else 0.0
         all_losses = hvd.allgather(torch.tensor([losses]), name="w.losses")
         st = dict(rt.stats)
         mine = torch.tensor([[float(st[k]) for k in PLANES_SUMMED.values()]
@@ -2880,7 +2912,10 @@ def planes_world(torch, hvd, args, rank, port, workdir):
     if rank != 0:
         return None
     read["trace"] = read_trace(trace, 2)
+    read["rounds"] = step_rounds(
+        trace, [(e - trace_t0) * 1e6 for e in edges])
     read["busy_ms"] = per_step["busy_ms"]
+    read["cycles"] = per_step["cycles"]
     with open(log) as f:
         lines = f.read().splitlines()
     read["log_lines"] = len(lines)
@@ -2978,6 +3013,37 @@ def read_trace(path, size):
     return {"spans": len(spans), "same_rounds": n}
 
 
+def step_rounds(path, edges_us):
+    """Rank 0's ROUND spans of the world trace, step by step (``edges_us``:
+    each step's start and the last one's end, in the trace's clock): the
+    rounds, those that ran a classic batch (an exec span of the same
+    round number on rank 0; a speculative round carries its batch inside
+    the ROUND span and has none), those over 5 ms, their summed duration
+    and the gaps between round starts. Printed; returns the rounds per
+    step."""
+    with open(path) as f:
+        events = json.load(f)
+    spans = [e for e in events if e.get("pid") == 0 and e.get("ph") == "X"]
+    worked = {e["args"]["wc"] for e in spans if e["name"] != "ROUND"}
+    rounds = sorted((e["ts"], e["dur"], e["args"]["wc"]) for e in spans
+                    if e["name"] == "ROUND")
+    per_step = []
+    for k, (lo, hi) in enumerate(zip(edges_us, edges_us[1:])):
+        mine = [r for r in rounds if lo <= r[0] < hi]
+        starts = [r[0] for r in mine]
+        gaps = [(b - a) / 1e3 for a, b in zip(starts, starts[1:])]
+        busy = sum(r[1] for r in mine) / 1e3
+        work = sum(1 for r in mine if r[2] in worked)
+        long = sum(1 for r in mine if r[1] > 5000)
+        print(f"    step {k + 1}: {len(mine)} rounds ({work} ran a classic "
+              f"batch, {long} over 5 ms), {busy:.1f} ms inside rounds of "
+              f"{(hi - lo) / 1e3:.1f} ms; gaps between round starts median "
+              f"{statistics.median(gaps) if gaps else 0.0:.1f} ms, "
+              f"{' '.join(f'{g:.0f}' for g in gaps)}")
+        per_step.append(len(mine))
+    return per_step
+
+
 def planes_phase(torch, hvd, args, workdir, star_run):
     """Phase 14: rank 0 here, rank 1 in a process of its own; the steps
     held to phase 10's (``star_run``) bit for bit."""
@@ -3011,9 +3077,236 @@ def planes_phase(torch, hvd, args, workdir, star_run):
           f"{read['busy_ms']:.1f} against {s_per['busy_ms']:.1f} ms per "
           f"step")
     print(f"  losses and parameters equal to phase 10's bit for bit: {same}")
+    print(f"  rounds per step: {read['cycles']:.1f} with the planes on "
+          f"(the trace's ROUND spans on rank 0 per step: {read['rounds']}), "
+          f"{s_per['cycles']:.1f} with them off (phase 10's runtime.stats)")
     if not same:
         raise AssertionError("the planes changed the steps' results")
     return read
+
+
+# Phase 15: autotune on the card, both ranks children of this script
+# (``--child autotune RANK SIZE PORT DIR``) as phase 12's. A bf16
+# proposal gives the star's grid two wire candidates; the tuner's knobs
+# are the reference's multi-process test's (tests/test_autotune_mp.py).
+AUTOTUNE_KNOBS = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_COMPRESSION": "bf16",
+                  "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                  "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+                  "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "3"}
+# One fp32 tensor a size bucket of the tuner's table (bounds 64 KiB and
+# 1 MiB): 16 KiB, 512 KiB and 8 MiB.
+AUTOTUNE_NUMELS = (4096, 131072, 2097152)
+# Steps (an allreduce a bucket, then rank 0's tuning flag) the world may
+# take to converge; steps under the settled plan after it.
+AUTOTUNE_BUDGET = 300
+AUTOTUNE_SETTLED = 2
+
+
+def autotune_forms(torch, seed, size):
+    """Every rank's phase-15 inputs on the CPU, from a seed, and their
+    sums as the star computes them at each candidate wire (the CPU
+    codec): {wire: [a sum per bucket]}."""
+    from horovod_tpu_torch.common import wire_dtype as wd
+    from horovod_tpu_torch.ops.socket_ops import _accumulate
+    xs = []
+    for r in range(size):
+        g = torch.Generator().manual_seed(seed * 1000 + 15 + r)
+        xs.append([torch.randn(n, generator=g) for n in AUTOTUNE_NUMELS])
+    want = {wd.WIRE_NONE: [], wd.WIRE_BF16: []}
+    for b, n in enumerate(AUTOTUNE_NUMELS):
+        parts = [x[b] for x in xs]
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            _accumulate(acc, p)
+        want[wd.WIRE_NONE].append(acc)
+        ws = [wd.compress(p, wd.WIRE_BF16) for p in parts]
+        want[wd.WIRE_BF16].append(wd.decompress(
+            wd.reduce_wire(ws[0], ws[1:], wd.WIRE_BF16, torch.float32, n),
+            wd.WIRE_BF16, torch.float32, n))
+    return xs, want
+
+
+def autotune_child(torch, hvd, args, rank, size, port, workdir, _):
+    """One rank of phase 15's world: allreduces of one CUDA tensor a size
+    bucket until rank 0's tuner converges (its flag, broadcast each step,
+    ends every rank's loop alike), each result held to the CPU codec's
+    sum at a candidate wire; then the tuned values against rank 0's,
+    steps under the settled plan, the counts of plan moves and
+    evictions, and the depth-2 full-width LM's eager steps (phase 10's).
+    Writes its numbers to ``autotune-<rank>.json``."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.common import wire_dtype as wd
+    from horovod_tpu_torch.models import TransformerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    child_env(rank, size, port, dict(
+        AUTOTUNE_KNOBS,
+        HOROVOD_AUTOTUNE_LOG=os.path.join(workdir, "autotune.csv")))
+    hvd.init()
+    result = {"rank": rank}
+    try:
+        rt, _ = star_only(hvd)
+        pm = rt.parameter_manager
+        xs, want = autotune_forms(torch, args.seed, size)
+        dev = rt.device or torch.device("cpu")  # the CPU: a rehearsal
+        mine = [x.to(dev) for x in xs[rank]]
+        wires = (wd.WIRE_NONE, wd.WIRE_BF16)
+        counts = [[0, 0] for _ in AUTOTUNE_NUMELS]
+        other = 0
+        t0 = time.perf_counter()
+        steps = None
+        for i in range(AUTOTUNE_BUDGET):
+            for b, x in enumerate(mine):
+                got = hvd.allreduce(x, op=hvd.Sum, name=f"p15.b{b}").cpu()
+                hit = [k for k, w in enumerate(wires)
+                       if torch.equal(got, want[w][b])]
+                if hit:
+                    counts[b][hit[0]] += 1
+                else:
+                    other += 1
+            flag = torch.tensor([float(rank == 0 and not pm.tuning)])
+            if hvd.broadcast(flag, 0, name="p15.done").item() == 1.0:
+                steps = i + 1
+                break
+        result.update(steps=steps, converge_s=time.perf_counter() - t0,
+                      counts=counts, other=other)
+        if steps is None:
+            raise AssertionError(f"rank {rank}: no convergence in "
+                                 f"{AUTOTUNE_BUDGET} steps")
+        # Past this barrier the cycle that carried the converged trailer
+        # went through every rank's adoption.
+        hvd.barrier()
+        result["mine"] = [float(pm.fusion_threshold_bytes()),
+                          pm.cycle_time_ms()]
+        result["tuned"] = hvd.broadcast(
+            torch.tensor(result["mine"], dtype=torch.float64), 0,
+            name="p15.vals").tolist()
+        # rank 0's settled caps (-1 no cap: the negotiated bf16)
+        caps = hvd.broadcast(torch.tensor(
+            [-1 if c is None else c for _, c in pm.bucket_plan()]), 0,
+            name="p15.plan").tolist()
+        settled = []
+        for _ in range(AUTOTUNE_SETTLED):
+            for b, x in enumerate(mine):
+                got = hvd.allreduce(x, op=hvd.Sum, name=f"p15.b{b}").cpu()
+                w = wd.WIRE_NONE if caps[b] == wd.WIRE_NONE \
+                    else wd.WIRE_BF16
+                settled.append(bool(torch.equal(got, want[w][b])))
+        st = rt.stats
+        result.update(caps=caps, settled=settled,
+                      plan=[list(p) for p in pm.bucket_plan()],
+                      revision=pm.plan_revision,
+                      plan_moves=st["plan_moves"],
+                      plan_evictions=st["plan_evictions"],
+                      cache_evictions=st["cache_evictions"],
+                      epoch=rt._cache.epoch)
+        cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
+                                **LM_FULL)
+        step, model = bench.transformer_step(cfg, 2, seed=args.seed,
+                                             eager=True)
+        torch.cuda.synchronize()
+        losses, secs = timed_steps(step, WORLD_STEPS)
+        result.update(losses=losses, secs=secs,
+                      sums=[p.detach().double().sum().item()
+                            for p in model.parameters()])
+        del step, model
+    finally:
+        hvd.shutdown()
+    with open(os.path.join(workdir, f"autotune-{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def autotune_phase(torch, args, workdir, star_run):
+    """Phase 15: autotune on the card. Phase 10's two-rank star world
+    with HOROVOD_AUTOTUNE=1 and a bf16 proposal, as child processes; the
+    LM's steps under the settled plan held to phase 10's
+    (``star_run``)."""
+    from horovod_tpu_torch.common import parameter_manager as hpm
+    t0 = time.perf_counter()
+    procs = start_children(args, "autotune", 2, free_port(), workdir, (0, 1))
+    wait_children(procs, workdir, "autotune", 300)
+    res = [json.load(open(os.path.join(workdir, f"autotune-{r}.json")))
+           for r in (0, 1)]
+    r0, r1 = res
+    plan = [(a, c) for a, c in r0["plan"]]
+    print(f"autotune on the card ({card_line()}): two ranks through the "
+          f"socket star, a bf16 proposal, one fp32 tensor a size bucket "
+          f"({', '.join(f'{4 * n >> 10} KiB' for n in AUTOTUNE_NUMELS)}); "
+          f"{time.perf_counter() - t0:.1f} s for the phase")
+    print(f"  converged in {r0['steps']} steps, {r0['converge_s']:.2f} s "
+          f"(rank 1: {r1['converge_s']:.2f} s): fusion threshold "
+          f"{r0['tuned'][0] / 2 ** 20:.3f} MB, cycle time "
+          f"{r0['tuned'][1]:.3f} ms; plan {hpm.describe_plan(plan)}; "
+          f"rank 1 holds {r1['mine'][0] / 2 ** 20:.3f} MB, "
+          f"{r1['mine'][1]:.3f} ms")
+    print(f"  plan revision {r0['revision']}; rank 0 saw {r0['plan_moves']} "
+          f"moves of the plan and evicted the cached allreduce verdicts at "
+          f"{r0['plan_evictions']} of them; cache evictions "
+          f"{r0['cache_evictions']} / {r1['cache_evictions']} and epochs "
+          f"{r0['epoch']} / {r1['epoch']} on ranks 0 / 1")
+    for r in res:
+        print(f"  rank {r['rank']}: results at (none, bf16) per bucket "
+              f"{r['counts']}, {r['other']} equal to neither; under the "
+              f"settled plan {sum(r['settled'])} of {len(r['settled'])} "
+              f"equal to its wire's")
+    with open(os.path.join(workdir, "autotune.csv")) as f:
+        lines = f.read().splitlines()
+    rows = [[float(v) for v in line.split(",")] for line in lines[1:]]
+    print(f"  the CSV log: {len(rows)} samples "
+          f"{[tuple(round(v, 3) for v in row[1:]) for row in rows]}")
+    s_losses, _, (s_secs, _), _ = star_run
+    print(f"  the LM at full width, depth 2, {WORLD_STEPS} eager steps "
+          f"under the settled plan: sec/step "
+          f"{' '.join(f'{v:.3f}' for v in r0['secs'])} (phase 10: "
+          f"{' '.join(f'{v:.3f}' for v in s_secs)}); median of steps "
+          f"3-{WORLD_STEPS} {statistics.median(r0['secs'][2:]):.4f} against "
+          f"{statistics.median(s_secs[2:]):.4f} s")
+    checks = {
+        "the world converged": r0["steps"] is not None
+        and r0["steps"] == r1["steps"],
+        "every rank holds rank 0's values": r0["tuned"] == r1["tuned"]
+        == r0["mine"] == r1["mine"],
+        "the plan holds only candidates": all(
+            a == 0 and c in (None, 0, 1) for a, c in plan),
+        "the plan moved, and every move evicted": r0["plan_moves"] > 0
+        and r0["plan_evictions"] == r0["plan_moves"]
+        and r1["plan_moves"] == 0 and r0["epoch"] == r1["epoch"]
+        and r0["cache_evictions"] == r1["cache_evictions"],
+        "each result is its wire's sum": all(
+            r["other"] == 0 and all(r["settled"]) for r in res),
+        "the CSV": lines[0] == ("sample,fusion_threshold_mb,cycle_time_ms,"
+                                "score_bytes_per_us")
+        and len(rows) == int(AUTOTUNE_KNOBS[
+            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"])
+        and all(0 <= mb <= 64 and 1 <= ms <= 100 and sc >= 0
+                for _, mb, ms, sc in rows),
+    }
+    # The LM against phase 10: the bound of phase 12 (each loss within
+    # 2^-6 of its move since step 1 plus 1e-4 of it), and bit for bit
+    # where no bucket casts: the star sums element by element in rank
+    # order, whatever the fusion threshold groups.
+    uncompressed = all(c == 0 for _, c in plan)
+    worst = 0.0
+    for r, out in enumerate(res):
+        ref = s_losses[r].tolist()
+        for got, was in zip(out["losses"], ref):
+            bound = 2 ** -6 * abs(was - ref[0]) + 1e-4 * abs(was)
+            worst = max(worst, abs(got - was) / bound)
+        print(f"    rank {r} losses "
+              f"{' '.join(f'{v:.6f}' for v in out['losses'])} (phase 10: "
+              f"{' '.join(f'{v:.6f}' for v in ref)})")
+    checks["the LM within phase 12's bound"] = worst <= 1.0
+    checks["the ranks' parameters equal"] = r0["sums"] == r1["sums"]
+    if uncompressed:
+        checks["the LM bit-equal to phase 10 (no bucket casts)"] = all(
+            out["losses"] == s_losses[r].tolist()
+            for r, out in enumerate(res))
+    print(f"    worst loss difference {worst:.3f} of its bound; every "
+          f"bucket uncompressed: {uncompressed}")
+    for name, ok in checks.items():
+        print(f"  {name}: {'ok' if ok else 'FAIL'}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 15: {bad}")
 
 
 def free_port() -> int:
@@ -3032,7 +3325,7 @@ def main(argv=None) -> int:
     # work directory, "star", "plane" or "planes").
     ap.add_argument("--world-rank1", nargs=3,
                     metavar=("PORT", "DIR", "MODE"), help=argparse.SUPPRESS)
-    # Internal: run as a rank of phase 12's or 13's worlds.
+    # Internal: run as a rank of phase 12's, 13's or 15's worlds.
     ap.add_argument("--child", nargs=5,
                     metavar=("KIND", "RANK", "SIZE", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
@@ -3057,9 +3350,10 @@ def main(argv=None) -> int:
         return 0
     if args.child:
         kind, rank, size, port, workdir = args.child
-        child = wire_child if kind.startswith("wire-") else abort_child
+        child = (wire_child if kind.startswith("wire-") else autotune_child
+                 if kind == "autotune" else abort_child)
         child(torch, hvd, args, int(rank), int(size), int(port), workdir,
-              kind.split("-", 1)[1])
+              kind.partition("-")[2])
         return 0
 
     # Phase 1: card and build.
@@ -3128,6 +3422,8 @@ def main(argv=None) -> int:
         abort_phase(torch, args, workdir)
         # Phase 14: the observability planes on the card.
         planes_phase(torch, hvd, args, workdir, star_run)
+        # Phase 15: autotune on the card.
+        autotune_phase(torch, args, workdir, star_run)
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),

@@ -15,6 +15,8 @@ is, and ``HOROVOD_LOCAL_RANK`` picks its card. The controllers arm their
 channels with ``HOROVOD_HEARTBEAT_INTERVAL`` and
 ``HOROVOD_HEARTBEAT_TIMEOUT`` (5 s and 30 s, on by default), and
 ``HOROVOD_COMPRESSION`` sets this rank's wire-dtype proposal.
+``HOROVOD_AUTOTUNE=1`` gives the runtime a ``ParameterManager``
+(reference :167-172), which ``runtime().parameter_manager`` exposes.
 
 ``init`` also creates the ``torch.distributed`` process group that the
 in-step path (``horovod_tpu_torch.spmd``) runs on: NCCL on CUDA, gloo on
@@ -40,6 +42,7 @@ from horovod_tpu_torch.common.config import Config, env_int
 from horovod_tpu_torch.common.controller import (
     Controller, LocalController, TcpCoordinator, TcpWorker,
 )
+from horovod_tpu_torch.common.parameter_manager import ParameterManager
 from horovod_tpu_torch.common.runtime import Runtime
 from horovod_tpu_torch.ops.local_ops import LocalBackend
 from horovod_tpu_torch.ops.operation_manager import OperationManager
@@ -91,7 +94,11 @@ def _build_runtime(cfg: Config, device: Optional[torch.device]) -> Runtime:
                 LocalBackend(lambda: controller.size)]
     if device is not None:
         backends.insert(0, ProcessGroupBackend(controller, cfg, "cuda"))
-    rt = Runtime(cfg, controller, OperationManager(backends), device=device)
+    parameter_manager = None
+    if cfg.autotune:
+        parameter_manager = ParameterManager(cfg, controller)
+    rt = Runtime(cfg, controller, OperationManager(backends), device=device,
+                 parameter_manager=parameter_manager)
     rt.start()
     return rt
 

@@ -11,7 +11,9 @@ compression off, ``HOROVOD_COMPRESSION`` none, bf16, fp16 or int8,
 :145-155; the metrics and trace planes off, ``HOROVOD_TPU_METRICS``,
 ``_METRICS_INTERVAL``, ``_METRICS_PORT``, ``_METRICS_ADDR``,
 ``_METRICS_LOG``, ``HOROVOD_TPU_TRACE`` and ``_TRACE_INTERVAL``,
-:250-290, :467-480). The planes of the reference that are not ported yet are off here.
+:250-290, :467-480; autotune off, ``HOROVOD_AUTOTUNE``, ``_LOG``,
+``_WARMUP_SAMPLES``, ``_STEPS_PER_SAMPLE``, ``_BAYES_OPT_MAX_SAMPLES``
+and ``_GAUSSIAN_PROCESS_NOISE``, :313-319, :493-504). The planes of the reference that are not ported yet are off here.
 A variable that would switch one of them on raises
 ``NotImplementedError`` naming its item in ``ROADMAP.md``, so that
 nothing quietly runs another configuration than the one asked for. The
@@ -78,7 +80,6 @@ _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "HOROVOD_TPU_SHM": (_on, "the shm data plane (A6.4)"),
     "HOROVOD_TWO_LEVEL": (_on, "two-level allreduce (A6.4)"),
     "HOROVOD_TPU_ZERO_COPY": (_on, "the arena zero-copy path (A6.6)"),
-    "HOROVOD_AUTOTUNE": (_on, "autotune (A6.8)"),
     "HOROVOD_TPU_NATIVE": (_on, "the native core (A6.10)"),
     "HOROVOD_OVERLAP_BUCKETS": (_positive, "the overlap tier (A9)"),
     "HOROVOD_OVERLAP_BYTES": (_positive, "the overlap tier (A9)"),
@@ -170,6 +171,15 @@ class Config:
     metrics_port: int = -1
     metrics_addr: str = ""
     metrics_log: str = ""
+    # Autotune (common/parameter_manager.py): rank 0 tunes the fusion
+    # threshold and the cycle time, and the wire plan per size bucket;
+    # the other ranks adopt its values from the ResponseList's trailer.
+    autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -224,6 +234,18 @@ class Config:
                                         c.metrics_addr)
         c.metrics_log = os.environ.get("HOROVOD_TPU_METRICS_LOG",
                                        c.metrics_log)
+        c.autotune = env_bool("HOROVOD_AUTOTUNE", c.autotune)
+        c.autotune_log = os.environ.get("HOROVOD_AUTOTUNE_LOG", "")
+        c.autotune_warmup_samples = env_int(
+            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", c.autotune_warmup_samples)
+        c.autotune_steps_per_sample = env_int(
+            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", c.autotune_steps_per_sample)
+        c.autotune_bayes_opt_max_samples = env_int(
+            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES",
+            c.autotune_bayes_opt_max_samples)
+        c.autotune_gaussian_process_noise = env_float(
+            "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE",
+            c.autotune_gaussian_process_noise)
         c.compression = os.environ.get("HOROVOD_COMPRESSION",
                                        c.compression).lower()
         # A typo must not run uncompressed: wire_code_of raises naming

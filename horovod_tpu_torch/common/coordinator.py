@@ -606,20 +606,29 @@ class StallInspector:
             self._warned.discard(name)
 
     def check(self, table: MessageTable, cache_stats: str = "",
+              world_stats: str = "",
               straggler_stats: str = "") -> bool:
         """Log a report of stalled tensors; returns True if the shutdown
         threshold was exceeded (the caller must then shut down).
         ``cache_stats``: a one-line summary of the response cache (hits,
         misses, cached cycles) logged with the report, which says
         whether negotiation went the full way or through the bitmask.
+        ``world_stats``: the world's health (the world cycle, the tensor
+        queue's depth, the wire plan, the peers' heartbeat ages on the
+        coordinator's clock, their clock offsets, the timeline's dropped
+        events), logged and appended to every stall warning, so that one
+        warning carries enough to diagnose without a second tool.
         ``straggler_stats``: the trace plane's critical-path line ("rank
         3 last-arriver in 84% of the last 1000 gathers"), which names a
         slow rank even when nothing is stalled outright."""
         self._last_check = time.monotonic()
         if cache_stats:
             hlog.info(f"negotiation {cache_stats}")
+        if world_stats:
+            hlog.info(f"world health: {world_stats}")
         if straggler_stats:
             hlog.info(f"stragglers: {straggler_stats}")
+        suffix = f" [world: {world_stats}]" if world_stats else ""
         must_shutdown = False
         for name, age, ranks_reported in table.pending():
             if age < self.warning_time:
@@ -639,7 +648,7 @@ class StallInspector:
                 f"waiting for remainder of ranks for more than "
                 f"{int(age)} seconds. Stalled op: {name} "
                 f"[ready ranks: {ranks_reported}, "
-                f"waiting on ranks: {missing}]")
+                f"waiting on ranks: {missing}]{suffix}")
             if self.shutdown_time > 0 and age >= self.shutdown_time:
                 hlog.error(
                     f"Stalled tensor {name} exceeded the shutdown "

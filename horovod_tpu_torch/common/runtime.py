@@ -57,9 +57,20 @@ each fused response, and the speculative cycle carries a cast wire's
 payload in the wire dtype (an int8 batch takes the classic path, whose
 coordinator dequantizes the ranks' payloads).
 
+Autotune (``HOROVOD_AUTOTUNE``, ``common/parameter_manager.py``; the
+reference's sites at :286-302, :659-662, :1226-1233, :1682-1685,
+:1960-2009, :2151-2204, :2835-2855): rank 0's tuner is the policy the
+coordinator stamps fused allreduces with, sets the fusion threshold and
+the cycle time, and rides every ResponseList's trailer to the other
+ranks, which adopt it each cycle; it takes each cycle's bytes. While its
+Bayesian phase steers, rank 0 bids no speculative cycle (the trailer
+rides full responses only), and each move of its plan evicts every
+cached allreduce verdict through the broadcast invalid mask, so that
+the tensors renegotiate under the new plan.
+
 Left out until their slices (``ROADMAP.md`` A6 and A9): the ICI plane
 and the native steady plan (which ride the cache), overlapped cycles,
-elastic worlds, self-operation, tenancy and autotune.
+elastic worlds, self-operation and tenancy.
 
 The observability planes. The metrics plane (``HOROVOD_TPU_METRICS=1``)
 registers the reference's series under its names (a series of a plane
@@ -74,6 +85,9 @@ rank's arrival at each gather for the straggler attribution. The
 flight recorder is on by default and dumps its ring on every world
 abort and on SIGUSR2.
 
+The stall report (``_check_stall``) carries the world's health line
+(``_world_status_line``, the reference's :2645-2697).
+
 The loop keeps counts that say what it costs (``stats``): cycles,
 responses and the tensors in them, the responses each backend ran
 (``responses.<backend name>``), the seconds of negotiation
@@ -82,8 +96,10 @@ execution (replaying and running the responses) and of burst holds, and
 the cache's: cached cycles (negotiated through the bitmask alone), spec
 cycles (completed by the fused round), spec bids and denials, the bytes
 of bids left unused (``spec_unused_bytes``: a bid the world answered the
-classic way, which packs its batch again), and the cache's hits, misses
-and evictions.
+classic way, which packs its batch again), the cache's hits, misses
+and evictions, and under autotune the moves of the tuner's plan that
+rank 0 saw (``plan_moves``) and those that evicted cached verdicts
+(``plan_evictions``).
 """
 
 from __future__ import annotations
@@ -180,7 +196,8 @@ class Runtime:
     _BURST_HOLD_S = 0.02
 
     def __init__(self, config: Config, controller: Controller,
-                 op_manager: OperationManager, device=None):
+                 op_manager: OperationManager, device=None,
+                 parameter_manager=None):
         self.config = config
         self.controller = controller
         self.op_manager = op_manager
@@ -220,7 +237,30 @@ class Runtime:
         # This rank's wire-dtype proposal; the coordinator's verdict
         # rides each Response (and the cache with it).
         self._wire_propose = _wd.wire_code_of(config.compression)
-        self._wire_policy = _wd.StaticWirePolicy()
+        # The autotuner (common/parameter_manager.py), None unless
+        # HOROVOD_AUTOTUNE is set. When armed it is the policy the
+        # coordinator stamps fused allreduces with (its per-bucket
+        # table); the star has only the default algorithm, so its grid
+        # holds the wire dtypes at or below this world's proposal, and
+        # the overlap grid waits for the overlap tier (ROADMAP.md A9).
+        self.parameter_manager = parameter_manager
+        if parameter_manager is not None:
+            self._wire_policy = parameter_manager
+            parameter_manager.configure_wire(
+                self._wire_propose, False, controller.size,
+                shm_enabled=False, ring_allowed=False, ici_allowed=False)
+            parameter_manager.configure_overlap(False)
+        else:
+            self._wire_policy = _wd.StaticWirePolicy()
+        # The last (algorithm, wire dtype) the coordinator stamped, for
+        # the stall report's world line.
+        self._last_wire_verdict = None
+        # The plan revision the coordinator last stamped under: a move
+        # means the tuner changed the plan under test, and every cached
+        # allreduce verdict is stale (_coordinate_cycle evicts them).
+        self._wire_plan_rev = 0
+        # Bytes this cycle processed: the tuner's score stream.
+        self._cycle_bytes = 0
         self._idle_cycles = 0
         # Set by enqueue and request_shutdown: wakes a sleeping loop.
         self._wake = threading.Event()
@@ -229,7 +269,8 @@ class Runtime:
                       "cached_cycles": 0, "spec_cycles": 0, "spec_bids": 0,
                       "spec_denials": 0, "spec_unused_bytes": 0,
                       "cache_hits": 0,
-                      "cache_misses": 0, "cache_evictions": 0}
+                      "cache_misses": 0, "cache_evictions": 0,
+                      "plan_moves": 0, "plan_evictions": 0}
         # -- the response cache --------------------------------------
         self._cache: Optional[ResponseCache] = None
         if config.cache_enabled and config.cache_capacity > 0:
@@ -795,8 +836,19 @@ class Runtime:
         if self._trace_on:
             self._maybe_publish_trace()
 
-        # Pace the cycle.
-        cycle_s = self.config.cycle_time_ms / 1000.0
+        # Pace the cycle, by the tuned cycle time under autotune; the
+        # tuner adopts rank 0's values from the trailer and takes this
+        # cycle's bytes.
+        cycle_ms = self.config.cycle_time_ms
+        pm = self.parameter_manager
+        if pm is not None:
+            pm.apply_synced(resp_list.tuned_fusion_threshold_bytes,
+                            resp_list.tuned_cycle_time_ms,
+                            resp_list.tuned_overlap_buckets)
+            pm.on_cycle(self._cycle_bytes)
+            cycle_ms = pm.cycle_time_ms()
+        self._cycle_bytes = 0
+        cycle_s = cycle_ms / 1000.0
         if resp_list.responses or requests:
             self._idle_cycles = 0
         else:
@@ -815,7 +867,7 @@ class Runtime:
                 # rank's producer submits again: hold for that (an
                 # enqueue or a shutdown wakes the loop at once).
                 sleep_s = max(sleep_s, self._bounded_hold_s(
-                    8, self._STEADY_IDLE_S))
+                    8, self._STEADY_IDLE_S, cycle_ms))
                 idle_hold = True
         backoff_s = self.config.idle_backoff_ms / 1000.0
         if self.config.heartbeat_timeout_s > 0:
@@ -833,13 +885,17 @@ class Runtime:
         self._wake.clear()
         return True
 
-    def _bounded_hold_s(self, multiple: float, floor_s: float) -> float:
+    def _bounded_hold_s(self, multiple: float, floor_s: float,
+                        cycle_ms: Optional[float] = None) -> float:
         """A hold budget from the cycle time: ``multiple`` cycles, at
         least ``floor_s``, and under a quarter of the heartbeat timeout
         as a whole: a holding rank sends no frames, and must never look
         dead to its peers, whatever HOROVOD_CYCLE_TIME says. The one
-        budget rule of the burst hold and the steady idle hold."""
-        hold = max(multiple * self.config.cycle_time_ms / 1000.0, floor_s)
+        budget rule of the burst hold and the steady idle hold.
+        ``cycle_ms`` (the tuned cycle time) overrides the knob."""
+        if cycle_ms is None:
+            cycle_ms = self.config.cycle_time_ms
+        hold = max(multiple * cycle_ms / 1000.0, floor_s)
         hb = self.config.heartbeat_timeout_s
         if hb > 0:
             hold = min(hold, hb / 4.0)
@@ -891,7 +947,7 @@ class Runtime:
             self._record_signature(req)
             uncached.append(req)
         if not uncached and not invalid_mask and not shutting_down:
-            if hit_mask and self._spec_ok \
+            if hit_mask and self._spec_enabled \
                     and self._steady_epoch == cache.epoch \
                     and hit_mask in self._steady \
                     and self._spec_denied.get(hit_mask, 0) \
@@ -915,6 +971,16 @@ class Runtime:
             epoch=cache.epoch, nslots=cache.nslots, hit_mask=hit_mask,
             invalid_mask=invalid_mask, requests=uncached,
             shutdown=shutting_down)), bit_requests
+
+    @property
+    def _spec_enabled(self) -> bool:
+        """May this rank bid a speculative cycle? The cache's knob, and
+        under autotune the tuner's phase (``ParameterManager.spec_safe``:
+        off while the Bayesian phase steers the values that only full
+        responses carry). The gate matters on the coordinator, whose own
+        bid every speculative round needs."""
+        pm = self.parameter_manager
+        return self._spec_ok and (pm is None or pm.spec_safe)
 
     def _absorb_burst(self, requests: List[Request]) -> List[Request]:
         """Hold a cycle that caught the front of an enqueue burst. A
@@ -968,6 +1034,13 @@ class Runtime:
         sends without joining them (the buffers are the step's whole
         gradients)."""
         cache = self._cache
+        pm = self.parameter_manager
+        if pm is not None and self.controller.is_coordinator \
+                and pm.plan_revision != self._wire_plan_rev:
+            # The tuner just moved the plan: this cycle's eviction must
+            # run through _coordinate_cycle, which a speculative grant
+            # would bypass, replaying verdicts of the superseded plan.
+            return None
         plan = self._replay_plan(hit_mask, self._world_fusion_threshold)
         inflight = []
         for resp in plan:
@@ -1046,6 +1119,19 @@ class Runtime:
                 spec_frames.append(cf)
             if cf.requests:
                 req_lists.append(RequestList(cf.requests, cf.shutdown))
+        pm = self.parameter_manager
+        if pm is not None and pm.plan_revision != self._wire_plan_rev:
+            # The tuner moved the plan: every cached allreduce verdict
+            # was stamped under the old one. Their eviction joins the
+            # broadcast invalid mask, so every rank drops them in the same
+            # order and the tensors renegotiate under the new plan; a
+            # non-zero mask also refuses this cycle's speculative grant.
+            self._wire_plan_rev = pm.plan_revision
+            stale = self._stale_plan_slots()
+            self.stats["plan_moves"] += 1
+            if stale:
+                self.stats["plan_evictions"] += 1
+            or_invalid |= stale
         if (spec_frames and len(spec_frames) == len(gathered)
                 and not shutdown and not or_invalid
                 and all(cf.hit_mask == and_hits for cf in spec_frames)):
@@ -1069,6 +1155,12 @@ class Runtime:
                                   grant_mask=grant, invalid_mask=or_invalid,
                                   response_list=resp_list)
         return wire.serialize_cycle_response(meta), meta
+
+    def _stale_plan_slots(self) -> int:
+        """Mask of the cached slots holding an ALLREDUCE verdict, the
+        ones stamped under a superseded plan (read only: every rank
+        evicts them through the broadcast invalid mask)."""
+        return self._cache.slot_mask(ResponseType.ALLREDUCE)
 
     @world_coherent
     def _apply_cached_cycle(self, meta: CacheCycleResponse,
@@ -1151,7 +1243,8 @@ class Runtime:
         return ResponseList(
             replayed + inner.responses, shutdown=inner.shutdown,
             tuned_cycle_time_ms=inner.tuned_cycle_time_ms,
-            tuned_fusion_threshold_bytes=inner.tuned_fusion_threshold_bytes)
+            tuned_fusion_threshold_bytes=inner.tuned_fusion_threshold_bytes,
+            tuned_overlap_buckets=inner.tuned_overlap_buckets)
 
     def _replay_plan(self, grant_mask: int,
                      threshold: int) -> List[Response]:
@@ -1252,6 +1345,10 @@ class Runtime:
                 self._m_ops_allreduce.inc()
                 self._m_bytes_allreduced.inc(
                     sum(e.tensor.nbytes for e in entries))
+            # The fused round bypasses _perform_operations: its bytes
+            # join the tuner's score here (the grid measures the regime
+            # it would deploy, speculative cycle included).
+            self._cycle_bytes += sum(e.tensor.nbytes for e in entries)
             for name in resp.tensor_names:
                 timeline.start(name, op_name)
             try:
@@ -1365,6 +1462,39 @@ class Runtime:
                 f"{s['overlap_cycles']} overlapped), "
                 f"{s['entries']}/{s['capacity']} slots")
 
+    def _world_status_line(self) -> str:
+        """The stall report's world-health line: the world cycle, the
+        tensor queue's depth, the last wire verdict stamped and, under
+        autotune, the tuner's plan and values, the oldest peer heartbeat
+        ages on this rank's clock (on rank 0, where the report runs, the
+        coordinator's), the peers' clock offsets against it, and the
+        timeline's dropped events. The reference's tenant, elastic,
+        self-operation and ICI parts wait for their planes (ROADMAP.md
+        A9 and A6.5's IciPlane)."""
+        parts = [f"world cycle {self._world_cycle}",
+                 f"tensor queue depth {len(self.tensor_table)}"]
+        if self._last_wire_verdict is not None:
+            alg, w = self._last_wire_verdict
+            parts.append(f"wire plan {_wd.ALG_NAMES.get(alg, alg)}"
+                         f"/{_wd.WIRE_NAMES.get(w, w)}")
+        pm = self.parameter_manager
+        if pm is not None:
+            parts.append(pm.status_line())
+        ages = self.controller.peer_heartbeat_ages()
+        if ages:
+            worst = sorted(ages.items(), key=lambda kv: -kv[1])[:4]
+            parts.append(
+                "oldest peer heartbeat ages (coordinator clock): "
+                + ", ".join(f"rank {r} {a:.1f}s" for r, a in worst))
+        if self.controller.is_coordinator:
+            offs = htrace.clock_offsets_line()
+            if offs:
+                parts.append("peer clock offsets vs coordinator: " + offs)
+        if self.timeline.dropped_events:
+            parts.append(
+                f"timeline events dropped {self.timeline.dropped_events}")
+        return "; ".join(parts)
+
     def _check_stall(self, table: MessageTable, size: int) -> None:
         """Periodic coordinator-side stall scan; past the shutdown
         threshold it aborts the world, blaming the lowest rank missing
@@ -1374,6 +1504,7 @@ class Runtime:
         straggler = (self._straggler.report_line()
                      if self._straggler is not None else "")
         if not self._stall.check(table, cache_stats=self._cache_stats_line(),
+                                 world_stats=self._world_status_line(),
                                  straggler_stats=straggler):
             return
         self._flight.record(htrace.EV_STALL, self._world_cycle,
@@ -1414,8 +1545,10 @@ class Runtime:
         for name in table.pop_ready():
             responses.append(construct_response(table, name, size))
             self.timeline.negotiate_end(name)
-        fused = fuse_responses(responses, self._dtypes,
-                               self.config.fusion_threshold_bytes,
+        pm = self.parameter_manager
+        threshold = (self.config.fusion_threshold_bytes if pm is None
+                     else pm.fusion_threshold_bytes())
+        fused = fuse_responses(responses, self._dtypes, threshold,
                                self._slice_numels)
         self._stamp_wire_plan(fused)
         for resp in fused:
@@ -1424,7 +1557,12 @@ class Runtime:
                 self._slice_numels.pop(n, None)
         self._check_stall(table, size)
         resp_list = ResponseList(fused, shutdown=shutdown)
-        if self._cache is not None:
+        if pm is not None:
+            # The trailer carries the tuned values to every rank.
+            resp_list.tuned_cycle_time_ms = pm.cycle_time_ms()
+            resp_list.tuned_fusion_threshold_bytes = threshold
+            resp_list.tuned_overlap_buckets = pm.tuned_overlap_buckets
+        elif self._cache is not None:
             # Replay re-fuses granted slots on every rank with this
             # threshold: broadcast the coordinator's, so that a rank
             # started with another HOROVOD_FUSION_THRESHOLD builds the
@@ -1449,6 +1587,8 @@ class Runtime:
             resp.algorithm = alg
             if cap is not None and resp.wire_dtype > cap:
                 resp.wire_dtype = cap
+            if alg or resp.wire_dtype:
+                self._last_wire_verdict = (alg, resp.wire_dtype)
 
     def _perform_operations(self, resp_list: ResponseList) -> None:
         """Run each agreed response and fire the callbacks."""
@@ -1507,6 +1647,8 @@ class Runtime:
             timeline.activity_end_all(names)
             for name in names:
                 timeline.end(name)
+            self._cycle_bytes += sum(
+                getattr(e.tensor, "nbytes", 0) for e in entries)
             if status.in_progress():
                 continue
             for e in entries:

@@ -9,6 +9,7 @@ The pieces:
   the coordinator's, from the control traffic there is anyway: the
   coordinator's PING gives t1, the worker's next TRACE frame echoes
   (t2, t3), its arrival gives t4; the sample of least round trip wins.
+  ``clock_offsets_line`` puts the offsets into the stall report.
 * :class:`TraceCollector` and :class:`WorldTraceWriter`: each rank
   batches its spans (bounded, drops counted) into TAG_TRACE frames, and
   rank 0 writes one Chrome trace (``HOROVOD_TPU_TRACE``) with a track
@@ -50,7 +51,7 @@ __all__ = [
     "EV_CYCLE", "EV_ABORT", "EV_ELASTIC", "EV_STALL", "EV_FAULT",
     "EV_TEARDOWN", "EV_MARK", "EV_SELFOP", "ClockSync", "TraceCollector",
     "NOOP_TRACE", "FlightRecorder", "NOOP_RECORDER", "flight",
-    "clock", "StragglerTracker", "WorldTraceWriter",
+    "clock", "clock_offsets_line", "StragglerTracker", "WorldTraceWriter",
     "install_sigusr2", "serialize_trace_frame", "parse_trace_frame",
     "combine_trace_frames",
 ]
@@ -384,6 +385,18 @@ def flight():
                 else:
                     _FLIGHT = NOOP_RECORDER
     return _FLIGHT
+
+
+def clock_offsets_line() -> str:
+    """The stall report's line of the peers' clock offsets against the
+    coordinator's ("rank 1 +0.8ms (rtt 0.3ms), ..."), empty before any
+    echo closed."""
+    offs = clock().offsets()
+    if not offs:
+        return ""
+    return ", ".join(
+        f"rank {r} {o * 1000.0:+.1f}ms (rtt {rtt * 1000.0:.1f}ms)"
+        for r, (o, rtt) in sorted(offs.items()))
 
 
 def _reset_for_tests() -> None:

@@ -17,6 +17,7 @@ import torch
 
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
@@ -43,6 +44,16 @@ def _ref_default(q, k, v, causal, q_offset, k_offset):
                                k_offset=k_offset, interpret=True)
 
 
+def _ref_and_grads(fn, *xs):
+    """(fn(*xs), the gradients of sum(fn(*xs) ** 2) in xs) of a reference
+    function, from one compiled program: the forward's output and its
+    VJP with the cotangent 2 out, which is the loss's gradient."""
+    def both(*args):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(2.0 * out)
+    return jax.jit(both)(*map(jnp.asarray, xs))
+
+
 CASES = [
     pytest.param(True, 0, 0, id="causal"),
     pytest.param(False, 0, 0, id="noncausal"),
@@ -57,13 +68,9 @@ def test_flash_attention_forward_and_grads_match_reference(
         causal, q_offset, k_offset):
     qn, kn, vn = _inputs(3, 2, 64, 2, 16)
 
-    def ref_loss(q, k, v):
-        return (_ref_flash(q, k, v, causal, q_offset, k_offset) ** 2).sum()
-
-    out_ref = _ref_flash(*map(jnp.asarray, (qn, kn, vn)), causal,
-                         q_offset, k_offset)
-    grads_ref = jax.grad(ref_loss, argnums=(0, 1, 2))(
-        *map(jnp.asarray, (qn, kn, vn)))
+    out_ref, grads_ref = _ref_and_grads(
+        lambda q, k, v: _ref_flash(q, k, v, causal, q_offset, k_offset),
+        qn, kn, vn)
 
     q, k, v = (torch.tensor(x, requires_grad=True) for x in (qn, kn, vn))
     out = port.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
@@ -165,12 +172,8 @@ UNEQUAL_LENGTHS = [(100, 127, 27, 0), (64, 100, 36, 0), (127, 96, 0, 31)]
 def _flash_and_grads(qn, kn, vn, causal, qo, ko):
     """(output, (dq, dk, dv)) of the reference at its default blocks and
     of the port, for the loss sum(out ** 2)."""
-    def ref_loss(q, k, v):
-        return (_ref_default(q, k, v, causal, qo, ko) ** 2).sum()
-
-    jx = tuple(map(jnp.asarray, (qn, kn, vn)))
-    theirs = (_ref_default(*jx, causal, qo, ko),
-              jax.grad(ref_loss, argnums=(0, 1, 2))(*jx))
+    theirs = _ref_and_grads(
+        lambda q, k, v: _ref_default(q, k, v, causal, qo, ko), qn, kn, vn)
     q, k, v = (torch.tensor(x, requires_grad=True) for x in (qn, kn, vn))
     out = port.flash_attention(q, k, v, causal=causal, q_offset=qo,
                                k_offset=ko)

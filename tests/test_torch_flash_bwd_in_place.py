@@ -30,6 +30,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-4
 UNIT = 2.0 ** -8   # bf16's rounding, relative

@@ -32,6 +32,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4

@@ -34,6 +34,7 @@ from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 LOG2E = 1.4426950408889634
@@ -198,50 +199,58 @@ def test_plain_tf32x3_forward_matches_reference(d, sq, sk, causal, qo, ko):
         assert not mine[0][:, :40].any()
 
 
-def _kernel_order(q, k, v, causal, qo, ko, split, kv, lost=None):
-    """(o, m, l) as the narrow tf32 forward sums them at ``split``
-    consumer warpgroups and ``kv``-key tiles: warpgroup w takes the
-    visible tiles w, w + split, ... in turn, each with an online softmax
-    of its own (p = 2^(x log2 e - m log2 e) against its running max, l
-    and O rescaled by corr = 2^((m_old - m) log2 e), O = O corr + P V with
-    each tile's P V a product of its own in TF32X3); then the rows' max
-    over the warpgroups, and each warpgroup's O and l scaled by 2^((m_w -
-    m) log2 e) and added in the order w = 0, 1, .... ``lost``: a tile
-    left out (a kernel that dropped it)."""
+def _tile_scores(q, k, causal, qo, ko, kv):
+    """Each visible ``kv``-key tile's keys and its scaled, masked logits
+    s [B, H, Sq, keys] (q k^T in TF32X3), as every consumer warpgroup
+    computes them whatever the split: computed once, shared by the
+    splits and by a kernel that drops a tile."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    b, sq, h, _ = q.shape
-    sk = k.shape[1]
+    sq, sk = q.shape[1], k.shape[1]
     nk = -(-sk // kv)
     if causal:
         reach = qo + (-(-sq // 64) * 64) - 1 - ko
         nk = min(nk, max(reach // kv + 1, 0))
     q_pos = qo + torch.arange(sq)
-    parts = []
-    for w in range(split):
-        m = torch.full((b, h, sq), NEG_INF)
-        l = torch.zeros(b, h, sq)
-        o = torch.zeros(b, h, sq, d)
-        for j in range(w, nk, split):
-            if j == lost:
-                continue
-            keys = slice(j * kv, min((j + 1) * kv, sk))
-            s = port._product("bqhd,bkhd->bhqk", q, k[:, keys],
-                              port.TF32X3) * scale
-            ok = torch.ones(sq, s.shape[-1], dtype=torch.bool)
-            if causal:
-                ok = q_pos[:, None] >= ko + torch.arange(keys.start,
-                                                         keys.stop)[None]
-            s = s.masked_fill(~ok, float("-inf"))
-            m_new = torch.maximum(m, s.amax(-1))
-            corr = torch.exp2((m - m_new) * LOG2E)
-            p = torch.exp2(s * LOG2E - (m_new * LOG2E)[..., None])
-            l = l * corr + p.sum(-1)
-            pv = port._product("bhqk,bkhd->bhqd", p, v[:, keys],
-                               port.TF32X3)
-            o = o * corr[..., None] + pv
-            m = m_new
-        parts.append((m, l, o))
+    tiles = []
+    for j in range(nk):
+        keys = slice(j * kv, min((j + 1) * kv, sk))
+        s = port._product("bqhd,bkhd->bhqk", q, k[:, keys],
+                          port.TF32X3) * scale
+        ok = torch.ones(sq, s.shape[-1], dtype=torch.bool)
+        if causal:
+            ok = q_pos[:, None] >= ko + torch.arange(keys.start,
+                                                     keys.stop)[None]
+        tiles.append((keys, s.masked_fill(~ok, float("-inf"))))
+    return tiles
+
+
+def _warpgroup(q, v, tiles, w, split, lost=None):
+    """(m, l, O) of consumer warpgroup ``w`` of ``split``: the visible
+    tiles w, w + split, ... in turn (``lost`` left out), each with the
+    warpgroup's own online softmax."""
+    b, sq, h, _ = q.shape
+    m = torch.full((b, h, sq), NEG_INF)
+    l = torch.zeros(b, h, sq)
+    o = torch.zeros(b, h, sq, v.shape[-1])
+    for j in range(w, len(tiles), split):
+        if j == lost:
+            continue
+        keys, s = tiles[j]
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2(s * LOG2E - (m_new * LOG2E)[..., None])
+        l = l * corr + p.sum(-1)
+        pv = port._product("bhqk,bkhd->bhqd", p, v[:, keys], port.TF32X3)
+        o = o * corr[..., None] + pv
+        m = m_new
+    return m, l, o
+
+
+def _combined(parts):
+    """(o, m, l) from the warpgroups' parts: the rows' max over them, and
+    each one's O and l scaled by 2^((m_w - m) log2 e) and added in the
+    order w = 0, 1, ...."""
     m = torch.stack([p[0] for p in parts]).amax(0)
     l = o = 0
     for m_w, l_w, o_w in parts:
@@ -250,6 +259,24 @@ def _kernel_order(q, k, v, causal, qo, ko, split, kv, lost=None):
         o = o + o_w * a[..., None]
     o = o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
     return o.transpose(1, 2), m, l
+
+
+def _kernel_order(q, k, v, causal, qo, ko, split, kv, lost=None,
+                  tiles=None):
+    """(o, m, l) as the narrow tf32 forward sums them at ``split``
+    consumer warpgroups and ``kv``-key tiles: warpgroup w takes the
+    visible tiles w, w + split, ... in turn, each with an online softmax
+    of its own (p = 2^(x log2 e - m log2 e) against its running max, l
+    and O rescaled by corr = 2^((m_old - m) log2 e), O = O corr + P V with
+    each tile's P V a product of its own in TF32X3); then the rows' max
+    over the warpgroups, and each warpgroup's O and l scaled by 2^((m_w -
+    m) log2 e) and added in the order w = 0, 1, .... ``lost``: a tile
+    left out (a kernel that dropped it). ``tiles``: ``_tile_scores``'s,
+    when the caller already has them."""
+    if tiles is None:
+        tiles = _tile_scores(q, k, causal, qo, ko, kv)
+    return _combined([_warpgroup(q, v, tiles, w, split, lost)
+                      for w in range(split)])
 
 
 @pytest.mark.parametrize("d", [16, 32])
@@ -265,8 +292,10 @@ def test_kernel_order_matches_plain_and_reference(d, sq, sk, causal, qo,
     theirs = _reference(d, sq, sk, causal, qo, ko)
     assert (_constant("kNarrowSplit"), _constant("kNarrowKv")) == (4, 32)
     for kv in (32, 64):
+        tiles = _tile_scores(q, k, causal, qo, ko, kv)
         for split in (1, 2, 4):
-            mine = _kernel_order(q, k, v, causal, qo, ko, split, kv)
+            mine = _kernel_order(q, k, v, causal, qo, ko, split, kv,
+                                 tiles=tiles)
             assert _held(mine, plain) <= 1.0, (kv, split)
             assert _held(mine, theirs) <= 1.0, (kv, split)
 
@@ -288,11 +317,16 @@ def test_last_warpgroup_tile_of_chip_smoke_follows_the_kernel():
     q, k, v = (torch.tensor(rng.randn(1, 1024, 2, 16).astype(np.float32))
                for _ in range(3))
     plain = port._flash_fwd_plain(q, k, v, True, 0, 0)
-    lost = _kernel_order(q, k, v, True, 0, 0, split, kv, lost=lo // kv)
+    # The warpgroups other than the last see the same tiles with and
+    # without the lost one: their parts are computed once.
+    tiles = _tile_scores(q, k, True, 0, 0, kv)
+    parts = [_warpgroup(q, v, tiles, w, split) for w in range(split)]
+    lost = _combined(parts[:-1] + [
+        _warpgroup(q, v, tiles, split - 1, split, lost=lo // kv)])
     kept = chip_smoke.fwd_without_keys(port, q, k, v, lo, hi)
     for o in (lost[0], kept):
         assert tolerance.worst(o, plain[0], FWD_TOL)[1] > (
             chip_smoke.LOST_FP32_BY)
     assert tolerance.worst(lost[0], kept, FWD_TOL)[1] <= 1.0
-    assert _held(_kernel_order(q, k, v, True, 0, 0, split, kv), plain) <= 1
+    assert _held(_combined(parts), plain) <= 1
 

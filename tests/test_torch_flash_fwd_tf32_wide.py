@@ -37,6 +37,7 @@ from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}

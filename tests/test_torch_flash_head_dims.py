@@ -22,6 +22,7 @@ import torch
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
@@ -42,9 +43,12 @@ def test_fp32_head_dim_matches_reference(d):
     import jax
     qn, kn, vn = _inputs(d, d)
     qj, kj, vj = map(jnp.asarray, (qn, kn, vn))
-    out_ref = _ref_flash(qj, kj, vj)
-    grads_ref = jax.grad(lambda *a: (_ref_flash(*a) ** 2).sum(),
-                         argnums=(0, 1, 2))(qj, kj, vj)
+    # One compiled program: the forward and its VJP with the cotangent
+    # 2 out, the gradients of sum(out ** 2).
+    def both(*a):
+        out, vjp = jax.vjp(_ref_flash, *a)
+        return out, vjp(2.0 * out)
+    out_ref, grads_ref = jax.jit(both)(qj, kj, vj)
     q, k, v = (torch.tensor(x, requires_grad=True) for x in (qn, kn, vn))
     out = port.flash_attention(q, k, v)
     (out ** 2).sum().backward()

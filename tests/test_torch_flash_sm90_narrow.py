@@ -38,6 +38,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
@@ -295,14 +296,16 @@ def _finish(o, l, dtype):
     return (o * inv[..., None]).transpose(1, 2).to(dtype)
 
 
-def _split_order(q, k, v, causal, qo, ko, split, kv=NARROW_KV):
+def _split_order(q, k, v, causal, qo, ko, split, kv=NARROW_KV, parts=None):
     """(o, m, l) as the narrow forward sums them with ``split`` consumer
     warpgroups on ``kv``-key tiles: warpgroup w takes tiles w, w + split,
     ... in order, sums its threads' shares of l and its O over them, and
     the warpgroups' quad-summed l and O are added in the order w = 0, 1,
     ... (tiles past the causal reach, which the kernel skips, add exact
-    zeros here)."""
-    m, p, pr, vv = _softmax_parts(q, k, v, causal, qo, ko, kv)
+    zeros here). ``parts``: ``_softmax_parts(..., kv)``, where the caller
+    has them (they do not depend on the split)."""
+    m, p, pr, vv = (_softmax_parts(q, k, v, causal, qo, ko, kv)
+                    if parts is None else parts)
     l = o = None
     for w in range(split):
         lc = torch.zeros(p.shape[:-1] + (4,))
@@ -316,10 +319,12 @@ def _split_order(q, k, v, causal, qo, ko, split, kv=NARROW_KV):
     return _finish(o, l, q.dtype), m, l
 
 
-def _one_warpgroup_order(q, k, v, causal, qo, ko):
+def _one_warpgroup_order(q, k, v, causal, qo, ko, parts=None):
     """(o, m, l) in the order before the split: one warpgroup, every key
-    in turn."""
-    m, p, pr, vv = _softmax_parts(q, k, v, causal, qo, ko, 16)
+    in turn. ``parts``: ``_softmax_parts(..., 16)``, where the caller has
+    them."""
+    m, p, pr, vv = (_softmax_parts(q, k, v, causal, qo, ko, 16)
+                    if parts is None else parts)
     keys = range(0, p.shape[-1])
     l = _quad(_thread_sums(p, keys, torch.zeros(p.shape[:-1] + (4,))))
     o = _steps(pr, vv, keys, torch.zeros(p.shape[:-1] + (q.shape[-1],)))
@@ -361,10 +366,13 @@ def test_split_order_matches_plain_and_reference(dtype, d, sq, sk, causal,
                          v.float().abs()) / torch.where(
         l_p == 0, torch.ones_like(l_p), l_p).transpose(1, 2)[..., None]
     step = tolerance.step_of(dtype)
-    before = _one_warpgroup_order(q, k, v, causal, qo, ko)
+    parts = {kv: _softmax_parts(q, k, v, causal, qo, ko, kv)
+             for kv in (NARROW_KV, 16)}
+    before = _one_warpgroup_order(q, k, v, causal, qo, ko, parts[16])
     for kv in (NARROW_KV, 16):
         for split in (1, 2, 4):
-            o, m, l = _split_order(q, k, v, causal, qo, ko, split, kv)
+            o, m, l = _split_order(q, k, v, causal, qo, ko, split, kv,
+                                   parts[kv])
             if split == 1:
                 for a, b in zip((o, m, l), before):
                     assert torch.equal(a, b)

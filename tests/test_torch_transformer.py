@@ -17,6 +17,7 @@ import torch
 from horovod_tpu.models import transformer as ref
 from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import transformer as port
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
@@ -76,7 +77,9 @@ def test_chunked_loss_and_gradients_match_reference(chunk):
         return ref.lm_loss_from_hidden(hidden, p["lm_head"]["kernel"], jt,
                                        chunk=chunk)
 
-    loss_ref, grads_ref = jax.value_and_grad(loss_fn)(params)
+    # One compilation of the whole reference, where op-by-op dispatch
+    # compiles each of its primitives on first use.
+    loss_ref, grads_ref = jax.jit(jax.value_and_grad(loss_fn))(params)
     tt = torch.tensor(tokens)
     hidden = tmodel(tt, return_hidden=True)
     loss = port.lm_loss_from_hidden(hidden, tmodel.lm_head.weight.t(), tt,
