@@ -347,6 +347,25 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    order, whatever the fusion). Prints the tuned values and the plan,
    the revisions and evictions, the seconds to converge and the seconds
    per step against phase 10's.
+16. The hierarchical control plane on the card: two four-rank worlds,
+   one after the other, each rank a child process (``--child
+   hier-tree``, then ``hier-flat``) on the card with
+   ``HOROVOD_HOSTNAME=fakehost{rank // 2}`` and the process-group plane
+   out of its backend list (phase 10's arrangement): the first at the
+   defaults (the hierarchy, the cache, speculation and the heartbeat
+   on), the second with HOROVOD_TPU_HIER_CONTROLLER=0. The tree's
+   shape (rank 0 holds rank 1 and rank 2 as owner of [2, 3]; rank 2 has
+   one child; rank 3's upward channel is the loopback root); every
+   collective on CUDA tensors equal to its closed form (allreduce
+   summed, averaged and fused, allgather with a rank-dependent dim 0,
+   broadcast from each root, alltoall, reducescatter, barrier); phase
+   10's depth-2 LM for 5 eager steps on one row a rank, steps 3-5 with
+   cached cycles, rank 0 handed folded CACHED_AGG frames by rank 2, the
+   ranks' parameters equal; and the losses and a digest of the
+   parameters bit-equal to the flat world's (the star sums element by
+   element in rank order, whatever route the frames took). Prints each
+   step's seconds, the request bytes rank 0 received, its cycles and
+   the coordinator's fan-in for both worlds.
 
 The last two lines are the JSON ``kernels`` line (the kernels at their
 main shapes, then the entry's shape, each C4 case and the Gemma-7B
@@ -361,6 +380,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2679,12 +2699,16 @@ def wait_children(procs, workdir, kind, timeout, expect_rc=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, p in procs.items():
-        if p.returncode != expect_rc.get(r, 0):
-            with open(os.path.join(workdir, f"{kind}-{r}.log")) as f:
-                print(f.read()[-4000:])
-            raise AssertionError(f"{kind} rank {r} exited with "
-                                 f"{p.returncode}")
+    bad = {r: p.returncode for r, p in procs.items()
+           if p.returncode != expect_rc.get(r, 0)}
+    for r in bad:
+        # Every failed child's log, on the standard error beside the
+        # failure it explains: the first to fail may be any rank.
+        with open(os.path.join(workdir, f"{kind}-{r}.log")) as f:
+            print(f"--- {kind} rank {r}:\n{f.read()[-4000:]}",
+                  file=sys.stderr, flush=True)
+    if bad:
+        raise AssertionError(f"{kind}: ranks exited with {bad}")
 
 
 def wire_phase(torch, args, workdir, star_run):
@@ -3309,6 +3333,215 @@ def autotune_phase(torch, args, workdir, star_run):
         raise AssertionError(f"phase 15: {bad}")
 
 
+# Phase 16: the hierarchical control plane on the card. Two four-rank
+# worlds, one after the other, each rank a child of this script on the
+# one card (``--child hier-tree RANK 4 PORT DIR``, then ``hier-flat``),
+# every rank with ``HOROVOD_HOSTNAME=fakehost{rank // 2}``: the first at
+# the defaults (the hierarchy, the cache, speculation and the heartbeat
+# on), the second with HOROVOD_TPU_HIER_CONTROLLER=0, the flat star it is
+# held to bit for bit.
+HIER_SIZE = 4
+
+
+def hier_child(torch, hvd, args, rank, size, port, workdir, mode):
+    """One rank of phase 16's ``mode`` ("tree" or "flat") world: the
+    tree's shape, every collective on CUDA tensors against its closed
+    form, then the depth-2 full-width LM's eager steps on one row a rank,
+    each step's seconds, the request bytes rank 0 received and its
+    fan-in, and a digest of the parameters. Writes ``hier-<mode>-<rank>.
+    json``."""
+    import hashlib
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.common import controller as hctl
+    from horovod_tpu_torch.common import wire
+    from horovod_tpu_torch.models import TransformerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # Four full-width ranks share the card with this script's parent:
+    # segments that grow in place keep each rank's reserve near its use.
+    extra = {"HOROVOD_HOSTNAME": f"fakehost{rank // 2}",
+             "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    if mode == "flat":
+        extra["HOROVOD_TPU_HIER_CONTROLLER"] = "0"
+    child_env(rank, size, port, extra)
+    hvd.init()
+    result = {"rank": rank, "bad": []}
+    try:
+        rt, _ = star_only(hvd)
+        ctl = rt.controller
+        if rank == 0:
+            result["shape"] = {"channels": sorted(ctl._channels),
+                               "members": {str(o): m for o, m in
+                                           ctl._members.items()}}
+        else:
+            result["shape"] = {"children": sorted(ctl._children),
+                               "up": ctl._up_rank,
+                               "up_ip": ctl._ch.sock.getpeername()[0]}
+        # Rank 0 counts the request bytes it receives and the folded
+        # CACHED_AGG frames it is handed (the package keeps no such
+        # counter: its ``_expand`` is wrapped, as the CPU tests do).
+        counts = {"rx": 0, "folded": 0}
+        if rank == 0:
+            recv, expand = ctl._recv_ctrl, ctl._expand
+
+            def counting_recv(r, tag):
+                data = recv(r, tag)
+                if tag == hctl.TAG_REQUESTS:
+                    counts["rx"] += len(data)
+                return data
+
+            def counting_expand(out, allow_combined=False):
+                if allow_combined:
+                    counts["folded"] += sum(
+                        1 for o, ms in ctl._members.items()
+                        if len(ms) > 1
+                        and out[o][:1] == wire.CACHED_AGG_PREFIX)
+                return expand(out, allow_combined)
+            ctl._recv_ctrl, ctl._expand = counting_recv, counting_expand
+        dev = rt.device or torch.device("cpu")  # the CPU: a rehearsal
+        ssum = sum(range(1, size + 1))
+
+        def c(label, got, want):
+            if not (got.device == want.device and got.dtype == want.dtype
+                    and got.shape == want.shape and torch.equal(got, want)):
+                result["bad"].append(label)
+
+        x = torch.full((4, 3), float(rank + 1), device=dev)
+        c("allreduce sum", hvd.allreduce(x, op=hvd.Sum, name="h.ar"),
+          torch.full((4, 3), float(ssum), device=dev))
+        c("allreduce average", hvd.allreduce(x, name="h.avg"),
+          torch.full((4, 3), ssum / size, device=dev))
+        outs = hvd.grouped_allreduce(
+            [torch.full((16 + i,), (rank + 1.0) * (i + 1), device=dev)
+             for i in range(6)], op=hvd.Sum, name="h.grp")
+        for i, o in enumerate(outs):
+            c(f"fused member {i}", o,
+              torch.full((16 + i,), float(ssum * (i + 1)), device=dev))
+        c("allgather", hvd.allgather(
+            torch.full((rank + 1, 2), float(rank), device=dev), name="h.ag"),
+          torch.cat([torch.full((r + 1, 2), float(r), device=dev)
+                     for r in range(size)]))
+        for root in range(size):
+            c(f"broadcast from {root}", hvd.broadcast(
+                torch.full((3, 3), rank * 10.0, device=dev,
+                           dtype=torch.float64), root, name=f"h.bc{root}"),
+              torch.full((3, 3), root * 10.0, device=dev,
+                         dtype=torch.float64))
+        c("alltoall", hvd.alltoall(
+            torch.arange(2.0 * size, device=dev) + 100 * rank, name="h.a2a"),
+          torch.cat([torch.arange(2.0 * rank, 2.0 * rank + 2, device=dev)
+                     + 100 * s for s in range(size)]))
+        c("reducescatter", hvd.reducescatter(
+            torch.arange(3.0 * size, device=dev) * (rank + 1), op=hvd.Sum,
+            name="h.rs"),
+          torch.arange(3.0 * rank, 3.0 * rank + 3, device=dev) * ssum)
+        hvd.barrier()
+        result["collectives"] = 7 + size
+        cfg = TransformerConfig(num_layers=2, dtype=torch.bfloat16,
+                                **LM_FULL)
+        step, model = bench.transformer_step(cfg, 1, seed=args.seed,
+                                             eager=True)
+        torch.cuda.synchronize()
+        steps = []
+        for _ in range(WORLD_STEPS):
+            before, rx = runtime_counts(), counts["rx"]
+            loss, sec = timed_steps(step, 1)
+            after = runtime_counts()
+            steps.append({
+                "loss": loss[0], "sec": sec[0], "rx": counts["rx"] - rx,
+                "cycles": after["cycles"] - before["cycles"],
+                "cached": after["cached_cycles"] - before["cached_cycles"],
+                "spec": after["spec_cycles"] - before["spec_cycles"]})
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().contiguous().view(torch.uint8)
+                          .cpu().numpy().tobytes())
+        result.update(steps=steps, digest=digest.hexdigest(),
+                      fan_in=len(ctl._channels) if rank == 0 else None,
+                      folded=counts["folded"],
+                      peak_gib=torch.cuda.max_memory_reserved() / 2 ** 30)
+        del step, model
+    finally:
+        hvd.shutdown()
+    with open(os.path.join(workdir, f"hier-{mode}-{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def hier_phase(torch, args, workdir):
+    """Phase 16: the hierarchical control plane on the card, held to the
+    flat star bit for bit."""
+    res = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 16: the card's free memory before the children start: "
+          f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB (this process "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} reserved)",
+          flush=True)
+    for mode in ("tree", "flat"):
+        t0 = time.perf_counter()
+        procs = start_children(args, f"hier-{mode}", HIER_SIZE, free_port(),
+                               workdir, range(HIER_SIZE))
+        wait_children(procs, workdir, f"hier-{mode}", 300)
+        res[mode] = [json.load(open(os.path.join(
+            workdir, f"hier-{mode}-{r}.json"))) for r in range(HIER_SIZE)]
+        res[mode + "_s"] = time.perf_counter() - t0
+    tree, flat = res["tree"], res["flat"]
+    print(f"hierarchical control plane on the card ({card_line()}): four "
+          f"ranks on two fake hosts (fakehost0: 0, 1; fakehost1: 2, 3), "
+          f"the socket star carrying CUDA tensors; {res['tree_s']:.1f} s "
+          f"for the tree's world, {res['flat_s']:.1f} s for the flat one")
+    print(f"  tree: rank 0 {tree[0]['shape']}, rank 2 {tree[2]['shape']}, "
+          f"rank 3 {tree[3]['shape']}; flat: rank 0 {flat[0]['shape']}")
+    peaks = {m: " ".join(f"{w['peak_gib']:.1f}" for w in res[m])
+             for m in ("tree", "flat")}
+    print(f"  the ranks' peak card memory (reserved): tree {peaks['tree']}, "
+          f"flat {peaks['flat']} GiB")
+    for mode, world in (("tree", tree), ("flat", flat)):
+        print(f"  {mode}: the LM at full width, depth 2, one row a rank, "
+              f"{WORLD_STEPS} eager steps; per step sec, request bytes "
+              f"rank 0 received, cycles, cached cycles, speculative cycles "
+              f"(rank 0; fan-in {world[0]['fan_in']}):")
+        for i, s in enumerate(world[0]["steps"]):
+            losses = " ".join(f"{w['steps'][i]['loss']:.6f}" for w in world)
+            print(f"    step {i + 1}: {s['sec']:.3f} s, {s['rx']} B, "
+                  f"{s['cycles']} cycles, {s['cached']} cached, "
+                  f"{s['spec']} speculative; losses {losses}")
+    late = tree[0]["steps"][2:]
+    checks = {
+        "the tree: rank 0 holds rank 1 and rank 2 for [2, 3]":
+            tree[0]["shape"] == {"channels": [1, 2],
+                                 "members": {"1": [1], "2": [2, 3]}},
+        "rank 2 has one child, rank 3's upward channel is its loopback root":
+            tree[2]["shape"]["children"] == [3]
+            and tree[3]["shape"] == {"children": [], "up": 2,
+                                     "up_ip": "127.0.0.1"},
+        "the flat world: every worker on its own channel":
+            flat[0]["shape"]["channels"] == [1, 2, 3]
+            and all(not w["shape"]["children"] for w in flat[1:]),
+        "every collective equal to its closed form": all(
+            not w["bad"] for w in tree + flat),
+        "steps 3-5 ran cached cycles": all(s["cached"] + s["spec"] > 0
+                                           for s in late),
+        "rank 0 took folded CACHED_AGG frames from rank 2":
+            tree[0]["folded"] > 0,
+        "the ranks' parameters equal": len({w["digest"] for w in tree}) == 1
+        and len({w["digest"] for w in flat}) == 1,
+        "losses and parameters bit-equal to the flat world's": all(
+            [s["loss"] for s in t["steps"]] == [s["loss"] for s in f["steps"]]
+            for t, f in zip(tree, flat))
+        and tree[0]["digest"] == flat[0]["digest"],
+    }
+    for w in tree + flat:
+        for label in w["bad"]:
+            print(f"    rank {w['rank']}: {label} FAIL")
+    for name, ok in checks.items():
+        print(f"  {name}: {'ok' if ok else 'FAIL'}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 16: {bad}")
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3325,7 +3558,7 @@ def main(argv=None) -> int:
     # work directory, "star", "plane" or "planes").
     ap.add_argument("--world-rank1", nargs=3,
                     metavar=("PORT", "DIR", "MODE"), help=argparse.SUPPRESS)
-    # Internal: run as a rank of phase 12's, 13's or 15's worlds.
+    # Internal: run as a rank of phase 12's, 13's, 15's or 16's worlds.
     ap.add_argument("--child", nargs=5,
                     metavar=("KIND", "RANK", "SIZE", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
@@ -3351,7 +3584,8 @@ def main(argv=None) -> int:
     if args.child:
         kind, rank, size, port, workdir = args.child
         child = (wire_child if kind.startswith("wire-") else autotune_child
-                 if kind == "autotune" else abort_child)
+                 if kind == "autotune" else hier_child
+                 if kind.startswith("hier-") else abort_child)
         child(torch, hvd, args, int(rank), int(size), int(port), workdir,
               kind.partition("-")[2])
         return 0
@@ -3424,6 +3658,8 @@ def main(argv=None) -> int:
         planes_phase(torch, hvd, args, workdir, star_run)
         # Phase 15: autotune on the card.
         autotune_phase(torch, args, workdir, star_run)
+        # Phase 16: the hierarchical control plane on the card.
+        hier_phase(torch, args, workdir)
     csrc, ref = "horovod_tpu_torch/csrc/", \
         "horovod_tpu/parallel/flash_attention.py:"
     sources = {"flash_fwd": ("flash_fwd.cu", "58"),

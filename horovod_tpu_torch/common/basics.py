@@ -13,7 +13,9 @@ local and cross ranks) comes from the controller's handshake, as in the
 reference; ``HOROVOD_RANK`` and ``HOROVOD_SIZE`` say who this process
 is, and ``HOROVOD_LOCAL_RANK`` picks its card. The controllers arm their
 channels with ``HOROVOD_HEARTBEAT_INTERVAL`` and
-``HOROVOD_HEARTBEAT_TIMEOUT`` (5 s and 30 s, on by default), and
+``HOROVOD_HEARTBEAT_TIMEOUT`` (5 s and 30 s, on by default); the
+coordinator folds each remote host's ranks behind its local root unless
+``HOROVOD_TPU_HIER_CONTROLLER=0`` (reference :118); and
 ``HOROVOD_COMPRESSION`` sets this rank's wire-dtype proposal.
 ``HOROVOD_AUTOTUNE=1`` gives the runtime a ``ParameterManager``
 (reference :167-172), which ``runtime().parameter_manager`` exposes.
@@ -81,6 +83,7 @@ def _build_runtime(cfg: Config, device: Optional[torch.device]) -> Runtime:
         controller = TcpCoordinator(
             size, port=cfg.controller_port, secret=secret,
             start_timeout=cfg.start_timeout,
+            hierarchical=cfg.hier_controller,
             heartbeat_interval=cfg.heartbeat_interval_s,
             heartbeat_timeout=cfg.heartbeat_timeout_s)
         controller.accept_workers()

@@ -73,8 +73,6 @@ def _positive(name: str) -> bool:
 # its item in ROADMAP.md). The debug sanitizers (HOROVOD_TPU_LOCKCHECK,
 # HOROVOD_TPU_THREADCHECK, A6.9) change no result and are not listed.
 _NOT_PORTED: Dict[str, Tuple[Callable[[str], bool], str]] = {
-    "HOROVOD_TPU_HIER_CONTROLLER": (
-        _on, "the hierarchical control plane (A6.3)"),
     "HOROVOD_TPU_RING_THRESHOLD": (
         lambda n: env_int(n, -1) >= 0, "the ring data plane (A6.4)"),
     "HOROVOD_TPU_SHM": (_on, "the shm data plane (A6.4)"),
@@ -140,6 +138,11 @@ class Config:
     # allgather in two stages, within each host and then across hosts.
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
+    # The hierarchical control plane: a remote host's ranks reach the
+    # coordinator through their local root, one frame per host a cycle
+    # (``common/controller.py``). HOROVOD_TPU_HIER_CONTROLLER=0 keeps the
+    # flat star.
+    hier_controller: bool = True
     # The reference's two renderings of a broadcast on its mesh; both
     # are one torch.distributed broadcast here.
     xla_broadcast: str = "psum"
@@ -216,6 +219,8 @@ class Config:
             "HOROVOD_HIERARCHICAL_ALLREDUCE", c.hierarchical_allreduce)
         c.hierarchical_allgather = env_bool(
             "HOROVOD_HIERARCHICAL_ALLGATHER", c.hierarchical_allgather)
+        c.hier_controller = env_bool(
+            "HOROVOD_TPU_HIER_CONTROLLER", c.hier_controller)
         c.xla_broadcast = env_str("HOROVOD_XLA_BCAST",
                                   c.xla_broadcast).lower()
         c.heartbeat_interval_s = env_float(

@@ -2,13 +2,28 @@
 lists, and the socket data plane's payloads.
 
 Counterpart of ``horovod_tpu/common/controller.py``: ``Controller``
-(:806), ``LocalController`` (:1026), and the flat-topology
-``TcpCoordinator`` (:1070) and ``TcpWorker`` (:1855). Each cycle the
-workers send their serialized RequestList to rank 0 and receive the
-fused ResponseList from it, over persistent HMAC'd TCP connections
-opened by a handshake that also shares every rank's hostname, from which
-each rank derives the same local/cross topology. Frames carry the
-reference's tags.
+(:806), ``LocalController`` (:1026), ``TcpCoordinator`` (:1070) and
+``TcpWorker`` (:1855). Each cycle the workers send their serialized
+RequestList to rank 0 and receive the fused ResponseList from it, over
+persistent HMAC'd TCP connections opened by a handshake that also shares
+every rank's hostname, from which each rank derives the same local/cross
+topology. Frames carry the reference's tags.
+
+The hierarchical control plane (:46-52, :229-280, :1147-1362,
+:1967-2352), on by default as in the reference
+(``HOROVOD_TPU_HIER_CONTROLLER``): when the world spans several hosts and
+a remote host runs more than one rank, that host's lowest rank becomes
+its LOCAL ROOT. It keeps its channel to the coordinator and accepts its
+host's other ranks (the leaves) on a listener of its own; the leaves
+drop their coordinator channel after the handshake and talk only to it.
+The coordinator then holds one channel per host-0 worker and one per
+remote host, so its per-cycle fan-in scales with hosts, not ranks. A
+local root relays every primitive store-and-forward: upward it sends its
+host's frames as one (a host's cache bitmask frames folded into one
+CACHED_AGG frame, any other mix packed under the PACKED envelope, data
+frames packed with ``pack_frames``), downward it forwards what it
+receives, and it relays PINGs and ABORTs to its leaves. The reference's
+cut-through relay and native fan-out wait for the native core (A6.10).
 
 The fail-fast liveness layer (:78-79, :123-227): every channel is armed
 with the heartbeat deadline (``Channel.arm``), so a recv gives up after
@@ -18,27 +33,31 @@ straggler it PINGs the other workers, and a PING is absorbed wherever a
 frame is received, data receives included. A rank that sees a failure
 fans an ABORT naming the origin rank to every peer it can reach; a rank
 that receives one raises ``WorldAbortedError`` naming that origin. A
-worker also PINGs its coordinator while its loop waits on the card
-(``keepalive``), which the reference's coordinator absorbs alike.
+worker also PINGs its upward peer (and a local root its leaves) while its
+loop waits on the card (``keepalive``), which the reference's coordinator
+absorbs alike; a local root passes a leaf's PINGs on upward.
 
 The observability planes (:80-85, :806-900, :1370-1500, :2040-2180):
 METRICS and TRACE frames flow upward out of band and are absorbed
 wherever a frame is received, like a PING: the coordinator hands them
 to the runtime's sinks (``metrics_sink``, ``trace_sink``; dropped
-without one). ``attach_trace`` arms the clock exchange (every
-coordinator PING's send time is kept as t1, and a worker notes the
+without one), keyed by the channel's owner. A local root keeps its
+leaves' latest METRICS frame and every TRACE frame, and folds them into
+its own next frame (``wire.combine_metrics_frames``,
+``wire.combine_trace_frames``). ``attach_trace`` arms the clock exchange
+(every coordinator PING's send time is kept as t1, and a worker notes the
 receipt of each as t2 for its next TRACE frame) and, on the coordinator,
 the arrival stamps of every request gather. ``attach_metrics`` counts
-the control bytes. The hierarchical control plane and its relays of
-these frames, and the native fan-out, wait for their slices
-(``ROADMAP.md`` A6.3, A6.10).
+the control bytes.
 """
 
 from __future__ import annotations
 
+import ipaddress
 import json
 import select
 import socket
+import struct
 import time
 from typing import Dict, List, Optional
 
@@ -47,6 +66,7 @@ from horovod_tpu_torch.common import heartbeat
 from horovod_tpu_torch.common import logging as hlog
 from horovod_tpu_torch.common import network
 from horovod_tpu_torch.common import trace as htrace
+from horovod_tpu_torch.common import wire
 from horovod_tpu_torch.common.metrics import NOOP_METRIC
 from horovod_tpu_torch.common.status import (
     WorldAbortedError, world_abort_message,
@@ -72,6 +92,15 @@ def _my_hostname() -> str:
     return hconfig.env_str("HOROVOD_HOSTNAME") or socket.gethostname()
 
 
+def _local_root_addr() -> str:
+    """The address a host's leaves dial to reach their local root's
+    listener (the root binds it too). Loopback serves ranks that share a
+    network namespace; ranks in containers of their own that share only
+    ``HOROVOD_HOSTNAME`` set ``HOROVOD_TPU_LOCAL_ROOT_ADDR`` to an address
+    they all reach."""
+    return hconfig.env_str("HOROVOD_TPU_LOCAL_ROOT_ADDR", "127.0.0.1")
+
+
 def host_groups(hostnames: List[str]):
     """Group ranks by hostname in first-seen host order: (hosts,
     members) with ``members[i]`` the ascending ranks on ``hosts[i]``."""
@@ -82,6 +111,62 @@ def host_groups(hostnames: List[str]):
     members = [[r for r in range(len(hostnames)) if hostnames[r] == h]
                for h in hosts]
     return hosts, members
+
+
+_PACK_COUNT = struct.Struct("<I")
+_PACK_LEN = struct.Struct("<Q")
+
+
+def pack_frames(frames) -> bytes:
+    """Several ranks' frames as one aggregate payload: ``u32 count``,
+    then ``u64 length | bytes`` per frame. A local root sends its host's
+    frames up as one (the reference's LOCAL-then-CROSS split on the
+    control plane). A frame may be any contiguous host buffer."""
+    parts = [_PACK_COUNT.pack(len(frames))]
+    for f in frames:
+        view = network.as_byte_view(f)
+        parts.append(_PACK_LEN.pack(len(view)))
+        parts.append(view)
+    return b"".join(parts)
+
+
+def unpack_frames(blob) -> List[bytes]:
+    """The inverse of :func:`pack_frames`. A truncated or overlong
+    aggregate raises ConnectionError, as every malformed control frame
+    does (the relays' error handling and the blame behind it catch that
+    family; a bare ``struct.error`` would escape them)."""
+    try:
+        (n,) = _PACK_COUNT.unpack_from(blob, 0)
+        off = _PACK_COUNT.size
+        out: List[bytes] = []
+        for _ in range(n):
+            (ln,) = _PACK_LEN.unpack_from(blob, off)
+            off += _PACK_LEN.size
+            if off + ln > len(blob):
+                raise ConnectionError(
+                    f"aggregate frame truncated: slot of {ln} bytes at "
+                    f"offset {off} overruns the {len(blob)}-byte blob")
+            out.append(bytes(blob[off:off + ln]))
+            off += ln
+    except struct.error as e:
+        raise ConnectionError(
+            f"aggregate frame truncated mid-header: {e}") from e
+    if off != len(blob):
+        raise ConnectionError(
+            f"aggregate frame has {len(blob) - off} trailing bytes")
+    return out
+
+
+def _dialable_leaf_ip(ip: str) -> bool:
+    """Whether a leaf's observed connect address is worth keeping as the
+    address others dial it at. A loopback address (``::1`` as well as
+    ``127.*``) means the leaf shares its root's network namespace, where
+    the root channel's address answers for it; a string that does not
+    parse is not kept either."""
+    try:
+        return not ipaddress.ip_address(ip).is_loopback
+    except ValueError:
+        return False
 
 
 class Topology:
@@ -415,6 +500,15 @@ def _nbytes(payload) -> int:
     return len(network.as_byte_view(payload))
 
 
+def _copy_into(out, data) -> int:
+    """Copy the bytes of ``data`` to the front of the buffer ``out``;
+    returns their count."""
+    n = len(data)
+    if n:
+        memoryview(network.as_byte_view(out))[:n] = data
+    return n
+
+
 def _frame(payload):
     """A frame given as a list of buffers (``network.Channel.send``),
     joined: the coordinator parses its own frame with the others."""
@@ -443,28 +537,46 @@ class LocalController(Controller):
 
 
 class TcpCoordinator(Controller):
-    """Rank 0: one persistent connection per worker (flat star)."""
+    """Rank 0: one persistent connection per worker (flat star), or under
+    the hierarchical control plane one per host-0 worker and one per
+    remote host, whose local root answers for its host's ranks."""
 
     def __init__(self, size: int, port: int = 0, secret: bytes = b"",
-                 start_timeout: float = 30.0,
+                 start_timeout: float = 30.0, hierarchical: bool = True,
                  heartbeat_interval: float = 5.0,
                  heartbeat_timeout: float = 30.0):
+        """``hierarchical`` allows the per-host fold: when the world spans
+        several hosts and a remote host has ranks to fold behind its
+        local root, the remote leaves migrate to that root after the
+        handshake, and the per-cycle fan-in becomes the host-0 workers
+        plus the remote hosts (reference :1087-1099)."""
         self._secret = secret
         self._server = network.listen(port)
         self.port = self._server.getsockname()[1]
         self._channels: Dict[int, network.Channel] = {}
         self._size = size
         self._start_timeout = start_timeout
+        self._hierarchical = hierarchical
         self._hb_interval = heartbeat_interval
         self._hb_timeout = heartbeat_timeout
         self._ping_seq = 0
         self._last_ping = 0.0
-        # rank -> monotonic time of its last frame (peer_heartbeat_ages)
+        # channel owner -> every rank that channel carries (ascending,
+        # the owner first): itself in a flat world, a remote host's ranks
+        # for its local root.
+        self._members: Dict[int, List[int]] = {}
+        self._owner_of: Dict[int, int] = {}
+        self._has_aggregates = False
+        # leaf rank -> the address it connected to its root from, where
+        # that is not loopback (worker_peer_ip)
+        self._peer_ip_override: Dict[int, str] = {}
+        # owner -> monotonic time of its last frame (peer_heartbeat_ages)
         self._last_seen: Dict[int, float] = {}
         self.topology = None  # set by accept_workers
 
     def accept_workers(self) -> None:
-        """Accept every worker, send each the hostname list, and arm the
+        """Accept every worker, send each the hostname list and whether
+        the world folds its hosts, set the hierarchy up, and arm the
         channels with the heartbeat deadline."""
         deadline = time.monotonic() + self._start_timeout
         hostnames = [None] * self._size
@@ -490,15 +602,121 @@ class TcpCoordinator(Controller):
             self._channels[r] = ch
         self._server.close()
         self.topology = compute_topology(0, hostnames)
-        blob = json.dumps({"hostnames": hostnames, "hier": False}).encode()
-        now = time.monotonic()
-        for r, ch in self._channels.items():
+        _, host_members = host_groups(hostnames)
+        # The fold pays only where a remote host has leaves to put
+        # behind its root (reference :1191-1194).
+        remote_leaves = (self._size - len(host_members[0])
+                         - (len(host_members) - 1))
+        hier = (self._hierarchical and len(host_members) > 1
+                and remote_leaves > 0)
+        blob = json.dumps({"hostnames": hostnames, "hier": hier}).encode()
+        for ch in self._channels.values():
             ch.send(blob, TAG_HANDSHAKE)
+        self._members = {r: [r] for r in self._channels}
+        if hier:
+            self._setup_hierarchy(host_members, deadline)
+        self._owner_of = {m: owner for owner, ms in self._members.items()
+                          for m in ms}
+        self._has_aggregates = any(len(ms) > 1
+                                   for ms in self._members.values())
+        now = time.monotonic()
+        for r in self._channels:
             self._last_seen[r] = now
         if self._hb_timeout and self._hb_timeout > 0:
             for ch in self._channels.values():
                 ch.arm(self._hb_timeout, self._hb_interval,
                        on_idle=self._ping_peers)
+
+    def _setup_hierarchy(self, host_members: List[List[int]],
+                         deadline: float) -> None:
+        """Fold each remote host of more than one rank behind its local
+        root (reference :1247-1298): take each root's listener port, send
+        the port map to that host's leaves and drop their channels, then
+        take each root's report of the addresses its leaves connected
+        from. Every wait is bounded by the start deadline: a root that
+        dies in the set-up fails the start, it does not hang it."""
+        root_ports: Dict[str, int] = {}
+        for cross, members in enumerate(host_members[1:], start=1):
+            if len(members) == 1:
+                continue  # a host of one rank keeps its direct channel
+            root = members[0]
+            data = self._recv_by(self._channels[root], deadline,
+                                 f"the port report of local root {root}")
+            root_ports[str(cross)] = int(json.loads(data.decode())["port"])
+        map_blob = json.dumps({"roots": root_ports}).encode()
+        roots: List[int] = []
+        for members in host_members[1:]:
+            if len(members) == 1:
+                continue
+            for leaf in members[1:]:
+                ch = self._channels.pop(leaf)
+                self._members.pop(leaf)
+                ch.send(map_blob, TAG_HANDSHAKE)
+                ch.close()
+            self._members[members[0]] = members
+            roots.append(members[0])
+        for root in roots:
+            data = self._recv_by(self._channels[root], deadline,
+                                 f"the leaf-address report of local root "
+                                 f"{root}")
+            for r, ip in json.loads(data.decode())["leaf_ips"].items():
+                if _dialable_leaf_ip(ip):
+                    self._peer_ip_override[int(r)] = ip
+
+    @staticmethod
+    def _recv_by(ch: network.Channel, deadline: float, what: str) -> bytes:
+        """One handshake frame from ``ch`` within the start deadline
+        (reference :1301-1317)."""
+        msg = (f"start timeout expired waiting for {what}; increase "
+               f"HOROVOD_START_TIMEOUT if startup is slow.")
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise TimeoutError(msg)
+        ch.sock.settimeout(remaining)
+        try:
+            tag, data = ch.recv()
+        except socket.timeout:
+            raise TimeoutError(msg) from None
+        finally:
+            ch.sock.settimeout(None)
+        if tag != TAG_HANDSHAKE:
+            raise ConnectionError(f"expected {what}, got tag {tag}")
+        return data
+
+    def _expand(self, out: List, allow_combined: bool = False) -> List:
+        """Spread each local root's aggregate over its members' slots
+        (reference :1319-1362). On the request tag (``allow_combined``)
+        a folded CACHED_AGG frame stays in the owner's slot and leaves
+        the members' slots empty, since the fold answers for them; any
+        other aggregate there comes under the PACKED envelope (a bare
+        pack's leading count of 2 would read as the CACHED_AGG kind).
+        Anything else raises ConnectionError."""
+        if not self._has_aggregates:
+            return out
+        for owner, members in self._members.items():
+            if len(members) == 1:
+                continue
+            blob = out[owner]
+            if allow_combined:
+                kind_off = 5 if blob[:1] == wire.TENANT_PREFIX else 0
+                if blob[kind_off:kind_off + 1] == wire.CACHED_AGG_PREFIX:
+                    for m in members[1:]:
+                        out[m] = b""
+                    continue
+                if blob[:1] != wire.PACKED_PREFIX:
+                    raise ConnectionError(
+                        f"request aggregate from rank {owner} has kind "
+                        f"{blob[0] if blob else None}; expected a folded "
+                        f"CACHED_AGG frame or a PACKED envelope")
+                blob = memoryview(blob)[1:]
+            frames = unpack_frames(blob)
+            if len(frames) != len(members):
+                raise ConnectionError(
+                    f"aggregate from rank {owner} carried {len(frames)} "
+                    f"frames for {len(members)} ranks")
+            for m, f in zip(members, frames):
+                out[m] = f
+        return out
 
     def _ping_peers(self) -> None:
         """Run at each idle slice of a recv: tell every worker the world
@@ -509,11 +727,24 @@ class TcpCoordinator(Controller):
     keepalive = _ping_peers
 
     def peer_heartbeat_ages(self) -> Dict[int, float]:
+        """Seconds since the last frame on each channel, by its owner: a
+        local root answers for its host (it reports its leaves' ages in
+        its own metrics)."""
         now = time.monotonic()
         return {r: now - t for r, t in list(self._last_seen.items())}
 
+    def worker_peer_ip(self, rank: int) -> str:
+        """The address of worker ``rank`` as this coordinator sees it: a
+        leaf's own non-loopback address reported by its root, else the
+        address of the channel that carries it (reference :1812-1823)."""
+        ip = self._peer_ip_override.get(rank)
+        if ip is not None:
+            return ip
+        owner = self._owner_of.get(rank, rank)
+        return self._channels[owner].sock.getpeername()[0]
+
     def _recv_ctrl(self, r: int, expect_tag: int) -> bytes:
-        """One frame from rank ``r``: PINGs are skipped, an ABORT raises
+        """One frame from owner ``r``: PINGs are skipped, an ABORT raises
         the structured error, transport failures name the peer."""
         ch = self._channels[r]
         while True:
@@ -535,7 +766,7 @@ class TcpCoordinator(Controller):
             return data
 
     def _recv_data_into(self, r: int, out) -> int:
-        """One data frame from rank ``r`` straight into ``out``; an
+        """One data frame from owner ``r`` straight into ``out``; an
         out-of-band frame lands in ``out`` too (or spills when larger)
         and is absorbed."""
         ch = self._channels[r]
@@ -563,7 +794,7 @@ class TcpCoordinator(Controller):
 
     def _raise_transport(self, e: Exception) -> None:
         """An anonymous transport error as a WorldAbortedError naming the
-        dead peer when one can be found."""
+        dead channel's owner when one can be found."""
         dead = _dead_peers(self._channels)
         if dead:
             raise _abort_error(
@@ -579,8 +810,9 @@ class TcpCoordinator(Controller):
             self._raise_transport(e)
 
     def _gather_frames(self, payload, expect_tag: int) -> List[bytes]:
-        """One frame per worker, rank-indexed, this rank's own at 0. On a
-        request gather with the trace plane's hook armed, each rank's
+        """One frame per rank, rank-indexed, this rank's own at 0, each
+        local root's aggregate spread over its members (``_expand``). On
+        a request gather with the trace plane's hook armed, each owner's
         arrival is stamped as its recv returns (this rank's own at the
         start, the baseline of every lag) and handed to the hook."""
         out = [payload] + [b""] * (self._size - 1)
@@ -595,7 +827,7 @@ class TcpCoordinator(Controller):
             self._m_ctrl_rx.inc(sum(len(out[r]) for r in self._channels))
         if track:
             on_arrivals(arrivals)
-        return out
+        return self._expand(out, allow_combined=expect_tag == TAG_REQUESTS)
 
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
         return self._gather_frames(_frame(payload), TAG_REQUESTS)
@@ -610,21 +842,37 @@ class TcpCoordinator(Controller):
         return self._gather_frames(payload, TAG_DATA)
 
     def broadcast_data(self, payload, root_rank: int = 0) -> bytes:
+        # The root's channel owner (the root, or its local root, which
+        # has served the root's host already) gets nothing back.
+        owner = self._owner_of.get(root_rank, root_rank)
         if root_rank != 0:
-            payload = self._recv_ctrl(root_rank, TAG_DATA)
-        self._send_all(payload, TAG_DATA, exclude=root_rank)
+            payload = self._recv_ctrl(owner, TAG_DATA)
+        self._send_all(payload, TAG_DATA, exclude=owner)
         return payload
 
     def scatter_data(self, payloads) -> bytes:
+        # One payload per channel: a rank's own, or its host's packed.
+        per_owner = payloads
+        if self._has_aggregates:
+            per_owner = {o: payloads[o] if len(ms) == 1
+                         else pack_frames([payloads[m] for m in ms])
+                         for o, ms in self._members.items()}
         try:
             for r, ch in self._channels.items():
-                ch.send(payloads[r], TAG_DATA)
+                ch.send(per_owner[r], TAG_DATA)
         except (ConnectionError, OSError) as e:
             self._raise_transport(e)
         return payloads[0]
 
     def gather_data_into(self, payload, outs) -> Optional[List[int]]:
         lens = [len(network.as_byte_view(payload))] + [0] * (self._size - 1)
+        if self._has_aggregates:
+            # A local root's aggregate interleaves its host's payloads in
+            # one frame: the classic gather, then one copy per rank.
+            gathered = self.gather_data(payload)
+            for r in range(1, self._size):
+                lens[r] = _copy_into(outs[r], gathered[r])
+            return lens
         for r in self._channels:
             lens[r] = self._recv_data_into(r, outs[r])
         return lens
@@ -633,9 +881,10 @@ class TcpCoordinator(Controller):
         if root_rank == 0:
             self._send_all(payload, TAG_DATA)
             return len(network.as_byte_view(payload))
-        n = self._recv_data_into(root_rank, out)
+        owner = self._owner_of.get(root_rank, root_rank)
+        n = self._recv_data_into(owner, out)
         self._send_all(network.as_byte_view(out)[:n], TAG_DATA,
-                       exclude=root_rank)
+                       exclude=owner)
         return n
 
     def scatter_data_into(self, payloads, out) -> int:
@@ -643,6 +892,8 @@ class TcpCoordinator(Controller):
         return len(network.as_byte_view(payloads[0]))
 
     def abort(self, origin_rank: int, cause: str) -> None:
+        """The notice to every channel; a local root relays it to its
+        leaves."""
         payload = heartbeat.encode_abort(origin_rank, cause)
         for ch in self._channels.values():
             try:
@@ -652,7 +903,8 @@ class TcpCoordinator(Controller):
 
     def sever_connection(self, target_rank: Optional[int] = None) -> None:
         if target_rank is not None:
-            ch = self._channels.get(target_rank)
+            ch = self._channels.get(self._owner_of.get(target_rank,
+                                                       target_rank))
             if ch is not None:
                 ch.close()
             return
@@ -671,7 +923,19 @@ class TcpCoordinator(Controller):
 
 
 class TcpWorker(Controller):
-    """Ranks 1..size-1: one persistent connection to the coordinator."""
+    """Ranks 1..size-1: one persistent connection upward.
+
+    Flat world: the upward channel goes to the coordinator. When the
+    coordinator announces ``hier`` in the handshake and this rank's
+    host is a remote host of more than one rank, its lowest rank becomes
+    the host's local root (it keeps the coordinator channel, accepts its
+    leaves and relays every primitive between them and the coordinator)
+    and the others become leaves, whose upward channel then goes to the
+    local root; every primitive below works unchanged for a leaf."""
+
+    # A worker built without __init__ (the tests' socket pairs) is flat.
+    _children: Dict[int, network.Channel] = {}
+    _up_rank = 0
 
     def __init__(self, rank: int, size: int, addr: str, port: int,
                  secret: bytes = b"", start_timeout: float = 30.0,
@@ -681,6 +945,7 @@ class TcpWorker(Controller):
         self._hb_timeout = heartbeat_timeout
         self._ping_seq = 0
         self._last_ping = 0.0
+        self._up_rank = 0  # the rank the upward channel talks to
         self._ch = network.connect(addr, port, secret,
                                    timeout=start_timeout,
                                    retry_deadline=start_timeout)
@@ -691,28 +956,124 @@ class TcpWorker(Controller):
         if tag != TAG_HANDSHAKE:
             raise ConnectionError("handshake failed")
         info = json.loads(payload.decode())
-        self.topology = compute_topology(rank, info["hostnames"])
+        hostnames = info["hostnames"]
+        self.topology = compute_topology(rank, hostnames)
+        # leaf rank -> its channel (local roots only)
+        self._children: Dict[int, network.Channel] = {}
+        self._members: List[int] = [rank]  # this host's ranks, ascending
+        # leaf rank -> its latest METRICS frame (snapshots are totals:
+        # the latest of each leaf folds exactly into this root's own)
+        self._child_metrics: Dict[int, bytes] = {}
+        # leaf TRACE frames in arrival order (spans are deltas: each
+        # frame goes up exactly once), bounded
+        self._child_trace: List[bytes] = []
         self._up_seen = time.monotonic()
-        # (sender, sequence) of the last PING from the coordinator
+        self._child_seen: Dict[int, float] = {}
+        # (sender, sequence) of the last PING from upward
         self.last_ping: Optional[tuple] = None
+        topo = self.topology
+        if info.get("hier") and topo.cross_rank != 0 \
+                and topo.local_size > 1:
+            members = host_groups(hostnames)[1][topo.cross_rank]
+            if topo.local_rank == 0:
+                self._become_local_root(members, secret, start_timeout)
+            else:
+                self._become_leaf(rank, members[0], secret, start_timeout)
         if self._hb_timeout and self._hb_timeout > 0:
             self._ch.arm(self._hb_timeout, self._hb_interval)
+            for ch in self._children.values():
+                ch.arm(self._hb_timeout, self._hb_interval,
+                       on_idle=self._ping_children)
+
+    def _become_local_root(self, members: List[int], secret: bytes,
+                           start_timeout: float) -> None:
+        """Open a listener on this host, report its port upward, accept
+        this host's leaves, and report the addresses they came from
+        (reference :1967-2003)."""
+        srv = network.listen(0, host=_local_root_addr())
+        try:
+            port = srv.getsockname()[1]
+            self._ch.send(json.dumps({"port": port}).encode(),
+                          TAG_HANDSHAKE)
+            expected = set(members[1:])
+
+            def _validate(hello):
+                r = int(hello["rank"])
+                if r not in expected:
+                    raise ConnectionError(f"unexpected rank {r}")
+                return r
+
+            accepts = _accept_handshakes(
+                srv, secret, time.monotonic() + start_timeout,
+                lambda: (f"local root {self.rank}: leaves "
+                         f"{sorted(expected)} did not connect within "
+                         f"start timeout"),
+                _validate)
+            while expected:
+                r, _, ch = next(accepts)
+                ch.send(b"{}", TAG_HANDSHAKE)  # the accept's ack
+                ch.peer = f"rank {r} ({ch.peer})"
+                self._children[r] = ch
+                expected.discard(r)
+        finally:
+            srv.close()
+        self._members = members
+        now = time.monotonic()
+        self._child_seen = {r: now for r in self._children}
+        leaf_ips = {r: ch.sock.getpeername()[0]
+                    for r, ch in self._children.items()}
+        self._ch.send(json.dumps({"leaf_ips": leaf_ips}).encode(),
+                      TAG_HANDSHAKE)
+
+    def _become_leaf(self, rank: int, root: int, secret: bytes,
+                     start_timeout: float) -> None:
+        """Take the root-port map, then move the upward channel from the
+        coordinator to this host's local root (reference :2005-2027)."""
+        tag, data = self._ch.recv()
+        if tag != TAG_HANDSHAKE:
+            raise ConnectionError(f"expected the root-port map, got tag "
+                                  f"{tag}")
+        ports = json.loads(data.decode())["roots"]
+        port = int(ports[str(self.topology.cross_rank)])
+        self._ch.close()
+        self._ch = network.connect(_local_root_addr(), port, secret,
+                                   timeout=start_timeout,
+                                   retry_deadline=start_timeout)
+        self._up_rank = root
+        self._ch.peer = f"local root rank {root} ({self._ch.peer})"
+        self._ch.send(json.dumps({"rank": rank}).encode(), TAG_HANDSHAKE)
+        tag, _ = self._ch.recv()
+        if tag != TAG_HANDSHAKE:
+            raise ConnectionError("local root handshake failed")
 
     def _fail(self, e: Exception) -> WorldAbortedError:
         return _abort_error(
-            0, f"control channel to {self._ch.peer} failed: {e}")
+            self._up_rank, f"control channel to {self._ch.peer} failed: {e}")
 
     def keepalive(self) -> None:
+        """PINGs to the upward peer and, on a local root, to its leaves,
+        which wait on this rank too."""
         if self._hb_timeout and self._hb_timeout > 0:
-            _maybe_ping(self, {0: self._ch}, self.rank)
+            _maybe_ping(self, {self._up_rank: self._ch, **self._children},
+                        self.rank)
+
+    def _ping_children(self) -> None:
+        """Run at each idle slice of a recv from a leaf: a slow leaf must
+        not look dead to its waiting siblings."""
+        _maybe_ping(self, self._children, self.rank)
 
     def peer_heartbeat_ages(self) -> Dict[int, float]:
-        return {0: time.monotonic() - self._up_seen}
+        now = time.monotonic()
+        ages = {self._up_rank: now - self._up_seen}
+        for r, t in list(self._child_seen.items()):
+            ages[r] = now - t
+        return ages
 
     def _note_ping(self, data) -> None:
-        """A coordinator PING: liveness whatever its bytes say; a well
+        """A PING from upward: liveness whatever its bytes say; a well
         formed one is kept as ``last_ping`` and, with the trace plane
-        armed, its receipt is the clock exchange's t2."""
+        armed, its receipt is the clock exchange's t2 (the clock keeps
+        only the coordinator's, which a local root relays)."""
         t2 = time.monotonic()
         try:
             self.last_ping = heartbeat.decode_ping(bytes(data))
@@ -721,8 +1082,27 @@ class TcpWorker(Controller):
         if self._trace_on:
             htrace.clock().ping_received(*self.last_ping, t2)
 
+    # -- the observability planes' relays --------------------------------
+    def _on_child_metrics(self, r: int, payload: bytes) -> None:
+        """A leaf's METRICS frame: only its latest is kept."""
+        self._child_metrics[r] = bytes(payload)
+
+    def _on_child_trace(self, r: int, payload: bytes) -> None:
+        """A leaf's TRACE frame: kept until this root's next frame goes
+        up; past 64 frames the oldest is dropped (lossy, not unbounded)."""
+        if len(self._child_trace) >= 64:
+            del self._child_trace[0]
+        self._child_trace.append(bytes(payload))
+
     def send_metrics(self, payload: bytes) -> None:
         try:
+            if self._child_metrics:
+                # A leaf whose frame does not merge (skewed code) is left
+                # out; the rest of the host still reports.
+                payload = wire.combine_metrics_frames(
+                    [payload] + [self._child_metrics[r]
+                                 for r in sorted(self._child_metrics)],
+                    drop_incompatible=True)
             self._ch.send(payload, TAG_METRICS)
             if self._metrics_on:
                 self._m_ctrl_tx.inc(len(payload))
@@ -731,22 +1111,38 @@ class TcpWorker(Controller):
 
     def send_trace(self, payload: bytes) -> None:
         try:
+            if self._child_trace:
+                batch, self._child_trace = self._child_trace, []
+                payload = wire.combine_trace_frames([payload] + batch)
             self._ch.send(payload, TAG_TRACE)
             if self._metrics_on:
                 self._m_ctrl_tx.inc(len(payload))
         except Exception:
             pass  # best effort, like send_metrics
 
-    def _send(self, payload, tag: int) -> None:
+    # -- upward ----------------------------------------------------------
+    def _relay_children_safe(self, data, tag: int) -> None:
+        """PING or ABORT to every leaf, best effort (liveness and failure
+        paths: never raises)."""
+        for ch in self._children.values():
+            try:
+                ch.send(data, tag)
+            except Exception:
+                pass
+
+    def _send_up(self, payload, tag: int) -> None:
         try:
             self._ch.send(payload, tag)
         except (ConnectionError, OSError) as e:
             raise self._fail(e) from e
+        if self._metrics_on:
+            self._m_ctrl_tx.inc(_nbytes(payload))
 
     def _recv_up(self, expect_tag: int) -> bytes:
-        """One frame from the coordinator. PINGs prove the world alive,
-        an ABORT raises its notice, and silence past the deadline or a
-        dead socket names the coordinator as the origin."""
+        """One frame from upward. PINGs prove the world alive and go on
+        down to the leaves, an ABORT goes down and then raises its
+        notice, and silence past the deadline or a dead socket names the
+        upward peer as the origin."""
         while True:
             try:
                 tag, data = self._ch.recv()
@@ -755,10 +1151,13 @@ class TcpWorker(Controller):
             self._up_seen = time.monotonic()
             if tag == TAG_PING:
                 self._note_ping(data)
+                self._relay_children_safe(data, TAG_PING)
                 continue
             if tag in (TAG_METRICS, TAG_TRACE):
                 continue  # these only flow upward; a stray is dropped
-            _raise_if_abort(tag, data)
+            if tag == TAG_ABORT:
+                self._relay_children_safe(data, TAG_ABORT)
+                _raise_if_abort(tag, data)
             if tag != expect_tag:
                 raise ConnectionError(f"expected tag {expect_tag} from "
                                       f"{self._ch.peer}, got {tag}")
@@ -780,6 +1179,7 @@ class TcpWorker(Controller):
                 continue  # a stray downward frame is dropped
             if tag in (TAG_PING, TAG_ABORT):
                 data = spill if spill is not None else bytes(view[:n])
+                self._relay_children_safe(data, tag)
                 if tag == TAG_PING:
                     self._note_ping(data)
                     continue
@@ -788,55 +1188,178 @@ class TcpWorker(Controller):
                 raise ConnectionError(f"expected a data frame that fits its "
                                       f"buffer from {self._ch.peer}, got tag "
                                       f"{tag} of {n} bytes")
+            if self._metrics_on:
+                self._m_ctrl_rx.inc(n)
             return n
 
+    # -- the leaves (local roots only) -----------------------------------
+    def _recv_child(self, r: int, tag: int) -> bytes:
+        """One frame from leaf ``r``. Its PINGs go on upward (the
+        coordinator waits on this root while it waits on the leaf), its
+        METRICS and TRACE frames are kept for this root's next ones, an
+        ABORT raises its notice, a transport failure names the leaf."""
+        ch = self._children[r]
+        while True:
+            try:
+                t, data = ch.recv()
+            except (ConnectionError, OSError) as e:
+                raise _abort_error(
+                    r, f"control channel to local rank {r} failed: "
+                       f"{e}") from e
+            self._child_seen[r] = time.monotonic()
+            if t == TAG_PING:
+                try:
+                    self._ch.send(data, TAG_PING)
+                except OSError:
+                    pass  # the upward recv reports a dead channel
+                continue
+            if t == TAG_METRICS:
+                self._on_child_metrics(r, data)
+                continue
+            if t == TAG_TRACE:
+                self._on_child_trace(r, data)
+                continue
+            _raise_if_abort(t, data)
+            if t != tag:
+                raise ConnectionError(
+                    f"expected tag {tag} from local rank {r}, got {t}")
+            return data
+
+    def _raise_child_transport(self, e: Exception, what: str):
+        """An anonymous transport error on the leaf tier as a blame: a
+        leaf found dead, else this rank."""
+        dead = _dead_peers(self._children)
+        origin = dead[0] if dead else self.rank
+        raise _abort_error(origin, f"{what} failed: {e}") from e
+
+    def _send_children(self, data, tag: int,
+                       exclude_rank: Optional[int] = None) -> None:
+        try:
+            for r, ch in self._children.items():
+                if r != exclude_rank:
+                    ch.send(data, tag)
+        except (ConnectionError, OSError) as e:
+            self._raise_child_transport(e, "relay to local leaves")
+
+    def _gather_up(self, payload, tag: int) -> None:
+        """Send this rank's frame up; a local root first takes its
+        leaves' and sends the host's as one (reference :2215-2245): on
+        the request tag a host of cache bitmask frames folds into one
+        CACHED_AGG frame, and any other mix goes packed under the PACKED
+        envelope; data frames go packed."""
+        if self._children:
+            frames = {r: self._recv_child(r, tag) for r in self._children}
+            frames[self.rank] = _frame(payload)
+            ordered = [frames[r] for r in self._members]
+            payload = None
+            if tag == TAG_REQUESTS:
+                payload = wire.combine_cycle_requests(ordered)
+                if payload is None:
+                    payload = wire.PACKED_PREFIX + pack_frames(ordered)
+            if payload is None:
+                payload = pack_frames(ordered)
+        self._send_up(payload, tag)
+
+    # -- the primitives --------------------------------------------------
     def gather_requests(self, payload: bytes) -> Optional[List[bytes]]:
-        self._send(payload, TAG_REQUESTS)
-        if self._metrics_on:
-            self._m_ctrl_tx.inc(_nbytes(payload))
+        self._gather_up(payload, TAG_REQUESTS)
         return None
 
     def broadcast_responses(self, payload: Optional[bytes]) -> bytes:
-        return self._recv_up(TAG_RESPONSES)
+        data = self._recv_up(TAG_RESPONSES)
+        if self._children:
+            self._send_children(data, TAG_RESPONSES)
+        return data
 
     def gather_data(self, payload) -> Optional[List[bytes]]:
-        self._send(payload, TAG_DATA)
+        self._gather_up(payload, TAG_DATA)
+        return None
+
+    def _relay_root_payload(self, payload, root_rank: int):
+        """A broadcast rooted on this host, past the coordinator's reach:
+        the payload goes up (the coordinator serves the other hosts and
+        skips this one) and to this host's other ranks. Returns it, or
+        None when the root is elsewhere."""
+        if self.rank == root_rank:
+            self._send_up(payload, TAG_DATA)
+            self._send_children(payload, TAG_DATA)
+            return payload
+        if root_rank in self._children:
+            data = self._recv_child(root_rank, TAG_DATA)
+            self._send_up(data, TAG_DATA)
+            self._send_children(data, TAG_DATA, exclude_rank=root_rank)
+            return data
         return None
 
     def broadcast_data(self, payload, root_rank: int = 0) -> bytes:
-        if self.rank == root_rank:
-            self._send(payload, TAG_DATA)
-            return payload
-        return self._recv_up(TAG_DATA)
+        data = self._relay_root_payload(payload, root_rank)
+        if data is not None:
+            return data
+        data = self._recv_up(TAG_DATA)
+        if self._children:
+            self._send_children(data, TAG_DATA)
+        return data
 
     def scatter_data(self, payloads) -> bytes:
-        return self._recv_up(TAG_DATA)
+        data = self._recv_up(TAG_DATA)
+        if not self._children:
+            return data
+        mine = None
+        try:
+            for r, f in zip(self._members, unpack_frames(data)):
+                if r == self.rank:
+                    mine = f
+                else:
+                    self._children[r].send(f, TAG_DATA)
+        except (ConnectionError, OSError) as e:
+            self._raise_child_transport(e, "scatter to local leaves")
+        return mine
 
     def gather_data_into(self, payload, outs) -> Optional[List[int]]:
-        self._send(payload, TAG_DATA)
+        self._gather_up(payload, TAG_DATA)
         return None
 
     def broadcast_data_into(self, payload, out, root_rank: int = 0) -> int:
-        if self.rank == root_rank:
-            self._send(payload, TAG_DATA)
-            return len(network.as_byte_view(payload))
-        return self._recv_up_into(out)
+        if self.rank == root_rank or root_rank in self._children:
+            data = self._relay_root_payload(payload, root_rank)
+            if self.rank == root_rank:
+                return len(network.as_byte_view(data))
+            return _copy_into(out, data)
+        n = self._recv_up_into(out)
+        if self._children:
+            self._send_children(
+                memoryview(network.as_byte_view(out))[:n], TAG_DATA)
+        return n
 
     def scatter_data_into(self, payloads, out) -> int:
-        return self._recv_up_into(out)
+        if not self._children:
+            return self._recv_up_into(out)
+        # A local root unpacks the aggregate to pass each leaf its slice:
+        # the classic path, and one copy out.
+        return _copy_into(out, self.scatter_data(payloads))
 
     def abort(self, origin_rank: int, cause: str) -> None:
+        payload = heartbeat.encode_abort(origin_rank, cause)
         try:
-            self._ch.send(heartbeat.encode_abort(origin_rank, cause),
-                          TAG_ABORT)  # up to the coordinator
+            self._ch.send(payload, TAG_ABORT)  # up
         except Exception:
             pass
+        self._relay_children_safe(payload, TAG_ABORT)
 
     def sever_connection(self, target_rank: Optional[int] = None) -> None:
+        if target_rank is not None and target_rank in self._children:
+            self._children[target_rank].close()
+            return
         self._ch.close()
 
     def drain_abort_notice(self, grace_s: float = 0.0) -> Optional[tuple]:
-        return _drain_abort({0: self._ch}, grace_s)
+        return _drain_abort({self._up_rank: self._ch, **self._children},
+                            grace_s)
 
     def close(self) -> None:
+        for ch in self._children.values():
+            try:
+                ch.close()
+            except OSError:
+                pass  # the upward channel must still close
         self._ch.close()

@@ -518,10 +518,19 @@ class Runtime:
         into rank 0's writer, or into one TRACE frame up the control
         channel with the clock echo that closes the exchange."""
         now = time.monotonic()
-        if now - self._trace_last_pub < self.config.trace_interval_s:
+        # A local root sends its leaves' parked frames on the next tick,
+        # not at the end of its own interval: a leaf's clock echo ages
+        # while parked, and every parked microsecond would bias the
+        # leaf's offset (reference runtime.py:1728-1748).
+        if (now - self._trace_last_pub < self.config.trace_interval_s
+                and not self._children_pending()):
             return
         self._trace_last_pub = now
         self._ship_spans()
+
+    def _children_pending(self) -> bool:
+        """Whether this rank holds TRACE frames of its leaves."""
+        return bool(getattr(self.controller, "_child_trace", None))
 
     def _ship_spans(self) -> None:
         spans, dropped = self._trace.drain()
@@ -530,7 +539,8 @@ class Runtime:
             self._trace_spans_sent += len(spans)
             return
         echo = htrace.clock().take_echo()
-        if not spans and not dropped and echo is None:
+        if not spans and not dropped and echo is None \
+                and not self._children_pending():
             return
         try:
             payload = wire.serialize_trace_frame(
@@ -747,7 +757,8 @@ class Runtime:
             pass
         # The trace's tail: rank 0 writes its own and closes the file
         # (the JSON array must end: an aborted run's trace is the one to
-        # read); a worker sends its own while the channel may be up.
+        # read); a worker sends its own while the channel may be up, and
+        # a local root its leaves' parked frames with it.
         if self._trace_on:
             try:
                 self._ship_spans()
@@ -1080,10 +1091,13 @@ class Runtime:
         """Parse every rank's cycle frame and produce this cycle's
         broadcast: (payload, meta), ``meta`` being the ResponseList (no
         cache) or the CacheCycleResponse every rank, this one included,
-        applies alike."""
+        applies alike. A host folded by its local root sends one
+        CACHED_AGG frame for all its ranks: it sits in the root's slot,
+        its members' slots are empty, and the grant counts frames, not
+        ranks (reference runtime.py:2120-2170)."""
         cache = self._cache
         if cache is None:
-            req_lists = [wire.parse_cycle_request(f) for f in gathered]
+            req_lists = [wire.parse_cycle_request(f) for f in gathered if f]
             for rl in req_lists:
                 if not isinstance(rl, RequestList):
                     raise ConnectionError(
@@ -1099,7 +1113,11 @@ class Runtime:
         shutdown = False
         req_lists: List[RequestList] = []
         spec_frames: List[CacheCycleRequest] = []
+        n_frames = 0
         for f in gathered:
+            if not f:
+                continue  # a member's slot, its host folded (CACHED_AGG)
+            n_frames += 1
             cf = wire.parse_cycle_request(f)
             if not isinstance(cf, CacheCycleRequest):
                 raise ConnectionError(
@@ -1132,7 +1150,7 @@ class Runtime:
             if stale:
                 self.stats["plan_evictions"] += 1
             or_invalid |= stale
-        if (spec_frames and len(spec_frames) == len(gathered)
+        if (spec_frames and len(spec_frames) == n_frames
                 and not shutdown and not or_invalid
                 and all(cf.hit_mask == and_hits for cf in spec_frames)):
             # Every rank bid the same pure-hit mask with its buffers:

@@ -498,9 +498,9 @@ class StragglerTracker:
 
     def note_gather(self, arrivals: Dict[int, float]) -> None:
         """``arrivals``: rank -> coordinator-monotonic stamp of that
-        rank's request frame completing. Under the reference's hierarchical
-        control plane (A6.3) the ranks are channel OWNERS (a local root
-        answers for its host)."""
+        rank's request frame completing. Under the hierarchical control
+        plane the ranks are channel OWNERS (a local root answers for its
+        host)."""
         if len(arrivals) < 1:
             return
         first = min(arrivals.values())

@@ -309,6 +309,13 @@ FRAME_FULL = 0
 FRAME_CACHED = 1
 FRAME_CACHED_AGG = 2
 FRAME_CACHED_SPEC = 3
+CACHED_AGG_PREFIX = bytes((FRAME_CACHED_AGG,))
+# The relay envelope (not a cycle frame kind): a local root puts this
+# byte in front of its host's UNFOLDED frames on the request tag, so that
+# the coordinator tells them from a folded CACHED_AGG frame without
+# reading ambiguous bytes (a bare pack leads with its u32 frame count,
+# and a two-rank host's count byte is FRAME_CACHED_AGG).
+PACKED_PREFIX = b"\xfe"
 
 
 def _mask_nbytes(nslots: int) -> int:

@@ -18,6 +18,7 @@ gradient over the process group inside ``step()``.)
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -206,18 +207,27 @@ class _DistributedOptimizer:
         self._handles = {}       # param -> (handle, compression ctx)
         self._grad_counts = {}   # param -> backward passes seen
         self._hook_handles = [
-            p.register_post_accumulate_grad_hook(self._make_hook(p))
+            p.register_post_accumulate_grad_hook(self._make_hook())
             for group in optimizer.param_groups for p in group["params"]
             if p.requires_grad]
 
-    def _make_hook(self, p):
+    def _make_hook(self):
         # Autograd runs this on the thread of the gradient's device, with
         # that gradient's stream current: the allreduce's ready event is
-        # recorded there.
-        def hook(param):
-            self._grad_counts[p] = self._grad_counts.get(p, 0) + 1
-            if self._grad_counts[p] == self.backward_passes_per_step:
-                self._allreduce_grad(p)
+        # recorded there. The hook takes its parameter as its argument and
+        # holds the optimizer weakly: a parameter keeps its hooks where the
+        # garbage collector cannot see them, so a strong reference back
+        # would keep the model and its optimizer state alive for the rest
+        # of the process.
+        ref = weakref.ref(self)
+
+        def hook(p):
+            opt = ref()
+            if opt is None:
+                return
+            opt._grad_counts[p] = opt._grad_counts.get(p, 0) + 1
+            if opt._grad_counts[p] == opt.backward_passes_per_step:
+                opt._allreduce_grad(p)
         return hook
 
     def _allreduce_grad(self, p):

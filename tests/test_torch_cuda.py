@@ -362,6 +362,99 @@ def test_eager_optimizer_equals_the_in_step_one_on_the_card(cuda_world):
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
+# One rank of the four-rank world on two fake hosts below: the runtime's
+# socket star (the process-group plane taken out: NCCL refuses two ranks
+# on one card) carries CUDA tensors through the hierarchical control
+# plane; each collective is held to its closed form.
+_HIER_RANK = r"""
+import json, os, sys, torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common import basics
+out = sys.argv[1]
+hvd.init()
+rt = basics.runtime()
+rt.op_manager.backends = [b for b in rt.op_manager.backends
+                          if b.name != "process_group"]
+ctl = rt.controller
+rank, size = hvd.rank(), hvd.size()
+dev = torch.device("cuda", torch.cuda.current_device())
+ssum = sum(range(1, size + 1))
+bad = []
+def c(label, got, want):
+    if not (got.device == want.device and got.dtype == want.dtype
+            and got.shape == want.shape and torch.equal(got, want)):
+        bad.append(label)
+x = torch.full((4, 3), float(rank + 1), device=dev)
+c("sum", hvd.allreduce(x, op=hvd.Sum, name="h.ar"),
+  torch.full((4, 3), float(ssum), device=dev))
+c("average", hvd.allreduce(x, name="h.avg"),
+  torch.full((4, 3), ssum / size, device=dev))
+for i, o in enumerate(hvd.grouped_allreduce(
+        [torch.full((16 + i,), (rank + 1.0) * (i + 1), device=dev)
+         for i in range(6)], op=hvd.Sum, name="h.grp")):
+    c(f"fused {i}", o, torch.full((16 + i,), float(ssum * (i + 1)),
+                                  device=dev))
+c("allgather", hvd.allgather(torch.full((rank + 1, 2), float(rank),
+                                        device=dev), name="h.ag"),
+  torch.cat([torch.full((r + 1, 2), float(r), device=dev)
+             for r in range(size)]))
+for root in range(size):
+    c(f"broadcast {root}", hvd.broadcast(
+        torch.full((3,), rank * 10.0, device=dev, dtype=torch.float64),
+        root, name=f"h.bc{root}"),
+      torch.full((3,), root * 10.0, device=dev, dtype=torch.float64))
+c("alltoall", hvd.alltoall(torch.arange(2.0 * size, device=dev) + 100 * rank,
+                           name="h.a2a"),
+  torch.cat([torch.arange(2.0 * rank, 2.0 * rank + 2, device=dev) + 100 * s
+             for s in range(size)]))
+c("reducescatter", hvd.reducescatter(
+    torch.arange(3.0 * size, device=dev) * (rank + 1), op=hvd.Sum,
+    name="h.rs"),
+  torch.arange(3.0 * rank, 3.0 * rank + 3, device=dev) * ssum)
+for k in range(8):
+    c(f"steady {k}", hvd.allreduce(x * (k + 1), op=hvd.Sum, name="h.steady"),
+      torch.full((4, 3), float(ssum * (k + 1)), device=dev))
+hvd.barrier()
+shape = ({"channels": sorted(ctl._channels),
+          "members": {str(o): m for o, m in ctl._members.items()}}
+         if rank == 0 else {"children": sorted(ctl._children),
+                            "up": ctl._up_rank})
+hvd.shutdown()
+with open(os.path.join(out, f"result{rank}.json"), "w") as f:
+    json.dump({"bad": bad, "shape": shape}, f)
+"""
+
+
+@pytest.mark.cuda
+def test_hierarchical_world_of_four_carries_cuda_tensors(cuda, tmp_path):
+    """Four ranks on the card, two fake hosts (``HOROVOD_HOSTNAME``): rank
+    0 holds rank 1 and rank 2 as the owner of [2, 3], rank 3 talks to its
+    local root only, and every collective on CUDA tensors (allreduce
+    summed, averaged and fused, allgather with a rank-dependent dim 0,
+    broadcast from each root, alltoall, reducescatter, steady cached
+    allreduces, barrier) equals its closed form on every rank."""
+    from tests.torch_worlds import Worlds, child_env
+    spawned = Worlds(240.0)
+    try:
+        port = spawned.reserve_port()
+        envs = [child_env(HOROVOD_RANK=r, HOROVOD_SIZE=4,
+                          HOROVOD_LOCAL_RANK=r,
+                          HOROVOD_HOSTNAME=f"fakehost{r // 2}",
+                          HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                          HOROVOD_CONTROLLER_PORT=port) for r in range(4)]
+        spawned.start("hier", tmp_path, [["-c", _HIER_RANK, tmp_path]] * 4,
+                      envs)
+        rcs, results, logs = spawned.wait("hier")
+    finally:
+        spawned.close()
+    assert rcs == [0] * 4, "\n".join(logs)
+    assert [r["bad"] for r in results] == [[]] * 4, results
+    assert results[0]["shape"] == {"channels": [1, 2],
+                                   "members": {"1": [1], "2": [2, 3]}}
+    assert results[2]["shape"] == {"children": [3], "up": 0}
+    assert results[3]["shape"] == {"children": [], "up": 2}
+
+
 C4_CASES = [
     # dtype, b, s, h, d, causal, q_offset, k_offset
     pytest.param("float16", 2, 256, 4, 128, True, 0, 0, id="fp16_d128"),

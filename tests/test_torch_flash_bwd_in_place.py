@@ -30,6 +30,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-4
@@ -101,6 +102,30 @@ def test_backward_pads_once_where_a_kernel_cannot_read_in_place(d):
     assert dq.shape == dk.shape == dv.shape == args[0].shape
 
 
+def _d96_ref():
+    """A worker's job: the reference's backward (fp32) on the values and
+    plain forward stats of ``test_in_place_backward_at_d96_matches_
+    reference``."""
+    q, k, v, do = _values(96, 96)
+    (o, m, l), _ = _bwd_args(q, k, v, do)
+    jax_args = [jnp.asarray(x.float().numpy()) for x in (q, k, v, o, m, l, do)]
+    return [torch.tensor(np.asarray(x)) for x in ref.flash_attention_bwd(
+        *jax_args, causal=True, block_q=32, block_k=32, interpret=True)]
+
+
+def _jobs():
+    """The reference result the module's tests read, as a
+    ``torch_refpool`` job."""
+    return [((__name__, "d96"), _d96_ref, ())]
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 def test_in_place_backward_at_d96_matches_reference():
     """Phi-3-mini's head dim through the in-place route, with the plain
     versions (bf16 p and ds, as the kernels round them) in the kernels'
@@ -111,9 +136,7 @@ def test_in_place_backward_at_d96_matches_reference():
     (o, m, l), args = _bwd_args(q, k, v, do)
     dq, (dk, dv) = port._flash_bwd(
         *args, launchers=_recording({}, operands=torch.bfloat16))
-    jax_args = [jnp.asarray(x.float().numpy()) for x in (q, k, v, o, m, l, do)]
-    refs = [torch.tensor(np.asarray(x)) for x in ref.flash_attention_bwd(
-        *jax_args, causal=True, block_q=32, block_k=32, interpret=True)]
+    refs = torch_refpool.result((__name__, "d96"))
     p, ds = port._p_ds_plain(*args)
     ds_u, p_u = UNIT * ds.abs(), UNIT * p.abs()
     lims = (torch.einsum("bhqk,bkhd->bqhd", ds_u, k.float().abs()),

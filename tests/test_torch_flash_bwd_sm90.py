@@ -31,6 +31,7 @@ import torch
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-4
@@ -147,14 +148,37 @@ def test_fused_plain_version_matches_the_reference_backward(d, sq, sk, qo,
         _check_fused_plain(dtype, d, sq, sk, qo, ko)
 
 
-def _check_fused_plain(dtype, d, sq, sk, qo, ko):
-    (q, k, v, do), (o, m, l), args = _fused_args(dtype, d, sq, sk, qo, ko)
+def _fused_ref(dtype, d, sq, sk, qo, ko):
+    """A worker's job: the reference's backward (fp32) on
+    ``_fused_args``' values and plain forward stats."""
+    (q, k, v, do), (o, m, l), _ = _fused_args(dtype, d, sq, sk, qo, ko)
     blocks = {} if max(sq, sk) < 128 else dict(block_q=64, block_k=64)
     jax_args = [jnp.asarray(x.float().numpy()) for x in (q, k, v, o, m, l,
                                                          do)]
-    refs = [torch.tensor(np.asarray(x)) for x in ref.flash_attention_bwd(
+    return [torch.tensor(np.asarray(x)) for x in ref.flash_attention_bwd(
         *jax_args, causal=True, q_offset=qo, k_offset=ko, interpret=True,
         **blocks)]
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    cases = [(t, *c.values) for c in FUSED_CASES
+             for t in (torch.bfloat16, torch.float16)]
+    return [((__name__, *c), _fused_ref, c) for c in cases]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
+def _check_fused_plain(dtype, d, sq, sk, qo, ko):
+    (q, k, v, do), (o, m, l), args = _fused_args(dtype, d, sq, sk, qo, ko)
+    refs = torch_refpool.result((__name__, dtype, d, sq, sk, qo, ko))
     p, ds = port._p_ds_plain(q, k, v, do, *args)
     unit = STEP[dtype]
     lims = (torch.einsum("bhqk,bkhd->bqhd", unit * ds.abs(), k.float().abs()),

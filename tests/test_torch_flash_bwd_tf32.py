@@ -18,6 +18,9 @@ has a dq of pure rounding noise); no other allowance. 3xTF32 leaves each
 product within 2^-21 of fp32 (the dropped lo.lo term and the parts'
 rounding), under fp32's own summation-order noise at these sizes, while
 one TF32 product (2^-11 of each factor) misses the bound many times over.
+
+The reference's gradients are computed in the worker pool of
+``tests/torch_refpool.py`` (``_jobs``).
 """
 
 import os
@@ -33,6 +36,7 @@ from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-4
@@ -65,6 +69,19 @@ def _reference(stats, args, block=32):
     return [torch.tensor(np.asarray(x)) for x in out]
 
 
+def _reference_of(seed, d, sq, sk, causal, qo, ko, block):
+    """A worker's job: ``_reference`` for the inputs
+    ``_values(seed, d, sq=sq, sk=sk)``."""
+    stats, args = _args(*_values(seed, d, sq=sq, sk=sk), causal, qo, ko)
+    return _reference(stats, args, block)
+
+
+def _pooled(seed, d, sq=96, sk=None, causal=True, qo=0, ko=0, block=32):
+    """The pool's ``_reference_of`` result for these arguments."""
+    return torch_refpool.result(
+        (__name__, seed, d, sq, sk, causal, qo, ko, block))
+
+
 def _ratios(mine, want):
     """err / bound of dq, dk and dv under the fp32 gradient bound."""
     return (tolerance.worst(mine[0], want[0], GRAD_TOL,
@@ -78,6 +95,25 @@ def _plain(args, operands):
     return (dq, *port._flash_dkv_plain(*args, operands=operands))
 
 
+def _jobs():
+    """Every reference result the module's tests read, in their order, as
+    ``torch_refpool`` jobs."""
+    cases = [(d + c.values[1] + c.values[2], d, 96, None, *c.values, 32)
+             for c in CONFIGS for d in BOUND_DIMS]
+    cases.append((5, 128, 100, 127, True, 27, 0, None))
+    cases += [(d, d, 96, None, True, 0, 0, 32) for d in ONE_TF32_DIMS]
+    cases += [(d, d, 64, None, True, 0, 0, 32) for d, _ in PADDED]
+    return [((__name__, *c), _reference_of, c) for c in cases]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 CONFIGS = [
     # causal, q_offset, k_offset
     pytest.param(True, 0, 0, id="causal"),
@@ -87,12 +123,17 @@ CONFIGS = [
 ]
 
 
+BOUND_DIMS = [64, 128, 320, 512, 640]
+ONE_TF32_DIMS = [128, 320]
+PADDED = [(48, 64), (100, 128), (320, 320), (600, 608)]
+
+
 @pytest.mark.parametrize("causal,qo,ko", CONFIGS)
-@pytest.mark.parametrize("d", [64, 128, 320, 512, 640])
+@pytest.mark.parametrize("d", BOUND_DIMS)
 def test_3xtf32_backward_holds_the_fp32_bound_against_reference(d, causal,
                                                                 qo, ko):
     stats, args = _args(*_values(d + qo + ko, d), causal, qo, ko)
-    want = _reference(stats, args)
+    want = _pooled(d + qo + ko, d, causal=causal, qo=qo, ko=ko)
     assert max(_ratios(_plain(args, port.TF32X3), want)) <= 1.0
 
 
@@ -101,16 +142,16 @@ def test_3xtf32_backward_with_unequal_ragged_lengths():
     the diagonal through both ends, against the reference at its default
     blocks (each sequence one block)."""
     stats, args = _args(*_values(5, 128, sq=100, sk=127), True, 27, 0)
-    want = _reference(stats, args, block=None)
+    want = _pooled(5, 128, sq=100, sk=127, qo=27, block=None)
     assert max(_ratios(_plain(args, port.TF32X3), want)) <= 1.0
 
 
-@pytest.mark.parametrize("d", [128, 320])
+@pytest.mark.parametrize("d", ONE_TF32_DIMS)
 def test_one_tf32_product_fails_the_fp32_gradient_bound(d):
     """Why the tf32 kernels take three products: one alone misses the
     reference's fp32 bound by far more than its summation order."""
     stats, args = _args(*_values(d, d), True, 0, 0)
-    want = _reference(stats, args)
+    want = _pooled(d, d)
     assert max(_ratios(_plain(args, port.TF32), want)) > 10.0
 
 
@@ -223,8 +264,7 @@ def test_backward_c_entries_take_what_the_bindings_pass(entry):
     assert len(decl.group(1).split(",")) == len(_cuda._SIGNATURES[entry])
 
 
-@pytest.mark.parametrize("d,built", [(48, 64), (100, 128), (320, 320),
-                                     (600, 608)])
+@pytest.mark.parametrize("d,built", PADDED)
 def test_fp32_backward_design_and_padding_on_plain_versions(d, built):
     """On CUDA, fp32 dq and dk/dv take the tf32 design past D 32, padded
     to the next multiple of 32 once for both; ``_flash_bwd`` with the
@@ -248,7 +288,7 @@ def test_fp32_backward_design_and_padding_on_plain_versions(d, built):
     assert seen[0][0].shape[-1] == built
     for g in (dq, dk, dv):
         assert g.shape == args[0].shape and g.dtype == torch.float32
-    assert max(_ratios((dq, dk, dv), _reference(stats, args))) <= 1.0
+    assert max(_ratios((dq, dk, dv), _pooled(d, d, sq=64))) <= 1.0
 
 
 def test_tf32_design_serves_every_kernel_and_stream_the_forward_alone():

@@ -34,6 +34,7 @@ from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-4
@@ -145,18 +146,39 @@ def _args(d, sq, sk, causal, qo, ko):
     return (o, m, l), (q, k, v, do, lse, delta, causal, qo, ko)
 
 
-@functools.lru_cache(maxsize=None)
-def _reference(d, sq, sk, causal, qo, ko):
+def _reference_job(d, sq, sk, causal, qo, ko):
     """The reference's (dq, dk, dv) from the plain forward's stats,
     interpret mode, causal throughout (one compilation a shape; its
     default blocks take each sequence whole): a q offset of Sk lets every
-    row see every key. Cached: several tests hold their results to it."""
+    row see every key. A worker's job (``_jobs``)."""
     stats, (q, k, v, do, *_) = _args(d, sq, sk, causal, qo, ko)
     out = ref.flash_attention_bwd(
         *(jnp.asarray(x.numpy()) for x in (q, k, v, *stats, do)),
         causal=True, q_offset=qo if causal else sk,
         k_offset=ko if causal else 0, interpret=True)
     return tuple(torch.tensor(np.asarray(x)) for x in out)
+
+
+def _reference(d, sq, sk, causal, qo, ko):
+    """The pool's ``_reference_job`` result for these arguments; several
+    tests hold their results to it."""
+    return torch_refpool.result((__name__, d, sq, sk, causal, qo, ko))
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    cases = [(d, *c.values) for c in CASES for d in (8, 16, 24, 32)]
+    cases += [(d, 100, 127, True, 27, 0) for d in (8, 16, 20, 32)]
+    return [((__name__, *c), _reference_job, c) for c in cases]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
 
 
 def _ratio(mine, want):

@@ -32,6 +32,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -68,6 +69,40 @@ def _bwd_args(q, k, v, do):
     return (o, m, l), (q, k, v, do, lse, delta, True, 0, 0)
 
 
+def _dkv_ref():
+    """A worker's job: the reference's dk and dv at bf16 D 320 on the
+    values and plain forward stats of ``test_plain_dkv_bf16_operands_at_
+    d320_match_reference``."""
+    q, k, v, do = _values(14, torch.bfloat16, 320)
+    (o, m, l), _ = _bwd_args(q, k, v, do)
+    _, dk_ref, dv_ref = ref.flash_attention_bwd(
+        *_jax(q, k, v, o, m, l, do), causal=True, block_q=32, block_k=32,
+        interpret=True)
+    return np.asarray(dk_ref), np.asarray(dv_ref)
+
+
+def _fwd_ref():
+    """A worker's job: the reference's forward stats on the values of
+    ``test_sm90_forward_in_place_at_d96_matches_reference``."""
+    vals = _values(96, torch.bfloat16, 96, n=3, s=64)
+    return [np.asarray(x) for x in ref.flash_attention_stats(
+        *_jax(*vals), causal=True, block_q=32, block_k=32, interpret=True)]
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    return [((__name__, "dkv"), _dkv_ref, ()),
+            ((__name__, "fwd"), _fwd_ref, ())]
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 def test_plain_dkv_bf16_operands_at_d320_match_reference():
     """The stream dk/dv's plain version (bf16 p and ds for the tensor
     cores, ds from the unrounded p) against the reference's dk/dv on the
@@ -75,9 +110,7 @@ def test_plain_dkv_bf16_operands_at_d320_match_reference():
     dtype = torch.bfloat16
     q, k, v, do = _values(14, dtype, 320)
     (o, m, l), args = _bwd_args(q, k, v, do)
-    _, dk_ref, dv_ref = ref.flash_attention_bwd(
-        *_jax(q, k, v, o, m, l, do), causal=True, block_q=32, block_k=32,
-        interpret=True)
+    dk_ref, dv_ref = torch_refpool.result((__name__, "dkv"))
     assert port._design(dtype, 320, "dkv") == "stream"
     dk_r, dv_r = port._flash_dkv_plain(*args, operands=dtype)
     p, ds = port._p_ds_plain(*args)
@@ -179,8 +212,7 @@ def test_sm90_forward_in_place_at_d96_matches_reference(monkeypatch):
     o, m, l = port._launch("fwd", "sm90",
                            tuple(x.to(torch.bfloat16) for x in vals), True,
                            0, 0)
-    o_ref, m_ref, l_ref = ref.flash_attention_stats(
-        *_jax(*vals), causal=True, block_q=32, block_k=32, interpret=True)
+    o_ref, m_ref, l_ref = torch_refpool.result((__name__, "fwd"))
     np.testing.assert_allclose(o.float().numpy(), np.asarray(o_ref),
                                atol=FWD_TOL, rtol=UNIT[torch.bfloat16])
     for mine, theirs in ((m, m_ref), (l, l_ref)):

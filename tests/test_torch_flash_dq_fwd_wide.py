@@ -33,6 +33,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -98,15 +99,49 @@ def test_plain_wide_forward_operands_within_provable_bound(dtype, d):
     assert (o_r - o).abs().max() > 0
 
 
+def _dq_ref(seed, dtype, d, s):
+    """A worker's job: the reference's dq on ``_values(seed, dtype, d,
+    s=s)`` and the plain forward's stats, fp32 throughout."""
+    (o, m, l), args = _bwd_args(*_values(seed, dtype, d, s=s))
+    q, k, v, do = args[:4]
+    return np.asarray(ref.flash_attention_bwd(
+        *_jax(q, k, v, o, m, l, do), causal=True, block_q=32, block_k=32,
+        interpret=True)[0])
+
+
+def _forward_ref(dtype, d):
+    """A worker's job: the reference's forward output on
+    ``test_plain_wide_forward_operands_match_reference``'s values."""
+    q, k, v = _values(d + 1, dtype, d, n=3)
+    return np.asarray(ref.flash_attention_stats(
+        *_jax(q, k, v), causal=True, block_q=32, block_k=32,
+        interpret=True)[0])
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    dq = [(1, torch.float16, 256, 128), (5, torch.bfloat16, 320, 64)]
+    return ([((__name__, "dq", *a), _dq_ref, a) for a in dq]
+            + [((__name__, "fwd", t, d), _forward_ref, (t, d))
+               for t, d in WIDE_FORWARD])
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 def test_plain_fp16_operands_dq_matches_reference():
     """The reference's dq from the same fp16-valued inputs and stats at D
     256, fp32 throughout: the rounding of ds is the only difference,
     inside the provable bound."""
     (o, m, l), args = _bwd_args(*_values(1, torch.float16, 256))
-    q, k, v, do = args[:4]
-    theirs = ref.flash_attention_bwd(*_jax(q, k, v, o, m, l, do),
-                                     causal=True, block_q=32, block_k=32,
-                                     interpret=True)[0]
+    theirs = torch_refpool.result((__name__, "dq", 1, torch.float16, 256,
+                                   128))
     mine = port._flash_dq_plain(*args, operands=torch.float16)
     limit = (_dq_limit(args, torch.float16) + GRAD_TOL).numpy()
     assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)
@@ -117,10 +152,8 @@ def test_plain_bf16_operands_dq_matches_reference_at_d320():
     reference's dq against the plain dq with bf16 ds, inside the provable
     bound of that rounding."""
     (o, m, l), args = _bwd_args(*_values(5, torch.bfloat16, 320, s=64))
-    q, k, v, do = args[:4]
-    theirs = ref.flash_attention_bwd(*_jax(q, k, v, o, m, l, do),
-                                     causal=True, block_q=32, block_k=32,
-                                     interpret=True)[0]
+    theirs = torch_refpool.result((__name__, "dq", 5, torch.bfloat16, 320,
+                                   64))
     mine = port._flash_dq_plain(*args, operands=torch.bfloat16)
     limit = (_dq_limit(args, torch.bfloat16) + GRAD_TOL).numpy()
     assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)
@@ -133,9 +166,7 @@ def test_plain_wide_forward_operands_match_reference(dtype, d):
     forward on the same values at D 384 and 512: the rounding of p moves
     o by at most (u + floor * S) max|v|."""
     q, k, v = _values(d + 1, dtype, d, n=3)
-    o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
-                                      block_q=32, block_k=32,
-                                      interpret=True)[0]
+    o_ref = torch_refpool.result((__name__, "fwd", dtype, d))
     o_r = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=dtype)[0]
     limit = (UNIT[dtype] + FLOOR[dtype] * q.shape[1]) * v.abs().amax()
     np.testing.assert_allclose(o_r.numpy(), np.asarray(o_ref),

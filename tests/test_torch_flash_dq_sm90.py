@@ -16,6 +16,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, D = 1, 256, 2, 64
@@ -51,15 +52,35 @@ def test_plain_dq_bf16_operands_within_provable_bound(causal):
     assert (dq_b - dq).abs().max() > 0
 
 
+def _dq_ref():
+    """A worker's job: the reference's dq (Pallas, interpret mode, blocks
+    of 32) on ``_bwd_args(1)``'s inputs and stats."""
+    (o, m, l), args = _bwd_args(1)
+    q, k, v, do = args[:4]
+    return np.asarray(ref.flash_attention_bwd(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, o, m, l, do)),
+        causal=True, block_q=32, block_k=32, interpret=True)[0])
+
+
+def _jobs():
+    """The reference result the module's tests read, as a
+    ``torch_refpool`` job."""
+    return [((__name__, "dq"), _dq_ref, ())]
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 def test_plain_bf16_operands_dq_matches_reference():
     # The reference's dq (Pallas, interpret mode, blocks of 32) from the
     # same bf16-valued inputs and stats, fp32 throughout: the rounding of
     # ds is the only difference, inside the provable bound.
     (o, m, l), args = _bwd_args(1)
-    q, k, v, do = args[:4]
-    theirs = ref.flash_attention_bwd(
-        *(jnp.asarray(x.numpy()) for x in (q, k, v, o, m, l, do)),
-        causal=True, block_q=32, block_k=32, interpret=True)[0]
+    theirs = torch_refpool.result((__name__, "dq"))
     mine = port._flash_dq_plain(*args, operands=torch.bfloat16)
     limit = (_rounding_limit(args) + 1e-4).numpy()
     assert np.all(np.abs(mine.numpy() - np.asarray(theirs)) <= limit)

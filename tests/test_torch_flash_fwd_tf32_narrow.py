@@ -19,7 +19,6 @@ one warpgroup's kv tile must fail it by more than chip_smoke.py's
 LOST_FP32_BY.
 """
 
-import functools
 import math
 import os
 import re
@@ -34,6 +33,7 @@ from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -149,17 +149,38 @@ def _inputs(d, sq, sk):
             for n in (sq, sk, sk)]
 
 
-@functools.lru_cache(maxsize=None)
-def _reference(d, sq, sk, causal, qo, ko):
+def _reference_job(d, sq, sk, causal, qo, ko):
     """The reference's (o, m, l) on ``_inputs(d, sq, sk)``, causal
     throughout (one compilation a shape): a q offset of Sk lets every row
-    see every key. Cached: two tests hold their results to it."""
+    see every key. A worker's job (``_jobs``)."""
     q, k, v = _inputs(d, sq, sk)
     out = ref.flash_attention_stats(
         *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
         q_offset=qo if causal else sk, k_offset=ko if causal else 0,
         interpret=True)
     return [torch.tensor(np.asarray(x)) for x in out]
+
+
+def _reference(d, sq, sk, causal, qo, ko):
+    """The pool's ``_reference_job`` result for these arguments; several
+    tests hold their results to it."""
+    return torch_refpool.result((__name__, d, sq, sk, causal, qo, ko))
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    cases = [(d, *c.values) for c in CASES for d in (8, 16, 24, 32)]
+    cases += []
+    return [((__name__, *c), _reference_job, c) for c in cases]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
 
 
 def _plain_tf32x3(q, k, v, causal, qo, ko):

@@ -37,6 +37,7 @@ from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch import _cuda
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -51,11 +52,44 @@ def _values(seed, dtype, d, n=3, b=1, s=128, h=2):
             .to(dtype).float() for _ in range(n)]
 
 
-def _reference_stats(q, k, v):
+def _reference_job(seed, dtype, d):
+    """A worker's job: the reference's (o, m, l) on
+    ``_values(seed, dtype, d)``."""
+    q, k, v = _values(seed, dtype, d)
     out = ref.flash_attention_stats(
         *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
         block_q=32, block_k=32, interpret=True)
     return [torch.tensor(np.asarray(x)) for x in out]
+
+
+def _reference_stats(seed, dtype, d):
+    """The pool's ``_reference_job`` result for these arguments."""
+    return torch_refpool.result((__name__, seed, dtype, d))
+
+
+BOUND_DIMS = [32, 128, 640]
+PAST_512 = [(torch.bfloat16, 640), (torch.float16, 640),
+            (torch.bfloat16, 1024), (torch.float16, 1024)]
+PADDED = [(torch.float32, 100, "tf32", 128), (torch.float32, 48, "tf32", 64),
+          (torch.bfloat16, 600, "stream", 640),
+          (torch.float16, 530, "stream", 576)]
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    args = [(d, torch.float32, d) for d in BOUND_DIMS]
+    args += [(d + 1, t, d) for t, d in PAST_512]
+    args += [(d + 2, t, d) for t, d, _, _ in PADDED]
+    return [((__name__, *a), _reference_job, a) for a in args]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
 
 
 def _fp32_ratios(mine, want):
@@ -83,34 +117,31 @@ def test_tf32_rounding_keeps_ten_mantissa_bits_to_nearest():
     assert torch.all((y - hi - lo).abs() <= 2.0 ** -22 * y.abs())
 
 
-@pytest.mark.parametrize("d", [32, 128, 640])
+@pytest.mark.parametrize("d", BOUND_DIMS)
 def test_3xtf32_forward_holds_the_fp32_bound_against_reference(d):
     q, k, v = _values(d, torch.float32, d)
-    want = _reference_stats(q, k, v)
+    want = _reference_stats(d, torch.float32, d)
     mine = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=port.TF32X3)
     assert max(_fp32_ratios(mine, want)) <= 1.0
 
 
-@pytest.mark.parametrize("d", [32, 128, 640])
+@pytest.mark.parametrize("d", BOUND_DIMS)
 def test_one_tf32_product_fails_the_fp32_bound(d):
     """Why the tf32 kernel takes three products: one alone misses the
     reference's fp32 bound by far more than its summation order."""
     q, k, v = _values(d, torch.float32, d)
-    want = _reference_stats(q, k, v)
+    want = _reference_stats(d, torch.float32, d)
     mine = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=port.TF32)
     assert max(_fp32_ratios(mine, want)) > 10.0
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 640),
-                                     (torch.float16, 640),
-                                     (torch.bfloat16, 1024),
-                                     (torch.float16, 1024)])
+@pytest.mark.parametrize("dtype,d", PAST_512)
 def test_16bit_forward_past_512_matches_reference(dtype, d):
     """The plain forward with 16-bit p, what the stream kernel is held to,
     against the reference on the same 16-bit values in fp32: only the
     rounding of p differs beyond the fp32 bounds; m and l stay fp32."""
     q, k, v = _values(d + 1, dtype, d)
-    o_ref, m_ref, l_ref = _reference_stats(q, k, v)
+    o_ref, m_ref, l_ref = _reference_stats(d + 1, dtype, d)
     o, m, l = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=dtype)
     limit = (UNIT[dtype] + FLOOR[dtype] * q.shape[1]) * v.abs().amax()
     np.testing.assert_allclose(o.numpy(), o_ref.numpy(),
@@ -188,10 +219,7 @@ def test_forward_is_on_tensor_cores_past_head_dim_32(dtype):
             assert built - d < port.STREAM_DESIGNS[design][2]
 
 
-@pytest.mark.parametrize("dtype,d,design,built", [
-    (torch.float32, 100, "tf32", 128), (torch.float32, 48, "tf32", 64),
-    (torch.bfloat16, 600, "stream", 640),
-    (torch.float16, 530, "stream", 576)])
+@pytest.mark.parametrize("dtype,d,design,built", PADDED)
 def test_forward_padding_on_plain_versions_matches_reference(dtype, d,
                                                              design, built):
     """What the card runs at a head dim the design is not built for, with
@@ -209,7 +237,7 @@ def test_forward_padding_on_plain_versions_matches_reference(dtype, d,
     o, m, l = port._on_padded_head_dim(plain, (q, k, v), True, 0, 0,
                                        design=design, kernel="fwd")
     assert o.shape == q.shape
-    want = _reference_stats(q, k, v)
+    want = _reference_stats(d + 2, dtype, d)
     if design == "tf32":
         assert max(_fp32_ratios((o, m, l), want)) <= 1.0
     else:

@@ -22,6 +22,7 @@ import torch
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -38,17 +39,34 @@ def _ref_flash(q, k, v):
                                block_k=32, interpret=True)
 
 
-@pytest.mark.parametrize("d", [96, 80])
-def test_fp32_head_dim_matches_reference(d):
+def _host(tree):
+    """A reference result as numpy arrays, to come back from a worker."""
+    import jax
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _fp32_ref(d):
+    """A worker's job: the reference's output and the gradients of
+    sum(out ** 2) on ``_inputs(d, d)``, from one compiled program (the
+    forward and its VJP with the cotangent 2 out)."""
     import jax
     qn, kn, vn = _inputs(d, d)
     qj, kj, vj = map(jnp.asarray, (qn, kn, vn))
-    # One compiled program: the forward and its VJP with the cotangent
-    # 2 out, the gradients of sum(out ** 2).
+
     def both(*a):
         out, vjp = jax.vjp(_ref_flash, *a)
         return out, vjp(2.0 * out)
-    out_ref, grads_ref = jax.jit(both)(qj, kj, vj)
+    return _host(jax.jit(both)(qj, kj, vj))
+
+
+FP32_DIMS = [96, 80]
+FP16_DIMS = [64, 96]
+
+
+@pytest.mark.parametrize("d", FP32_DIMS)
+def test_fp32_head_dim_matches_reference(d):
+    qn, kn, vn = _inputs(d, d)
+    out_ref, grads_ref = torch_refpool.result((__name__, "fp32", d))
     q, k, v = (torch.tensor(x, requires_grad=True) for x in (qn, kn, vn))
     out = port.flash_attention(q, k, v)
     (out ** 2).sum().backward()
@@ -57,6 +75,18 @@ def test_fp32_head_dim_matches_reference(d):
     for mine, theirs in zip((q.grad, k.grad, v.grad), grads_ref):
         np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
                                    atol=GRAD_TOL)
+
+
+def _d80_ref():
+    """A worker's job: the reference's stats and backward at D 80."""
+    qn, kn, vn, don = _inputs(7, 80, n=4)
+    o_r, m_r, l_r = ref.flash_attention_stats(
+        *map(jnp.asarray, (qn, kn, vn)), causal=True, block_q=32,
+        block_k=32, interpret=True)
+    grads_ref = ref.flash_attention_bwd(
+        *map(jnp.asarray, (qn, kn, vn)), o_r, m_r, l_r, jnp.asarray(don),
+        causal=True, block_q=32, block_k=32, interpret=True)
+    return _host((o_r, m_r, l_r, grads_ref))
 
 
 def test_padding_helper_on_plain_versions_matches_reference_at_d80():
@@ -72,9 +102,7 @@ def test_padding_helper_on_plain_versions_matches_reference_at_d80():
     assert o.shape == q.shape
     for mine, plain in ((o, o_p), (m, m_p), (l, l_p)):
         np.testing.assert_allclose(mine.numpy(), plain.numpy(), atol=1e-6)
-    o_r, m_r, l_r = ref.flash_attention_stats(
-        *map(jnp.asarray, (qn, kn, vn)), causal=True, block_q=32,
-        block_k=32, interpret=True)
+    o_r, m_r, l_r, grads_ref = torch_refpool.result((__name__, "d80"))
     np.testing.assert_allclose(o.numpy(), np.asarray(o_r), atol=FWD_TOL)
     lse = port._lse_from_stats(m_p, l_p)
     delta = (do * o_p).sum(-1).transpose(1, 2).contiguous()
@@ -83,9 +111,6 @@ def test_padding_helper_on_plain_versions_matches_reference_at_d80():
                                   design="simt", kernel="dq")
     dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),
                                       *args, design="simt", kernel="dkv")
-    grads_ref = ref.flash_attention_bwd(
-        *map(jnp.asarray, (qn, kn, vn)), o_r, m_r, l_r, jnp.asarray(don),
-        causal=True, block_q=32, block_k=32, interpret=True)
     plain = (port._flash_dq_plain(q, k, v, do, *args),
              *port._flash_dkv_plain(q, k, v, do, *args))
     for mine, p, theirs in zip((dq, dk, dv), plain, grads_ref):
@@ -103,13 +128,39 @@ def _within(mine, theirs, rtol):
     assert ratio <= 1.0, (err, ratio)
 
 
-@pytest.mark.parametrize("d", [64, 96])
-def test_fp16_matches_reference(d):
+def _fp16_ref(d):
+    """A worker's job: the reference's stats and backward in fp16."""
     qn, kn, vn, don = _inputs(11 + d, d, n=4)
     qj, kj, vj, doj = (jnp.asarray(x, jnp.float16)
                        for x in (qn, kn, vn, don))
     o_r, m_r, l_r = ref.flash_attention_stats(
         qj, kj, vj, causal=True, block_q=32, block_k=32, interpret=True)
+    grads_ref = ref.flash_attention_bwd(
+        qj, kj, vj, o_r, m_r, l_r, doj, causal=True, block_q=32,
+        block_k=32, interpret=True)
+    return _host((o_r, m_r, l_r, grads_ref))
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    return ([((__name__, "fp32", d), _fp32_ref, (d,)) for d in FP32_DIMS]
+            + [((__name__, "d80"), _d80_ref, ())]
+            + [((__name__, "fp16", d), _fp16_ref, (d,)) for d in FP16_DIMS])
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
+@pytest.mark.parametrize("d", FP16_DIMS)
+def test_fp16_matches_reference(d):
+    qn, kn, vn, don = _inputs(11 + d, d, n=4)
+    o_r, m_r, l_r, grads_ref = torch_refpool.result((__name__, "fp16", d))
     q, k, v, do = (torch.tensor(x).half() for x in (qn, kn, vn, don))
     o, m, l = port.flash_attention_stats(q, k, v)
     _within(o, o_r, FWD_TOL)
@@ -118,9 +169,6 @@ def test_fp16_matches_reference(d):
     o_rt = torch.tensor(np.asarray(o_r.astype(jnp.float32))).half()
     grads = port.flash_attention_bwd(q, k, v, o_rt, torch.tensor(
         np.asarray(m_r)), torch.tensor(np.asarray(l_r)), do)
-    grads_ref = ref.flash_attention_bwd(
-        qj, kj, vj, o_r, m_r, l_r, doj, causal=True, block_q=32,
-        block_k=32, interpret=True)
     for mine, theirs in zip(grads, grads_ref):
         _within(mine, theirs, GRAD_TOL)
 

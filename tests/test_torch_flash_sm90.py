@@ -16,6 +16,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, D = 1, 256, 2, 64
@@ -87,14 +88,34 @@ def test_plain_dkv_bf16_operands_within_provable_bound():
     assert (dv_b - dv).abs().max() > 0 and (dk_b - dk).abs().max() > 0
 
 
+def _fwd_ref():
+    """A worker's job: the reference's forward (Pallas, interpret mode)
+    on ``_bf16_values(3, 3, s=64, d=16)``."""
+    (q, k, v), _ = _bf16_values(3, 3, s=64, d=16)
+    return np.asarray(ref.flash_attention(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
+        block_q=32, block_k=32, interpret=True))
+
+
+def _jobs():
+    """The reference result the module's tests read, as a
+    ``torch_refpool`` job."""
+    return [((__name__, "fwd"), _fwd_ref, ())]
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 def test_plain_bf16_operands_forward_matches_reference():
     # The reference's forward (Pallas, interpret mode) on the same
     # bf16-valued inputs, fp32 throughout: the rounding of p is the only
     # difference, inside the provable bound 2^-8 max|v| per element.
     (q, k, v), _ = _bf16_values(3, 3, s=64, d=16)
-    theirs = np.asarray(ref.flash_attention(
-        *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
-        block_q=32, block_k=32, interpret=True))
+    theirs = torch_refpool.result((__name__, "fwd"))
     mine = port._flash_fwd_plain(q, k, v, True, 0, 0,
                                  operands=torch.bfloat16)[0]
     limit = 2.0 ** -8 * v.abs().amax().item() + 2e-5

@@ -38,6 +38,7 @@ import chip_smoke
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
 from horovod_tpu_torch.utils import tolerance
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -101,9 +102,25 @@ def test_dq_and_dkv_pad_to_one_head_dim(dtype, d):
     assert port.SM90_NARROW_DIMS == port.HEAD_DIMS[:2]
 
 
+def _operands_ref(dtype, d, s):
+    """A worker's job: the reference's forward output and backward at its
+    default blocks on ``test_plain_operands_match_reference``'s values
+    and the plain forward's stats."""
+    q, k, v, do = _values(d + s, dtype, d, b=2, s=s)
+    (o, m, l), _ = _stats(q, k, v, do)
+    o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
+                                      interpret=True)[0]
+    grads = ref.flash_attention_bwd(*_jax(q, k, v, o, m, l, do),
+                                    causal=True, interpret=True)
+    return np.asarray(o_ref), [np.asarray(g) for g in grads]
+
+
+OPERAND_DIMS, OPERAND_LENGTHS = [16, 32], [32, 100]
+
+
 @pytest.mark.parametrize("dtype", SIXTEEN_BIT)
-@pytest.mark.parametrize("d", [16, 32])
-@pytest.mark.parametrize("s", [32, 100])
+@pytest.mark.parametrize("d", OPERAND_DIMS)
+@pytest.mark.parametrize("s", OPERAND_LENGTHS)
 def test_plain_operands_match_reference(dtype, d, s):
     """The plain forward, dq and dk/dv with 16-bit operand rounding, at
     the entry's S 32 and a ragged S 100 (a full 64-row tile and a ragged
@@ -113,6 +130,8 @@ def test_plain_operands_match_reference(dtype, d, s):
     rounding itself within that bound of the fp32 plain versions."""
     q, k, v, do = _values(d + s, dtype, d, b=2, s=s)
     (o, m, l), args = _stats(q, k, v, do)
+    o_ref, (dq_ref, dk_ref, dv_ref) = torch_refpool.result(
+        (__name__, "operands", dtype, d, s))
     o_r, m_r, l_r = port._flash_fwd_plain(q, k, v, True, 0, 0,
                                           operands=dtype)
     assert torch.equal(m, m_r) and torch.equal(l, l_r)
@@ -122,13 +141,9 @@ def test_plain_operands_match_reference(dtype, d, s):
                          v.abs()) / l.transpose(1, 2)[..., None]
     assert torch.all((o_r - o).abs() <= moved + 1e-6)
     assert (o_r - o).abs().max() > 0
-    o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
-                                      interpret=True)[0]
     err = (o_r - torch.tensor(np.asarray(o_ref))).abs()
     assert torch.all(err <= moved + FWD_TOL), err.max()
 
-    dq_ref, dk_ref, dv_ref = ref.flash_attention_bwd(
-        *_jax(q, k, v, o, m, l, do), causal=True, interpret=True)
     dq = port._flash_dq_plain(*args)
     dq_r = port._flash_dq_plain(*args, operands=dtype)
     dk, dv = port._flash_dkv_plain(*args)
@@ -331,6 +346,46 @@ def _one_warpgroup_order(q, k, v, causal, qo, ko, parts=None):
     return _finish(o, l, q.dtype), m, l
 
 
+def _split_inputs(dtype, d, sq, sk):
+    # The shapes of the reference calls above and in
+    # tests/test_torch_flash_attention.py.
+    b = 2 if sq == sk else 1
+    rng = np.random.RandomState(sq + sk + d)
+    return [torch.tensor(rng.randn(b, n, 2, d).astype(np.float32))
+            .to(dtype) for n in (sq, sk, sk)]
+
+
+def _split_ref(dtype, d, sq, sk, causal, qo, ko):
+    """A worker's job: the reference's (o, m, l) on ``_split_inputs``.
+    The reference runs causal throughout (one compilation a shape): a q
+    offset of Sk lets every row see every key, as without the mask."""
+    q, k, v = _split_inputs(dtype, d, sq, sk)
+    return [np.asarray(x) for x in ref.flash_attention_stats(
+        *_jax(q.float(), k.float(), v.float()), causal=True,
+        q_offset=qo if causal else sk, k_offset=ko if causal else 0,
+        interpret=True)]
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    jobs = [((__name__, "operands", t, d, s), _operands_ref, (t, d, s))
+            for s in OPERAND_LENGTHS for d in OPERAND_DIMS
+            for t in SIXTEEN_BIT]
+    jobs += [((__name__, "split", t, d, *c.values), _split_ref,
+              (t, d, *c.values))
+             for c in SPLIT_CASES for d in (16, 32) for t in SIXTEEN_BIT]
+    return jobs
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
 @pytest.mark.parametrize("dtype", SIXTEEN_BIT)
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("sq,sk,causal,qo,ko", SPLIT_CASES)
@@ -343,21 +398,11 @@ def test_split_order_matches_plain_and_reference(dtype, d, sq, sk, causal,
     in interpret mode within the provable bound of the 16-bit p beyond
     its fp32 bound; one warpgroup gives the bits of the order before the
     split."""
-    # The shapes of the reference calls above and in
-    # tests/test_torch_flash_attention.py, whose compilations they reuse.
-    b = 2 if sq == sk else 1
-    rng = np.random.RandomState(sq + sk + d)
-    q, k, v = (torch.tensor(rng.randn(b, n, 2, d).astype(np.float32))
-               .to(dtype) for n in (sq, sk, sk))
+    q, k, v = _split_inputs(dtype, d, sq, sk)
     o_p, m_p, l_p = port._flash_fwd_plain(q, k, v, causal, qo, ko)
     o_b = port._flash_fwd_plain(q, k, v, causal, qo, ko, operands=dtype)[0]
-    # The reference runs causal throughout (one compilation a shape): a
-    # q offset of Sk lets every row see every key, as without the mask.
-    o_r, m_r, l_r = (torch.tensor(np.asarray(x)) for x in
-                     ref.flash_attention_stats(
-                         *_jax(q.float(), k.float(), v.float()),
-                         causal=True, q_offset=qo if causal else sk,
-                         k_offset=ko if causal else 0, interpret=True))
+    o_r, m_r, l_r = (torch.tensor(x) for x in torch_refpool.result(
+        (__name__, "split", dtype, d, sq, sk, causal, qo, ko)))
     sc, allowed = port._scores(q, k, causal, qo, ko)
     p = torch.exp(sc - m_p[..., None])
     if allowed is not None:

@@ -24,6 +24,7 @@ import torch
 
 from horovod_tpu.parallel import flash_attention as ref
 from horovod_tpu_torch.parallel import flash_attention as port
+from tests import torch_refpool
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
@@ -87,23 +88,35 @@ def test_plain_dkv_operands_within_provable_bound(dtype, d):
     assert (dv_r - dv).abs().max() > 0 and (dk_r - dk).abs().max() > 0
 
 
+def _operands_ref(dtype, d):
+    """A worker's job: the reference's forward output and dk, dv on
+    ``test_plain_operands_match_reference``'s values and the plain
+    forward's stats, fp32 throughout."""
+    q, k, v, do = _values(d + 2, dtype, d)
+    o_ref = ref.flash_attention_stats(
+        *_jax(q, k, v), causal=True, block_q=32, block_k=32,
+        interpret=True)[0]
+    (o, m, l), _ = _stats(q, k, v, do)
+    _, dk_ref, dv_ref = ref.flash_attention_bwd(
+        *_jax(q, k, v, o, m, l, do), causal=True, block_q=32, block_k=32,
+        interpret=True)
+    return [np.asarray(x) for x in (o_ref, dk_ref, dv_ref)]
+
+
 @pytest.mark.parametrize("dtype,d", ROUNDED_CASES)
 def test_plain_operands_match_reference(dtype, d):
     """The plain forward and dk/dv with 16-bit operand rounding against
     the reference's Pallas forward and backward on the same values, fp32
     throughout: apart from the fp32 bounds, only the rounding differs."""
     q, k, v, do = _values(d + 2, dtype, d)
-    o_ref, m_ref, l_ref = ref.flash_attention_stats(
-        *_jax(q, k, v), causal=True, block_q=32, block_k=32, interpret=True)
+    o_ref, dk_ref, dv_ref = torch_refpool.result(
+        (__name__, "operands", dtype, d))
     o_r = port._flash_fwd_plain(q, k, v, True, 0, 0, operands=dtype)[0]
     s = q.shape[1]
     fwd_limit = (UNIT[dtype] + FLOOR[dtype] * s) * v.abs().amax().item()
     np.testing.assert_allclose(o_r.numpy(), np.asarray(o_ref),
                                atol=fwd_limit + FWD_TOL, rtol=0)
     (o, m, l), args = _stats(q, k, v, do)
-    _, dk_ref, dv_ref = ref.flash_attention_bwd(
-        *_jax(q, k, v, o, m, l, do), causal=True, block_q=32, block_k=32,
-        interpret=True)
     dk_r, dv_r = port._flash_dkv_plain(*args, operands=dtype)
     p, ds = port._p_ds_plain(*args)
     lim_v = torch.einsum("bhqk,bqhd->bkhd", _rounding(p, dtype), do.abs())
@@ -188,10 +201,10 @@ def test_padded_head_dim_past_512_never_raises():
     assert port.padded_head_dim(320, "sm90", "fwd") == 384
 
 
-def test_fp32_d640_plain_path_matches_reference():
-    """D 640 on the CPU (the plain versions, which the card's chunked
-    simt kernels are held to) against the reference, at its own fp32
-    bounds; forward and all three gradients through autograd."""
+def _d640_ref():
+    """A worker's job: the reference's output and the gradients of
+    sum(out ** 2) at fp32 D 640, from one compiled program (the forward
+    and its VJP with the cotangent 2 out)."""
     import jax
     qn, kn, vn = (x.numpy() for x in _values(640, torch.float32, 640,
                                                n=3))
@@ -200,12 +213,21 @@ def test_fp32_d640_plain_path_matches_reference():
     def ref_flash(*a):
         return ref.flash_attention(*a, causal=True, block_q=32, block_k=32,
                                    interpret=True)
-    # One compiled program: the forward and its VJP with the cotangent
-    # 2 out, the gradients of sum(out ** 2).
+
     def both(*a):
         out, vjp = jax.vjp(ref_flash, *a)
         return out, vjp(2.0 * out)
     out_ref, grads_ref = jax.jit(both)(qj, kj, vj)
+    return np.asarray(out_ref), [np.asarray(g) for g in grads_ref]
+
+
+def test_fp32_d640_plain_path_matches_reference():
+    """D 640 on the CPU (the plain versions, which the card's chunked
+    simt kernels are held to) against the reference, at its own fp32
+    bounds; forward and all three gradients through autograd."""
+    qn, kn, vn = (x.numpy() for x in _values(640, torch.float32, 640,
+                                               n=3))
+    out_ref, grads_ref = torch_refpool.result((__name__, "d640"))
     q, k, v = (torch.tensor(x, requires_grad=True) for x in (qn, kn, vn))
     out = port.flash_attention(q, k, v)
     (out ** 2).sum().backward()
@@ -275,9 +297,39 @@ def _within(mine, plain, limit):
     return ((mine - plain).abs() / limit).max().item()
 
 
-@pytest.mark.parametrize("design,dtype,d", [
-    ("simt", torch.float32, 600), ("sm90", torch.bfloat16, 200),
-    ("sm90", torch.float16, 80)])
+def _padded_ref(design, dtype, d):
+    """A worker's job: the reference's forward output on
+    ``test_padding_on_plain_versions_matches_unpadded_and_reference``'s
+    values."""
+    q, k, v, _ = _values(d + 3, dtype, d)
+    return np.asarray(ref.flash_attention_stats(
+        *_jax(q, k, v), causal=True, block_q=32, block_k=32,
+        interpret=True)[0])
+
+
+PADDED_CASES = [("simt", torch.float32, 600), ("sm90", torch.bfloat16, 200),
+                ("sm90", torch.float16, 80)]
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    return ([((__name__, "operands", t, d), _operands_ref, (t, d))
+             for t, d in ROUNDED_CASES]
+            + [((__name__, "d640"), _d640_ref, ())]
+            + [((__name__, "padded", *c), _padded_ref, c)
+               for c in PADDED_CASES])
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
+@pytest.mark.parametrize("design,dtype,d", PADDED_CASES)
 def test_padding_on_plain_versions_matches_unpadded_and_reference(
         design, dtype, d):
     """What the card runs at a head dim no kernel of the design is built
@@ -322,9 +374,7 @@ def test_padding_on_plain_versions_matches_unpadded_and_reference(
     wrong_scale = port._flash_fwd_plain(
         *port._pad_head_dim((q, k, v), built), True, 0, 0)[0][..., :d]
     assert _within(wrong_scale, plain[0], fwd_limit[0]) > 10.0
-    o_ref = ref.flash_attention_stats(*_jax(q, k, v), causal=True,
-                                      block_q=32, block_k=32,
-                                      interpret=True)[0]
+    o_ref = torch_refpool.result((__name__, "padded", design, dtype, d))
     np.testing.assert_allclose(fwd[0].numpy(), np.asarray(o_ref),
                                atol=FWD_TOL)
     dk, dv = port._on_padded_head_dim(port._flash_dkv_plain, (q, k, v, do),

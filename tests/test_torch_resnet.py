@@ -14,6 +14,9 @@ Cross-replica BatchNorm: two gloo ranks with half the batch each take one
 ``DistributedOptimizer`` step that equals the single-process step on the
 whole batch (1e-5), and the same step with the backward's allreduce of the
 statistics' gradient taken out does not.
+
+The reference's weights and results are computed in the worker pool of
+``tests/torch_refpool.py`` (``_jobs``).
 """
 
 import jax
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from horovod_tpu.models import resnet as ref
 from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import resnet as port
+from tests import torch_refpool
 from tests.test_torch_train_step import _spawn_world
 
 FWD_TOL = 2e-5
@@ -65,9 +69,10 @@ def _xent(logits, labels):
                              * jax.nn.one_hot(labels, 10), axis=-1))
 
 
-@pytest.mark.parametrize("block,size", [("BottleneckBlock", 32),
-                                        ("BasicBlock", 33)])
-def test_train_step_and_eval_match_reference(block, size):
+def _train_step_ref(block, size):
+    """A worker's job: the weights drawn for ``block`` at ``size`` and the
+    reference's train step (loss, logits, new statistics, gradients) and
+    eval logits on them, on the host."""
     images, labels = _inputs(size, seed=size)
     fmodel = ref.ResNet(block_cls=getattr(ref, block), dtype=jnp.float32,
                         **NARROW)
@@ -84,7 +89,32 @@ def test_train_step_and_eval_match_reference(block, size):
     eval_ref = jax.jit(lambda v: fmodel.apply(v, jnp.asarray(images),
                                               train=False))(
         {"params": variables["params"], "batch_stats": stats_ref})
+    return jax.device_get((variables, float(loss_ref), logits_ref, stats_ref,
+                           grads_ref, eval_ref))
 
+
+BLOCKS = [("BottleneckBlock", 32), ("BasicBlock", 33)]
+
+
+def _jobs():
+    """Every reference result the module's tests read, as
+    ``torch_refpool`` jobs."""
+    return [((__name__, *b), _train_step_ref, b) for b in BLOCKS]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
+@pytest.mark.parametrize("block,size", BLOCKS)
+def test_train_step_and_eval_match_reference(block, size):
+    images, labels = _inputs(size, seed=size)
+    variables, loss_ref, logits_ref, stats_ref, grads_ref, eval_ref = \
+        torch_refpool.result((__name__, block, size))
     model = port.ResNet(block_cls=getattr(port, block), dtype=torch.float32,
                         device="cpu", **NARROW)
     state = params_from_flax(variables)
@@ -96,13 +126,12 @@ def test_train_step_and_eval_match_reference(block, size):
     assert logits.dtype == torch.float32
     np.testing.assert_allclose(logits.detach().numpy(),
                                np.asarray(logits_ref), atol=FWD_TOL)
-    np.testing.assert_allclose(loss.item(), float(loss_ref), atol=FWD_TOL)
-    grads = params_from_flax(jax.device_get(grads_ref))
+    np.testing.assert_allclose(loss.item(), loss_ref, atol=FWD_TOL)
+    grads = params_from_flax(grads_ref)
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), grads[name].numpy(),
                                    atol=GRAD_TOL, err_msg=name)
-    stats = params_from_flax({"params": {},
-                              "batch_stats": jax.device_get(stats_ref)})
+    stats = params_from_flax({"params": {}, "batch_stats": stats_ref})
     now = model.state_dict()
     for name, value in stats.items():
         assert not torch.equal(value, state[name]), name

@@ -626,6 +626,26 @@ def test_bench_eager_step_equals_the_in_step_one(port_world):
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
+def test_eager_optimizer_releases_the_model(port_world):
+    """Once the step and the model are dropped, the eager optimizer's
+    gradient hooks keep no parameter, gradient or momentum alive: a
+    process that trains several models one after the other (phase 9 of
+    chip_smoke.py) gets their memory back."""
+    import gc
+    import weakref
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import transformer as T
+    cfg = T.TransformerConfig(dtype=torch.float32, **LM)
+    step, model = bench.transformer_step(cfg, 2, seed=4, device="cpu",
+                                         eager=True)
+    for _ in range(2):
+        step().item()
+    refs = [weakref.ref(p) for p in model.parameters()]
+    del step, model
+    gc.collect()
+    assert [r for r in refs if r() is not None] == []
+
+
 # -- the worlds ----------------------------------------------------------
 @pytest.mark.parametrize("scenario", SCENARIOS)
 @pytest.mark.parametrize("size", [2, 3, "nocache"])

@@ -10,6 +10,9 @@ TransformerLM, chunked loss) against the reference's, on the CPU.
   single-process step on the concatenated batch, ``broadcast_parameters``
   from root 1 gives every rank root 1's weights, and a ``Compression.bf16``
   step stays within bf16 rounding of the gradients of the uncompressed one.
+
+The reference's steps run in the worker pool of ``tests/torch_refpool.py``
+(``_jobs``).
 """
 
 import jax
@@ -27,6 +30,7 @@ from horovod_tpu.models import transformer as ref
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import params_from_flax
 from horovod_tpu_torch.models import transformer as port
+from tests import torch_refpool
 
 SHAPE = dict(vocab_size=256, num_layers=2, num_heads=4, head_dim=16,
              mlp_ratio=4, max_seq_len=32)
@@ -68,7 +72,11 @@ def gloo_worlds(tmp_path_factory):
         spawned.close()
 
 
-def test_world_size_one_steps_match_optax_reference(cpu_world, gloo_worlds):
+def _optax_ref():
+    """A worker's job: the reference's initial weights, then three steps
+    of ``DistributedOptimizer(optax.sgd(momentum=0.9))`` inside a
+    shard_map over a size-1 mesh on ``_batches(3)``: (initial weights,
+    each step's loss, final weights), on the host."""
     batches = _batches(3)
     fmodel = ref.TransformerLM(ref.TransformerConfig(dtype=jnp.float32,
                                                      **SHAPE))
@@ -91,25 +99,48 @@ def test_world_size_one_steps_match_optax_reference(cpu_world, gloo_worlds):
     step = jax.jit(jaxshim.shard_map(
         step, mesh=mesh, in_specs=(P(), P(), P("data")),
         out_specs=(P(), P(), P())))
+    start = jax.device_get(params)
+    opt_state = tx.init(params)
+    losses = []
+    for tokens in batches:
+        params, opt_state, loss_ref = step(params, opt_state,
+                                           jnp.asarray(tokens, jnp.int32))
+        losses.append(float(loss_ref))
+    return start, losses, jax.device_get(params)
 
+
+def _jobs():
+    """The reference result the module's tests read, as a
+    ``torch_refpool`` job."""
+    return [((__name__, "optax"), _optax_ref, ())]
+
+
+torch_refpool.register(_jobs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _references():
+    torch_refpool.start()
+
+
+def test_world_size_one_steps_match_optax_reference(cpu_world, gloo_worlds):
+    batches = _batches(3)
+    start_ref, losses_ref, params = torch_refpool.result((__name__, "optax"))
     model = port.TransformerLM(port.TransformerConfig(dtype=torch.float32,
                                                       **SHAPE), device="cpu")
-    start = params_from_flax(jax.device_get(params))
+    start = params_from_flax(start_ref)
     model.load_state_dict(start)
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9))
     hvd.broadcast_parameters(model, root_rank=0)
 
-    opt_state = tx.init(params)
-    for tokens in batches:
-        params, opt_state, loss_ref = step(params, opt_state,
-                                           jnp.asarray(tokens, jnp.int32))
+    for tokens, loss_ref in zip(batches, losses_ref):
         opt.zero_grad()
         loss = _loss(model, torch.tensor(tokens))
         loss.backward()
         opt.step()
-        np.testing.assert_allclose(loss.item(), float(loss_ref), atol=2e-5)
-    theirs = params_from_flax(jax.device_get(params))
+        np.testing.assert_allclose(loss.item(), loss_ref, atol=2e-5)
+    theirs = params_from_flax(params)
     for name, p in model.named_parameters():
         moved = (theirs[name] - start[name]).abs().max().item()
         assert moved > 0, name
